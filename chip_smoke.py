@@ -3,22 +3,36 @@
 
     python3 chip_smoke.py
 
-Drives ``repro_torch``'s serving path — the path a user reaches through
-``python -m repro_torch.launch.serve --arch llama3_2_3b`` — and holds every
-CUDA kernel on it against its plain PyTorch version.  Phases, each printing
-one JSON line; any failure raises and the process exits non-zero:
+Drives ``repro_torch``'s two paths — serving (``python -m
+repro_torch.launch.serve``) and quantized training (``python -m
+repro_torch.launch.train``, and the paper's LeNet app) — and holds every CUDA
+kernel on them against its plain PyTorch version.  Phases, each printing one
+JSON line; any failure raises and the process exits non-zero:
 
 1. device  — the card's name, and its power limit as ``nvidia-smi`` gives it.
 2. build   — ``nvcc`` builds the kernel library from ``src/repro_torch/
              kernels/csrc`` into ``build/`` and ``ctypes`` loads it.
-3. checks  — the grouped wire encoder and paged decode attention against
-             their plain versions, at small shapes (odd quanta, stochastic
-             rounding, statistics, bf16 input, fp32 pools, empty rows) and at
-             the shapes the serving path gives them; then each kernel's
-             median time over repeated launches (CUDA events, after warm-up,
-             the L2 cache flushed before every launch) beside its plain
-             version's and the least time the card could take.
-4. serve   — llama3.2-3b at full width and depth (28 layers, d=3072, 24 heads
+3. checks  — the grouped wire encoder (K3) and paged decode attention (K5)
+             against their plain versions, at small shapes (odd quanta,
+             stochastic rounding, statistics, bf16 input, fp32 pools, empty
+             rows) and at the shapes the serving path gives them; then each
+             kernel's median time over repeated launches (CUDA events, after
+             warm-up, the L2 cache flushed before every launch) beside its
+             plain version's and the least time the card could take.
+4. quantize — the training quantizer, K1 (bits operand) and K1b (Philox bits
+             made in the kernel), the same way: small shapes (fp32 and bf16,
+             ragged tails, aligned and unaligned, nearest and stochastic,
+             statistics on and off) and the shapes the training paths give
+             them: K1b the stacked ``w_in`` leaf (704,643,072 fp32 values, one
+             launch) and a residual tap (2x512x3072 bf16); K1 one layer of
+             ``w_in`` (3072x8192 fp32: with a bits operand the leaf is
+             quantized layer by layer) and LeNet's ``fc1_w`` and first tap.
+             K1's row is timed at the layer, K1b's at the leaf.  q bit-equal
+             to the plain version; count,
+             nonzero, overflow and max_abs exact; float sums to ``SUM_RTOL``;
+             K1b bit-equal to K1 fed the plain Philox stream; two launches
+             equal; the mean of K1b over 64 seeds unbiased to 4 sigma.
+5. serve   — llama3.2-3b at full width and depth (28 layers, d=3072, 24 heads
              / 8 KV heads, Dh=128, d_ff=8192, vocab 128256; bf16 weights
              drawn from seed 0 on the card) behind the continuous-batching
              engine: page size 16, 8 slots, prompts up to 512 tokens, int8
@@ -27,13 +41,32 @@ one JSON line; any failure raises and the process exits non-zero:
              both kernels on the path, a second run must repeat the first,
              and the engine built on the plain versions must give the same
              prompt pages and first-step logits within ``LOGIT_TOL``.
+6. lenet   — the paper's app: 20 steps of ``train_mnist`` under the paper's
+             controller with stochastic rounding from a bits operand (K1 on
+             every quantization event); then 3 steps under nearest and 3
+             under stochastic rounding (the same operand bits on both sides)
+             with the kernel and with the plain quantizer: <IL, FL> equal
+             step by step, loss to ``LENET_LOSS_RTOL``.
+7. train   — ``repro_torch.launch.train --arch llama3_2_3b --steps 4 --batch 2
+             --seq 512 --optimizer sgd`` at full width and depth (fp32 master
+             weights, bf16 compute, full remat), every quantization event on
+             K1b: finite losses, <IL, FL> chosen on the device, 80 quantizer
+             launches a step.  Then 3 steps with ``--rounding-bits operand``,
+             every event on K1: 647 launches a step.
 
-The last line of standard output is
-``{"ok": true, "device": {"platform": "gpu", "kind": <name>, "count": <n>}}``.
-There is no CPU path here: without a CUDA device the script exits non-zero.
+The line before the last two carries the kernels (launches on their path —
+K1's from the LM run with a bits operand, LeNet's beside them —
+error against the plain version, time, plain time, bound); the line before
+the last is ``nvidia-smi``'s name and power limit; the last line of standard
+output is ``{"ok": true, "device": {"platform": "gpu", "kind": <name>,
+"count": <n>}}``.  There is no CPU path here: without a CUDA device the
+script exits non-zero.
 """
 
+import dataclasses
+import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -72,6 +105,10 @@ SUM_RTOL = 2e-6      # float statistics; thousands of fp32 terms, other order
 # rounding by one bf16 step (2^-8 relative), and 28 layers carry it on to
 # logits of magnitude ~1.  Measured on an H100: 0.062.
 LOGIT_TOL = 0.25
+# LeNet under nearest rounding, kernel quantizer vs plain: the grid values are
+# bit-equal, so the two runs differ only where the statistics' float sums
+# (another summation order) could move a controller decision; they do not.
+LENET_LOSS_RTOL = 1e-5
 
 SERVE = dict(page_size=16, slots=8, max_prompt=512, max_new=64,
              requests=16, prompt_lens=(64, 512), new_tokens=(16, 64),
@@ -118,6 +155,13 @@ def time_ms(fn, repeats, warmup=3):
         pairs.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def bound(nbytes, ops):
+    """The least time the card could take: bytes over its memory rate or
+    fp32 operations over its fp32 rate, whichever is larger."""
+    tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_OPS_PER_S * 1e3
+    return max(tb, to), "bytes" if tb >= to else "operations"
 
 
 # ---------------------------------------------------------------------------
@@ -288,10 +332,6 @@ def kernel_checks(cfg, lay):
     att_plain_ms = time_ms(lambda: paged_attn.paged_decode_attn(
         *att_args, scale=att["scale"], backend="plain"), repeats=5, warmup=1)
 
-    def bound(nbytes, ops):
-        tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_OPS_PER_S * 1e3
-        return max(tb, to), "bytes" if tb >= to else "operations"
-
     enc_bound, enc_by = bound(enc_bytes, enc_ops)
     att_bound, att_by = bound(att_bytes, att_ops)
     rows = [
@@ -317,6 +357,236 @@ def kernel_checks(cfg, lay):
         main_path=[{k: r[k] for k in ("name", "shape", "max_abs_err", "ms",
                                       "plain_ms", "bound_ms", "bound_by")}
                    for r in rows])
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the training quantizer, K1 and K1b
+# ---------------------------------------------------------------------------
+
+def _i32(v):
+    return torch.tensor(v, dtype=torch.int32, device=DEV)
+
+
+def _stats_match(sk, sp, n):
+    """count/nonzero/overflow/max_abs exact (counts past 2^24 to one ulp of
+    the float32 they are written in), float sums to SUM_RTOL; returns the
+    largest relative difference of a float sum."""
+    exact = [0, 1, 2, 6]
+    if n < (1 << 24):
+        ok = torch.equal(sk[exact], sp[exact])
+    else:
+        ulp = torch.nextafter(sp[:3], torch.full_like(sp[:3], math.inf)) - sp[:3]
+        ok = (bool(((sk[:3] - sp[:3]).abs() <= ulp).all())
+              and bool(sk[6] == sp[6]))
+    if not ok:
+        raise AssertionError(f"quantizer: count/nonzero/overflow/max_abs "
+                             f"{sk[exact].tolist()} vs plain {sp[exact].tolist()}")
+    rel = float(((sk[3:6] - sp[3:6]).abs() / sp[3:6].abs().clamp(min=1e-30)).max())
+    if rel > SUM_RTOL:
+        raise AssertionError(f"quantizer: float sums differ by {rel:.3g} "
+                             f"relative (> {SUM_RTOL})")
+    return rel
+
+
+def _bits_name(bits):
+    if bits is None:
+        return "nearest"
+    return "Philox" if isinstance(bits, dps_quant.Philox) else "bits operand"
+
+
+def check_quant(x, il, fl, bits=None, *, stats=True):
+    """One K1/K1b configuration, kernel vs plain on the card: q bit-equal,
+    statistics per ``_stats_match``; with statistics, a second launch gives
+    the same bits.  ``bits``: None (nearest), a tensor (K1) or a Philox
+    stream (K1b).  Returns (the largest |q_kernel - q_plain|, the largest
+    relative difference of a float sum)."""
+    il, fl = _i32(il), _i32(fl)
+    qk, sk = dps_quant.dps_quant(x, il, fl, bits, compute_stats=stats,
+                                 backend="kernel")
+    qp, sp = dps_quant.dps_quant(x, il, fl, bits, compute_stats=stats,
+                                 backend="plain")
+    torch.cuda.synchronize()
+    iv = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+    if not torch.equal(qk.view(iv), qp.view(iv)):
+        raise AssertionError(
+            f"quantizer: q differs from the plain version in "
+            f"{int((qk.view(iv) != qp.view(iv)).sum())} of {x.numel()} values "
+            f"({x.dtype}, {_bits_name(bits)})")
+    err = float((qk.to(torch.float32) - qp.to(torch.float32)).abs().max()) \
+        if x.numel() else 0.0
+    if not stats:
+        if sk is not None:
+            raise AssertionError("compute_stats=False returned statistics")
+        return err, 0.0
+    rel = _stats_match(sk, sp, x.numel())
+    qk2, sk2 = dps_quant.dps_quant(x, il, fl, bits, backend="kernel")
+    if not (torch.equal(qk, qk2) and torch.equal(sk, sk2)):
+        raise AssertionError("quantizer: two launches gave different bits")
+    return err, rel
+
+
+def check_prng_equals_bits(x, il, fl, seed):
+    """K1b equals K1 fed ``philox_bits`` of the same seed, q and stats."""
+    il, fl = _i32(il), _i32(fl)
+    a, sa = dps_quant.dps_quant(x, il, fl, dps_quant.Philox(seed),
+                                backend="kernel")
+    b, sb = dps_quant.dps_quant(x, il, fl, dps_quant.philox_bits(seed, x.numel(), DEV),
+                                backend="kernel")
+    if not (torch.equal(a, b) and torch.equal(sa, sb)):
+        raise AssertionError("K1b differs from K1 fed the same Philox words")
+
+
+def check_unbiased(n=1 << 20, seeds=64, il=2, fl=6):
+    """Stochastic rounding is unbiased: over ``seeds`` K1b launches the mean
+    of q - clip(x), summed over all elements, lies within 4 sigma of 0 (sigma
+    from the per-element Bernoulli variance).  Returns the bias in units of
+    sigma."""
+    g = torch.Generator(device=DEV).manual_seed(5)
+    x = torch.randn(n, generator=g, device=DEV) * 0.5
+    ilt, flt = _i32(il), _i32(fl)
+    acc = torch.zeros(n, dtype=torch.float64, device=DEV)
+    for s in range(seeds):
+        q, _ = dps_quant.dps_quant(x, ilt, flt, dps_quant.Philox(1000 + s),
+                                   compute_stats=False, backend="kernel")
+        acc += q.to(torch.float64)
+    span = 2.0 ** (il - 1 + fl)
+    y = (x.to(torch.float64) * 2.0 ** fl).clamp(-span, span - 1)
+    p = y - torch.floor(y)
+    dev_ = acc / seeds - y * 2.0 ** -fl
+    sigma = float(torch.sqrt((p * (1 - p)).sum() / seeds)) * 2.0 ** -fl
+    z = float(dev_.sum()) / sigma
+    if abs(z) > 4.0:
+        raise AssertionError(f"K1b: mean of q over {seeds} seeds is {z:.2f} "
+                             "sigma from clip(x)")
+    return z
+
+
+def quant_row(name, shape, x, il, fl, bits, err, rel, nbytes, nops):
+    """One ``kernels`` row: K1/K1b at ``x``'s shape, timed with and without
+    statistics beside the plain version."""
+    args = (x, _i32(il), _i32(fl), bits)
+    ms = time_ms(lambda: dps_quant.dps_quant(*args, backend="kernel"), repeats=10)
+    ms_nostats = time_ms(lambda: dps_quant.dps_quant(
+        *args, compute_stats=False, backend="kernel"), repeats=10)
+    plain_ms = time_ms(lambda: dps_quant.dps_quant(*args, backend="plain"),
+                       repeats=3, warmup=1)
+    bound_ms, by = bound(nbytes, nops)
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/dps_quant.cu",
+            "replaces": "src/repro/kernels/dps_quant.py:288",
+            "shape": shape, "max_abs_err": err, "stats_max_rel_err": rel,
+            "ms": ms, "plain_ms": plain_ms, "ms_no_stats": ms_nostats,
+            "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes,
+            "library_ms": None}
+
+
+def quant_checks(cfg):
+    """K1/K1b at small shapes and at the training paths'; returns their two
+    ``kernels`` rows (launches filled in by the training phases)."""
+    rng = np.random.default_rng(1)
+
+    def draw(n, dtype, scale=4.0, offset=0):
+        # ``offset`` > 0 gives a contiguous view whose data pointer is not
+        # 16-byte aligned: the kernel's scalar path
+        v = rng.standard_normal(n + offset).astype(np.float32) * scale
+        v[::7] = 0.0
+        return torch.from_numpy(v).to(DEV).to(dtype)[offset:]
+
+    def npbits(n):
+        return torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)
+                                .view(np.int32)).to(DEV)
+
+    small = []
+    worst = 0.0
+    for n in (1, 3, 1023, 100_003, 4096):
+        for dtype in (torch.float32, torch.bfloat16):
+            for offset in (0, 1):
+                x = draw(n, dtype, offset=offset)
+                bits = npbits(n)
+                for stats in (False, True):
+                    for src in (None, bits, dps_quant.Philox(12345 + n)):
+                        worst = max(worst, check_quant(x, 3, 9, src,
+                                                       stats=stats)[1])
+                check_prng_equals_bits(x, 3, 9, seed=777 + n)
+            small.append(f"n={n} {dtype}")
+    z = check_unbiased()
+
+    # --- the training paths' shapes ---
+    L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
+    w_in, w_in_layer, tap = L * D * F, D * F, 2 * 512 * D
+    rels, errs = {}, {}
+    # LeNet's (K1, stochastic, a bits operand): its largest weight leaf,
+    # fc1_w 800x500 fp32, and its first activation tap, 64x20x12x12 fp32
+    for name, n in (("lenet_fc1_w", 800 * 500), ("lenet_tap_c1", 64 * 20 * 144)):
+        x = draw(n, torch.float32, scale=0.05)
+        errs[name], rels[name] = check_quant(x, 8, 12, npbits(n))
+        check_quant(x, 8, 16, npbits(n), stats=False)
+    # the LM's tap: bf16 residual stream, <IL, FL> as the acts domain starts
+    x = draw(tap, torch.bfloat16, scale=1.0)
+    errs["tap_nearest"], rels["tap_nearest"] = check_quant(x, 8, 12)
+    errs["tap_k1b"], rels["tap_k1b"] = check_quant(x, 8, 12, dps_quant.Philox(3))
+    check_quant(x, 8, 16, dps_quant.Philox(4), stats=False)    # the backward tap
+    check_prng_equals_bits(x, 8, 12, seed=3)
+    tap_args = (x, _i32(8), _i32(12), dps_quant.Philox(3))
+    tap_ms = time_ms(lambda: dps_quant.dps_quant(*tap_args, backend="kernel"),
+                     repeats=50)
+    tap_plain_ms = time_ms(lambda: dps_quant.dps_quant(*tap_args, backend="plain"),
+                           repeats=5, warmup=1)
+    del x
+
+    # The largest weight leaf, fp32, drawn like init_params' normal init.
+    # K1b quantizes it in one launch; with a bits operand quantize_tree
+    # draws and quantizes it one layer at a time, so K1's launch is one
+    # layer's slice, D x F.
+    g = torch.Generator(device=DEV).manual_seed(7)
+    x = torch.randn(w_in, generator=g, device=DEV) * D ** -0.5
+    x[::11] = 0.0
+    il, fl = 2, 14
+    errs["w_in_k1b"], rels["w_in_k1b"] = check_quant(x, il, fl, dps_quant.Philox(5))
+    check_quant(x, il, fl, stats=False)
+    check_prng_equals_bits(x, il, fl, seed=5)
+    bits = torch.randint(-2**31, 2**31, (w_in,), dtype=torch.int32,
+                         device=DEV, generator=g)
+    errs["w_in_k1"], rels["w_in_k1"] = check_quant(x, il, fl, bits)
+    del bits
+    # bytes: x in, q out (fp32), <IL, FL> in, 7 stats out; K1 also reads the
+    # bits.  Operations: ~24 fp32 operations an element (scale, two clips,
+    # round, rescale; the statistics' subtract, abs, compare, divide, three
+    # sums and the max); K1b adds Philox4x32-10, 10 rounds of ~10 integer
+    # operations for every 4 elements, counted here at the fp32 rate.
+    k1b = quant_row("dps_quantize_onchip_prng",
+                    f"w_in leaf {L}x{D}x{F} = {w_in} fp32, Philox bits in the "
+                    "kernel, statistics on (one launch per leaf on the LM path)",
+                    x, il, fl, dps_quant.Philox(5), errs["w_in_k1b"],
+                    rels["w_in_k1b"], 8 * w_in + 8 + 28, 49 * w_in)
+    k1b.update(tap_shape=f"2x512x{D} bf16", tap_ms=tap_ms,
+               tap_plain_ms=tap_plain_ms)
+    xl = x.view(L, D, F)[L // 2]                      # one layer, contiguous
+    bits = torch.randint(-2**31, 2**31, (w_in_layer,), dtype=torch.int32,
+                         device=DEV, generator=g)
+    errs["w_in_layer_k1"], rels["w_in_layer_k1"] = check_quant(xl, il, fl, bits)
+    k1 = quant_row("dps_quantize",
+                   f"one layer of the w_in leaf, {D}x{F} = {w_in_layer} fp32, "
+                   "a bits operand, statistics on (the LM path's K1 launch "
+                   "under --rounding-bits operand)",
+                   xl, il, fl, bits, errs["w_in_layer_k1"],
+                   rels["w_in_layer_k1"], 12 * w_in_layer + 8 + 28,
+                   24 * w_in_layer)
+    del x, xl, bits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rows = [k1, k1b]
+    say("quantize", small_shapes=small, small_worst_sum_rel=worst,
+        unbiased_sigma=z, main_path_q_max_abs_err=errs,
+        main_path_sum_rel=rels,
+        tolerances={"q": "bit-equal", "float_sums_rel": SUM_RTOL,
+                    "counts": "exact below 2^24, 1 ulp above"},
+        main_path=[{k: r[k] for k in ("name", "shape", "ms", "ms_no_stats",
+                                      "plain_ms", "bound_ms", "bound_by")}
+                   for r in rows],
+        tap={"ms": tap_ms, "plain_ms": tap_plain_ms})
     return rows
 
 
@@ -445,6 +715,119 @@ def serve(cfg, lay):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the training path
+# ---------------------------------------------------------------------------
+
+def _reset_quant_counts():
+    dps_quant.quantize_launch_count = 0
+    dps_quant.quantize_prng_launch_count = 0
+
+
+def _quant_counts():
+    return {"dps_quantize": dps_quant.quantize_launch_count,
+            "dps_quantize_onchip_prng": dps_quant.quantize_prng_launch_count}
+
+
+def lenet():
+    """The paper's app on the card: K1 on every event, then kernel vs plain
+    under nearest and under stochastic rounding."""
+    from repro_torch.apps import mnist as app
+    from repro_torch.data import MNISTLike
+    data = MNISTLike(batch=64, seed=0, n_train=2048, n_test=512)
+    qcfg = dataclasses.replace(app.paper_quant_config(), onchip_prng=False)
+    steps = 20
+    t0 = time.perf_counter()
+    _reset_quant_counts()                      # the counted run
+    hist = app.train_mnist(qcfg, steps=steps, data=data, device=DEV)
+    torch.cuda.synchronize()
+    launches = _quant_counts()
+    wall = time.perf_counter() - t0
+    # per step: 8 leaves x (weights, grads, re-snap) + 4 taps forward and
+    # backward + the logit gradient's statistics
+    per_step = 8 * 3 + 4 * 2 + 1
+    if launches != {"dps_quantize": per_step * steps, "dps_quantize_onchip_prng": 0}:
+        raise AssertionError(f"LeNet: quantizer launches {launches}, wanted "
+                             f"{per_step} x {steps} on K1")
+    if not all(math.isfinite(v) for v in hist["loss"]):
+        raise AssertionError("LeNet: a loss is not finite")
+
+    # kernel vs plain: the stochastic runs draw the same operand bits (the
+    # same seeded generator on the card), so q is bit-equal there too
+    fmt_keys = ("il_w", "fl_w", "il_a", "fl_a", "il_g", "fl_g")
+    compared = {}
+    for rounding in ("nearest", "stochastic"):
+        runs = {}
+        for backend in ("kernel", "plain"):
+            q = dataclasses.replace(app.paper_quant_config(rounding=rounding),
+                                    onchip_prng=False, backend=backend)
+            runs[backend] = app.train_mnist(q, steps=3, data=data, device=DEV)
+        for k in fmt_keys:
+            if runs["kernel"][k] != runs["plain"][k]:
+                raise AssertionError(f"LeNet kernel vs plain ({rounding}): {k} "
+                                     f"{runs['kernel'][k]} vs {runs['plain'][k]}")
+        loss_rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in
+                       zip(runs["kernel"]["loss"], runs["plain"]["loss"]))
+        if loss_rel > LENET_LOSS_RTOL:
+            raise AssertionError(f"LeNet kernel vs plain ({rounding}): loss "
+                                 f"differs by {loss_rel:.3g} relative "
+                                 f"(> {LENET_LOSS_RTOL})")
+        compared[rounding] = {"steps": 3, "formats_equal": True,
+                              "loss_max_rel": loss_rel,
+                              "loss": runs["kernel"]["loss"]}
+    say("lenet", steps=steps, wall_s=wall, loss_first=hist["loss"][0],
+        loss_last=hist["loss"][-1], launches=launches,
+        formats_last={k: hist[k][-1] for k in fmt_keys},
+        kernel_vs_plain=compared, tolerance=LENET_LOSS_RTOL)
+    return launches
+
+
+def train_lm(cfg, rounding_bits, steps):
+    """The LM trainer's CLI at full size, every quantization event on K1b
+    (``onchip``) or on K1 (``operand``)."""
+    from repro_torch.launch import train as train_cli
+    argv = ["--arch", "llama3_2_3b", "--steps", str(steps), "--batch", "2",
+            "--seq", "512", "--optimizer", "sgd", "--log-every", "1",
+            "--rounding-bits", rounding_bits]
+    _reset_quant_counts()                      # the counted run
+    out = train_cli.main(argv)
+    launches = _quant_counts()
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    if len(hist) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"LM training: losses {losses}")
+    # 8 quantized leaves x (weights, grads, re-snap) + one tap a layer
+    # forward and one backward.  The recompute under torch.utils.checkpoint
+    # stops once the block's saved tensors are back, before the tap (which
+    # saves none).  With a bits operand each of the 7 stacked leaves is
+    # quantized one layer at a time (the embedding is one launch).
+    L = cfg.n_layers
+    if rounding_bits == "onchip":
+        per_step, want = 8 * 3 + 2 * L, "dps_quantize_onchip_prng"
+    else:
+        per_step, want = 3 * (1 + 7 * L) + 2 * L, "dps_quantize"
+    wanted = {"dps_quantize": 0, "dps_quantize_onchip_prng": 0}
+    wanted[want] = per_step * steps
+    if out["quantizer_launches_per_step"] != [per_step] * steps or \
+            launches != wanted:
+        raise AssertionError(f"LM training: quantizer launches {launches}, "
+                             f"{out['quantizer_launches_per_step']} a step; "
+                             f"wanted {per_step} a step on {want}")
+    traj = [{k: h[k] for k in ("il_w", "fl_w", "il_a", "fl_a", "il_g", "fl_g")}
+            for h in hist]
+    say("train", command="python -m repro_torch.launch.train " + " ".join(argv),
+        params=out["params"], losses=losses,
+        first_step_s=out["first_step_s"],
+        ms_per_step_after_first=out["ms_per_step_after_first"],
+        tokens_per_s_after_first=out["tokens_per_s_after_first"],
+        peak_memory_bytes=out["peak_memory_bytes"], formats=traj,
+        launches=launches, launches_per_step=per_step)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -464,11 +847,21 @@ def main():
     cfg = get_config("llama3_2_3b")
     lay = serve_layout()
     rows = kernel_checks(cfg, lay)
+    rows += quant_checks(cfg)
+    # each path runs with the counts set to 0 just before it, read just after
     launches = serve(cfg, lay)
+    gc.collect()
+    torch.cuda.empty_cache()                   # the serving engine's memory
+    lenet_k1 = lenet()["dps_quantize"]
+    launches["dps_quantize_onchip_prng"] = train_lm(
+        cfg, "onchip", 4)["dps_quantize_onchip_prng"]
+    launches["dps_quantize"] = train_lm(cfg, "operand", 3)["dps_quantize"]
     for r in rows:
         r["launches"] = launches[r["name"]]
         if r["launches"] < 1:
             raise AssertionError(f"{r['name']} was not launched on the main path")
+        if r["name"] == "dps_quantize":
+            r["launches_lenet"] = lenet_k1
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

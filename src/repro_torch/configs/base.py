@@ -74,6 +74,10 @@ class ModelConfig:
     def activation_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
 
+    def master_dtype(self) -> torch.dtype:
+        """dtype of the parameters a trainer keeps (``param_dtype``)."""
+        return torch.bfloat16 if self.param_dtype == "bfloat16" else torch.float32
+
     def n_params(self) -> float:
         """Analytic parameter count."""
         from repro_torch.models import registry

@@ -15,21 +15,21 @@ named :class:`DpsBundle` registry.
 All updates are branchless tensor arithmetic on int32 state — no ``.item()``,
 no host synchronisation.
 
-Ported here: the FlexPoint-like controller, which places the serving KV
-pages' formats.  The paper's Algorithm 2 controller and the Courbariaux, Na &
-Mukhopadhyay and static baselines belong to the training path and are not
-ported yet; :func:`make_controller` names them in its error.
+Ported: the paper's Algorithm 2 controller, the Courbariaux, Na &
+Mukhopadhyay, static and FlexPoint-like baselines.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core.fixed_point import FixedPointFormat, QuantStats
+
+# fp32-mantissa exactness bound for the emulation grid: IL - 1 + FL <= 24.
+_EXACT_SPAN = 24
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +63,196 @@ class DPSHyper:
     # measured-slack mode (wire domains): place the radix at the r_max tail
     # quantile of the measured magnitude distribution
     flex_auto_slack: bool = False
+
+
+def _clamp_fmt(il: torch.Tensor, fl: torch.Tensor, h: DPSHyper):
+    il = il.clamp(h.il_min, h.il_max)
+    fl = fl.clamp(h.fl_min, h.fl_max)
+    # keep the emulation grid exact in fp32 and respect the width cap:
+    # shrink FL first (overflow is the catastrophic failure mode)
+    fl = torch.minimum(fl, _EXACT_SPAN + 1 - il)
+    fl = torch.minimum(fl, h.max_total - il)
+    return il.to(torch.int32), fl.to(torch.int32)
+
+
+def _full(shape, value, dtype, device):
+    return torch.full(shape, value, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Paper controller — Algorithm 2.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PaperState:
+    il: torch.Tensor
+    fl: torch.Tensor
+
+
+class PaperController:
+    """Overflow- and quantization-error-based scaling (the paper's Alg. 2).
+
+        if R > R_max: IL += s  else IL -= s
+        if E > E_max: FL += s  else FL -= s
+
+    Aggressive by design: width shrinks on *every* step where the metrics sit
+    below threshold.
+    """
+
+    name = "paper"
+
+    def __init__(self, hyper: DPSHyper = DPSHyper()):
+        self.h = hyper
+
+    def init(self, shape=(), device=None) -> PaperState:
+        return PaperState(il=_full(shape, self.h.il_init, torch.int32, device),
+                          fl=_full(shape, self.h.fl_init, torch.int32, device))
+
+    def fmt(self, state: PaperState) -> FixedPointFormat:
+        return FixedPointFormat(state.il, state.fl)
+
+    def update(self, state: PaperState, stats: QuantStats, aux=None) -> PaperState:
+        h = self.h
+        r = stats.overflow_rate()
+        e = stats.quant_error(h.error_metric)
+        il = state.il + torch.where(r > h.r_max, h.step, -h.step)
+        fl = state.fl + torch.where(e > h.e_max, h.step, -h.step)
+        return PaperState(*_clamp_fmt(il, fl, h))
+
+
+# ---------------------------------------------------------------------------
+# Courbariaux et al. '14 — fixed width, dynamic radix, overflow-driven.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CourbariauxState:
+    il: torch.Tensor
+    fl: torch.Tensor
+
+
+class CourbariauxController:
+    """Greedy overflow-rate scheme with IL + FL = total_bits.
+
+    if R > R_max:        radix right (IL+1, FL-1)
+    elif 2R <= R_max:    radix left  (IL-1, FL+1)   # headroom
+    else:                unchanged
+    """
+
+    name = "courbariaux"
+
+    def __init__(self, hyper: DPSHyper = DPSHyper()):
+        self.h = hyper
+
+    def init(self, shape=(), device=None) -> CourbariauxState:
+        n = self.h.total_bits
+        il0 = min(max(self.h.il_init, self.h.il_min), n - 1)
+        return CourbariauxState(il=_full(shape, il0, torch.int32, device),
+                                fl=_full(shape, n - il0, torch.int32, device))
+
+    def fmt(self, state: CourbariauxState) -> FixedPointFormat:
+        return FixedPointFormat(state.il, state.fl)
+
+    def update(self, state: CourbariauxState, stats: QuantStats, aux=None):
+        h = self.h
+        r = stats.overflow_rate()
+        delta = torch.where(r > h.r_max, 1, torch.where(2.0 * r <= h.r_max, -1, 0))
+        il = (state.il + delta).clamp(h.il_min, h.total_bits - h.fl_min)
+        fl = h.total_bits - il
+        return CourbariauxState(il.to(torch.int32), fl.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Na & Mukhopadhyay '16 — convergence-based, dynamic width (round-to-nearest).
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class NaState:
+    tl: torch.Tensor          # current target bit-width
+    il: torch.Tensor
+    fl: torch.Tensor
+    loss_ema: torch.Tensor    # slow EMA of training loss
+    best_ema: torch.Tensor    # best (lowest) EMA seen since last width bump
+    stall: torch.Tensor       # consecutive non-improving steps
+
+
+class NaController:
+    """Width grows by `s` whenever training stalls or overflows.
+
+    IL tracks overflow like the fixed-width schemes; FL = tl - IL.  Rounding
+    is round-to-nearest in the original — the train step consults
+    ``controller.rounding`` to pick the mode.
+    """
+
+    name = "na_mukhopadhyay"
+    rounding = "nearest"
+
+    def __init__(self, hyper: DPSHyper = DPSHyper()):
+        self.h = hyper
+
+    def init(self, shape=(), device=None) -> NaState:
+        tl0 = self.h.na_tl_init
+        il0 = max(self.h.il_min, tl0 // 2)
+        inf = float("inf")
+        return NaState(tl=_full(shape, tl0, torch.int32, device),
+                       il=_full(shape, il0, torch.int32, device),
+                       fl=_full(shape, tl0 - il0, torch.int32, device),
+                       loss_ema=_full(shape, inf, torch.float32, device),
+                       best_ema=_full(shape, inf, torch.float32, device),
+                       stall=_full(shape, 0, torch.int32, device))
+
+    def fmt(self, state: NaState) -> FixedPointFormat:
+        return FixedPointFormat(state.il, state.fl)
+
+    def update(self, state: NaState, stats: QuantStats, aux=None) -> NaState:
+        h = self.h
+        dev = state.il.device
+        loss = (torch.as_tensor(aux["loss"], dtype=torch.float32, device=dev)
+                if aux else torch.zeros((), dtype=torch.float32, device=dev))
+        beta = 1.0 - 1.0 / h.na_window
+        ema = torch.where(torch.isinf(state.loss_ema), loss,
+                          beta * state.loss_ema + (1 - beta) * loss)
+        improved = ema < state.best_ema * (1.0 - h.na_eps)
+        stall = torch.where(improved, 0, state.stall + 1)
+        stagnant = stall >= h.na_window
+        overflowing = stats.overflow_rate() > h.r_max
+        bump = stagnant | overflowing
+        tl = (state.tl + torch.where(bump, h.step, 0)).clamp(h.na_tl_init,
+                                                            h.na_ml)
+        # radix placement from overflow, width from convergence
+        il = torch.minimum(torch.maximum(state.il + overflowing.to(torch.int32),
+                                         torch.full_like(tl, h.il_min)),
+                           tl - h.fl_min)
+        fl = tl - il
+        return NaState(
+            tl=tl.to(torch.int32), il=il.to(torch.int32), fl=fl.to(torch.int32),
+            loss_ema=ema,
+            best_ema=torch.where(improved, ema,
+                                 torch.where(bump, ema, state.best_ema)),
+            stall=torch.where(bump, 0, stall).to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Gupta et al. '15 — static format (no scaling).
+# ---------------------------------------------------------------------------
+
+class StaticController:
+    """Fixed ⟨IL, FL⟩ for the whole run (Gupta et al.; also the paper's
+    "fixed 13-bit" divergence demonstration)."""
+
+    name = "static"
+
+    def __init__(self, hyper: DPSHyper = DPSHyper()):
+        self.h = hyper
+
+    def init(self, shape=(), device=None) -> PaperState:
+        return PaperState(il=_full(shape, self.h.il_init, torch.int32, device),
+                          fl=_full(shape, self.h.fl_init, torch.int32, device))
+
+    def fmt(self, state: PaperState) -> FixedPointFormat:
+        return FixedPointFormat(state.il, state.fl)
+
+    def update(self, state: PaperState, stats: QuantStats, aux=None) -> PaperState:
+        return state
 
 
 # ---------------------------------------------------------------------------
@@ -133,19 +323,17 @@ class FlexpointController:
         return FlexState(il.to(torch.int32), fl.to(torch.int32), m)
 
 
-CONTROLLERS = {FlexpointController.name: FlexpointController}
-# controllers of the reference that the training path needs
-_UNPORTED = ("paper", "courbariaux", "na_mukhopadhyay", "static")
+CONTROLLERS = {
+    c.name: c
+    for c in (PaperController, CourbariauxController, NaController,
+              StaticController, FlexpointController)
+}
 
 
 def make_controller(name: str, hyper: Optional[DPSHyper] = None):
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"DPS controller {name!r} is not ported yet (waiting with "
-            f"{_UNPORTED} for the training path); have {sorted(CONTROLLERS)}")
     if name not in CONTROLLERS:
         raise ValueError(f"unknown DPS controller {name!r}; have "
-                         f"{sorted(CONTROLLERS) + sorted(_UNPORTED)}")
+                         f"{sorted(CONTROLLERS)}")
     return CONTROLLERS[name](hyper or DPSHyper())
 
 
@@ -253,8 +441,7 @@ class PrecisionPlan:
         if len(set(names)) != len(names):
             raise ValueError(f"duplicate precision domains in {names}")
         for n, spec in self.domains:
-            if (spec.controller not in CONTROLLERS
-                    and spec.controller not in _UNPORTED):
+            if spec.controller not in CONTROLLERS:
                 raise ValueError(f"domain {n!r}: unknown controller "
                                  f"{spec.controller!r}")
             if spec.groups < 0:

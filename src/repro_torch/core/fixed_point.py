@@ -17,9 +17,12 @@ float32 iff ``IL - 1 + FL <= 24``; controllers clamp widths to honour this.
 from __future__ import annotations
 
 import dataclasses
+import zlib
 from typing import Optional
 
 import torch
+
+from repro_torch.core import tree as tree_lib
 
 # Stochastic-rounding uniforms are exact multiples of 2^-24 (fp32 mantissa).
 _U_BITS = 24
@@ -107,6 +110,40 @@ class QuantStats:
         if metric == "ratio":
             return self.abs_err_sum / self.abs_sum.clamp(min=1e-30)
         raise ValueError(f"unknown error metric {metric!r}")
+
+
+def merge_stats(*stats: QuantStats) -> QuantStats:
+    out = stats[0]
+    for s in stats[1:]:
+        out = out.merge(s)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Seeds: the counterpart of jax.random.fold_in for 64-bit integer seeds.
+# ---------------------------------------------------------------------------
+
+_MASK64 = (1 << 64) - 1
+
+
+def _splitmix64(z: int) -> int:
+    z = (z + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+def fold_seed(seed: int, *data) -> int:
+    """A new 64-bit seed from ``seed`` and each of ``data`` in turn (ints,
+    or strings hashed with CRC-32 as the reference hashes its string
+    salts).  A pure host-side function: a quantization event's seed costs
+    no device work, and a recomputed forward gets the same seed again."""
+    h = seed & _MASK64
+    for d in data:
+        if isinstance(d, str):
+            d = zlib.crc32(d.encode())
+        h = _splitmix64(h ^ _splitmix64(int(d) & _MASK64))
+    return h
 
 
 def exp2_int(n: torch.Tensor) -> torch.Tensor:
@@ -207,10 +244,12 @@ def quantize(
         abs_err = (q - x_ref).abs()
         abs_ref = x_ref.abs()
         f32 = dict(dtype=torch.float32, device=x.device)
+        # counts summed as integers, then rounded once: exact up to 2^24
+        # like the reference's float32 sums, and correctly rounded past it
         stats = QuantStats(
             count=torch.tensor(float(x.numel()), **f32),
-            nonzero=(abs_ref > 0.0).to(torch.float32).sum(),
-            overflow=over.to(torch.float32).sum(),
+            nonzero=(abs_ref > 0.0).sum().to(torch.float32),
+            overflow=over.sum().to(torch.float32),
             abs_err_sum=abs_err.sum(),
             rel_err_sum=_rel_err(abs_err, abs_ref).sum(),
             abs_sum=abs_ref.sum(),
@@ -289,3 +328,54 @@ def wire_quantize(
             max_abs=max_abs,
         )
     return wire, stats
+
+
+def quantize_tree(tree, fmt: FixedPointFormat, *, mode: str = ROUND_STOCHASTIC,
+                  seed: int = 0, predicate=None, onchip_prng: bool = False,
+                  backend: str = "auto", inplace: bool = False):
+    """Quantize every selected leaf of a nested dict with one shared format.
+
+    ``predicate(path, leaf) -> bool`` selects the leaves (see
+    :mod:`repro_torch.core.policy`); the others are returned as they are.
+    Leaf ``i`` (sorted-key order, as the reference flattens) rounds with
+    the seed ``fold_seed(seed, i)``.  Every event goes through the fused
+    quantizer (:func:`repro_torch.kernels.ops.dps_quantize`): the kernel on
+    a CUDA tensor, its plain version on the CPU.  ``inplace`` writes each
+    selected leaf's q over the leaf itself (the train step's re-snap and
+    gradient quantization: a second copy of 3.2 B fp32 values would not
+    fit beside the rest).  Returns ``(tree_q, merged QuantStats)``.
+    """
+    from repro_torch.kernels import ops           # ops imports this module
+    out, stats = [], []
+    for i, (path, leaf) in enumerate(tree_lib.leaves_with_path(tree)):
+        if predicate is not None and not predicate(path, leaf):
+            out.append(leaf)
+            continue
+        q, s = _quantize_leaf(ops, leaf, fmt, mode, fold_seed(seed, i),
+                              onchip_prng, backend, leaf if inplace else None)
+        out.append(q)
+        stats.append(s)
+    merged = (merge_stats(*stats) if stats
+              else QuantStats.zero(device=fmt.il.device))
+    return tree_lib.from_leaves(tree, out), merged
+
+
+def _quantize_leaf(ops, leaf, fmt, mode, seed, onchip_prng, backend, out):
+    """One leaf.  With a bits operand, a layer-stacked leaf (ndim >= 3,
+    more than 4 layers, above 2^22 elements) is drawn and quantized layer
+    by layer, so the int32 bits are one layer's worth at a time, as the
+    reference bounds its temporaries; the in-kernel generator needs no bits
+    tensor, so one launch covers the leaf."""
+    if (mode == ROUND_STOCHASTIC and not onchip_prng and leaf.ndim >= 3
+            and leaf.shape[0] > 4 and leaf.numel() > (1 << 22)):
+        q = torch.empty_like(leaf) if out is None else out
+        stats = []
+        for layer in range(leaf.shape[0]):
+            x = leaf[layer]
+            bits = ops.event_bits(x, mode, fold_seed(seed, layer), False)
+            stats.append(ops.dps_quantize(x, fmt, bits, out=q[layer],
+                                          backend=backend)[1])
+        return q, merge_stats(*stats)
+    return ops.dps_quantize(leaf, fmt,
+                            ops.event_bits(leaf, mode, seed, onchip_prng),
+                            out=out, backend=backend)

@@ -113,6 +113,10 @@ def load(verbose: bool = False) -> ctypes.CDLL:
         lib.dps_group_wire_encode.restype = i32
         lib.dps_group_wire_encode.argtypes = [
             vp, i32, vp, vp, vp, vp, vp, vp, vp, i64, i64, i32, i32, vp]
+        lib.dps_quantize.restype = i32
+        lib.dps_quantize.argtypes = [
+            vp, i32, i64, vp, vp, vp, i32, ctypes.c_ulonglong, vp, vp, vp,
+            i32, i32, vp]
         lib.paged_decode_attn.restype = i32
         lib.paged_decode_attn.argtypes = [
             vp, vp, vp, i32, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,

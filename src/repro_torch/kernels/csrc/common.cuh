@@ -13,6 +13,35 @@ __device__ __forceinline__ float exp2i(int n) {
     return __int_as_float((n + 127) << 23);
 }
 
+// Philox4x32-10 (Salmon et al., SC'11), written out by hand: a counter-based
+// generator, so element e's bits are a pure function of (seed, e) whatever
+// the launch geometry.  Key = the 64-bit seed (low word first); counter =
+// e / 4 as a 128-bit number; word e % 4 of the output belongs to element e.
+// The plain twin is `philox_bits` in kernels/dps_quant.py.
+struct Philox4 {
+    uint32_t v[4];
+};
+
+__device__ __forceinline__ Philox4 philox4x32_10(uint64_t ctr, uint64_t seed) {
+    uint32_t c0 = static_cast<uint32_t>(ctr), c1 = static_cast<uint32_t>(ctr >> 32);
+    uint32_t c2 = 0u, c3 = 0u;
+    uint32_t k0 = static_cast<uint32_t>(seed), k1 = static_cast<uint32_t>(seed >> 32);
+#pragma unroll
+    for (int r = 0; r < 10; ++r) {
+        if (r) {
+            k0 += 0x9E3779B9u;
+            k1 += 0xBB67AE85u;
+        }
+        const uint32_t lo0 = 0xD2511F53u * c0, hi0 = __umulhi(0xD2511F53u, c0);
+        const uint32_t lo1 = 0xCD9E8D57u * c2, hi1 = __umulhi(0xCD9E8D57u, c2);
+        const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
+        c0 = n0; c1 = lo1; c2 = n2; c3 = lo0;
+    }
+    Philox4 out;
+    out.v[0] = c0; out.v[1] = c1; out.v[2] = c2; out.v[3] = c3;
+    return out;
+}
+
 // Reductions in a fixed order, so a result does not change from run to run.
 __device__ __forceinline__ float warp_sum_down(float v) {
 #pragma unroll

@@ -1,15 +1,58 @@
 """Caller-facing wrappers over the kernels (counterpart of
-``repro/kernels/ops.py``; only the grouped wire encode is ported so far)."""
+``repro/kernels/ops.py``; the quantizer and the grouped wire encode are
+ported, the wire quantizer and the fused wire reduce are not yet)."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
-from repro_torch.core.fixed_point import FixedPointFormat
+from repro_torch.core.fixed_point import (ROUND_NEAREST, ROUND_STOCHASTIC,
+                                          FixedPointFormat)
 from repro_torch.kernels import ref as ref_lib
-from repro_torch.kernels.dps_quant import dps_quant_group_wire
+from repro_torch.kernels.dps_quant import (Philox, dps_quant,
+                                           dps_quant_group_wire)
+
+
+def event_bits(x: torch.Tensor, mode: str, seed: int, onchip_prng: bool):
+    """The rounding bits of one quantization event on ``x``, as
+    :func:`dps_quantize` takes them: ``None`` under nearest rounding; under
+    stochastic rounding ``Philox(seed)``, drawn inside the kernel (K1b), with
+    ``onchip_prng``, else 32 bits per element drawn by ``torch.randint`` from
+    a generator seeded with ``seed`` on x's device (K1's operand)."""
+    if mode == ROUND_NEAREST:
+        return None
+    if mode != ROUND_STOCHASTIC:
+        raise ValueError(f"unknown rounding mode {mode!r}")
+    if onchip_prng:
+        return Philox(seed)
+    gen = torch.Generator(device=x.device).manual_seed(seed % (1 << 63))
+    return torch.randint(-2**31, 2**31, (x.numel(),), dtype=torch.int32,
+                         device=x.device, generator=gen)
+
+
+def dps_quantize(x: torch.Tensor, fmt: FixedPointFormat,
+                 bits: Union[None, torch.Tensor, Philox] = None, *,
+                 compute_stats: bool = True,
+                 out: Optional[torch.Tensor] = None, backend: str = "auto"):
+    """Fused quantize + statistics for a tensor of any rank (K1 / K1b).
+
+    ``fmt``: a global format (0-d int32 ``il``/``fl`` on x's device).
+    ``bits``: ``None`` (round to nearest), 32 bits per element (int32 or
+    uint32 storage; K1) or a :class:`Philox` stream (K1b), as
+    :func:`event_bits` makes them.  The kernel walks the flat tensor itself,
+    ragged tail included: no fold, pad or mask copies.  Returns ``(q with
+    x's dtype and shape, QuantStats | None)``.
+    """
+    if fmt.il.numel() != 1 or fmt.fl.numel() != 1:
+        raise ValueError("dps_quantize takes one global format; per-group "
+                         "formats go through dps_quantize_wire_grouped")
+    if isinstance(bits, torch.Tensor):
+        bits = bits.contiguous()
+    q, vec = dps_quant(x.contiguous(), fmt.il, fmt.fl, bits,
+                       compute_stats=compute_stats, out=out, backend=backend)
+    return q, (ref_lib.stats_from_vector(vec) if compute_stats else None)
 
 
 def dps_quantize_wire_grouped(x: torch.Tensor, fmt: FixedPointFormat,

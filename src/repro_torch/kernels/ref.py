@@ -43,6 +43,13 @@ def paged_decode_attn_ref(q: torch.Tensor, k_pages: torch.Tensor,
                                    scale=scale)
 
 
+def stats_from_vector(vec: torch.Tensor) -> QuantStats:
+    """Kernel stats vector ``[7]`` → scalar QuantStats (views of ``vec``)."""
+    return QuantStats(count=vec[0], nonzero=vec[1], overflow=vec[2],
+                      abs_err_sum=vec[3], rel_err_sum=vec[4], abs_sum=vec[5],
+                      max_abs=vec[6])
+
+
 def stats_from_matrix(mat: torch.Tensor) -> QuantStats:
     """``[G, 7]`` grouped-kernel accumulator → ``[G]``-shaped QuantStats."""
     return QuantStats(count=mat[:, 0], nonzero=mat[:, 1], overflow=mat[:, 2],

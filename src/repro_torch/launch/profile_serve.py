@@ -28,7 +28,7 @@ from repro_torch.kernels import dps_quant, paged_attn
 from repro_torch.launch import serve
 
 
-def _device_us(evt) -> float:
+def device_us(evt) -> float:
     """Device time of a profiler entry that ran ON the device (a kernel or a
     copy).  Host-side operator entries also carry the device time of the
     kernels they launched; counting those too would count every kernel
@@ -67,7 +67,7 @@ def main(argv=None):
     # device-side events only: kernels and memcpys, by name
     by_name = {}
     for e in prof.key_averages():
-        us = _device_us(e)
+        us = device_us(e)
         if us > 0.0:
             by_name[e.key] = (us, e.count)
     busy_us = sum(us for us, _ in by_name.values())

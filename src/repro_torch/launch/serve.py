@@ -25,11 +25,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import get_config, smoke as smoke_cfg
+from repro_torch.device import resolve_device
 from repro_torch.models import registry
 from repro_torch.models.common import init_params
 from repro_torch.serve import (Engine, EngineConfig, PagedLayout,
                                supports_paging, synthetic_trace)
-from repro_torch.serve.engine import BACKENDS, resolve_device
+from repro_torch.serve.engine import BACKENDS
 
 
 def build_layout(args) -> PagedLayout:

@@ -1,6 +1,7 @@
 """Grouped-query attention (GQA/MQA/MHA) for the dense decoder.
 
 Counterpart of ``repro/models/attention.py``.  Call patterns:
+  * ``mode="train"``    — causal self-attention, no cache.
   * ``mode="prefill"``  — causal self-attention, returns the populated KV
     cache.
   * ``mode="decode"``   — one new token against a contiguous cache of
@@ -147,9 +148,10 @@ def gqa_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
         S = ck.shape[1]
         valid = torch.arange(S, device=x.device)[None, :] <= cache_pos[:, None]
         out = _decode_attn(q.reshape(B, Sq, KV, G, Dh), ck, cv, valid, scale)
-    elif mode == "prefill":
-        cdt = torch.int8 if cfg.kv_cache_bits == 8 else k.dtype
-        new_cache = (_cache_write(k, cdt), _cache_write(v, cdt))
+    elif mode in ("prefill", "train"):
+        if mode == "prefill":
+            cdt = torch.int8 if cfg.kv_cache_bits == 8 else k.dtype
+            new_cache = (_cache_write(k, cdt), _cache_write(v, cdt))
         kr = torch.repeat_interleave(k, G, dim=2)
         vr = torch.repeat_interleave(v, G, dim=2)
         out = sdpa(q, kr, vr, causal=causal, scale=scale)

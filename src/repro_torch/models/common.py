@@ -13,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -195,3 +195,50 @@ def unembed(x: torch.Tensor, params: Dict[str, torch.Tensor],
     if logits.shape[-1] != vocab:
         logits[..., vocab:] = -1e30
     return logits
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy in fp32."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def _xent_chunk(xc, lc, mc, params, vocab):
+    logits = unembed(xc, params, vocab)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+    return torch.sum((logz - gold) * mc)
+
+
+def fused_unembed_xent(x: torch.Tensor, params: Dict[str, torch.Tensor],
+                       vocab: int, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None,
+                       chunk: int = 512) -> torch.Tensor:
+    """Unembed + cross-entropy over sequence chunks of ``chunk`` positions.
+
+    Each chunk runs under ``torch.utils.checkpoint``, so the (B, S, V) fp32
+    logits — 0.5 GB per 512 positions of a batch of 2 at a 128k vocab, and
+    as much again for their gradient — never exist whole, and the backward
+    recomputes one chunk's logits at a time.  Same mean loss as
+    :func:`softmax_xent` of the full logits.
+    """
+    from torch.utils.checkpoint import checkpoint
+    B, S, _ = x.shape
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    mask = mask.to(torch.float32)
+    labels = labels.to(torch.int64)
+    nll = None
+    for s0 in range(0, S, chunk):
+        sl = slice(s0, min(s0 + chunk, S))
+        part = checkpoint(_xent_chunk, x[:, sl], labels[:, sl], mask[:, sl],
+                          params, vocab, use_reentrant=False,
+                          preserve_rng_state=False)
+        nll = part if nll is None else nll + part
+    return nll / torch.clamp(torch.sum(mask), min=1.0)

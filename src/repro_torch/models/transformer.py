@@ -6,8 +6,14 @@ a leading ``L`` dim and the layer stack is a Python loop over it (the
 reference scans).  Caches are stacked over layers the same way and updated
 in place.
 
-Not ported yet: MoE and MLA layers, vision embeddings, the training loss and
-the activation taps of the quantized training step.
+Training (:func:`forward_train`, :func:`loss_fn`): the parameters are the
+trainer's master copy (``cfg.param_dtype``, fp32) and are cast to the
+compute dtype inside each block; the residual stream is tapped after every
+block (quantize + stats, :meth:`repro_torch.core.qtrain.QCtx.tap`); with
+``remat="full"`` each block runs under ``torch.utils.checkpoint``, its
+statistics returned from the block rather than recorded beside it.
+
+Not ported yet: MoE and MLA layers, vision embeddings.
 """
 
 from __future__ import annotations
@@ -17,10 +23,13 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import tree as tree_lib
+from repro_torch.core.fixed_point import QuantStats
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models.common import (ParamDef, embed_defs, embed_lookup,
-                                       layer_norm, map_defs, rms_norm, unembed)
+                                       fused_unembed_xent, layer_norm,
+                                       map_defs, rms_norm, unembed)
 
 
 def _check_dense(cfg: ModelConfig) -> None:
@@ -35,9 +44,8 @@ def stack_defs(n: int, defs):
                                        scale=d.scale, dtype=d.dtype), defs)
 
 
-def layer_defs(cfg: ModelConfig) -> Dict[str, Any]:
+def layer_defs(cfg: ModelConfig, dt: torch.dtype) -> Dict[str, Any]:
     _check_dense(cfg)
-    dt = cfg.activation_dtype()
     defs: Dict[str, Any] = {
         "norm1": ParamDef((cfg.d_model,), init="ones"),
         "norm2": ParamDef((cfg.d_model,), init="ones"),
@@ -50,11 +58,14 @@ def layer_defs(cfg: ModelConfig) -> Dict[str, Any]:
     return defs
 
 
-def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
-    dt = cfg.activation_dtype()
+def model_defs(cfg: ModelConfig, dtype: torch.dtype = None) -> Dict[str, Any]:
+    """Parameter declarations.  The weight matrices take ``dtype``: the
+    compute dtype by default (serving), ``cfg.master_dtype()`` for a
+    trainer's master copy.  Norm scales are fp32 either way."""
+    dt = dtype or cfg.activation_dtype()
     return {
         "embed": embed_defs(cfg.vocab, cfg.d_model, tie=cfg.tie_embed, dtype=dt),
-        "layers": stack_defs(cfg.n_layers, layer_defs(cfg)),
+        "layers": stack_defs(cfg.n_layers, layer_defs(cfg, dt)),
         "final_norm": ParamDef((cfg.d_model,), init="ones"),
     }
 
@@ -134,6 +145,70 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     if mode == "prefill":
         x = x[:, -1:]
     return unembed(x, params["embed"], cfg.vocab), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Training.
+# ---------------------------------------------------------------------------
+
+def unbind_layers(layers, n: int):
+    """The stacked layer tree as ``n`` per-layer trees, each stacked leaf
+    split by ONE ``torch.unbind``.  Indexing ``leaf[i]`` once per layer
+    would give every layer its own select node, whose backward writes a
+    full stacked-size zero gradient and adds it into the leaf's (28 × the
+    leaf's bytes of memset-and-add per step at llama3.2-3b); an unbind's
+    backward stacks the ``n`` slice gradients once."""
+    split = tree_lib.map_tree(lambda t: torch.unbind(t, 0), layers)
+    return [tree_lib.map_tree(lambda parts: parts[i], split) for i in range(n)]
+
+
+def _train_block(cfg: ModelConfig, p, x, positions, qctx, idx: int):
+    """One block in train mode on the compute dtype, then the residual tap.
+    Returns (x, QuantStats) — the stats as values, so a checkpointed block
+    hands them out once however often it is recomputed."""
+    dt = cfg.activation_dtype()
+    p = tree_lib.map_tree(lambda w: w.to(dt) if w.ndim >= 2 else w, p)
+    x, _ = _block(cfg, p, x, positions=positions, mode="train", cache=None,
+                  cache_pos=None)
+    if qctx is None:
+        return x, None
+    return qctx.tap(x, idx)
+
+
+def forward_train(cfg: ModelConfig, params, tokens: torch.Tensor, qctx=None):
+    """Training forward: ``(final-normed hidden (B, S, D), act_stats)``."""
+    from torch.utils.checkpoint import checkpoint
+    _check_dense(cfg)
+    if cfg.remat not in ("full", "none"):
+        raise NotImplementedError(f"remat={cfg.remat!r} is not ported "
+                                  "(full or none)")
+    x = embed_lookup(params["embed"]["tok"], tokens).to(cfg.activation_dtype())
+    positions = torch.arange(x.shape[1], dtype=torch.int32,
+                             device=x.device)[None, :]
+    stats = None
+    for i, p in enumerate(unbind_layers(params["layers"], cfg.n_layers)):
+        if cfg.remat == "full":
+            x, s = checkpoint(_train_block, cfg, p, x, positions, qctx, i,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, s = _train_block(cfg, p, x, positions, qctx, i)
+        if s is not None:
+            stats = s if stats is None else stats.merge(s)
+    x = _norm(cfg, x, params["final_norm"])
+    return x, stats or QuantStats.zero(device=x.device)
+
+
+def loss_fn(cfg: ModelConfig):
+    """(params, batch, qctx) -> (loss, aux) for qtrain.make_train_step."""
+
+    def fn(params, batch, qctx=None):
+        tokens = batch["tokens"]
+        hidden, stats = forward_train(cfg, params, tokens[:, :-1], qctx)
+        loss = fused_unembed_xent(hidden, params["embed"], cfg.vocab,
+                                  tokens[:, 1:], batch.get("loss_mask"))
+        return loss, {"act_stats": stats}
+
+    return fn
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device):

@@ -1,0 +1,201 @@
+"""Optimizers: SGD+momentum (the paper's recipe) and AdamW.
+
+Counterpart of ``repro/optim/optimizers.py``, replicated (one-device) step
+only; the ZeRO shard interface waits for the wire slice.  Interface:
+
+    opt = make_optimizer(cfg)
+    state = opt.init(params)
+    opt.update(grads, state, params, count=step)     # in place
+
+**In place.**  The reference returns the updates and a new state; here
+``update`` writes the new parameters and state into ``params`` and
+``state``, leaf by leaf, and drops each gradient leaf once used.  At
+llama3.2-3b scale one more fp32 copy of the parameters and of the momenta
+would need 25.7 GB the card does not have beside them.  The arithmetic is
+the reference's, operation for operation (``p + (-lr·mu_new)``), so the
+result is the same up to FMA contraction in either backend.
+
+Learning rates and bias corrections are computed on the host in float32
+from the step number the trainer already holds (the reference computes
+them on the device in float32): no step reads a device value.
+
+``state_dtype="bfloat16"`` keeps the state in bf16 with a stochastically
+rounded downcast on every update (Gupta et al.).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import tree as tree_lib
+from repro_torch.core.fixed_point import fold_seed
+
+_f32 = np.float32
+
+
+def inv_decay(lr0: float, gamma: float, power: float):
+    """The paper's schedule: lr = lr0 · (1 + γ·iter)^-pow, in float32."""
+    def f(step: int) -> float:
+        return float(_f32(lr0) * (_f32(1.0) + _f32(gamma) * _f32(step))
+                     ** _f32(-power))
+    return f
+
+
+def cosine_schedule(lr0: float, warmup: int, total: int, floor: float = 0.1):
+    def f(step: int) -> float:
+        s = _f32(step)
+        warm = s / _f32(max(warmup, 1))
+        prog = np.clip((s - _f32(warmup)) / _f32(max(total - warmup, 1)),
+                       _f32(0.0), _f32(1.0))
+        cos = _f32(floor) + _f32(1 - floor) * _f32(0.5) * (
+            _f32(1) + np.cos(_f32(np.pi) * prog))
+        return float(_f32(lr0) * (warm if s < warmup else cos))
+    return f
+
+
+def _sr_cast(x: torch.Tensor, dtype: torch.dtype, seed: int) -> torch.Tensor:
+    """Stochastically-rounded downcast (unbiased, Gupta et al.); the noise
+    comes from a generator seeded with ``seed`` on x's device."""
+    if x.dtype == dtype or dtype == torch.float32:
+        return x.to(dtype)
+    # bf16: round fp32 mantissa bits 0..15 stochastically (int32 adds wrap
+    # as the reference's uint32 ones do)
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    gen = torch.Generator(device=x.device).manual_seed(seed % (1 << 63))
+    noise = torch.randint(0, 1 << 16, x.shape, dtype=torch.int32,
+                          device=x.device, generator=gen)
+    rounded = (bits + noise) & -65536           # & 0xFFFF0000
+    return rounded.view(torch.float32).to(dtype)
+
+
+def _global_norm(grads) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                          for g in tree_lib.leaves(grads)))
+
+
+def _clip_by_norm(grads, max_norm: float):
+    n = _global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0)
+    return tree_lib.map_tree(lambda g: (g * scale).to(g.dtype), grads), n
+
+
+def _state_dtype(name: str) -> torch.dtype:
+    return torch.bfloat16 if name == "bfloat16" else torch.float32
+
+
+def _triples(grads, params, *states):
+    """Leaves of grads, params and states in one order, paired up."""
+    g = tree_lib.leaves(grads)
+    p = tree_lib.leaves(params)
+    s = [tree_lib.leaves(t) for t in states]
+    if not all(len(x) == len(g) for x in [p] + s):
+        raise ValueError("grads, params and optimizer state disagree in "
+                         "structure")
+    return list(zip(g, p, *s))
+
+
+@dataclasses.dataclass(frozen=True)
+class SGDConfig:
+    lr: float = 0.01
+    momentum: float = 0.9
+    weight_decay: float = 5e-4
+    schedule: str = "inv"          # inv | const
+    gamma: float = 1e-4            # paper: 0.0001
+    power: float = 0.75            # paper: 0.75
+    clip_norm: float = 0.0
+    state_dtype: str = "float32"   # float32 | bfloat16 (stochastic-rounded)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    warmup: int = 100
+    total_steps: int = 10_000
+    clip_norm: float = 1.0
+    state_dtype: str = "float32"
+
+
+class SGD:
+    def __init__(self, cfg: SGDConfig):
+        self.cfg = cfg
+        self.sched = (inv_decay(cfg.lr, cfg.gamma, cfg.power)
+                      if cfg.schedule == "inv" else lambda s: cfg.lr)
+
+    def init(self, params):
+        dt = _state_dtype(self.cfg.state_dtype)
+        return {"mu": tree_lib.map_tree(
+            lambda p: torch.zeros(p.shape, dtype=dt, device=p.device), params)}
+
+    def update(self, grads, state, params, count: int):
+        """One step, in place: ``params`` and ``state`` are overwritten."""
+        cfg = self.cfg
+        if cfg.clip_norm:
+            grads, _ = _clip_by_norm(grads, cfg.clip_norm)
+        lr = self.sched(count)
+        dt = _state_dtype(cfg.state_dtype)
+        with torch.no_grad():
+            for i, (g, p, mu) in enumerate(_triples(grads, params,
+                                                    state["mu"])):
+                gf = p.to(torch.float32) * cfg.weight_decay
+                gf.add_(g)                         # g + wd·p
+                mu_new = mu.to(torch.float32) * cfg.momentum
+                mu_new.add_(gf)                    # momentum·mu + gf
+                del gf
+                p.add_((mu_new * -lr).to(p.dtype))
+                mu.copy_(_sr_cast(mu_new, dt, fold_seed(17, count, i)))
+        return params, state
+
+
+class AdamW:
+    def __init__(self, cfg: AdamWConfig):
+        self.cfg = cfg
+        self.sched = cosine_schedule(cfg.lr, cfg.warmup, cfg.total_steps)
+
+    def init(self, params):
+        dt = _state_dtype(self.cfg.state_dtype)
+        z = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+        return {"m": tree_lib.map_tree(z, params),
+                "v": tree_lib.map_tree(z, params)}
+
+    def _bias_corrections(self, count: int):
+        cfg = self.cfg
+        t = _f32(count) + _f32(1.0)
+        return (float(_f32(1.0) - _f32(cfg.b1) ** t),
+                float(_f32(1.0) - _f32(cfg.b2) ** t))
+
+    def update(self, grads, state, params, count: int):
+        """One step, in place: ``params`` and ``state`` are overwritten."""
+        cfg = self.cfg
+        if cfg.clip_norm:
+            grads, _ = _clip_by_norm(grads, cfg.clip_norm)
+        lr = self.sched(count)
+        bc1, bc2 = self._bias_corrections(count)
+        dt = _state_dtype(cfg.state_dtype)
+        with torch.no_grad():
+            for i, (g, p, m, v) in enumerate(_triples(grads, params,
+                                                      state["m"],
+                                                      state["v"])):
+                gf = g.to(torch.float32)
+                m_new = cfg.b1 * m.to(torch.float32) + (1 - cfg.b1) * gf
+                v_new = cfg.b2 * v.to(torch.float32) + (1 - cfg.b2) * gf * gf
+                step = m_new / bc1 / (torch.sqrt(v_new / bc2) + cfg.eps)
+                step = step + cfg.weight_decay * p.to(torch.float32)
+                p.add_((-lr * step).to(p.dtype))
+                m.copy_(_sr_cast(m_new, dt, fold_seed(23, count, i, 1)))
+                v.copy_(_sr_cast(v_new, dt, fold_seed(23, count, i, 2)))
+        return params, state
+
+
+def make_optimizer(cfg):
+    if isinstance(cfg, SGDConfig):
+        return SGD(cfg)
+    if isinstance(cfg, AdamWConfig):
+        return AdamW(cfg)
+    raise TypeError(f"unknown optimizer config {type(cfg)}")

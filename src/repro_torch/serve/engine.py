@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import registry
 from repro_torch.models.common import TOK_F32, unembed
 from repro_torch.serve import cache as kvc
@@ -35,17 +36,6 @@ def supports_paging(cfg: ModelConfig) -> bool:
     """Paged serving needs the GQA decode path; of the families that have
     one, only the dense decoder is ported."""
     return cfg.family == "dense" and not cfg.mla
-
-
-def resolve_device(device) -> torch.device:
-    """An entry point's ``device`` argument as a ``torch.device``; asking for
-    CUDA on a machine without it raises rather than running on the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device='cuda' was asked for but torch.cuda.is_available() is "
-            "False; pass device='cpu' to run the plain versions on the CPU")
-    return device
 
 
 @dataclasses.dataclass(frozen=True)

@@ -79,6 +79,20 @@ LAYOUT = dict(page_size=4, n_pages=6, batch_slots=2, max_pages_per_seq=5,
               max_prompt=8)
 
 
+def _near_powers_of_two(k_lo=-40, k_hi=40, ulps=64):
+    """Every float32 within ``ulps`` of 2^k, k in [k_lo, k_hi)."""
+    base = (2.0 ** np.arange(k_lo, k_hi)).astype(np.float32)
+    out, up, down = [base], base, base
+    for _ in range(ulps):
+        up = np.nextafter(up, np.float32(np.inf))
+        down = np.nextafter(down, np.float32(0))
+        out += [up, down]
+    return np.unique(np.concatenate(out))
+
+
+_LOG2_X = _near_powers_of_two()
+
+
 @pytest.fixture(scope="module")
 def ref():
     jobs, arrays = [], {}
@@ -90,6 +104,8 @@ def ref():
         arrays.update({f"{tag}/{k}": v for k, v in _flex_arrays.items()})
     jobs.append({"job": "kv_plan_init", "tag": "kvinit",
                  "kw": {"layout": LAYOUT, "il_init": 2}})
+    jobs.append({"job": "ceil_log2", "tag": "log2"})
+    arrays["log2/x"] = _LOG2_X
     return run_reference(jobs, arrays)
 
 
@@ -208,6 +224,21 @@ def test_ceil_log2_is_exact_at_powers_of_two_and_neighbours():
     np.testing.assert_array_equal(got, want.astype(np.int32))
 
 
+def test_reference_float32_log2_is_a_backend_artefact_near_powers_of_two(ref):
+    """Why the FlexPoint radix is read from the float's bits: near 2^k the
+    reference's float32 ``ceil(log2(x))`` rounds to a neighbour of the true
+    value, on inputs that another backend's ``log2`` (PyTorch's here) does not
+    share, while ``_ceil_log2`` is exact on all of them."""
+    x = _LOG2_X.astype(np.float64)
+    m, e = np.frexp(x)                       # x = m * 2^e, m in [0.5, 1)
+    exact = np.where(m == 0.5, e - 1, e).astype(np.int32)
+    np.testing.assert_array_equal(dps._ceil_log2(_t(_LOG2_X)).numpy(), exact)
+    xla = ref["log2/ceil"]
+    torch_f32 = torch.ceil(torch.log2(_t(_LOG2_X))).numpy().astype(np.int32)
+    assert (xla != exact).any() and (xla != torch_f32).any()
+    assert (np.abs(xla - exact) <= 1).all()
+
+
 def test_kv_plan_init_rows_match_reference(ref):
     from repro_torch.configs.base import get_config, smoke
     from repro_torch.serve import PagedLayout, cache as kvc
@@ -218,9 +249,11 @@ def test_kv_plan_init_rows_match_reference(ref):
 
 
 def test_unported_controllers_are_named():
-    for name in ("paper", "courbariaux", "na_mukhopadhyay", "static"):
-        with pytest.raises(NotImplementedError, match=name):
-            dps.make_controller(name)
+    """Every controller of the reference is ported now; an unknown name
+    still raises."""
+    for name in ("paper", "courbariaux", "na_mukhopadhyay", "static",
+                 "flexpoint"):
+        assert dps.make_controller(name).name == name
     with pytest.raises(ValueError):
         dps.make_controller("nope")
 

@@ -158,6 +158,13 @@ def job_flexpoint(a, hyper, wire=None):
     return {"il": np.stack(ils), "fl": np.stack(fls), "max_ema": np.stack(emas)}
 
 
+def job_ceil_log2(a):
+    """``ceil(log2(x))`` as the reference's float32 arithmetic gives it."""
+    import jax.numpy as jnp
+    return {"ceil": np.asarray(jnp.ceil(jnp.log2(jnp.asarray(a["x"]))),
+                               np.int32)}
+
+
 def job_kv_plan_init(a, layout, il_init):
     from repro.serve import cache as kvc
     cfg, lay = _smoke_cfg(), _layout(layout)
@@ -297,6 +304,160 @@ def job_serve_cli(a):
                       "--max-new", "6"])
     return {"total_tokens": np.int64(rep.metrics["total_tokens"]),
             "spread_rows": np.int64(sum(rep.format_spread.values()))}
+
+
+def job_quant_ops(a, cases):
+    """``repro.kernels.ops.dps_quantize`` (the Pallas kernel in interpret
+    mode) on shared bits, one entry of ``cases`` per input."""
+    import jax.numpy as jnp
+    from repro.core.fixed_point import FixedPointFormat
+    from repro.kernels import ops
+    out = {}
+    for name, c in cases.items():
+        x = jnp.asarray(a[f"{name}/x"])
+        if c.get("bf16"):
+            x = x.astype(jnp.bfloat16)
+        bits = jnp.asarray(a[f"{name}/bits"]) if c["stochastic"] else None
+        q, s = ops.dps_quantize(x, FixedPointFormat.create(c["il"], c["fl"]),
+                                bits=bits, stochastic=c["stochastic"],
+                                interpret=True)
+        out[f"{name}/q"] = np.asarray(q.astype(jnp.float32))
+        out.update({f"{name}/{k}": v for k, v in _stats_out(s).items()})
+    return out
+
+
+def job_quantize_tree(a, seed, il, fl):
+    """``fixed_point.quantize_tree`` under the default policy, nearest."""
+    from repro.core import fixed_point as fxp
+    from repro.core.policy import QuantPolicy
+    cfg, mod, params = _smoke_params(seed)
+    q, s = fxp.quantize_tree(params, fxp.FixedPointFormat.create(il, fl),
+                             mode="nearest",
+                             predicate=QuantPolicy().param_predicate())
+    out = flatten(_np_params(params), "params/")
+    out.update(flatten(_np_params(q), "q/"))
+    out.update({f"stats/{k}": v for k, v in _stats_out(s).items()})
+    return out
+
+
+def job_qtap(a, acts, grads, salt):
+    """``QCtx.tap`` forward (q, stats) and its custom-vjp backward, nearest."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core import qtrain
+    from repro.core.fixed_point import FixedPointFormat
+    qctx = qtrain.QCtx(acts_fmt=FixedPointFormat.create(*acts),
+                       grads_fmt=FixedPointFormat.create(*grads),
+                       key=jax.random.key(0), rounding="nearest",
+                       collect_stats=True)
+    x = jnp.asarray(a["x"])
+    q, s = qctx.tap(x, salt)
+    _, vjp = jax.vjp(lambda v: qctx.tap(v, salt)[0], x)
+    (g,) = vjp(jnp.asarray(a["cot"]))
+    out = {"q": np.asarray(q), "g": np.asarray(g)}
+    out.update(_stats_out(s))
+    return out
+
+
+def job_controllers(a, names, hyper):
+    """Each controller driven over one shared [T] stats/loss sequence."""
+    import jax.numpy as jnp
+    from repro.core import dps
+    from repro.core.fixed_point import QuantStats
+    out = {}
+    for name in names:
+        ctrl = dps.make_controller(name, dps.DPSHyper(**hyper))
+        st = ctrl.init()
+        ils, fls = [np.asarray(st.il)], [np.asarray(st.fl)]
+        for t in range(a["count"].shape[0]):
+            stats = QuantStats(*(jnp.asarray(a[k][t]) for k in STAT_NAMES))
+            st = ctrl.update(st, stats, {"loss": jnp.asarray(a["loss"][t])})
+            ils.append(np.asarray(st.il))
+            fls.append(np.asarray(st.fl))
+        out[f"{name}/il"], out[f"{name}/fl"] = np.stack(ils), np.stack(fls)
+    return out
+
+
+def job_optim(a, kind, steps, kw):
+    """``steps`` replicated optimizer updates; params after each."""
+    import jax
+    import jax.numpy as jnp
+    from repro.optim import AdamWConfig, SGDConfig, make_optimizer
+    opt = make_optimizer(SGDConfig(**kw) if kind == "sgd"
+                         else AdamWConfig(**kw))
+    params = jax.tree.map(jnp.asarray, unflatten(a, "params/"))
+    state = opt.init(params)
+    out = {}
+    for t in range(steps):
+        grads = jax.tree.map(jnp.asarray, unflatten(a, f"grads{t}/"))
+        upd, state = opt.update(grads, state, params, count=jnp.int32(t))
+        params = jax.tree.map(lambda p, u: p + u, params, upd)
+        out.update(flatten(_np_params(params), f"p{t}/"))
+        out[f"lr{t}"] = np.asarray(opt.sched(jnp.int32(t)), np.float32)
+    return out
+
+
+def _run_train(step_fn, state, batches, names=("loss", "il_w", "fl_w",
+                                                "il_a", "fl_a", "il_g",
+                                                "fl_g", "E_a", "R_a", "E_g",
+                                                "E_w")):
+    hist = {k: [] for k in names}
+    for b in batches:
+        state, m = step_fn(state, b)
+        for k in names:
+            hist[k].append(float(m[k]))
+    return state, {k: np.asarray(v, np.float64) for k, v in hist.items()}
+
+
+def job_lenet_train(a, steps, n_train, qkw=None):
+    """LeNet from ``lenet.init(key(0))``: ``steps`` paper-controller steps
+    under nearest rounding on ``MNISTLike(n_train=...)``; ``qkw`` goes to
+    ``paper_quant_config``."""
+    import jax
+    from repro.apps.mnist import paper_quant_config
+    from repro.core import qtrain
+    from repro.data import MNISTLike
+    from repro.models import lenet
+    from repro.optim import SGDConfig, make_optimizer
+    params = lenet.init(jax.random.key(0))
+    out = flatten(_np_params(params), "params/")
+    qcfg = paper_quant_config(rounding="nearest", **(qkw or {}))
+    opt = make_optimizer(SGDConfig())
+    step_fn = jax.jit(qtrain.make_train_step(lenet.loss_fn, opt, qcfg))
+    state = qtrain.TrainState.create(params, opt.init(params), qcfg,
+                                     jax.random.key(1))
+    data = MNISTLike(batch=64, seed=0, n_train=n_train, n_test=64)
+    _, hist = _run_train(step_fn, state,
+                         [data.train_batch(i) for i in range(steps)])
+    out.update({f"hist/{k}": v for k, v in hist.items()})
+    return out
+
+
+def job_lm_train(a, steps, seq, batch, remat):
+    """Smoke llama3.2-3b from ``init_params(key(0))``: ``steps`` SGD steps
+    under nearest rounding on the synthetic token stream."""
+    import dataclasses
+    import jax
+    from repro.core import qtrain
+    from repro.data import TokenStream, TokenStreamConfig
+    from repro.models import registry
+    from repro.models.common import init_params
+    from repro.optim import SGDConfig, make_optimizer
+    cfg = dataclasses.replace(_smoke_cfg(), remat=remat)
+    mod = registry(cfg.family)
+    params = init_params(jax.random.key(0), mod.model_defs(cfg))
+    out = flatten(_np_params(params), "params/")
+    qcfg = qtrain.QuantConfig(rounding="nearest")
+    opt = make_optimizer(SGDConfig())
+    step_fn = jax.jit(qtrain.make_train_step(mod.loss_fn(cfg), opt, qcfg))
+    state = qtrain.TrainState.create(params, opt.init(params), qcfg,
+                                     jax.random.key(1))
+    data = TokenStream(TokenStreamConfig(vocab=cfg.vocab, seq_len=seq,
+                                         global_batch=batch, seed=0))
+    _, hist = _run_train(step_fn, state,
+                         [data.batch(i) for i in range(steps)])
+    out.update({f"hist/{k}": v for k, v in hist.items()})
+    return out
 
 
 def _child_main(fin, fout):
