@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
 
-Drives ``repro_torch``'s two paths — serving (``python -m
-repro_torch.launch.serve``) and quantized training (``python -m
-repro_torch.launch.train``, and the paper's LeNet app) — and holds every CUDA
-kernel on them against its plain PyTorch version.  Phases, each printing one
+Drives ``repro_torch``'s paths — serving (``python -m
+repro_torch.launch.serve``), quantized training (``python -m
+repro_torch.launch.train``, and the paper's LeNet app) and data-parallel
+training over the int8 wire (``launch.train --grad-allreduce-bits 8
+--data-ranks 4``) — and holds every CUDA kernel on them against its plain
+PyTorch version.  Phases, each printing one
 JSON line; any failure raises and the process exits non-zero:
 
 1. device  — the card's name, and its power limit as ``nvidia-smi`` gives it.
@@ -53,9 +55,35 @@ JSON line; any failure raises and the process exits non-zero:
              K1b: finite losses, <IL, FL> chosen on the device, 80 quantizer
              launches a step.  Then 3 steps with ``--rounding-bits operand``,
              every event on K1: 647 launches a step.
+8. wire    — the int8 wire of data-parallel training.  The wire quantizer
+             K2/K2b (sizes, bf16, unaligned pointers and Philox offsets,
+             saturating formats, statistics on and off, a slot of a larger
+             buffer, NaN), the fused decode-reduce K4 (1-8 ranks, several
+             formats, ragged chunks, strided rows) and the grouped encoder's
+             Philox source K3b (every owner's chunk of several layouts)
+             against their plain versions, wire bytes and means bit-equal;
+             K3's counts exact on a group of 16,781,312 elements.  At the
+             path's shapes: K2 (bits operand, and nearest) and K2b on the
+             w_in gradient leaf, K4 on one owner's [4, c] strided view of the
+             full tree's layout, K3b and K3 with a bits operand on that
+             owner's chunk, each timed beside its plain version and bound.
+             Then ``dps_allreduce_mean_tree`` on a ragged tree over 4 ranks
+             (scalar and per-leaf formats, nearest rounding, and stochastic
+             with Philox and with a bits operand), kernels vs plain versions:
+             means bit-equal; ``ProcessGroupTransport`` over NCCL with one
+             rank equals ``StackedTransport(1)``.  Then ``repro_torch.launch.
+             train --arch llama3_2_3b --steps 4 --batch 4 --seq 512
+             --optimizer sgd --grad-allreduce-bits 8 --data-ranks 4``: 4
+             data-parallel ranks on the card at full width, finite losses,
+             the wire formats chosen on the device, and per step 4 x 11 K2b
+             launches, 4 K4, 4 K3b and 280 K1b, as the CPU rehearsal of the
+             step counts them.  Last, the same for 2 steps with
+             ``--rounding-bits operand``: per step 4 x 11 K2, 4 K4, 4 K3 and
+             1,603 K1 (stacked leaves one layer at a time).
 
 The line before the last two carries the kernels (launches on their path —
-K1's from the LM run with a bits operand, LeNet's beside them —
+K1's from the LM run with a bits operand, LeNet's beside them; K2b's, K3b's
+and K4's from the wire run; K2's from the wire run with a bits operand —
 error against the plain version, time, plain time, bound); the line before
 the last is ``nvidia-smi``'s name and power limit; the last line of standard
 output is ``{"ok": true, "device": {"platform": "gpu", "kind": <name>,
@@ -586,6 +614,7 @@ def quant_checks(cfg):
         main_path=[{k: r[k] for k in ("name", "shape", "ms", "ms_no_stats",
                                       "plain_ms", "bound_ms", "bound_by")}
                    for r in rows],
+
         tap={"ms": tap_ms, "plain_ms": tap_plain_ms})
     return rows
 
@@ -828,6 +857,537 @@ def train_lm(cfg, rounding_bits, steps):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the wire path: K2/K2b, K3b, K4, the collectives, data-parallel training
+# ---------------------------------------------------------------------------
+
+def check_wire_quant(x, il, fl, bits=None, *, stats=True, out_offset=None):
+    """One K2/K2b configuration, kernel vs plain on the card: wire bytes
+    equal, statistics per ``_stats_match``, a second launch equal.
+    ``out_offset`` writes the kernel's wire into a larger buffer at that
+    offset (an unaligned slot takes the scalar path).  Returns (the largest
+    |byte_kernel - byte_plain|, the largest relative difference of a float
+    sum)."""
+    il, fl = _i32(il), _i32(fl)
+    out = None
+    if out_offset is not None:
+        buf = torch.full((x.numel() + out_offset + 5,), 77, dtype=torch.int8,
+                         device=DEV)
+        out = buf[out_offset:out_offset + x.numel()].view(x.shape)
+    wk, sk = dps_quant.dps_quant_wire(x, il, fl, bits, compute_stats=stats,
+                                      out=out, backend="kernel")
+    wp, sp = dps_quant.dps_quant_wire(x, il, fl, bits, compute_stats=stats,
+                                      backend="plain")
+    torch.cuda.synchronize()
+    if not torch.equal(wk, wp):
+        raise AssertionError(
+            f"wire quantizer: {int((wk != wp).sum())} of {x.numel()} bytes "
+            f"differ ({x.dtype}, {_bits_name(bits)})")
+    if out_offset is not None and not (bool((buf[:out_offset] == 77).all())
+                                       and bool((buf[-5:] == 77).all())):
+        raise AssertionError("wire quantizer wrote outside its slot")
+    err = _byte_err(wk, wp)
+    if not stats:
+        if sk is not None:
+            raise AssertionError("compute_stats=False returned statistics")
+        return err, 0.0
+    rel = _stats_match(sk, sp, x.numel())
+    wk2, sk2 = dps_quant.dps_quant_wire(x, il, fl, bits, backend="kernel")
+    if not (torch.equal(wk, wk2) and torch.equal(sk, sk2)):
+        raise AssertionError("wire quantizer: two launches gave different bits")
+    return err, rel
+
+
+def _byte_err(a, b):
+    """The largest |a - b| of two int8 tensors, as a float."""
+    if not a.numel():
+        return 0.0
+    return float((a.to(torch.int16) - b.to(torch.int16)).abs().max())
+
+
+def check_reduce(wire, tab, tg, quantum):
+    """K4 vs plain on the card: the means bit-equal."""
+    mk = dps_quant.dps_wire_reduce(wire, tab, tg, quantum=quantum,
+                                   backend="kernel")
+    mp = dps_quant.dps_wire_reduce(wire, tab, tg, quantum=quantum,
+                                   backend="plain")
+    torch.cuda.synchronize()
+    if not torch.equal(mk.view(torch.int32), mp.view(torch.int32)):
+        raise AssertionError(f"wire reduce: {int((mk != mp).sum())} of "
+                             f"{mk.numel()} means differ (n={wire.shape[0]}, "
+                             f"quantum={quantum})")
+    return float((mk - mp).abs().max()) if mk.numel() else 0.0
+
+
+def check_group_prng(x, tab, tg, src, quantum, *, mask=None, stats=True):
+    """K3b vs plain, and K3b vs K3 fed the same Philox words: bytes equal,
+    statistics exact (counts) and to SUM_RTOL (sums)."""
+    kw = dict(quantum=quantum, emit_stats=stats)
+    wk, sk = dps_quant.dps_quant_group_wire(x, tab, tg, src, mask,
+                                            backend="kernel", **kw)
+    wp, sp = dps_quant.dps_quant_group_wire(x, tab, tg, src, mask,
+                                            backend="plain", **kw)
+    words = dps_quant.group_philox_bits(src, tg, quantum)
+    wb, sb = dps_quant.dps_quant_group_wire(x, tab, tg, words, mask,
+                                            backend="kernel", **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(wk, wp) and torch.equal(wk, wb)):
+        raise AssertionError(f"K3b: bytes differ from the plain version or "
+                             f"from K3 fed the same words (quantum {quantum})")
+    rel = 0.0
+    if stats:
+        exact = [0, 1, 2, 6]
+        if not (torch.equal(sk[:, exact], sp[:, exact])
+                and torch.equal(sk[:, exact], sb[:, exact])):
+            raise AssertionError("K3b: count/nonzero/overflow/max_abs differ")
+        rel = max(float(((sk[:, 3:6] - o[:, 3:6]).abs()
+                         / o[:, 3:6].abs().clamp(min=1e-30)).max())
+                  for o in (sp, sb))
+        if rel > SUM_RTOL:
+            raise AssertionError(f"K3b: float sums differ by {rel:.3g}")
+    return rel
+
+
+def _layout_bits(rng, sizes, n, quantum):
+    """A group-aligned layout of ``sizes`` over ``n`` ranks and its tables
+    on the card."""
+    from repro_torch.dist import group_layout
+    lay = group_layout(sizes, n_chunks=n, quantum=quantum)
+    tg = torch.from_numpy(lay.tile_groups()).to(DEV)
+    goff = torch.tensor(lay.offsets, dtype=torch.int64, device=DEV)
+    il = rng.integers(1, 5, len(sizes))
+    tab = torch.from_numpy(np.stack([il, 8 - il], 1).astype(np.int32)).to(DEV)
+    return lay, tg, goff, tab
+
+
+def wire_kernel_checks(cfg):
+    """K2/K2b, K3b and K4 against their plain versions at small shapes and
+    at the wire path's; the exact counts of K3 on a group past 2^24
+    elements.  Returns the four ``kernels`` rows (launches filled in by the
+    wire phases)."""
+    rng = np.random.default_rng(2)
+
+    def draw(n, dtype, scale=4.0, offset=0):
+        v = rng.standard_normal(n + offset).astype(np.float32) * scale
+        v[::7] = 0.0
+        return torch.from_numpy(v).to(DEV).to(dtype)[offset:]
+
+    def npbits(n):
+        return torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)
+                                .view(np.int32)).to(DEV)
+
+    small, worst = [], 0.0
+    # K2 / K2b: sizes, types, alignment, bit sources, saturation, statistics
+    for n in (1, 3, 1023, 100_003, 4096):
+        for dtype in (torch.float32, torch.bfloat16):
+            for offset in (0, 1):
+                x = draw(n, dtype, offset=offset)
+                bits = npbits(n)
+                for il, fl in ((3, 5), (6, 6)):          # (6, 6) saturates
+                    for stats in (False, True):
+                        for src in (None, bits, dps_quant.Philox(99 + n),
+                                    dps_quant.Philox(99 + n, offset=6),
+                                    dps_quant.Philox(99 + n, offset=3)):
+                            worst = max(worst, check_wire_quant(
+                                x, il, fl, src, stats=stats)[1])
+                worst = max(worst, check_wire_quant(
+                    x, 3, 5, dps_quant.Philox(5), out_offset=3)[1])
+                worst = max(worst, check_wire_quant(x, 3, 5, out_offset=16)[1])
+                for off in (0, 3, 8):
+                    a, sa = dps_quant.dps_quant_wire(
+                        x, _i32(3), _i32(5), dps_quant.Philox(11, off),
+                        backend="kernel")
+                    b, sb = dps_quant.dps_quant_wire(
+                        x, _i32(3), _i32(5),
+                        dps_quant.philox_bits(11, n, DEV, offset=off),
+                        backend="kernel")
+                    if not torch.equal(a, b):
+                        raise AssertionError("K2b differs from K2 fed the "
+                                             "same Philox words")
+                    _stats_match(sa, sb, n)
+            small.append(f"wire n={n} {dtype}")
+    # NaN and infinities: the same byte from the kernel and the plain version
+    xn = torch.tensor([float("nan"), float("inf"), -float("inf"), 0.5, -0.25,
+                       float("nan"), 3.0, 1e9], device=DEV)
+    check_wire_quant(xn, 3, 5, stats=False)
+    nan_byte = int(dps_quant.dps_quant_wire(xn, _i32(3), _i32(5),
+                                            backend="kernel")[0][0])
+    # K4: rank counts, tables, ragged chunks, strided rows
+    for n_ranks, chunk, quantum, groups, stride_pad in (
+            (1, 4096, 4096, 1, 0), (2, 8192, 4096, 2, 0), (3, 1000, 100, 4, 0),
+            (4, 777, 7, 3, 5), (5, 4096 * 3, 4096, 3, 4096 * 2),
+            (8, 160, 16, 2, 16), (7, 12345, 4096, 2, 0), (6, 64, 16, 4, 3)):
+        tiles = -(-chunk // quantum)
+        big = torch.from_numpy(rng.integers(-128, 127, (n_ranks, chunk + stride_pad),
+                                            dtype=np.int8, endpoint=True)).to(DEV)
+        w = big[:, :chunk]                                # rows stride apart
+        il = rng.integers(1, 6, groups)
+        tab = torch.from_numpy(np.stack([il, 8 - il], 1).astype(np.int32)).to(DEV)
+        tg = torch.from_numpy(np.sort(rng.integers(0, groups, tiles))
+                              .astype(np.int32)).to(DEV)
+        check_reduce(w, tab, tg, quantum)
+        check_reduce(w, tab[:1].contiguous(), None, quantum)
+        small.append(f"reduce n={n_ranks} chunk={chunk} q={quantum} G={groups} "
+                     f"row_stride={chunk + stride_pad}")
+    # K3b: per-group streams over layouts, every owner's chunk
+    for sizes, n_ranks, quantum, dtype in (((700, 3000, 5), 3, 128, torch.float32),
+                                           ((5000, 37, 9000, 1), 4, 4096, torch.float32),
+                                           ((301, 77), 2, 6, torch.float32),
+                                           ((1000, 2000), 2, 64, torch.bfloat16)):
+        lay, tg, goff, tab = _layout_bits(rng, sizes, n_ranks, quantum)
+        x = draw(lay.total, dtype, scale=0.5)
+        mask = torch.from_numpy((rng.random(lay.total) > 0.1)
+                                .astype(np.float32)).to(DEV)
+        tpc = lay.chunk // quantum
+        for j in range(n_ranks):
+            src = dps_quant.GroupPhilox(4242, goff, start=j * lay.chunk,
+                                        group_base=j % 2)
+            xs = x[j * lay.chunk:(j + 1) * lay.chunk]
+            tj = tg[j * tpc:(j + 1) * tpc]
+            for stats in (False, True):
+                worst = max(worst, check_group_prng(xs, tab, tj, src, quantum,
+                                                    stats=stats))
+            worst = max(worst, check_group_prng(
+                xs, tab, tj, src, quantum,
+                mask=mask[j * lay.chunk:(j + 1) * lay.chunk]))
+        small.append(f"group prng sizes={sizes} n={n_ranks} q={quantum} {dtype}")
+
+    # K3's counts past 2^24 in one group (about 16.86 M of its 17.2 M
+    # elements kept by the mask): float32 partial counts would round
+    T, q = 4200, 4096
+    xb = draw(T * q, torch.float32, scale=8.0)
+    mb = torch.from_numpy((rng.random(T * q) > 0.02).astype(np.float32)).to(DEV)
+    tab1 = torch.tensor([[1, 2]], dtype=torch.int32, device=DEV)
+    tg1 = torch.zeros(T, dtype=torch.int32, device=DEV)
+    _, sk = dps_quant.dps_quant_group_wire(xb, tab1, tg1, None, mb, quantum=q,
+                                           backend="kernel")
+    _, sp = dps_quant.dps_quant_group_wire(xb, tab1, tg1, None, mb, quantum=q,
+                                           backend="plain")
+    want = [float(np.float32(int((mb != 0).sum().item()))),
+            float(np.float32(int(((xb != 0) & (mb != 0)).sum().item())))]
+    if not (torch.equal(sk[:, [0, 1, 2, 6]], sp[:, [0, 1, 2, 6]])
+            and sk[0, :2].tolist() == want and want[0] > 1 << 24):
+        raise AssertionError(f"K3 counts past 2^24: {sk[0, :3].tolist()} vs "
+                             f"plain {sp[0, :3].tolist()}, exact {want}")
+    big_counts = {"elements": T * q, "count": float(sk[0, 0]),
+                  "nonzero": float(sk[0, 1]), "overflow": float(sk[0, 2])}
+    del xb, mb
+
+    # --- the wire path's shapes, llama3.2-3b at full width, 4 ranks ---
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.dist import group_layout
+    from repro_torch.models import transformer
+    defs = transformer.model_defs(cfg, cfg.master_dtype())
+    sizes = tuple(math.prod(d.shape) for d in tree_lib.leaves(defs))
+    L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
+    w_in = L * D * F
+    # K2b on the w_in gradient leaf (grads of a random-init LM are ~1e-4;
+    # the wire format of that domain starts at <6, 2> and settles at <1, 7>)
+    g = torch.Generator(device=DEV).manual_seed(8)
+    x = torch.randn(w_in, generator=g, device=DEV) * 0.02
+    x[::11] = 0.0
+    il, fl = 1, 7
+    errs, rels = {}, {}
+    errs["w_in_k2b"], rels["w_in_k2b"] = check_wire_quant(x, il, fl,
+                                                          dps_quant.Philox(21))
+    wbits = torch.randint(-2**31, 2**31, (w_in,), dtype=torch.int32,
+                          device=DEV, generator=g)
+    errs["w_in_k2"], rels["w_in_k2"] = check_wire_quant(x, il, fl, wbits)
+    errs["w_in_k2_nearest"], rels["w_in_k2_nearest"] = check_wire_quant(x, il, fl)
+    check_wire_quant(x, il, fl, dps_quant.Philox(21), stats=False)
+
+    def wire_row(name, bits, nbytes, nops, note):
+        key = "w_in_k2b" if "prng" in name else "w_in_k2"
+        args = (x, _i32(il), _i32(fl), bits)
+        ms = time_ms(lambda: dps_quant.dps_quant_wire(*args, backend="kernel"),
+                     repeats=10)
+        ms_ns = time_ms(lambda: dps_quant.dps_quant_wire(
+            *args, compute_stats=False, backend="kernel"), repeats=10)
+        plain_ms = time_ms(lambda: dps_quant.dps_quant_wire(
+            *args, backend="plain"), repeats=3, warmup=1)
+        b, by = bound(nbytes, nops)
+        return {"name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/dps_quant.cu",
+                "replaces": "src/repro/kernels/dps_quant.py:288",
+                "shape": f"w_in gradient leaf {L}x{D}x{F} = {w_in} fp32 -> "
+                         f"int8, {note}, statistics on (leg 1, one launch "
+                         "per leaf per rank)",
+                "max_abs_err": errs[key], "stats_max_rel_err": rels[key],
+                "ms": ms, "plain_ms": plain_ms, "ms_no_stats": ms_ns,
+                "bound_ms": b, "bound_by": by, "bytes": nbytes,
+                "library_ms": None}
+
+    # bytes: x in (4 B), wire out (1 B), <IL, FL> in, 7 stats out; K2 also
+    # reads the bits (4 B)
+    k2b = wire_row("dps_quant_wire_onchip_prng", dps_quant.Philox(21),
+                   5 * w_in + 8 + 28, 49 * w_in, "Philox bits in the kernel")
+    k2 = wire_row("dps_quant_wire", wbits, 9 * w_in + 8 + 28, 24 * w_in,
+                  "a bits operand (--rounding-bits operand)")
+    del x, wbits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # K4 on owner 1's [4, c] view of the full tree's per-layer layout
+    n_ranks = 4
+    lay = group_layout(sizes, n_chunks=n_ranks, quantum=4096)
+    c, tpc = lay.chunk, lay.chunk // 4096
+    tg = torch.from_numpy(lay.tile_groups()).to(DEV)
+    goff = torch.tensor(lay.offsets, dtype=torch.int64, device=DEV)
+    il_g = rng.integers(1, 3, len(sizes))
+    tab = torch.from_numpy(np.stack([il_g, 8 - il_g], 1).astype(np.int32)).to(DEV)
+    stack = torch.randint(-128, 127, (n_ranks, lay.total), dtype=torch.int8,
+                          device=DEV, generator=g)
+    view = stack.view(n_ranks, n_ranks, c).transpose(0, 1)[1]
+    tg1 = tg[tpc:2 * tpc]
+    errs["reduce"] = check_reduce(view, tab, tg1, 4096)
+    red_bytes = n_ranks * c + 4 * c + 4 * tpc + 8 * len(sizes)
+    red_ops = (2 * n_ranks + 1) * c
+    red_ms = time_ms(lambda: dps_quant.dps_wire_reduce(
+        view, tab, tg1, quantum=4096, backend="kernel"), repeats=10)
+    red_plain = time_ms(lambda: dps_quant.dps_wire_reduce(
+        view, tab, tg1, quantum=4096, backend="plain"), repeats=3, warmup=1)
+    part = dps_quant.dps_wire_reduce(view, tab, tg1, quantum=4096,
+                                     backend="kernel")
+    del stack, view
+    gc.collect()
+    torch.cuda.empty_cache()
+    b, by = bound(red_bytes, red_ops)
+    k4 = {"name": "dps_wire_reduce", "route": "cuda",
+          "source": "src/repro_torch/kernels/csrc/dps_quant.cu",
+          "replaces": "src/repro/kernels/dps_quant.py:544",
+          "shape": f"[{n_ranks}, {c}] int8 (owner 1's strided view of the "
+                   f"[{n_ranks}, {lay.total}] stack, row stride {lay.total}) "
+                   f"-> fp32 [{c}], {len(sizes)} formats, quantum 4096",
+          "max_abs_err": errs["reduce"], "ms": red_ms, "plain_ms": red_plain,
+          "bound_ms": b, "bound_by": by, "bytes": red_bytes, "library_ms": None}
+
+    # K3b on that owner's mean chunk, as leg 2 launches it (no statistics)
+    src = dps_quant.GroupPhilox(31, goff, start=c)
+    out = torch.empty(c, dtype=torch.int8, device=DEV)
+    wk, _ = dps_quant.dps_quant_group_wire(part, tab, tg1, src, None,
+                                           quantum=4096, emit_stats=False,
+                                           out=out, backend="kernel")
+    wp, _ = dps_quant.dps_quant_group_wire(part, tab, tg1, src, None,
+                                           quantum=4096, emit_stats=False,
+                                           backend="plain")
+    if not torch.equal(wk, wp):
+        raise AssertionError("K3b at the path's shape differs from its plain "
+                             "version")
+    errs["k3b"] = _byte_err(wk, wp)
+    del wp
+    # K3 with a bits operand on that chunk, as leg 2 launches it under
+    # --rounding-bits operand
+    obits = torch.randint(-2**31, 2**31, (c,), dtype=torch.int32, device=DEV,
+                          generator=g)
+    wk, _ = dps_quant.dps_quant_group_wire(part, tab, tg1, obits, None,
+                                           quantum=4096, emit_stats=False,
+                                           out=out, backend="kernel")
+    wp, _ = dps_quant.dps_quant_group_wire(part, tab, tg1, obits, None,
+                                           quantum=4096, emit_stats=False,
+                                           backend="plain")
+    if not torch.equal(wk, wp):
+        raise AssertionError("K3 with a bits operand at the wire path's shape "
+                             "differs from its plain version")
+    errs["k3_operand"] = _byte_err(wk, wp)
+    del wp, obits
+    g3_bytes = 4 * c + c + 4 * tpc + 8 * len(sizes) + 8 * len(sizes)
+    g3_ms = time_ms(lambda: dps_quant.dps_quant_group_wire(
+        part, tab, tg1, src, None, quantum=4096, emit_stats=False, out=out,
+        backend="kernel"), repeats=10)
+    g3_plain = time_ms(lambda: dps_quant.dps_quant_group_wire(
+        part, tab, tg1, src, None, quantum=4096, emit_stats=False,
+        backend="plain"), repeats=2, warmup=1)
+    b, by = bound(g3_bytes, 37 * c)
+    k3b = {"name": "dps_group_wire_encode_onchip_prng", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/dps_quant.cu",
+           "replaces": "src/repro/kernels/dps_quant.py:482",
+           "shape": f"one owner chunk of {c} fp32 -> int8, {len(sizes)} "
+                    "formats, quantum 4096, Philox per group, no statistics "
+                    "(leg 2)",
+           "max_abs_err": errs["k3b"], "ms": g3_ms, "plain_ms": g3_plain,
+           "bound_ms": b, "bound_by": by, "bytes": g3_bytes, "library_ms": None}
+    del part, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rows = [k2, k2b, k3b, k4]
+    say("wire_kernels", small_shapes=small, small_worst_sum_rel=worst,
+        nan_byte=nan_byte, k3_counts_past_2_24=big_counts,
+        main_path_sum_rel=rels, main_path_max_abs_err=errs,
+        tolerances={"wire_bytes": "bit-equal", "reduce_mean": "bit-equal",
+                    "float_sums_rel": SUM_RTOL,
+                    "counts": "exact below 2^24, 1 ulp above (K1/K2); "
+                              "exact (K3)"},
+        main_path=[{k: r[k] for k in ("name", "shape", "ms", "plain_ms",
+                                      "bound_ms", "bound_by")} for r in rows])
+    return rows
+
+
+def _map_shapes(shapes, fn):
+    if isinstance(shapes, dict):
+        return {k: _map_shapes(v, fn) for k, v in shapes.items()}
+    return fn(shapes)
+
+
+def _ragged_tree(rng, n):
+    """n ranks' trees of leaves that are not multiples of the quantum."""
+    shapes = {"a": (7, 13), "b": (4097,), "c": {"d": (300, 5), "e": (1,)},
+              "f": (2, 3, 4096)}
+    return [_map_shapes(shapes, lambda s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32) * 0.3).to(DEV))
+        for _ in range(n)]
+
+
+def wire_collectives():
+    """``dps_allreduce_mean_tree`` on the card, kernels vs plain versions,
+    on a ragged tree over 4 ranks: scalar and per-leaf formats, nearest and
+    stochastic rounding (Philox in the kernels, and a bits operand drawn on
+    the card, the same words for both sides); the means bit-equal, the
+    statistics exact and to SUM_RTOL.  Then ``ProcessGroupTransport`` over
+    NCCL with one rank against ``StackedTransport(1)``."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.core.fixed_point import FixedPointFormat
+    from repro_torch.dist import (ProcessGroupTransport, StackedTransport,
+                                  dps_allreduce_mean_tree, psum_stats)
+    rng = np.random.default_rng(4)
+    n = 4
+    trees = _ragged_tree(rng, n)
+    G = len(tree_lib.leaves(trees[0]))
+    fmts = {"scalar": FixedPointFormat.create(2, 6, DEV),
+            "per_leaf": FixedPointFormat(
+                torch.tensor([2, 1, 3, 2, 1, 2][:G], dtype=torch.int32, device=DEV),
+                torch.tensor([6, 7, 5, 6, 7, 6][:G], dtype=torch.int32, device=DEV))}
+    tr = StackedTransport(n, DEV)
+    compared = {}
+    for mode, onchip in (("nearest", True), ("stochastic", True),
+                         ("stochastic", False)):
+        for name, fmt in fmts.items():
+            out = {}
+            for backend in ("kernel", "plain"):
+                m, st = dps_allreduce_mean_tree(trees, fmt, tr, 1234, mode=mode,
+                                                backend=backend,
+                                                onchip_prng=onchip)
+                out[backend] = (m, psum_stats(st, tr))
+            (mk, sk), (mp, sp) = out["kernel"], out["plain"]
+            for a, b in zip(tree_lib.leaves(mk), tree_lib.leaves(mp)):
+                if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                    raise AssertionError(f"tree all-reduce ({name}, {mode}): "
+                                         "kernel mean differs from plain")
+            for f in ("count", "nonzero", "overflow", "max_abs"):
+                if not torch.equal(getattr(sk, f), getattr(sp, f)):
+                    raise AssertionError(f"tree all-reduce ({name}, {mode}): "
+                                         f"{f} differs")
+            rel = max(float(((getattr(sk, f) - getattr(sp, f)).abs()
+                             / getattr(sp, f).abs().clamp(min=1e-30)).max())
+                      for f in ("abs_err_sum", "rel_err_sum", "abs_sum"))
+            if rel > SUM_RTOL:
+                raise AssertionError(f"tree all-reduce: sums differ by {rel}")
+            exact = sum(t["b"] for t in trees) / n
+            src = "" if mode == "nearest" else ("/philox" if onchip else "/operand")
+            compared[f"{name}/{mode}{src}"] = {
+                "mean_bit_equal": True, "stats_sum_rel": rel,
+                "b_max_abs_err_vs_fp32_mean": float((mk["b"] - exact).abs().max())}
+    # one rank: torch.distributed (NCCL) against the stacked transport
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+        try:
+            one = trees[:1]
+            for mode in ("nearest", "stochastic"):
+                for fmt in fmts.values():
+                    a, sa = dps_allreduce_mean_tree(one, fmt, ProcessGroupTransport(),
+                                                    77, mode=mode)
+                    b, sb = dps_allreduce_mean_tree(one, fmt, StackedTransport(1, DEV),
+                                                    77, mode=mode)
+                    if not all(torch.equal(x, y) for x, y in
+                               zip(tree_lib.leaves(a), tree_lib.leaves(b))):
+                        raise AssertionError("ProcessGroupTransport (NCCL, 1 "
+                                             "rank) differs from StackedTransport(1)")
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    say("wire_collectives", ranks=n, leaves=G, compared=compared,
+        nccl_one_rank_equals_stacked=True)
+
+
+def _wire_step_launches(cfg, n_ranks, rounding_bits):
+    """Kernel launches a step of the int8-wire data-parallel step, per-layer
+    formats, stochastic rounding: every quantizer event of the replicated
+    step with the forward/backward and the raw-gradient statistics once per
+    rank, the wire quantizer once per leaf per rank, K4 and the grouped
+    encoder once per owner.  ``onchip``: K1b, K2b, K3b; ``operand``: K1 (a
+    stacked leaf one layer at a time, as ``quantize_tree`` bounds its bits),
+    K2, K3."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.models import transformer
+    defs = transformer.model_defs(cfg, cfg.master_dtype())
+    pred = QuantPolicy().param_predicate()
+    paths = tree_lib.leaves_with_path(defs)
+    G, L = len(paths), cfg.n_layers
+    quantized = [d.shape for p, d in paths if pred(p, d)]
+    if rounding_bits == "onchip":
+        events = len(quantized)
+    else:
+        events = sum(s[0] if len(s) >= 3 and s[0] > 4 and math.prod(s) > 1 << 22
+                     else 1 for s in quantized)
+    sfx = "_onchip_prng" if rounding_bits == "onchip" else ""
+    out = {k: 0 for k in ("dps_quantize", "dps_quantize_onchip_prng",
+                          "dps_quant_wire", "dps_quant_wire_onchip_prng",
+                          "dps_group_wire_encode",
+                          "dps_group_wire_encode_onchip_prng")}
+    out.update({"dps_quantize" + sfx: 3 * events + n_ranks * (2 * L + events),
+                "dps_quant_wire" + sfx: n_ranks * G,
+                "dps_group_wire_encode" + sfx: n_ranks,
+                "dps_wire_reduce": n_ranks})
+    return out
+
+
+def train_wire(cfg, steps=4, n_ranks=4, rounding_bits="onchip"):
+    """The int8-wire data-parallel trainer's CLI at full size: n_ranks ranks
+    on the card, batch 1 x 512 each, per-layer wire formats; K1b/K2b/K3b/K4,
+    or K1/K2/K3/K4 with ``rounding_bits="operand"``."""
+    from repro_torch.launch import train as train_cli
+    argv = ["--arch", "llama3_2_3b", "--steps", str(steps), "--batch",
+            str(n_ranks), "--seq", "512", "--optimizer", "sgd",
+            "--grad-allreduce-bits", "8", "--data-ranks", str(n_ranks),
+            "--rounding-bits", rounding_bits, "--log-every", "1"]
+    train_cli.reset_launch_counts()            # the counted run
+    out = train_cli.main(argv)
+    launches = train_cli.launch_counts()
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    if len(hist) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"wire training: losses {losses}")
+    if not out["wire_sync"]:
+        raise AssertionError("wire training: the int8 wire did not engage")
+    want = _wire_step_launches(cfg, n_ranks, rounding_bits)
+    per_step = [h["kernel_launches"] for h in hist]
+    if per_step != [want] * steps or launches != {k: v * steps
+                                                 for k, v in want.items()}:
+        raise AssertionError(f"wire training: launches {per_step} a step, "
+                             f"wanted {want}")
+    keys = ("il_w", "fl_w", "il_a", "fl_a", "il_g", "fl_g", "il_wire_grads",
+            "fl_wire_grads", "il_wire_grads_min", "il_wire_grads_max",
+            "fl_wire_grads_min", "fl_wire_grads_max", "E_wire", "R_wire")
+    traj = [{k: h[k] for k in keys} for h in hist]
+    say("wire_train", command="python -m repro_torch.launch.train " + " ".join(argv),
+        params=out["params"], data_ranks=n_ranks, rounding_bits=rounding_bits,
+        losses=losses,
+        first_step_s=out["first_step_s"],
+        ms_per_step_after_first=out["ms_per_step_after_first"],
+        tokens_per_s_after_first=out["tokens_per_s_after_first"],
+        peak_memory_bytes=out["peak_memory_bytes"], formats=traj,
+        launches=launches, launches_per_step=want,
+        E_wire=out["E_wire"], R_wire=out["R_wire"])
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -848,6 +1408,7 @@ def main():
     lay = serve_layout()
     rows = kernel_checks(cfg, lay)
     rows += quant_checks(cfg)
+    rows += wire_kernel_checks(cfg)
     # each path runs with the counts set to 0 just before it, read just after
     launches = serve(cfg, lay)
     gc.collect()
@@ -856,6 +1417,13 @@ def main():
     launches["dps_quantize_onchip_prng"] = train_lm(
         cfg, "onchip", 4)["dps_quantize_onchip_prng"]
     launches["dps_quantize"] = train_lm(cfg, "operand", 3)["dps_quantize"]
+    wire_collectives()
+    wire = train_wire(cfg)
+    for k in ("dps_quant_wire_onchip_prng", "dps_group_wire_encode_onchip_prng",
+              "dps_wire_reduce"):
+        launches[k] = wire[k]
+    launches["dps_quant_wire"] = train_wire(
+        cfg, steps=2, rounding_bits="operand")["dps_quant_wire"]
     for r in rows:
         r["launches"] = launches[r["name"]]
         if r["launches"] < 1:

@@ -281,7 +281,9 @@ def wire_quantize(
     comes out with shape ``fmt.il.shape``.
 
     ``mask`` (same shape as x, 1/0) excludes padding from the statistics
-    and zeroes the corresponding wire bytes.
+    and zeroes the corresponding wire bytes.  A NaN in x is written as the
+    byte 0 (as XLA's and the kernels' float -> int8 conversions give it) and
+    counted as overflow.  Counts are summed as integers.
 
     Returns ``(wire int8 with x's shape, stats | None)``.
     """
@@ -297,16 +299,22 @@ def wire_quantize(
     def rsum(v):
         return v.sum(dim=axes) if axes else v
 
+    def rcount(b):
+        return rsum(b.to(torch.int64)).to(torch.float32)
+
     xf, over_range, yc, q_int, inv_scale = _grid_round(x, fmt_b, mode, bits,
                                                        generator, compute_stats)
     sat = torch.clamp(q_int, WIRE_QMIN, WIRE_QMAX)
-    wire = (sat if mask is None else sat * mask.to(torch.float32)).to(torch.int8)
+    wire = torch.nan_to_num(sat if mask is None
+                            else sat * mask.to(torch.float32),
+                            nan=0.0).to(torch.int8)
 
     stats = None
     if compute_stats:
         m = (torch.ones(x.shape, dtype=torch.float32, device=x.device)
              if mask is None else mask.to(torch.float32))
-        over = (over_range | (q_int != sat)).to(torch.float32) * m
+        keep = m != 0.0
+        over = (over_range | (q_int != sat)) & keep
         x_ref = yc * inv_scale              # range-clipped reference value
         dec = sat * inv_scale               # what the receiver will decode
         abs_err = (dec - x_ref).abs() * m
@@ -319,9 +327,9 @@ def wire_quantize(
             max_abs = torch.zeros(tuple(fmt.il.shape), dtype=torch.float32,
                                   device=x.device)
         stats = QuantStats(
-            count=rsum(m),
-            nonzero=rsum((abs_ref > 0.0).to(torch.float32)),
-            overflow=rsum(over),
+            count=rcount(keep),
+            nonzero=rcount(abs_ref > 0.0),
+            overflow=rcount(over),
             abs_err_sum=rsum(abs_err),
             rel_err_sum=rsum(_rel_err(abs_err, abs_ref)),
             abs_sum=rsum(abs_ref),

@@ -111,12 +111,17 @@ def load(verbose: bool = False) -> ctypes.CDLL:
         vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                              ctypes.c_float)
         lib.dps_group_wire_encode.restype = i32
+        u64 = ctypes.c_ulonglong
         lib.dps_group_wire_encode.argtypes = [
-            vp, i32, vp, vp, vp, vp, vp, vp, vp, i64, i64, i32, i32, vp]
+            vp, i32, vp, vp, vp, vp, i32, u64, vp, i64, i64, vp, vp, vp, i64,
+            i64, i32, i32, vp]
         lib.dps_quantize.restype = i32
         lib.dps_quantize.argtypes = [
-            vp, i32, i64, vp, vp, vp, i32, ctypes.c_ulonglong, vp, vp, vp,
-            i32, i32, vp]
+            vp, i32, i64, vp, vp, vp, i32, u64, u64, vp, i32, vp, vp, i32,
+            i32, vp]
+        lib.dps_wire_reduce.restype = i32
+        lib.dps_wire_reduce.argtypes = [
+            vp, i64, i32, i64, vp, vp, i64, vp, i32, i32, vp]
         lib.paged_decode_attn.restype = i32
         lib.paged_decode_attn.argtypes = [
             vp, vp, vp, i32, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,

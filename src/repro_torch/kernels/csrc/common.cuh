@@ -42,6 +42,20 @@ __device__ __forceinline__ Philox4 philox4x32_10(uint64_t ctr, uint64_t seed) {
     return out;
 }
 
+// SplitMix64 and the seed fold of repro_torch.core.fixed_point.fold_seed for
+// one integer: fold_seed(seed, d) = splitmix64(seed ^ splitmix64(d)).  A
+// kernel keys a stream per group with it, so the host hands it one seed.
+__device__ __forceinline__ uint64_t splitmix64(uint64_t z) {
+    z += 0x9E3779B97F4A7C15ull;
+    z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9ull;
+    z = (z ^ (z >> 27)) * 0x94D049BB133111EBull;
+    return z ^ (z >> 31);
+}
+
+__device__ __forceinline__ uint64_t fold_seed(uint64_t seed, uint64_t d) {
+    return splitmix64(seed ^ splitmix64(d));
+}
+
 // Reductions in a fixed order, so a result does not change from run to run.
 __device__ __forceinline__ float warp_sum_down(float v) {
 #pragma unroll

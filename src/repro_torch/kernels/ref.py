@@ -9,6 +9,34 @@ from repro_torch.core.fixed_point import (QuantStats, ROUND_NEAREST,
                                           ROUND_STOCHASTIC)
 
 
+def dps_quant_wire_ref(x: torch.Tensor, il: torch.Tensor, fl: torch.Tensor,
+                       bits, mode: str = ROUND_STOCHASTIC):
+    """Oracle for the fused *wire* kernel: ``(wire int8, stats_vector[7])``,
+    int8 saturation folded into the overflow count — the kernel's plain
+    version, under the reference's signature."""
+    from repro_torch.kernels.dps_quant import dps_quant_wire_plain
+    if mode not in (ROUND_STOCHASTIC, ROUND_NEAREST):
+        raise ValueError(f"unknown rounding mode {mode!r}")
+    i32 = lambda v: torch.as_tensor(v, dtype=torch.int32, device=x.device)
+    return dps_quant_wire_plain(
+        x, i32(il), i32(fl),
+        bits.reshape(-1) if mode == ROUND_STOCHASTIC else None)
+
+
+def dps_wire_reduce_ref(wire: torch.Tensor, fl: torch.Tensor,
+                        tile_group: torch.Tensor, quantum: int) -> torch.Tensor:
+    """Oracle for the fused decode-reduce kernel: ``(n, chunk)`` int8 →
+    fp32 ``[chunk]`` mean, with per-tile FL from the ``[G]`` table — the
+    kernel's plain version, under the reference's signature."""
+    from repro_torch.kernels.dps_quant import dps_wire_reduce_plain
+    fl = torch.as_tensor(fl, dtype=torch.int32, device=wire.device).reshape(-1)
+    fmt_tab = torch.stack([torch.zeros_like(fl), fl], dim=1)
+    return dps_wire_reduce_plain(
+        wire, fmt_tab,
+        torch.as_tensor(tile_group, dtype=torch.int32, device=wire.device),
+        quantum=quantum)
+
+
 def dps_quant_group_wire_ref(x: torch.Tensor, il: torch.Tensor,
                              fl: torch.Tensor, tile_group: torch.Tensor,
                              bits, mask: torch.Tensor, quantum: int,

@@ -3,12 +3,15 @@
 Builds the trainer of ``repro_torch.launch.train`` (random weights from
 ``--seed`` on the GPU), runs one step to warm up, then ``--steps`` steps under
 the profiler, and prints one JSON object: wall time per step, device-busy
-time and share, device events per step, the quantizer kernels' share of the
-busy time, and the kernels that took most device time.  ``--trace-out`` also
-writes the Chrome trace.
+time and share, device events per step, the quantizer kernels' and the int8
+wire kernels' device time and share of the busy time, and the kernels that
+took most device time.  ``--trace-out`` also writes the Chrome trace.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_train --arch llama3_2_3b \\
       --steps 2 --batch 2 --seq 512 --optimizer sgd
+  PYTHONPATH=src python -m repro_torch.launch.profile_train --arch llama3_2_3b \\
+      --steps 2 --batch 4 --seq 512 --optimizer sgd --grad-allreduce-bits 8 \\
+      --data-ranks 4
 
 It takes the flags of ``repro_torch.launch.train`` plus ``--top`` and
 ``--trace-out``.  Needs a CUDA device: a CPU profile says nothing about the
@@ -24,7 +27,6 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.kernels import dps_quant
 from repro_torch.launch import train
 from repro_torch.launch.profile_serve import device_us
 
@@ -41,7 +43,7 @@ def main(argv=None):
     cfg, step_fn, state, data = train.setup(args)
     state, m = step_fn(state, data.batch(0))              # warm-up
     float(m["loss"])
-    dps_quant.quantize_launch_count = dps_quant.quantize_prng_launch_count = 0
+    train.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(args.steps):
@@ -57,7 +59,10 @@ def main(argv=None):
         if us > 0.0:
             by_name[e.key] = (us, e.count)
     busy_us = sum(us for us, _ in by_name.values())
+    # K1/K1b/K2/K2b run `quantize_kernel` (so K2's time counts as the
+    # quantizer's), K3/K3b `group_wire_encode_kernel`, K4 `wire_reduce_kernel`
     quant_us = sum(us for k, (us, _) in by_name.items() if "quantize" in k)
+    wire_us = sum(us for k, (us, _) in by_name.items() if "wire" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:args.top]
     n_events = sum(c for _, c in by_name.values())
     smi = subprocess.run(
@@ -72,11 +77,12 @@ def main(argv=None):
         "device_busy_s": busy_us * 1e-6,
         "device_busy_share": busy_us * 1e-6 / wall if wall else 0.0,
         "device_events_per_step": n_events / args.steps,
-        "quantizer_launches": {
-            "dps_quantize": dps_quant.quantize_launch_count,
-            "dps_quantize_onchip_prng": dps_quant.quantize_prng_launch_count},
+        "data_ranks": step_fn.n_data, "wire_sync": step_fn.wire_sync_active,
+        "kernel_launches": train.launch_counts(),
         "quantizer_device_ms_per_step": quant_us * 1e-3 / args.steps,
         "quantizer_share_of_busy": quant_us / busy_us if busy_us else 0.0,
+        "wire_kernels_device_ms_per_step": wire_us * 1e-3 / args.steps,
+        "wire_kernels_share_of_busy": wire_us / busy_us if busy_us else 0.0,
         "top_device_time": [
             {"name": k[:100], "ms": us * 1e-3, "calls": c,
              "share_of_busy": us / busy_us if busy_us else 0.0}

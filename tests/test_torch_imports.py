@@ -69,7 +69,8 @@ def test_chip_smoke_refuses_to_run_without_a_gpu():
 
 @pytest.mark.parametrize("src,replaces", [
     ("dps_quant.cu", "_group_kernel"), ("paged_attn.cu", "_paged_attn_kernel"),
-    ("dps_quant.cu", "emit_wire=False")])
+    ("dps_quant.cu", "emit_wire=False"), ("dps_quant.cu", "emit_wire=True"),
+    ("dps_quant.cu", "_wire_reduce_kernel")])
 def test_kernel_sources_carry_their_notes(src, replaces):
     """Which TPU kernel it replaces, what bounds it on this card; a plain C
     interface with PyTorch's headers kept out; no float atomics."""

@@ -34,13 +34,16 @@ STAT_NAMES = ("count", "nonzero", "overflow", "abs_err_sum", "rel_err_sum",
 # parent side
 # ---------------------------------------------------------------------------
 
-def run_reference(jobs, arrays=None, timeout=900):
+def run_reference(jobs, arrays=None, timeout=900, host_devices=None):
     """Run ``jobs`` in one child process against the JAX package.
 
     ``jobs``: list of ``{"job": <name of a job_* function below>, "tag":
     <prefix>, "kw": {json-able keyword arguments}}``.  ``arrays``: dict of
     numpy arrays keyed ``"<tag>/<name>"``; a job sees those under its tag
     with the prefix stripped.  Returns the outputs keyed the same way.
+    ``host_devices``: the child forces that many CPU devices
+    (``--xla_force_host_platform_device_count``), for jobs that run the
+    reference's collectives under ``shard_map``.
     """
     arrays = dict(arrays or {})
     with tempfile.TemporaryDirectory() as tmp:
@@ -49,6 +52,9 @@ def run_reference(jobs, arrays=None, timeout=900):
         env = dict(os.environ, JAX_PLATFORMS="cpu",
                    PYTHONPATH=os.path.join(REPO, "src"))
         env.pop("XLA_FLAGS", None)
+        if host_devices:
+            env["XLA_FLAGS"] = ("--xla_force_host_platform_device_count="
+                                f"{int(host_devices)}")
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
                               fin, fout], capture_output=True, text=True,
                              env=env, cwd=REPO, timeout=timeout)
@@ -457,6 +463,151 @@ def job_lm_train(a, steps, seq, batch, remat):
     _, hist = _run_train(step_fn, state,
                          [data.batch(i) for i in range(steps)])
     out.update({f"hist/{k}": v for k, v in hist.items()})
+    return out
+
+
+def _fmt(a, prefix=""):
+    import jax.numpy as jnp
+    from repro.core.fixed_point import FixedPointFormat
+    return FixedPointFormat(jnp.asarray(a[prefix + "il"], jnp.int32),
+                            jnp.asarray(a[prefix + "fl"], jnp.int32))
+
+
+def job_wire_codec(a, cases):
+    """``collectives.wire_encode``/``wire_decode`` (the jnp codec) and the
+    kernels' oracles ``ref.dps_quant_wire_ref`` / ``dps_wire_reduce_ref``,
+    one entry of ``cases`` per input."""
+    import jax
+    import jax.numpy as jnp
+    from repro.dist import collectives as coll
+    from repro.kernels import ref
+    out = {}
+    for name, c in cases.items():
+        p = f"{name}/"
+        if c.get("kind") == "reduce":
+            # the oracle takes whole tiles: a ragged last tile is zero-padded
+            # and the padding's means cut off again
+            wire = a[p + "wire"]
+            chunk, q = wire.shape[1], c["quantum"]
+            pad = -(-chunk // q) * q - chunk
+            m = ref.dps_wire_reduce_ref(jnp.asarray(np.pad(wire, ((0, 0),
+                                                                  (0, pad)))),
+                                        jnp.asarray(a[p + "fl"]),
+                                        jnp.asarray(a[p + "tile_group"]), q)
+            out[p + "mean"] = np.asarray(m)[:chunk]
+            continue
+        x = jnp.asarray(a[p + "x"])
+        if c.get("bf16"):
+            x = x.astype(jnp.bfloat16)
+        bits = jnp.asarray(a[p + "bits"]) if c["mode"] == "stochastic" else None
+        fmt = _fmt(a, p)
+        gs = tuple(c["group_sizes"]) if c.get("group_sizes") else None
+        if c.get("traced"):
+            # a traced format is not checked for capacity: it saturates
+            f = jax.jit(lambda x, b, il, fl: coll.wire_encode(
+                x, coll.FixedPointFormat(il, fl), bits=b, mode=c["mode"],
+                backend="jnp", group_sizes=gs))
+            w, s = f(x, bits, fmt.il, fmt.fl)
+        else:
+            w, s = coll.wire_encode(x, fmt, bits=bits, mode=c["mode"],
+                                    backend="jnp", group_sizes=gs)
+        out[p + "wire"] = np.asarray(w)
+        out.update({p + k: v for k, v in _stats_out(s).items()})
+        out[p + "decoded"] = np.asarray(coll.wire_decode(w, fmt,
+                                                         group_sizes=gs))
+        if fmt.il.ndim == 0:
+            w2, v = ref.dps_quant_wire_ref(
+                x, fmt.il, fmt.fl,
+                bits if bits is not None else jnp.zeros(x.shape, jnp.uint32),
+                mode=c["mode"])
+            out[p + "ref_wire"] = np.asarray(w2)
+            out[p + "ref_vec"] = np.asarray(v)
+    return out
+
+
+def _data_mesh(n):
+    import jax
+    return jax.make_mesh((n,), ("data",))
+
+
+def job_allreduce(a, cases, n):
+    """``dps_allreduce_mean_tree`` / ``dps_allreduce_mean`` under
+    ``shard_map`` on ``n`` forced CPU devices, nearest rounding; inputs are
+    stacked on a leading rank axis.  Returns the mean and the psum'ed
+    dispatch-leg stats."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+    from repro.dist import collectives as coll
+    mesh = _data_mesh(n)
+    out = {}
+    for name, c in cases.items():
+        p = f"{name}/"
+        fmt = _fmt(a, p)
+        if c["kind"] == "tree":
+            tree = unflatten(a, p + "tree/")
+            tree = jax.tree.map(jnp.asarray, tree)
+            specs = jax.tree.map(lambda _: P("data"), tree)
+
+            def body(tr, k, fmt=fmt):
+                tr = jax.tree.map(lambda v: v[0], tr)
+                m, s = coll.dps_allreduce_mean_tree(tr, fmt, "data", k,
+                                                    mode="nearest")
+                return m, coll.psum_stats(s, "data")
+            f = jax.jit(jax.shard_map(body, mesh=mesh, in_specs=(specs, P()),
+                                      out_specs=(P(), P()), check_vma=False))
+            m, s = f(tree, jax.random.key(0))
+            out.update(flatten(jax.tree.map(np.asarray, m), p + "mean/"))
+        else:
+            gs = tuple(c["group_sizes"]) if c.get("group_sizes") else None
+
+            def body(xs, k, fmt=fmt, gs=gs):
+                m, s = coll.dps_allreduce_mean(xs[0], fmt, "data", k,
+                                               mode="nearest", group_sizes=gs)
+                return m, coll.psum_stats(s, "data")
+            f = jax.jit(jax.shard_map(body, mesh=mesh,
+                                      in_specs=(P("data"), P()),
+                                      out_specs=(P(), P()), check_vma=False))
+            m, s = f(jnp.asarray(a[p + "x"]), jax.random.key(0))
+            out[p + "mean"] = np.asarray(m)
+        out.update({p + k: v for k, v in _stats_out(s).items()})
+    return out
+
+
+def job_wire_lm_train(a, steps, seq, batch, n, qkw=None):
+    """Smoke llama3.2-3b from ``init_params(key(0))``: ``steps`` SGD steps
+    under nearest rounding with the int8 gradient all-reduce over ``n``
+    forced CPU devices, per-layer wire formats."""
+    import dataclasses
+    import jax
+    from repro.core import qtrain
+    from repro.data import TokenStream, TokenStreamConfig
+    from repro.models import registry
+    from repro.models.common import init_params
+    from repro.optim import SGDConfig, make_optimizer
+    cfg = dataclasses.replace(_smoke_cfg(), remat="full")
+    mod = registry(cfg.family)
+    params = init_params(jax.random.key(0), mod.model_defs(cfg))
+    out = flatten(_np_params(params), "params/")
+    qcfg = qtrain.QuantConfig(rounding="nearest", grad_allreduce_bits=8,
+                              **(qkw or {}))
+    qcfg = qcfg.with_per_layer_wire(params)
+    opt = make_optimizer(SGDConfig())
+    step = qtrain.make_train_step(mod.loss_fn(cfg), opt, qcfg,
+                                  mesh=_data_mesh(n))
+    assert step.wire_sync_active
+    state = qtrain.TrainState.create(params, opt.init(params), qcfg,
+                                     jax.random.key(1))
+    data = TokenStream(TokenStreamConfig(vocab=cfg.vocab, seq_len=seq,
+                                         global_batch=batch, seed=0))
+    names = ("loss", "il_w", "fl_w", "il_a", "fl_a", "il_g", "fl_g",
+             "il_wire_grads", "fl_wire_grads", "il_wire_grads_min",
+             "il_wire_grads_max", "fl_wire_grads_min", "fl_wire_grads_max",
+             "E_wire", "R_wire", "E_g", "E_a")
+    state, hist = _run_train(jax.jit(step), state,
+                             [data.batch(i) for i in range(steps)], names)
+    out.update({f"hist/{k}": v for k, v in hist.items()})
+    out.update(flatten(_np_params(state.params), "final/"))
     return out
 
 

@@ -233,8 +233,7 @@ def test_gradient_accumulation_runs_microbatches():
             vocab=CFG.vocab, seq_len=8, global_batch=3)).batch(0))
 
 
-@pytest.mark.parametrize("field,value", [("grad_allreduce_bits", 8),
-                                         ("zero_opt_shards", 2),
+@pytest.mark.parametrize("field,value", [("zero_opt_shards", 2),
                                          ("wire_overlap", True),
                                          ("guards", object())])
 def test_unported_training_switches_raise(field, value):
