@@ -17,10 +17,17 @@ JSON line; any failure raises and the process exits non-zero:
 3. checks  — the grouped wire encoder (K3) and paged decode attention (K5)
              against their plain versions, at small shapes (odd quanta,
              stochastic rounding, statistics, bf16 input, fp32 pools, empty
-             rows) and at the shapes the serving path gives them; then each
-             kernel's median time over repeated launches (CUDA events, after
-             warm-up, the L2 cache flushed before every launch) beside its
-             plain version's and the least time the card could take.
+             rows; for K5's splits rows of exactly P·ps tokens, lengths at a
+             split boundary and one either side, more than 132 split blocks)
+             and at the shapes the serving path gives them, K5 also at a long
+             context (8 rows of 4,096 tokens), int8 and fp32 pools, to
+             ``ATTN_TOL``, rows of length 0 exactly 0, two launches
+             bit-equal; then each kernel's median time over repeated
+             launches (CUDA events, after warm-up, the L2 cache flushed
+             before every launch; K5 replayed from a CUDA graph, so that its
+             tens of microseconds are not timed behind the Python wrapper)
+             beside its plain version's and the least time the card could
+             take, K5 at both shapes.
 4. quantize — the training quantizer, K1 (bits operand) and K1b (Philox bits
              made in the kernel), the same way: small shapes (fp32 and bf16,
              ragged tails, aligned and unaligned, nearest and stochastic,
@@ -83,8 +90,12 @@ JSON line; any failure raises and the process exits non-zero:
 
 The line before the last two carries the kernels (launches on their path —
 K1's from the LM run with a bits operand, LeNet's beside them; K2b's, K3b's
-and K4's from the wire run; K2's from the wire run with a bits operand —
-error against the plain version, time, plain time, bound); the line before
+and K4's from the wire run; K2's from the wire run with a bits operand; K5's
+from the serving run, on its serving-shape row, and 0 on the row that times
+the same kernel at 8 x 4,096 tokens, a shape no path here runs (that row says
+``"on_path": false``) — error against the plain
+version, time, plain time, bound; K2b's row adds its time at nearest
+rounding without statistics, the bare pipe); the line before
 the last is ``nvidia-smi``'s name and power limit; the last line of standard
 output is ``{"ok": true, "device": {"platform": "gpu", "kind": <name>,
 "count": <n>}}``.  There is no CPU path here: without a CUDA device the
@@ -96,7 +107,6 @@ import gc
 import json
 import math
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -111,6 +121,7 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: torch.cuda.is_available() is False; this script "
              "runs the CUDA kernels and has no CPU path")
 
+from kernel_ab import time_graph_ms, time_ms                         # noqa: E402
 from repro_torch.configs.base import get_config                      # noqa: E402
 from repro_torch.kernels import _build, dps_quant, paged_attn        # noqa: E402
 from repro_torch.models import registry                              # noqa: E402
@@ -160,30 +171,6 @@ def serve_layout():
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
-
-_flush = None
-
-
-def time_ms(fn, repeats, warmup=3):
-    """Median milliseconds of ``fn()`` by CUDA events, one pair per launch,
-    the 50 MB L2 cache overwritten before each so the call finds it cold, as
-    it does between two layers of the serving path."""
-    global _flush
-    if _flush is None:
-        _flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
-    for _ in range(warmup):
-        fn()
-    pairs = []
-    for _ in range(repeats):
-        _flush.zero_()
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        fn()
-        b.record()
-        pairs.append((a, b))
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in pairs)
-
 
 def bound(nbytes, ops):
     """The least time the card could take: bytes over its memory rate or
@@ -288,7 +275,20 @@ def check_attn(inp):
     empty = inp["lens"] == 0
     if bool(empty.any()) and bool((ok[empty] != 0).any()):
         raise AssertionError("paged attention: a row of length 0 is not exactly 0")
+    again = paged_attn.paged_decode_attn(*args, scale=inp["scale"], backend="kernel")
+    if not torch.equal(ok, again):
+        raise AssertionError("paged attention: two launches gave different bits")
     return err
+
+
+def attn_bytes_ops(B, H, KV, Dh, ps, P, lens):
+    """Bytes K5 must move (int8 K and V of the valid tokens, q in, out, the
+    page table, the lengths, the live pages' FL rows) and its fp32
+    operations (q·k and p·v, a multiply and an add each)."""
+    tokens = sum(lens)
+    nbytes = (2 * tokens * KV * Dh + 2 * 4 * B * H * Dh + 4 * B * P + 4 * B
+              + 8 * sum(-(-t // ps) for t in lens))
+    return nbytes, 4 * tokens * H * Dh
 
 
 def kernel_checks(cfg, lay):
@@ -315,10 +315,20 @@ def kernel_checks(cfg, lay):
             (2, 5, 8, 2, 3, 32, [40, 9], True),
             (2, 2, 4, 4, 1, 8, [8, 3], True),
             (2, 3, 5, 1, 2, 6, [0, 11], False),      # Dh not a multiple of 4
-            (2, 2, 4, 1, 2, 8, [0, 0], True)):
+            (2, 2, 4, 1, 2, 8, [0, 0], True),
+            # split edges (a split is 128 tokens of 16-token pages, 48 in an
+            # fp32 pool): rows of exactly P·ps tokens, lengths at a split
+            # boundary and one either side, more than 132 split blocks
+            (4, 24, 16, 8, 3, 128, [384, 128, 127, 129], True),
+            (4, 24, 16, 8, 3, 128, [384, 48, 47, 49], False),
+            (3, 16, 16, 2, 3, 128, [256, 255, 129], True),
+            (5, 40, 16, 8, 3, 128, [640, 639, 1, 0, 385], True),
+            (2, 9, 5, 2, 5, 20, [45, 26], False),
+            (3, 30, 4, 2, 4, 64, [120, 128, 64], True)):
         attn_err_small = max(attn_err_small, check_attn(
             attn_inputs(rng, B, P, ps, KV, G, Dh, lens, int8)))
-        small.append(f"attn B={B} P={P} ps={ps} KV={KV} G={G} Dh={Dh} int8={int8}")
+        small.append(f"attn B={B} P={P} ps={ps} KV={KV} G={G} Dh={Dh} int8={int8} "
+                     f"lens={lens}")
 
     # --- the serving path's shapes ---
     L, KV, Dh, H = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
@@ -340,28 +350,44 @@ def kernel_checks(cfg, lay):
         *enc_args, backend="plain", **enc_kw), repeats=5, warmup=1)
 
     B, P = lay.batch_slots, lay.max_pages_per_seq
+    G = H // KV
     # decode lengths as the trace produces them: prompts of 64-512 tokens
     # plus up to 64 generated, one idle slot
     lens = [577, 512, 300, 129, 64, 65, 1, 0]
-    att = attn_inputs(rng, B, P, lay.page_size, KV, H // KV, Dh, lens, True)
+    att = attn_inputs(rng, B, P, lay.page_size, KV, G, Dh, lens, True)
     att_err = check_attn(att)
-    att32 = attn_inputs(rng, B, P, lay.page_size, KV, H // KV, Dh, lens, False)
+    att32 = attn_inputs(rng, B, P, lay.page_size, KV, G, Dh, lens, False)
     att_err = max(att_err, check_attn(att32))
-    tokens = sum(lens)
-    att_bytes = (2 * tokens * KV * Dh            # int8 K and V of valid tokens
-                 + 2 * 4 * B * H * Dh            # q in, out
-                 + 4 * B * P + 4 * B             # page table, lengths
-                 + 8 * sum(-(-t // lay.page_size) for t in lens))   # FL rows
-    att_ops = 4 * tokens * H * Dh                # q·k and p·v, multiply + add
-    att_args = (att["q"], att["k_pages"], att["v_pages"], att["fmt"],
-                att["ptab"], att["lens"])
-    att_ms = time_ms(lambda: paged_attn.paged_decode_attn(
-        *att_args, scale=att["scale"], backend="kernel"), repeats=50)
-    att_plain_ms = time_ms(lambda: paged_attn.paged_decode_attn(
-        *att_args, scale=att["scale"], backend="plain"), repeats=5, warmup=1)
+    del att32
+    # a long context: 8 rows of 4,096 tokens (67.1 MB of int8 K and V)
+    lp, long_lens = 4096 // lay.page_size, [4096] * B
+    lng = attn_inputs(rng, B, lp, lay.page_size, KV, G, Dh, long_lens, True)
+    lng_err = check_attn(lng)
+    lng32 = attn_inputs(rng, B, lp, lay.page_size, KV, G, Dh, long_lens, False)
+    lng_err = max(lng_err, check_attn(lng32))
+    del lng32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def attn_call(inp, backend):
+        args = (inp["q"], inp["k_pages"], inp["v_pages"], inp["fmt"], inp["ptab"],
+                inp["lens"])
+        return lambda: paged_attn.paged_decode_attn(*args, scale=inp["scale"],
+                                                    backend=backend)
+
+    att_ms = time_graph_ms(attn_call(att, "kernel"), repeats=100)
+    att_plain_ms = time_ms(attn_call(att, "plain"), repeats=5, warmup=1)
+    lng_ms = time_graph_ms(attn_call(lng, "kernel"), repeats=100)
+    lng_plain_ms = time_ms(attn_call(lng, "plain"), repeats=3, warmup=1)
+    att_bytes, att_ops = attn_bytes_ops(B, H, KV, Dh, lay.page_size, P, lens)
+    lng_bytes, lng_ops = attn_bytes_ops(B, H, KV, Dh, lay.page_size, lp, long_lens)
+    del lng
+    gc.collect()
+    torch.cuda.empty_cache()
 
     enc_bound, enc_by = bound(enc_bytes, enc_ops)
     att_bound, att_by = bound(att_bytes, att_ops)
+    lng_bound, lng_by = bound(lng_bytes, lng_ops)
     rows = [
         {"name": "dps_group_wire_encode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/dps_quant.cu",
@@ -377,9 +403,25 @@ def kernel_checks(cfg, lay):
                   f"int8, lens={lens}",
          "max_abs_err": att_err, "ms": att_ms, "plain_ms": att_plain_ms,
          "bound_ms": att_bound, "bound_by": att_by, "bytes": att_bytes,
-         "library_ms": None},
+         "library_ms": None,
+         "split_tokens": paged_attn.SPLIT_TOKENS,
+         "timing": "CUDA graph replay, L2 flushed"},
+        {"name": "paged_decode_attn_long_context", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
+         "replaces": "src/repro/kernels/paged_attn.py:157",
+         "shape": f"B={B} H={H} KV={KV} Dh={Dh} page={lay.page_size} P={lp} "
+                  f"int8, lens={long_lens[0]} x {B} (the serving path's kernel "
+                  "at a long context, which no path of this script runs)",
+         "on_path": False,
+         "max_abs_err": lng_err, "ms": lng_ms, "plain_ms": lng_plain_ms,
+         "bound_ms": lng_bound, "bound_by": lng_by, "bytes": lng_bytes,
+         "library_ms": None,
+         "split_tokens": paged_attn.SPLIT_TOKENS,
+         "timing": "CUDA graph replay, L2 flushed"},
     ]
     say("checks", small_shapes=small, attn_max_abs_err_small=attn_err_small,
+        attn_split_tokens=paged_attn.SPLIT_TOKENS,
+        attn_two_launches_bit_equal=True, attn_empty_rows_exactly_0=True,
         tolerances={"encode_bytes": 0, "encode_float_sums_rel": SUM_RTOL,
                     "attn_abs": ATTN_TOL},
         main_path=[{k: r[k] for k in ("name", "shape", "max_abs_err", "ms",
@@ -1105,6 +1147,12 @@ def wire_kernel_checks(cfg):
             *args, compute_stats=False, backend="kernel"), repeats=10)
         plain_ms = time_ms(lambda: dps_quant.dps_quant_wire(
             *args, backend="plain"), repeats=3, warmup=1)
+        extra = {}
+        if isinstance(bits, dps_quant.Philox):
+            # the bare pipe: nearest rounding, no statistics, the same bytes
+            extra["ms_nearest_no_stats"] = time_ms(lambda: dps_quant.dps_quant_wire(
+                args[0], args[1], args[2], None, compute_stats=False,
+                backend="kernel"), repeats=10)
         b, by = bound(nbytes, nops)
         return {"name": name, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/dps_quant.cu",
@@ -1113,7 +1161,7 @@ def wire_kernel_checks(cfg):
                          f"int8, {note}, statistics on (leg 1, one launch "
                          "per leaf per rank)",
                 "max_abs_err": errs[key], "stats_max_rel_err": rels[key],
-                "ms": ms, "plain_ms": plain_ms, "ms_no_stats": ms_ns,
+                "ms": ms, "plain_ms": plain_ms, "ms_no_stats": ms_ns, **extra,
                 "bound_ms": b, "bound_by": by, "bytes": nbytes,
                 "library_ms": None}
 
@@ -1425,8 +1473,9 @@ def main():
     launches["dps_quant_wire"] = train_wire(
         cfg, steps=2, rounding_bits="operand")["dps_quant_wire"]
     for r in rows:
-        r["launches"] = launches[r["name"]]
-        if r["launches"] < 1:
+        # a row off the path (K5 at a long context) has no launches of its own
+        r["launches"] = launches[r["name"]] if r.get("on_path", True) else 0
+        if r.get("on_path", True) and r["launches"] < 1:
             raise AssertionError(f"{r['name']} was not launched on the main path")
         if r["name"] == "dps_quantize":
             r["launches_lenet"] = lenet_k1

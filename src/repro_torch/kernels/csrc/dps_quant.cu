@@ -12,19 +12,35 @@
 // the error against the decoded sat*2^-FL.  The seven statistics of
 // fixed_point.quantize / wire_quantize come out beside it.
 //
-// Bound on this card: bytes.  K1 reads x (4 B fp32, 2 B bf16) and 4 B of
-// bits and writes q; K1b/K2b draw the bits with Philox4x32-10 in registers
-// (about 40 integer operations per 4 elements, far below the rate at which
-// the bytes arrive).  K2b moves 4 B in + 1 B out per fp32 element, K2 with
-// an operand 4 B more.  The design: a 1-D grid-stride pass over the flat
-// tensor in groups of four elements (16-byte loads of fp32 x and bits and a
-// 4- or 16-byte store when the pointers allow, a scalar tail by predicate, so
-// no pad or mask copies), <IL, FL> read from device memory by every block
-// (the controller moves them on the device every step), per-block statistics
-// partials with integer counts and double sums reduced lane -> warp -> block,
-// and a second one-block launch that folds the partials in block order.  The
-// output may be a slice of a larger buffer (the wire path writes each leaf
-// straight into its slot of a rank's int8 payload).
+// Bound on this card: bytes without statistics, issue with them.  K1 reads x
+// (4 B fp32, 2 B bf16) and 4 B of bits and writes q; K2b moves 4 B in + 1 B
+// out per fp32 element, K2 with an operand 4 B more.  Philox4x32-10 (K1b,
+// K2b) costs about 40 integer operations per 4 elements, the statistics about
+// 25 instructions an element (clips, the error terms, an IEEE division, three
+// sums, two counts, the max): with them the kernel issues about 55
+// instructions an element, and at 704 M elements that, not the bytes, sets
+// the time.  The design: a 1-D grid-stride pass over the flat tensor in
+// groups of four elements (16-byte loads of fp32 x and bits and a 4- or
+// 16-byte store when the pointers allow, a scalar tail by predicate, so no
+// pad or mask copies), the grid four blocks an SM (at most 64 registers a
+// thread), one wave.  Without statistics a thread takes four groups an
+// iteration, all four loads issued before the first is used and the Philox
+// words drawn while they are out; with statistics one group (more spills
+// the 64 registers and is slower, measured).  The float terms of the sums
+// add in a fixed pairwise tree over the group and go to double once a group;
+// counts are integers; the grid's span <= 2^22 floors by two adds, NaN-
+// propagating clips are one instruction each, the int8 byte comes from an add
+// (no quarter-rate conversions).  <IL, FL> are read from device memory by
+// every block (the controller moves them on the device every step);
+// per-block statistics partials (integer counts, double sums) are reduced
+// lane -> warp -> block, and a second one-block launch folds the partials in
+// block order.  The output may be a slice of a larger buffer (the wire path
+// writes each leaf straight into its slot of a rank's int8 payload).  On an
+// H100 at 700 W (kernel_ab.py, both designs in one run) K2b on the
+// 704,643,072-value w_in gradient takes 1.89 ms with statistics (1.245
+// without; the bound is 1.05) against 2.337 (1.496) before this design; K1b
+// on w_in 2.08 against 2.25 ms; at LeNet's 400,000-value fc1 both designs
+// take 0.0105-0.0107 ms with statistics, and without 0.0076 against 0.0072.
 //
 // K3 / K3b (`group_wire_encode_kernel`) replace `_group_kernel` (entry
 // `dps_quant_group_wire_pallas`, pallas_call at :482): a group-aligned flat
@@ -84,14 +100,31 @@ __device__ __forceinline__ Grid make_grid(int il, int fl) {
     return g;
 }
 
-// Clamp that lets NaN through, as torch.clamp and jnp.clip do.
-__device__ __forceinline__ float clamp_nan(float v, float lo, float hi) {
-    return v != v ? v : fminf(fmaxf(v, lo), hi);
+// Max and min that let NaN through, as torch.max and jnp.max do: one
+// instruction each (max.NaN / min.NaN, sm_80 and later).
+__device__ __forceinline__ float max_nan(float a, float b) {
+    float r;
+    asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
 }
 
-// Max that lets NaN through, as torch.max and jnp.max do.
-__device__ __forceinline__ float max_nan(float a, float b) {
-    return (b > a || b != b) ? b : a;
+__device__ __forceinline__ float min_nan(float a, float b) {
+    float r;
+    asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
+}
+
+// Clamp that lets NaN through, as torch.clamp and jnp.clip do.
+__device__ __forceinline__ float clamp_nan(float v, float lo, float hi) {
+    return min_nan(max_nan(v, lo), hi);
+}
+
+// floor(t) of a t with |t| < 2^22 in two full-rate adds: t + 1.5 * 2^23
+// rounded down lands on an integer of [2^23, 2^24), where the float grid is
+// 1.  Equal to floorf(t) there (t = -0.0 cannot occur: t = yc + u with
+// u >= +0.0).
+__device__ __forceinline__ float floor_small(float t) {
+    return __fadd_rd(t, 12582912.0f) - 12582912.0f;
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -112,9 +145,11 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
 }
 
 // A grid integer in [-128, 127] (or NaN) as an int8; NaN converts to 0, as
-// it does in PyTorch's and XLA's float -> int8 casts.
+// it does in PyTorch's and XLA's float -> int8 casts.  v + 1.5 * 2^23 holds
+// v's two's complement byte in its low mantissa bits: one full-rate add in
+// place of a quarter-rate float -> int conversion.
 __device__ __forceinline__ signed char to_i8(float v) {
-    return static_cast<signed char>(static_cast<int>(v));
+    return v != v ? 0 : static_cast<signed char>(__float_as_int(v + 12582912.0f));
 }
 
 __device__ __forceinline__ void store4(float* p, const float* q) {
@@ -142,30 +177,51 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float q) {
 }
 __device__ __forceinline__ void store1(signed char* p, float q) { *p = to_i8(q); }
 
+// One element's (or a few elements') terms of the three float sums.
+struct Sums {
+    float abs_err = 0.0f, rel = 0.0f, abs_ref = 0.0f;
+};
+
+__device__ __forceinline__ Sums operator+(const Sums& a, const Sums& b) {
+    Sums r;
+    r.abs_err = a.abs_err + b.abs_err;
+    r.rel = a.rel + b.rel;
+    r.abs_ref = a.abs_ref + b.abs_ref;
+    return r;
+}
+
 // Per-thread statistics: integer counts, double sums, a float max.
 struct Acc {
     unsigned int cnt = 0u, nz = 0u, over = 0u;
     double abs_err = 0.0, rel = 0.0, abs_ref = 0.0;
     float mx = 0.0f;
+
+    __device__ __forceinline__ void add(const Sums& t) {
+        abs_err += t.abs_err;
+        rel += t.rel;
+        abs_ref += t.abs_ref;
+    }
 };
 
 // One element onto the <IL, FL> grid.  SRC: 0 = round to nearest, else
 // stochastic with `bits`.  WIRE saturates the grid integer to int8 and counts
 // the saturation as overflow.  MASKED weighs the statistics by the mask `m`
-// (1 keeps the element, 0 drops it).  Returns the value to store: q in grid
-// units times 2^-FL (K1), or the saturated grid integer (wire).
-template <int SRC, bool WIRE, bool STATS, bool MASKED>
+// (1 keeps the element, 0 drops it).  The counts and the max go into `acc`,
+// the element's terms of the three float sums into `t`.  Returns the value to
+// store: q in grid units times 2^-FL (K1), or the saturated grid integer
+// (wire).
+// SMALL says the grid's span 2^(IL-1+FL) is at most 2^22, so floor_small
+// gives floorf's bits.  COUNT keeps the kept-element count (K3; K1/K2 know
+// it is n).
+template <int SRC, bool WIRE, bool STATS, bool MASKED, bool SMALL = false, bool COUNT = true>
 __device__ __forceinline__ float quant_one(float x, uint32_t bits, float m, const Grid& g,
-                                           Acc& acc) {
+                                           Acc& acc, Sums& t) {
     const float y = x * g.scale;
     const float yc = clamp_nan(y, g.qmin, g.qmax);
-    float k;
-    if (SRC == 0) {
-        k = floorf(yc + 0.5f);
-    } else {
-        // top 24 bits, logical shift -> uniform in [0, 1) on the 2^-24 grid
-        k = floorf(yc + static_cast<float>(bits >> 8) * (1.0f / 16777216.0f));
-    }
+    // top 24 bits, logical shift -> uniform in [0, 1) on the 2^-24 grid
+    const float r = yc + (SRC == 0 ? 0.5f
+                                   : static_cast<float>(bits >> 8) * (1.0f / 16777216.0f));
+    float k = SMALL ? floor_small(r) : floorf(r);
     k = clamp_nan(k, g.qmin, g.qmax);
     const float v = WIRE ? clamp_nan(k, -128.0f, 127.0f) : k;
     if (STATS) {
@@ -176,15 +232,25 @@ __device__ __forceinline__ float quant_one(float x, uint32_t bits, float m, cons
         const float abs_ref = MASKED ? fabsf(x_ref) * m : fabsf(x_ref);
         const bool nz = abs_ref > 0.0f;
         const bool over = (y > g.qmax) || (y < g.qmin) || (WIRE && k != v);
-        acc.cnt += keep ? 1u : 0u;
+        if (COUNT) acc.cnt += keep ? 1u : 0u;
         acc.nz += nz ? 1u : 0u;
         acc.over += (over && keep) ? 1u : 0u;
-        acc.abs_err += abs_err;
-        acc.rel += nz ? abs_err / abs_ref : 0.0f;          // IEEE division
-        acc.abs_ref += abs_ref;
+        t.abs_err = abs_err;
+        t.rel = nz ? abs_err / abs_ref : 0.0f;             // IEEE division
+        t.abs_ref = abs_ref;
         acc.mx = max_nan(acc.mx, MASKED ? fabsf(x) * m : fabsf(x));
     }
     return WIRE ? (MASKED ? v * m : v) : v * g.inv_scale;
+}
+
+// quant_one with the element's float terms added to the double sums at once
+template <int SRC, bool WIRE, bool STATS, bool MASKED>
+__device__ __forceinline__ float quant_add(float x, uint32_t bits, float m, const Grid& g,
+                                           Acc& acc) {
+    Sums t;
+    const float v = quant_one<SRC, WIRE, STATS, MASKED>(x, bits, m, g, acc, t);
+    if (STATS) acc.add(t);
+    return v;
 }
 
 struct Row {
@@ -231,16 +297,84 @@ __device__ __forceinline__ void write_row(double* dst, const Row& r) {
 // K1 / K1b / K2 / K2b
 // ---------------------------------------------------------------------------
 
+// groups of four elements a thread takes per iteration of the grid-stride
+// loop without statistics (one with them); the wrapper reads it through
+// dps_quant_groups_per_thread and sizes the grid by it
+constexpr int Q_UNROLL = 4;
+
+// The aligned part of K1/K2: U groups of four elements a thread per
+// iteration (Q_UNROLL without statistics, one with them), `stride` groups
+// apart so that each load instruction of a warp stays on consecutive
+// addresses.  All the iteration's loads are issued before any is used; the
+// Philox words are drawn while they are out.  The float terms of the
+// iteration's elements are summed by a fixed pairwise tree (non-negative
+// addends: relative error at most 4 * 2^-24), then added to the double sums
+// with one conversion each.
+template <typename XT, typename QT, int SRC, bool WIRE, bool STATS, bool SMALL>
+__device__ __forceinline__ void quantize_groups(const XT* __restrict__ x, long long groups,
+                                                const uint32_t* __restrict__ bits,
+                                                unsigned long long seed,
+                                                unsigned long long c0, QT* __restrict__ q,
+                                                const Grid& g, Acc& acc, long long t0,
+                                                long long stride) {
+    constexpr int U = STATS ? 1 : Q_UNROLL;
+    for (long long gb = t0; gb < groups; gb += U * stride) {
+        float xv[U][4];
+        uint32_t bv[U][4];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            const long long gi = gb + u * stride;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                xv[u][j] = 0.0f;
+                bv[u][j] = 0u;
+            }
+            if (gi < groups) {
+                load4(x + 4 * gi, xv[u]);
+                if (SRC == 1) {
+                    const uint4 b = *reinterpret_cast<const uint4*>(bits + 4 * gi);
+                    bv[u][0] = b.x; bv[u][1] = b.y; bv[u][2] = b.z; bv[u][3] = b.w;
+                }
+            }
+        }
+        // the pairwise tree ((g0 + g1) + (g2 + g3)), built as the groups finish
+        Sums half[2];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            const long long gi = gb + u * stride;
+            if (SRC == 2) {
+                const Philox4 r = philox4x32_10(c0 + static_cast<uint64_t>(gi), seed);
+                bv[u][0] = r.v[0]; bv[u][1] = r.v[1]; bv[u][2] = r.v[2]; bv[u][3] = r.v[3];
+            }
+            if (gi < groups) {
+                float qv[4];
+                Sums t[4];
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    qv[j] = quant_one<SRC, WIRE, STATS, false, SMALL, false>(
+                        xv[u][j], bv[u][j], 1.0f, g, acc, t[j]);
+                store4(q + 4 * gi, qv);
+                const Sums grp = (t[0] + t[1]) + (t[2] + t[3]);
+                half[u / 2] = (u % 2) ? half[u / 2] + grp : grp;
+            }
+        }
+        if (STATS) acc.add(half[0] + half[1]);
+    }
+}
+
 // bits source: 0 = round to nearest, 1 = bits operand, 2 = Philox in
 // registers; element e takes word (ctr_base + e) % 4 of counter
-// (ctr_base + e) / 4.  QT is x's type (K1) or signed char (WIRE, K2).
+// (ctr_base + e) / 4.  QT is x's type (K1) or signed char (WIRE, K2).  Four
+// blocks of 256 threads fit an SM (at most 64 registers a thread), so the
+// grid of kernels/dps_quant.py runs in one wave.
 template <typename XT, typename QT, int SRC, bool WIRE, bool STATS, bool VEC>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 4)
 quantize_kernel(const XT* __restrict__ x, long long n, const int* __restrict__ il,
                 const int* __restrict__ fl, const uint32_t* __restrict__ bits,
                 unsigned long long seed, unsigned long long ctr_base, QT* __restrict__ q,
                 double* __restrict__ partials) {
-    const Grid g = make_grid(*il, *fl);
+    const int ilv = *il, flv = *fl;
+    const Grid g = make_grid(ilv, flv);
     Acc acc;
     const long long stride = static_cast<long long>(gridDim.x) * THREADS;
     const long long t0 = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
@@ -249,23 +383,13 @@ quantize_kernel(const XT* __restrict__ x, long long n, const int* __restrict__ i
     if (VEC) {
         // VEC with Philox needs ctr_base % 4 == 0 (the wrapper checks it)
         const unsigned long long c0 = ctr_base >> 2;
-        for (long long gi = t0; gi < groups; gi += stride) {
-            const long long e = 4 * gi;
-            float xv[4], qv[4];
-            load4(x + e, xv);
-            uint32_t bv[4] = {0u, 0u, 0u, 0u};
-            if (SRC == 1) {
-                const uint4 b = *reinterpret_cast<const uint4*>(bits + e);
-                bv[0] = b.x; bv[1] = b.y; bv[2] = b.z; bv[3] = b.w;
-            } else if (SRC == 2) {
-                const Philox4 r = philox4x32_10(c0 + static_cast<uint64_t>(gi), seed);
-                bv[0] = r.v[0]; bv[1] = r.v[1]; bv[2] = r.v[2]; bv[3] = r.v[3];
-            }
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-                qv[j] = quant_one<SRC, WIRE, STATS, false>(xv[j], bv[j], 1.0f, g, acc);
-            store4(q + e, qv);
-        }
+        // the span 2^(IL-1+FL) <= 2^22 (uniform across the grid)
+        if (ilv - 1 + flv <= 22)
+            quantize_groups<XT, QT, SRC, WIRE, STATS, true>(x, groups, bits, seed, c0, q, g,
+                                                            acc, t0, stride);
+        else
+            quantize_groups<XT, QT, SRC, WIRE, STATS, false>(x, groups, bits, seed, c0, q, g,
+                                                             acc, t0, stride);
     }
     // scalar path: everything when aligned access is not possible, else the
     // ragged tail of fewer than four elements
@@ -276,7 +400,10 @@ quantize_kernel(const XT* __restrict__ x, long long n, const int* __restrict__ i
             const unsigned long long c = ctr_base + static_cast<unsigned long long>(e);
             b = philox4x32_10(c >> 2, seed).v[c & 3];
         }
-        store1(q + e, quant_one<SRC, WIRE, STATS, false>(to_f32(x[e]), b, 1.0f, g, acc));
+        Sums t;
+        store1(q + e, quant_one<SRC, WIRE, STATS, false, false, false>(to_f32(x[e]), b, 1.0f,
+                                                                       g, acc, t));
+        if (STATS) acc.add(t);
     }
 
     if (STATS) {
@@ -382,7 +509,7 @@ group_wire_encode_kernel(const XT* __restrict__ x, const int* __restrict__ fmt_t
         if (MASKED) load4(mask + e, mv);
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-            wv[j] = quant_one<SRC, true, STATS, MASKED>(xv[j], bv[j], mv[j], g, acc);
+            wv[j] = quant_add<SRC, true, STATS, MASKED>(xv[j], bv[j], mv[j], g, acc);
         store4(wire + e, wv);
     }
     // scalar tail: everything when the vector path is off
@@ -395,7 +522,7 @@ group_wire_encode_kernel(const XT* __restrict__ x, const int* __restrict__ fmt_t
             b = philox4x32_10(c >> 2, gseed).v[c & 3];
         }
         const float m = MASKED ? mask[e] : 1.0f;
-        store1(wire + e, quant_one<SRC, true, STATS, MASKED>(to_f32(x[e]), b, m, g, acc));
+        store1(wire + e, quant_add<SRC, true, STATS, MASKED>(to_f32(x[e]), b, m, g, acc));
     }
 
     if (STATS) {
@@ -537,9 +664,13 @@ wire_reduce_kernel(const signed char* __restrict__ wire, long long row_stride, i
 // `partials` (double [nblocks, 7]) and `stats` (float [7]) null means no
 // statistics.  `vec` says the caller checked the alignment of x, q and bits
 // (and ctr_base % 4 == 0 under Philox).  The caller sizes the grid
-// (`nblocks`) as a function of n alone, so the statistics' summation order,
-// too, depends on n alone.  Launches on `stream`, does not synchronise,
+// (`nblocks`) as a function of n and of dps_quant_groups_per_thread(stats)
+// alone, so the statistics' summation order, too, depends on n alone.  Launches on `stream`, does not synchronise,
 // returns cudaGetLastError().
+// Groups of four elements a K1/K2 thread takes per iteration: Q_UNROLL
+// without statistics, one with them.
+extern "C" int dps_quant_groups_per_thread(int stats) { return stats ? 1 : Q_UNROLL; }
+
 extern "C" int dps_quantize(const void* x, int x_is_bf16, long long n, const void* il,
                             const void* fl, const void* bits, int src,
                             unsigned long long seed, unsigned long long ctr_base, void* q,

@@ -62,7 +62,8 @@ wire_prng_launch_count = 0
 reduce_launch_count = 0
 
 # K1/K2 and K4 grids: 256 threads a block, at most four blocks per SM of an
-# H100; the grid is a function of the size alone
+# H100; the grid is a function of the size (and, for K1/K2, of whether
+# statistics are taken) alone
 Q_THREADS = 256
 Q_MAX_BLOCKS = 4 * 132
 Q_PART = 7               # doubles per block (or tile) in the statistics partials
@@ -197,9 +198,12 @@ def group_philox_bits(src: GroupPhilox, tile_group: torch.Tensor,
 # flavour.
 # ---------------------------------------------------------------------------
 
-def quant_blocks(n: int) -> int:
-    """The K1/K2 grid for ``n`` elements (also the partials' row count)."""
-    return max(1, min(-(-max(n // 4, 1) // Q_THREADS), Q_MAX_BLOCKS))
+def quant_blocks(n: int, groups: int = 1) -> int:
+    """The K1/K2 grid for ``n`` elements when a thread takes ``groups``
+    groups of four elements an iteration (the library's
+    ``dps_quant_groups_per_thread``); also the partials' row count."""
+    return max(1, min(-(-max(n // (4 * groups), 1) // Q_THREADS),
+                      Q_MAX_BLOCKS))
 
 
 def _check_quant(x, il, fl, bits, out, out_dtype):
@@ -270,7 +274,8 @@ def _dps_quant_cuda(x, il, fl, bits, philox, compute_stats, out, wire):
     lib = _build.load()
     q = torch.empty(x.shape, dtype=out_dtype, device=x.device) \
         if out is None else out
-    nblocks = quant_blocks(n)
+    nblocks = quant_blocks(
+        n, lib.dps_quant_groups_per_thread(int(compute_stats)))
     partials = stats = None
     if compute_stats:
         partials = torch.empty(nblocks * Q_PART, dtype=torch.float64,

@@ -1,5 +1,6 @@
 """The port stands alone: nothing under ``src/repro_torch/`` nor
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``, every module
+``chip_smoke.py`` and ``kernel_ab.py`` imports ``jax`` or the JAX package
+``repro``, every module
 imports on a machine with no GPU, no ``nvcc`` and no ``triton``, and the
 kernels' sources carry the notes a reader needs."""
 
@@ -17,7 +18,7 @@ FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|$)", re.M)
 
 
 def _sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "kernel_ab.py")]
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
