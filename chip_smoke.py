@@ -7,8 +7,9 @@ Drives ``repro_torch``'s paths — serving (``python -m
 repro_torch.launch.serve``), quantized training (``python -m
 repro_torch.launch.train``, and the paper's LeNet app) and data-parallel
 training over the int8 wire (``launch.train --grad-allreduce-bits 8
---data-ranks 4``) — and holds every CUDA kernel on them against its plain
-PyTorch version.  Phases, each printing one
+--data-ranks 4``, with ZeRO-1 and the overlapped bucketed wire:
+``--zero-opt --wire-overlap on``) — and holds every CUDA kernel on them
+against its plain PyTorch version.  Phases, each printing one
 JSON line; any failure raises and the process exits non-zero:
 
 1. device  — the card's name, and its power limit as ``nvidia-smi`` gives it.
@@ -87,13 +88,43 @@ JSON line; any failure raises and the process exits non-zero:
              step counts them.  Last, the same for 2 steps with
              ``--rounding-bits operand``: per step 4 x 11 K2, 4 K4, 4 K3 and
              1,603 K1 (stacked leaves one layer at a time).
+9. zero    — ZeRO-1 and the overlapped bucketed wire.  On the ragged tree
+             over 4 ranks (scalar and per-leaf formats; nearest, Philox and
+             a bits operand), kernels vs plain versions: the bucketed
+             all-reduce (bit-equal to the monolithic one too), the ZeRO
+             reduce-scatter over one bucket and over a bucket a leaf (each
+             owner's shard bit-equal to its chunk of the all-reduce's mean),
+             the ZeRO params all-gather (K3/K3b with statistics and each
+             owner's chunk of the mask), ``dps_reduce_scatter_mean`` and
+             ``dps_allgather_params``; results bit-equal, statistics exact and
+             to ``SUM_RTOL``.  At full width, the overlap run's largest
+             bucket (the w_in leaf's, keyed by global leaf 7): 4 ranks
+             encoded into it, then ``TreeAllReduce(layout=...)``'s K4 and
+             leg-2 K3b on every owner's [4, 176,160,768] and the local
+             decode, kernels vs plain, bytes and shards bit-equal; K4 and
+             K3b timed there.  LeNet over 4 ranks with ``zero_opt_shards=4``
+             (every leaf quantized, so the params all-gather is int8): 3 steps
+             kernel vs plain under nearest rounding, formats equal, loss to
+             ``LENET_LOSS_RTOL``, per step 88 K1, 32 K2, 4 K4, 8 K3.  Then
+             ``launch.train ... --data-ranks 4 --zero-opt`` and ``--zero-opt
+             --wire-overlap on`` at full width, 4 steps each: ZeRO (and the
+             overlap, 11 buckets) engaged, the first loss bit-equal to the
+             wire run's and the later ones to ``ZERO_LOSS_RTOL``, per step
+             4 x 11 K2b, 272 K1b and 4 K4 and 4 K3b (4 x 11 of each with the
+             overlap), as the CPU rehearsal counts them; every metric of
+             every step of the overlap run bit-equal to the run without it.
 
 The line before the last two carries the kernels (launches on their path —
 K1's from the LM run with a bits operand, LeNet's beside them; K2b's, K3b's
 and K4's from the wire run; K2's from the wire run with a bits operand; K5's
 from the serving run, on its serving-shape row, and 0 on the row that times
 the same kernel at 8 x 4,096 tokens, a shape no path here runs (that row says
-``"on_path": false``) — error against the plain
+``"on_path": false``); a row launched by the zero phase adds
+``launches_lenet_zero`` and ``launches_zero`` (and ``launches_zero_overlap``
+where the overlap launches it at the row's shape); K4 and K3b have a second
+row each at the overlap's w_in bucket, whose launches are every per-bucket
+launch of the overlap run (``"run"`` and ``"counter"`` name them) —
+error against the plain
 version, time, plain time, bound; K2b's row adds its time at nearest
 rounding without statistics, the bare pipe); the line before
 the last is ``nvidia-smi``'s name and power limit; the last line of standard
@@ -1360,14 +1391,16 @@ def wire_collectives():
         nccl_one_rank_equals_stacked=True)
 
 
-def _wire_step_launches(cfg, n_ranks, rounding_bits):
+def _wire_step_launches(cfg, n_ranks, rounding_bits, zero_buckets=0):
     """Kernel launches a step of the int8-wire data-parallel step, per-layer
     formats, stochastic rounding: every quantizer event of the replicated
     step with the forward/backward and the raw-gradient statistics once per
     rank, the wire quantizer once per leaf per rank, K4 and the grouped
     encoder once per owner.  ``onchip``: K1b, K2b, K3b; ``operand``: K1 (a
     stacked leaf one layer at a time, as ``quantize_tree`` bounds its bits),
-    K2, K3."""
+    K2, K3.  ``zero_buckets`` > 0: the ZeRO step over that many buckets —
+    K4 and the leg-2 encode once per owner per bucket, and no
+    optimizer-input snap (the norm scales keep the params leg in fp32)."""
     from repro_torch.core import tree as tree_lib
     from repro_torch.core.policy import QuantPolicy
     from repro_torch.models import transformer
@@ -1386,10 +1419,11 @@ def _wire_step_launches(cfg, n_ranks, rounding_bits):
                           "dps_quant_wire", "dps_quant_wire_onchip_prng",
                           "dps_group_wire_encode",
                           "dps_group_wire_encode_onchip_prng")}
-    out.update({"dps_quantize" + sfx: 3 * events + n_ranks * (2 * L + events),
+    snaps, owners = (2, n_ranks * zero_buckets) if zero_buckets else (3, n_ranks)
+    out.update({"dps_quantize" + sfx: snaps * events + n_ranks * (2 * L + events),
                 "dps_quant_wire" + sfx: n_ranks * G,
-                "dps_group_wire_encode" + sfx: n_ranks,
-                "dps_wire_reduce": n_ranks})
+                "dps_group_wire_encode" + sfx: owners,
+                "dps_wire_reduce": owners})
     return out
 
 
@@ -1433,7 +1467,413 @@ def train_wire(cfg, steps=4, n_ranks=4, rounding_bits="onchip"):
     del out
     gc.collect()
     torch.cuda.empty_cache()
+    return launches, losses
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 and the overlapped bucketed wire
+# ---------------------------------------------------------------------------
+
+# The full-width ZeRO runs' losses after the first step, against the wire
+# run's.  Step 1 is the same forward on the same parameters (equal bit for
+# bit).  Later steps start from parameters that differ in some elements:
+# the wire step's stochastic optimizer-input snap of its mean, which a ZeRO
+# step with an fp32 params leg skips (as the reference's does), bumps a
+# large on-grid value by one gradient grid step now and then (floor(k + u)
+# in fp32 rounds up when k is large and u near 1), and the embedding's
+# backward sums with atomics on the card.  Each moves a few weights by a
+# grid step.  Measured on an H100: 1.03e-4 relative at worst over 3 steps,
+# the two ZeRO runs (with and without the overlap) bit-equal to each other.
+ZERO_LOSS_RTOL = 1e-3
+
+
+def _same_stats(sk, sp, what):
+    """QuantStats kernel vs plain: count/nonzero/overflow/max_abs exact,
+    float sums to SUM_RTOL; returns the largest relative sum difference."""
+    for f in ("count", "nonzero", "overflow", "max_abs"):
+        if not torch.equal(getattr(sk, f), getattr(sp, f)):
+            raise AssertionError(f"{what}: {f} differs from the plain version")
+    rel = max(float(((getattr(sk, f) - getattr(sp, f)).abs()
+                     / getattr(sp, f).abs().clamp(min=1e-30)).max())
+              for f in ("abs_err_sum", "rel_err_sum", "abs_sum"))
+    if rel > SUM_RTOL:
+        raise AssertionError(f"{what}: float sums differ by {rel:.3g}")
+    return rel
+
+
+def _bit_equal(a, b, what):
+    if a.shape != b.shape or not torch.equal(a.contiguous().view(torch.int32),
+                                             b.contiguous().view(torch.int32)):
+        raise AssertionError(f"{what}: kernel result differs from plain")
+
+
+def zero_collectives():
+    """The ZeRO halves and the bucketed all-reduce on the card, kernels vs
+    plain versions, on the ragged 4-rank tree of ``wire_collectives``:
+    scalar and per-leaf formats, nearest rounding and stochastic with
+    Philox bits in the kernels and with a bits operand.  Results bit-equal,
+    statistics exact and to SUM_RTOL; each owner's reduce-scatter shard
+    bit-equal to its chunk of the monolithic all-reduce's mean; the
+    bucketed all-reduce bit-equal to the monolithic one."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.core.fixed_point import FixedPointFormat
+    from repro_torch.dist import (GroupAlignedPartitioner, StackedTransport,
+                                  ZeroPartitioner, bucketed_allreduce_mean_tree,
+                                  dps_allgather_params, dps_allreduce_mean_tree,
+                                  dps_reduce_scatter_mean, psum_stats,
+                                  zero_allgather_params,
+                                  zero_bucketed_reduce_scatter)
+    rng = np.random.default_rng(4)
+    n = 4
+    trees = _ragged_tree(rng, n)
+    G = len(tree_lib.leaves(trees[0]))
+    fmts = {"scalar": FixedPointFormat.create(2, 6, DEV),
+            "per_leaf": FixedPointFormat(
+                torch.tensor([2, 1, 3, 2, 1, 2][:G], dtype=torch.int32, device=DEV),
+                torch.tensor([6, 7, 5, 6, 7, 6][:G], dtype=torch.int32, device=DEV))}
+    tr = StackedTransport(n, DEV)
+    parts = {"one_bucket": GroupAlignedPartitioner.create(trees[0], n),
+             "bucket_per_leaf": GroupAlignedPartitioner.create(
+                 trees[0], n, buckets=[(g,) for g in range(G)])}
+    plain = ZeroPartitioner.create(trees[0], n)
+    backends = ("kernel", "plain")
+    compared = {}
+    for mode, onchip in (("nearest", True), ("stochastic", True),
+                         ("stochastic", False)):
+        kw = dict(mode=mode, onchip_prng=onchip)
+        src = "" if mode == "nearest" else ("/philox" if onchip else "/operand")
+        for name, fmt in fmts.items():
+            what = f"{name}/{mode}{src}"
+            rels = []
+            mean, _ = dps_allreduce_mean_tree(trees, fmt, tr, 1234,
+                                              backend="kernel", **kw)
+            bk = {be: bucketed_allreduce_mean_tree(
+                trees, fmt, tr, 1234, backend=be, target_elems=5000, **kw)
+                for be in backends}
+            for a, b, m in zip(tree_lib.leaves(bk["kernel"][0]),
+                               tree_lib.leaves(bk["plain"][0]),
+                               tree_lib.leaves(mean)):
+                _bit_equal(a, b, f"bucketed all-reduce ({what})")
+                _bit_equal(a, m, f"bucketed vs monolithic all-reduce ({what})")
+            rels.append(_same_stats(psum_stats(bk["kernel"][1], tr),
+                                    psum_stats(bk["plain"][1], tr),
+                                    f"bucketed all-reduce ({what})"))
+            for pname, part in parts.items():
+                zs = {be: zero_bucketed_reduce_scatter(
+                    trees, fmt, tr, 1234, part=part, backend=be, **kw)
+                    for be in backends}
+                _bit_equal(zs["kernel"][0], zs["plain"][0],
+                           f"zero reduce-scatter ({what}, {pname})")
+                rels.append(_same_stats(psum_stats(zs["kernel"][1], tr),
+                                        psum_stats(zs["plain"][1], tr),
+                                        f"zero reduce-scatter ({what})"))
+                flat = part.flatten(mean)
+                for j in range(n):
+                    _bit_equal(zs["kernel"][0][j], part.shard(flat, j),
+                               f"owner {j}'s shard vs its chunk of the mean "
+                               f"({what}, {pname})")
+                # the params leg: K3/K3b with statistics and the owner's
+                # chunk of the mask, one launch per bucket per owner
+                shards = list(zs["kernel"][0])
+                ag = {be: zero_allgather_params(shards, fmt, tr, 77, part=part,
+                                                backend=be, **kw)
+                      for be in backends}
+                _bit_equal(ag["kernel"][0], ag["plain"][0],
+                           f"zero params all-gather ({what}, {pname})")
+                rels.append(_same_stats(psum_stats(ag["kernel"][1], tr),
+                                        psum_stats(ag["plain"][1], tr),
+                                        f"zero params all-gather ({what})"))
+            if name == "scalar":
+                xs = [plain.flatten(t) for t in trees]
+                rs = {be: dps_reduce_scatter_mean(xs, fmt, tr, 1234,
+                                                  backend=be, **kw)
+                      for be in backends}
+                _bit_equal(rs["kernel"][0], rs["plain"][0],
+                           f"dps_reduce_scatter_mean ({what})")
+                rels.append(_same_stats(psum_stats(rs["kernel"][1], tr),
+                                        psum_stats(rs["plain"][1], tr),
+                                        f"dps_reduce_scatter_mean ({what})"))
+                agp = {be: dps_allgather_params(list(rs["kernel"][0]), fmt, tr,
+                                                77, backend=be, **kw)
+                       for be in backends}
+                _bit_equal(agp["kernel"][0], agp["plain"][0],
+                           f"dps_allgather_params ({what})")
+                rels.append(_same_stats(psum_stats(agp["kernel"][1], tr),
+                                        psum_stats(agp["plain"][1], tr),
+                                        f"dps_allgather_params ({what})"))
+            compared[what] = {"bit_equal": True, "stats_sum_rel": max(rels)}
+    torch.cuda.synchronize()
+    say("zero_collectives", ranks=n, leaves=G, compared=compared,
+        owner_shards_equal_allreduce_chunks=True,
+        bucketed_equals_monolithic=True,
+        buckets={k: p.n_buckets for k, p in parts.items()})
+
+
+def zero_bucket_check(cfg, n=4):
+    """The overlap path's largest bucket at full width, kernels vs plain: the
+    w_in leaf's bucket of the partitioner ``launch.train --zero-opt
+    --wire-overlap on`` builds (a bucket of its own, global leaf 7, so its
+    bits are keyed by a nonzero group base).  Each of 4 ranks encodes its
+    gradient into the bucket (K2b), then ``TreeAllReduce(layout=...)
+    .scatter_snap`` runs K4 and the leg-2 snap (K3b) on every owner's
+    [4, chunk] and ``decode_owned`` decodes each owner's chunk, as the train
+    step does per bucket.  Leg-2 bytes, decoded shards and owner 1's K4
+    mean bit-equal; leg-1 statistics exact and to SUM_RTOL.  Returns the K4
+    and K3b rows at this shape (launches: every per-bucket launch of the
+    overlap run)."""
+    from repro_torch.core import qtrain
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.core.fixed_point import FixedPointFormat, fold_seed
+    from repro_torch.dist import StackedTransport, TreeAllReduce, psum_stats
+    from repro_torch.dist.collectives import (LEG2, _aligned_bits,
+                                              _encode_aligned, _layout_tables,
+                                              _wire_reduce)
+    from repro_torch.models import transformer
+    defs = transformer.model_defs(cfg, cfg.master_dtype())
+    paths = [p for p, _ in tree_lib.leaves_with_path(defs)]
+    qcfg = dataclasses.replace(
+        qtrain.QuantConfig(grad_allreduce_bits=8, wire_overlap=True)
+        .with_per_layer_wire(defs), zero_opt_shards=n)
+    part = qtrain.zero_partitioner(qcfg, defs, n)
+    leaf = paths.index(("layers", "mlp", "w_in"))
+    b = next(b for b in range(part.n_buckets)
+             if part.leaf_range(b)[0] <= leaf < part.leaf_range(b)[1])
+    lo, hi = part.leaf_range(b)
+    lay = part.layouts[b]
+    shapes = [tuple(d.shape) for d in tree_lib.leaves(defs)[lo:hi]]
+    rng = np.random.default_rng(15)
+    il = rng.integers(1, 3, len(paths))        # the wire settles at <1, 7>
+    fmt = FixedPointFormat(torch.tensor(il[lo:hi], dtype=torch.int32, device=DEV),
+                           torch.tensor(8 - il[lo:hi], dtype=torch.int32,
+                                        device=DEV))
+    tr = StackedTransport(n, DEV)
+    seed = 1234
+
+    def grad(r, g):
+        gen = torch.Generator(device=DEV).manual_seed(100 * r + g)
+        x = torch.randn(shapes[g], generator=gen, device=DEV) * 0.02
+        x.view(-1)[::11] = 0.0
+        return x
+
+    like = [torch.empty((), device=DEV).expand(s) for s in shapes]
+    runs, received = {}, None
+    for be in ("kernel", "plain"):
+        tw = TreeAllReduce(like, fmt, tr, seed, backend=be, group_base=lo,
+                           layout=lay)
+        for r in range(n):
+            for g in range(hi - lo):
+                tw.encode_leaf(r, g, grad(r, g))
+        if be == "kernel":
+            received = tr.all_to_all(tw.payload)     # kept for the timing
+        stats = psum_stats(tw.stats, tr)
+        wire2 = tw.scatter_snap()
+        dec = [tw.decode_owned(i) for i in range(n)]
+        runs[be] = (stats, wire2, dec)
+        del tw
+    torch.cuda.synchronize()
+    (sk, wk, dk), (sp, wp, dp) = runs["kernel"], runs["plain"]
+    rel = _same_stats(sk, sp, "w_in bucket leg 1")
+    if not torch.equal(wk, wp):
+        raise AssertionError("w_in bucket leg 2: kernel bytes differ from plain")
+    k3b_err = _byte_err(wk, wp)
+    for i in range(n):
+        _bit_equal(dk[i], dp[i], f"w_in bucket, owner {i}'s decoded shard")
+    del runs, wk, wp, dk, dp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # K4 and K3b on owner 1's [4, chunk] view, as _owner_rs_snap calls them
+    c, q, j = lay.chunk, lay.quantum, 1
+    tpc = c // q
+    tg_all, goff = _layout_tables(lay, str(DEV))
+    tg1 = tg_all[j * tpc:(j + 1) * tpc]
+    view = received[j]
+    mk = _wire_reduce(view, fmt, tg1, backend="kernel", quantum=q)
+    mp = _wire_reduce(view, fmt, tg1, backend="plain", quantum=q)
+    _bit_equal(mk, mp, "w_in bucket, owner 1's K4 mean")
+    k4_err = float((mk - mp).abs().max())
+    del mp
+    red_ms = time_ms(lambda: _wire_reduce(view, fmt, tg1, backend="kernel",
+                                          quantum=q), repeats=10)
+    red_plain = time_ms(lambda: _wire_reduce(view, fmt, tg1, backend="plain",
+                                             quantum=q), repeats=3, warmup=1)
+    bits = _aligned_bits(fold_seed(seed, LEG2), lay, goff, j * c, c,
+                         onchip_prng=True, group_base=lo)
+    out = torch.empty(c, dtype=torch.int8, device=DEV)
+    enc = lambda be: _encode_aligned(mk, fmt, tg1, None, bits=bits,
+                                     mode="stochastic", backend=be, quantum=q,
+                                     compute_stats=False,
+                                     out=out if be == "kernel" else None)
+    g3_ms = time_ms(lambda: enc("kernel"), repeats=10)
+    g3_plain = time_ms(lambda: enc("plain"), repeats=2, warmup=1)
+    G = hi - lo
+    red_bytes = n * c + 4 * c + 4 * tpc + 8 * G
+    g3_bytes = 4 * c + c + 4 * tpc + 8 * G + 8 * G
+    del received, view, mk, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    shape = (f"the w_in bucket of the overlap run (bucket {b}, leaf {lo}, "
+             f"{n} owners x chunk {c}, quantum {q})")
+    note = ("launches: every per-bucket launch of the --zero-opt --wire-overlap "
+            f"on run, {part.n_buckets} buckets x {n} owners a step; the other "
+            "buckets' chunks are smaller")
+    b4, by4 = bound(red_bytes, (2 * n + 1) * c)
+    b3, by3 = bound(g3_bytes, 37 * c)
+    common = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/dps_quant.cu",
+              "run": "zero_overlap", "launches_note": note, "library_ms": None}
+    rows = [
+        {"name": "dps_wire_reduce_zero_bucket", "counter": "dps_wire_reduce",
+         "replaces": "src/repro/kernels/dps_quant.py:544",
+         "shape": f"[{n}, {c}] int8 (owner {j}'s strided view) -> fp32 [{c}], "
+                  f"{shape}", "max_abs_err": k4_err, "ms": red_ms,
+         "plain_ms": red_plain, "bound_ms": b4, "bound_by": by4,
+         "bytes": red_bytes, **common},
+        {"name": "dps_group_wire_encode_onchip_prng_zero_bucket",
+         "counter": "dps_group_wire_encode_onchip_prng",
+         "replaces": "src/repro/kernels/dps_quant.py:482",
+         "shape": f"owner {j}'s mean chunk of {c} fp32 -> int8, Philox keyed "
+                  f"by global group {lo}, no statistics (leg 2), {shape}",
+         "max_abs_err": k3b_err, "ms": g3_ms, "plain_ms": g3_plain,
+         "bound_ms": b3, "bound_by": by3, "bytes": g3_bytes, **common}]
+    say("zero_bucket", bucket=b, group_base=lo, leaf="/".join(paths[leaf]),
+        owners=n, chunk=c, quantum=q, leg2_bit_equal=True,
+        decoded_shards_bit_equal=True, k4_mean_bit_equal=True,
+        leg1_stats_sum_rel=rel, tolerance_sums=SUM_RTOL,
+        rows=[{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms")}
+              for r in rows])
+    return rows
+
+
+def lenet_zero(steps=3):
+    """LeNet over 4 stacked ranks with ZeRO-1, per-layer wire formats and
+    every leaf quantized, so the parameter all-gather rides the int8 wire
+    (K3 with statistics and a mask on each owner's chunk): kernel vs plain
+    under nearest rounding, formats equal step by step, loss to
+    LENET_LOSS_RTOL.  Returns the kernel run's launches."""
+    from repro_torch.apps import mnist as app
+    from repro_torch.core import qtrain
+    from repro_torch.data import MNISTLike
+    from repro_torch.dist import StackedTransport
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import lenet as lenet_mod
+    from repro_torch.optim import SGDConfig, make_optimizer
+    data = MNISTLike(batch=64, seed=0, n_train=2048, n_test=512)
+    keys = ("loss", "il_w", "fl_w", "il_a", "fl_a", "il_g", "fl_g",
+            "il_wire_grads", "fl_wire_grads", "il_wire_params",
+            "fl_wire_params", "E_wire", "R_wire")
+    runs, launches = {}, None
+    for backend in ("kernel", "plain"):
+        with app._full_fp32(DEV):
+            params = lenet_mod.init(0, DEV)
+            q = dataclasses.replace(
+                app.paper_quant_config(rounding="nearest"), onchip_prng=False,
+                backend=backend, grad_allreduce_bits=8,
+                zero_opt_shards=4).with_per_layer_wire(params)
+            opt = make_optimizer(SGDConfig())
+            tr = StackedTransport(4, DEV)
+            step = qtrain.make_train_step(lenet_mod.loss_fn, opt, q,
+                                          transport=tr)
+            if not (step.zero_opt_active and step.zero_groupaligned_active
+                    and qtrain.wire_params_engaged(q, params, tr)):
+                raise AssertionError("LeNet ZeRO: the int8 params leg did not "
+                                     "engage")
+            state = qtrain.TrainState.create(
+                params, qtrain.zero_opt_state(opt, params, tr, q), q, 1, DEV)
+            hist = {k: [] for k in keys}
+            train_cli.reset_launch_counts()
+            for i in range(steps):
+                b = {k: torch.from_numpy(v).to(DEV)
+                     for k, v in data.train_batch(i).items()}
+                state, m = step(state, b)
+                for k in keys:
+                    hist[k].append(float(m[k]))
+            torch.cuda.synchronize()
+            if backend == "kernel":
+                launches = train_cli.launch_counts()
+            runs[backend] = hist
+    for k in keys[1:-2]:
+        if runs["kernel"][k] != runs["plain"][k]:
+            raise AssertionError(f"LeNet ZeRO kernel vs plain: {k} "
+                                 f"{runs['kernel'][k]} vs {runs['plain'][k]}")
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in
+                   zip(runs["kernel"]["loss"], runs["plain"]["loss"]))
+    if loss_rel > LENET_LOSS_RTOL:
+        raise AssertionError(f"LeNet ZeRO kernel vs plain: loss differs by "
+                             f"{loss_rel:.3g} relative")
+    # per step: K1 8 weights + 8 re-snaps + 4 ranks x (4 taps forward and
+    # backward, the logit gradient, 8 raw-gradient leaves) + the flat
+    # optimizer-input snap of 4 owners; K2 4 x 8 leaves; K4 4 owners; K3 4
+    # leg-2 chunks + 4 params-leg chunks (one bucket)
+    want = {k: 0 for k in launches}
+    want.update({"dps_quantize": 88 * steps, "dps_quant_wire": 32 * steps,
+                 "dps_wire_reduce": 4 * steps,
+                 "dps_group_wire_encode": 8 * steps})
+    if launches != want:
+        raise AssertionError(f"LeNet ZeRO: launches {launches}, wanted {want}")
+    say("lenet_zero", steps=steps, ranks=4, launches=launches,
+        kernel=runs["kernel"], loss_max_rel_vs_plain=loss_rel,
+        tolerance=LENET_LOSS_RTOL, formats_equal=True)
     return launches
+
+
+def train_zero(cfg, wire_first_loss, overlap, steps=4, n_ranks=4):
+    """``launch.train --zero-opt [--wire-overlap on]`` at full size: 4
+    ranks on the card, per-layer wire formats, SGD; ZeRO (and the overlap)
+    engaged, finite losses, the first equal to the wire run's, launches a
+    step as the CPU rehearsal counts them."""
+    from repro_torch.dist import plan_buckets
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer
+    from repro_torch.core import tree as tree_lib
+    argv = ["--arch", "llama3_2_3b", "--steps", str(steps), "--batch",
+            str(n_ranks), "--seq", "512", "--optimizer", "sgd",
+            "--grad-allreduce-bits", "8", "--data-ranks", str(n_ranks),
+            "--zero-opt", "--log-every", "1"]
+    if overlap:
+        argv += ["--wire-overlap", "on"]
+    train_cli.reset_launch_counts()            # the counted run
+    out = train_cli.main(argv)
+    launches = train_cli.launch_counts()
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    if len(hist) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"ZeRO training: losses {losses}")
+    if not (out["zero_opt"] and out["zero_groupaligned"]
+            and out["wire_overlap"] == overlap):
+        raise AssertionError(f"ZeRO training: zero_opt {out['zero_opt']}, "
+                             f"wire_overlap {out['wire_overlap']}")
+    if losses[0] != wire_first_loss:
+        raise AssertionError(f"ZeRO training: step-1 loss {losses[0]!r} is "
+                             f"not the wire run's {wire_first_loss!r}")
+    defs = transformer.model_defs(cfg, cfg.master_dtype())
+    buckets = (plan_buckets([math.prod(d.shape) for d in
+                             tree_lib.leaves(defs)]).n_buckets
+               if overlap else 1)
+    if out["wire_buckets"] != buckets:
+        raise AssertionError(f"ZeRO training: {out['wire_buckets']} buckets, "
+                             f"wanted {buckets}")
+    want = _wire_step_launches(cfg, n_ranks, "onchip", zero_buckets=buckets)
+    per_step = [h["kernel_launches"] for h in hist]
+    if per_step != [want] * steps or launches != {k: v * steps
+                                                 for k, v in want.items()}:
+        raise AssertionError(f"ZeRO training: launches {per_step} a step, "
+                             f"wanted {want}")
+    say("zero_train", command="python -m repro_torch.launch.train " + " ".join(argv),
+        params=out["params"], data_ranks=n_ranks, overlap=overlap,
+        buckets=buckets, losses=losses,
+        wire_run_losses_first=wire_first_loss,
+        first_step_s=out["first_step_s"],
+        ms_per_step_after_first=out["ms_per_step_after_first"],
+        tokens_per_s_after_first=out["tokens_per_s_after_first"],
+        peak_memory_bytes=out["peak_memory_bytes"], launches=launches,
+        launches_per_step=want, E_wire=out["E_wire"], R_wire=out["R_wire"],
+        formats=[{k: h[k] for k in ("il_w", "fl_w", "il_g", "fl_g",
+                                    "il_wire_grads", "fl_wire_grads")}
+                 for h in hist])
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, hist
 
 
 def main():
@@ -1466,23 +1906,70 @@ def main():
         cfg, "onchip", 4)["dps_quantize_onchip_prng"]
     launches["dps_quantize"] = train_lm(cfg, "operand", 3)["dps_quantize"]
     wire_collectives()
-    wire = train_wire(cfg)
+    wire, wire_losses = train_wire(cfg)
     for k in ("dps_quant_wire_onchip_prng", "dps_group_wire_encode_onchip_prng",
               "dps_wire_reduce"):
         launches[k] = wire[k]
     launches["dps_quant_wire"] = train_wire(
-        cfg, steps=2, rounding_bits="operand")["dps_quant_wire"]
+        cfg, steps=2, rounding_bits="operand")[0]["dps_quant_wire"]
+    # ZeRO-1 and the overlapped wire: the halves on the card, LeNet's int8
+    # params leg, then the trainer at full width without and with the
+    # overlap; each run counted from 0
+    zero_collectives()
+    rows += zero_bucket_check(cfg)
+    zero_launches = {"lenet_zero": lenet_zero()}
+    zero_hist = {}
+    for run, overlap in (("zero", False), ("zero_overlap", True)):
+        zero_launches[run], zero_hist[run] = train_zero(
+            cfg, wire_losses[0], overlap)
+    zero_losses = {run: [h["loss"] for h in hist]
+                   for run, hist in zero_hist.items()}
+    rel = {run: max(abs(a - b) / abs(b) for a, b in
+                    zip(ls[1:], wire_losses[1:]))
+           for run, ls in zero_losses.items()}
+    if max(rel.values()) > ZERO_LOSS_RTOL:
+        raise AssertionError(f"ZeRO training: losses after the first differ "
+                             f"from the wire run's by {rel} relative "
+                             f"(> {ZERO_LOSS_RTOL})")
+    # the overlap changes when and in what pieces the wire runs, not what it
+    # computes: every metric of every step (losses, every domain's formats,
+    # E/R, E_wire/R_wire) bit-equal to the run without it
+    metrics = [{k: v for k, v in h.items()
+                if k not in ("launches", "kernel_launches")}
+               for h in zero_hist["zero"]]
+    over = [{k: v for k, v in h.items()
+             if k not in ("launches", "kernel_launches")}
+            for h in zero_hist["zero_overlap"]]
+    if metrics != over:
+        diff = sorted({k for a, b in zip(metrics, over) for k in a
+                       if a[k] != b.get(k)})
+        raise AssertionError(f"ZeRO training: the overlap run differs from "
+                             f"the run without it in {diff}")
+    say("zero_vs_wire", wire_losses=wire_losses, zero_losses=zero_losses,
+        loss_max_rel_after_first=rel, tolerance=ZERO_LOSS_RTOL,
+        step1_bit_equal=True, overlap_bit_equal_metrics=sorted(metrics[0]))
+    # a row measured at the overlap run's bucket shape takes that run's
+    # launches; the rows of the same counters at other shapes do not
+    at_bucket = {(r["run"], r["counter"]) for r in rows if "run" in r}
     for r in rows:
-        # a row off the path (K5 at a long context) has no launches of its own
-        r["launches"] = launches[r["name"]] if r.get("on_path", True) else 0
+        if "run" in r:
+            r["launches"] = zero_launches[r["run"]][r["counter"]]
+        else:
+            # a row off the path (K5 at a long context) has no launches
+            r["launches"] = (launches[r["name"]] if r.get("on_path", True)
+                             else 0)
         if r.get("on_path", True) and r["launches"] < 1:
             raise AssertionError(f"{r['name']} was not launched on the main path")
         if r["name"] == "dps_quantize":
             r["launches_lenet"] = lenet_k1
+        for run, counts in zero_launches.items():
+            if ("run" not in r and counts.get(r["name"])
+                    and (run, r["name"]) not in at_bucket):
+                r[f"launches_{run}"] = counts[r["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
 
 

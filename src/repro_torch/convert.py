@@ -10,6 +10,7 @@ as float32.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Mapping, Optional
 
 import numpy as np
@@ -67,3 +68,68 @@ def lenet_params_from_jax(np_tree: Mapping[str, Any], device="cuda"):
     tree = {k: (np.transpose(np.asarray(v), (3, 2, 0, 1))
                 if k in lenet.CONV_KEYS else v) for k, v in np_tree.items()}
     return _convert(lenet.model_defs(), tree, "", resolve_device(device), None)
+
+
+def _reference_quantum(size: int, groups: int, backend: str) -> int:
+    """The reference's default grouped-wire quantum (its
+    ``collectives.default_wire_quantum``): ``ceil(size / G)`` rounded up to
+    the backend's tile — 128 for its jnp codec, 4096 for its TPU kernel —
+    capped at 4096."""
+    tile = 4096 if backend == "kernel" else 128
+    target = -(-max(size, 1) // max(groups, 1))
+    return min(4096, max(tile, -(-target // tile) * tile))
+
+
+def _reference_partitioner(qcfg, params, n_shards: int, backend: str):
+    """The flat ZeRO layout the reference's ``zero_partitioner`` builds for
+    this config: the port's partitioners with the reference's quanta."""
+    import math
+
+    from repro_torch.core import qtrain
+    from repro_torch.dist import collectives
+    from repro_torch.dist.sharding import GroupAlignedPartitioner
+    part = qtrain.zero_partitioner(qcfg, params, n_shards)
+    if not isinstance(part, GroupAlignedPartitioner):
+        return part
+    sizes = [math.prod(s) or 1 for s in part.shapes]
+    layouts = []
+    for run in part.buckets:
+        b_sizes = tuple(sizes[i] for i in run)
+        layouts.append(collectives.group_layout(
+            b_sizes, n_chunks=n_shards,
+            quantum=_reference_quantum(sum(b_sizes), len(run), backend)))
+    return dataclasses.replace(part, layouts=tuple(layouts))
+
+
+def zero_opt_state_from_jax(np_state: Mapping[str, Any], params, qcfg,
+                            transport, *, reference_backend: str = "jnp"):
+    """The port's ZeRO-1 optimizer state from the reference's.
+
+    ``np_state``: the reference's ``zero_opt_state`` as numpy arrays (one
+    flat ``[padded_size]`` vector per state tensor, rank-major shards of
+    its layout).  Each is unflattened with the reference's geometry
+    (``zero_partitioner`` of ``qcfg`` with the quanta the reference's
+    ``reference_backend`` codec resolves: ``"jnp"`` on CPU, ``"kernel"``
+    on TPU) and flattened with the port's; returns one ``[shard_size]``
+    row per rank ``transport`` holds, as
+    :func:`repro_torch.core.qtrain.zero_opt_state` makes them.
+    ``params``: the port's parameter tree (for its shapes and device).
+    """
+    from repro_torch.core import qtrain
+    from repro_torch.core import tree as tree_lib
+    n = transport.axis_size
+    ref = _reference_partitioner(qcfg, params, n, reference_backend)
+    part = qtrain.zero_partitioner(qcfg, params, n)
+    device = tree_lib.leaves(params)[0].device
+    out = {}
+    for name, arr in np_state.items():
+        arr = np.asarray(arr, np.float32)
+        if arr.shape != (ref.padded_size,):
+            raise ValueError(f"{name}: shape {arr.shape}, the reference's "
+                             f"layout holds ({ref.padded_size},)")
+        shards = torch.from_numpy(arr).reshape(n, ref.shard_size)
+        tree = ref.unflatten(ref.assemble(shards))
+        flat = part.flatten(tree, device)
+        out[name] = torch.stack([part.shard(flat, j).clone()
+                                 for j in transport.ranks])
+    return out

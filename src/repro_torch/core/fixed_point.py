@@ -353,19 +353,39 @@ def quantize_tree(tree, fmt: FixedPointFormat, *, mode: str = ROUND_STOCHASTIC,
     gradient quantization: a second copy of 3.2 B fp32 values would not
     fit beside the rest).  Returns ``(tree_q, merged QuantStats)``.
     """
-    from repro_torch.kernels import ops           # ops imports this module
     out, stats = [], []
     for i, (path, leaf) in enumerate(tree_lib.leaves_with_path(tree)):
-        if predicate is not None and not predicate(path, leaf):
-            out.append(leaf)
-            continue
-        q, s = _quantize_leaf(ops, leaf, fmt, mode, fold_seed(seed, i),
-                              onchip_prng, backend, leaf if inplace else None)
+        q, s = quantize_tree_leaf(i, path, leaf, fmt, mode=mode, seed=seed,
+                                  predicate=predicate,
+                                  onchip_prng=onchip_prng, backend=backend,
+                                  inplace=inplace)
         out.append(q)
-        stats.append(s)
-    merged = (merge_stats(*stats) if stats
-              else QuantStats.zero(device=fmt.il.device))
-    return tree_lib.from_leaves(tree, out), merged
+        if s is not None:
+            stats.append(s)
+    return tree_lib.from_leaves(tree, out), merge_tree_stats(stats, fmt)
+
+
+def quantize_tree_leaf(i: int, path, leaf, fmt: FixedPointFormat, *,
+                       mode: str = ROUND_STOCHASTIC, seed: int = 0,
+                       predicate=None, onchip_prng: bool = False,
+                       backend: str = "auto", inplace: bool = False):
+    """Leaf ``i`` (at ``path``) of :func:`quantize_tree`, on its own: for a
+    caller that has the leaves one at a time (the overlapped wire measures
+    each gradient leaf as the backward produces it).  Returns ``(q,
+    QuantStats)``, or ``(leaf, None)`` for a leaf the predicate skips;
+    :func:`merge_tree_stats` of the stats in leaf order is
+    :func:`quantize_tree`'s."""
+    from repro_torch.kernels import ops           # ops imports this module
+    if predicate is not None and not predicate(path, leaf):
+        return leaf, None
+    return _quantize_leaf(ops, leaf, fmt, mode, fold_seed(seed, i),
+                          onchip_prng, backend, leaf if inplace else None)
+
+
+def merge_tree_stats(stats, fmt: FixedPointFormat) -> QuantStats:
+    """The selected leaves' stats, merged in leaf order (zero if none)."""
+    return (merge_stats(*stats) if stats
+            else QuantStats.zero(device=fmt.il.device))
 
 
 def _quantize_leaf(ops, leaf, fmt, mode, seed, onchip_prng, backend, out):

@@ -1,10 +1,12 @@
 """Quantized-training plumbing: taps, precision-domain registry, train state.
 
-Counterpart of ``repro/core/qtrain.py``: the replicated step and the
+Counterpart of ``repro/core/qtrain.py``: the replicated step, the
 int8-wire data-parallel step (``QuantConfig.grad_allreduce_bits`` with a
-transport of more than one rank).  ZeRO-1, the overlapped wire and the
-health guards wait for later slices (setting their fields raises).  Wires
-the paper's Algorithm 1 into a PyTorch model:
+transport of more than one rank), its backward-overlapped bucketed form
+(``wire_overlap``) and ZeRO-1 (``zero_opt_shards``: the optimizer state
+sharded over the data axis).  The health guards wait for a later slice
+(setting ``guards`` raises).  Wires the paper's Algorithm 1 into a
+PyTorch model:
 
   forward pass   — activations pass through :meth:`QCtx.tap` (quantize +
                    stats on the way down, the cotangent quantized on the way
@@ -32,6 +34,8 @@ the same :class:`TrainState` object, advanced.
 from __future__ import annotations
 
 import dataclasses
+import math
+import warnings
 from typing import Any, Dict, Optional
 
 import torch
@@ -91,18 +95,30 @@ class QuantConfig:
     # (repro_torch.dist.collectives) instead of an fp32 one; its dispatch-leg
     # stats feed the wire_grads domain.  2..8 grid bits.
     grad_allreduce_bits: Optional[int] = None
-    # The reference's ZeRO-1, overlap and resilience switches; not ported.
+    # the params leg's hyper under ZeRO-1 (None -> derived: radix over the
+    # max with headroom, slack +1)
+    hyper_wire_params: Optional[dps_lib.DPSHyper] = None
+    # ZeRO-1: shard the optimizer state over the data axis in this many
+    # flat slices (must equal the transport's axis size to engage; a
+    # mismatch warns and falls back to the replicated state).  The flat
+    # layout is zero_partitioner's; the state comes from zero_opt_state.
+    # With grad_allreduce_bits the gradients reach each owner through the
+    # int8 reduce-scatter and, when the policy quantizes every leaf, the
+    # updated parameters come back through the int8 wire_params all-gather.
     zero_opt_shards: Optional[int] = None
+    # Backward-overlapped bucketed wire (repro_torch.dist.overlap): one
+    # compressed collective per bucket of about wire_bucket_elems elements
+    # (None -> DEFAULT_BUCKET_ELEMS), each issued as soon as the backward
+    # has produced its gradients.  Engages with the compressed sync only.
     wire_overlap: bool = False
+    wire_bucket_elems: Optional[int] = None
+    # The reference's health guards; not ported.
     guards: Optional[Any] = None
 
     def __post_init__(self):
-        for name, off in (("zero_opt_shards", None), ("wire_overlap", False),
-                          ("guards", None)):
-            if getattr(self, name) != off:
-                raise NotImplementedError(
-                    f"QuantConfig.{name}: ZeRO-1, the overlapped wire and "
-                    "the health guards are not ported yet")
+        if self.guards is not None:
+            raise NotImplementedError(
+                "QuantConfig.guards: the health guards are not ported yet")
         if self.backend not in ("auto", "kernel", "plain"):
             raise ValueError(f"unknown quantizer backend {self.backend!r}")
 
@@ -110,7 +126,10 @@ class QuantConfig:
         """The precision-domain registry this config trains under: one
         domain per compute attribute, plus ``wire_grads`` whenever
         ``grad_allreduce_bits`` is set (gradients start wide, ±2^5, and
-        track the bulk two octaves under the max: slack −2)."""
+        track the bulk two octaves under the max: slack −2), and
+        ``wire_params`` when ZeRO-1 can put the parameter all-gather on the
+        wire too (parameters are O(1): the radix covers the max, slack +1;
+        one format per leaf like ``wire_grads``)."""
         domains = [
             ("weights", DomainSpec(self.controller, self.hyper_weights)),
             ("acts", DomainSpec(self.controller, self.hyper_acts)),
@@ -124,6 +143,13 @@ class QuantConfig:
                 or dps_lib.wire_hyper(wb, il_init=6, slack=-2.0,
                                       auto_slack=self.wire_auto_slack),
                 groups=self.wire_grads_groups, wire=True)))
+            if self.zero_opt_shards is not None:
+                domains.append(("wire_params", DomainSpec(
+                    self.wire_controller,
+                    self.hyper_wire_params
+                    or dps_lib.wire_hyper(wb, il_init=2, slack=1.0,
+                                          auto_slack=self.wire_auto_slack),
+                    groups=self.wire_grads_groups, wire=True)))
         return PrecisionPlan(tuple(domains))
 
     def with_per_layer_wire(self, params) -> "QuantConfig":
@@ -267,6 +293,82 @@ class TrainState:
                                                 device=device))
 
 
+def _axis_size(transport) -> int:
+    return transport.axis_size if transport is not None else 1
+
+
+def zero_opt_engaged(qcfg: QuantConfig, transport) -> bool:
+    """Does the ZeRO-1 sharded-optimizer path engage for (qcfg,
+    transport)?  ``zero_opt_shards`` set and equal to the transport's axis
+    size, larger than 1 — the checks :func:`make_train_step` makes (a
+    mismatch warns there and runs the replicated optimizer state)."""
+    n = _axis_size(transport)
+    return (qcfg.zero_opt_shards is not None and n > 1
+            and qcfg.zero_opt_shards == n)
+
+
+def wire_sync_engaged(qcfg: QuantConfig, transport) -> bool:
+    """Does the compressed gradient all-reduce engage for (qcfg,
+    transport)?"""
+    return qcfg.grad_allreduce_bits is not None and _axis_size(transport) > 1
+
+
+def wire_params_engaged(qcfg: QuantConfig, params, transport) -> bool:
+    """Does the ZeRO-1 parameter all-gather ride the int8 wire?  The flat
+    legs cannot honor per-leaf carve-outs, so only when the quantization
+    policy covers EVERY parameter leaf (``params``: a tree of tensors or of
+    anything with the same paths); otherwise the updated parameters are
+    gathered in fp32 and the flat optimizer-input snap is skipped."""
+    if not (zero_opt_engaged(qcfg, transport)
+            and wire_sync_engaged(qcfg, transport)):
+        return False
+    pred = qcfg.policy.param_predicate()
+    return all(pred(path, leaf)
+               for path, leaf in tree_lib.leaves_with_path(params))
+
+
+def zero_partitioner(qcfg: Optional[QuantConfig], params, n_shards: int):
+    """The flat ZeRO-1 layout this config shards its optimizer state over:
+    the plain :class:`~repro_torch.dist.sharding.ZeroPartitioner`, unless
+    the compressed sync runs per-layer ``wire_grads`` formats or the
+    overlapped wire — then the
+    :class:`~repro_torch.dist.sharding.GroupAlignedPartitioner`, bucketed
+    by :func:`~repro_torch.dist.overlap.plan_buckets` (the overlap's own
+    plan) when ``wire_overlap``.  ``params``: a tree of tensors (or of
+    anything with ``shape`` and ``dtype``)."""
+    from repro_torch.dist import overlap as overlap_lib   # dist imports core
+    from repro_torch.dist.sharding import (GroupAlignedPartitioner,
+                                           ZeroPartitioner)
+    if qcfg is None:
+        return ZeroPartitioner.create(params, n_shards)
+    plan = qcfg.plan()
+    groups = plan.spec("wire_grads").groups if "wire_grads" in plan else 0
+    if not (qcfg.grad_allreduce_bits is not None
+            and (groups > 0 or qcfg.wire_overlap)):
+        return ZeroPartitioner.create(params, n_shards)
+    buckets = None
+    if qcfg.wire_overlap:
+        sizes = tuple(math.prod(l.shape) or 1
+                      for l in tree_lib.leaves(params))
+        bplan = overlap_lib.plan_buckets(
+            sizes, qcfg.wire_bucket_elems or overlap_lib.DEFAULT_BUCKET_ELEMS)
+        buckets = tuple(sorted(bplan.buckets))
+    return GroupAlignedPartitioner.create(params, n_shards, buckets=buckets)
+
+
+def zero_opt_state(optimizer, params, transport,
+                   qcfg: Optional[QuantConfig] = None):
+    """ZeRO-1 optimizer state: ``optimizer.init_shard`` over the flat
+    layout of :func:`zero_partitioner`, one ``[shard_size]`` row per rank
+    the transport holds — every rank's on a :class:`StackedTransport`, one
+    on a process group (1/n of the replicated state's bytes).  Pass the
+    run's ``qcfg``: per-layer and overlapped wires shard another layout."""
+    part = zero_partitioner(qcfg, params, transport.axis_size)
+    device = tree_lib.leaves(params)[0].device
+    return optimizer.init_shard((len(transport.ranks), part.shard_size),
+                                device)
+
+
 def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
                     accum_steps: int = 1, transport=None):
     """Build a quantized SGD/AdamW train step around ``loss_fn``.
@@ -286,18 +388,54 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
     parallelism over the int8 wire.  The batch splits into one slice per
     rank (rank r takes rows ``r·B/n … (r+1)·B/n``, as the reference's
     ``P(data)`` splits it); each rank the transport holds runs its forward
-    and backward, its raw-gradient statistics, and the dispatch leg of the
-    tree all-reduce (K2b per leaf into its row of the int8 payload; K2 with
-    a bits operand unless ``qcfg.onchip_prng``), after
-    which its fp32 gradients are dropped; then the rest of the all-reduce
-    gives every rank the decoded mean, which goes through the
-    optimizer-input quantization and the optimizer as in the replicated
-    step.  The wire ⟨IL, FL⟩ comes from the ``wire_grads`` domain, fed by the
-    dispatch-leg stats; the grads domain is fed by the compute-grid stats
-    of the RAW local gradients (the decoded mean already sits on the wire
-    grid: its own stats would starve the controller).  With one rank (or no
+    and backward, the dispatch leg of the tree all-reduce (K2b per leaf into
+    its row of the int8 payload; K2 with a bits operand unless
+    ``qcfg.onchip_prng``) and its raw-gradient statistics, after which its
+    fp32 gradients are dropped; then the rest of the all-reduce gives every
+    rank the decoded mean, which goes through the optimizer-input
+    quantization and the optimizer as in the replicated step.  The wire
+    ⟨IL, FL⟩ comes from the ``wire_grads`` domain, fed by the dispatch-leg
+    stats; the grads domain is fed by the compute-grid stats of the RAW
+    local gradients (the decoded mean already sits on the wire grid: its
+    own stats would starve the controller).  With one rank (or no
     transport) the step is the replicated one, bit for bit.
-    ``train_step.wire_sync_active`` says which ran.
+
+    ``qcfg.wire_overlap``: the all-reduce runs per bucket
+    (:class:`repro_torch.dist.overlap.BucketedWire`): each gradient leaf is
+    encoded from a post-accumulate-grad hook the moment the backward has
+    it, and a bucket's collective is issued once every rank held has
+    encoded it.  With ``accum_steps > 1`` the leaves are encoded once the
+    last microbatch has been accumulated: the buckets still run, but
+    nothing overlaps the backward, and ``.wire_overlap_active`` is False.
+    Bit-equal to the monolithic wire under both rounding modes.
+
+    ``qcfg.zero_opt_shards``: ZeRO-1.  The parameters live in one flat
+    fp32 buffer of :func:`zero_partitioner`'s layout (the step lays the
+    state's tree out there, as views, on its first call), the optimizer
+    state is :func:`zero_opt_state`'s, and each owner steps its slice.
+    Without the wire the gradients are the replicated step's and the step
+    is bit-equal to it (fp32 state, no clipping).  With it, the gradients
+    reach each owner through the int8 reduce-scatter: on the group-aligned
+    layout (per-layer formats, or the overlap) each owner's values are
+    bit-equal to its chunk of the all-reduce's mean, so while the params
+    leg stays fp32 the step equals the wire step bit for bit, except where
+    the wire step's optimizer-input snap moves a value already on the grid
+    (stochastic rounding of ``k + u`` in fp32 can round up when ``k`` is
+    large), a snap the ZeRO step skips as the reference's does; on the plain
+    layout (one format, no overlap) the owner means its chunk without the
+    all-reduce's second snap, as the reference does.  When the policy
+    quantizes every leaf, the optimizer input is snapped on the flat shard
+    and the updated parameters come back through the int8 ``wire_params``
+    all-gather.  Rank by rank as above, then owner by owner: K4 and the
+    leg-2 snap (already run per bucket by the overlap), the local decode,
+    the optimizer-input snap, ``update_shard`` on the owner's slice of the
+    flat parameters; then the params leg.  One fp32 gradient shard exists
+    at a time; with ``clip_norm`` the shards are decoded twice (the norm
+    needs every owner's before the first updates).
+
+    ``train_step.wire_sync_active``, ``.zero_opt_active``,
+    ``.wire_overlap_active`` (the hooks ran) and
+    ``.zero_groupaligned_active`` say which ran.
     """
     plan = qcfg.plan()
     rounding = getattr(plan.controller("weights"), "rounding", qcfg.rounding)
@@ -305,22 +443,47 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
     if wire_bits is not None and not 2 <= wire_bits <= 8:
         raise ValueError(f"grad_allreduce_bits={wire_bits}: the wire payload "
                          "is int8, so only 2..8 grid bits are supported")
-    n_data = transport.axis_size if transport is not None else 1
-    wire_sync = wire_bits is not None and n_data > 1
+    n_data = _axis_size(transport)
+    wire_sync = wire_sync_engaged(qcfg, transport)
+    # engagement policy (the reference's): a config the transport cannot
+    # honor warns and falls back; an impossible one raises
+    zero_opt = qcfg.zero_opt_shards is not None and n_data > 1
+    if zero_opt and qcfg.zero_opt_shards != n_data:
+        warnings.warn(
+            f"zero_opt_shards={qcfg.zero_opt_shards} does not match the "
+            f"transport's data axis ({n_data} ranks); the optimizer state "
+            "shards over that axis. Falling back to the replicated "
+            "optimizer state.")
+        zero_opt = False
+    if zero_opt and not hasattr(optimizer, "update_shard"):
+        raise TypeError(f"{type(optimizer).__name__} has no shard-local "
+                        "update_shard/init_shard interface; ZeRO-1 needs it")
     wire_groups = plan.spec("wire_grads").groups if "wire_grads" in plan else 0
-    if wire_sync:
+    wire_overlap = bool(qcfg.wire_overlap) and wire_sync
+    zero_aligned = zero_opt and wire_sync and (wire_groups > 0 or wire_overlap)
+    if wire_sync or zero_opt:
         from repro_torch.dist import collectives    # dist imports core
+        from repro_torch.dist import overlap as overlap_lib
+        from repro_torch.optim.optimizers import shard_sq_norm
+        bucket_elems = (qcfg.wire_bucket_elems
+                        or overlap_lib.DEFAULT_BUCKET_ELEMS)
+    hooked = wire_overlap and accum_steps == 1
+    measure_grads = qcfg.enabled and qcfg.policy.quantizes("grads")
+    layout = {}              # the step's partitioner and full_quant, once
+
+    def _qctx(fmts, seed_a, microbatch_idx):
+        if not (qcfg.enabled and qcfg.policy.quantizes("acts")):
+            return None
+        return QCtx(acts_fmt=fmts["acts"], grads_fmt=fmts["grads"],
+                    seed=fold_seed(seed_a, microbatch_idx),
+                    rounding=rounding, collect_stats=True,
+                    onchip_prng=qcfg.onchip_prng, backend=qcfg.backend)
 
     def _grads(qparams, batch, fmts, seed_a, microbatch_idx):
-        qctx = None
-        if qcfg.enabled and qcfg.policy.quantizes("acts"):
-            qctx = QCtx(acts_fmt=fmts["acts"], grads_fmt=fmts["grads"],
-                        seed=fold_seed(seed_a, microbatch_idx),
-                        rounding=rounding, collect_stats=True,
-                        onchip_prng=qcfg.onchip_prng, backend=qcfg.backend)
         leaves = [leaf.detach().requires_grad_()
                   for leaf in tree_lib.leaves(qparams)]
-        loss, aux = loss_fn(tree_lib.from_leaves(qparams, leaves), batch, qctx)
+        loss, aux = loss_fn(tree_lib.from_leaves(qparams, leaves), batch,
+                            _qctx(fmts, seed_a, microbatch_idx))
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), aux, tree_lib.from_leaves(qparams, list(grads))
 
@@ -348,6 +511,15 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
         aux = {} if stats is None else {"act_stats": stats}
         return loss_acc / accum_steps, aux, grads
 
+    def _raw_leaf_stats(g, path, grad, fmts, seed_g, rank):
+        """Leaf ``g`` of :func:`_raw_grad_stats`, in place."""
+        _, st = fxp.quantize_tree_leaf(
+            g, path, grad, fmts["grads"], mode=qcfg.rounding,
+            seed=fold_seed(seed_g, rank),
+            predicate=qcfg.policy.param_predicate(),
+            onchip_prng=qcfg.onchip_prng, backend=qcfg.backend, inplace=True)
+        return st
+
     def _raw_grad_stats(grads, fmts, seed_g, rank):
         """Compute-grid gradient stats measured on the RAW local gradients
         (the reference's ``_raw_grad_stats``): the replicated step's
@@ -355,21 +527,56 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
         place — the caller has encoded these gradients and drops them.
         Writing q costs the launch nothing: it is bound by the statistics'
         arithmetic, not by its bytes."""
-        if not (qcfg.enabled and qcfg.policy.quantizes("grads")):
+        if not measure_grads:
             return QuantStats.zero(device=fmts["grads"].il.device)
         _, st = quantize_grads(grads, fmts["grads"], qcfg,
                                fold_seed(seed_g, rank), inplace=True)
         return st
 
-    def _wire_synced_grads(qparams, batch, fmts, seed_a, seed_g, seed_r):
-        """Per-rank forward/backward + the dispatch leg of the int8 tree
-        all-reduce, rank by rank; returns the per-rank losses, aux dicts
-        and raw-gradient stats, and the all-reduce to finish."""
+    def _hooked_rank_pass(qparams, rows, fmts, seed_a, seed_g, rank, sink):
+        """One rank's forward and backward with a post-accumulate-grad hook
+        on every leaf: the moment the backward has a leaf's gradient, the
+        hook encodes it into ``sink`` (the bucketed wire issues a bucket's
+        collective once it is complete), measures its raw statistics and
+        drops it."""
+        paths = tree_lib.leaves_with_path(qparams)
+        leaves = [leaf.detach().requires_grad_() for _, leaf in paths]
+        raw = [None] * len(leaves)
+
+        def hook_for(g):
+            def hook(leaf):
+                grad, leaf.grad = leaf.grad, None
+                sink.encode_leaf(rank, g, grad)
+                if measure_grads:
+                    raw[g] = _raw_leaf_stats(g, paths[g][0], grad, fmts,
+                                             seed_g, rank)
+            return hook
+
+        handles = [leaf.register_post_accumulate_grad_hook(hook_for(g))
+                   for g, leaf in enumerate(leaves)]
+        try:
+            loss, aux = loss_fn(tree_lib.from_leaves(qparams, leaves), rows,
+                                _qctx(fmts, seed_a, 0))
+            torch.autograd.backward(loss, inputs=leaves)
+        finally:
+            for h in handles:
+                h.remove()
+        if sink.missing(rank):
+            raise RuntimeError(f"leaves {sink.missing(rank)} got no gradient "
+                               "from the backward")
+        if not measure_grads:
+            return loss.detach(), aux, QuantStats.zero(
+                device=fmts["grads"].il.device)
+        return loss.detach(), aux, fxp.merge_tree_stats(
+            [s for s in raw if s is not None], fmts["grads"])
+
+    def _rank_rows(qparams, batch) -> int:
+        """Rows of the batch per rank, after checking that the batch splits
+        into the ranks and that per-layer formats have a row per leaf."""
         n = next(iter(batch.values())).shape[0]
         if n % n_data:
             raise ValueError(f"batch {n} does not split into {n_data} "
                              "data-parallel ranks")
-        m = n // n_data
         n_leaves = len(tree_lib.leaves(qparams))
         if wire_groups and n_leaves != wire_groups:
             raise ValueError(
@@ -377,65 +584,230 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
                 f"{n_leaves} leaves; per-layer wire formats need one group "
                 "per leaf (derive the config with "
                 "QuantConfig.with_per_layer_wire(params))")
-        tw = collectives.TreeAllReduce(qparams, fmts, transport, seed_r,
-                                       mode=rounding, domain="wire_grads",
-                                       backend=qcfg.backend,
-                                       onchip_prng=qcfg.onchip_prng)
+        return n // n_data
+
+    def _rank_passes(qparams, batch, fmts, seed_a, seed_g, sink):
+        """Every rank the transport holds in turn: its slice of the batch
+        forward and backward, its leg-1 encode into ``sink`` and its
+        raw-gradient stats; its fp32 gradients are dropped before the next
+        rank's backward.  Returns the per-rank losses, aux dicts and raw
+        stats."""
+        m = _rank_rows(qparams, batch)
         losses, auxes, raws = [], [], []
         for r in transport.ranks:
             rows = {k: v[r * m:(r + 1) * m] for k, v in batch.items()}
-            loss, aux, grads = _accum_grads(qparams, rows, fmts,
-                                            fold_seed(seed_a, r))
-            tw.encode(r, grads)
-            raws.append(_raw_grad_stats(grads, fmts, seed_g, r))
-            del grads
+            sa = fold_seed(seed_a, r)
+            if hooked:
+                loss, aux, raw = _hooked_rank_pass(qparams, rows, fmts, sa,
+                                                   seed_g, r, sink)
+            else:
+                loss, aux, grads = _accum_grads(qparams, rows, fmts, sa)
+                sink.encode(r, grads)
+                raw = _raw_grad_stats(grads, fmts, seed_g, r)
+                del grads
             losses.append(loss)
             auxes.append(aux)
-        return losses, auxes, raws, tw
+            raws.append(raw)
+        return losses, auxes, raws
 
     def _pmean(values):
         return transport.psum(torch.stack(values)) / n_data
+
+    def _reduce_ranks(losses, auxes, raws):
+        """The per-rank losses, aux dicts and raw stats over the axis."""
+        aux = {k: (collectives.psum_stats([a[k] for a in auxes], transport)
+                   if isinstance(v, QuantStats)
+                   else _pmean([a[k] for a in auxes]))
+               for k, v in auxes[0].items()}
+        return (_pmean(losses), aux,
+                collectives.psum_stats(raws, transport))
+
+    def _wire_synced_grads(qparams, batch, fmts, seed_a, seed_g, seed_r):
+        """The int8 all-reduce of every rank's gradients (bucketed with
+        ``wire_overlap``).  Returns the loss, aux, raw stats, the mean
+        gradient tree and the dispatch leg's stats."""
+        _rank_rows(qparams, batch)
+        if wire_overlap:
+            sizes = tuple(l.numel() for l in tree_lib.leaves(qparams))
+            sink = overlap_lib.BucketedWire(
+                qparams, fmts, transport, seed_r,
+                runs=sorted(overlap_lib.plan_buckets(sizes,
+                                                     bucket_elems).buckets),
+                mode=rounding, backend=qcfg.backend, domain="wire_grads",
+                onchip_prng=qcfg.onchip_prng)
+        else:
+            sink = collectives.TreeAllReduce(
+                qparams, fmts, transport, seed_r, mode=rounding,
+                domain="wire_grads", backend=qcfg.backend,
+                onchip_prng=qcfg.onchip_prng)
+        train_step.wire_buckets = len(getattr(sink, "buckets", (sink,)))
+        passes = _rank_passes(qparams, batch, fmts, seed_a, seed_g, sink)
+        grads, wstats = sink.finish()
+        return (*_reduce_ranks(*passes), grads,
+                collectives.psum_stats(wstats, transport))
+
+    def _owner_grads(sink, i, j, fmts, seed_g, full_quant):
+        """Owner row ``i`` (rank ``j``)'s fp32 gradient shard, one segment
+        per bucket: decoded from its snap (aligned) or meaned by K4
+        (plain), then snapped onto the gradient grid when ``full_quant``
+        (the reference's optimizer-input quantization of the flat shard)."""
+        segs = (sink.owner_segments(i) if zero_aligned
+                else [sink.owner_mean(i)])
+        if full_quant and measure_grads:
+            for b, g in enumerate(segs):
+                ops.dps_quantize(g, fmts["grads"], ops.event_bits(
+                    g, qcfg.rounding, fold_seed(seed_g, 0x524157 + j, b),
+                    qcfg.onchip_prng), compute_stats=False, out=g,
+                    backend=qcfg.backend)
+        return segs
+
+    def _update_owners(part, flat, opt_state, count, owner_grads):
+        """``update_shard`` on each held owner's slice of the flat
+        parameters, segment by segment; ``owner_grads(i, j)`` gives owner
+        row ``i``'s gradient segments (called twice under clipping)."""
+        owners = list(enumerate(transport.ranks))
+        sq = None
+        if getattr(optimizer.cfg, "clip_norm", 0):
+            sq = transport.psum(torch.stack([
+                shard_sq_norm(owner_grads(i, j)) for i, j in owners]))
+        for i, j in owners:
+            segs = owner_grads(i, j)
+            for b, (g, p, (_, so, cnt)) in enumerate(zip(
+                    segs, part.shard_segments(flat, j), part.segments(j))):
+                st = {k: v[i, so:so + cnt] for k, v in opt_state.items()}
+                optimizer.update_shard(g, st, p, count, rank=j, segment=b,
+                                       sq_norm=sq)
+            del segs
+
+    def _gather_f32(part, flat):
+        """The fp32 params leg: every shard held was updated in place in
+        ``flat``; the others come from the all-gather (nothing to move when
+        this process holds every rank)."""
+        if len(transport.ranks) == n_data:
+            return
+        own = torch.stack([part.shard(flat, j) for j in transport.ranks])
+        part.assemble(transport.all_gather(own).view(n_data, -1), out=flat)
+
+    def _zero_wire_step(part, flat, full_quant, qparams, state, fmts,
+                        batch, seed_a, seed_g, seed_r):
+        """ZeRO-1 over the wire: the rank passes into the sharded
+        reduce-scatter (group-aligned buckets, or the plain packed layout),
+        then owner by owner the gradient shard and ``update_shard``, then
+        the params leg (int8 when ``full_quant``, else fp32)."""
+        _rank_rows(qparams, batch)
+        if zero_aligned:
+            # seed_r goes to both legs verbatim: the draws of the
+            # replicated tree all-reduce, bit for bit
+            sink = overlap_lib.zero_wire(
+                qparams, fmts, transport, seed_r, part=part, mode=rounding,
+                backend=qcfg.backend, domain="wire_grads",
+                onchip_prng=qcfg.onchip_prng, eager=wire_overlap)
+        else:
+            sink = collectives.TreeAllReduce(
+                qparams, fmts, transport, fold_seed(seed_r, 1),
+                mode=rounding, domain="wire_grads", backend=qcfg.backend,
+                onchip_prng=qcfg.onchip_prng, chunk=part.shard_size)
+        train_step.wire_buckets = len(getattr(sink, "buckets", (sink,)))
+        passes = _rank_passes(qparams, batch, fmts, seed_a, seed_g, sink)
+        g_wire = collectives.psum_stats(sink.stats, transport)
+        _update_owners(part, flat, state.opt_state, state.step,
+                       lambda i, j: _owner_grads(sink, i, j, fmts, seed_g,
+                                                 full_quant))
+        del sink
+        if full_quant:
+            shards = [part.shard_segments(flat, j) for j in transport.ranks]
+            kw = dict(mode=rounding, backend=qcfg.backend,
+                      domain="wire_params", onchip_prng=qcfg.onchip_prng,
+                      out=flat)
+            if zero_aligned:
+                _, pst = overlap_lib.zero_allgather_params(
+                    shards, fmts, transport, seed_r, part=part, **kw)
+            else:
+                _, pst = collectives.dps_allgather_params(
+                    [s[0] for s in shards], fmts, transport,
+                    fold_seed(seed_r, 2), **kw)
+            p_wire = collectives.psum_stats(pst, transport)
+        else:
+            _gather_f32(part, flat)
+            p_wire = QuantStats.zero(fmts["wire_params"].il.shape,
+                                     device=flat.device)
+        return (*_reduce_ranks(*passes), g_wire, p_wire)
+
+    def _zero_plain_opt(part, flat, grads, state):
+        """ZeRO-1 without the wire: each held owner steps its slice of the
+        (replicated) gradients, and the fp32 params leg follows — every
+        leg exact, so the step is the replicated one bit for bit."""
+        def owner_grads(i, j):
+            shard = part.shard_from_tree(grads, j)
+            return [shard[so:so + cnt] for _, so, cnt in part.segments(j)]
+
+        _update_owners(part, flat, state.opt_state, state.step, owner_grads)
+        _gather_f32(part, flat)
+
+    def _zero_layout(state):
+        """The step's partitioner and full_quant, fixed on the first call;
+        the state's parameters laid out in the flat buffer (as views)."""
+        if not layout:
+            layout["part"] = zero_partitioner(qcfg, state.params, n_data)
+            fq = wire_sync and wire_params_engaged(qcfg, state.params,
+                                                   transport)
+            if wire_sync and not fq:
+                warnings.warn(
+                    "zero_opt_shards + grad_allreduce_bits: the policy "
+                    "excludes some param leaves, and the flat ZeRO layout "
+                    "cannot skip them per-leaf — gathering updated params in "
+                    "fp32 and skipping the flat optimizer-input gradient "
+                    "quantization (the gradient wire stays int8).")
+            layout["full_quant"] = fq
+        part = layout["part"]
+        flat = part.flat_of(state.params)
+        if flat is None:
+            flat, state.params = part.flat_view(state.params)
+        return part, flat, layout["full_quant"]
 
     def train_step(state: TrainState, batch):
         dev = state.last_loss.device
         # counterpart of split(fold_in(rng, step), 3)
         seed_w, seed_g, seed_a = (fold_seed(state.seed, state.step, k)
                                   for k in range(3))
+        # the wire path derives its own stream instead of widening the
+        # step's split, so the replicated path keeps its seeds
+        seed_r = fold_seed(state.seed, state.step, _WIRE_SALT)
         fmts = bundle_formats(qcfg, state.dps)
+        if zero_opt:
+            part, flat, full_quant = _zero_layout(state)
 
         # -- forward/backward in the quantized regime (Alg. 1 lines 9-20) --
         qparams, w_stats = quantize_params(state.params, fmts["weights"],
                                            qcfg, seed_w)
         wire_stats = None
-        if wire_sync:
-            # the wire path derives its own stream instead of widening the
-            # step's split, so the replicated path keeps its seeds
-            seed_r = fold_seed(state.seed, state.step, _WIRE_SALT)
-            losses, auxes, raws, tw = _wire_synced_grads(
+        if zero_opt and wire_sync:
+            loss, aux, g_stats, g_wire, p_wire = _zero_wire_step(
+                part, flat, full_quant, qparams, state, fmts, batch, seed_a,
+                seed_g, seed_r)
+            del qparams
+            wire_stats = g_wire.merge(p_wire)
+        elif wire_sync:
+            loss, aux, g_stats, grads, wire_stats = _wire_synced_grads(
                 qparams, batch, fmts, seed_a, seed_g, seed_r)
             del qparams
-            grads, wstats = tw.finish()
-            del tw
-            wire_stats = collectives.psum_stats(wstats, transport)
-            loss = _pmean(losses)
-            aux = {k: (collectives.psum_stats([a[k] for a in auxes], transport)
-                       if isinstance(v, QuantStats)
-                       else _pmean([a[k] for a in auxes]))
-                   for k, v in auxes[0].items()}
             # the optimizer-input snap still applies (Alg. 1); the grads
             # controller reads the raw-gradient measurement instead
             grads, _ = quantize_grads(grads, fmts["grads"], qcfg, seed_g,
                                       inplace=True)
-            g_stats = collectives.psum_stats(raws, transport)
         else:
             loss, aux, grads = _accum_grads(qparams, batch, fmts, seed_a)
             del qparams
             grads, g_stats = quantize_grads(grads, fmts["grads"], qcfg,
                                             seed_g, inplace=True)
         # -- update (Alg. 1 line 18), in place --
-        optimizer.update(grads, state.opt_state, state.params,
-                         count=state.step)
-        del grads
+        if zero_opt and not wire_sync:
+            _zero_plain_opt(part, flat, grads, state)
+            del grads
+        elif not zero_opt:
+            optimizer.update(grads, state.opt_state, state.params,
+                             count=state.step)
+            del grads
 
         if "dlogits_stats" in aux and qcfg.stat_scope == "last_layer":
             g_stats = aux["dlogits_stats"]
@@ -452,10 +824,12 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
                                           fold_seed(seed_w, 1), inplace=True)
             w_stats = w_stats.merge(w_stats2)
 
-        # -- scale_precision (Alg. 2, one controller per domain); the wire
+        # -- scale_precision (Alg. 2, one controller per domain); each wire
         # leg feeds its own domain, never a compute controller --
         streams = {"weights": w_stats, "acts": a_stats, "grads": g_stats}
-        if wire_stats is not None:
+        if zero_opt and wire_sync:
+            streams["wire_grads"], streams["wire_params"] = g_wire, p_wire
+        elif wire_stats is not None:
             streams["wire_grads"] = wire_stats
         state.dps = update_dps_bundle(qcfg, state.dps, streams,
                                       {"loss": loss})
@@ -494,5 +868,9 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
         return state, metrics
 
     train_step.wire_sync_active = wire_sync
+    train_step.zero_opt_active = zero_opt
+    train_step.wire_overlap_active = hooked
+    train_step.zero_groupaligned_active = zero_aligned
+    train_step.wire_buckets = 0          # set by the first wire step
     train_step.n_data = n_data
     return train_step

@@ -498,41 +498,61 @@ def _rank_chunk(size: int, n: int) -> int:
     return max(a, a * -(-size // (a * n)))
 
 
+def _owner_rs_snap(received_i: torch.Tensor, fmt: FixedPointFormat,
+                   layout: GroupLayout, j: int, tg_all, goff, k2s: int, *,
+                   mode: str, backend: str, onchip_prng: bool = True,
+                   group_offset: int = 0, out=None):
+    """Owner ``j``'s half of :func:`_aligned_rs_snap`: K4 on its received
+    ``[n, chunk]`` stack, then the leg-2 re-encode of the mean chunk (K3b,
+    or K3 with a bits operand, under stochastic rounding; no statistics)
+    into ``out``.  Returns ``(part fp32 [chunk], wire2 int8 [chunk],
+    my_tg)``."""
+    tpc = layout.chunk // layout.quantum
+    my_tg = tg_all[j * tpc:(j + 1) * tpc]
+    part = _wire_reduce(received_i, fmt, my_tg, backend=backend,
+                        quantum=layout.quantum)
+    bits2 = (_aligned_bits(k2s, layout, goff, j * layout.chunk, layout.chunk,
+                           onchip_prng=onchip_prng, group_base=group_offset)
+             if mode == ROUND_STOCHASTIC else None)
+    wire2, _ = _encode_aligned(part, fmt, my_tg, None, bits=bits2, mode=mode,
+                               backend=backend, quantum=layout.quantum,
+                               compute_stats=False, out=out)
+    return part, wire2, my_tg
+
+
 def _aligned_rs_snap(fmt: FixedPointFormat, layout: GroupLayout, transport,
                      encode_leg1, k2s: int, *, mode: str, backend: str,
                      onchip_prng: bool = True, group_offset: int = 0):
     """Compressed reduce-scatter + wire-grid snap of a group-aligned payload.
 
     ``encode_leg1(tile_groups, goff) -> (payload int8 [rows, total], stats
-    per row)`` encodes the dispatch leg.  Then the tiled ``all_to_all``, K4 on
-    each owned chunk, and the leg-2 re-encode of the owned mean chunk (K3b,
-    or K3 with a bits operand, under stochastic rounding; no statistics),
-    chunk by chunk, so one fp32 chunk exists at a time.  Leg-2 bits: group
-    ``g`` draws the stream of ``fold_seed(k2s, group_offset + g)`` at the
-    element's index in the group.  Returns ``(wire2 int8 [rows, chunk],
-    stats per row)``.
+    per row)`` encodes the dispatch leg.  Then the tiled ``all_to_all``, and
+    for each owned chunk in turn :func:`_owner_rs_snap` (which also hands
+    back the owner's raw fp32 mean chunk, as the reference's does; this
+    loop keeps only the int8 snap, one fp32 chunk existing at a time): K4,
+    and the leg-2 re-encode of the mean chunk — the values the all-reduce's
+    gather leg would carry, which a sharded consumer decodes locally.  Leg-2
+    bits: group ``g`` draws the stream of ``fold_seed(k2s, group_offset +
+    g)`` at the element's index in the group, so any layout of the groups
+    (one buffer, buckets, shards) draws the same bits.  Returns ``(wire2
+    int8 [rows, chunk], stats per row, my_tgs)``, ``my_tgs`` each owner's
+    tile → group map.
     """
     tg_all, goff = _layout_tables(layout, str(fmt.il.device))
     payload, stats = encode_leg1(tg_all, goff)
     received = transport.all_to_all(payload)
     del payload
-    tpc = layout.chunk // layout.quantum
     owned = list(transport.ranks)
     wire2 = torch.empty(len(owned), layout.chunk, dtype=torch.int8,
                         device=received.device)
+    my_tgs = []
     for i, j in enumerate(owned):
-        my_tg = tg_all[j * tpc:(j + 1) * tpc]
-        part = _wire_reduce(received[i], fmt, my_tg, backend=backend,
-                            quantum=layout.quantum)
-        bits2 = (_aligned_bits(k2s, layout, goff, j * layout.chunk,
-                               layout.chunk, onchip_prng=onchip_prng,
-                               group_base=group_offset)
-                 if mode == ROUND_STOCHASTIC else None)
-        _encode_aligned(part, fmt, my_tg, None, bits=bits2, mode=mode,
-                        backend=backend, quantum=layout.quantum,
-                        compute_stats=False, out=wire2[i])
-        del part, bits2
-    return wire2, stats
+        _, _, my_tg = _owner_rs_snap(
+            received[i], fmt, layout, j, tg_all, goff, k2s, mode=mode,
+            backend=backend, onchip_prng=onchip_prng,
+            group_offset=group_offset, out=wire2[i])
+        my_tgs.append(my_tg)
+    return wire2, stats, my_tgs
 
 
 def _aligned_allreduce_mean(x_als: Sequence[torch.Tensor],
@@ -561,9 +581,9 @@ def _aligned_allreduce_mean(x_als: Sequence[torch.Tensor],
             stats.append(s)
         return payload, stats
 
-    wire2, stats = _aligned_rs_snap(fmt, layout, transport, encode_leg1, k2s,
-                                    mode=mode, backend=backend,
-                                    onchip_prng=onchip_prng)
+    wire2, stats, _ = _aligned_rs_snap(fmt, layout, transport, encode_leg1,
+                                       k2s, mode=mode, backend=backend,
+                                       onchip_prng=onchip_prng)
     full = transport.all_gather(wire2)
     tg_all, _ = _layout_tables(layout, str(fmt.il.device))
     return _decode_aligned(full, fmt, tg_all, layout.quantum), stats
@@ -623,67 +643,272 @@ def dps_allreduce_mean(xs: Sequence[torch.Tensor], formats, transport,
     return layout.dealign(mean_al).reshape(x0.shape).to(x0.dtype), stats
 
 
+def _zero_chunk(size: int, n: int) -> int:
+    """Elements per rank of a ZeRO flat vector of ``size`` (the plain
+    partitioner's ``shard_size``): ``ceil(size / n)``, unrounded."""
+    return -(-size // n)
+
+
+def _flat_bits(seed: int, size: int, device, onchip_prng: bool,
+               words: bool = False):
+    """One stream of ``seed`` over a whole flat vector: a :class:`Philox`
+    source for the kernel (``words``: its words, for the per-element codec)
+    or an operand."""
+    if not onchip_prng:
+        return ops.operand_bits(seed, size, device)
+    return philox_bits(seed, size, device) if words else Philox(seed)
+
+
+def dps_reduce_scatter_mean(xs: Sequence[torch.Tensor], formats, transport,
+                            seed: int, *, mode: str = ROUND_STOCHASTIC,
+                            backend: str = "auto", domain: str = "wire_grads",
+                            group_sizes: Optional[Tuple[int, ...]] = None,
+                            onchip_prng: bool = True
+                            ) -> Tuple[torch.Tensor, List[QuantStats]]:
+    """Reduce-scatter mean over the data axis with the int8 wire on the
+    scatter leg: the ZeRO-1 gradient half-collective.
+
+    ``xs``: one tensor per rank the transport holds.  Owner ``j`` ends up
+    with the mean of every rank's chunk ``j`` of the (flattened) tensor
+    (``ceil(size / n)`` elements, the plain
+    :class:`~repro_torch.dist.sharding.ZeroPartitioner` shard).  Where the
+    all-reduce would re-quantize that mean and gather it, ZeRO keeps it
+    sharded: each owner steps its slice of the optimizer
+    (:func:`dps_allgather_params` is the return leg).
+
+    A scalar format is the dispatch leg of a one-leaf
+    :class:`TreeAllReduce` over rank chunks of that size (K2, K2b with
+    ``onchip_prng``, rank ``r`` drawing leaf 0's stream of ``fold_seed(seed,
+    r)``), then :meth:`TreeAllReduce.owner_mean` (K4) for each owner: the
+    route the train step's plain ZeRO layout runs.
+
+    A ``[G]``-shaped format splits the flattened ``x`` into contiguous groups
+    (``group_sizes``, default equal chunks) and returns ``[G]`` stats.  The
+    chunk layout is the caller's, so group boundaries need not fall on
+    chunk boundaries: the per-element codec runs (the plain versions; an
+    explicit ``backend="kernel"`` raises).  The train step's per-leaf ZeRO
+    runs the group-aligned layout through
+    :func:`repro_torch.dist.overlap.zero_bucketed_reduce_scatter` instead.
+
+    Returns ``(shards fp32 [rows, chunk], stats per rank held)``: row ``i``
+    is owner ``transport.ranks[i]``'s chunk of the zero-padded mean, the
+    stats cover each rank's encode of its |x| elements.
+    """
+    fmt = resolve_domain_format(formats, domain)
+    _validate_capacity(fmt)
+    if mode not in (ROUND_STOCHASTIC, ROUND_NEAREST):
+        raise ValueError(f"unknown rounding mode {mode!r}")
+    if len(xs) != len(transport.ranks):
+        raise ValueError(f"{len(xs)} inputs for the {len(transport.ranks)} "
+                         "ranks this transport holds")
+    n, size, dev = transport.axis_size, xs[0].numel(), xs[0].device
+    chunk = _zero_chunk(size, n)
+    if fmt.il.ndim == 0:
+        tw = TreeAllReduce([xs[0].reshape(-1)], fmt, transport, seed,
+                           mode=mode, backend=backend,
+                           onchip_prng=onchip_prng, chunk=chunk)
+        for r, x in zip(transport.ranks, xs):
+            tw.encode(r, [x.reshape(-1)])
+        stats = tw.stats
+        return torch.stack([tw.owner_mean(i) for i in range(len(xs))]), stats
+    if backend == "kernel":
+        raise ValueError(
+            "dps_reduce_scatter_mean runs [G]-shaped formats with the "
+            "per-element codec (the chunk layout is the caller's, so group "
+            "boundaries need not fall on tiles); an explicit "
+            "backend='kernel' cannot be honored — use backend='auto', or "
+            "zero_bucketed_reduce_scatter for the group-aligned kernels")
+    _check_group_sizes(fmt, group_sizes, size)
+    gs = group_sizes or _equal_group_sizes(size, fmt.il.shape[0])
+    gid = _group_ids(gs, dev)
+    stochastic = mode == ROUND_STOCHASTIC
+    payload = torch.zeros(len(xs), n * chunk, dtype=torch.int8, device=dev)
+    stats = []
+    for row, (r, x) in enumerate(zip(transport.ranks, xs)):
+        bits = (_flat_bits(fold_seed(seed, r), size, dev, onchip_prng,
+                           words=True) if stochastic else None)
+        w, s = _encode_elementwise(x.reshape(-1), fmt, gid, bits=bits,
+                                   mode=mode)
+        payload[row, :size] = w
+        stats.append(s)
+    received = transport.all_to_all(payload)
+    del payload
+    inv = torch.zeros(n * chunk, dtype=torch.float32, device=dev)
+    inv[:size] = exp2_int(-fmt.fl)[gid]
+    ntensor = torch.tensor(float(n), device=dev)
+    shards = torch.stack([
+        (received[i].to(torch.float32)
+         * inv[j * chunk:(j + 1) * chunk][None, :]).sum(0) / ntensor
+        for i, j in enumerate(transport.ranks)])
+    return shards, stats
+
+
+def dps_allgather_params(shards: Sequence[torch.Tensor], formats, transport,
+                         seed: int, *, mode: str = ROUND_STOCHASTIC,
+                         backend: str = "auto", domain: str = "wire_params",
+                         group_sizes: Optional[Tuple[int, ...]] = None,
+                         onchip_prng: bool = True,
+                         out: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, List[QuantStats]]:
+    """All-gather the ranks' parameter shards over an int8 wire: the ZeRO
+    return leg.
+
+    ``shards``: one ``[chunk]`` tensor per rank the transport holds (the
+    slice of the flat parameter vector it just stepped).  Each is
+    quantized onto the ⟨IL, FL⟩ grid (K2/K2b; rank ``r`` takes the stream of
+    ``fold_seed(seed, r)``) and the int8 chunks are gathered and decoded on
+    every rank: the parameters come back on the ``wire_params`` grid, whose
+    controller the returned stats feed.  A ``[G]``-shaped format partitions
+    the GATHERED vector into contiguous groups (``group_sizes``), each rank
+    encoding its shard with the formats of its own positions (the
+    per-element codec).
+
+    Returns ``(full fp32 [n·chunk], stats per rank held)``; ``out`` (fp32
+    ``[n·chunk]``) receives the decode — it may be the buffer the shards
+    are views of: every shard is encoded before the decode writes.
+    """
+    fmt = resolve_domain_format(formats, domain)
+    _validate_capacity(fmt)
+    if mode not in (ROUND_STOCHASTIC, ROUND_NEAREST):
+        raise ValueError(f"unknown rounding mode {mode!r}")
+    if len(shards) != len(transport.ranks):
+        raise ValueError(f"{len(shards)} shards for the "
+                         f"{len(transport.ranks)} ranks this transport holds")
+    n, chunk, dev = transport.axis_size, shards[0].numel(), shards[0].device
+    stochastic = mode == ROUND_STOCHASTIC
+    wire = torch.empty(len(shards), chunk, dtype=torch.int8, device=dev)
+    stats = []
+    grouped = fmt.il.ndim != 0
+    if grouped:
+        if backend == "kernel":
+            raise ValueError(
+                "dps_allgather_params runs [G]-shaped formats with the "
+                "per-element codec; an explicit backend='kernel' cannot be "
+                "honored — use backend='auto', or zero_allgather_params")
+        _check_group_sizes(fmt, group_sizes, n * chunk,
+                           what="the gathered vector size")
+        gid = _group_ids(group_sizes
+                         or _equal_group_sizes(n * chunk, fmt.il.shape[0]),
+                         dev)
+    else:
+        be = _resolve_backend(backend, dev)
+    for row, (r, x) in enumerate(zip(transport.ranks, shards)):
+        bits = (_flat_bits(fold_seed(seed, r), chunk, dev, onchip_prng,
+                           words=grouped) if stochastic else None)
+        if grouped:
+            w, s = _encode_elementwise(x.reshape(-1), fmt,
+                                       gid[r * chunk:(r + 1) * chunk],
+                                       bits=bits, mode=mode)
+            wire[row] = w
+        else:
+            _, s = ops.dps_quantize_wire(x.reshape(-1), fmt, bits,
+                                         out=wire[row], backend=be)
+        stats.append(s)
+    full = transport.all_gather(wire)
+    del wire
+    if out is None:
+        out = torch.empty(n * chunk, dtype=torch.float32, device=dev)
+    inv = exp2_int(-fmt.fl)
+    for j in range(n):         # chunk by chunk: one fp32 chunk at a time
+        sl = slice(j * chunk, (j + 1) * chunk)
+        torch.mul(full[sl].to(torch.float32), inv[gid[sl]] if grouped
+                  else inv, out=out[sl])
+    return out, stats
+
+
 class TreeAllReduce:
     """:func:`dps_allreduce_mean_tree` in steps, for a caller that cannot
     hold every rank's tree at once (n fp32 gradient trees of a 3 B-parameter
     model do not fit beside the training state).
 
-    ``encode(rank, tree)`` runs the dispatch leg of one rank the transport
-    holds: each leaf is encoded by K2 (K2b with ``onchip_prng``) straight
-    into its slot of that rank's row of ONE int8 payload, and the tree may
-    be dropped right after.  ``finish()`` runs the rest — the tiled
-    ``all_to_all``, K4 on each owned chunk, the leg-2 re-encode, the int8
-    ``all_gather`` — and decodes the mean leaf by leaf.
+    ``encode(rank, tree)`` (or ``encode_leaf`` leaf by leaf, in any order)
+    runs the dispatch leg of one rank the transport holds: each leaf is
+    encoded by K2 (K2b with ``onchip_prng``) straight into its slot of that
+    rank's row of ONE int8 payload, and may be dropped right after.
+    ``start()`` hands the payload to the tiled ``all_to_all`` (asynchronous
+    on a process group), ``scatter_snap()`` runs K4 on each owned chunk and
+    the leg-2 re-encode (the reduce-scatter half: ``decode_owned(i)`` is
+    owner ``i``'s chunk of the mean), and ``finish()`` adds the int8
+    ``all_gather`` and decodes the mean leaf by leaf.
 
     A ``[G]``-shaped format (G = leaf count) runs one ⟨IL, FL⟩ per leaf in the
     group-aligned layout, leg 2 on K3b (K3); a scalar format packs the
-    leaves exactly (rank chunks rounded to 16 elements), K4 reads a one-row
-    table and leg 2 runs K2b (K2) on each leaf's part of the owned chunk.
+    leaves exactly (rank chunks of ``chunk`` elements, default rounded to 16),
+    K4 reads a one-row table and leg 2 runs K2b (K2) on each leaf's part of
+    the owned chunk.  ``layout``: an explicit group-aligned layout (a ZeRO
+    partitioner's bucket); a scalar format then runs aligned too, as ``G``
+    identical rows, and its statistics merge to one row.
+
+    ``like`` is a tree, or a list of leaves whose global leaf indices start
+    at ``group_base`` (a bucket of a larger tree): rounding streams and
+    format rows are keyed by the global index, so a bucket draws the bits
+    the whole tree's collective would.
     """
 
     def __init__(self, like, formats, transport, seed: int, *,
                  mode: str = ROUND_STOCHASTIC, backend: str = "auto",
                  domain: str = "wire_grads", quantum: Optional[int] = None,
-                 onchip_prng: bool = True):
+                 onchip_prng: bool = True, group_base: int = 0,
+                 layout: Optional[GroupLayout] = None,
+                 chunk: Optional[int] = None):
         fmt = resolve_domain_format(formats, domain)
         _validate_capacity(fmt)
         if mode not in (ROUND_STOCHASTIC, ROUND_NEAREST):
             raise ValueError(f"unknown rounding mode {mode!r}")
-        leaves = tree_lib.leaves(like)
+        listed = isinstance(like, (list, tuple))
+        leaves = list(like) if listed else tree_lib.leaves(like)
         if not leaves:
             raise ValueError("an empty tree has nothing to all-reduce")
+        G = len(leaves)
+        self.merge_scalar = fmt.il.ndim == 0 and layout is not None
+        if self.merge_scalar:        # the aligned codec reads a row table
+            fmt = FixedPointFormat(fmt.il.reshape(1).expand(G),
+                                   fmt.fl.reshape(1).expand(G))
         self.grouped = fmt.il.ndim != 0
-        if self.grouped and fmt.il.shape[0] != len(leaves):
+        if self.grouped and fmt.il.shape[0] != G:
             raise ValueError(
                 f"[G]-shaped tree formats are one ⟨IL, FL⟩ per leaf: the "
-                f"table has {fmt.il.shape[0]} rows, the tree {len(leaves)} "
-                "leaves")
+                f"table has {fmt.il.shape[0]} rows, the tree {G} leaves")
         self.fmt, self.transport, self.seed, self.mode = (fmt, transport,
                                                           seed, mode)
-        self.onchip_prng = onchip_prng
+        self.onchip_prng, self.group_base = onchip_prng, group_base
         # the tree's structure only: holding its tensors would keep them
         # alive until finish()
-        self.skeleton = tree_lib.map_tree(lambda _: None, like)
+        self.skeleton = None if listed else tree_lib.map_tree(lambda _: None,
+                                                              like)
         self.sizes = tuple(l.numel() for l in leaves)
         self.shapes = tuple(l.shape for l in leaves)
         self.dtypes = tuple(l.dtype for l in leaves)
         self.device = leaves[0].device
         self.backend = _resolve_backend(backend, self.device)
         n = transport.axis_size
-        if self.grouped:
-            q = quantum or default_wire_quantum(sum(self.sizes), len(leaves))
+        if layout is not None:
+            if tuple(layout.group_sizes) != self.sizes or layout.n_chunks != n:
+                raise ValueError(
+                    f"layout of groups {layout.group_sizes} over "
+                    f"{layout.n_chunks} chunks does not hold leaves of sizes "
+                    f"{self.sizes} over {n} ranks")
+            self.layout = layout
+        elif self.grouped:
+            q = quantum or default_wire_quantum(sum(self.sizes), G)
             self.layout = group_layout(self.sizes, n_chunks=n, quantum=q)
-            self.offsets, self.chunk = self.layout.offsets, self.layout.chunk
         else:
             self.layout = None
-            self.chunk = _rank_chunk(sum(self.sizes), n)
+        if self.layout is not None:
+            self.offsets, self.chunk = self.layout.offsets, self.layout.chunk
+        else:
+            self.chunk = chunk or _rank_chunk(sum(self.sizes), n)
+            if self.chunk * n < sum(self.sizes):
+                raise ValueError(f"{n} chunks of {self.chunk} cannot hold "
+                                 f"{sum(self.sizes)} elements")
             self.offsets = tuple(int(o) for o in
                                  np.cumsum((0,) + self.sizes[:-1]))
         self.rows = list(transport.ranks)
         # zeros: alignment and tail padding must be zero bytes on the wire
         self.payload = torch.zeros(len(self.rows), self.chunk * n,
                                    dtype=torch.int8, device=self.device)
-        self.stats: List[Optional[QuantStats]] = [None] * len(self.rows)
+        self.leaf_stats = [[None] * G for _ in self.rows]
+        self.received = self._work = self.wire2 = None
 
     def _leaf_fmt(self, g: int) -> FixedPointFormat:
         if not self.grouped:
@@ -700,51 +925,125 @@ class TreeAllReduce:
             return Philox(seed, a)
         return ops.operand_bits(seed, self.sizes[g], self.device)[a:b]
 
+    def encode_leaf(self, rank: int, g: int, leaf: torch.Tensor) -> QuantStats:
+        """Leg 1 of ``rank``'s leaf ``g`` (local index) into its slot.
+        Returns the leaf's dispatch-leg stats."""
+        if self.payload is None:
+            raise RuntimeError("the payload has left for the all-to-all")
+        row = self.rows.index(rank)
+        if leaf.numel() != self.sizes[g]:
+            raise ValueError(f"leaf {g}: {leaf.numel()} elements, the layout "
+                             f"holds {self.sizes[g]}")
+        off, size = self.offsets[g], self.sizes[g]
+        seed = fold_seed(fold_seed(self.seed, rank), self.group_base + g)
+        _, s = ops.dps_quantize_wire(
+            leaf, self._leaf_fmt(g), self._leaf_bits(seed, g, 0, size),
+            out=self.payload[row, off:off + size].view(leaf.shape),
+            backend=self.backend)
+        self.leaf_stats[row][g] = s
+        return s
+
     def encode(self, rank: int, tree) -> QuantStats:
         """Leg 1 of ``rank``: its tree's leaves into its payload row.
         Returns the rank's dispatch-leg stats (``[G]`` or scalar)."""
-        row = self.rows.index(rank)
-        leaves = tree_lib.leaves(tree)
+        leaves = list(tree) if isinstance(tree, (list, tuple)) \
+            else tree_lib.leaves(tree)
         if tuple(l.numel() for l in leaves) != self.sizes:
             raise ValueError("the tree's leaves differ from the layout's")
-        k1 = fold_seed(self.seed, rank)
-        per_leaf = []
         for g, leaf in enumerate(leaves):
-            off, size = self.offsets[g], self.sizes[g]
-            _, s = ops.dps_quantize_wire(
-                leaf, self._leaf_fmt(g),
-                self._leaf_bits(fold_seed(k1, g), g, 0, size),
-                out=self.payload[row, off:off + size].view(leaf.shape),
-                backend=self.backend)
-            per_leaf.append(s)
-        if self.grouped:
-            stats = QuantStats(*(torch.stack([getattr(s, f.name)
-                                              for s in per_leaf])
-                                 for f in dataclasses.fields(QuantStats)))
-        else:
-            stats = merge_stats(*per_leaf)
-        self.stats[row] = stats
-        return stats
+            self.encode_leaf(rank, g, leaf)
+        return self.rank_stats(self.rows.index(rank))
 
-    def _take_payload(self):
+    def rank_stats(self, row: int) -> QuantStats:
+        """Row ``row``'s dispatch-leg stats: ``[G]``-stacked in leaf order,
+        or merged in leaf order for a scalar format."""
+        per_leaf = self.leaf_stats[row]
+        if any(s is None for s in per_leaf):
+            raise RuntimeError("encode every leaf of every rank the "
+                               "transport holds first")
+        if self.grouped and not self.merge_scalar:
+            return QuantStats(*(torch.stack([getattr(s, f.name)
+                                             for s in per_leaf])
+                                for f in dataclasses.fields(QuantStats)))
+        return merge_stats(*per_leaf)
+
+    @property
+    def stats(self) -> List[QuantStats]:
+        return [self.rank_stats(i) for i in range(len(self.rows))]
+
+    def start(self):
+        """Hand the payload to the tiled ``all_to_all`` (issued
+        asynchronously on a process group; waited on before K4)."""
+        if self.received is not None or self.wire2 is not None:
+            return
+        if any(s is None for row in self.leaf_stats for s in row):
+            raise RuntimeError("encode() every rank the transport holds "
+                               "before the all-to-all")
         payload, self.payload = self.payload, None
-        return payload
+        self.received, self._work = self.transport.all_to_all(payload,
+                                                              async_op=True)
+
+    def _take_received(self):
+        self.start()
+        if self._work is not None:
+            self._work.wait()
+        received, self.received, self._work = self.received, None, None
+        return received
+
+    def scatter_snap(self) -> torch.Tensor:
+        """The reduce-scatter half: K4 on each owned chunk, the leg-2
+        re-encode; returns (and keeps) ``wire2`` int8 ``[rows, chunk]``,
+        and releases the payload."""
+        if self.wire2 is not None:
+            return self.wire2
+        received = self._take_received()
+        if self.layout is not None:
+            tg_all, goff = _layout_tables(self.layout, str(self.device))
+            wire2 = torch.empty(len(self.rows), self.chunk, dtype=torch.int8,
+                                device=self.device)
+            for i, j in enumerate(self.rows):
+                _owner_rs_snap(received[i], self.fmt, self.layout, j, tg_all,
+                               goff, fold_seed(self.seed, LEG2), mode=self.mode,
+                               backend=self.backend,
+                               onchip_prng=self.onchip_prng,
+                               group_offset=self.group_base, out=wire2[i])
+        else:
+            wire2 = self._scalar_rs_snap(received, fold_seed(self.seed, LEG2))
+        del received
+        self.wire2 = wire2
+        return wire2
+
+    def owner_mean(self, i: int) -> torch.Tensor:
+        """Owner row ``i``'s raw fp32 mean chunk of a packed (scalar)
+        layout: K4 without the leg-2 snap, the plain ZeRO reduce-scatter.
+        The received payload lives as long as this object does."""
+        if self.layout is not None:
+            raise ValueError("owner_mean reads a packed payload; an aligned "
+                             "layout's owners decode_owned() their snap")
+        if self.received is None or self._work is not None:
+            self.received = self._take_received()
+        return _wire_reduce(self.received[i], self.fmt, None,
+                            backend=self.backend, quantum=self.chunk)
+
+    def decode_owned(self, i: int) -> torch.Tensor:
+        """Owner row ``i``'s fp32 ``[chunk]`` of the mean (aligned layouts):
+        its ``wire2`` decoded locally, bit-equal to its chunk of
+        :meth:`finish`'s."""
+        if self.layout is None:
+            raise ValueError("decode_owned needs a group-aligned layout")
+        wire2 = self.scatter_snap()[i]
+        tg_all, _ = _layout_tables(self.layout, str(self.device))
+        tpc = self.chunk // self.layout.quantum
+        j = self.rows[i]
+        return _decode_aligned(wire2, self.fmt, tg_all[j * tpc:(j + 1) * tpc],
+                               self.layout.quantum)
 
     def finish(self):
         """Legs after the dispatch: returns ``(mean tree, stats per rank
         held)``; the payload is released."""
-        if any(s is None for s in self.stats):
-            raise RuntimeError("encode() every rank the transport holds "
-                               "before finish()")
-        k2s = fold_seed(self.seed, LEG2)
-        if self.grouped:
-            wire2, _ = _aligned_rs_snap(
-                self.fmt, self.layout, self.transport,
-                lambda tg, goff: (self._take_payload(), None), k2s,
-                mode=self.mode, backend=self.backend,
-                onchip_prng=self.onchip_prng)
-        else:
-            wire2 = self._scalar_rs_snap(k2s)
+        stats = self.stats
+        wire2 = self.scatter_snap()
+        self.wire2 = None
         full = self.transport.all_gather(wire2)
         del wire2
         out = []
@@ -752,10 +1051,11 @@ class TreeAllReduce:
             inv = exp2_int(-self._leaf_fmt(g).fl)
             dec = full[off:off + size].to(torch.float32).mul_(inv)
             out.append(dec.view(self.shapes[g]).to(self.dtypes[g]))
-        return tree_lib.from_leaves(self.skeleton, out), self.stats
+        if self.skeleton is None:
+            return out, stats
+        return tree_lib.from_leaves(self.skeleton, out), stats
 
-    def _scalar_rs_snap(self, k2s: int) -> torch.Tensor:
-        received = self.transport.all_to_all(self._take_payload())
+    def _scalar_rs_snap(self, received, k2s: int) -> torch.Tensor:
         c = self.chunk
         wire2 = torch.zeros(len(self.rows), c, dtype=torch.int8,
                             device=self.device)
@@ -770,11 +1070,11 @@ class TreeAllReduce:
                     continue
                 ops.dps_quantize_wire(
                     part[a - j * c:b - j * c], self.fmt,
-                    self._leaf_bits(fold_seed(k2s, g), g, a - off, b - off),
+                    self._leaf_bits(fold_seed(k2s, self.group_base + g), g,
+                                    a - off, b - off),
                     compute_stats=False, out=wire2[i, a - j * c:b - j * c],
                     backend=self.backend)
             del part
-        del received
         return wire2
 
 

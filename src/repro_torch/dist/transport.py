@@ -43,13 +43,15 @@ class StackedTransport:
     def ranks(self) -> Sequence[int]:
         return range(self.n)
 
-    def all_to_all(self, payload: torch.Tensor) -> torch.Tensor:
+    def all_to_all(self, payload: torch.Tensor, async_op: bool = False):
         """Tiled all-to-all of ``payload`` ``[n, n·chunk]`` (row i: rank i's
         buffer): ``[n, n, chunk]`` where ``[j]`` is owner j's ``[n, chunk]``
-        stack of every rank's chunk j — a view, no copy."""
+        stack of every rank's chunk j — a view, no copy.  ``async_op``:
+        returns ``(view, None)``, nothing to wait on."""
         rows, total = payload.shape
         chunk = total // self.n
-        return payload.view(rows, self.n, chunk).transpose(0, 1)
+        out = payload.view(rows, self.n, chunk).transpose(0, 1)
+        return (out, None) if async_op else out
 
     def all_gather(self, parts: torch.Tensor) -> torch.Tensor:
         """Tiled all-gather of the owners' chunks ``[n, chunk]`` →
@@ -86,14 +88,18 @@ class ProcessGroupTransport:
     def ranks(self) -> Sequence[int]:
         return (self.rank,)
 
-    def all_to_all(self, payload: torch.Tensor) -> torch.Tensor:
+    def all_to_all(self, payload: torch.Tensor, async_op: bool = False):
         """``payload`` ``[1, n·chunk]`` → ``[1, n, chunk]``: this owner's
-        stack of every rank's chunk."""
+        stack of every rank's chunk.  ``async_op``: returns ``(out, work)``
+        with the collective in flight; ``work.wait()`` before reading
+        ``out``."""
         chunk = payload.shape[1] // self.n
         out = torch.empty_like(payload[0])
-        self._dist.all_to_all_single(out, payload[0].contiguous(),
-                                     group=self.group)
-        return out.view(1, self.n, chunk)
+        work = self._dist.all_to_all_single(out, payload[0].contiguous(),
+                                            group=self.group,
+                                            async_op=async_op)
+        out = out.view(1, self.n, chunk)
+        return (out, work) if async_op else out
 
     def all_gather(self, parts: torch.Tensor) -> torch.Tensor:
         """This owner's chunk ``[1, chunk]`` → every owner's ``[n·chunk]``."""

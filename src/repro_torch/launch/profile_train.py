@@ -11,7 +11,7 @@ took most device time.  ``--trace-out`` also writes the Chrome trace.
       --steps 2 --batch 2 --seq 512 --optimizer sgd
   PYTHONPATH=src python -m repro_torch.launch.profile_train --arch llama3_2_3b \\
       --steps 2 --batch 4 --seq 512 --optimizer sgd --grad-allreduce-bits 8 \\
-      --data-ranks 4
+      --data-ranks 4 [--zero-opt [--wire-overlap on]]
 
 It takes the flags of ``repro_torch.launch.train`` plus ``--top`` and
 ``--trace-out``.  Needs a CUDA device: a CPU profile says nothing about the
@@ -78,6 +78,10 @@ def main(argv=None):
         "device_busy_share": busy_us * 1e-6 / wall if wall else 0.0,
         "device_events_per_step": n_events / args.steps,
         "data_ranks": step_fn.n_data, "wire_sync": step_fn.wire_sync_active,
+        "zero_opt": step_fn.zero_opt_active,
+        "wire_overlap": step_fn.wire_overlap_active,
+        "wire_buckets": step_fn.wire_buckets,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "kernel_launches": train.launch_counts(),
         "quantizer_device_ms_per_step": quant_us * 1e-3 / args.steps,
         "quantizer_share_of_busy": quant_us / busy_us if busy_us else 0.0,

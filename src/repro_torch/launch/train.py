@@ -1,6 +1,6 @@
 """Training CLI: quantized (DPS) training of a language model.
 
-Counterpart of ``repro/launch/train.py``, replicated one-device path.  Each
+Counterpart of ``repro/launch/train.py`` (without checkpointing).  Each
 step quantizes the weights, runs the forward with a tap on every block's
 residual stream and the backward with the cotangents quantized, quantizes
 the gradients, steps the optimizer, re-snaps the weights and lets one
@@ -31,13 +31,25 @@ the collectives run over ``torch.distributed``, and rank 0 logs:
       --steps 4 --batch 4 --seq 512 --optimizer sgd --grad-allreduce-bits 8 \\
       --data-ranks 4
 
-Not ported yet: checkpointing and resume, the health guards, fault
-injection, ZeRO-1 and the overlapped wire of the reference's CLI.
+ZeRO-1 (``--zero-opt``): the optimizer state shards over the data axis;
+the parameters live in one flat fp32 buffer whose slices the owners step,
+the gradients reach each owner through the int8 reduce-scatter, and the
+updated parameters come back through the int8 ``wire_params`` all-gather
+when the policy quantizes every leaf (else in fp32).  ``--wire-overlap on``
+splits the wire into buckets, each encoded leaf by leaf from a hook as the
+backward produces its gradients and sent once complete:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_2_3b \\
+      --steps 4 --batch 4 --seq 512 --optimizer sgd --grad-allreduce-bits 8 \\
+      --data-ranks 4 --zero-opt --wire-overlap on
+
+Not ported yet: checkpointing and resume, the health guards and fault
+injection of the reference's CLI.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -89,6 +101,16 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--wire-auto-slack", action="store_true",
                     help="place the wire radix from each stream's measured "
                          "tail quantile instead of the fixed slack")
+    ap.add_argument("--zero-opt", action="store_true",
+                    help="ZeRO-1: shard the optimizer state over the data "
+                         "axis; with --grad-allreduce-bits the gradient "
+                         "reduce-scatter and the parameter all-gather ride "
+                         "the int8 wire")
+    ap.add_argument("--wire-overlap", choices=("on", "off"), default="off",
+                    help="backward-overlapped bucketed wire: one compressed "
+                         "collective per bucket of gradient leaves, each "
+                         "sent as soon as the backward has produced it "
+                         "(needs --grad-allreduce-bits)")
     ap.add_argument("--data-ranks", type=int, default=1,
                     help="data-parallel ranks held by this process (one "
                          "device); under torchrun each process is one rank")
@@ -163,12 +185,15 @@ def setup(args):
                               onchip_prng=args.rounding_bits == "onchip",
                               grad_allreduce_bits=args.grad_allreduce_bits,
                               wire_controller=args.wire_controller,
-                              wire_auto_slack=args.wire_auto_slack)
+                              wire_auto_slack=args.wire_auto_slack,
+                              wire_overlap=args.wire_overlap == "on")
     mod = registry(cfg.family)
     defs = mod.model_defs(cfg, cfg.master_dtype())
     if args.wire_groups == "per-layer":
         qcfg = qcfg.with_per_layer_wire(defs)
     transport = _transport(args, device)
+    if args.zero_opt and transport.axis_size > 1:
+        qcfg = dataclasses.replace(qcfg, zero_opt_shards=transport.axis_size)
     if args.batch % transport.axis_size:
         raise ValueError(f"--batch {args.batch} does not split into "
                          f"{transport.axis_size} data-parallel ranks")
@@ -183,7 +208,15 @@ def setup(args):
                                          seed=args.seed), device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(defs, device, gen)
-    state = qtrain.TrainState.create(params, opt.init(params), qcfg,
+    if step_fn.zero_opt_active:
+        # the parameters move into the flat ZeRO buffer (the tree becomes
+        # views of it) before the optimizer state is made beside them
+        _, params = qtrain.zero_partitioner(
+            qcfg, params, transport.axis_size).flat_view(params)
+        opt_state = qtrain.zero_opt_state(opt, params, transport, qcfg)
+    else:
+        opt_state = opt.init(params)
+    state = qtrain.TrainState.create(params, opt_state, qcfg,
                                      args.seed + 1, device)
     return cfg, step_fn, state, data
 
@@ -262,6 +295,10 @@ def main(argv=None):
            "params": cfg.n_params(),
            "data_ranks": step_fn.n_data,
            "wire_sync": step_fn.wire_sync_active,
+           "zero_opt": step_fn.zero_opt_active,
+           "zero_groupaligned": step_fn.zero_groupaligned_active,
+           "wire_overlap": step_fn.wire_overlap_active,
+           "wire_buckets": step_fn.wire_buckets,
            "first_step_s": (t_first - t0) if t_first else None,
            "ms_per_step_after_first": (1e3 * (t_end - t_first) / rest
                                        if rest > 0 else None),
@@ -271,6 +308,7 @@ def main(argv=None):
            "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
                                  if cuda else None),
            "quantizer_launches_per_step": [h["launches"] for h in history],
+           "launches_per_step": [h["kernel_launches"] for h in history],
            "wire_launches_per_step": [
                {k: h["kernel_launches"][k] for k in wire_kernels}
                for h in history],

@@ -1,11 +1,20 @@
 """Optimizers: SGD+momentum (the paper's recipe) and AdamW.
 
-Counterpart of ``repro/optim/optimizers.py``, replicated (one-device) step
-only; the ZeRO shard interface waits for the wire slice.  Interface:
+Counterpart of ``repro/optim/optimizers.py``.  Interface:
 
     opt = make_optimizer(cfg)
     state = opt.init(params)
     opt.update(grads, state, params, count=step)     # in place
+
+and, for ZeRO-1 (one flat slice of the parameters per rank, see
+:mod:`repro_torch.dist.sharding`):
+
+    state = opt.init_shard((rows, shard_size), device)
+    opt.update_shard(gshard, state_slice, pshard, count, rank=r)  # in place
+
+``update_shard`` runs the same element-wise arithmetic as ``update``, so a
+sharded step equals the replicated one bit for bit (fp32 state, no
+clipping: the clip's norm sums its squares in another order).
 
 **In place.**  The reference returns the updates and a new state; here
 ``update`` writes the new parameters and state into ``params`` and
@@ -76,10 +85,44 @@ def _global_norm(grads) -> torch.Tensor:
                           for g in tree_lib.leaves(grads)))
 
 
+def _clip_scale(n: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0)
+
+
 def _clip_by_norm(grads, max_norm: float):
     n = _global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0)
+    scale = _clip_scale(n, max_norm)
     return tree_lib.map_tree(lambda g: (g * scale).to(g.dtype), grads), n
+
+
+def shard_sq_norm(segments) -> torch.Tensor:
+    """Σ g² over one rank's gradient shard (a tensor or its segments), in
+    fp32: the per-owner term of the cross-shard clip norm.  The caller sums
+    the owners' terms over the data axis (``transport.psum``)."""
+    if isinstance(segments, torch.Tensor):
+        segments = [segments]
+    return sum(torch.sum(torch.square(g.to(torch.float32)))
+               for g in segments)
+
+
+def _clip_by_norm_shard(g: torch.Tensor, max_norm: float,
+                        sq_norm: torch.Tensor) -> torch.Tensor:
+    """Shard-local clip against the CROSS-SHARD global norm: ``sq_norm``
+    is the psum over the data axis of every owner's :func:`shard_sq_norm`
+    (zero padding adds nothing)."""
+    scale = _clip_scale(torch.sqrt(sq_norm), max_norm)
+    return (g * scale).to(g.dtype)
+
+
+# salt of the sharded steps' stochastic state casts
+_SHARD = 0x5348
+
+
+def _shard_seed(base: int, count: int, rank: int, segment: int) -> int:
+    """The bf16 state cast's seed of one rank's shard (segment): per step
+    and per rank, as the reference's ``_shard_key`` folds in the axis
+    index.  fp32 state ignores it."""
+    return fold_seed(base, count, _SHARD, rank, segment)
 
 
 def _state_dtype(name: str) -> torch.dtype:
@@ -133,23 +176,55 @@ class SGD:
         return {"mu": tree_lib.map_tree(
             lambda p: torch.zeros(p.shape, dtype=dt, device=p.device), params)}
 
+    def _leaf(self, lr: float, g, p, mu, seed: int):
+        """One leaf (or flat shard) in place; shared by :meth:`update` and
+        :meth:`update_shard`."""
+        cfg = self.cfg
+        gf = p.to(torch.float32) * cfg.weight_decay
+        gf.add_(g)                         # g + wd·p
+        mu_new = mu.to(torch.float32) * cfg.momentum
+        mu_new.add_(gf)                    # momentum·mu + gf
+        del gf
+        p.add_((mu_new * -lr).to(p.dtype))
+        mu.copy_(_sr_cast(mu_new, _state_dtype(cfg.state_dtype), seed))
+
     def update(self, grads, state, params, count: int):
         """One step, in place: ``params`` and ``state`` are overwritten."""
         cfg = self.cfg
         if cfg.clip_norm:
             grads, _ = _clip_by_norm(grads, cfg.clip_norm)
         lr = self.sched(count)
-        dt = _state_dtype(cfg.state_dtype)
         with torch.no_grad():
             for i, (g, p, mu) in enumerate(_triples(grads, params,
                                                     state["mu"])):
-                gf = p.to(torch.float32) * cfg.weight_decay
-                gf.add_(g)                         # g + wd·p
-                mu_new = mu.to(torch.float32) * cfg.momentum
-                mu_new.add_(gf)                    # momentum·mu + gf
-                del gf
-                p.add_((mu_new * -lr).to(p.dtype))
-                mu.copy_(_sr_cast(mu_new, dt, fold_seed(17, count, i)))
+                self._leaf(lr, g, p, mu, fold_seed(17, count, i))
+        return params, state
+
+    # --- ZeRO-1 shard-local interface (see repro_torch.dist.sharding) ---
+
+    def init_shard(self, shape, device=None):
+        """State for flat slices of the ZeRO layout: ``shape`` is ``(rows,
+        shard_size)`` for the ranks a process holds (or any flat shape).
+        Padding carries zero gradients, so its state stays zero."""
+        return {"mu": torch.zeros(shape, dtype=_state_dtype(
+            self.cfg.state_dtype), device=device)}
+
+    def update_shard(self, grads, state, params, count: int, *,
+                     rank: int = 0, segment: int = 0, sq_norm=None):
+        """One step on a rank's flat slice, in place: ``params`` (a view
+        into the flat parameters) and ``state`` (``{"mu": slice}``) are
+        overwritten.  Same element-wise arithmetic as :meth:`update`.
+        ``clip_norm`` needs ``sq_norm``, the squared global gradient norm
+        (the psum of every owner's :func:`shard_sq_norm`).  ``segment``
+        tells apart the pieces of one rank's shard stepped one by one."""
+        cfg = self.cfg
+        if cfg.clip_norm:
+            if sq_norm is None:
+                raise ValueError("clip_norm needs the cross-shard sq_norm")
+            grads = _clip_by_norm_shard(grads, cfg.clip_norm, sq_norm)
+        with torch.no_grad():
+            self._leaf(self.sched(count), grads, params, state["mu"],
+                       _shard_seed(17, count, rank, segment))
         return params, state
 
 
@@ -170,6 +245,21 @@ class AdamW:
         return (float(_f32(1.0) - _f32(cfg.b1) ** t),
                 float(_f32(1.0) - _f32(cfg.b2) ** t))
 
+    def _leaf(self, lr: float, bc1: float, bc2: float, g, p, m, v,
+              seeds):
+        """One leaf (or flat shard) in place; shared by :meth:`update` and
+        :meth:`update_shard`."""
+        cfg = self.cfg
+        dt = _state_dtype(cfg.state_dtype)
+        gf = g.to(torch.float32)
+        m_new = cfg.b1 * m.to(torch.float32) + (1 - cfg.b1) * gf
+        v_new = cfg.b2 * v.to(torch.float32) + (1 - cfg.b2) * gf * gf
+        step = m_new / bc1 / (torch.sqrt(v_new / bc2) + cfg.eps)
+        step = step + cfg.weight_decay * p.to(torch.float32)
+        p.add_((-lr * step).to(p.dtype))
+        m.copy_(_sr_cast(m_new, dt, seeds[0]))
+        v.copy_(_sr_cast(v_new, dt, seeds[1]))
+
     def update(self, grads, state, params, count: int):
         """One step, in place: ``params`` and ``state`` are overwritten."""
         cfg = self.cfg
@@ -177,19 +267,40 @@ class AdamW:
             grads, _ = _clip_by_norm(grads, cfg.clip_norm)
         lr = self.sched(count)
         bc1, bc2 = self._bias_corrections(count)
-        dt = _state_dtype(cfg.state_dtype)
         with torch.no_grad():
             for i, (g, p, m, v) in enumerate(_triples(grads, params,
                                                       state["m"],
                                                       state["v"])):
-                gf = g.to(torch.float32)
-                m_new = cfg.b1 * m.to(torch.float32) + (1 - cfg.b1) * gf
-                v_new = cfg.b2 * v.to(torch.float32) + (1 - cfg.b2) * gf * gf
-                step = m_new / bc1 / (torch.sqrt(v_new / bc2) + cfg.eps)
-                step = step + cfg.weight_decay * p.to(torch.float32)
-                p.add_((-lr * step).to(p.dtype))
-                m.copy_(_sr_cast(m_new, dt, fold_seed(23, count, i, 1)))
-                v.copy_(_sr_cast(v_new, dt, fold_seed(23, count, i, 2)))
+                self._leaf(lr, bc1, bc2, g, p, m, v,
+                           (fold_seed(23, count, i, 1),
+                            fold_seed(23, count, i, 2)))
+        return params, state
+
+    # --- ZeRO-1 shard-local interface (see repro_torch.dist.sharding) ---
+
+    def init_shard(self, shape, device=None):
+        """State for flat slices of the ZeRO layout (see
+        :meth:`SGD.init_shard`); ``m`` and ``v`` are distinct buffers."""
+        dt = _state_dtype(self.cfg.state_dtype)
+        return {"m": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+
+    def update_shard(self, grads, state, params, count: int, *,
+                     rank: int = 0, segment: int = 0, sq_norm=None):
+        """One step on a rank's flat slice, in place (see
+        :meth:`SGD.update_shard`); ``clip_norm`` (on by default) needs
+        ``sq_norm``."""
+        cfg = self.cfg
+        if cfg.clip_norm:
+            if sq_norm is None:
+                raise ValueError("clip_norm needs the cross-shard sq_norm")
+            grads = _clip_by_norm_shard(grads, cfg.clip_norm, sq_norm)
+        bc1, bc2 = self._bias_corrections(count)
+        seed = _shard_seed(23, count, rank, segment)
+        with torch.no_grad():
+            self._leaf(self.sched(count), bc1, bc2, grads, params,
+                       state["m"], state["v"],
+                       (fold_seed(seed, 1), fold_seed(seed, 2)))
         return params, state
 
 

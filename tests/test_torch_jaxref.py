@@ -525,8 +525,15 @@ def job_wire_codec(a, cases):
     return out
 
 
-def _data_mesh(n):
+def _data_mesh(n, auto=False):
+    """A pure data-parallel mesh of ``n`` devices.  ``auto``: the axis
+    type the reference was written for (JAX 0.4 had only that one); its
+    ZeRO step flattens replicated parameters beside data-sharded state,
+    which the installed JAX's explicit axes refuse to mix."""
     import jax
+    if auto:
+        return jax.make_mesh((n,), ("data",),
+                             axis_types=(jax.sharding.AxisType.Auto,))
     return jax.make_mesh((n,), ("data",))
 
 
@@ -577,7 +584,8 @@ def job_allreduce(a, cases, n):
 def job_wire_lm_train(a, steps, seq, batch, n, qkw=None):
     """Smoke llama3.2-3b from ``init_params(key(0))``: ``steps`` SGD steps
     under nearest rounding with the int8 gradient all-reduce over ``n``
-    forced CPU devices, per-layer wire formats."""
+    forced CPU devices, per-layer wire formats (``qkw`` adds QuantConfig
+    fields, e.g. ZeRO-1 and the overlap)."""
     import dataclasses
     import jax
     from repro.core import qtrain
@@ -593,10 +601,12 @@ def job_wire_lm_train(a, steps, seq, batch, n, qkw=None):
                               **(qkw or {}))
     qcfg = qcfg.with_per_layer_wire(params)
     opt = make_optimizer(SGDConfig())
-    step = qtrain.make_train_step(mod.loss_fn(cfg), opt, qcfg,
-                                  mesh=_data_mesh(n))
+    mesh = _data_mesh(n, auto=(qkw or {}).get("zero_opt_shards") is not None)
+    step = qtrain.make_train_step(mod.loss_fn(cfg), opt, qcfg, mesh=mesh)
     assert step.wire_sync_active
-    state = qtrain.TrainState.create(params, opt.init(params), qcfg,
+    opt_state = (qtrain.zero_opt_state(opt, params, n, qcfg=qcfg)
+                 if qtrain.zero_opt_engaged(qcfg, mesh) else opt.init(params))
+    state = qtrain.TrainState.create(params, opt_state, qcfg,
                                      jax.random.key(1))
     data = TokenStream(TokenStreamConfig(vocab=cfg.vocab, seq_len=seq,
                                          global_batch=batch, seed=0))
@@ -608,6 +618,188 @@ def job_wire_lm_train(a, steps, seq, batch, n, qkw=None):
                              [data.batch(i) for i in range(steps)], names)
     out.update({f"hist/{k}": v for k, v in hist.items()})
     out.update(flatten(_np_params(state.params), "final/"))
+    return out
+
+
+def job_zero_geometry(a, cases):
+    """``ZeroPartitioner`` / ``GroupAlignedPartitioner`` geometry for trees
+    of the given leaf shapes (``cases[name] = {"shapes": [...], "n": n,
+    "quantum": q, "buckets": runs or None}``; ``quantum`` None builds the
+    plain partitioner)."""
+    import jax
+    from repro.dist.sharding import GroupAlignedPartitioner, ZeroPartitioner
+    out = {}
+    for name, c in cases.items():
+        tree = {f"l{i:02d}": jax.ShapeDtypeStruct(tuple(s), np.float32)
+                for i, s in enumerate(c["shapes"])}
+        p = f"{name}/"
+        if c.get("quantum") is None:
+            part = ZeroPartitioner.create(tree, c["n"])
+            out[p + "sizes"] = np.asarray([part.size, part.shard_size,
+                                           part.padded_size], np.int64)
+            continue
+        bk = c.get("buckets")
+        part = GroupAlignedPartitioner.create(
+            tree, c["n"], quantum=c["quantum"],
+            buckets=None if bk is None else [tuple(r) for r in bk])
+        out[p + "sizes"] = np.asarray([part.size, part.shard_size,
+                                       part.padded_size, part.n_buckets],
+                                      np.int64)
+        B, G = part.n_buckets, len(c["shapes"])
+        out[p + "bucket_offset"] = np.asarray(
+            [part.bucket_offset(b) for b in range(B)], np.int64)
+        out[p + "shard_offset"] = np.asarray(
+            [part.shard_offset(b) for b in range(B)], np.int64)
+        out[p + "leaf_range"] = np.asarray(
+            [part.leaf_range(b) for b in range(B)], np.int64)
+        out[p + "leaf_offset"] = np.asarray(
+            [part.leaf_offset(g) for g in range(G)], np.int64)
+    return out
+
+
+def job_plan_buckets(a, cases):
+    """``overlap.plan_buckets`` runs, each padded to a ``[B, G]`` matrix
+    of leaf indices (-1 past a run's end)."""
+    from repro.dist.overlap import plan_buckets
+    out = {}
+    for name, c in cases.items():
+        plan = plan_buckets(tuple(c["sizes"]), c["target"])
+        m = np.full((plan.n_buckets, len(c["sizes"])), -1, np.int64)
+        for b, run in enumerate(plan.buckets):
+            m[b, :len(run)] = run
+        out[f"{name}/runs"] = m
+    return out
+
+
+def _rank_tree(a, prefix, n):
+    """The ranks' trees, stacked on a leading rank axis, from keys
+    ``prefix<leaf>``."""
+    import jax
+    import jax.numpy as jnp
+    tree = unflatten(a, prefix)
+    return jax.tree.map(jnp.asarray, tree)
+
+
+def job_zero_halves(a, cases, n):
+    """The reference's ZeRO halves and bucketed all-reduce under
+    ``shard_map`` on ``n`` forced CPU devices, nearest rounding.  Each
+    case names a ``kind``: ``rs`` (``dps_reduce_scatter_mean`` of a flat
+    vector), ``ag`` (``dps_allgather_params`` of shards), ``zrs``
+    (``zero_bucketed_reduce_scatter`` of a tree over a partitioner),
+    ``zag`` (``zero_allgather_params`` of a partitioner's shards),
+    ``bucketed`` (``bucketed_allreduce_mean_tree``).  Returns every rank's
+    result (stacked) and the psum'ed stats."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+    from repro.dist import collectives as coll
+    from repro.dist import overlap as ov
+    from repro.dist.sharding import GroupAlignedPartitioner
+    mesh = _data_mesh(n)
+    out = {}
+    for name, c in cases.items():
+        p = f"{name}/"
+        fmt = _fmt(a, p)
+        kind = c["kind"]
+        part = None
+        if kind in ("zrs", "zag"):
+            like = unflatten(a, p + "like/")
+            like = jax.tree.map(lambda v: jax.ShapeDtypeStruct(v.shape[1:],
+                                                               np.float32),
+                                like)
+            bk = c.get("buckets")
+            part = GroupAlignedPartitioner.create(
+                like, n, quantum=c["quantum"],
+                buckets=None if bk is None else [tuple(r) for r in bk])
+
+        if kind in ("rs", "ag", "zag"):
+            x = jnp.asarray(a[p + "x"])
+
+            def body(xs, k, fmt=fmt, kind=kind, part=part):
+                if kind == "rs":
+                    r, s = coll.dps_reduce_scatter_mean(xs[0], fmt, "data", k,
+                                                        mode="nearest")
+                elif kind == "ag":
+                    r, s = coll.dps_allgather_params(xs[0], fmt, "data", k,
+                                                     mode="nearest")
+                else:
+                    r, s = ov.zero_allgather_params(xs[0], fmt, "data", k,
+                                                    part=part, mode="nearest")
+                return r[None], coll.psum_stats(s, "data")
+            f = jax.jit(jax.shard_map(body, mesh=mesh,
+                                      in_specs=(P("data"), P()),
+                                      out_specs=(P("data"), P()),
+                                      check_vma=False))
+            r, s = f(x, jax.random.key(0))
+        else:
+            tree = _rank_tree(a, p + "tree/", n)
+            specs = jax.tree.map(lambda _: P("data"), tree)
+
+            def body(tr, k, fmt=fmt, kind=kind, part=part, c=c):
+                tr = jax.tree.map(lambda v: v[0], tr)
+                if kind == "zrs":
+                    r, s = ov.zero_bucketed_reduce_scatter(
+                        tr, fmt, "data", k, part=part, mode="nearest")
+                    r = r[None]
+                else:
+                    r, s = ov.bucketed_allreduce_mean_tree(
+                        tr, fmt, "data", k, mode="nearest",
+                        target_elems=c["target"])
+                    r = jax.tree.map(lambda v: v[None], r)
+                return r, coll.psum_stats(s, "data")
+            f = jax.jit(jax.shard_map(body, mesh=mesh, in_specs=(specs, P()),
+                                      out_specs=(P("data"), P()),
+                                      check_vma=False))
+            r, s = f(tree, jax.random.key(0))
+        if isinstance(r, dict):
+            out.update(flatten(jax.tree.map(np.asarray, r), p + "out/"))
+        else:
+            out[p + "out"] = np.asarray(r)
+        out.update({p + k: v for k, v in _stats_out(s).items()})
+    return out
+
+
+def job_zero_mlp_train(a, steps, n, wire_overlap=False, bucket_elems=None):
+    """A fully quantized two-layer MLP (no leaf the policy excludes, so the
+    params all-gather rides the int8 wire): ``steps`` ZeRO-1 SGD steps
+    under nearest rounding, per-layer wire formats, on ``n`` forced CPU
+    devices; the parameters and the batch come from the inputs."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core import qtrain
+    from repro.optim import SGDConfig, make_optimizer
+
+    def loss_fn(params, batch, qctx=None):
+        h = jnp.tanh(batch["x"] @ params["w1"] + params["b1"])
+        return jnp.mean((h @ params["w2"] - batch["y"]) ** 2), {}
+
+    params = jax.tree.map(jnp.asarray, unflatten(a, "params/"))
+    batch = {k: jnp.asarray(a[k]) for k in ("x", "y")}
+    qcfg = qtrain.QuantConfig(rounding="nearest", grad_allreduce_bits=8,
+                              zero_opt_shards=n, wire_overlap=wire_overlap,
+                              wire_bucket_elems=bucket_elems)
+    qcfg = qcfg.with_per_layer_wire(params)
+    opt = make_optimizer(SGDConfig(lr=0.05, schedule="const"))
+    mesh = _data_mesh(n, auto=True)
+    assert qtrain.wire_params_engaged(qcfg, params, mesh)
+    step = qtrain.make_train_step(loss_fn, opt, qcfg, mesh=mesh)
+    assert step.zero_opt_active and step.zero_groupaligned_active
+    state = qtrain.TrainState.create(
+        params, qtrain.zero_opt_state(opt, params, n, qcfg=qcfg), qcfg,
+        jax.random.key(1))
+    names = ("loss", "il_w", "fl_w", "il_g", "fl_g", "il_wire_grads",
+             "fl_wire_grads", "il_wire_params", "fl_wire_params", "E_wire",
+             "R_wire")
+    state, hist = _run_train(jax.jit(step), state, [batch] * steps, names)
+    out = {f"hist/{k}": v for k, v in hist.items()}
+    out.update(flatten(_np_params(state.params), "final/"))
+    # the flat state as the reference keeps it (rank-major shards), and
+    # as the parameter tree it belongs to
+    part = qtrain.zero_partitioner(qcfg, params, n)
+    mu = state.opt_state["mu"]
+    out["opt/mu"] = np.asarray(mu)
+    out.update(flatten(_np_params(part.unflatten(part.assemble(
+        mu.reshape(n, part.shard_size)))), "opt_tree/"))
     return out
 
 

@@ -237,8 +237,19 @@ def test_gradient_accumulation_runs_microbatches():
                                          ("wire_overlap", True),
                                          ("guards", object())])
 def test_unported_training_switches_raise(field, value):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        qtrain.QuantConfig(**{field: value})
+    """Of the reference's switches on the training step only the health
+    guards are still unported, and raise.  ZeRO-1 and the overlapped wire
+    are ported: they construct, and with no transport (one rank) the step
+    is the replicated one."""
+    if field == "guards":
+        with pytest.raises(NotImplementedError, match="not ported"):
+            qtrain.QuantConfig(**{field: value})
+        return
+    qcfg = qtrain.QuantConfig(**{field: value})
+    step = qtrain.make_train_step(registry(CFG.family).loss_fn(CFG),
+                                  make_optimizer(SGDConfig()), qcfg)
+    assert not (step.zero_opt_active or step.wire_overlap_active
+                or step.wire_sync_active)
 
 
 def test_train_cli_smoke_on_the_cpu(capsys):
