@@ -66,14 +66,21 @@ JSON line; any failure raises and the process exits non-zero:
 8. wire    — the int8 wire of data-parallel training.  The wire quantizer
              K2/K2b (sizes, bf16, unaligned pointers and Philox offsets,
              saturating formats, statistics on and off, a slot of a larger
-             buffer, NaN), the fused decode-reduce K4 (1-8 ranks, several
-             formats, ragged chunks, strided rows) and the grouped encoder's
+             buffer, NaN), the fused decode-reduce K4 (1-300 ranks, several
+             formats, ragged chunks, strided rows; for its TMA body a chunk
+             shorter than a span, quanta below and above the span, a ragged
+             last tile, rows at the int8 extremes; a 16-byte row stride from
+             a base off 16 bytes on the grid-stride body; each launch on the
+             body ``reduce_plan`` gives, by the TMA counter) and the grouped
+             encoder's
              Philox source K3b (every owner's chunk of several layouts)
              against their plain versions, wire bytes and means bit-equal;
              K3's counts exact on a group of 16,781,312 elements.  At the
              path's shapes: K2 (bits operand, and nearest) and K2b on the
              w_in gradient leaf, K4 on one owner's [4, c] strided view of the
-             full tree's layout, K3b and K3 with a bits operand on that
+             full tree's layout (on the TMA body; ``torch.sum`` of the same
+             int8 rows into fp32 timed beside it, the same bytes but not the
+             same function), K3b and K3 with a bits operand on that
              owner's chunk, each timed beside its plain version and bound.
              Then ``dps_allreduce_mean_tree`` on a ragged tree over 4 ranks
              (scalar and per-leaf formats, nearest rounding, and stochastic
@@ -84,8 +91,9 @@ JSON line; any failure raises and the process exits non-zero:
              --optimizer sgd --grad-allreduce-bits 8 --data-ranks 4``: 4
              data-parallel ranks on the card at full width, finite losses,
              the wire formats chosen on the device, and per step 4 x 11 K2b
-             launches, 4 K4, 4 K3b and 280 K1b, as the CPU rehearsal of the
-             step counts them.  Last, the same for 2 steps with
+             launches, 4 K4 (every one on the TMA body), 4 K3b and 280 K1b,
+             as the CPU rehearsal of the step counts them.  Last, the same
+             for 2 steps with
              ``--rounding-bits operand``: per step 4 x 11 K2, 4 K4, 4 K3 and
              1,603 K1 (stacked leaves one layer at a time).
 9. zero    — ZeRO-1 and the overlapped bucketed wire.  On the ragged tree
@@ -102,7 +110,11 @@ JSON line; any failure raises and the process exits non-zero:
              encoded into it, then ``TreeAllReduce(layout=...)``'s K4 and
              leg-2 K3b on every owner's [4, 176,160,768] and the local
              decode, kernels vs plain, bytes and shards bit-equal; K4 and
-             K3b timed there.  LeNet over 4 ranks with ``zero_opt_shards=4``
+             K3b timed there (and ``torch.sum`` beside K4).  K4 at every one
+             of the overlap run's 11 buckets (owner 1's view, the bucket's
+             tiles and formats): bit-equal on the TMA body, timed from a CUDA
+             graph beside its bound, the sum x 4 owners printed as K4 a
+             step.  LeNet over 4 ranks with ``zero_opt_shards=4``
              (every leaf quantized, so the params all-gather is int8): 3 steps
              kernel vs plain under nearest rounding, formats equal, loss to
              ``LENET_LOSS_RTOL``, per step 88 K1, 32 K2, 4 K4, 8 K3.  Then
@@ -111,7 +123,8 @@ JSON line; any failure raises and the process exits non-zero:
              overlap, 11 buckets) engaged, the first loss bit-equal to the
              wire run's and the later ones to ``ZERO_LOSS_RTOL``, per step
              4 x 11 K2b, 272 K1b and 4 K4 and 4 K3b (4 x 11 of each with the
-             overlap), as the CPU rehearsal counts them; every metric of
+             overlap), as the CPU rehearsal counts them, every K4 on the TMA
+             body; every metric of
              every step of the overlap run bit-equal to the run without it.
 
 The line before the last two carries the kernels (launches on their path —
@@ -123,7 +136,9 @@ the same kernel at 8 x 4,096 tokens, a shape no path here runs (that row says
 ``launches_lenet_zero`` and ``launches_zero`` (and ``launches_zero_overlap``
 where the overlap launches it at the row's shape); K4 and K3b have a second
 row each at the overlap's w_in bucket, whose launches are every per-bucket
-launch of the overlap run (``"run"`` and ``"counter"`` name them) —
+launch of the overlap run (``"run"`` and ``"counter"`` name them), and
+K4's rows add ``body``, ``torch_sum_ms`` and, at the bucket, every bucket's
+time and K4 a step —
 error against the plain
 version, time, plain time, bound; K2b's row adds its time at nearest
 rounding without statistics, the bare pipe); the line before
@@ -179,6 +194,9 @@ LOGIT_TOL = 0.25
 # bit-equal, so the two runs differ only where the statistics' float sums
 # (another summation order) could move a controller decision; they do not.
 LENET_LOSS_RTOL = 1e-5
+
+TORCH_SUM_NOTE = ("torch.sum(view, dim=0, dtype=torch.float32): same "
+                  "bytes, not the same function; the port never calls it")
 
 SERVE = dict(page_size=16, slots=8, max_prompt=512, max_new=64,
              requests=16, prompt_lens=(64, 512), new_tokens=(16, 64),
@@ -978,18 +996,45 @@ def _byte_err(a, b):
     return float((a.to(torch.int16) - b.to(torch.int16)).abs().max())
 
 
-def check_reduce(wire, tab, tg, quantum):
-    """K4 vs plain on the card: the means bit-equal."""
+def _reduce_body(wire, quantum):
+    """The body ``reduce_plan`` gives K4 for this view of the rows."""
+    n, chunk = wire.shape
+    aligned = wire.data_ptr() % 16 == 0        # the output is a fresh tensor
+    return dps_quant.reduce_plan(n, chunk, quantum,
+                                 wire.stride(0) if n > 1 else chunk,
+                                 aligned).body
+
+
+def check_reduce(wire, tab, tg, quantum, body=None):
+    """K4 vs plain on the card: the means bit-equal, and the launch on the
+    body the plan gives (``body``, if given, too) by the TMA counter."""
+    want = _reduce_body(wire, quantum)
+    if body is not None and body != want:
+        raise AssertionError(f"wire reduce: planned the {want} body, "
+                             f"wanted {body}")
+    tma0 = dps_quant.reduce_tma_launch_count
     mk = dps_quant.dps_wire_reduce(wire, tab, tg, quantum=quantum,
                                    backend="kernel")
+    took = "tma" if dps_quant.reduce_tma_launch_count > tma0 else "stride"
     mp = dps_quant.dps_wire_reduce(wire, tab, tg, quantum=quantum,
                                    backend="plain")
     torch.cuda.synchronize()
+    if took != want:
+        raise AssertionError(f"wire reduce: launched the {took} body, "
+                             f"planned {want}")
     if not torch.equal(mk.view(torch.int32), mp.view(torch.int32)):
         raise AssertionError(f"wire reduce: {int((mk != mp).sum())} of "
                              f"{mk.numel()} means differ (n={wire.shape[0]}, "
-                             f"quantum={quantum})")
+                             f"quantum={quantum}, {took} body)")
     return float((mk - mp).abs().max()) if mk.numel() else 0.0
+
+
+def torch_sum_ms(view):
+    """``torch.sum`` of the int8 rows into fp32: the same bytes as K4, not
+    the same function (no decode, no mean), a yardstick the port never
+    calls."""
+    return time_ms(lambda: torch.sum(view, dim=0, dtype=torch.float32),
+                   repeats=10)
 
 
 def check_group_prng(x, tab, tg, src, quantum, *, mask=None, stats=True):
@@ -1085,15 +1130,29 @@ def wire_kernel_checks(cfg):
     check_wire_quant(xn, 3, 5, stats=False)
     nan_byte = int(dps_quant.dps_quant_wire(xn, _i32(3), _i32(5),
                                             backend="kernel")[0][0])
-    # K4: rank counts, tables, ragged chunks, strided rows
-    for n_ranks, chunk, quantum, groups, stride_pad in (
-            (1, 4096, 4096, 1, 0), (2, 8192, 4096, 2, 0), (3, 1000, 100, 4, 0),
-            (4, 777, 7, 3, 5), (5, 4096 * 3, 4096, 3, 4096 * 2),
-            (8, 160, 16, 2, 16), (7, 12345, 4096, 2, 0), (6, 64, 16, 4, 3)):
+    # K4: rank counts, tables, ragged chunks, strided rows; then the TMA
+    # body's edges: a chunk shorter than one span, a quantum below the span
+    # (an item a tile, neighbours of other formats) and above it (several
+    # items a tile, the last shorter when the span does not divide it), a
+    # ragged last tile, n = 16 and n = 300 (two 256-row passes of the packed
+    # sums), rows at the int8 extremes, a 16-byte row stride from a base
+    # off 16 bytes (the grid-stride body)
+    for n_ranks, chunk, quantum, groups, stride_pad, base in (
+            (1, 4096, 4096, 1, 0, 0), (2, 8192, 4096, 2, 0, 0),
+            (3, 1000, 100, 4, 0, 0), (4, 777, 7, 3, 5, 0),
+            (5, 4096 * 3, 4096, 3, 4096 * 2, 0), (8, 160, 16, 2, 16, 0),
+            (7, 12345, 4096, 2, 0, 0), (6, 64, 16, 4, 3, 0),
+            (4, 64, 4096, 1, 0, 0), (4, 4096 * 4, 1024, 5, 0, 0),
+            (4, 4096 * 5, 16384, 3, 32, 0), (3, 4112 * 3, 4112, 3, 0, 0),
+            (4, 4096 * 2 + 1024, 4096, 3, 0, 0), (16, 4096 * 3, 4096, 3, 0, 0),
+            (300, 4096, 4096, 2, 0, 0), (4, 8192, 4096, 2, 13, 3)):
         tiles = -(-chunk // quantum)
-        big = torch.from_numpy(rng.integers(-128, 127, (n_ranks, chunk + stride_pad),
-                                            dtype=np.int8, endpoint=True)).to(DEV)
-        w = big[:, :chunk]                                # rows stride apart
+        big = torch.from_numpy(rng.integers(
+            -128, 127, (n_ranks, base + chunk + stride_pad), dtype=np.int8,
+            endpoint=True)).to(DEV)
+        big[:, base:base + 3] = 127
+        big[:, base + 3:base + 6] = -128
+        w = big[:, base:base + chunk]                     # rows stride apart
         il = rng.integers(1, 6, groups)
         tab = torch.from_numpy(np.stack([il, 8 - il], 1).astype(np.int32)).to(DEV)
         tg = torch.from_numpy(np.sort(rng.integers(0, groups, tiles))
@@ -1101,7 +1160,8 @@ def wire_kernel_checks(cfg):
         check_reduce(w, tab, tg, quantum)
         check_reduce(w, tab[:1].contiguous(), None, quantum)
         small.append(f"reduce n={n_ranks} chunk={chunk} q={quantum} G={groups} "
-                     f"row_stride={chunk + stride_pad}")
+                     f"row_stride={base + chunk + stride_pad} base+{base} "
+                     f"{_reduce_body(w, quantum)}")
     # K3b: per-group streams over layouts, every owner's chunk
     for sizes, n_ranks, quantum, dtype in (((700, 3000, 5), 3, 128, torch.float32),
                                            ((5000, 37, 9000, 1), 4, 4096, torch.float32),
@@ -1218,13 +1278,14 @@ def wire_kernel_checks(cfg):
                           device=DEV, generator=g)
     view = stack.view(n_ranks, n_ranks, c).transpose(0, 1)[1]
     tg1 = tg[tpc:2 * tpc]
-    errs["reduce"] = check_reduce(view, tab, tg1, 4096)
+    errs["reduce"] = check_reduce(view, tab, tg1, 4096, body="tma")
     red_bytes = n_ranks * c + 4 * c + 4 * tpc + 8 * len(sizes)
     red_ops = (2 * n_ranks + 1) * c
     red_ms = time_ms(lambda: dps_quant.dps_wire_reduce(
         view, tab, tg1, quantum=4096, backend="kernel"), repeats=10)
     red_plain = time_ms(lambda: dps_quant.dps_wire_reduce(
         view, tab, tg1, quantum=4096, backend="plain"), repeats=3, warmup=1)
+    red_sum = torch_sum_ms(view)
     part = dps_quant.dps_wire_reduce(view, tab, tg1, quantum=4096,
                                      backend="kernel")
     del stack, view
@@ -1238,7 +1299,8 @@ def wire_kernel_checks(cfg):
                    f"[{n_ranks}, {lay.total}] stack, row stride {lay.total}) "
                    f"-> fp32 [{c}], {len(sizes)} formats, quantum 4096",
           "max_abs_err": errs["reduce"], "ms": red_ms, "plain_ms": red_plain,
-          "bound_ms": b, "bound_by": by, "bytes": red_bytes, "library_ms": None}
+          "bound_ms": b, "bound_by": by, "bytes": red_bytes, "library_ms": None,
+          "body": "tma", "torch_sum_ms": red_sum, "torch_sum_note": TORCH_SUM_NOTE}
 
     # K3b on that owner's mean chunk, as leg 2 launches it (no statistics)
     src = dps_quant.GroupPhilox(31, goff, start=c)
@@ -1427,6 +1489,14 @@ def _wire_step_launches(cfg, n_ranks, rounding_bits, zero_buckets=0):
     return out
 
 
+def _all_k4_on_tma(launches, what):
+    """Every K4 launch of a full-width run took the TMA body."""
+    k4, tma = launches["dps_wire_reduce"], dps_quant.reduce_tma_launch_count
+    if k4 < 1 or tma != k4:
+        raise AssertionError(f"{what}: {tma} of {k4} K4 launches took the "
+                             "TMA body")
+
+
 def train_wire(cfg, steps=4, n_ranks=4, rounding_bits="onchip"):
     """The int8-wire data-parallel trainer's CLI at full size: n_ranks ranks
     on the card, batch 1 x 512 each, per-layer wire formats; K1b/K2b/K3b/K4,
@@ -1437,8 +1507,10 @@ def train_wire(cfg, steps=4, n_ranks=4, rounding_bits="onchip"):
             "--grad-allreduce-bits", "8", "--data-ranks", str(n_ranks),
             "--rounding-bits", rounding_bits, "--log-every", "1"]
     train_cli.reset_launch_counts()            # the counted run
+    dps_quant.reduce_tma_launch_count = 0
     out = train_cli.main(argv)
     launches = train_cli.launch_counts()
+    _all_k4_on_tma(launches, "wire training")
     hist = out["history"]
     losses = [h["loss"] for h in hist]
     if len(hist) != steps or not all(math.isfinite(v) for v in losses):
@@ -1463,6 +1535,7 @@ def train_wire(cfg, steps=4, n_ranks=4, rounding_bits="onchip"):
         tokens_per_s_after_first=out["tokens_per_s_after_first"],
         peak_memory_bytes=out["peak_memory_bytes"], formats=traj,
         launches=launches, launches_per_step=want,
+        k4_tma_launches=dps_quant.reduce_tma_launch_count,
         E_wire=out["E_wire"], R_wire=out["R_wire"])
     del out
     gc.collect()
@@ -1688,7 +1761,12 @@ def zero_bucket_check(cfg, n=4):
     tg_all, goff = _layout_tables(lay, str(DEV))
     tg1 = tg_all[j * tpc:(j + 1) * tpc]
     view = received[j]
+    if _reduce_body(view, q) != "tma":
+        raise AssertionError("w_in bucket: K4 planned off the TMA body")
+    tma0 = dps_quant.reduce_tma_launch_count
     mk = _wire_reduce(view, fmt, tg1, backend="kernel", quantum=q)
+    if dps_quant.reduce_tma_launch_count != tma0 + 1:
+        raise AssertionError("w_in bucket: K4 did not take the TMA body")
     mp = _wire_reduce(view, fmt, tg1, backend="plain", quantum=q)
     _bit_equal(mk, mp, "w_in bucket, owner 1's K4 mean")
     k4_err = float((mk - mp).abs().max())
@@ -1697,6 +1775,7 @@ def zero_bucket_check(cfg, n=4):
                                           quantum=q), repeats=10)
     red_plain = time_ms(lambda: _wire_reduce(view, fmt, tg1, backend="plain",
                                              quantum=q), repeats=3, warmup=1)
+    red_sum = torch_sum_ms(view)
     bits = _aligned_bits(fold_seed(seed, LEG2), lay, goff, j * c, c,
                          onchip_prng=True, group_base=lo)
     out = torch.empty(c, dtype=torch.int8, device=DEV)
@@ -1727,7 +1806,8 @@ def zero_bucket_check(cfg, n=4):
          "shape": f"[{n}, {c}] int8 (owner {j}'s strided view) -> fp32 [{c}], "
                   f"{shape}", "max_abs_err": k4_err, "ms": red_ms,
          "plain_ms": red_plain, "bound_ms": b4, "bound_by": by4,
-         "bytes": red_bytes, **common},
+         "bytes": red_bytes, "body": "tma", "torch_sum_ms": red_sum,
+         "torch_sum_note": TORCH_SUM_NOTE, **common},
         {"name": "dps_group_wire_encode_onchip_prng_zero_bucket",
          "counter": "dps_group_wire_encode_onchip_prng",
          "replaces": "src/repro/kernels/dps_quant.py:482",
@@ -1742,6 +1822,53 @@ def zero_bucket_check(cfg, n=4):
         rows=[{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms")}
               for r in rows])
     return rows
+
+
+def k4_buckets(cfg, n=4):
+    """K4 at every bucket of the overlap run (``launch.train --zero-opt
+    --wire-overlap on``: the partitioner's 11 bucket layouts): owner 1's
+    [4, chunk] strided view of a random [4, 4 chunk] stack, the bucket's
+    tile map and a table of its leaves' formats; kernel vs plain bit-equal
+    on the TMA body, the time replayed from a CUDA graph beside the bound.
+    Returns the rows and the sum over buckets x owners (K4 a step)."""
+    from repro_torch.core import qtrain
+    from repro_torch.models import transformer
+    defs = transformer.model_defs(cfg, cfg.master_dtype())
+    qcfg = dataclasses.replace(
+        qtrain.QuantConfig(grad_allreduce_bits=8, wire_overlap=True)
+        .with_per_layer_wire(defs), zero_opt_shards=n)
+    part = qtrain.zero_partitioner(qcfg, defs, n)
+    g = torch.Generator(device=DEV).manual_seed(16)
+    rows = []
+    for b in range(part.n_buckets):
+        lo, hi = part.leaf_range(b)
+        lay = part.layouts[b]
+        c, q = lay.chunk, lay.quantum
+        tpc = c // q
+        tg = torch.from_numpy(lay.tile_groups()[tpc:2 * tpc]).to(DEV)
+        G = hi - lo
+        il = torch.randint(1, 3, (G,), device=DEV, generator=g)
+        tab = torch.stack([il, 8 - il], 1).to(torch.int32).contiguous()
+        stack = torch.randint(-128, 128, (n, n * c), dtype=torch.int8,
+                              device=DEV, generator=g)
+        view = stack.view(n, n, c).transpose(0, 1)[1]
+        err = check_reduce(view, tab, tg, q, body="tma")
+        ms = time_graph_ms(lambda: dps_quant.dps_wire_reduce(
+            view, tab, tg, quantum=q, backend="kernel"),
+            100 if c < 1 << 24 else 20)
+        nbytes = n * c + 4 * c + 4 * tpc + 8 * G
+        bnd, by = bound(nbytes, (2 * n + 1) * c)
+        rows.append({"bucket": b, "leaves": [lo, hi], "chunk": c,
+                     "ms": ms, "bound_ms": bnd, "bound_by": by,
+                     "share_of_bound": bnd / ms, "max_abs_err": err})
+        del stack, view
+        torch.cuda.empty_cache()
+    step_ms = n * sum(r["ms"] for r in rows)
+    say("k4_buckets", owners=n, buckets=rows, k4_ms_a_step=step_ms,
+        k4_bound_ms_a_step=n * sum(r["bound_ms"] for r in rows),
+        timing="CUDA-graph replay, L2 flushed before each",
+        tolerance="bit-equal")
+    return rows, step_ms
 
 
 def lenet_zero(steps=3):
@@ -1832,8 +1959,10 @@ def train_zero(cfg, wire_first_loss, overlap, steps=4, n_ranks=4):
     if overlap:
         argv += ["--wire-overlap", "on"]
     train_cli.reset_launch_counts()            # the counted run
+    dps_quant.reduce_tma_launch_count = 0
     out = train_cli.main(argv)
     launches = train_cli.launch_counts()
+    _all_k4_on_tma(launches, "ZeRO training")
     hist = out["history"]
     losses = [h["loss"] for h in hist]
     if len(hist) != steps or not all(math.isfinite(v) for v in losses):
@@ -1866,7 +1995,9 @@ def train_zero(cfg, wire_first_loss, overlap, steps=4, n_ranks=4):
         ms_per_step_after_first=out["ms_per_step_after_first"],
         tokens_per_s_after_first=out["tokens_per_s_after_first"],
         peak_memory_bytes=out["peak_memory_bytes"], launches=launches,
-        launches_per_step=want, E_wire=out["E_wire"], R_wire=out["R_wire"],
+        launches_per_step=want,
+        k4_tma_launches=dps_quant.reduce_tma_launch_count,
+        E_wire=out["E_wire"], R_wire=out["R_wire"],
         formats=[{k: h[k] for k in ("il_w", "fl_w", "il_g", "fl_g",
                                     "il_wire_grads", "fl_wire_grads")}
                  for h in hist])
@@ -1917,6 +2048,13 @@ def main():
     # overlap; each run counted from 0
     zero_collectives()
     rows += zero_bucket_check(cfg)
+    bucket_rows, k4_step_ms = k4_buckets(cfg)
+    for r in rows:
+        if r["name"] == "dps_wire_reduce_zero_bucket":
+            r["k4_buckets"] = [{k: b[k] for k in ("bucket", "chunk", "ms",
+                                                  "bound_ms")}
+                               for b in bucket_rows]
+            r["k4_ms_a_step_overlap"] = k4_step_ms
     zero_launches = {"lenet_zero": lenet_zero()}
     zero_hist = {}
     for run, overlap in (("zero", False), ("zero_overlap", True)):

@@ -1,7 +1,7 @@
 """Time the port's hand-written kernels of several source trees side by side
 on one card.
 
-    python3 kernel_ab.py [--out FILE] TREE [TREE ...]
+    python3 kernel_ab.py [--out FILE] [--only k5,quant,k4] TREE [TREE ...]
 
 Each TREE is a checkout of this repository (a directory that holds
 ``src/repro_torch``), for example the parent commit unpacked with
@@ -23,10 +23,28 @@ built from its own sources into ``build/kernel_ab/<n>``.  A child measures:
   400,000 values (LeNet's fc1), 9,437,184 (a 3072 x 3072 projection),
   25,165,824 (one layer of llama3.2-3b's w_in) and 704,643,072 (the whole
   w_in leaf), K2 (bits operand) and K2b (Philox) onto the int8 wire, with
-  statistics and without, each replayed from a CUDA graph.
+  statistics and without, each replayed from a CUDA graph;
+* the wire's decode-and-mean K4 at four shapes of 4 int8 rows: owner 1's
+  strided view of the full llama3.2-3b tree's [4, 4c] stack (c =
+  803,385,344, per-layer formats), owner 1's view at the overlap run's w_in
+  bucket (c = 176,160,768, one format), at that run's smallest bucket (the
+  final norm: c = 3,072, quantum 3,072), and a contiguous [4, 176,160,768]
+  stack as the process-group transport delivers it; each replayed from a
+  CUDA graph and held bit-equal to the tree's plain version; and, for a tree
+  whose K4 has a TMA body (``reduce_plan``), its time launched through the
+  library's C entry at the wrapper's setting and at other spans, stage
+  counts and grids.
 
 Every time is the median over repeated launches with the 50 MB L2 cache
-overwritten before each, as in ``chip_smoke.py``.  Inputs are made from
+overwritten before each, as in ``chip_smoke.py``.
+
+Measured (``--only k4``, PARENT CHANGE CHANGE PARENT, on an H100 80GB HBM3 at
+700.00 W), K4's grid-stride body against its TMA body, ms: 3.237 / 3.245
+against 2.435 / 2.439 on the 803 M-element owner view; 0.710 / 0.707 against
+0.496 / 0.568 on the w_in bucket; 0.0082 / 0.0083 against 0.0080 / 0.0079 on
+the smallest bucket; 0.705 / 0.708 against 0.497 / 0.499 on the contiguous
+stack.  Direct launches of the TMA body: 2.25-2.58 and 0.493-0.536 at every
+stage setting.  Inputs are made from
 seed 0, the same for every tree.  The output is the card's name and power
 limit, then one JSON line a tree; ``--out`` also writes them to a file.
 Needs one CUDA card; exits non-zero if a tree fails.
@@ -34,6 +52,7 @@ Needs one CUDA card; exits non-zero if a tree fails.
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -49,6 +68,16 @@ SERVE_P = 37                       # pages a row: chip_smoke.py's serving layout
 LONG_TOKENS = 4096
 QUANT_SIZES = {"lenet_fc1": 400_000, "proj": 3072 * 3072,
                "w_in_layer": 3072 * 8192, "w_in": 28 * 3072 * 8192}
+# K4's shapes: (rows' chunk c, quantum, owner view of a [4, 4c] stack or
+# contiguous rows)
+K4_SHAPES = {"owner_803M": (803_385_344, 4096, True),
+             "w_in_bucket": (176_160_768, 4096, True),
+             "small_bucket": (3072, 3072, True),
+             "contiguous": (176_160_768, 4096, False)}
+# K4's TMA body launched directly: (span, stages, blocks an SM), the
+# wrapper's own setting first
+K4_VARIANTS = [(4096, 4, 2), (2048, 4, 2), (4096, 2, 2), (4096, 3, 2),
+               (4096, 6, 2), (4096, 8, 1), (4096, 4, 3)]
 # (kernel, leaf) pairs timed; each with statistics and without
 QUANT_CASES = [("K1b", "lenet_fc1"), ("K1b", "proj"), ("K1b", "w_in"),
                ("K1", "lenet_fc1"), ("K1", "w_in_layer"),
@@ -107,16 +136,26 @@ def time_graph_ms(fn, repeats, warmup=3):
 # the child: one tree
 # ---------------------------------------------------------------------------
 
-def _child(tree):
+def _child(tree, only):
     sys.path.insert(0, os.path.join(tree, "src"))
-    import numpy as np
     from repro_torch.kernels import _build, dps_quant, paged_attn
 
     dev = torch.device("cuda", 0)
     out = {"tree": tree}
     _build.load()
 
-    # --- K5 ---
+    if "k5" in only:
+        out["k5"] = _k5(dev, paged_attn, _build)
+    if "quant" in only:
+        out["quant"] = _quant(dev, dps_quant)
+    if "k4" in only:
+        out["k4"] = _k4(dev, dps_quant, _build)
+    print("KERNEL_AB " + json.dumps(out), flush=True)
+
+
+def _k5(dev, paged_attn, _build):
+    """K5 at the serving shape and at a long context."""
+    import numpy as np
     rng = np.random.default_rng(0)
     S = ATTN_SHAPE
     G = S["H"] // S["KV"]
@@ -171,10 +210,12 @@ def _child(tree):
                 row[f"split{tokens}_graph_ms"] = time_graph_ms(direct, 50)
         k5[tag] = row
         del args
-    out["k5"] = k5
     torch.cuda.empty_cache()
+    return k5
 
-    # --- the quantizer ---
+
+def _quant(dev, dps_quant):
+    """K1/K1b/K2/K2b at QUANT_CASES, with statistics and without."""
     gen = torch.Generator(device=dev).manual_seed(0)
     i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
     quant = {}
@@ -202,8 +243,66 @@ def _child(tree):
                                              backend="kernel"), reps)
         del x, bits
         torch.cuda.empty_cache()
-    out["quant"] = quant
-    print("KERNEL_AB " + json.dumps(out), flush=True)
+    return quant
+
+
+def _k4(dev, dps_quant, _build):
+    """K4 at K4_SHAPES, and the TMA body's variants where the tree has one."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.dist import group_layout
+    from repro_torch.models import transformer
+    cfg = get_config("llama3_2_3b")
+    sizes = [math.prod(d.shape) for d in
+             tree_lib.leaves(transformer.model_defs(cfg, cfg.master_dtype()))]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    res = {}
+    for tag, (c, q, strided) in K4_SHAPES.items():
+        if tag == "owner_803M":
+            lay = group_layout(sizes, n_chunks=4, quantum=4096)
+            assert lay.chunk == c, lay.chunk
+            tg = torch.from_numpy(lay.tile_groups()).to(dev)[c // 4096:2 * c // 4096]
+            il = torch.randint(1, 3, (len(sizes),), generator=gen, device=dev)
+        else:
+            tg = torch.zeros(c // q, dtype=torch.int32, device=dev)
+            il = torch.ones(1, dtype=torch.int64, device=dev)
+        tab = torch.stack([il, 8 - il], 1).to(torch.int32).contiguous()
+        if strided:
+            stack = torch.randint(-128, 128, (4, 4 * c), dtype=torch.int8,
+                                  device=dev, generator=gen)
+            view = stack.view(4, 4, c).transpose(0, 1)[1]
+        else:
+            view = torch.randint(-128, 128, (4, c), dtype=torch.int8,
+                                 device=dev, generator=gen)
+        call = lambda backend: dps_quant.dps_wire_reduce(
+            view, tab, tg, quantum=q, backend=backend)
+        reps = 100 if c < 10**6 else 20
+        row = {"chunk": c, "row_stride": view.stride(0),
+               "bit_equal": bool(torch.equal(call("kernel").view(torch.int32),
+                                             call("plain").view(torch.int32))),
+               "graph_ms": time_graph_ms(lambda: call("kernel"), reps)}
+        if hasattr(dps_quant, "reduce_plan") and c > 10**6:
+            lib = _build.load()
+            for span, stages, bps in K4_VARIANTS:
+                blocks = min(-(-c // span), bps * 132)
+
+                def direct(span=span, stages=stages, blocks=blocks):
+                    o = torch.empty(c, dtype=torch.float32, device=dev)
+                    code = lib.dps_wire_reduce(
+                        view.data_ptr(), view.stride(0), 4, c, tab.data_ptr(),
+                        tg.data_ptr(), q, o.data_ptr(), blocks, 1, span,
+                        stages, torch.cuda.current_stream().cuda_stream)
+                    _build.check(lib, code, "dps_wire_reduce")
+                    return o
+
+                ok = bool(torch.equal(direct().view(torch.int32),
+                                      call("plain").view(torch.int32)))
+                row[f"tma_span{span}_x{stages}_{bps}perSM_graph_ms"] = (
+                    time_graph_ms(direct, reps) if ok else "not bit-equal")
+        res[tag] = row
+        view = stack = None
+        torch.cuda.empty_cache()
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -214,10 +313,12 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--only", default="k5,quant,k4",
+                    help="the kernels to time, comma-separated")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.child:
-        return _child(a.trees[0])
+        return _child(a.trees[0], a.only.split(","))
     if not torch.cuda.is_available():
         sys.exit("kernel_ab.py: no CUDA device; it times CUDA kernels")
     smi = subprocess.run(
@@ -232,7 +333,8 @@ def main():
             ROOT, "build", "kernel_ab", str(k)))
         env.pop("PYTHONPATH", None)
         p = subprocess.run([sys.executable, os.path.abspath(__file__), "--child",
-                            tree], env=env, capture_output=True, text=True)
+                            "--only", a.only, tree], env=env,
+                           capture_output=True, text=True)
         res = [ln[len("KERNEL_AB "):] for ln in p.stdout.splitlines()
                if ln.startswith("KERNEL_AB ")]
         if p.returncode or not res:

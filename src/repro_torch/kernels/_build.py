@@ -123,7 +123,7 @@ def load(verbose: bool = False) -> ctypes.CDLL:
         lib.dps_quant_groups_per_thread.argtypes = [i32]
         lib.dps_wire_reduce.restype = i32
         lib.dps_wire_reduce.argtypes = [
-            vp, i64, i32, i64, vp, vp, i64, vp, i32, i32, vp]
+            vp, i64, i32, i64, vp, vp, i64, vp, i32, i32, i32, i32, vp]
         lib.paged_decode_attn.restype = i32
         lib.paged_decode_attn.argtypes = [
             vp, vp, vp, i32, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,

@@ -64,16 +64,52 @@
 // second kernel folds the tiles of each group in a fixed order, so counts stay
 // exact past 2^24 elements and the same input gives the same bits every run.
 //
-// K4 (`wire_reduce_kernel`) replaces `_wire_reduce_kernel` (entry
-// `dps_wire_reduce_pallas`, pallas_call at :544): the receive leg, int8
-// [n, chunk] (rows `row_stride` elements apart) -> fp32 [chunk] mean over the
-// n rows, each tile decoded with the FL of its table row.  Bound on this card:
-// bytes, n*chunk in and 4*chunk out; nothing in it is compute.  One thread
-// takes 16 int8 of one tile per row with a 16-byte load, loops over the n
-// rows, sums the decoded values and divides by n once; the decoded (n, chunk)
-// fp32 stack never exists in memory.  Every addend is a multiple of 2^-FL
-// with |w| <= 127, so the fp32 sum is exact and the mean is bit-equal to any
-// other summation order.
+// K4 (`wire_reduce_tma_kernel`, `wire_reduce_stride_kernel`) replaces
+// `_wire_reduce_kernel` (entry `dps_wire_reduce_pallas`, pallas_call at
+// :544): the receive leg, int8 [n, chunk] (rows `row_stride` elements apart)
+// -> fp32 [chunk] mean over the n rows, each tile decoded with the FL of its
+// table row.  Bound on this card: bytes, n*chunk in and 4*chunk out (8 B an
+// element at n = 4); nothing in it is compute.  What held the grid-stride
+// body it had at 58 % of that bound (46 % on a bucket's chunk) was bytes in
+// flight: one 16-byte load a thread outstanding, the rank loop not unrolled,
+// 1,024 threads an SM, about 16 KB an SM against the ~20 KB that 3.35 TB/s
+// at ~0.7 us needs, and a division and two dependent table loads before each
+// 16 elements.  The TMA body: a persistent grid (two blocks an SM, fewer when
+// there are fewer items) of 256 consumer threads and one producer thread a
+// block, and a ring of 4 stages in dynamic shared memory, each the n rows of one item of
+// `span` elements (16 KB at n = 4: span 4096).  Items are spans inside one
+// tile, so an item has one format; block b takes items b, b + grid, ...  The
+// producer looks the item's 2^-FL up once (the loads issued before it waits
+// for the stage), writes it beside the stage, and issues one bulk copy
+// (cp.async.bulk, completing on the stage's full mbarrier) a row: 64 KB in
+// flight a block, 128 KB an SM.  Consumers take 4-byte words tid, tid + 256,
+// ... of every row, release the stage on its empty mbarrier, and store four
+// means a word with st.global.cs.v4, so a warp's store covers 512 contiguous
+// bytes.  The sum is integer: a row's four bytes of a word, biased by 128 to
+// [0, 255], add as two pairs of 16-bit lanes of two int32 (bytes 0 and 2,
+// bytes 1 and 3), at most 256 rows a pass.  Exactness: every decoded value
+// is w * 2^-FL with |w| <= 128, an integer multiple of 2^-FL, and so is
+// every partial sum, of magnitude < 128 n * 2^-FL; with n * 128 < 2^24 the
+// float sum in any order is exact and equals float(sum of w) * 2^-FL, also
+// exact (2^-FL from exponent bits, exp2i) while 128 n * 2^-FL stays finite
+// (FL >= -100 for any n below 2^20).  The mean is then one IEEE division by
+// n, a product with 1/n when n is a power of two (1/n exact, so the same
+// correctly rounded quotient): bit-equal to the plain version and to the
+// reference's jnp decode-then-mean, whatever the order.  The grid-stride body
+// takes what a bulk copy cannot (a base, a row stride, the chunk or the
+// quantum off 16 bytes): one element a thread, the table looked up each
+// time.  No atomics: the same input gives the same bits on every run.  On an
+// H100 80GB HBM3 at 700.00 W (kernel_ab.py, parent, this body twice, parent
+// in one call; CUDA-graph replay, L2 flushed before each): 2.435 / 2.439 ms
+// on owner 1's view of the [4, 803,385,344] chunk (2.25-2.58 launched
+// directly at other stage settings; bound 1.919, 79-85 %) against 3.237 /
+// 3.245 before; 0.496 / 0.568 on the overlap's [4, 176,160,768] w_in bucket
+// (0.493-0.536 direct; bound 0.421) against 0.710 / 0.707; 0.497 / 0.499 on
+// a contiguous [4, 176,160,768] stack against 0.705 / 0.708; 0.0080 / 0.0079
+// on the smallest bucket (3,072 elements) against 0.0082 / 0.0083.  At the
+// large shapes both bodies, the parent's too, read one of two levels about
+// 10-15 % apart, changing between calls and between timings in one process;
+// the cause is not found.
 //
 // No float atomics anywhere: the same input gives the same bits on every run.
 
@@ -607,50 +643,217 @@ void dispatch_encode(int src, bool stats, bool masked, bool vec, unsigned tiles,
 // K4
 // ---------------------------------------------------------------------------
 
-// VEC: chunk, quantum and row_stride divide by 16 and both pointers are
-// 16-byte aligned, so a thread's 16 elements lie in one tile of every row.
-template <bool VEC>
+// The grid-stride body: what the TMA body cannot take (a row base, a row
+// stride, the chunk or the quantum off 16 bytes).  One element a thread an
+// iteration, the table looked up for each.
 __global__ void __launch_bounds__(THREADS)
-wire_reduce_kernel(const signed char* __restrict__ wire, long long row_stride, int n_ranks,
-                   long long chunk, const int* __restrict__ fmt_tab,
-                   const int* __restrict__ tile_group, long long quantum,
-                   float* __restrict__ out) {
+wire_reduce_stride_kernel(const signed char* __restrict__ wire, long long row_stride,
+                          int n_ranks, long long chunk, const int* __restrict__ fmt_tab,
+                          const int* __restrict__ tile_group, long long quantum,
+                          float* __restrict__ out) {
     const long long stride = static_cast<long long>(gridDim.x) * THREADS;
-    const long long t0 = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
     const float nf = static_cast<float>(n_ranks);
-    long long done = 0;
-    if (VEC) {
-        const long long groups = chunk / 16;
-        for (long long gi = t0; gi < groups; gi += stride) {
-            const long long e = 16 * gi;
-            const int grp = tile_group != nullptr ? tile_group[e / quantum] : 0;
-            const float inv = exp2i(-fmt_tab[2 * grp + 1]);
-            float s[16];
-#pragma unroll
-            for (int j = 0; j < 16; ++j) s[j] = 0.0f;
-            for (int r = 0; r < n_ranks; ++r) {
-                union {
-                    int4 v;
-                    signed char c[16];
-                } u;
-                u.v = *reinterpret_cast<const int4*>(wire + r * row_stride + e);
-#pragma unroll
-                for (int j = 0; j < 16; ++j) s[j] += static_cast<float>(u.c[j]) * inv;
-            }
-#pragma unroll
-            for (int j = 0; j < 16; j += 4) {
-                *reinterpret_cast<float4*>(out + e + j) =
-                    make_float4(s[j] / nf, s[j + 1] / nf, s[j + 2] / nf, s[j + 3] / nf);
-            }
-        }
-        done = 16 * groups;
-    }
-    for (long long e = done + t0; e < chunk; e += stride) {
+    for (long long e = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x; e < chunk;
+         e += stride) {
         const int grp = tile_group != nullptr ? tile_group[e / quantum] : 0;
         const float inv = exp2i(-fmt_tab[2 * grp + 1]);
         float s = 0.0f;
         for (int r = 0; r < n_ranks; ++r) s += static_cast<float>(wire[r * row_stride + e]) * inv;
         out[e] = s / nf;
+    }
+}
+
+// The TMA body.  A block is RED_CONSUMERS consumer threads and one producer
+// warp; a ring of `stages` stages in dynamic shared memory, each holding the
+// n rows of one item (`span` bytes a row), then the stages' full and empty
+// mbarriers and each stage's 2^-FL.  Items are the spans of `span` elements
+// inside each tile (`ipt` a tile, the last one of a tile shorter when span
+// does not divide the quantum), so an item has one format; block b takes
+// items b, b + gridDim.x, ...
+constexpr int RED_CONSUMERS = 256;
+constexpr int RED_THREADS = RED_CONSUMERS + 32;
+constexpr int RED_UNROLL = 4;                       // words a consumer holds at once
+constexpr int RED_MAX_SMEM = 232448;                // 227 KB, a block's most on sm_90
+constexpr int RED_PACK_ROWS = 256;                  // rows a 16-bit lane sum can take
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+                 "r"(bytes)
+                 : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete.  A barrier that never
+// completes is a fault of this file: after about 2^32 cycles (over two
+// seconds) the kernel traps, so the launch fails instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    long long t0 = 0;
+#pragma unroll 1
+    for (int spin = 0;; ++spin) {
+        uint32_t done;
+        asm volatile(
+            "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
+            "selp.u32 %0, 1, 0, p; }"
+            : "=r"(done)
+            : "r"(bar), "r"(parity)
+            : "memory");
+        if (done) return;
+        if (spin == 0)
+            t0 = clock64();
+        else if (clock64() - t0 > (1ll << 32))
+            __trap();
+    }
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+        ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+        : "memory");
+}
+
+// Item i: elements [start, start + len) of the chunk, len <= 0 for the
+// empty spans past a ragged last tile.
+__device__ __forceinline__ void red_item(long long i, long long ipt, long long quantum,
+                                         long long chunk, int span, long long& t,
+                                         long long& start, int& len) {
+    t = i / ipt;
+    start = t * quantum + (i - t * ipt) * span;
+    const long long end = min(t * quantum + quantum, chunk);
+    len = static_cast<int>(max(min(static_cast<long long>(span), end - start), -1ll));
+}
+
+__global__ void __launch_bounds__(RED_THREADS, 2)
+wire_reduce_tma_kernel(const signed char* __restrict__ wire, long long row_stride,
+                       int n_ranks, long long chunk, const int* __restrict__ fmt_tab,
+                       const int* __restrict__ tile_group, long long quantum, int span,
+                       int stages, float* __restrict__ out) {
+    extern __shared__ __align__(128) unsigned char red_smem[];
+    const long long stage_bytes = static_cast<long long>(n_ranks) * span;
+    unsigned char* data = red_smem;
+    uint64_t* full = reinterpret_cast<uint64_t*>(red_smem + stages * stage_bytes);
+    uint64_t* empty = full + stages;
+    float* sinv = reinterpret_cast<float*>(empty + stages);
+    const long long ipt = (quantum + span - 1) / span;
+    const long long items = (chunk + quantum - 1) / quantum * ipt;
+    const int tid = threadIdx.x;
+
+    if (tid == 0) {
+        for (int s = 0; s < stages; ++s) {
+            mbar_init(smem_u32(full + s), 1);
+            mbar_init(smem_u32(empty + s), RED_CONSUMERS / 32);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+
+    if (tid >= RED_CONSUMERS) {
+        // the producer: one thread issues every row's bulk copy of an item
+        // once the consumers have freed its stage; the item's 2^-FL goes to
+        // the stage beside it (the table loads are issued before the wait)
+        if (tid != RED_CONSUMERS) return;
+        int k = 0;
+        for (long long i = blockIdx.x; i < items; i += gridDim.x) {
+            long long t, start;
+            int len;
+            red_item(i, ipt, quantum, chunk, span, t, start, len);
+            if (len <= 0) continue;
+            const int grp = tile_group != nullptr ? __ldg(tile_group + t) : 0;
+            const float inv = exp2i(-__ldg(fmt_tab + 2 * grp + 1));
+            const int s = k % stages;
+            if (k >= stages) mbar_wait(smem_u32(empty + s), ((k / stages) & 1) ^ 1);
+            sinv[s] = inv;
+            const uint32_t bar = smem_u32(full + s);
+            mbar_arrive_tx(bar, static_cast<uint32_t>(n_ranks) * len);
+            const uint32_t dst = smem_u32(data + s * stage_bytes);
+            for (int r = 0; r < n_ranks; ++r)
+                bulk_load(dst + r * span, wire + r * row_stride + start, len, bar);
+            ++k;
+        }
+        return;
+    }
+
+    // the consumers: thread tid takes the 4-byte words tid, tid + 256, ... of
+    // every row of the stage, so each float4 store of a warp covers 512
+    // contiguous bytes of the output.  A word's four int8 of a row, biased
+    // by 128 to [0, 255], are summed over the rows as two pairs of 16-bit
+    // lanes (bytes 0 and 2, bytes 1 and 3) of two int32: at most 256 rows a
+    // pass, so no lane carries into the next.
+    const bool pow2 = (n_ranks & (n_ranks - 1)) == 0;
+    const float nf = static_cast<float>(n_ranks);
+    const float rn = 1.0f / nf;                      // exact when n is a power of two
+    int k = 0;
+    for (long long i = blockIdx.x; i < items; i += gridDim.x) {
+        long long t, start;
+        int len;
+        red_item(i, ipt, quantum, chunk, span, t, start, len);
+        if (len <= 0) continue;
+        const int s = k % stages;
+        mbar_wait(smem_u32(full + s), (k / stages) & 1);
+        const float inv = sinv[s];
+        const unsigned char* st = data + s * stage_bytes;
+        const int words = len >> 2;
+        for (int w0 = tid; w0 < words; w0 += RED_UNROLL * RED_CONSUMERS) {
+            int sum[RED_UNROLL][4];
+#pragma unroll
+            for (int u = 0; u < RED_UNROLL; ++u)
+#pragma unroll
+                for (int b = 0; b < 4; ++b) sum[u][b] = 0;
+            for (int r0 = 0; r0 < n_ranks; r0 += RED_PACK_ROWS) {
+                const int r1 = min(n_ranks, r0 + RED_PACK_ROWS);
+                uint32_t lo[RED_UNROLL], hi[RED_UNROLL];
+#pragma unroll
+                for (int u = 0; u < RED_UNROLL; ++u) lo[u] = hi[u] = 0u;
+                for (int r = r0; r < r1; ++r) {
+                    const uint32_t* row = reinterpret_cast<const uint32_t*>(st + r * span);
+#pragma unroll
+                    for (int u = 0; u < RED_UNROLL; ++u) {
+                        const int w = w0 + u * RED_CONSUMERS;
+                        if (w < words) {
+                            const uint32_t x = row[w] ^ 0x80808080u;
+                            lo[u] += x & 0x00ff00ffu;
+                            hi[u] += (x >> 8) & 0x00ff00ffu;
+                        }
+                    }
+                }
+                const int bias = 128 * (r1 - r0);
+#pragma unroll
+                for (int u = 0; u < RED_UNROLL; ++u) {
+                    sum[u][0] += static_cast<int>(lo[u] & 0xffffu) - bias;
+                    sum[u][1] += static_cast<int>(hi[u] & 0xffffu) - bias;
+                    sum[u][2] += static_cast<int>(lo[u] >> 16) - bias;
+                    sum[u][3] += static_cast<int>(hi[u] >> 16) - bias;
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < RED_UNROLL; ++u) {
+                const int w = w0 + u * RED_CONSUMERS;
+                if (w >= words) continue;
+                float m[4];
+#pragma unroll
+                for (int b = 0; b < 4; ++b) {
+                    const float v = static_cast<float>(sum[u][b]) * inv;   // exact
+                    m[b] = pow2 ? v * rn : v / nf;
+                }
+                __stcs(reinterpret_cast<float4*>(out + start) + w,
+                       make_float4(m[0], m[1], m[2], m[3]));
+            }
+        }
+        __syncwarp();
+        if ((tid & 31) == 0) mbar_arrive(smem_u32(empty + s));
+        ++k;
     }
 }
 
@@ -765,28 +968,45 @@ extern "C" int dps_group_wire_encode(const void* x, int x_is_bf16, const void* f
 // K4.  `wire`: int8, row r of the [n_ranks, chunk] stack at
 // wire + r * row_stride.  `fmt_tab`: int32 [G, 2]; `tile_group`: int32
 // [ceil(chunk / quantum)] (null: every tile takes row 0).  `out`: fp32
-// [chunk].  `nblocks` sizes the grid-stride grid; `vec` says the caller
-// checked 16-element divisibility of chunk, quantum and row_stride and the
-// 16-byte alignment of wire and out.  Launches on `stream`, does not
-// synchronise, returns cudaGetLastError().
+// [chunk].  `body` 1 is the TMA body, `span` elements a row a stage and
+// `stages` stages: the caller checked that wire, out, row_stride, chunk and
+// quantum are 16-byte multiples and that the stages fit in 227 KB.  `body` 0
+// is the grid-stride body (`span` and `stages` unused).  `nblocks` is the
+// grid.  Launches on `stream`, does not synchronise, returns
+// cudaGetLastError().
 extern "C" int dps_wire_reduce(const void* wire, long long row_stride, int n_ranks,
                                long long chunk, const void* fmt_tab, const void* tile_group,
-                               long long quantum, void* out, int nblocks, int vec,
-                               void* stream) {
+                               long long quantum, void* out, int nblocks, int body, int span,
+                               int stages, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (n_ranks < 1 || quantum < 1 || nblocks < 1) return static_cast<int>(cudaErrorInvalidValue);
-    if (chunk > 0) {
-        const signed char* wp = static_cast<const signed char*>(wire);
-        const int* tab = static_cast<const int*>(fmt_tab);
-        const int* tg = static_cast<const int*>(tile_group);
-        float* op = static_cast<float*>(out);
-        if (vec)
-            wire_reduce_kernel<true><<<nblocks, THREADS, 0, s>>>(wp, row_stride, n_ranks, chunk,
-                                                                 tab, tg, quantum, op);
-        else
-            wire_reduce_kernel<false><<<nblocks, THREADS, 0, s>>>(wp, row_stride, n_ranks, chunk,
-                                                                  tab, tg, quantum, op);
+    if (n_ranks < 1 || quantum < 1 || nblocks < 1 || body < 0 || body > 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const signed char* wp = static_cast<const signed char*>(wire);
+    const int* tab = static_cast<const int*>(fmt_tab);
+    const int* tg = static_cast<const int*>(tile_group);
+    float* op = static_cast<float*>(out);
+    if (chunk <= 0) return static_cast<int>(cudaGetLastError());
+    if (body == 0) {
+        wire_reduce_stride_kernel<<<nblocks, THREADS, 0, s>>>(wp, row_stride, n_ranks, chunk,
+                                                             tab, tg, quantum, op);
+        return static_cast<int>(cudaGetLastError());
     }
+    const long long smem = static_cast<long long>(stages) * n_ranks * span + 20ll * stages;
+    if (stages < 1 || span < 16 || span % 16 || quantum % 16 || chunk % 16 ||
+        (n_ranks > 1 && row_stride % 16) || reinterpret_cast<uintptr_t>(wp) % 16 ||
+        reinterpret_cast<uintptr_t>(op) % 16 || smem > RED_MAX_SMEM)
+        return static_cast<int>(cudaErrorInvalidValue);
+    // set once to the most a block may have, so that no later launch (one
+    // captured into a CUDA graph included) needs the call
+    static bool attr = false;
+    if (!attr) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            wire_reduce_tma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, RED_MAX_SMEM);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        attr = true;
+    }
+    wire_reduce_tma_kernel<<<nblocks, RED_THREADS, static_cast<size_t>(smem), s>>>(
+        wp, row_stride, n_ranks, chunk, tab, tg, quantum, span, stages, op);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -28,7 +28,10 @@ in ``csrc/dps_quant.cu``:
   Philox stream per group (:class:`GroupPhilox`).
 * **K4** — :func:`dps_wire_reduce`, counterpart of
   ``dps_wire_reduce_pallas``: int8 ``[n, chunk]`` → fp32 ``[chunk]`` mean
-  over the rows, each tile decoded with its table row's FL.
+  over the rows, each tile decoded with its table row's FL.  Two bodies:
+  a ring of shared-memory stages filled by bulk copies (TMA), and a
+  grid-stride body for what a bulk copy cannot take; :func:`reduce_plan`
+  chooses, and ``reduce_tma_launch_count`` counts the TMA launches.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain version
 (``*_plain``) for CPU tensors, and never the one in place of the other.  Each
@@ -60,6 +63,7 @@ quantize_prng_launch_count = 0
 wire_launch_count = 0
 wire_prng_launch_count = 0
 reduce_launch_count = 0
+reduce_tma_launch_count = 0      # the K4 launches that took the TMA body
 
 # K1/K2 and K4 grids: 256 threads a block, at most four blocks per SM of an
 # H100; the grid is a function of the size (and, for K1/K2, of whether
@@ -67,6 +71,13 @@ reduce_launch_count = 0
 Q_THREADS = 256
 Q_MAX_BLOCKS = 4 * 132
 Q_PART = 7               # doubles per block (or tile) in the statistics partials
+
+# K4's TMA body: a stage holds 16 KB of rows, four stages a block, two
+# blocks an SM (288 threads each), 227 KB of shared memory at most a block
+RED_STAGE_BYTES = 16 << 10
+RED_STAGES = 4
+RED_BLOCKS = 2 * 132
+RED_MAX_SMEM = 232448
 
 
 # ---------------------------------------------------------------------------
@@ -589,28 +600,64 @@ def dps_wire_reduce_plain(wire: torch.Tensor, fmt_tab: torch.Tensor,
     return acc / torch.tensor(float(n), device=wire.device)
 
 
-def reduce_blocks(chunk: int) -> int:
-    """The K4 grid for a chunk of ``chunk`` elements."""
-    return max(1, min(-(-max(chunk // 16, 1) // Q_THREADS), Q_MAX_BLOCKS))
+@dataclasses.dataclass(frozen=True)
+class ReducePlan:
+    """How K4 is launched: ``body`` "tma" (a ring of ``stages`` stages of
+    ``span`` elements a row in shared memory, filled by bulk copies) or
+    "stride" (the grid-stride body, ``span`` and ``stages`` 0), on
+    ``blocks`` blocks."""
+
+    body: str
+    blocks: int
+    span: int
+    stages: int
+
+
+def reduce_plan(n: int, chunk: int, quantum: int, row_stride: int,
+                aligned: bool) -> ReducePlan:
+    """K4's body and grid for ``n`` rows of ``chunk`` int8, ``row_stride``
+    elements apart, tiles of ``quantum``.  ``aligned``: the wire's base and
+    the output lie on 16-byte boundaries.
+
+    The TMA body takes the chunk whenever a bulk copy can: the base, the
+    row stride (with more than one row), the chunk and the quantum all
+    16-byte multiples, and the stages within a block's shared memory.  A
+    stage holds ``RED_STAGE_BYTES`` of rows (``span`` = that over n, a
+    multiple of 16, at most the quantum); its items are the spans inside each
+    tile, and the grid is one block an item up to ``RED_BLOCKS``.  The
+    grid-stride body takes one element a thread, at most ``Q_MAX_BLOCKS``
+    blocks.  So the grid depends on the shape alone."""
+    span = min(max(16, RED_STAGE_BYTES // n // 16 * 16), quantum)
+    if (aligned and chunk % 16 == 0 and quantum % 16 == 0
+            and (n == 1 or row_stride % 16 == 0)
+            and RED_STAGES * (n * span + 20) <= RED_MAX_SMEM):
+        items = -(-chunk // quantum) * -(-quantum // span)
+        return ReducePlan("tma", max(1, min(items, RED_BLOCKS)), span,
+                          RED_STAGES)
+    return ReducePlan("stride", max(1, min(-(-chunk // Q_THREADS),
+                                           Q_MAX_BLOCKS)), 0, 0)
 
 
 def _dps_wire_reduce_cuda(wire, fmt_tab, tile_group, quantum):
-    global reduce_launch_count
+    global reduce_launch_count, reduce_tma_launch_count
     _check_reduce(wire, fmt_tab, tile_group, quantum)
     n, chunk = wire.shape
     lib = _build.load()
     out = torch.empty(chunk, dtype=torch.float32, device=wire.device)
     stride = wire.stride(0) if n > 1 else chunk
-    vec = (chunk % 16 == 0 and quantum % 16 == 0 and stride % 16 == 0
-           and wire.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    plan = reduce_plan(n, chunk, quantum, stride,
+                       wire.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     with torch.cuda.device(wire.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.dps_wire_reduce(
             wire.data_ptr(), stride, n, chunk, fmt_tab.data_ptr(),
             tile_group.data_ptr() if tile_group is not None else None,
-            quantum, out.data_ptr(), reduce_blocks(chunk), int(vec), stream)
+            quantum, out.data_ptr(), plan.blocks, int(plan.body == "tma"),
+            plan.span, plan.stages, stream)
     _build.check(lib, code, "dps_wire_reduce")
     reduce_launch_count += 1
+    if plan.body == "tma":
+        reduce_tma_launch_count += 1
     return out
 
 

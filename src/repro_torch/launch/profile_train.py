@@ -4,8 +4,8 @@ Builds the trainer of ``repro_torch.launch.train`` (random weights from
 ``--seed`` on the GPU), runs one step to warm up, then ``--steps`` steps under
 the profiler, and prints one JSON object: wall time per step, device-busy
 time and share, device events per step, the quantizer kernels' and the int8
-wire kernels' device time and share of the busy time, and the kernels that
-took most device time.  ``--trace-out`` also writes the Chrome trace.
+wire kernels' device time and share of the busy time (K4's alone too), and
+the kernels that took most device time.  ``--trace-out`` also writes the Chrome trace.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_train --arch llama3_2_3b \\
       --steps 2 --batch 2 --seq 512 --optimizer sgd
@@ -60,9 +60,11 @@ def main(argv=None):
             by_name[e.key] = (us, e.count)
     busy_us = sum(us for us, _ in by_name.values())
     # K1/K1b/K2/K2b run `quantize_kernel` (so K2's time counts as the
-    # quantizer's), K3/K3b `group_wire_encode_kernel`, K4 `wire_reduce_kernel`
+    # quantizer's), K3/K3b `group_wire_encode_kernel`, K4
+    # `wire_reduce_tma_kernel` or `wire_reduce_stride_kernel`
     quant_us = sum(us for k, (us, _) in by_name.items() if "quantize" in k)
     wire_us = sum(us for k, (us, _) in by_name.items() if "wire" in k)
+    k4_us = sum(us for k, (us, _) in by_name.items() if "wire_reduce" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:args.top]
     n_events = sum(c for _, c in by_name.values())
     smi = subprocess.run(
@@ -87,6 +89,7 @@ def main(argv=None):
         "quantizer_share_of_busy": quant_us / busy_us if busy_us else 0.0,
         "wire_kernels_device_ms_per_step": wire_us * 1e-3 / args.steps,
         "wire_kernels_share_of_busy": wire_us / busy_us if busy_us else 0.0,
+        "k4_device_ms_per_step": k4_us * 1e-3 / args.steps,
         "top_device_time": [
             {"name": k[:100], "ms": us * 1e-3, "calls": c,
              "share_of_busy": us / busy_us if busy_us else 0.0}

@@ -14,7 +14,8 @@ Why a child: a worker that imported ``repro.core.tagging`` through the shim
 would make JAX test files that run later in the same worker behave
 differently from a worker that did not.
 
-Importing this module imports neither ``jax`` nor ``repro``.
+It also holds the ``one_thread`` fixture of the port's bit-for-bit CPU
+tests.  Importing this module imports neither ``jax`` nor ``repro``.
 """
 
 import json
@@ -24,6 +25,7 @@ import sys
 import tempfile
 
 import numpy as np
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STAT_NAMES = ("count", "nonzero", "overflow", "abs_err_sum", "rel_err_sum",
@@ -87,6 +89,23 @@ def unflatten(flat, prefix):
             node = node.setdefault(p, {})
         node[parts[-1]] = v
     return tree
+
+
+@pytest.fixture
+def one_thread():
+    """Both runs of a bit-for-bit comparison of the smoke LM on one CPU
+    thread: with several, the math libraries may split a product's sums
+    by the threads they take, and a busy machine (parallel test workers)
+    changes that between runs — an ulp in one activation can move a
+    stochastic tap across a grid step.  A test module takes it by
+    importing it from here."""
+    import torch
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)
 
 
 def test_reference_imports_and_serves_through_the_shim():
@@ -522,6 +541,21 @@ def job_wire_codec(a, cases):
                 mode=c["mode"])
             out[p + "ref_wire"] = np.asarray(w2)
             out[p + "ref_vec"] = np.asarray(v)
+    return out
+
+
+def job_wire_reduce_pallas(a, names, quantum):
+    """K4's reference, ``dps_wire_reduce_pallas`` in interpret mode, on each
+    named ``wire`` / ``fmt_tab`` / ``tile_group``."""
+    import jax.numpy as jnp
+    from repro.kernels.dps_quant import dps_wire_reduce_pallas
+    out = {}
+    for name in names:
+        p = f"{name}/"
+        out[p + "mean"] = np.asarray(dps_wire_reduce_pallas(
+            jnp.asarray(a[p + "wire"]), jnp.asarray(a[p + "fmt_tab"]),
+            jnp.asarray(a[p + "tile_group"]), quantum=quantum,
+            interpret=True))
     return out
 
 

@@ -40,7 +40,8 @@ from repro_torch.dist import (BucketPlan, BucketedWire,
 from repro_torch.launch import train as train_cli
 from repro_torch.models import registry, transformer
 from repro_torch.optim import SGDConfig, make_optimizer
-from test_torch_jaxref import STAT_NAMES, run_reference, unflatten
+from test_torch_jaxref import (STAT_NAMES, one_thread,  # noqa: F401
+                               run_reference, unflatten)
 from test_torch_wire_train import (CFG, E_COMPUTE_RTOL, E_WIRE_RTOL, FMTS,
                                    LOSS_RTOL, PARAM_DIFF_FRACTION,
                                    PARAM_DIFF_STEPS, _run, _smoke_params)
@@ -260,21 +261,6 @@ def _lm_step(n, **qkw):
     opt_state = (qtrain.zero_opt_state(opt, params, tr, qcfg)
                  if step.zero_opt_active else opt.init(params))
     return step, qtrain.TrainState.create(params, opt_state, qcfg, 3)
-
-
-@pytest.fixture
-def one_thread():
-    """Both runs of a bit-for-bit comparison of the smoke LM on one CPU
-    thread: with several, the math libraries may split a product's sums
-    by the threads they take, and a busy machine (parallel test workers)
-    changes that between runs — an ulp in one activation can move a
-    stochastic tap across a grid step."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(saved)
 
 
 @pytest.mark.parametrize("rounding", ["nearest", "stochastic"])

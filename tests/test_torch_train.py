@@ -37,7 +37,8 @@ from repro_torch.launch import train as train_cli
 from repro_torch.models import registry, transformer
 from repro_torch.models.common import init_params
 from repro_torch.optim import SGDConfig, make_optimizer
-from test_torch_jaxref import STAT_NAMES, run_reference, unflatten
+from test_torch_jaxref import (STAT_NAMES, one_thread,  # noqa: F401
+                               run_reference, unflatten)
 
 CFG = dataclasses.replace(smoke(get_config("llama3_2_3b")), remat="full")
 FMTS = ("il_w", "fl_w", "il_a", "fl_a", "il_g", "fl_g")
@@ -140,7 +141,7 @@ def _smoke_params(cfg, seed=0):
                        gen)
 
 
-def test_remat_redraws_the_same_bits_and_counts_stats_once():
+def test_remat_redraws_the_same_bits_and_counts_stats_once(one_thread):
     """Full remat recomputes each block in the backward: the seeds are host
     integers, so the recompute rounds exactly as the forward did, and the
     statistics leave the block as values, so they are counted once."""

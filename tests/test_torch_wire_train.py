@@ -35,7 +35,7 @@ from repro_torch.launch import train as train_cli
 from repro_torch.models import registry, transformer
 from repro_torch.models.common import init_params
 from repro_torch.optim import SGDConfig, make_optimizer
-from test_torch_jaxref import run_reference, unflatten
+from test_torch_jaxref import one_thread, run_reference, unflatten  # noqa: F401
 
 CFG = dataclasses.replace(smoke(get_config("llama3_2_3b")), remat="full")
 FMTS = ("il_w", "fl_w", "il_a", "fl_a", "il_g", "fl_g", "il_wire_grads",
@@ -189,7 +189,7 @@ def test_process_group_transport_over_gloo_equals_the_stacked_one(tmp_path):
 
 
 @pytest.mark.parametrize("rounding", ["nearest", "stochastic"])
-def test_one_rank_wire_step_is_the_replicated_step(rounding):
+def test_one_rank_wire_step_is_the_replicated_step(one_thread, rounding):
     """With one rank there is nothing to all-reduce: the step with the wire
     switched on equals the one without, parameters and formats bit for bit."""
     runs = []
