@@ -5,10 +5,13 @@
 
 Drives ``repro_torch``'s paths — serving (``python -m
 repro_torch.launch.serve``), quantized training (``python -m
-repro_torch.launch.train``, and the paper's LeNet app) and data-parallel
+repro_torch.launch.train``, and the paper's LeNet app), data-parallel
 training over the int8 wire (``launch.train --grad-allreduce-bits 8
 --data-ranks 4``, with ZeRO-1 and the overlapped bucketed wire:
-``--zero-opt --wire-overlap on``) — and holds every CUDA kernel on them
+``--zero-opt --wire-overlap on``), and that trainer's checkpoint, resume,
+health guards and fault drills (``--ckpt-dir``, ``--resume``,
+``--sigterm-at``, ``--guards``, ``--inject-nan-at``, ``--rollback-ring``)
+— and holds every CUDA kernel on them
 against its plain PyTorch version.  Phases, each printing one
 JSON line; any failure raises and the process exits non-zero:
 
@@ -126,6 +129,39 @@ JSON line; any failure raises and the process exits non-zero:
              overlap), as the CPU rehearsal counts them, every K4 on the TMA
              body; every metric of
              every step of the overlap run bit-equal to the run without it.
+Phases 10-14 run right after phase 8's counted wire run, before its
+``--rounding-bits operand`` run.
+10. ckpt_resume — checkpoint and resume at full width: the counted wire
+             run of phase 8 (run A) also writes its step-4 checkpoint
+             (``--ckpt-dir``, the reference's format: 25.7 GB of fp32
+             parameters and momenta) under a fresh directory in ``build/``,
+             after a check that the disk there holds two such states; run B
+             takes ``--sigterm-at 2`` (a real SIGTERM: ``PREEMPTED``, a
+             checkpoint at step 2, a clean return), run B′ ``--resume``s to
+             step 4.  Held with no tolerance: B's steps 0-1 and B′'s steps
+             2-3 equal A's in every metric, and B′'s step-4 manifest digests
+             equal A's for every array (the whole state).  Printed: the free
+             space, bytes on disk, and seconds and GB/s of each save's
+             device → host copy (the stall the step loop sees) and background
+             write plus hash, of ``verify_step`` and of ``restore``.
+11. ckpt_corrupt — smoke size on the card: a bit flip and a truncation of
+             the newest checkpoint are walked past by ``latest_step``,
+             refused by ``restore``, and ``--resume`` lands on the good step;
+             a ``--zero-opt`` run preempted and resumed equals its
+             uninterrupted run (every metric, every digest).
+12. guards_idle — the full-width wire run with ``--guards`` and no fault:
+             every metric of run A bit-equal, health 0; its ms a step and
+             peak memory beside A's.
+13. guards_nan — the same with ``--inject-nan-at 1 --guard-cooldown 1``:
+             step 1 flags its NaN gradients, degrades and is skipped, the
+             parameters, momenta and DPS state held exactly (device
+             fingerprints: the int64 sum and the max of each leaf's 32-bit
+             patterns, but for the trip's +1 IL on the compute gradients);
+             step 2 runs the fp32 fallback with no K2b, K4 or K3b launch and
+             the rest as run A; step 3 is back on int8 with A's launches.
+14. rollback — smoke size on the card, the reference test's drill
+             (``--inject-nan-at 5 --rollback-ring 2``, no guards): 1-8
+             rollbacks, a finite replayed loss after each, the run completes.
 
 The line before the last two carries the kernels (launches on their path —
 K1's from the LM run with a bits operand, LeNet's beside them; K2b's, K3b's
@@ -153,8 +189,10 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1497,15 +1535,24 @@ def _all_k4_on_tma(launches, what):
                              "TMA body")
 
 
-def train_wire(cfg, steps=4, n_ranks=4, rounding_bits="onchip"):
-    """The int8-wire data-parallel trainer's CLI at full size: n_ranks ranks
-    on the card, batch 1 x 512 each, per-layer wire formats; K1b/K2b/K3b/K4,
-    or K1/K2/K3/K4 with ``rounding_bits="operand"``."""
-    from repro_torch.launch import train as train_cli
-    argv = ["--arch", "llama3_2_3b", "--steps", str(steps), "--batch",
+def wire_argv(steps=4, n_ranks=4, rounding_bits="onchip", *extra):
+    """``launch.train`` arguments of the full-width int8-wire run."""
+    return ["--arch", "llama3_2_3b", "--steps", str(steps), "--batch",
             str(n_ranks), "--seq", "512", "--optimizer", "sgd",
             "--grad-allreduce-bits", "8", "--data-ranks", str(n_ranks),
-            "--rounding-bits", rounding_bits, "--log-every", "1"]
+            "--rounding-bits", rounding_bits, "--log-every", "1", *extra]
+
+
+def train_wire(cfg, steps=4, n_ranks=4, rounding_bits="onchip",
+               ckpt_dir=None):
+    """The int8-wire data-parallel trainer's CLI at full size: n_ranks ranks
+    on the card, batch 1 x 512 each, per-layer wire formats; K1b/K2b/K3b/K4,
+    or K1/K2/K3/K4 with ``rounding_bits="operand"``.  ``ckpt_dir``: the run
+    also writes its final checkpoint there (run A of ``ckpt_resume``).
+    Returns the launches, the losses and the CLI's summary."""
+    from repro_torch.launch import train as train_cli
+    argv = wire_argv(steps, n_ranks, rounding_bits,
+                     *(["--ckpt-dir", ckpt_dir] if ckpt_dir else []))
     train_cli.reset_launch_counts()            # the counted run
     dps_quant.reduce_tma_launch_count = 0
     out = train_cli.main(argv)
@@ -1537,10 +1584,9 @@ def train_wire(cfg, steps=4, n_ranks=4, rounding_bits="onchip"):
         launches=launches, launches_per_step=want,
         k4_tma_launches=dps_quant.reduce_tma_launch_count,
         E_wire=out["E_wire"], R_wire=out["R_wire"])
-    del out
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, losses
+    return launches, losses, out
 
 
 # ---------------------------------------------------------------------------
@@ -2007,6 +2053,318 @@ def train_zero(cfg, wire_first_loss, overlap, steps=4, n_ranks=4):
     return launches, hist
 
 
+# ---------------------------------------------------------------------------
+# Checkpoint and resume, the health guards and the fault drills
+# ---------------------------------------------------------------------------
+
+# the launch counters of the int8 wire's kernels: 0 on a degraded step
+WIRE_KERNELS = ("dps_quant_wire_onchip_prng", "dps_wire_reduce",
+                "dps_group_wire_encode_onchip_prng")
+
+
+def ckpt_space(cfg):
+    """A fresh directory under ``build/`` (git-ignored) for the full-width
+    checkpoints, after checking that its disk holds two SGD wire states at
+    once (fp32 parameters and momenta, 8 bytes a parameter): run A's arrays
+    are deleted once its manifest is read, so at most run B's step 2 and
+    run B′'s step 4 exist together.  Returns ``(dir, free bytes)``."""
+    base = os.path.join(ROOT, "build")
+    os.makedirs(base, exist_ok=True)
+    free = shutil.disk_usage(base).free
+    need = 2 * 8 * cfg.n_params() + (2 << 30)
+    if free < need:
+        raise AssertionError(f"ckpt_resume: {free} bytes free under {base}, "
+                             f"the phase needs {need}")
+    return tempfile.mkdtemp(prefix="ckpt_", dir=base), free
+
+
+def _manifest(d, step):
+    with open(os.path.join(d, f"step_{step:08d}", "manifest.json")) as f:
+        return json.load(f)
+
+
+def _rate(nbytes, seconds):
+    return nbytes / seconds / 1e9 if seconds else None
+
+
+def ckpt_resume(root, free, run_a):
+    """Run A (the counted wire run, its checkpoint at step 4 in
+    ``root/a``), run B (the same with ``--sigterm-at 2``: a real SIGTERM,
+    ``PREEMPTED``, a checkpoint at step 2) and run B′ (``--resume`` to step
+    4): B′'s steps 2-3 bit-equal to A's in every metric, and its step-4
+    manifest's digests equal to A's for every key — the whole state."""
+    from repro_torch.launch import train as train_cli
+    a_dir, b_dir = os.path.join(root, "a"), os.path.join(root, "b")
+    step_a = os.path.join(a_dir, "step_00000004")
+    ma = _manifest(a_dir, 4)
+    disk = sum(os.path.getsize(os.path.join(step_a, f))
+               for f in os.listdir(step_a))
+    # A's digests are all the comparison needs: its arrays make room
+    os.remove(os.path.join(step_a, "arrays.npz"))
+    t0 = time.perf_counter()
+    b = train_cli.main(wire_argv(4, 4, "onchip", "--ckpt-dir", b_dir,
+                                 "--sigterm-at", "2"))
+    b_s = time.perf_counter() - t0
+    if b.get("preempted_at") != 2 or os.listdir(b_dir) != ["step_00000002"]:
+        raise AssertionError(f"ckpt_resume: run B was not preempted at step "
+                             f"2 ({b.get('preempted_at')}, {os.listdir(b_dir)})")
+    hist_a = run_a["history"]
+    if b["history"] != hist_a[:2]:
+        raise AssertionError("ckpt_resume: run B's steps 0-1 differ from A's")
+    t0 = time.perf_counter()
+    b2 = train_cli.main(wire_argv(4, 4, "onchip", "--ckpt-dir", b_dir,
+                                  "--resume"))
+    b2_s = time.perf_counter() - t0
+    res = b2["resumed"]
+    if res is None or res.get("step") != 2:
+        raise AssertionError(f"ckpt_resume: run B′ resumed from {res}")
+    if b2["history"] != hist_a[2:]:
+        diff = sorted({k for x, y in zip(b2["history"], hist_a[2:])
+                       for k in x if x[k] != y.get(k)})
+        raise AssertionError(f"ckpt_resume: the resumed steps 2-3 differ "
+                             f"from run A's in {diff}")
+    mb = _manifest(b_dir, 4)
+    if mb["digests"] != ma["digests"]:
+        diff = sorted(k for k in ma["digests"]
+                      if mb["digests"].get(k) != ma["digests"][k])
+        raise AssertionError(f"ckpt_resume: step-4 digests differ in {diff}")
+    saves = {"a": run_a["ckpt_saves"][-1], "b": b["ckpt_saves"][-1],
+             "b_resumed": b2["ckpt_saves"][-1]}
+    nbytes = saves["a"]["bytes"]
+    say("ckpt_resume",
+        command=("python -m repro_torch.launch.train "
+                 + " ".join(wire_argv(4, 4, "onchip", "--ckpt-dir", "D",
+                                      "[--sigterm-at 2 | --resume]"))),
+        free_bytes_before=free, bytes_on_disk=disk, state_bytes=nbytes,
+        arrays=len(ma["digests"]),
+        saves={k: dict(v, stall_GBps=_rate(v["bytes"], v["stall_s"]),
+                       write_GBps=_rate(v["bytes"], v.get("write_s")))
+               for k, v in saves.items()},
+        verify_s=res["verify_s"],
+        verify_GBps=_rate(nbytes, res["verify_s"]),
+        restore_s=res["restore_s"],
+        restore_GBps=_rate(nbytes, res["restore_s"]),
+        metrics_bit_equal=sorted(hist_a[2]), steps_compared=[2, 3],
+        digests_equal=True,
+        ms_per_step_after_first={"a": run_a["ms_per_step_after_first"],
+                                 "b_resumed": b2["ms_per_step_after_first"]},
+        seconds={"a": run_a["seconds"], "b": b_s, "b_resumed": b2_s})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _smoke_argv(steps, *extra):
+    """``launch.train`` on the card at smoke size (the int8 wire, 2
+    ranks)."""
+    return ["--arch", "llama3_2_3b", "--smoke", "--steps", str(steps),
+            "--batch", "4", "--seq", "16", "--optimizer", "sgd",
+            "--grad-allreduce-bits", "8", "--data-ranks", "2",
+            "--log-every", "1", *extra]
+
+
+def ckpt_corrupt():
+    """At smoke size on the card: a bit flip and a truncation of the newest
+    checkpoint are walked past by ``latest_step`` and refused by
+    ``restore``, and ``--resume`` lands on the good step; then a ZeRO-1
+    run preempted at step 2 and resumed equals its uninterrupted run bit
+    for bit (every metric, every digest)."""
+    from repro_torch.checkpoint import latest_step, restore
+    from repro_torch.launch import train as train_cli
+    from repro_torch.resilience import corrupt_checkpoint
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ckpt_smoke_", dir=os.path.join(ROOT,
+                                                                  "build"))
+    try:
+        modes = {}
+        for mode in ("bitflip", "truncate"):
+            d = os.path.join(root, mode)
+            train_cli.main(_smoke_argv(4, "--ckpt-dir", d, "--ckpt-every",
+                                       "2"))
+            corrupt_checkpoint(d, 4, mode)
+            if latest_step(d) != 2:
+                raise AssertionError(f"ckpt_corrupt ({mode}): latest_step "
+                                     f"{latest_step(d)}, wanted 2")
+            template = train_cli.setup(train_cli.make_parser().parse_args(
+                _smoke_argv(4)))[2]
+            try:
+                restore(d, 4, template)
+            except Exception as e:          # noqa: BLE001 — the refusal
+                refused = f"{type(e).__name__}: {e}"[:200]
+            else:
+                raise AssertionError(f"ckpt_corrupt ({mode}): step 4 restored")
+            del template
+            out = train_cli.main(_smoke_argv(6, "--ckpt-dir", d, "--resume"))
+            if (out["resumed"] or {}).get("step") != 2 or len(
+                    out["history"]) != 4:
+                raise AssertionError(f"ckpt_corrupt ({mode}): resumed "
+                                     f"{out['resumed']}")
+            modes[mode] = refused
+        zero = ["--zero-opt"]
+        a = train_cli.main(_smoke_argv(4, "--ckpt-dir",
+                                       os.path.join(root, "za"), *zero))
+        b = train_cli.main(_smoke_argv(4, "--ckpt-dir",
+                                       os.path.join(root, "zb"),
+                                       "--sigterm-at", "2", *zero))
+        b2 = train_cli.main(_smoke_argv(4, "--ckpt-dir",
+                                        os.path.join(root, "zb"),
+                                        "--resume", *zero))
+        if not (a["zero_opt"] and b.get("preempted_at") == 2
+                and b2["resumed"]["step"] == 2
+                and b["history"] + b2["history"] == a["history"]
+                and _manifest(os.path.join(root, "za"), 4)["digests"]
+                == _manifest(os.path.join(root, "zb"), 4)["digests"]):
+            raise AssertionError("ckpt_corrupt: the resumed ZeRO run differs "
+                                 "from the uninterrupted one")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    say("ckpt_corrupt", refused=modes, latest_step_walked_back_to=2,
+        resumed_from=2, zero_resume_bit_equal=True,
+        seconds=time.perf_counter() - t0)
+
+
+def _fingerprint(state):
+    """Exact fingerprints of the parameters, optimizer state and DPS state,
+    taken on the device: ``{checkpoint key: (int64 sum of the leaf's 32-bit
+    patterns, their max)}``."""
+    from repro_torch.checkpoint.ckpt import _walk
+    rows = {}
+
+    def take(key, t):
+        if t.element_size() != 4:
+            raise AssertionError(f"fingerprint: {key} is {t.dtype}")
+        bits = t.detach().contiguous().view(torch.int32)
+        rows[key] = torch.stack([bits.sum(dtype=torch.int64),
+                                 bits.max().to(torch.int64)])
+    for name in ("params", "opt_state", "dps"):
+        _walk(getattr(state, name), "." + name, take)
+    keys = sorted(rows)
+    return dict(zip(keys, torch.stack([rows[k] for k in keys]).cpu()
+                    .tolist()))
+
+
+def _metrics(hist):
+    return [{k: v for k, v in h.items()
+             if k not in ("health", "skipped", "trips", "degraded")}
+            for h in hist]
+
+
+def guards_idle(cfg, run_a):
+    """The full-width wire run with ``--guards`` and no fault, 4 steps:
+    every metric run A reports bit-equal, health 0 on every step; its step
+    time and peak memory beside A's."""
+    from repro_torch.launch import train as train_cli
+    argv = wire_argv(4, 4, "onchip", "--guards")
+    t0 = time.perf_counter()
+    train_cli.reset_launch_counts()
+    out = train_cli.main(argv)
+    hist = out["history"]
+    if _metrics(hist) != run_a["history"]:
+        diff = sorted({k for x, y in zip(_metrics(hist), run_a["history"])
+                       for k in x if x[k] != y.get(k)})
+        raise AssertionError(f"guards_idle: armed idle guards moved {diff}")
+    if any(h["health"] or h["skipped"] or h["degraded"] for h in hist):
+        raise AssertionError(f"guards_idle: health {[h['health'] for h in hist]}")
+    say("guards_idle", command="python -m repro_torch.launch.train "
+        + " ".join(argv), metrics_bit_equal_to_run_a=sorted(run_a["history"][0]),
+        health=[h["health"] for h in hist],
+        ms_per_step_after_first=out["ms_per_step_after_first"],
+        run_a_ms_per_step_after_first=run_a["ms_per_step_after_first"],
+        peak_memory_bytes=out["peak_memory_bytes"],
+        run_a_peak_memory_bytes=run_a["peak_memory_bytes"],
+        launches=train_cli.launch_counts(), seconds=time.perf_counter() - t0)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def guards_nan(cfg, run_a):
+    """The full-width wire run with ``--guards --inject-nan-at 1
+    --guard-cooldown 1``, 4 steps: step 1 flags its NaN gradients and is
+    skipped with the parameters, momenta and DPS state held exactly (device
+    fingerprints before and after it); step 2 runs the fp32 fallback (no
+    K2b, K4 or K3b launch); step 3 is back on the int8 wire with run A's
+    launches; every loss after step 1 finite."""
+    from repro_torch.launch import train as train_cli
+    from repro_torch.resilience import (HEALTH_DEGRADED,
+                                        HEALTH_GRADS_NONFINITE,
+                                        HEALTH_SKIPPED, health_flags)
+    argv = wire_argv(4, 4, "onchip", "--guards", "--inject-nan-at", "1",
+                     "--guard-cooldown", "1")
+    prints = {}
+
+    def on_step(step, state):
+        if step in (0, 1):
+            prints[step] = _fingerprint(state)
+
+    t0 = time.perf_counter()
+    train_cli.reset_launch_counts()
+    out = train_cli.main(argv, on_step=on_step)
+    hist = out["history"]
+    want = run_a["history"][0]["kernel_launches"]
+    h1 = int(hist[1]["health"])
+    need = HEALTH_GRADS_NONFINITE | HEALTH_SKIPPED | HEALTH_DEGRADED
+    if h1 & need != need:
+        raise AssertionError(f"guards_nan: step 1 health {health_flags(h1)}")
+    # held exactly, but for the trip's one extra IL bit on the compute
+    # gradients (widen_on_trip, as the reference does)
+    widened = ".dps/grads/.il"
+    moved = sorted(k for k in prints[0]
+                   if k != widened and prints[0][k] != prints[1][k])
+    if moved or prints[1][widened] != [v + 1 for v in prints[0][widened]]:
+        raise AssertionError(f"guards_nan: the skipped step moved {moved} "
+                             f"({widened} {prints[0][widened]} -> "
+                             f"{prints[1][widened]})")
+    deg = hist[2]["kernel_launches"]
+    if (any(deg[k] for k in WIRE_KERNELS)
+            or {k: v for k, v in deg.items() if k not in WIRE_KERNELS}
+            != {k: v for k, v in want.items() if k not in WIRE_KERNELS}):
+        raise AssertionError(f"guards_nan: the degraded step launched {deg}")
+    if hist[3]["kernel_launches"] != want or hist[3]["health"]:
+        raise AssertionError(f"guards_nan: step 3 launched "
+                             f"{hist[3]['kernel_launches']} (health "
+                             f"{hist[3]['health']})")
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(v) for v in losses[2:]):
+        raise AssertionError(f"guards_nan: losses {losses}")
+    say("guards_nan", command="python -m repro_torch.launch.train "
+        + " ".join(argv), losses=losses,
+        health=[list(health_flags(int(h["health"]))) for h in hist],
+        skipped=[h["skipped"] for h in hist],
+        degraded=[h["degraded"] for h in hist],
+        state_held_on_skip=True, fingerprinted_leaves=len(prints[0]),
+        widened_grads_il=[prints[0][widened][0], prints[1][widened][0]],
+        launches_per_step=[h["kernel_launches"] for h in hist],
+        E_wire=[h["E_wire"] for h in hist],
+        peak_memory_bytes=out["peak_memory_bytes"],
+        seconds=time.perf_counter() - t0)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def rollback():
+    """At smoke size on the card, the reference test's drill: NaN gradients
+    at step 5 without guards, a ring of 2; 1-8 rollbacks, each replayed
+    window's step-5 loss finite again, and the run completes."""
+    from repro_torch.launch import train as train_cli
+    t0 = time.perf_counter()
+    out = train_cli.main(["--arch", "llama3_2_3b", "--smoke", "--steps", "10",
+                          "--batch", "2", "--seq", "16", "--optimizer", "sgd",
+                          "--inject-nan-at", "5", "--rollback-ring", "2",
+                          "--log-every", "2"])
+    n_rb = out["rollbacks"]
+    losses = [h["loss"] for h in out["history"]]
+    first_bad = next((i for i, v in enumerate(losses)
+                      if not math.isfinite(v)), None)
+    if (not 1 <= n_rb <= 8 or first_bad is None
+            or sum(math.isfinite(v) for v in losses[first_bad:]) < n_rb):
+        raise AssertionError(f"rollback: {n_rb} rollbacks, losses {losses}")
+    say("rollback", rollbacks=n_rb, drained_steps=len(losses),
+        finite_after_first_bad=sum(math.isfinite(v)
+                                   for v in losses[first_bad:]),
+        seconds=time.perf_counter() - t0)
+
+
 def main():
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -2037,10 +2395,24 @@ def main():
         cfg, "onchip", 4)["dps_quantize_onchip_prng"]
     launches["dps_quantize"] = train_lm(cfg, "operand", 3)["dps_quantize"]
     wire_collectives()
-    wire, wire_losses = train_wire(cfg)
-    for k in ("dps_quant_wire_onchip_prng", "dps_group_wire_encode_onchip_prng",
-              "dps_wire_reduce"):
-        launches[k] = wire[k]
+    # run A of the checkpoint phase is the counted wire run
+    ckpt_root, free = ckpt_space(cfg)
+    try:
+        t0 = time.perf_counter()
+        wire, wire_losses, run_a = train_wire(
+            cfg, ckpt_dir=os.path.join(ckpt_root, "a"))
+        run_a["seconds"] = time.perf_counter() - t0
+        for k in ("dps_quant_wire_onchip_prng",
+                  "dps_group_wire_encode_onchip_prng", "dps_wire_reduce"):
+            launches[k] = wire[k]
+        ckpt_resume(ckpt_root, free, run_a)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    ckpt_corrupt()
+    guards_idle(cfg, run_a)
+    guards_nan(cfg, run_a)
+    rollback()
+    del run_a
     launches["dps_quant_wire"] = train_wire(
         cfg, steps=2, rounding_bits="operand")[0]["dps_quant_wire"]
     # ZeRO-1 and the overlapped wire: the halves on the card, LeNet's int8

@@ -133,3 +133,23 @@ def zero_opt_state_from_jax(np_state: Mapping[str, Any], params, qcfg,
         out[name] = torch.stack([part.shard(flat, j).clone()
                                  for j in transport.ranks])
     return out
+
+
+def zero_ckpt_adapter(params, qcfg, transport, *,
+                      reference_backend: str = "jnp"):
+    """The ``adapt`` hook of :func:`repro_torch.checkpoint.restore` that
+    reads a reference ZeRO-1 checkpoint into the port's ZeRO state: an
+    ``.opt_state/<name>`` array in the reference's flat ``[padded]`` layout
+    becomes the port's ``[ranks, shard_size]`` rows through
+    :func:`zero_opt_state_from_jax`; every other array (the port's own
+    layout included) passes through.  ``params``: the template's
+    parameter tree."""
+    def adapt(key, arr, like):
+        if (key.startswith(".opt_state/") and np.ndim(arr) == 1
+                and like.ndim == 2):
+            name = key[len(".opt_state/"):]
+            return zero_opt_state_from_jax(
+                {name: arr}, params, qcfg, transport,
+                reference_backend=reference_backend)[name]
+        return arr
+    return adapt

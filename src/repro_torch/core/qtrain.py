@@ -4,9 +4,10 @@ Counterpart of ``repro/core/qtrain.py``: the replicated step, the
 int8-wire data-parallel step (``QuantConfig.grad_allreduce_bits`` with a
 transport of more than one rank), its backward-overlapped bucketed form
 (``wire_overlap``) and ZeRO-1 (``zero_opt_shards``: the optimizer state
-sharded over the data axis).  The health guards wait for a later slice
-(setting ``guards`` raises).  Wires the paper's Algorithm 1 into a
-PyTorch model:
+sharded over the data axis), and the health guards with their fault
+injection (``guards``, ``make_train_step(faults=...)``: see
+:mod:`repro_torch.resilience.guards`) on the replicated and the monolithic
+wire step.  Wires the paper's Algorithm 1 into a PyTorch model:
 
   forward pass   — activations pass through :meth:`QCtx.tap` (quantize +
                    stats on the way down, the cotangent quantized on the way
@@ -112,13 +113,13 @@ class QuantConfig:
     # has produced its gradients.  Engages with the compressed sync only.
     wire_overlap: bool = False
     wire_bucket_elems: Optional[int] = None
-    # The reference's health guards; not ported.
+    # Health guards (repro_torch.resilience.GuardConfig): in-step NaN,
+    # overflow-storm and spike detection, the skip gate, and the int8 wire's
+    # fp32 fallback.  Armed on the replicated and the monolithic wire step;
+    # ZeRO-1 and the overlapped wire raise (ROADMAP Queue 1, item 1).
     guards: Optional[Any] = None
 
     def __post_init__(self):
-        if self.guards is not None:
-            raise NotImplementedError(
-                "QuantConfig.guards: the health guards are not ported yet")
         if self.backend not in ("auto", "kernel", "plain"):
             raise ValueError(f"unknown quantizer backend {self.backend!r}")
 
@@ -165,6 +166,25 @@ class QuantConfig:
 def init_dps_bundle(qcfg: QuantConfig, device=None) -> DpsBundle:
     """Initial DPS registry: one controller state per declared domain."""
     return qcfg.plan().init(device)
+
+
+def dps_restore_defaults(qcfg: QuantConfig, prefix: str = ".dps") -> dict:
+    """Checkpoint defaults: a fresh DPS registry flattened to the
+    checkpoint's ``".dps/<domain>/.<field>"`` keys, for
+    ``checkpoint.restore(..., defaults=...)`` — a run whose plan declares
+    domains a checkpoint lacks (e.g. ``wire_grads``) starts those fresh."""
+    from repro_torch.checkpoint import flatten_tree   # checkpoint imports core
+    return {f"{prefix}/{k}": v
+            for k, v in flatten_tree(init_dps_bundle(qcfg)).items()}
+
+
+def guard_restore_defaults(qcfg: QuantConfig, prefix: str = ".guard") -> dict:
+    """Checkpoint defaults for the guard subtree: a guarded run resumes
+    from a checkpoint written without guards.  Empty when guards are off."""
+    if qcfg.guards is None:
+        return {}
+    from repro_torch.resilience import guards as guards_lib
+    return guards_lib.guard_restore_defaults(qcfg.plan(), prefix)
 
 
 def bundle_formats(qcfg: QuantConfig, bundle: DpsBundle
@@ -254,11 +274,26 @@ def _quantize_tree(tree, fmt, qcfg: QuantConfig, seed: int, inplace: bool):
 
 
 def quantize_params(params, fmt: FixedPointFormat, qcfg: QuantConfig,
-                    seed: int, inplace: bool = False):
-    """Snap the parameter tree to the weight grid. Returns (qparams, stats)."""
+                    seed: int, inplace: bool = False, keep=None):
+    """Snap the parameter tree to the weight grid. Returns (qparams, stats).
+    ``keep`` (a bool device scalar, with ``inplace``): each leaf takes its
+    snap only where ``keep`` holds — the guards' skip gate; the snap is made
+    beside the leaf, one leaf at a time, and selected into it."""
     if not qcfg.enabled or not qcfg.policy.quantizes("weights"):
         return params, QuantStats.zero(device=fmt.il.device)
-    return _quantize_tree(params, fmt, qcfg, seed, inplace)
+    if keep is None:
+        return _quantize_tree(params, fmt, qcfg, seed, inplace)
+    stats = []
+    for i, (path, leaf) in enumerate(tree_lib.leaves_with_path(params)):
+        q, st = fxp.quantize_tree_leaf(
+            i, path, leaf, fmt, mode=qcfg.rounding, seed=seed,
+            predicate=qcfg.policy.param_predicate(),
+            onchip_prng=qcfg.onchip_prng, backend=qcfg.backend)
+        if st is not None:
+            torch.where(keep, q, leaf, out=leaf)
+            stats.append(st)
+        del q
+    return params, fxp.merge_tree_stats(stats, fmt)
 
 
 def quantize_grads(grads, fmt: FixedPointFormat, qcfg: QuantConfig,
@@ -281,16 +316,24 @@ class TrainState:
     dps: Any                 # DpsBundle of controller states (device tensors)
     seed: int                # run seed; every event's seed folds from it
     last_loss: Any = None
+    # repro_torch.resilience.GuardState when qcfg.guards is armed; None
+    # keeps a guard-free state's checkpoint keys as they were
+    guard: Any = None
 
     @staticmethod
     def create(params, opt_state, qcfg: QuantConfig, seed: int,
                device=None) -> "TrainState":
         if device is None:
             device = tree_lib.leaves(params)[0].device
+        guard = None
+        if qcfg.guards is not None:
+            from repro_torch.resilience import guards as guards_lib
+            guard = guards_lib.init_guard_state(qcfg.plan(), device)
         return TrainState(step=0, params=params, opt_state=opt_state,
                           dps=init_dps_bundle(qcfg, device), seed=seed,
                           last_loss=torch.zeros((), dtype=torch.float32,
-                                                device=device))
+                                                device=device),
+                          guard=guard)
 
 
 def _axis_size(transport) -> int:
@@ -370,7 +413,7 @@ def zero_opt_state(optimizer, params, transport,
 
 
 def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
-                    accum_steps: int = 1, transport=None):
+                    accum_steps: int = 1, transport=None, faults=None):
     """Build a quantized SGD/AdamW train step around ``loss_fn``.
 
     ``loss_fn(params, batch, qctx) -> (loss, aux)`` where ``aux`` is a dict
@@ -433,9 +476,27 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
     at a time; with ``clip_norm`` the shards are decoded twice (the norm
     needs every owner's before the first updates).
 
+    ``qcfg.guards`` (:class:`repro_torch.resilience.GuardConfig`) arms the
+    health guards on the replicated and the monolithic wire step: whether
+    the raw local gradients hold a NaN/Inf (summed over the ranks), the
+    norm of the (decoded mean) gradients and the wire legs' overflow feed
+    :func:`~repro_torch.resilience.update_guard`; the skip gate ``ok`` is
+    computed on the device before the in-place update, and the optimizer,
+    the weight re-snap and the DPS update select leaf by leaf against it
+    (:mod:`repro_torch.resilience.guards`).  A tripped gradient wire runs
+    the next step's all-reduce as the exact fp32 mean
+    (:class:`~repro_torch.dist.collectives.F32TreeMean`): the step reads
+    last step's ``degraded`` flag to the host, one sync a step.  ``faults``
+    (:class:`repro_torch.resilience.FaultPlan`) injects the scheduled
+    gradient faults after each rank's backward and the wire flip into its
+    payload.  Metrics add ``health``, ``skipped``, ``trips`` and
+    ``degraded``.  Guards and faults with ZeRO-1 or the overlapped wire
+    raise ``NotImplementedError``.
+
     ``train_step.wire_sync_active``, ``.zero_opt_active``,
-    ``.wire_overlap_active`` (the hooks ran) and
-    ``.zero_groupaligned_active`` say which ran.
+    ``.wire_overlap_active`` (the hooks ran),
+    ``.zero_groupaligned_active`` and ``.guards_active`` say which ran;
+    ``.qcfg`` and ``.transport`` are the ones it was built with.
     """
     plan = qcfg.plan()
     rounding = getattr(plan.controller("weights"), "rounding", qcfg.rounding)
@@ -469,6 +530,23 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
                         or overlap_lib.DEFAULT_BUCKET_ELEMS)
     hooked = wire_overlap and accum_steps == 1
     measure_grads = qcfg.enabled and qcfg.policy.quantizes("grads")
+    guards_on = qcfg.guards is not None
+    if guards_on or faults is not None:
+        from repro_torch import resilience as rsl
+    if (faults is not None and faults.wire_flip_at >= 0
+            and not (wire_sync and not wire_overlap and not zero_opt)):
+        raise ValueError(
+            "FaultPlan.wire_flip_at targets the monolithic tree all-reduce "
+            "payload; it needs an engaged compressed sync without "
+            "wire_overlap or zero_opt_shards")
+    if (guards_on or faults is not None) and (zero_opt or wire_overlap):
+        raise NotImplementedError(
+            "the health guards and fault injection run on the replicated "
+            "and the monolithic wire step; with ZeRO-1 or the overlapped "
+            "wire they are not ported yet (ROADMAP Queue 1, item 1)")
+    wire_names = rsl.wire_domains(plan) if guards_on else ()
+    gidx = (wire_names.index("wire_grads") if "wire_grads" in wire_names
+            else 0)
     layout = {}              # the step's partitioner and full_quant, once
 
     def _qctx(fmts, seed_a, microbatch_idx):
@@ -586,12 +664,14 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
                 "QuantConfig.with_per_layer_wire(params))")
         return n // n_data
 
-    def _rank_passes(qparams, batch, fmts, seed_a, seed_g, sink):
+    def _rank_passes(qparams, batch, fmts, seed_a, seed_g, sink, step=0,
+                     bads=None):
         """Every rank the transport holds in turn: its slice of the batch
-        forward and backward, its leg-1 encode into ``sink`` and its
-        raw-gradient stats; its fp32 gradients are dropped before the next
-        rank's backward.  Returns the per-rank losses, aux dicts and raw
-        stats."""
+        forward and backward (then the scheduled gradient faults of
+        ``step``, and with ``bads`` whether its gradients hold a NaN/Inf
+        appended there), its leg-1 encode into ``sink`` and its raw-gradient stats;
+        its fp32 gradients are dropped before the next rank's backward.
+        Returns the per-rank losses, aux dicts and raw stats."""
         m = _rank_rows(qparams, batch)
         losses, auxes, raws = [], [], []
         for r in transport.ranks:
@@ -602,6 +682,10 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
                                                    seed_g, r, sink)
             else:
                 loss, aux, grads = _accum_grads(qparams, rows, fmts, sa)
+                if faults is not None:
+                    rsl.apply_grad_faults(faults, grads, step)
+                if bads is not None:
+                    bads.append(rsl.nonfinite_any(grads))
                 sink.encode(r, grads)
                 raw = _raw_grad_stats(grads, fmts, seed_g, r)
                 del grads
@@ -622,12 +706,18 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
         return (_pmean(losses), aux,
                 collectives.psum_stats(raws, transport))
 
-    def _wire_synced_grads(qparams, batch, fmts, seed_a, seed_g, seed_r):
+    def _wire_synced_grads(qparams, batch, fmts, seed_a, seed_g, seed_r,
+                           step=0, degraded=False):
         """The int8 all-reduce of every rank's gradients (bucketed with
-        ``wire_overlap``).  Returns the loss, aux, raw stats, the mean
-        gradient tree and the dispatch leg's stats."""
+        ``wire_overlap``; the exact fp32 mean when ``degraded``).  Returns
+        the loss, aux, raw stats, the mean gradient tree, the dispatch
+        leg's stats and (guards armed, else None) the number of ranks whose
+        raw gradients hold a NaN/Inf."""
         _rank_rows(qparams, batch)
-        if wire_overlap:
+        if degraded:
+            sink = collectives.F32TreeMean(qparams, fmts, transport,
+                                           domain="wire_grads")
+        elif wire_overlap:
             sizes = tuple(l.numel() for l in tree_lib.leaves(qparams))
             sink = overlap_lib.BucketedWire(
                 qparams, fmts, transport, seed_r,
@@ -639,12 +729,17 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
             sink = collectives.TreeAllReduce(
                 qparams, fmts, transport, seed_r, mode=rounding,
                 domain="wire_grads", backend=qcfg.backend,
-                onchip_prng=qcfg.onchip_prng)
+                onchip_prng=qcfg.onchip_prng,
+                payload_fault=(rsl.payload_fault_fn(faults, step)
+                               if faults is not None else None))
         train_step.wire_buckets = len(getattr(sink, "buckets", (sink,)))
-        passes = _rank_passes(qparams, batch, fmts, seed_a, seed_g, sink)
+        bads = [] if guards_on else None
+        passes = _rank_passes(qparams, batch, fmts, seed_a, seed_g, sink,
+                              step, bads)
         grads, wstats = sink.finish()
+        bad = transport.psum(torch.stack(bads)) if guards_on else None
         return (*_reduce_ranks(*passes), grads,
-                collectives.psum_stats(wstats, transport))
+                collectives.psum_stats(wstats, transport), bad)
 
     def _owner_grads(sink, i, j, fmts, seed_g, full_quant):
         """Owner row ``i`` (rank ``j``)'s fp32 gradient shard, one segment
@@ -780,7 +875,17 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
         # -- forward/backward in the quantized regime (Alg. 1 lines 9-20) --
         qparams, w_stats = quantize_params(state.params, fmts["weights"],
                                            qcfg, seed_w)
-        wire_stats = None
+        wire_stats = bad = gnorm = ok = None
+        degraded = False
+        if guards_on:
+            if state.guard is None:
+                raise ValueError(
+                    "qcfg.guards is armed but TrainState.guard is None; build "
+                    "the state with TrainState.create(..., qcfg, ...) or "
+                    "restore with qtrain.guard_restore_defaults")
+            if wire_sync and wire_names:
+                # LAST step's flag picks THIS step's branch: one host sync
+                degraded = bool(state.guard.degraded[gidx])
         if zero_opt and wire_sync:
             loss, aux, g_stats, g_wire, p_wire = _zero_wire_step(
                 part, flat, full_quant, qparams, state, fmts, batch, seed_a,
@@ -788,9 +893,14 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
             del qparams
             wire_stats = g_wire.merge(p_wire)
         elif wire_sync:
-            loss, aux, g_stats, grads, wire_stats = _wire_synced_grads(
-                qparams, batch, fmts, seed_a, seed_g, seed_r)
+            loss, aux, g_stats, grads, wire_stats, bad = _wire_synced_grads(
+                qparams, batch, fmts, seed_a, seed_g, seed_r, state.step,
+                degraded)
             del qparams
+            if guards_on:
+                # the spike guard reads the DECODED mean: transport
+                # corruption exists only there
+                gnorm = rsl.global_norm(grads)
             # the optimizer-input snap still applies (Alg. 1); the grads
             # controller reads the raw-gradient measurement instead
             grads, _ = quantize_grads(grads, fmts["grads"], qcfg, seed_g,
@@ -798,15 +908,24 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
         else:
             loss, aux, grads = _accum_grads(qparams, batch, fmts, seed_a)
             del qparams
+            if faults is not None:
+                rsl.apply_grad_faults(faults, grads, state.step)
+            if guards_on:
+                bad = rsl.nonfinite_any(grads)
+                gnorm = rsl.global_norm(grads)
             grads, g_stats = quantize_grads(grads, fmts["grads"], qcfg,
                                             seed_g, inplace=True)
+        if guards_on:
+            # the skip gate, on the device, before any in-place write
+            ok = rsl.step_ok(qcfg.guards, state.guard, loss=loss,
+                             grads_bad=bad, gnorm=gnorm)
         # -- update (Alg. 1 line 18), in place --
         if zero_opt and not wire_sync:
             _zero_plain_opt(part, flat, grads, state)
             del grads
         elif not zero_opt:
             optimizer.update(grads, state.opt_state, state.params,
-                             count=state.step)
+                             count=state.step, keep=ok)
             del grads
 
         if "dlogits_stats" in aux and qcfg.stat_scope == "last_layer":
@@ -821,7 +940,8 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
         # -- re-snap weights to the grid (Alg. 1 line 19), in place --
         if qcfg.enabled and qcfg.policy.quantizes("weights"):
             _, w_stats2 = quantize_params(state.params, fmts["weights"], qcfg,
-                                          fold_seed(seed_w, 1), inplace=True)
+                                          fold_seed(seed_w, 1), inplace=True,
+                                          keep=ok)
             w_stats = w_stats.merge(w_stats2)
 
         # -- scale_precision (Alg. 2, one controller per domain); each wire
@@ -831,8 +951,20 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
             streams["wire_grads"], streams["wire_params"] = g_wire, p_wire
         elif wire_stats is not None:
             streams["wire_grads"] = wire_stats
-        state.dps = update_dps_bundle(qcfg, state.dps, streams,
-                                      {"loss": loss})
+        new_dps = update_dps_bundle(qcfg, state.dps, streams, {"loss": loss})
+
+        # -- health guards: fold this step's signals, gate the DPS update --
+        if guards_on:
+            legs = {"wire_grads": wire_stats} if wire_stats is not None else {}
+            new_guard, _, trip_any = rsl.update_guard(
+                qcfg.guards, plan, state.guard, loss=loss, grads_bad=bad,
+                gnorm=gnorm, wire_ov=rsl.domain_overflow(plan, legs, dev),
+                new_dps=new_dps, grads_domain_idx=gidx)
+            new_dps = rsl.guards.select_bundle(ok, new_dps, state.dps)
+            if qcfg.guards.widen_on_trip:
+                new_dps = rsl.widen_on_trip(plan, new_dps, trip_any)
+            state.guard = new_guard
+        state.dps = new_dps
 
         # -- telemetry: ⟨IL, FL⟩ + E/R per domain (a per-group domain is
         # reported by its mean, and its formats' min and max) --
@@ -863,6 +995,12 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
                     ws.rel_err_sum, ws.abs_sum)), max_abs=ws.max_abs.max())
             metrics["E_wire"] = ws.quant_error()
             metrics["R_wire"] = ws.overflow_rate()
+        if guards_on:
+            g = state.guard
+            metrics.update(health=g.health, skipped=g.skipped, trips=g.trips,
+                           degraded=(g.degraded.max() if wire_names else
+                                     torch.zeros((), dtype=torch.int32,
+                                                 device=dev)))
         state.step += 1
         state.last_loss = loss.to(torch.float32)
         return state, metrics
@@ -871,6 +1009,8 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
     train_step.zero_opt_active = zero_opt
     train_step.wire_overlap_active = hooked
     train_step.zero_groupaligned_active = zero_aligned
+    train_step.guards_active = guards_on
+    train_step.qcfg, train_step.transport = qcfg, transport
     train_step.wire_buckets = 0          # set by the first wire step
     train_step.n_data = n_data
     return train_step

@@ -5,7 +5,7 @@ reference's GSPMD placement rules (``LogicalRules``, ``tree_specs``) wait
 for a tensor-parallel slice."""
 
 from repro_torch.dist.collectives import (  # noqa: F401
-    GroupLayout, TreeAllReduce, WIRE_BITS, WIRE_GROUP_QUANTUM,
+    F32TreeMean, GroupLayout, TreeAllReduce, WIRE_BITS, WIRE_GROUP_QUANTUM,
     default_wire_quantum, dps_allgather_params, dps_allreduce_mean,
     dps_allreduce_mean_tree, dps_reduce_scatter_mean, group_layout,
     psum_stats, resolve_domain_format, wire_decode, wire_encode, wire_format)

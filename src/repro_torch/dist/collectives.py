@@ -843,6 +843,11 @@ class TreeAllReduce:
     at ``group_base`` (a bucket of a larger tree): rounding streams and
     format rows are keyed by the global index, so a bucket draws the bits
     the whole tree's collective would.
+
+    ``payload_fault``: the fault-injection hook
+    (:func:`repro_torch.resilience.payload_fault_fn`), applied in place to
+    the encoded payload (every held rank's dispatch-leg buffer, its
+    statistics already taken) just before the all-to-all.
     """
 
     def __init__(self, like, formats, transport, seed: int, *,
@@ -850,9 +855,10 @@ class TreeAllReduce:
                  domain: str = "wire_grads", quantum: Optional[int] = None,
                  onchip_prng: bool = True, group_base: int = 0,
                  layout: Optional[GroupLayout] = None,
-                 chunk: Optional[int] = None):
+                 chunk: Optional[int] = None, payload_fault=None):
         fmt = resolve_domain_format(formats, domain)
         _validate_capacity(fmt)
+        self.payload_fault = payload_fault
         if mode not in (ROUND_STOCHASTIC, ROUND_NEAREST):
             raise ValueError(f"unknown rounding mode {mode!r}")
         listed = isinstance(like, (list, tuple))
@@ -980,6 +986,8 @@ class TreeAllReduce:
             raise RuntimeError("encode() every rank the transport holds "
                                "before the all-to-all")
         payload, self.payload = self.payload, None
+        if self.payload_fault is not None:
+            self.payload_fault(payload)        # fault injection, in place
         self.received, self._work = self.transport.all_to_all(payload,
                                                               async_op=True)
 
@@ -1076,6 +1084,60 @@ class TreeAllReduce:
                     backend=self.backend)
             del part
         return wire2
+
+
+class F32TreeMean:
+    """The int8 wire's fp32 fallback, the health guards' degrade branch:
+    the exact per-leaf mean over the ranks, with :class:`TreeAllReduce`'s
+    ``encode``/``finish`` interface and zero wire statistics shaped like the
+    domain's formats.
+
+    The ranks' trees are summed in rank order into one sum tree (the first
+    held rank's copied: the caller measures and drops each rank's gradients
+    once encoded), so it holds one fp32 tree where the wire held its int8
+    payload of n ranks — the same bytes at n = 4.  On a process group each
+    leaf's sum then goes through an fp32 ``all_reduce``.  The sum is divided
+    by ``n`` held as a tensor, a division as the reference's ``pmean`` makes
+    (CUDA's division by a Python number multiplies by its reciprocal)."""
+
+    def __init__(self, like, formats, transport, *,
+                 domain: str = "wire_grads"):
+        self.stat_shape = tuple(resolve_domain_format(formats, domain)
+                                .il.shape)
+        self.transport = transport
+        self.rows = list(transport.ranks)
+        self.skeleton = tree_lib.map_tree(lambda _: None, like)
+        self.device = tree_lib.leaves(like)[0].device
+        self.sum, self.seen = None, []
+
+    def encode(self, rank: int, tree) -> QuantStats:
+        leaves = tree_lib.leaves(tree)
+        with torch.no_grad():
+            if self.sum is None:
+                self.sum = [l.clone() for l in leaves]
+            else:
+                for s, l in zip(self.sum, leaves):
+                    s.add_(l)
+        self.seen.append(rank)
+        return QuantStats.zero(self.stat_shape, self.device)
+
+    @property
+    def stats(self) -> List[QuantStats]:
+        return [QuantStats.zero(self.stat_shape, self.device)
+                for _ in self.rows]
+
+    def finish(self):
+        """``(mean tree, zero stats per rank held)``."""
+        if self.seen != self.rows:
+            raise RuntimeError(f"encoded ranks {self.seen}, the transport "
+                               f"holds {self.rows} (in that order)")
+        n, out, self.sum = self.transport.axis_size, self.sum, None
+        with torch.no_grad():
+            for i, s in enumerate(out):
+                if len(self.rows) != n:
+                    out[i] = s = self.transport.psum(s[None])
+                s.div_(torch.tensor(n, dtype=s.dtype, device=s.device))
+        return tree_lib.from_leaves(self.skeleton, out), self.stats
 
 
 def dps_allreduce_mean_tree(trees: Sequence, formats, transport, seed: int,

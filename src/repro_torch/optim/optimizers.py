@@ -28,6 +28,9 @@ Learning rates and bias corrections are computed on the host in float32
 from the step number the trainer already holds (the reference computes
 them on the device in float32): no step reads a device value.
 
+``update(..., keep=ok)`` gates every write with the health guards' skip
+gate (a bool device scalar): the old value is held where ``ok`` is False.
+
 ``state_dtype="bfloat16"`` keeps the state in bf16 with a stochastically
 rounded downcast on every update (Gupta et al.).
 """
@@ -129,6 +132,20 @@ def _state_dtype(name: str) -> torch.dtype:
     return torch.bfloat16 if name == "bfloat16" else torch.float32
 
 
+def _write(dst: torch.Tensor, src: torch.Tensor, keep, add: bool = False):
+    """``dst += src`` (``add``) or ``dst = src``, in place.  ``keep`` (a
+    bool device scalar, the health guards' skip gate) selects the new value
+    against the old one with ``torch.where`` (an exact select, no host
+    sync): a held leaf keeps its bits, a kept one gets the ungated result
+    bit for bit, at the cost of one temporary the size of the leaf."""
+    if keep is not None:
+        torch.where(keep, dst + src if add else src, dst, out=dst)
+    elif add:
+        dst.add_(src)
+    else:
+        dst.copy_(src)
+
+
 def _triples(grads, params, *states):
     """Leaves of grads, params and states in one order, paired up."""
     g = tree_lib.leaves(grads)
@@ -176,7 +193,7 @@ class SGD:
         return {"mu": tree_lib.map_tree(
             lambda p: torch.zeros(p.shape, dtype=dt, device=p.device), params)}
 
-    def _leaf(self, lr: float, g, p, mu, seed: int):
+    def _leaf(self, lr: float, g, p, mu, seed: int, keep=None):
         """One leaf (or flat shard) in place; shared by :meth:`update` and
         :meth:`update_shard`."""
         cfg = self.cfg
@@ -185,11 +202,13 @@ class SGD:
         mu_new = mu.to(torch.float32) * cfg.momentum
         mu_new.add_(gf)                    # momentum·mu + gf
         del gf
-        p.add_((mu_new * -lr).to(p.dtype))
-        mu.copy_(_sr_cast(mu_new, _state_dtype(cfg.state_dtype), seed))
+        _write(p, (mu_new * -lr).to(p.dtype), keep, add=True)
+        _write(mu, _sr_cast(mu_new, _state_dtype(cfg.state_dtype), seed),
+               keep)
 
-    def update(self, grads, state, params, count: int):
-        """One step, in place: ``params`` and ``state`` are overwritten."""
+    def update(self, grads, state, params, count: int, keep=None):
+        """One step, in place: ``params`` and ``state`` are overwritten
+        (where ``keep``, a bool device scalar, holds: see :func:`_write`)."""
         cfg = self.cfg
         if cfg.clip_norm:
             grads, _ = _clip_by_norm(grads, cfg.clip_norm)
@@ -197,7 +216,7 @@ class SGD:
         with torch.no_grad():
             for i, (g, p, mu) in enumerate(_triples(grads, params,
                                                     state["mu"])):
-                self._leaf(lr, g, p, mu, fold_seed(17, count, i))
+                self._leaf(lr, g, p, mu, fold_seed(17, count, i), keep)
         return params, state
 
     # --- ZeRO-1 shard-local interface (see repro_torch.dist.sharding) ---
@@ -246,7 +265,7 @@ class AdamW:
                 float(_f32(1.0) - _f32(cfg.b2) ** t))
 
     def _leaf(self, lr: float, bc1: float, bc2: float, g, p, m, v,
-              seeds):
+              seeds, keep=None):
         """One leaf (or flat shard) in place; shared by :meth:`update` and
         :meth:`update_shard`."""
         cfg = self.cfg
@@ -256,12 +275,13 @@ class AdamW:
         v_new = cfg.b2 * v.to(torch.float32) + (1 - cfg.b2) * gf * gf
         step = m_new / bc1 / (torch.sqrt(v_new / bc2) + cfg.eps)
         step = step + cfg.weight_decay * p.to(torch.float32)
-        p.add_((-lr * step).to(p.dtype))
-        m.copy_(_sr_cast(m_new, dt, seeds[0]))
-        v.copy_(_sr_cast(v_new, dt, seeds[1]))
+        _write(p, (-lr * step).to(p.dtype), keep, add=True)
+        _write(m, _sr_cast(m_new, dt, seeds[0]), keep)
+        _write(v, _sr_cast(v_new, dt, seeds[1]), keep)
 
-    def update(self, grads, state, params, count: int):
-        """One step, in place: ``params`` and ``state`` are overwritten."""
+    def update(self, grads, state, params, count: int, keep=None):
+        """One step, in place: ``params`` and ``state`` are overwritten
+        (where ``keep``, a bool device scalar, holds: see :func:`_write`)."""
         cfg = self.cfg
         if cfg.clip_norm:
             grads, _ = _clip_by_norm(grads, cfg.clip_norm)
@@ -273,7 +293,7 @@ class AdamW:
                                                       state["v"])):
                 self._leaf(lr, bc1, bc2, g, p, m, v,
                            (fold_seed(23, count, i, 1),
-                            fold_seed(23, count, i, 2)))
+                            fold_seed(23, count, i, 2)), keep)
         return params, state
 
     # --- ZeRO-1 shard-local interface (see repro_torch.dist.sharding) ---

@@ -837,6 +837,170 @@ def job_zero_mlp_train(a, steps, n, wire_overlap=False, bucket_elems=None):
     return out
 
 
+def _ckpt_setup(case):
+    """The reference's smoke llama3.2-3b training set-up of a checkpoint
+    case: ``opt`` ("sgd"/"adamw"), ``n`` data ranks over the int8 wire with
+    per-layer formats (0: the replicated step), ``zero`` (ZeRO-1 over the
+    ranks), ``guards``, ``rounding``.  Returns (cfg, step, state, opt, qcfg,
+    mesh, data)."""
+    import dataclasses
+    import jax
+    from repro.core import qtrain
+    from repro.data import TokenStream, TokenStreamConfig
+    from repro.launch import specs
+    from repro.models import registry
+    from repro.models.common import init_params
+    from repro.optim import AdamWConfig, SGDConfig, make_optimizer
+    from repro.resilience import GuardConfig
+    cfg = dataclasses.replace(_smoke_cfg(), remat="full")
+    mod = registry(cfg.family)
+    n, zero = case.get("n", 0), case.get("zero", False)
+    kw = dict(rounding=case.get("rounding", "nearest"))
+    if n:
+        kw["grad_allreduce_bits"] = 8
+    if zero:
+        kw["zero_opt_shards"] = n
+    if case.get("guards"):
+        kw["guards"] = GuardConfig()
+    qcfg = specs.per_layer_wire_qcfg(cfg, qtrain.QuantConfig(**kw))
+    opt = make_optimizer(AdamWConfig() if case.get("opt") == "adamw"
+                         else SGDConfig())
+    mesh = _data_mesh(n, auto=zero) if n else None
+    params = init_params(jax.random.key(0), mod.model_defs(cfg))
+    opt_state = (qtrain.zero_opt_state(opt, params, n, qcfg=qcfg) if zero
+                 else opt.init(params))
+    state = qtrain.TrainState.create(params, opt_state, qcfg,
+                                     jax.random.key(1))
+    step = jax.jit(qtrain.make_train_step(mod.loss_fn(cfg), opt, qcfg,
+                                          mesh=mesh))
+    data = TokenStream(TokenStreamConfig(vocab=cfg.vocab, seq_len=8,
+                                         global_batch=max(2, 2 * n), seed=0))
+    return cfg, step, state, opt, qcfg, mesh, data
+
+
+def _ckpt_flat(state, prefix):
+    from repro.checkpoint import flatten_tree
+    return {f"{prefix}{k}": v for k, v in flatten_tree(state).items()}
+
+
+def job_ckpt_keys(a, cases):
+    """The key, shape and dtype of every array ``flatten_tree`` gives the
+    reference's fresh train state of each case (see :func:`_ckpt_setup`)."""
+    out = {}
+    for name, case in cases.items():
+        state = _ckpt_setup(case)[2]
+        out[name + "/keys"] = np.array(json.dumps({
+            k: [list(v.shape), str(v.dtype)]
+            for k, v in _ckpt_flat(state, "").items()}))
+    return out
+
+
+def job_ckpt_save(a, root, cases):
+    """Each case trains ``case["steps"]`` steps, saves a checkpoint at that
+    step under ``root/<name>`` (the reference's ``ckpt.save``), then runs one
+    more step: its metrics, and the whole state after it, come back."""
+    from repro.checkpoint import save
+    out = {}
+    for name, case in cases.items():
+        _, step, state, _, _, _, data = _ckpt_setup(case)
+        for i in range(case["steps"]):
+            state, _ = step(state, data.batch(i))
+        save(os.path.join(root, name), case["steps"], state,
+             meta=data.state(case["steps"]))
+        state, m = step(state, data.batch(case["steps"]))
+        out.update({f"{name}/next/{k}": np.asarray(v, np.float64)
+                    for k, v in m.items()})
+        out.update(_ckpt_flat(state, f"{name}/after/"))
+    return out
+
+
+def job_ckpt_restore(a, root, cases):
+    """Each case restores the checkpoint at ``root/<name>``, step
+    ``case["steps"]``, through the reference's ``ckpt.restore`` into its
+    ``abstract_train_state`` (with the schema-upgrade defaults), and returns
+    the restored state flattened — or, where the restore refuses, the
+    error."""
+    from repro.checkpoint import restore
+    from repro.core import qtrain
+    from repro.launch import specs
+    out = {}
+    for name, case in cases.items():
+        cfg, _, _, opt, qcfg, mesh, _ = _ckpt_setup(case)
+        template = specs.abstract_train_state(cfg, opt, qcfg, mesh=mesh)
+        defaults = qtrain.dps_restore_defaults(qcfg)
+        defaults.update(qtrain.guard_restore_defaults(qcfg))
+        try:
+            state, meta = restore(os.path.join(root, name), case["steps"],
+                                  template, defaults=defaults)
+        except ValueError as e:
+            out[name + "/error"] = np.array(str(e))
+            continue
+        out.update(_ckpt_flat(state, f"{name}/"))
+        out[name + "/cursor"] = np.asarray(meta["cursor"])
+    return out
+
+
+def job_update_guard(a, cases):
+    """``resilience.update_guard`` on the inputs of each case: a plan with
+    a ``G``-group wire_grads domain, the guard state, the step's signals and
+    the new wire_grads controller state; returns the new guard, ``ok`` and
+    ``trip_any``."""
+    import jax.numpy as jnp
+    from repro.core import qtrain
+    from repro.core.dps import DpsBundle, FlexState
+    from repro.resilience import GuardConfig, GuardState, update_guard
+    out = {}
+    for name, case in cases.items():
+        mine = {k[len(name) + 1:]: jnp.asarray(v) for k, v in a.items()
+                if k.startswith(name + "/")}
+        qcfg = qtrain.QuantConfig(grad_allreduce_bits=8,
+                                  wire_grads_groups=case["groups"])
+        plan = qcfg.plan()
+        dps = qtrain.init_dps_bundle(qcfg)
+        dps = DpsBundle({n: (FlexState(mine["dps/il"], mine["dps/fl"],
+                                       mine["dps/max_ema"])
+                             if n == "wire_grads" else dps[n])
+                         for n in dps.names()})
+        guard = GuardState(**{f: mine["guard/" + f] for f in (
+            "health", "trips", "skipped", "degraded", "cooldown",
+            "overflow_ewma", "gnorm_ewma", "fl_rail", "il_ratchet",
+            "prev_il")})
+        new, ok, trip_any = update_guard(
+            GuardConfig(**case.get("gcfg", {})), plan, guard,
+            loss=mine["loss"], grads_bad=mine["grads_bad"],
+            gnorm=mine["gnorm"], wire_ov=mine["wire_ov"], new_dps=dps)
+        for f in ("health", "trips", "skipped", "degraded", "cooldown",
+                  "overflow_ewma", "gnorm_ewma", "fl_rail", "il_ratchet",
+                  "prev_il"):
+            out[f"{name}/{f}"] = np.asarray(getattr(new, f))
+        out[name + "/ok"] = np.asarray(ok)
+        out[name + "/trip_any"] = np.asarray(trip_any)
+    return out
+
+
+def job_f32_mean(a, cases):
+    """The guards' fp32 fallback of the reference's wire step: a per-leaf
+    ``lax.pmean`` under ``shard_map`` over ``n`` forced CPU devices of the
+    ranks' trees (``<case>/r<k>/<leaf>``)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+    out = {}
+    for name, case in cases.items():
+        n = case["n"]
+        trees = [unflatten(a, f"{name}/r{r}/") for r in range(n)]
+        stacked = jax.tree.map(lambda *xs: jnp.stack(xs), *trees)
+        mesh = jax.make_mesh((n,), ("data",), devices=jax.devices()[:n])
+
+        def body(t):
+            return jax.tree.map(lambda x: jax.lax.pmean(x[0], "data"), t)
+        f = jax.jit(jax.shard_map(body, mesh=mesh, in_specs=(P("data"),),
+                                  out_specs=P(), check_vma=False))
+        out.update(flatten(jax.tree.map(np.asarray, f(stacked)),
+                           f"{name}/mean/"))
+    return out
+
+
 def _child_main(fin, fout):
     import jax
     import jax.extend.core

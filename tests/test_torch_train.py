@@ -37,6 +37,7 @@ from repro_torch.launch import train as train_cli
 from repro_torch.models import registry, transformer
 from repro_torch.models.common import init_params
 from repro_torch.optim import SGDConfig, make_optimizer
+from repro_torch.resilience import GuardConfig
 from test_torch_jaxref import (STAT_NAMES, one_thread,  # noqa: F401
                                run_reference, unflatten)
 
@@ -236,21 +237,19 @@ def test_gradient_accumulation_runs_microbatches():
 
 @pytest.mark.parametrize("field,value", [("zero_opt_shards", 2),
                                          ("wire_overlap", True),
-                                         ("guards", object())])
+                                         ("guards", GuardConfig())])
 def test_unported_training_switches_raise(field, value):
-    """Of the reference's switches on the training step only the health
-    guards are still unported, and raise.  ZeRO-1 and the overlapped wire
-    are ported: they construct, and with no transport (one rank) the step
-    is the replicated one."""
-    if field == "guards":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            qtrain.QuantConfig(**{field: value})
-        return
+    """Every one of the reference's switches on the training step is
+    ported now, and none raises on its own: ZeRO-1, the overlapped wire and
+    the health guards construct, and with no transport (one rank) the step
+    is the replicated one (the guards armed on it).  The combinations the
+    port leaves out raise in ``tests/test_torch_resilience.py``."""
     qcfg = qtrain.QuantConfig(**{field: value})
     step = qtrain.make_train_step(registry(CFG.family).loss_fn(CFG),
                                   make_optimizer(SGDConfig()), qcfg)
     assert not (step.zero_opt_active or step.wire_overlap_active
                 or step.wire_sync_active)
+    assert step.guards_active == (field == "guards")
 
 
 def test_train_cli_smoke_on_the_cpu(capsys):

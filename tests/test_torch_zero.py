@@ -46,6 +46,7 @@ from repro_torch.dist import (GroupAlignedPartitioner, ProcessGroupTransport,
 from repro_torch.models.common import rms_norm
 from repro_torch.optim import AdamWConfig, SGDConfig, make_optimizer
 from repro_torch.optim.optimizers import shard_sq_norm
+from repro_torch.resilience import GuardConfig
 from test_torch_jaxref import STAT_NAMES, run_reference, unflatten
 
 EXACT = ("count", "nonzero", "overflow", "max_abs")
@@ -677,8 +678,13 @@ def test_zero_needs_a_shard_interface_and_guards_still_raise():
     with pytest.raises(TypeError, match="update_shard"):
         qtrain.make_train_step(_mlp_loss, NoShard(), qtrain.QuantConfig(
             zero_opt_shards=2), transport=StackedTransport(2))
+    # the health guards are armed on the replicated and the monolithic
+    # wire step only; ZeRO-1 still raises
     with pytest.raises(NotImplementedError, match="guards"):
-        qtrain.QuantConfig(guards=object())
+        qtrain.make_train_step(_mlp_loss, make_optimizer(SGDConfig()),
+                               qtrain.QuantConfig(zero_opt_shards=2,
+                                                  guards=GuardConfig()),
+                               transport=StackedTransport(2))
 
 
 def test_policy_excluded_leaves_keep_the_params_leg_in_fp32():
