@@ -10,7 +10,8 @@ training over the int8 wire (``launch.train --grad-allreduce-bits 8
 --data-ranks 4``, with ZeRO-1 and the overlapped bucketed wire:
 ``--zero-opt --wire-overlap on``), and that trainer's checkpoint, resume,
 health guards and fault drills (``--ckpt-dir``, ``--resume``,
-``--sigterm-at``, ``--guards``, ``--inject-nan-at``, ``--rollback-ring``)
+``--sigterm-at``, ``--guards``, ``--inject-nan-at``, ``--rollback-ring``;
+the guards and the NaN drill on ZeRO-1 and the overlap too)
 — and holds every CUDA kernel on them
 against its plain PyTorch version.  Phases, each printing one
 JSON line; any failure raises and the process exits non-zero:
@@ -129,13 +130,29 @@ JSON line; any failure raises and the process exits non-zero:
              overlap), as the CPU rehearsal counts them, every K4 on the TMA
              body; every metric of
              every step of the overlap run bit-equal to the run without it.
+             Then the health guards and the NaN drill on those two runs:
+             guards_zero_idle (``--zero-opt --wire-overlap on --guards``, 4
+             steps: every metric and launch of the overlap run bit-equal,
+             health 0; its ms a step and peak beside that run's),
+             guards_zero_nan (``--zero-opt --guards --inject-nan-at 1
+             --guard-cooldown 1``) and guards_overlap_nan (the same with
+             ``--wire-overlap on``): step 1 skipped with the flat
+             parameters, the sharded momenta and the DPS state held exactly
+             (device fingerprints, but for the trip's +1 IL on the compute
+             gradients), step 2 on the fp32 reduce-scatter with no K2b, K4
+             or K3b launch (the overlap's hooks issue no bucket collective)
+             at a peak no higher than the int8 step 3's, step 3 with the
+             unguarded run's launches; each step's synchronized wall time
+             and peak printed.
 Phases 10-14 run right after phase 8's counted wire run, before its
 ``--rounding-bits operand`` run.
 10. ckpt_resume — checkpoint and resume at full width: the counted wire
              run of phase 8 (run A) also writes its step-4 checkpoint
              (``--ckpt-dir``, the reference's format: 25.7 GB of fp32
              parameters and momenta) under a fresh directory in ``build/``,
-             after a check that the disk there holds two such states; run B
+             after a check that the disk there holds one such state (one
+             exists at a time: A's arrays go once its digests are read,
+             B's once B′ has restored them); run B
              takes ``--sigterm-at 2`` (a real SIGTERM: ``PREEMPTED``, a
              checkpoint at step 2, a clean return), run B′ ``--resume``s to
              step 4.  Held with no tolerance: B's steps 0-1 and B′'s steps
@@ -1998,12 +2015,7 @@ def train_zero(cfg, wire_first_loss, overlap, steps=4, n_ranks=4):
     from repro_torch.launch import train as train_cli
     from repro_torch.models import transformer
     from repro_torch.core import tree as tree_lib
-    argv = ["--arch", "llama3_2_3b", "--steps", str(steps), "--batch",
-            str(n_ranks), "--seq", "512", "--optimizer", "sgd",
-            "--grad-allreduce-bits", "8", "--data-ranks", str(n_ranks),
-            "--zero-opt", "--log-every", "1"]
-    if overlap:
-        argv += ["--wire-overlap", "on"]
+    argv = zero_argv(overlap, steps=steps, n_ranks=n_ranks)
     train_cli.reset_launch_counts()            # the counted run
     dps_quant.reduce_tma_launch_count = 0
     out = train_cli.main(argv)
@@ -2047,10 +2059,21 @@ def train_zero(cfg, wire_first_loss, overlap, steps=4, n_ranks=4):
         formats=[{k: h[k] for k in ("il_w", "fl_w", "il_g", "fl_g",
                                     "il_wire_grads", "fl_wire_grads")}
                  for h in hist])
+    summary = {k: out[k] for k in ("ms_per_step_after_first",
+                                   "peak_memory_bytes")}
     del out
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, hist
+    return launches, hist, summary
+
+
+def zero_argv(overlap, *extra, steps=4, n_ranks=4):
+    """``launch.train`` arguments of the full-width ZeRO-1 run."""
+    argv = ["--arch", "llama3_2_3b", "--steps", str(steps), "--batch",
+            str(n_ranks), "--seq", "512", "--optimizer", "sgd",
+            "--grad-allreduce-bits", "8", "--data-ranks", str(n_ranks),
+            "--zero-opt", "--log-every", "1"]
+    return argv + (["--wire-overlap", "on"] if overlap else []) + list(extra)
 
 
 # ---------------------------------------------------------------------------
@@ -2064,14 +2087,15 @@ WIRE_KERNELS = ("dps_quant_wire_onchip_prng", "dps_wire_reduce",
 
 def ckpt_space(cfg):
     """A fresh directory under ``build/`` (git-ignored) for the full-width
-    checkpoints, after checking that its disk holds two SGD wire states at
-    once (fp32 parameters and momenta, 8 bytes a parameter): run A's arrays
-    are deleted once its manifest is read, so at most run B's step 2 and
-    run B′'s step 4 exist together.  Returns ``(dir, free bytes)``."""
+    checkpoints, after checking that its disk holds one SGD wire state (fp32
+    parameters and momenta, 8 bytes a parameter) and a margin: one exists
+    at a time — run A's arrays are deleted once its manifest is read, run
+    B's step 2 once B′ has restored it — so the phase's disk footprint
+    stays at one 25.7 GB state.  Returns ``(dir, free bytes)``."""
     base = os.path.join(ROOT, "build")
     os.makedirs(base, exist_ok=True)
     free = shutil.disk_usage(base).free
-    need = 2 * 8 * cfg.n_params() + (2 << 30)
+    need = 8 * cfg.n_params() + (4 << 30)
     if free < need:
         raise AssertionError(f"ckpt_resume: {free} bytes free under {base}, "
                              f"the phase needs {need}")
@@ -2092,7 +2116,8 @@ def ckpt_resume(root, free, run_a):
     ``root/a``), run B (the same with ``--sigterm-at 2``: a real SIGTERM,
     ``PREEMPTED``, a checkpoint at step 2) and run B′ (``--resume`` to step
     4): B′'s steps 2-3 bit-equal to A's in every metric, and its step-4
-    manifest's digests equal to A's for every key — the whole state."""
+    manifest's digests equal to A's for every key — the whole state.  One
+    full state is on the disk at a time (``ckpt_space``)."""
     from repro_torch.launch import train as train_cli
     a_dir, b_dir = os.path.join(root, "a"), os.path.join(root, "b")
     step_a = os.path.join(a_dir, "step_00000004")
@@ -2111,9 +2136,17 @@ def ckpt_resume(root, free, run_a):
     hist_a = run_a["history"]
     if b["history"] != hist_a[:2]:
         raise AssertionError("ckpt_resume: run B's steps 0-1 differ from A's")
+    step_b = os.path.join(b_dir, "step_00000002")
+
+    def drop_b(step, state):
+        # B′ restored step 2 before its first step: its arrays make room
+        # for B′'s step-4 save (one full state on the disk at a time)
+        if step == 2:
+            os.remove(os.path.join(step_b, "arrays.npz"))
+
     t0 = time.perf_counter()
     b2 = train_cli.main(wire_argv(4, 4, "onchip", "--ckpt-dir", b_dir,
-                                  "--resume"))
+                                  "--resume"), on_step=drop_b)
     b2_s = time.perf_counter() - t0
     res = b2["resumed"]
     if res is None or res.get("step") != 2:
@@ -2365,6 +2398,138 @@ def rollback():
         seconds=time.perf_counter() - t0)
 
 
+def guards_zero_idle(overlap_hist, overlap_summary):
+    """``--zero-opt --wire-overlap on --guards`` at full width, no fault, 4
+    steps: every metric of ``train_zero``'s overlap run bit-equal (its
+    launches too: the guards' norm pass decodes each owner's shard, no K4),
+    health 0; its ms a step, peak and launches beside that run's."""
+    from repro_torch.launch import train as train_cli
+    argv = zero_argv(True, "--guards")
+    t0 = time.perf_counter()
+    train_cli.reset_launch_counts()
+    dps_quant.reduce_tma_launch_count = 0
+    out = train_cli.main(argv)
+    hist = out["history"]
+    if not (out["zero_opt"] and out["wire_overlap"] and out["guards"]):
+        raise AssertionError("guards_zero_idle: ZeRO, the overlap or the "
+                             "guards did not engage")
+    if _metrics(hist) != overlap_hist:
+        diff = sorted({k for x, y in zip(_metrics(hist), overlap_hist)
+                       for k in x if x[k] != y.get(k)})
+        raise AssertionError(f"guards_zero_idle: armed idle guards moved "
+                             f"{diff}")
+    if any(h["health"] or h["skipped"] or h["degraded"] for h in hist):
+        raise AssertionError("guards_zero_idle: health "
+                             f"{[h['health'] for h in hist]}")
+    launches = train_cli.launch_counts()
+    _all_k4_on_tma(launches, "guards_zero_idle")
+    say("guards_zero_idle", command="python -m repro_torch.launch.train "
+        + " ".join(argv), metrics_bit_equal_to_zero_overlap=sorted(
+            overlap_hist[0]), health=[h["health"] for h in hist],
+        ms_per_step_after_first=out["ms_per_step_after_first"],
+        zero_overlap_ms_per_step_after_first=overlap_summary[
+            "ms_per_step_after_first"],
+        peak_memory_bytes=out["peak_memory_bytes"],
+        zero_overlap_peak_memory_bytes=overlap_summary["peak_memory_bytes"],
+        launches=launches, launches_per_step=hist[-1]["kernel_launches"],
+        seconds=time.perf_counter() - t0)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def guards_zero_nan(unguarded_hist, overlap):
+    """``--zero-opt [--wire-overlap on] --guards --inject-nan-at 1
+    --guard-cooldown 1`` at full width, 4 steps: step 1 flags its NaN
+    gradients, degrades and is skipped, the flat parameters, the sharded
+    momenta and the DPS state held exactly (device fingerprints, but for
+    the trip's +1 IL on the compute gradients); step 2 runs the fp32
+    reduce-scatter (no K2b, K4 or K3b: on the overlap the hooks issue no
+    bucket collective) at a peak no higher than the int8 step 3's; step 3
+    is back on int8 with the unguarded run's launches.  Each step's wall
+    time (the device synchronized after it) and peak are printed."""
+    from repro_torch.launch import train as train_cli
+    from repro_torch.resilience import (HEALTH_DEGRADED,
+                                        HEALTH_GRADS_NONFINITE,
+                                        HEALTH_SKIPPED, health_flags)
+    phase = "guards_overlap_nan" if overlap else "guards_zero_nan"
+    argv = zero_argv(overlap, "--guards", "--inject-nan-at", "1",
+                     "--guard-cooldown", "1")
+    prints, peaks, step_s = {}, [], []
+    clock = {"t": None}
+
+    def on_step(step, state):
+        torch.cuda.synchronize(DEV)
+        now = time.perf_counter()
+        step_s.append(now - clock["t"] if clock["t"] is not None else None)
+        peaks.append(torch.cuda.max_memory_allocated(DEV))
+        if step in (0, 1):
+            prints[step] = _fingerprint(state)
+        torch.cuda.reset_peak_memory_stats(DEV)
+        clock["t"] = time.perf_counter()
+
+    t0 = time.perf_counter()
+    train_cli.reset_launch_counts()
+    dps_quant.reduce_tma_launch_count = 0
+    out = train_cli.main(argv, on_step=on_step)
+    hist = out["history"]
+    if not (out["zero_opt"] and out["wire_overlap"] == overlap
+            and out["guards"]):
+        raise AssertionError(f"{phase}: ZeRO, the overlap or the guards did "
+                             "not engage")
+    want = unguarded_hist[0]["kernel_launches"]
+    h1 = int(hist[1]["health"])
+    need = HEALTH_GRADS_NONFINITE | HEALTH_SKIPPED | HEALTH_DEGRADED
+    if h1 & need != need:
+        raise AssertionError(f"{phase}: step 1 health {health_flags(h1)}")
+    widened = ".dps/grads/.il"
+    moved = sorted(k for k in prints[0]
+                   if k != widened and prints[0][k] != prints[1][k])
+    if moved or prints[1][widened] != [v + 1 for v in prints[0][widened]]:
+        raise AssertionError(f"{phase}: the skipped step moved {moved} "
+                             f"({widened} {prints[0][widened]} -> "
+                             f"{prints[1][widened]})")
+    deg = hist[2]["kernel_launches"]
+    if (any(deg[k] for k in WIRE_KERNELS)
+            or {k: v for k, v in deg.items() if k not in WIRE_KERNELS}
+            != {k: v for k, v in want.items() if k not in WIRE_KERNELS}):
+        raise AssertionError(f"{phase}: the degraded step launched {deg}")
+    # the flag step 1 raised picks step 2's fp32 legs (zero wire stats);
+    # the cooldown of one clean step re-arms int8 after it
+    if (not hist[1]["degraded"] or hist[2]["E_wire"] != 0.0
+            or hist[2]["degraded"]):
+        raise AssertionError(f"{phase}: degraded {[h['degraded'] for h in hist]}"
+                             f", step 2 E_wire {hist[2]['E_wire']}")
+    if peaks[2] > peaks[3]:
+        raise AssertionError(f"{phase}: the degraded step's peak {peaks[2]} "
+                             f"B is above the int8 step's {peaks[3]} B")
+    if hist[3]["kernel_launches"] != want or hist[3]["health"]:
+        raise AssertionError(f"{phase}: step 3 launched "
+                             f"{hist[3]['kernel_launches']} (health "
+                             f"{hist[3]['health']})")
+    launches = train_cli.launch_counts()
+    _all_k4_on_tma(launches, phase)
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(v) for v in losses[2:]):
+        raise AssertionError(f"{phase}: losses {losses}")
+    say(phase, command="python -m repro_torch.launch.train " + " ".join(argv),
+        losses=losses,
+        health=[list(health_flags(int(h["health"]))) for h in hist],
+        skipped=[h["skipped"] for h in hist],
+        degraded=[h["degraded"] for h in hist],
+        state_held_on_skip=True, fingerprinted_leaves=len(prints[0]),
+        widened_grads_il=[prints[0][widened][0], prints[1][widened][0]],
+        launches_per_step=[h["kernel_launches"] for h in hist],
+        launches=launches, E_wire=[h["E_wire"] for h in hist],
+        peak_bytes_per_step=peaks, seconds_per_step_synchronized=step_s,
+        seconds=time.perf_counter() - t0)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -2428,9 +2593,9 @@ def main():
                                for b in bucket_rows]
             r["k4_ms_a_step_overlap"] = k4_step_ms
     zero_launches = {"lenet_zero": lenet_zero()}
-    zero_hist = {}
+    zero_hist, zero_summary = {}, {}
     for run, overlap in (("zero", False), ("zero_overlap", True)):
-        zero_launches[run], zero_hist[run] = train_zero(
+        zero_launches[run], zero_hist[run], zero_summary[run] = train_zero(
             cfg, wire_losses[0], overlap)
     zero_losses = {run: [h["loss"] for h in hist]
                    for run, hist in zero_hist.items()}
@@ -2458,6 +2623,10 @@ def main():
     say("zero_vs_wire", wire_losses=wire_losses, zero_losses=zero_losses,
         loss_max_rel_after_first=rel, tolerance=ZERO_LOSS_RTOL,
         step1_bit_equal=True, overlap_bit_equal_metrics=sorted(metrics[0]))
+    # the health guards and the NaN drill on ZeRO-1 and the overlapped wire
+    guards_zero_idle(zero_hist["zero_overlap"], zero_summary["zero_overlap"])
+    guards_zero_nan(zero_hist["zero"], overlap=False)
+    guards_zero_nan(zero_hist["zero_overlap"], overlap=True)
     # a row measured at the overlap run's bucket shape takes that run's
     # launches; the rows of the same counters at other shapes do not
     at_bucket = {(r["run"], r["counter"]) for r in rows if "run" in r}

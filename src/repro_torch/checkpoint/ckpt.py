@@ -33,9 +33,14 @@ reference's and the port converts:
 * **ZeRO-1's flat optimizer state** is written in the port's layout,
   ``[ranks, shard_size]`` (two-dimensional, so the reference's restore
   refuses it by shape instead of misreading it: the two packages pad
-  their flat layouts to different quanta).  A reference ZeRO checkpoint
-  (one flat ``[padded]`` vector per state tensor) restores into the port
-  through ``restore(..., adapt=convert.zero_ckpt_adapter(...))``.
+  their flat layouts to different quanta).  Under ``torchrun`` each
+  process holds one row: :func:`gather_rows` collects every rank's over
+  the transport's process group, and rank 0 writes the same arrays a
+  stacked run writes.  A reference ZeRO checkpoint (one flat ``[padded]``
+  vector per state tensor) restores into the port, and a port checkpoint
+  into one row a process, through ``restore(...,
+  adapt=convert.zero_ckpt_adapter(...))``; ``convert.zero_opt_state_to_jax``
+  turns the port's rows into the reference's vectors.
 * **Async save of an in-place state.**  :meth:`AsyncCheckpointer.save`
   copies every tensor to the host before it returns (the next step
   overwrites them); the background thread only serializes and hashes host
@@ -58,6 +63,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import tree as tree_lib
 from repro_torch.core.dps import DpsBundle
 
 
@@ -107,6 +113,17 @@ def flatten_tree(tree) -> Dict[str, np.ndarray]:
     flat = {}
     _walk(tree, "", lambda k, v: flat.__setitem__(k, _to_np(v)))
     return flat
+
+
+def gather_rows(tree, transport):
+    """A ZeRO-1 optimizer state held one row a process (``[1, shard_size]``
+    tensors) with every rank's rows: each tensor is all-gathered over
+    ``transport`` into ``[axis_size, shard_size]`` and copied to the host
+    before the next one (a collective: every process calls it).  Returns a
+    tree of host arrays, bf16 widened."""
+    return tree_lib.map_tree(
+        lambda t: _to_np(transport.all_gather(t.contiguous()).view(
+            transport.axis_size, -1)), tree)
 
 
 def rng_of_seed(seed: int) -> np.ndarray:

@@ -1,4 +1,5 @@
-"""Parameters of the JAX package → parameters of the port.
+"""Parameters of the JAX package → parameters of the port (and ZeRO-1
+optimizer state both ways).
 
 The two packages keep the same nested keys and the same layouts (weights are
 ``(in, out)``, applied as ``x @ w``; per-layer tensors are stacked on a
@@ -135,21 +136,57 @@ def zero_opt_state_from_jax(np_state: Mapping[str, Any], params, qcfg,
     return out
 
 
+def zero_opt_state_to_jax(opt_state: Mapping[str, Any], params, qcfg,
+                          n_shards: int, *,
+                          reference_backend: str = "jnp"):
+    """The reference's ZeRO-1 optimizer state from the port's: the inverse
+    of :func:`zero_opt_state_from_jax`.
+
+    ``opt_state``: ``{name: [n_shards, shard_size]}``, every rank's row of
+    the port's layout (a stacked run's state, or a checkpoint's gathered
+    arrays), tensors or numpy arrays.  Each is unflattened with the port's
+    geometry and flattened with the reference's (its ``zero_partitioner``
+    of ``qcfg`` with the quanta ``reference_backend`` resolves); returns one
+    flat fp32 ``[padded_size]`` numpy vector per state tensor, rank-major
+    shards of that layout, as the reference's ``zero_opt_state`` keeps
+    them.  ``params``: the port's parameter tree (for its shapes)."""
+    from repro_torch.core import qtrain
+    part = qtrain.zero_partitioner(qcfg, params, n_shards)
+    ref = _reference_partitioner(qcfg, params, n_shards, reference_backend)
+    out = {}
+    for name, rows in opt_state.items():
+        rows = (rows.detach().to("cpu", torch.float32)
+                if isinstance(rows, torch.Tensor)
+                else torch.from_numpy(np.asarray(rows, np.float32)))
+        if tuple(rows.shape) != (n_shards, part.shard_size):
+            raise ValueError(f"{name}: shape {tuple(rows.shape)}, the port's "
+                             f"layout holds ({n_shards}, {part.shard_size})")
+        tree = part.unflatten(part.assemble(rows))
+        out[name] = ref.flatten(tree, "cpu").numpy()
+    return out
+
+
 def zero_ckpt_adapter(params, qcfg, transport, *,
                       reference_backend: str = "jnp"):
-    """The ``adapt`` hook of :func:`repro_torch.checkpoint.restore` that
-    reads a reference ZeRO-1 checkpoint into the port's ZeRO state: an
-    ``.opt_state/<name>`` array in the reference's flat ``[padded]`` layout
-    becomes the port's ``[ranks, shard_size]`` rows through
-    :func:`zero_opt_state_from_jax`; every other array (the port's own
-    layout included) passes through.  ``params``: the template's
-    parameter tree."""
+    """The ``adapt`` hook of :func:`repro_torch.checkpoint.restore` for a
+    ZeRO-1 state: an ``.opt_state/<name>`` array in the reference's flat
+    ``[padded]`` layout becomes the port's ``[ranks, shard_size]`` rows
+    through :func:`zero_opt_state_from_jax`; one of the port's own, every
+    rank's rows (``[axis_size, shard_size]``), gives a process that holds
+    fewer ranks (one, under ``torchrun``) the rows of its own ranks; every
+    other array passes through.  ``params``: the template's parameter
+    tree."""
     def adapt(key, arr, like):
-        if (key.startswith(".opt_state/") and np.ndim(arr) == 1
-                and like.ndim == 2):
+        if not (key.startswith(".opt_state/") and like.ndim == 2):
+            return arr
+        if np.ndim(arr) == 1:
             name = key[len(".opt_state/"):]
             return zero_opt_state_from_jax(
                 {name: arr}, params, qcfg, transport,
                 reference_backend=reference_backend)[name]
+        held = list(transport.ranks)
+        if (np.ndim(arr) == 2 and arr.shape[0] == transport.axis_size
+                and like.shape[0] == len(held) != arr.shape[0]):
+            return np.asarray(arr)[held]
         return arr
     return adapt

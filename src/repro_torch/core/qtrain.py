@@ -6,8 +6,8 @@ transport of more than one rank), its backward-overlapped bucketed form
 (``wire_overlap``) and ZeRO-1 (``zero_opt_shards``: the optimizer state
 sharded over the data axis), and the health guards with their fault
 injection (``guards``, ``make_train_step(faults=...)``: see
-:mod:`repro_torch.resilience.guards`) on the replicated and the monolithic
-wire step.  Wires the paper's Algorithm 1 into a PyTorch model:
+:mod:`repro_torch.resilience.guards`) on every one of those steps.  Wires
+the paper's Algorithm 1 into a PyTorch model:
 
   forward pass   — activations pass through :meth:`QCtx.tap` (quantize +
                    stats on the way down, the cotangent quantized on the way
@@ -115,8 +115,7 @@ class QuantConfig:
     wire_bucket_elems: Optional[int] = None
     # Health guards (repro_torch.resilience.GuardConfig): in-step NaN,
     # overflow-storm and spike detection, the skip gate, and the int8 wire's
-    # fp32 fallback.  Armed on the replicated and the monolithic wire step;
-    # ZeRO-1 and the overlapped wire raise (ROADMAP Queue 1, item 1).
+    # fp32 fallback (each leg of ZeRO-1's on its own).
     guards: Optional[Any] = None
 
     def __post_init__(self):
@@ -472,26 +471,35 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
     all-gather.  Rank by rank as above, then owner by owner: K4 and the
     leg-2 snap (already run per bucket by the overlap), the local decode,
     the optimizer-input snap, ``update_shard`` on the owner's slice of the
-    flat parameters; then the params leg.  One fp32 gradient shard exists
-    at a time; with ``clip_norm`` the shards are decoded twice (the norm
-    needs every owner's before the first updates).
+    flat parameters; then the params leg (int8: each owner's new slice
+    encoded right after its update).  One fp32 gradient shard exists at a
+    time; with ``clip_norm`` or the guards the shards are decoded twice (the
+    norm needs every owner's before the first updates).
 
     ``qcfg.guards`` (:class:`repro_torch.resilience.GuardConfig`) arms the
-    health guards on the replicated and the monolithic wire step: whether
-    the raw local gradients hold a NaN/Inf (summed over the ranks), the
-    norm of the (decoded mean) gradients and the wire legs' overflow feed
+    health guards on every step above: whether the raw local gradients hold
+    a NaN/Inf (summed over the ranks), the norm of the (decoded mean)
+    gradients and the wire legs' overflow feed
     :func:`~repro_torch.resilience.update_guard`; the skip gate ``ok`` is
     computed on the device before the in-place update, and the optimizer,
     the weight re-snap and the DPS update select leaf by leaf against it
     (:mod:`repro_torch.resilience.guards`).  A tripped gradient wire runs
-    the next step's all-reduce as the exact fp32 mean
-    (:class:`~repro_torch.dist.collectives.F32TreeMean`): the step reads
-    last step's ``degraded`` flag to the host, one sync a step.  ``faults``
+    the next step's all-reduce (or ZeRO's reduce-scatter) as the exact fp32
+    mean (:class:`~repro_torch.dist.collectives.F32TreeMean`), a tripped
+    ``wire_params`` leg the next step's all-gather in fp32: the step reads
+    last step's ``degraded`` flags to the host, one sync a step.  Under
+    ZeRO-1 the norm is that of the decoded, snapped owner shards, as the
+    reference's: a first pass makes each owner's shard, sums its squares
+    and drops it, and the update pass makes it again (its rounding bits are
+    a function of the seed); the int8 params leg encodes the ungated new
+    parameters (the reference encodes ``pshard + upd`` before its select)
+    and its decode selects against the flat buffer, so a skipped step
+    leaves it bit for bit.  ``faults``
     (:class:`repro_torch.resilience.FaultPlan`) injects the scheduled
-    gradient faults after each rank's backward and the wire flip into its
-    payload.  Metrics add ``health``, ``skipped``, ``trips`` and
-    ``degraded``.  Guards and faults with ZeRO-1 or the overlapped wire
-    raise ``NotImplementedError``.
+    gradient faults after each rank's backward (leaf by leaf in the
+    overlapped wire's hooks, before the leaf's encode) and the wire flip
+    into the monolithic wire's payload.  Metrics add ``health``,
+    ``skipped``, ``trips`` and ``degraded``.
 
     ``train_step.wire_sync_active``, ``.zero_opt_active``,
     ``.wire_overlap_active`` (the hooks ran),
@@ -539,14 +547,11 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
             "FaultPlan.wire_flip_at targets the monolithic tree all-reduce "
             "payload; it needs an engaged compressed sync without "
             "wire_overlap or zero_opt_shards")
-    if (guards_on or faults is not None) and (zero_opt or wire_overlap):
-        raise NotImplementedError(
-            "the health guards and fault injection run on the replicated "
-            "and the monolithic wire step; with ZeRO-1 or the overlapped "
-            "wire they are not ported yet (ROADMAP Queue 1, item 1)")
     wire_names = rsl.wire_domains(plan) if guards_on else ()
     gidx = (wire_names.index("wire_grads") if "wire_grads" in wire_names
             else 0)
+    pidx = (wire_names.index("wire_params") if "wire_params" in wire_names
+            else None)
     layout = {}              # the step's partitioner and full_quant, once
 
     def _qctx(fmts, seed_a, microbatch_idx):
@@ -611,19 +616,28 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
                                fold_seed(seed_g, rank), inplace=True)
         return st
 
-    def _hooked_rank_pass(qparams, rows, fmts, seed_a, seed_g, rank, sink):
+    def _hooked_rank_pass(qparams, rows, fmts, seed_a, seed_g, rank, sink,
+                          step=0, want_bad=False):
         """One rank's forward and backward with a post-accumulate-grad hook
         on every leaf: the moment the backward has a leaf's gradient, the
-        hook encodes it into ``sink`` (the bucketed wire issues a bucket's
-        collective once it is complete), measures its raw statistics and
-        drops it."""
+        hook applies the scheduled faults of ``step`` to it, takes its
+        extrema (``want_bad``: the guards' nonfinite signal), encodes it
+        into ``sink`` (the bucketed wire issues a bucket's collective once
+        it is complete), measures its raw statistics and drops it.  Returns
+        the loss, aux, raw stats and (``want_bad``) whether any leaf held a
+        NaN/Inf."""
         paths = tree_lib.leaves_with_path(qparams)
         leaves = [leaf.detach().requires_grad_() for _, leaf in paths]
         raw = [None] * len(leaves)
+        extrema = []
 
         def hook_for(g):
             def hook(leaf):
                 grad, leaf.grad = leaf.grad, None
+                if faults is not None:
+                    rsl.apply_leaf_faults(faults, grad, step)
+                if want_bad:
+                    extrema.append(rsl.leaf_extrema(grad))
                 sink.encode_leaf(rank, g, grad)
                 if measure_grads:
                     raw[g] = _raw_leaf_stats(g, paths[g][0], grad, fmts,
@@ -642,11 +656,13 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
         if sink.missing(rank):
             raise RuntimeError(f"leaves {sink.missing(rank)} got no gradient "
                                "from the backward")
+        bad = (rsl.nonfinite_of_extrema(extrema, fmts["grads"].il.device)
+               if want_bad else None)
         if not measure_grads:
             return loss.detach(), aux, QuantStats.zero(
-                device=fmts["grads"].il.device)
+                device=fmts["grads"].il.device), bad
         return loss.detach(), aux, fxp.merge_tree_stats(
-            [s for s in raw if s is not None], fmts["grads"])
+            [s for s in raw if s is not None], fmts["grads"]), bad
 
     def _rank_rows(qparams, batch) -> int:
         """Rows of the batch per rank, after checking that the batch splits
@@ -678,8 +694,11 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
             rows = {k: v[r * m:(r + 1) * m] for k, v in batch.items()}
             sa = fold_seed(seed_a, r)
             if hooked:
-                loss, aux, raw = _hooked_rank_pass(qparams, rows, fmts, sa,
-                                                   seed_g, r, sink)
+                loss, aux, raw, bad = _hooked_rank_pass(
+                    qparams, rows, fmts, sa, seed_g, r, sink, step,
+                    bads is not None)
+                if bads is not None:
+                    bads.append(bad)
             else:
                 loss, aux, grads = _accum_grads(qparams, rows, fmts, sa)
                 if faults is not None:
@@ -712,7 +731,8 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
         ``wire_overlap``; the exact fp32 mean when ``degraded``).  Returns
         the loss, aux, raw stats, the mean gradient tree, the dispatch
         leg's stats and (guards armed, else None) the number of ranks whose
-        raw gradients hold a NaN/Inf."""
+        raw gradients hold a NaN/Inf.  On a degraded step the overlap's
+        hooks add each leaf to the fp32 sum: no bucket collective runs."""
         _rank_rows(qparams, batch)
         if degraded:
             sink = collectives.F32TreeMean(qparams, fmts, transport,
@@ -732,7 +752,8 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
                 onchip_prng=qcfg.onchip_prng,
                 payload_fault=(rsl.payload_fault_fn(faults, step)
                                if faults is not None else None))
-        train_step.wire_buckets = len(getattr(sink, "buckets", (sink,)))
+        if not degraded:
+            train_step.wire_buckets = len(getattr(sink, "buckets", (sink,)))
         bads = [] if guards_on else None
         passes = _rank_passes(qparams, batch, fmts, seed_a, seed_g, sink,
                               step, bads)
@@ -756,23 +777,40 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
                     backend=qcfg.backend)
         return segs
 
-    def _update_owners(part, flat, opt_state, count, owner_grads):
-        """``update_shard`` on each held owner's slice of the flat
-        parameters, segment by segment; ``owner_grads(i, j)`` gives owner
-        row ``i``'s gradient segments (called twice under clipping)."""
-        owners = list(enumerate(transport.ranks))
-        sq = None
-        if getattr(optimizer.cfg, "clip_norm", 0):
-            sq = transport.psum(torch.stack([
-                shard_sq_norm(owner_grads(i, j)) for i, j in owners]))
-        for i, j in owners:
-            segs = owner_grads(i, j)
-            for b, (g, p, (_, so, cnt)) in enumerate(zip(
-                    segs, part.shard_segments(flat, j), part.segments(j))):
-                st = {k: v[i, so:so + cnt] for k, v in opt_state.items()}
-                optimizer.update_shard(g, st, p, count, rank=j, segment=b,
-                                       sq_norm=sq)
-            del segs
+    def _owner_sq_norm(owner_grads):
+        """Σ g² over every owner's gradient shard, summed over the axis:
+        the clip's and the guards' norm, one owner's shard at a time."""
+        return transport.psum(torch.stack([
+            shard_sq_norm(owner_grads(i, j))
+            for i, j in enumerate(transport.ranks)]))
+
+    def _update_owner(part, flat, opt_state, count, i, j, segs, sq=None,
+                      keep=None, want_new=False):
+        """``update_shard`` on owner row ``i`` (rank ``j``)'s slice of the
+        flat parameters, segment by segment.  Returns its new parameter
+        segments: views of ``flat``, or with ``keep`` and ``want_new`` the
+        ungated new values (the int8 params leg encodes them)."""
+        new = []
+        for b, (g, p, (_, so, cnt)) in enumerate(zip(
+                segs, part.shard_segments(flat, j), part.segments(j))):
+            st = {k: v[i, so:so + cnt] for k, v in opt_state.items()}
+            buf = (torch.empty_like(p) if keep is not None and want_new
+                   else None)
+            optimizer.update_shard(g, st, p, count, rank=j, segment=b,
+                                   sq_norm=sq, keep=keep, new_out=buf)
+            new.append(p if buf is None else buf)
+        return new
+
+    def _update_owners(part, flat, opt_state, count, owner_grads, sq=None,
+                       keep=None):
+        """:func:`_update_owner` on each held owner; ``owner_grads(i, j)``
+        gives owner row ``i``'s gradient segments (called twice under
+        clipping, unless ``sq`` is given)."""
+        if sq is None and getattr(optimizer.cfg, "clip_norm", 0):
+            sq = _owner_sq_norm(owner_grads)
+        for i, j in enumerate(transport.ranks):
+            _update_owner(part, flat, opt_state, count, i, j,
+                          owner_grads(i, j), sq, keep)
 
     def _gather_f32(part, flat):
         """The fp32 params leg: every shard held was updated in place in
@@ -784,13 +822,23 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
         part.assemble(transport.all_gather(own).view(n_data, -1), out=flat)
 
     def _zero_wire_step(part, flat, full_quant, qparams, state, fmts,
-                        batch, seed_a, seed_g, seed_r):
+                        batch, seed_a, seed_g, seed_r, deg_g=False,
+                        deg_p=False):
         """ZeRO-1 over the wire: the rank passes into the sharded
-        reduce-scatter (group-aligned buckets, or the plain packed layout),
-        then owner by owner the gradient shard and ``update_shard``, then
-        the params leg (int8 when ``full_quant``, else fp32)."""
+        reduce-scatter (group-aligned buckets, or the plain packed layout;
+        ``deg_g``: the exact fp32 one), then owner by owner the gradient
+        shard and ``update_shard``, then the params leg (int8 when
+        ``full_quant`` and not ``deg_p``, else fp32).  Guards armed: the
+        ranks' nonfinite signal and the norm of the owner shards (a first
+        pass over them) give the skip gate before any update, and every
+        write selects against it.  Returns the loss, aux, raw stats, both
+        legs' stats, and (guards armed) the nonfinite count, the norm and
+        the gate."""
         _rank_rows(qparams, batch)
-        if zero_aligned:
+        if deg_g:
+            sink = collectives.F32TreeMean(qparams, fmts, transport,
+                                           domain="wire_grads", part=part)
+        elif zero_aligned:
             # seed_r goes to both legs verbatim: the draws of the
             # replicated tree all-reduce, bit for bit
             sink = overlap_lib.zero_wire(
@@ -802,33 +850,54 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
                 qparams, fmts, transport, fold_seed(seed_r, 1),
                 mode=rounding, domain="wire_grads", backend=qcfg.backend,
                 onchip_prng=qcfg.onchip_prng, chunk=part.shard_size)
-        train_step.wire_buckets = len(getattr(sink, "buckets", (sink,)))
-        passes = _rank_passes(qparams, batch, fmts, seed_a, seed_g, sink)
+        if not deg_g:
+            train_step.wire_buckets = len(getattr(sink, "buckets", (sink,)))
+        bads = [] if guards_on else None
+        passes = _rank_passes(qparams, batch, fmts, seed_a, seed_g, sink,
+                              state.step, bads)
+        loss, aux, g_stats = _reduce_ranks(*passes)
         g_wire = collectives.psum_stats(sink.stats, transport)
-        _update_owners(part, flat, state.opt_state, state.step,
-                       lambda i, j: _owner_grads(sink, i, j, fmts, seed_g,
-                                                 full_quant))
-        del sink
-        if full_quant:
-            shards = [part.shard_segments(flat, j) for j in transport.ranks]
+        owner_grads = lambda i, j: _owner_grads(sink, i, j, fmts, seed_g,
+                                                full_quant)
+        sq = bad = gnorm = ok = None
+        if guards_on or getattr(optimizer.cfg, "clip_norm", 0):
+            # a first pass over the owner shards: the clip's norm, and the
+            # guards' (the reference's g2, decoded and snapped)
+            sq = _owner_sq_norm(owner_grads)
+        if guards_on:
+            # the skip gate before any in-place write
+            bad = transport.psum(torch.stack(bads))
+            gnorm = torch.sqrt(sq)
+            ok = rsl.step_ok(qcfg.guards, state.guard, loss=loss,
+                             grads_bad=bad, gnorm=gnorm)
+        if full_quant and not deg_p:
             kw = dict(mode=rounding, backend=qcfg.backend,
                       domain="wire_params", onchip_prng=qcfg.onchip_prng,
-                      out=flat)
+                      out=flat, keep=ok)
+
+            def updated(i, j):
+                # owner i steps its slice, then its new parameters go on
+                # the wire: one owner's gradient shard at a time
+                return _update_owner(part, flat, state.opt_state, state.step,
+                                     i, j, owner_grads(i, j), sq, ok, True)
             if zero_aligned:
                 _, pst = overlap_lib.zero_allgather_params(
-                    shards, fmts, transport, seed_r, part=part, **kw)
+                    updated, fmts, transport, seed_r, part=part, **kw)
             else:
                 _, pst = collectives.dps_allgather_params(
-                    [s[0] for s in shards], fmts, transport,
+                    lambda i, j: updated(i, j)[0], fmts, transport,
                     fold_seed(seed_r, 2), **kw)
             p_wire = collectives.psum_stats(pst, transport)
         else:
+            _update_owners(part, flat, state.opt_state, state.step,
+                           owner_grads, sq, ok)
             _gather_f32(part, flat)
             p_wire = QuantStats.zero(fmts["wire_params"].il.shape,
                                      device=flat.device)
-        return (*_reduce_ranks(*passes), g_wire, p_wire)
+        del sink
+        return loss, aux, g_stats, g_wire, p_wire, bad, gnorm, ok
 
-    def _zero_plain_opt(part, flat, grads, state):
+    def _zero_plain_opt(part, flat, grads, state, keep=None):
         """ZeRO-1 without the wire: each held owner steps its slice of the
         (replicated) gradients, and the fp32 params leg follows — every
         leg exact, so the step is the replicated one bit for bit."""
@@ -836,7 +905,8 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
             shard = part.shard_from_tree(grads, j)
             return [shard[so:so + cnt] for _, so, cnt in part.segments(j)]
 
-        _update_owners(part, flat, state.opt_state, state.step, owner_grads)
+        _update_owners(part, flat, state.opt_state, state.step, owner_grads,
+                       keep=keep)
         _gather_f32(part, flat)
 
     def _zero_layout(state):
@@ -876,7 +946,7 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
         qparams, w_stats = quantize_params(state.params, fmts["weights"],
                                            qcfg, seed_w)
         wire_stats = bad = gnorm = ok = None
-        degraded = False
+        degraded = deg_p = False
         if guards_on:
             if state.guard is None:
                 raise ValueError(
@@ -884,12 +954,15 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
                     "the state with TrainState.create(..., qcfg, ...) or "
                     "restore with qtrain.guard_restore_defaults")
             if wire_sync and wire_names:
-                # LAST step's flag picks THIS step's branch: one host sync
-                degraded = bool(state.guard.degraded[gidx])
+                # LAST step's flags pick THIS step's branches: one host sync
+                flags = state.guard.degraded.tolist()
+                degraded = bool(flags[gidx])
+                deg_p = pidx is not None and bool(flags[pidx])
         if zero_opt and wire_sync:
-            loss, aux, g_stats, g_wire, p_wire = _zero_wire_step(
-                part, flat, full_quant, qparams, state, fmts, batch, seed_a,
-                seed_g, seed_r)
+            (loss, aux, g_stats, g_wire, p_wire, bad, gnorm,
+             ok) = _zero_wire_step(part, flat, full_quant, qparams, state,
+                                   fmts, batch, seed_a, seed_g, seed_r,
+                                   degraded, deg_p)
             del qparams
             wire_stats = g_wire.merge(p_wire)
         elif wire_sync:
@@ -915,13 +988,13 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
                 gnorm = rsl.global_norm(grads)
             grads, g_stats = quantize_grads(grads, fmts["grads"], qcfg,
                                             seed_g, inplace=True)
-        if guards_on:
+        if guards_on and ok is None:
             # the skip gate, on the device, before any in-place write
             ok = rsl.step_ok(qcfg.guards, state.guard, loss=loss,
                              grads_bad=bad, gnorm=gnorm)
         # -- update (Alg. 1 line 18), in place --
         if zero_opt and not wire_sync:
-            _zero_plain_opt(part, flat, grads, state)
+            _zero_plain_opt(part, flat, grads, state, keep=ok)
             del grads
         elif not zero_opt:
             optimizer.update(grads, state.opt_state, state.params,
@@ -955,7 +1028,13 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
 
         # -- health guards: fold this step's signals, gate the DPS update --
         if guards_on:
-            legs = {"wire_grads": wire_stats} if wire_stats is not None else {}
+            # each wire leg feeds its own domain's overflow (a degraded leg,
+            # or ZeRO's fp32 params leg, reads 0)
+            if zero_opt and wire_sync:
+                legs = {"wire_grads": g_wire, "wire_params": p_wire}
+            else:
+                legs = ({"wire_grads": wire_stats} if wire_stats is not None
+                        else {})
             new_guard, _, trip_any = rsl.update_guard(
                 qcfg.guards, plan, state.guard, loss=loss, grads_bad=bad,
                 gnorm=gnorm, wire_ov=rsl.domain_overflow(plan, legs, dev),

@@ -743,12 +743,12 @@ def dps_reduce_scatter_mean(xs: Sequence[torch.Tensor], formats, transport,
     return shards, stats
 
 
-def dps_allgather_params(shards: Sequence[torch.Tensor], formats, transport,
+def dps_allgather_params(shards, formats, transport,
                          seed: int, *, mode: str = ROUND_STOCHASTIC,
                          backend: str = "auto", domain: str = "wire_params",
                          group_sizes: Optional[Tuple[int, ...]] = None,
                          onchip_prng: bool = True,
-                         out: Optional[torch.Tensor] = None
+                         out: Optional[torch.Tensor] = None, keep=None
                          ) -> Tuple[torch.Tensor, List[QuantStats]]:
     """All-gather the ranks' parameter shards over an int8 wire: the ZeRO
     return leg.
@@ -766,17 +766,25 @@ def dps_allgather_params(shards: Sequence[torch.Tensor], formats, transport,
     Returns ``(full fp32 [n·chunk], stats per rank held)``; ``out`` (fp32
     ``[n·chunk]``) receives the decode — it may be the buffer the shards
     are views of: every shard is encoded before the decode writes.
+    ``shards`` may also be a callable ``(row, rank) -> shard``, called for
+    each rank held in order just before its encode (a caller that makes
+    each shard when it is needed).  ``keep`` (a bool device scalar, the
+    health guards' skip gate): the decode writes ``out`` only where it
+    holds, ``out`` keeping its old values elsewhere.
     """
     fmt = resolve_domain_format(formats, domain)
     _validate_capacity(fmt)
     if mode not in (ROUND_STOCHASTIC, ROUND_NEAREST):
         raise ValueError(f"unknown rounding mode {mode!r}")
-    if len(shards) != len(transport.ranks):
+    rows = list(transport.ranks)
+    get = shards if callable(shards) else None
+    if get is None and len(shards) != len(rows):
         raise ValueError(f"{len(shards)} shards for the "
-                         f"{len(transport.ranks)} ranks this transport holds")
-    n, chunk, dev = transport.axis_size, shards[0].numel(), shards[0].device
+                         f"{len(rows)} ranks this transport holds")
+    first = get(0, rows[0]) if get is not None else shards[0]
+    n, chunk, dev = transport.axis_size, first.numel(), first.device
     stochastic = mode == ROUND_STOCHASTIC
-    wire = torch.empty(len(shards), chunk, dtype=torch.int8, device=dev)
+    wire = torch.empty(len(rows), chunk, dtype=torch.int8, device=dev)
     stats = []
     grouped = fmt.il.ndim != 0
     if grouped:
@@ -792,7 +800,11 @@ def dps_allgather_params(shards: Sequence[torch.Tensor], formats, transport,
                          dev)
     else:
         be = _resolve_backend(backend, dev)
-    for row, (r, x) in enumerate(zip(transport.ranks, shards)):
+    for row, r in enumerate(rows):
+        if row == 0:
+            x, first = first, None
+        else:
+            x = get(row, r) if get is not None else shards[row]
         bits = (_flat_bits(fold_seed(seed, r), chunk, dev, onchip_prng,
                            words=grouped) if stochastic else None)
         if grouped:
@@ -804,6 +816,7 @@ def dps_allgather_params(shards: Sequence[torch.Tensor], formats, transport,
             _, s = ops.dps_quantize_wire(x.reshape(-1), fmt, bits,
                                          out=wire[row], backend=be)
         stats.append(s)
+        del x
     full = transport.all_gather(wire)
     del wire
     if out is None:
@@ -811,8 +824,12 @@ def dps_allgather_params(shards: Sequence[torch.Tensor], formats, transport,
     inv = exp2_int(-fmt.fl)
     for j in range(n):         # chunk by chunk: one fp32 chunk at a time
         sl = slice(j * chunk, (j + 1) * chunk)
-        torch.mul(full[sl].to(torch.float32), inv[gid[sl]] if grouped
-                  else inv, out=out[sl])
+        scale = inv[gid[sl]] if grouped else inv
+        if keep is None:
+            torch.mul(full[sl].to(torch.float32), scale, out=out[sl])
+        else:
+            torch.where(keep, full[sl].to(torch.float32) * scale, out[sl],
+                        out=out[sl])
     return out, stats
 
 
@@ -1089,55 +1106,104 @@ class TreeAllReduce:
 class F32TreeMean:
     """The int8 wire's fp32 fallback, the health guards' degrade branch:
     the exact per-leaf mean over the ranks, with :class:`TreeAllReduce`'s
-    ``encode``/``finish`` interface and zero wire statistics shaped like the
-    domain's formats.
+    ``encode``/``encode_leaf``/``missing``/``finish`` interface and zero wire
+    statistics shaped like the domain's formats.
 
-    The ranks' trees are summed in rank order into one sum tree (the first
+    The ranks' leaves are summed in rank order into one sum tree (the first
     held rank's copied: the caller measures and drops each rank's gradients
     once encoded), so it holds one fp32 tree where the wire held its int8
     payload of n ranks — the same bytes at n = 4.  On a process group each
     leaf's sum then goes through an fp32 ``all_reduce``.  The sum is divided
     by ``n`` held as a tensor, a division as the reference's ``pmean`` makes
-    (CUDA's division by a Python number multiplies by its reciprocal)."""
+    (CUDA's division by a Python number multiplies by its reciprocal).
+
+    ``part`` (a ZeRO-1 partitioner of the tree): the sharded fallback, the
+    reference's exact ``psum_scatter(part.flatten(grads)) / n``.  The sum
+    tree is kept in fp32 (the reference flattens to fp32 before it sums),
+    and :meth:`owner_segments` gives owner row ``i`` its shard of the mean,
+    one segment per bucket of the layout, made when asked for (the caller
+    holds one owner's shard at a time).  On a process group the whole sum
+    tree is all-reduced, leaf by leaf, in place.
+    """
 
     def __init__(self, like, formats, transport, *,
-                 domain: str = "wire_grads"):
+                 domain: str = "wire_grads", part=None):
         self.stat_shape = tuple(resolve_domain_format(formats, domain)
                                 .il.shape)
-        self.transport = transport
+        self.transport, self.part = transport, part
         self.rows = list(transport.ranks)
         self.skeleton = tree_lib.map_tree(lambda _: None, like)
-        self.device = tree_lib.leaves(like)[0].device
-        self.sum, self.seen = None, []
+        leaves = tree_lib.leaves(like)
+        self.device = leaves[0].device
+        self.sum = [None] * len(leaves)
+        self.seen = [[] for _ in leaves]
+        self.reduced = False
+
+    def encode_leaf(self, rank: int, g: int, leaf: torch.Tensor):
+        """Add ``rank``'s leaf ``g`` to its sum (the ranks in order)."""
+        with torch.no_grad():
+            if self.sum[g] is None:
+                self.sum[g] = (leaf.to(torch.float32, copy=True)
+                               if self.part is not None else leaf.clone())
+            else:
+                self.sum[g].add_(leaf)
+        self.seen[g].append(rank)
 
     def encode(self, rank: int, tree) -> QuantStats:
-        leaves = tree_lib.leaves(tree)
-        with torch.no_grad():
-            if self.sum is None:
-                self.sum = [l.clone() for l in leaves]
-            else:
-                for s, l in zip(self.sum, leaves):
-                    s.add_(l)
-        self.seen.append(rank)
+        for g, leaf in enumerate(tree_lib.leaves(tree)):
+            self.encode_leaf(rank, g, leaf)
         return QuantStats.zero(self.stat_shape, self.device)
+
+    def missing(self, rank: int) -> List[int]:
+        """Leaves ``rank`` has not added yet."""
+        return [g for g, seen in enumerate(self.seen) if rank not in seen]
 
     @property
     def stats(self) -> List[QuantStats]:
         return [QuantStats.zero(self.stat_shape, self.device)
                 for _ in self.rows]
 
-    def finish(self):
-        """``(mean tree, zero stats per rank held)``."""
-        if self.seen != self.rows:
+    def _summed(self):
+        """The sum tree over the whole axis (checked, then all-reduced on a
+        process group, once)."""
+        if self.reduced:
+            return self.sum
+        if any(seen != self.rows for seen in self.seen):
             raise RuntimeError(f"encoded ranks {self.seen}, the transport "
                                f"holds {self.rows} (in that order)")
-        n, out, self.sum = self.transport.axis_size, self.sum, None
+        if len(self.rows) != self.transport.axis_size:
+            with torch.no_grad():
+                self.sum = [self.transport.psum(s[None]) for s in self.sum]
+        self.reduced = True
+        return self.sum
+
+    def _n(self, dtype):
+        return torch.tensor(self.transport.axis_size, dtype=dtype,
+                            device=self.device)
+
+    def finish(self):
+        """``(mean tree, zero stats per rank held)``."""
+        out, self.sum = self._summed(), None
         with torch.no_grad():
-            for i, s in enumerate(out):
-                if len(self.rows) != n:
-                    out[i] = s = self.transport.psum(s[None])
-                s.div_(torch.tensor(n, dtype=s.dtype, device=s.device))
+            for s in out:
+                s.div_(self._n(s.dtype))
         return tree_lib.from_leaves(self.skeleton, out), self.stats
+
+    def owner_segments(self, i: int) -> List[torch.Tensor]:
+        """Owner row ``i``'s fp32 shard of the mean (``part``), one segment
+        per run of the layout: a new tensor on every call."""
+        if self.part is None:
+            raise ValueError("owner_segments needs the ZeRO partitioner")
+        shard = self.part.shard_from_tree(
+            tree_lib.from_leaves(self.skeleton, self._summed()), self.rows[i])
+        shard.div_(self._n(torch.float32))
+        return [shard[so:so + cnt] for _, so, cnt in
+                self.part.segments(self.rows[i])]
+
+    def owner_mean(self, i: int) -> torch.Tensor:
+        """Owner row ``i``'s whole ``[shard_size]`` shard of the mean."""
+        segs = self.owner_segments(i)
+        return segs[0] if len(segs) == 1 else torch.cat(segs)
 
 
 def dps_allreduce_mean_tree(trees: Sequence, formats, transport, seed: int,

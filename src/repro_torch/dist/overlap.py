@@ -345,11 +345,11 @@ def zero_bucketed_reduce_scatter(trees: Sequence, formats, transport,
     return gshards, stats
 
 
-def zero_allgather_params(shards: Sequence, formats, transport, seed: int, *,
+def zero_allgather_params(shards, formats, transport, seed: int, *,
                           part, mode: str = ROUND_STOCHASTIC,
                           backend: str = "auto", domain: str = "wire_params",
                           onchip_prng: bool = True,
-                          out: Optional[torch.Tensor] = None):
+                          out: Optional[torch.Tensor] = None, keep=None):
     """Compressed parameter all-gather from group-aligned ZeRO shards.
 
     ``shards``: per rank held, its ``[part.shard_size]`` slice of the
@@ -366,13 +366,17 @@ def zero_allgather_params(shards: Sequence, formats, transport, seed: int, *,
     Returns ``(flat fp32 [part.padded_size], stats per rank held)`` —
     ``[G]`` rows in leaf order, or collapsed to one for a scalar format.
     ``out`` receives the decode; it may be the buffer the shards view:
-    every shard is encoded before the decode writes.
+    every shard is encoded before the decode writes.  ``shards`` may also
+    be a callable ``(row, rank) -> shard``, called for each rank held in
+    order just before its encode.  ``keep`` (a bool device scalar, the
+    health guards' skip gate): the decode writes ``out`` only where it
+    holds.
     """
     fmt = resolve_domain_format(formats, domain)
     _validate_capacity(fmt)
     _check_partitioner(part, transport, len(part.shapes), fmt)
     rows = list(transport.ranks)
-    if len(shards) != len(rows):
+    if not callable(shards) and len(shards) != len(rows):
         raise ValueError(f"{len(shards)} shards for the {len(rows)} ranks "
                          "this transport holds")
     dev = fmt.il.device
@@ -381,7 +385,8 @@ def zero_allgather_params(shards: Sequence, formats, transport, seed: int, *,
     S = part.shard_size
     wire = torch.empty(len(rows), S, dtype=torch.int8, device=dev)
     stats = []
-    for i, (j, shard) in enumerate(zip(rows, shards)):
+    for i, j in enumerate(rows):
+        shard = shards(i, j) if callable(shards) else shards[i]
         segs = (list(shard) if isinstance(shard, (list, tuple))
                 else [shard[so:so + n] for _, so, n in part.segments(j)])
         stat_rows = []
@@ -402,6 +407,7 @@ def zero_allgather_params(shards: Sequence, formats, transport, seed: int, *,
                                    quantum=lay.quantum,
                                    out=wire[i, so:so + lay.chunk])
             stat_rows.append(s)
+        del shard, segs
         st = QuantStats(*(torch.cat([getattr(s, f.name) for s in stat_rows])
                           for f in dataclasses.fields(QuantStats)))
         if not grouped:     # a scalar wire_params domain: one row
@@ -419,9 +425,14 @@ def zero_allgather_params(shards: Sequence, formats, transport, seed: int, *,
         tpc = lay.chunk // lay.quantum
         so, bo = part.shard_offset(b), part.bucket_offset(b)
         for j in range(part.n_shards):      # one fp32 chunk at a time
-            out[bo + j * lay.chunk:bo + (j + 1) * lay.chunk] = _decode_aligned(
+            dst = out[bo + j * lay.chunk:bo + (j + 1) * lay.chunk]
+            dec = _decode_aligned(
                 gathered[j, so:so + lay.chunk], _rows(fmt, lo, hi),
                 tg_all[j * tpc:(j + 1) * tpc], lay.quantum)
+            if keep is None:
+                dst.copy_(dec)
+            else:
+                torch.where(keep, dec, dst, out=dst)
     return out, stats
 
 

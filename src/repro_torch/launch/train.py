@@ -68,8 +68,17 @@ Preempt and resume on the CPU:
       --grad-allreduce-bits 8 --data-ranks 2 --sigterm-at 3 --ckpt-dir D
   (the same with ``--resume`` instead of ``--sigterm-at 3``)
 
-The guards and the fault plan run on the replicated and the monolithic wire
-step; with ``--zero-opt`` or ``--wire-overlap on`` they raise.
+The guards and the fault plan run on every step: replicated, the monolithic
+and the overlapped wire, ZeRO-1 (each wire leg degrades on its own); the
+wire flip needs the monolithic wire, as in the reference.  Under
+``torchrun`` with ``--zero-opt`` each process holds one rank's optimizer
+shard: a save gathers the rows to rank 0, which writes the stacked run's
+arrays, and ``--resume`` gives each process its own row back:
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 2 -m repro_torch.launch.train --arch llama3_2_3b \\
+      --smoke --device cpu --steps 4 --batch 4 --seq 8 \\
+      --grad-allreduce-bits 8 --zero-opt --ckpt-dir D --sigterm-at 2
+  (the same with ``--resume`` instead of ``--sigterm-at 2``)
 """
 
 from __future__ import annotations
@@ -87,7 +96,8 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import (AsyncCheckpointer, flatten_tree,
-                                    latest_step, load_flat, restore)
+                                    gather_rows, latest_step, load_flat,
+                                    restore)
 from repro_torch.configs.base import get_config, smoke as smoke_cfg
 from repro_torch.core import qtrain
 from repro_torch.data import TokenStream, TokenStreamConfig
@@ -363,11 +373,6 @@ def main(argv=None, on_step=None):
     between steps, as the smoke run's skip check does)."""
     args = make_parser().parse_args(argv)
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    if args.ckpt_dir and args.zero_opt and world > 1:
-        raise NotImplementedError(
-            "--ckpt-dir with --zero-opt under torchrun: each process holds "
-            "one rank's optimizer shard, and gathering them into one "
-            "checkpoint is not ported yet (ROADMAP Queue 1, item 1)")
     main_thread = threading.current_thread() is threading.main_thread()
     if args.sigterm_at and not main_thread:
         raise ValueError("--sigterm-at needs the main thread, where the "
@@ -388,6 +393,21 @@ def main(argv=None, on_step=None):
         torch.cuda.reset_peak_memory_stats(device)
 
     history, pending = [], []
+    # a ZeRO-1 process that holds fewer rows than the axis gathers every
+    # rank's to rank 0 on a save (a collective: every process saves)
+    transport = step_fn.transport
+    gather = (step_fn.zero_opt_active
+              and len(transport.ranks) < transport.axis_size)
+
+    def _save(at: int, wait: bool = False):
+        tree = state
+        if gather:
+            tree = dataclasses.replace(
+                state, opt_state=gather_rows(state.opt_state, transport))
+        if ckpt:
+            ckpt.save(at, tree, meta=data.state(at))
+            if wait:
+                ckpt.wait()
 
     def _drain():
         """One host sync for the whole pending window (the step loop never
@@ -433,9 +453,8 @@ def main(argv=None, on_step=None):
         while step < args.steps:
             sig = _signalled()
             if sig is not None:
-                if ckpt:
-                    ckpt.save(step, state, meta=data.state(step))
-                    ckpt.wait()
+                if args.ckpt_dir:
+                    _save(step, wait=True)
                 _drain()
                 if rank0:
                     print(f"PREEMPTED: signal {sig} (checkpointed at step "
@@ -503,8 +522,8 @@ def main(argv=None, on_step=None):
                     if not spiked:
                         loss_hist.extend(losses)
                         ring.append((step + 1, flatten_tree(state)))
-            if ckpt and (step + 1) % args.ckpt_every == 0:
-                ckpt.save(step + 1, state, meta=data.state(step + 1))
+            if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+                _save(step + 1)
             if args.fail_at and step + 1 >= args.fail_at:
                 raise RuntimeError(f"injected failure at step {step + 1}")
             if (args.sigterm_at and step + 1 >= args.sigterm_at
@@ -513,6 +532,11 @@ def main(argv=None, on_step=None):
                 # handler and the loop top take it from here
                 os.kill(os.getpid(), signal.SIGTERM)
             step += 1
+        if cuda:
+            torch.cuda.synchronize(device)
+        t_end = time.perf_counter()
+        if args.ckpt_dir:
+            _save(args.steps, wait=True)
     except (TimeoutError, RuntimeError) as e:
         # crash path: persist progress, then exit 17 (a FAILURE, unlike the
         # pre-emption's 0).  The step updates the state in place, so a step
@@ -521,9 +545,8 @@ def main(argv=None, on_step=None):
             note = "not checkpointed: the step died midway"
         else:
             note = f"checkpointed at step {state.step}"
-            if ckpt:
-                ckpt.save(state.step, state, meta=data.state(state.step))
-                ckpt.wait()
+            if args.ckpt_dir:
+                _save(state.step, wait=True)
         if rank0:
             print(f"ABORT: {e} ({note})", flush=True)
         raise SystemExit(17)
@@ -535,12 +558,6 @@ def main(argv=None, on_step=None):
         if world > 1:
             import torch.distributed as dist
             dist.destroy_process_group()
-    if cuda:
-        torch.cuda.synchronize(device)
-    t_end = time.perf_counter()
-    if ckpt:
-        ckpt.save(args.steps, state, meta=data.state(args.steps))
-        ckpt.wait()
     _drain()
     rest = args.steps - start - 1
     wire_kernels = ("dps_quant_wire", "dps_quant_wire_onchip_prng",

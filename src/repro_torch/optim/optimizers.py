@@ -28,8 +28,12 @@ Learning rates and bias corrections are computed on the host in float32
 from the step number the trainer already holds (the reference computes
 them on the device in float32): no step reads a device value.
 
-``update(..., keep=ok)`` gates every write with the health guards' skip
-gate (a bool device scalar): the old value is held where ``ok`` is False.
+``update(..., keep=ok)`` and ``update_shard(..., keep=ok)`` gate every
+write with the health guards' skip gate (a bool device scalar): the old
+value is held where ``ok`` is False.  ``update_shard(..., new_out=buf)``
+also writes the ungated new parameters into ``buf``: ZeRO-1's int8 params
+leg encodes them whatever the gate says, as the reference's encodes
+``pshard + upd`` before its select.
 
 ``state_dtype="bfloat16"`` keeps the state in bf16 with a stochastically
 rounded downcast on every update (Gupta et al.).
@@ -132,14 +136,18 @@ def _state_dtype(name: str) -> torch.dtype:
     return torch.bfloat16 if name == "bfloat16" else torch.float32
 
 
-def _write(dst: torch.Tensor, src: torch.Tensor, keep, add: bool = False):
+def _write(dst: torch.Tensor, src: torch.Tensor, keep, add: bool = False,
+           new_out=None):
     """``dst += src`` (``add``) or ``dst = src``, in place.  ``keep`` (a
     bool device scalar, the health guards' skip gate) selects the new value
     against the old one with ``torch.where`` (an exact select, no host
     sync): a held leaf keeps its bits, a kept one gets the ungated result
-    bit for bit, at the cost of one temporary the size of the leaf."""
+    bit for bit, at the cost of one temporary the size of the leaf —
+    ``new_out`` when given (with ``add``), which then holds the ungated
+    ``dst + src``."""
     if keep is not None:
-        torch.where(keep, dst + src if add else src, dst, out=dst)
+        new = torch.add(dst, src, out=new_out) if add else src
+        torch.where(keep, new, dst, out=dst)
     elif add:
         dst.add_(src)
     else:
@@ -193,7 +201,8 @@ class SGD:
         return {"mu": tree_lib.map_tree(
             lambda p: torch.zeros(p.shape, dtype=dt, device=p.device), params)}
 
-    def _leaf(self, lr: float, g, p, mu, seed: int, keep=None):
+    def _leaf(self, lr: float, g, p, mu, seed: int, keep=None,
+              new_out=None):
         """One leaf (or flat shard) in place; shared by :meth:`update` and
         :meth:`update_shard`."""
         cfg = self.cfg
@@ -202,7 +211,8 @@ class SGD:
         mu_new = mu.to(torch.float32) * cfg.momentum
         mu_new.add_(gf)                    # momentum·mu + gf
         del gf
-        _write(p, (mu_new * -lr).to(p.dtype), keep, add=True)
+        _write(p, (mu_new * -lr).to(p.dtype), keep, add=True,
+               new_out=new_out)
         _write(mu, _sr_cast(mu_new, _state_dtype(cfg.state_dtype), seed),
                keep)
 
@@ -229,13 +239,16 @@ class SGD:
             self.cfg.state_dtype), device=device)}
 
     def update_shard(self, grads, state, params, count: int, *,
-                     rank: int = 0, segment: int = 0, sq_norm=None):
+                     rank: int = 0, segment: int = 0, sq_norm=None,
+                     keep=None, new_out=None):
         """One step on a rank's flat slice, in place: ``params`` (a view
         into the flat parameters) and ``state`` (``{"mu": slice}``) are
         overwritten.  Same element-wise arithmetic as :meth:`update`.
         ``clip_norm`` needs ``sq_norm``, the squared global gradient norm
         (the psum of every owner's :func:`shard_sq_norm`).  ``segment``
-        tells apart the pieces of one rank's shard stepped one by one."""
+        tells apart the pieces of one rank's shard stepped one by one.
+        ``keep``: the skip gate (see :func:`_write`); ``new_out`` (with
+        ``keep``) receives the ungated new parameters."""
         cfg = self.cfg
         if cfg.clip_norm:
             if sq_norm is None:
@@ -243,7 +256,7 @@ class SGD:
             grads = _clip_by_norm_shard(grads, cfg.clip_norm, sq_norm)
         with torch.no_grad():
             self._leaf(self.sched(count), grads, params, state["mu"],
-                       _shard_seed(17, count, rank, segment))
+                       _shard_seed(17, count, rank, segment), keep, new_out)
         return params, state
 
 
@@ -265,7 +278,7 @@ class AdamW:
                 float(_f32(1.0) - _f32(cfg.b2) ** t))
 
     def _leaf(self, lr: float, bc1: float, bc2: float, g, p, m, v,
-              seeds, keep=None):
+              seeds, keep=None, new_out=None):
         """One leaf (or flat shard) in place; shared by :meth:`update` and
         :meth:`update_shard`."""
         cfg = self.cfg
@@ -275,7 +288,7 @@ class AdamW:
         v_new = cfg.b2 * v.to(torch.float32) + (1 - cfg.b2) * gf * gf
         step = m_new / bc1 / (torch.sqrt(v_new / bc2) + cfg.eps)
         step = step + cfg.weight_decay * p.to(torch.float32)
-        _write(p, (-lr * step).to(p.dtype), keep, add=True)
+        _write(p, (-lr * step).to(p.dtype), keep, add=True, new_out=new_out)
         _write(m, _sr_cast(m_new, dt, seeds[0]), keep)
         _write(v, _sr_cast(v_new, dt, seeds[1]), keep)
 
@@ -306,7 +319,8 @@ class AdamW:
                 "v": torch.zeros(shape, dtype=dt, device=device)}
 
     def update_shard(self, grads, state, params, count: int, *,
-                     rank: int = 0, segment: int = 0, sq_norm=None):
+                     rank: int = 0, segment: int = 0, sq_norm=None,
+                     keep=None, new_out=None):
         """One step on a rank's flat slice, in place (see
         :meth:`SGD.update_shard`); ``clip_norm`` (on by default) needs
         ``sq_norm``."""
@@ -320,7 +334,7 @@ class AdamW:
         with torch.no_grad():
             self._leaf(self.sched(count), bc1, bc2, grads, params,
                        state["m"], state["v"],
-                       (fold_seed(seed, 1), fold_seed(seed, 2)))
+                       (fold_seed(seed, 1), fold_seed(seed, 2)), keep, new_out)
         return params, state
 
 

@@ -311,6 +311,23 @@ def widen_on_trip(plan, dps: DpsBundle, trip_any,
                      for n in dps.names())
 
 
+def leaf_extrema(leaf: torch.Tensor):
+    """``[min, max]`` of one leaf in fp32 (None for an empty leaf): the
+    per-leaf half of :func:`nonfinite_any`, for a caller that drops each
+    gradient leaf once encoded (the overlapped wire's hooks)."""
+    if not leaf.numel():
+        return None
+    return torch.stack(torch.aminmax(leaf)).to(torch.float32)
+
+
+def nonfinite_of_extrema(extrema, device=None) -> torch.Tensor:
+    """:func:`nonfinite_any` from the leaves' :func:`leaf_extrema`."""
+    ext = [e for e in extrema if e is not None]
+    if not ext:
+        return torch.zeros((), dtype=torch.float32, device=device)
+    return (~torch.isfinite(torch.stack(ext)).all()).to(torch.float32)
+
+
 def nonfinite_any(tree) -> torch.Tensor:
     """f32 1.0 when a leaf of ``tree`` holds a NaN or an Inf, else 0.0 —
     what the guard reads of the reference's ``nonfinite_count`` (``> 0``).
@@ -320,12 +337,8 @@ def nonfinite_any(tree) -> torch.Tensor:
     counting with it cost ~160 ms of device time a step over 4 ranks.
     Rank-local: summed over the ranks it counts the ranks with a nonfinite
     gradient."""
-    leaves = [l for l in tree_lib.leaves(tree) if l.numel()]
-    if not leaves:
-        return torch.zeros((), dtype=torch.float32)
-    ext = torch.stack([torch.stack(torch.aminmax(l)).to(torch.float32)
-                       for l in leaves])
-    return (~torch.isfinite(ext).all()).to(torch.float32)
+    return nonfinite_of_extrema([leaf_extrema(l)
+                                 for l in tree_lib.leaves(tree)])
 
 
 def global_norm(tree) -> torch.Tensor:

@@ -45,19 +45,28 @@ class FaultPlan:
         return self.nan_grads_at >= 0 or self.overflow_storm_at >= 0
 
 
+def apply_leaf_faults(faults: Optional[FaultPlan], leaf, step: int):
+    """The scheduled gradient faults of ``step``, applied in place to one
+    raw gradient leaf: what :func:`apply_grad_faults` does to each leaf of a
+    tree, for a caller that has the gradients one leaf at a time (the
+    overlapped wire's backward hooks).  Returns ``leaf``."""
+    if faults is None:
+        return leaf
+    if step == faults.nan_grads_at:
+        leaf.fill_(float("nan"))
+    at = faults.overflow_storm_at
+    if at >= 0 and at <= step < at + faults.storm_steps:
+        leaf.mul_(faults.storm_scale)
+    return leaf
+
+
 def apply_grad_faults(faults: Optional[FaultPlan], grads, step: int):
     """The scheduled gradient faults of ``step``, applied in place to the
     raw local tree ``grads`` (right after the backward, before any stats or
-    wire encode).  Returns ``grads``."""
-    if faults is None:
-        return grads
-    if step == faults.nan_grads_at:
+    wire encode), leaf by leaf.  Returns ``grads``."""
+    if faults is not None:
         for g in tree_lib.leaves(grads):
-            g.fill_(float("nan"))
-    at = faults.overflow_storm_at
-    if at >= 0 and at <= step < at + faults.storm_steps:
-        for g in tree_lib.leaves(grads):
-            g.mul_(faults.storm_scale)
+            apply_leaf_faults(faults, g, step)
     return grads
 
 

@@ -837,6 +837,133 @@ def job_zero_mlp_train(a, steps, n, wire_overlap=False, bucket_elems=None):
     return out
 
 
+# one ⟨IL, FL⟩ = ⟨1, 7⟩ for the params leg, whatever the controller sees:
+# too narrow for weights of magnitude 1 and more (test_torch_resilience_zero)
+NARROW_WIRE_PARAMS = dict(il_min=1, il_max=1, fl_min=7, fl_max=7, il_init=1,
+                          fl_init=7, total_bits=8, max_total=8)
+GUARDED_ZERO_METRICS = ("loss", "il_w", "fl_w", "il_g", "fl_g",
+                        "il_wire_grads", "fl_wire_grads", "il_wire_params",
+                        "fl_wire_params", "E_wire", "R_wire", "health",
+                        "skipped", "trips", "degraded")
+
+
+def _mlp_zero_loss(params, batch, qctx=None):
+    import jax.numpy as jnp
+    h = jnp.tanh(batch["x"] @ params["w1"] + params["b1"])
+    return jnp.mean((h @ params["w2"] - batch["y"]) ** 2), {}
+
+
+def _guarded_zero_setup(a, n, model, layout, guards=True, faults=None,
+                        bucket_elems=None, narrow_params=False, cooldown=1):
+    """The reference's ZeRO-1 set-up of a guarded case (see
+    :func:`job_guarded_zero_train`): (step, state, batches, qcfg)."""
+    import dataclasses
+    import jax
+    import jax.numpy as jnp
+    from repro.core import qtrain
+    from repro.core.dps import DPSHyper
+    from repro.optim import SGDConfig, make_optimizer
+    from repro.resilience import FaultPlan, GuardConfig
+    if model == "mlp":
+        loss_fn = _mlp_zero_loss
+        params = jax.tree.map(jnp.asarray, unflatten(a, "params/"))
+        batch = {k: jnp.asarray(a[k]) for k in ("x", "y")}
+        batch_at = lambda i: batch
+        opt = make_optimizer(SGDConfig(lr=0.05, schedule="const"))
+    else:
+        from repro.data import TokenStream, TokenStreamConfig
+        from repro.models import registry
+        from repro.models.common import init_params
+        cfg = dataclasses.replace(_smoke_cfg(), remat="full")
+        mod = registry(cfg.family)
+        loss_fn = mod.loss_fn(cfg)
+        params = init_params(jax.random.key(0), mod.model_defs(cfg))
+        data = TokenStream(TokenStreamConfig(vocab=cfg.vocab, seq_len=8,
+                                             global_batch=2 * n, seed=0))
+        batch_at = data.batch
+        opt = make_optimizer(SGDConfig())
+    kw = dict(rounding="nearest", grad_allreduce_bits=8, zero_opt_shards=n)
+    if guards:
+        kw["guards"] = GuardConfig(cooldown=cooldown)
+    if layout == "overlap":
+        kw.update(wire_overlap=True, wire_bucket_elems=bucket_elems)
+    if narrow_params:
+        kw["hyper_wire_params"] = DPSHyper(**NARROW_WIRE_PARAMS)
+    qcfg = qtrain.QuantConfig(**kw)
+    if layout != "plain":
+        qcfg = qcfg.with_per_layer_wire(params)
+    mesh = _data_mesh(n, auto=True)
+    step = qtrain.make_train_step(
+        loss_fn, opt, qcfg, mesh=mesh,
+        faults=FaultPlan(**faults) if faults else None)
+    assert step.zero_opt_active
+    assert step.zero_groupaligned_active == (layout != "plain")
+    state = qtrain.TrainState.create(
+        params, qtrain.zero_opt_state(opt, params, n, qcfg=qcfg), qcfg,
+        jax.random.key(1))
+    return jax.jit(step), state, batch_at, qcfg, params
+
+
+def job_guarded_zero_train(a, steps, n, model, layout, faults=None,
+                           bucket_elems=None, narrow_params=False,
+                           guards=True):
+    """ZeRO-1 with the health guards (``GuardConfig(cooldown=1)``) on ``n``
+    forced CPU devices, nearest rounding, ``steps`` SGD steps: ``model``
+    "mlp" (:func:`job_zero_mlp_train`'s, every leaf quantized, parameters
+    and batch from the inputs) or "lm" (the smoke LM from
+    ``init_params(key(0))`` on the token stream, batch ``2n`` x 8);
+    ``layout`` "plain" (one global wire format), "aligned" (per-layer
+    formats) or "overlap" (per-layer, the overlapped wire of
+    ``bucket_elems``); ``faults``: ``FaultPlan`` fields; ``narrow_params``:
+    the params leg pinned to ⟨1, 7⟩.  Returns each step's metrics and
+    ``degraded`` vector, the initial and final parameters, the final flat
+    optimizer state and guard state."""
+    from repro.core import qtrain
+    step, state, batch_at, qcfg, params = _guarded_zero_setup(
+        a, n, model, layout, guards=guards, faults=faults,
+        bucket_elems=bucket_elems, narrow_params=narrow_params)
+    out = flatten(_np_params(params), "params/")
+    names = [k for k in GUARDED_ZERO_METRICS
+             if guards or k not in ("health", "skipped", "trips", "degraded")]
+    hist = {k: [] for k in names}
+    deg = []
+    for i in range(steps):
+        state, m = step(state, batch_at(i))
+        for k in names:
+            hist[k].append(float(m[k]))
+        if guards:
+            deg.append(np.asarray(state.guard.degraded))
+    out.update({f"hist/{k}": np.asarray(v, np.float64)
+                for k, v in hist.items()})
+    if guards:
+        out["degraded_vec"] = np.stack(deg)
+        for f in ("health", "trips", "skipped", "degraded", "cooldown",
+                  "overflow_ewma", "gnorm_ewma"):
+            out[f"guard/{f}"] = np.asarray(getattr(state.guard, f))
+    out.update(flatten(_np_params(state.params), "final/"))
+    out["opt/mu"] = np.asarray(state.opt_state["mu"])
+    part = qtrain.zero_partitioner(qcfg, params, n)
+    out["padded_size"] = np.asarray(part.padded_size)
+    return out
+
+
+def job_zero_restore_step(a, root, at, n):
+    """The fully quantized MLP's ZeRO-1 set-up (per-layer formats, no
+    guards): restore the checkpoint ``root``/step ``at`` into the fresh
+    state through the reference's ``ckpt.restore``, take one step; returns
+    its metrics, the parameters and the flat optimizer state after it."""
+    from repro.checkpoint import restore
+    step, state, batch_at, _, _ = _guarded_zero_setup(
+        a, n, "mlp", "aligned", guards=False)
+    state, _ = restore(root, at, state)
+    state, m = step(state, batch_at(0))
+    out = {f"next/{k}": np.asarray(float(m[k]), np.float64)
+           for k in GUARDED_ZERO_METRICS[:11]}
+    out.update(flatten(_np_params(state.params), "final/"))
+    out["opt/mu"] = np.asarray(state.opt_state["mu"])
+    return out
+
+
 def _ckpt_setup(case):
     """The reference's smoke llama3.2-3b training set-up of a checkpoint
     case: ``opt`` ("sgd"/"adamw"), ``n`` data ranks over the int8 wire with

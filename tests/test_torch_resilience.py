@@ -20,8 +20,10 @@ Each row of the reference's failure-mode matrix that the port arms
   with a real signal; the rollback ring; ``--fail-at`` and the watchdog
   exit 17 with a checkpoint.
 * Over gloo, 2 processes: a NaN on one rank skips and degrades both.
-* What the port leaves out raises: guards or faults with ZeRO-1 or the
-  overlapped wire, a wire flip outside the monolithic wire.
+* Guards or faults with ZeRO-1 or the overlapped wire build and run
+  (``tests/test_torch_resilience_zero.py`` holds them against the
+  reference); a wire flip outside the monolithic wire raises, as in the
+  reference.
 """
 
 import math
@@ -505,14 +507,34 @@ def _mlp_loss(params, batch, qctx=None):
 @pytest.mark.parametrize("kw,faults", [
     (dict(zero_opt_shards=2, guards=GuardConfig()), None),
     (dict(wire_overlap=True, guards=GuardConfig()), None),
-    (dict(zero_opt_shards=2), FaultPlan(nan_grads_at=1)),
-    (dict(wire_overlap=True), FaultPlan(overflow_storm_at=1)),
+    (dict(zero_opt_shards=2), FaultPlan(nan_grads_at=0)),
+    (dict(wire_overlap=True), FaultPlan(overflow_storm_at=0)),
 ])
 def test_guards_and_faults_with_zero_or_overlap_raise(kw, faults):
+    """Guards or a fault plan with ZeRO-1 or the overlapped wire: the step
+    builds and runs one step (no longer a combination that raises); the
+    fault fires on that step and reaches the wire's statistics."""
+    rng = np.random.default_rng(0)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    params = {"w1": f(6, 5) * 0.5, "w2": f(5, 3) * 0.5}
+    batch = {"x": f(4, 6), "y": f(4, 3)}
     qcfg = qtrain.QuantConfig(grad_allreduce_bits=8, **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 1"):
-        qtrain.make_train_step(_mlp_loss, make_optimizer(SGDConfig()), qcfg,
-                               transport=StackedTransport(2), faults=faults)
+    opt = make_optimizer(SGDConfig())
+    tr = StackedTransport(2)
+    step = qtrain.make_train_step(_mlp_loss, opt, qcfg, transport=tr,
+                                  faults=faults)
+    assert step.zero_opt_active == ("zero_opt_shards" in kw)
+    assert step.wire_overlap_active == ("wire_overlap" in kw)
+    opt_state = (qtrain.zero_opt_state(opt, params, tr, qcfg)
+                 if step.zero_opt_active else opt.init(params))
+    state = qtrain.TrainState.create(params, opt_state, qcfg, 1)
+    state, m = step(state, batch)
+    assert state.step == 1 and np.isfinite(float(m["loss"]))
+    if faults is None:
+        assert int(m["health"]) == 0
+    else:
+        # NaN and 2^18-scaled gradients overflow the int8 wire
+        assert float(m["R_wire"]) > 0.5
 
 
 @pytest.mark.parametrize("kw,n", [(dict(), 2), (dict(grad_allreduce_bits=8), 1),

@@ -678,13 +678,19 @@ def test_zero_needs_a_shard_interface_and_guards_still_raise():
     with pytest.raises(TypeError, match="update_shard"):
         qtrain.make_train_step(_mlp_loss, NoShard(), qtrain.QuantConfig(
             zero_opt_shards=2), transport=StackedTransport(2))
-    # the health guards are armed on the replicated and the monolithic
-    # wire step only; ZeRO-1 still raises
-    with pytest.raises(NotImplementedError, match="guards"):
-        qtrain.make_train_step(_mlp_loss, make_optimizer(SGDConfig()),
-                               qtrain.QuantConfig(zero_opt_shards=2,
-                                                  guards=GuardConfig()),
-                               transport=StackedTransport(2))
+    # the health guards are armed on ZeRO-1 too: the guarded step builds
+    # and runs (tests/test_torch_resilience_zero.py holds it against the
+    # reference)
+    params, batch = _mlp_inputs()
+    opt = make_optimizer(SGDConfig())
+    qcfg = qtrain.QuantConfig(zero_opt_shards=2, guards=GuardConfig())
+    tr = StackedTransport(2)
+    step = qtrain.make_train_step(_mlp_loss, opt, qcfg, transport=tr)
+    assert step.zero_opt_active and step.guards_active
+    state = qtrain.TrainState.create(
+        params, qtrain.zero_opt_state(opt, params, tr, qcfg), qcfg, 3)
+    state, m = step(state, batch)
+    assert np.isfinite(float(m["loss"])) and int(m["health"]) == 0
 
 
 def test_policy_excluded_leaves_keep_the_params_leg_in_fp32():
