@@ -27,7 +27,11 @@ JSON line; any failure raises and the process exits non-zero:
              and at the shapes the serving path gives them, K5 also at a long
              context (8 rows of 4,096 tokens), int8 and fp32 pools, to
              ``ATTN_TOL``, rows of length 0 exactly 0, two launches
-             bit-equal; then each kernel's median time over repeated
+             bit-equal.  The same at the head geometries and page quanta of
+             the other dense configs: K5 at G=12 with Dh=192 (int8 and fp32
+             pools) and Dh=128, and G=1 with Dh=256, each at its own split
+             edges; K3 at quanta of 24,576 and 65,536; then K3 and K5 at
+             each config's serving shape.  Then each kernel's median time over repeated
              launches (CUDA events, after warm-up, the L2 cache flushed
              before every launch; K5 replayed from a CUDA graph, so that its
              tens of microseconds are not timed behind the Python wrapper)
@@ -41,7 +45,10 @@ JSON line; any failure raises and the process exits non-zero:
              launch) and a residual tap (2x512x3072 bf16); K1 one layer of
              ``w_in`` (3072x8192 fp32: with a bits operand the leaf is
              quantized layer by layer) and LeNet's ``fc1_w`` and first tap.
-             K1's row is timed at the layer, K1b's at the leaf.  q bit-equal
+             K1's row is timed at the layer, K1b's at the leaf; K1b also on
+             gemma-7b's w_in leaf at 8 layers (8x3072x24576) and
+             mistral-large-123b's untied ``unembed`` (12288x32768), the
+             leaves of phase 7's other configs.  q bit-equal
              to the plain version; count,
              nonzero, overflow and max_abs exact; float sums to ``SUM_RTOL``;
              K1b bit-equal to K1 fed the plain Philox stream; two launches
@@ -54,7 +61,13 @@ JSON line; any failure raises and the process exits non-zero:
              exactly its ``max_new`` tokens, the launch counters must show
              both kernels on the path, a second run must repeat the first,
              and the engine built on the plain versions must give the same
-             prompt pages and first-step logits within ``LOGIT_TOL``.
+             prompt pages and first-step logits within ``LOGIT_TOL``.  Then
+             the same for the other dense configs at full width (random
+             weights from seed 0): gemma-7b whole (28 layers, G=1, Dh=256),
+             mistral-large-123b at 8 of its 88 layers and nemotron-4-340b at
+             2 of its 96 (G=12, Dh=128 and 192; untied ``unembed``), the
+             unembedding timed with its fp32 table cast per call and against
+             the one the engine holds (logits bit-equal).
 6. lenet   — the paper's app: 20 steps of ``train_mnist`` under the paper's
              controller with stochastic rounding from a bits operand (K1 on
              every quantization event); then 3 steps under nearest and 3
@@ -66,7 +79,12 @@ JSON line; any failure raises and the process exits non-zero:
              weights, bf16 compute, full remat), every quantization event on
              K1b: finite losses, <IL, FL> chosen on the device, 80 quantizer
              launches a step.  Then 3 steps with ``--rounding-bits operand``,
-             every event on K1: 647 launches a step.
+             every event on K1: 647 launches a step.  Then gemma-7b (8 of 28
+             layers, ``--batch 2``, accumulation 2) and mistral-large-123b (1
+             of 88 layers, ``--batch 4``, accumulation 4) at full width, 4
+             steps each on K1b, through ``launch.train.main(cfg=...)``; every
+             count a step derived from ``model_defs``: 3 x the quantized
+             leaves + 2 taps a layer for each microbatch.
 8. wire    — the int8 wire of data-parallel training.  The wire quantizer
              K2/K2b (sizes, bf16, unaligned pointers and Philox offsets,
              saturating formats, statistics on and off, a slot of a larger
@@ -183,7 +201,9 @@ Phases 10-14 run right after phase 8's counted wire run, before its
 The line before the last two carries the kernels (launches on their path —
 K1's from the LM run with a bits operand, LeNet's beside them; K2b's, K3b's
 and K4's from the wire run; K2's from the wire run with a bits operand; K5's
-from the serving run, on its serving-shape row, and 0 on the row that times
+from the serving run, on its serving-shape row (a row of another config's
+shape, ``<kernel>_<config>``, names the run it counts, ``serve_<config>`` or
+``train_<config>``), and 0 on the row that times
 the same kernel at 8 x 4,096 tokens, a shape no path here runs (that row says
 ``"on_path": false``); a row launched by the zero phase adds
 ``launches_lenet_zero`` and ``launches_zero`` (and ``launches_zero_overlap``
@@ -226,7 +246,7 @@ from kernel_ab import time_graph_ms, time_ms                         # noqa: E40
 from repro_torch.configs.base import get_config                      # noqa: E402
 from repro_torch.kernels import _build, dps_quant, paged_attn        # noqa: E402
 from repro_torch.models import registry                              # noqa: E402
-from repro_torch.models.common import init_params                    # noqa: E402
+from repro_torch.models.common import init_params, unembed           # noqa: E402
 from repro_torch.serve import (Engine, EngineConfig, PagedLayout,    # noqa: E402
                                cache as kvc, synthetic_trace)
 
@@ -243,7 +263,10 @@ SUM_RTOL = 2e-6      # float statistics; thousands of fp32 terms, other order
 # attention outputs differ by <= 1e-5 in fp32, but each layer casts them to
 # bf16 (8 bits of mantissa): a difference that small can still tip a
 # rounding by one bf16 step (2^-8 relative), and 28 layers carry it on to
-# logits of magnitude ~1.  Measured on an H100: 0.062.
+# logits of magnitude ~1.  Measured on an H100: 0.062.  The other dense
+# configs are held to the same tolerance, their logits of the same
+# magnitude (|max| 4-5): gemma-7b 0.059, mistral-large-123b (8 layers) 0.038,
+# nemotron-4-340b (2 layers) 0.021.
 LOGIT_TOL = 0.25
 # LeNet under nearest rounding, kernel quantizer vs plain: the grid values are
 # bit-equal, so the two runs differ only where the statistics' float sums
@@ -256,6 +279,27 @@ TORCH_SUM_NOTE = ("torch.sum(view, dim=0, dtype=torch.float32): same "
 SERVE = dict(page_size=16, slots=8, max_prompt=512, max_new=64,
              requests=16, prompt_lens=(64, 512), new_tokens=(16, 64),
              mean_gap=0.5, seed=0)
+
+
+# The other dense configs, at full width: (config module, layers served;
+# None = every layer).  gemma-7b serves whole (17.1 GB of bf16 weights);
+# mistral-large-123b and nemotron-4-340b are cut in depth only, to what one
+# 80 GB card holds beside the fp32 unembedding the engine keeps (23.8 + 1.6
+# GB and 32.7 + 18.9 GB).
+OTHER_SERVE = (("gemma_7b", None), ("mistral_large_123b", 8),
+               ("nemotron_4_340b", 2))
+# trained at full width, cut in depth, under each config's own gradient
+# accumulation: (config module, layers, --batch, the leaf K1b is timed on).
+# nemotron-4-340b does not train on one card even at one layer (12.9 B
+# parameters).
+OTHER_TRAIN = (("gemma_7b", 8, 2, ("layers", "mlp", "w_in")),
+               ("mistral_large_123b", 1, 4, ("embed", "unembed")))
+
+
+def depth_cut(model, layers=None):
+    """``model``'s config at full width, cut to ``layers`` layers."""
+    cfg = get_config(model)
+    return cfg if layers is None else dataclasses.replace(cfg, n_layers=layers)
 
 
 def say(phase, **kw):
@@ -395,6 +439,93 @@ def attn_bytes_ops(B, H, KV, Dh, ps, P, lens):
     return nbytes, 4 * tokens * H * Dh
 
 
+def _attn_call(inp, backend):
+    args = (inp["q"], inp["k_pages"], inp["v_pages"], inp["fmt"], inp["ptab"],
+            inp["lens"])
+    return lambda: paged_attn.paged_decode_attn(*args, scale=inp["scale"],
+                                                backend=backend)
+
+
+def _split_edge_case(KV, G, Dh, int8, ps=16):
+    """A small K5 case at head geometry (G, Dh): rows of 2 splits, of
+    exactly one, one token either side of it, and an empty row, where a
+    split is what ``split_plan`` gives this pool (128 tokens of an int8
+    pool at Dh <= 192, 96 at Dh = 256; fewer in an fp32 pool)."""
+    sp = paged_attn.split_plan(1, ps, 1, KV, G, Dh, 1 if int8 else 4)[0]
+    S = sp * ps
+    lens = [2 * S, S, S - 1, S + 1, 0]
+    return (len(lens), 2 * sp + 1, ps, KV, G, Dh, lens, int8)
+
+
+def serve_shape_rows(rng, cfg, lay, model=None):
+    """K3 and K5 at the shapes ``cfg``'s serving path gives them, each held
+    against its plain version and timed beside it and its bound: the page
+    encoder on one admission's 2·L·(prompt pages) tiles of 16·KV·Dh, the
+    decode attention on the serving batch (int8 pool, and an fp32 pool of
+    the same shape checked).  ``model``: the config's module name, for the
+    rows of a model other than the first; those rows take the name
+    ``<kernel>_<model>`` and their launches from ``serve_<model>``'s run."""
+    L, KV, Dh, H = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
+    E = lay.page_size * KV * Dh
+    T = 2 * L * lay.prompt_pages
+    enc = encode_inputs(rng, T, E, T)
+    # as write_prompt_pages calls it: nearest, masked, no statistics
+    enc_err, _ = check_encode(enc, stochastic=False, masked=True, emit_stats=False)
+    # and with everything on, at the same size
+    _, enc_rel = check_encode(enc, stochastic=True, masked=True, emit_stats=True)
+    n = T * E
+    enc_bytes = 4 * n + 4 * n + n + 4 * T + 8 * T     # x, mask, wire, map, table
+    enc_ops = 12 * n                                   # scale, 3 clips, round, mask...
+    enc_args = (enc["x"], enc["fmt_tab"], enc["tile_group"], None, enc["mask"])
+    enc_kw = dict(quantum=E, emit_stats=False)
+    enc_ms = time_ms(lambda: dps_quant.dps_quant_group_wire(
+        *enc_args, backend="kernel", **enc_kw), repeats=20)
+    enc_plain_ms = time_ms(lambda: dps_quant.dps_quant_group_wire(
+        *enc_args, backend="plain", **enc_kw), repeats=5, warmup=1)
+    del enc, enc_args
+
+    B, P = lay.batch_slots, lay.max_pages_per_seq
+    G = H // KV
+    # decode lengths as the trace produces them: prompts of 64-512 tokens
+    # plus up to 64 generated, one idle slot
+    lens = [577, 512, 300, 129, 64, 65, 1, 0]
+    att = attn_inputs(rng, B, P, lay.page_size, KV, G, Dh, lens, True)
+    att_err = check_attn(att)
+    att32 = attn_inputs(rng, B, P, lay.page_size, KV, G, Dh, lens, False)
+    att_err = max(att_err, check_attn(att32))
+    del att32
+    att_ms = time_graph_ms(_attn_call(att, "kernel"), repeats=100)
+    att_plain_ms = time_ms(_attn_call(att, "plain"), repeats=5, warmup=1)
+    att_bytes, att_ops = attn_bytes_ops(B, H, KV, Dh, lay.page_size, P, lens)
+    enc_bound, enc_by = bound(enc_bytes, enc_ops)
+    att_bound, att_by = bound(att_bytes, att_ops)
+    rows = [
+        {"name": "dps_group_wire_encode", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/dps_quant.cu",
+         "replaces": "src/repro/kernels/dps_quant.py:482",
+         "shape": f"T={T} tiles x quantum={E} fp32, nearest, masked, no stats",
+         "max_abs_err": enc_err, "stats_max_rel_err": enc_rel,
+         "ms": enc_ms, "plain_ms": enc_plain_ms, "bound_ms": enc_bound,
+         "bound_by": enc_by, "bytes": enc_bytes, "library_ms": None},
+        {"name": "paged_decode_attn", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
+         "replaces": "src/repro/kernels/paged_attn.py:157",
+         "shape": f"B={B} H={H} KV={KV} Dh={Dh} page={lay.page_size} P={P} "
+                  f"int8, lens={lens}",
+         "max_abs_err": att_err, "ms": att_ms, "plain_ms": att_plain_ms,
+         "bound_ms": att_bound, "bound_by": att_by, "bytes": att_bytes,
+         "library_ms": None,
+         "split_tokens": paged_attn.split_plan(
+             P, lay.page_size, B, KV, G, Dh)[0] * lay.page_size,
+         "timing": "CUDA graph replay, L2 flushed"},
+    ]
+    if model is not None:
+        for r in rows:
+            r.update(name=f"{r['name']}_{model}", counter=r["name"],
+                     run=f"serve_{model}", model=cfg.name, layers=L)
+    return rows
+
+
 def kernel_checks(cfg, lay):
     rng = np.random.default_rng(0)
     small = []
@@ -404,7 +535,11 @@ def kernel_checks(cfg, lay):
                                           (11, 1, 2, torch.float32),
                                           (5, 4096, 3, torch.float32),
                                           (7, 1024, 3, torch.bfloat16),
-                                          (4, 30, 2, torch.bfloat16)):
+                                          (4, 30, 2, torch.bfloat16),
+                                          # the page quanta of nemotron-4
+                                          # (16·8·192) and gemma (16·16·256)
+                                          (3, 24576, 2, torch.float32),
+                                          (3, 65536, 2, torch.float32)):
         inp = encode_inputs(rng, tiles, quantum, groups, dtype)
         for stochastic in (False, True):
             for masked in (False, True):
@@ -428,92 +563,47 @@ def kernel_checks(cfg, lay):
             (3, 16, 16, 2, 3, 128, [256, 255, 129], True),
             (5, 40, 16, 8, 3, 128, [640, 639, 1, 0, 385], True),
             (2, 9, 5, 2, 5, 20, [45, 26], False),
-            (3, 30, 4, 2, 4, 64, [120, 128, 64], True)):
+            (3, 30, 4, 2, 4, 64, [120, 128, 64], True),
+            # the head geometries of the other dense configs, at their
+            # split edges: nemotron-4 (G=12, Dh=192: 12 chunks a row, K
+            # staged unswizzled, value slices of 48 lanes), mistral-large
+            # (G=12, Dh=128: three passes of four heads), gemma (G=1,
+            # Dh=256: a 96-token split)
+            _split_edge_case(2, 12, 192, True),
+            _split_edge_case(2, 12, 192, False),
+            _split_edge_case(2, 12, 128, True),
+            _split_edge_case(2, 1, 256, True),
+            _split_edge_case(2, 1, 256, False)):
         attn_err_small = max(attn_err_small, check_attn(
             attn_inputs(rng, B, P, ps, KV, G, Dh, lens, int8)))
         small.append(f"attn B={B} P={P} ps={ps} KV={KV} G={G} Dh={Dh} int8={int8} "
                      f"lens={lens}")
 
     # --- the serving path's shapes ---
-    L, KV, Dh, H = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
-    E = lay.page_size * KV * Dh
-    T = 2 * L * lay.prompt_pages
-    enc = encode_inputs(rng, T, E, T)
-    # as write_prompt_pages calls it: nearest, masked, no statistics
-    enc_err, _ = check_encode(enc, stochastic=False, masked=True, emit_stats=False)
-    # and with everything on, at the same size
-    _, enc_rel = check_encode(enc, stochastic=True, masked=True, emit_stats=True)
-    n = T * E
-    enc_bytes = 4 * n + 4 * n + n + 4 * T + 8 * T     # x, mask, wire, map, table
-    enc_ops = 12 * n                                   # scale, 3 clips, round, mask...
-    enc_args = (enc["x"], enc["fmt_tab"], enc["tile_group"], None, enc["mask"])
-    enc_kw = dict(quantum=E, emit_stats=False)
-    enc_ms = time_ms(lambda: dps_quant.dps_quant_group_wire(
-        *enc_args, backend="kernel", **enc_kw), repeats=20)
-    enc_plain_ms = time_ms(lambda: dps_quant.dps_quant_group_wire(
-        *enc_args, backend="plain", **enc_kw), repeats=5, warmup=1)
-
-    B, P = lay.batch_slots, lay.max_pages_per_seq
-    G = H // KV
-    # decode lengths as the trace produces them: prompts of 64-512 tokens
-    # plus up to 64 generated, one idle slot
-    lens = [577, 512, 300, 129, 64, 65, 1, 0]
-    att = attn_inputs(rng, B, P, lay.page_size, KV, G, Dh, lens, True)
-    att_err = check_attn(att)
-    att32 = attn_inputs(rng, B, P, lay.page_size, KV, G, Dh, lens, False)
-    att_err = max(att_err, check_attn(att32))
-    del att32
+    rows = serve_shape_rows(rng, cfg, lay)
+    B, ps = lay.batch_slots, lay.page_size
+    KV, Dh, H = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
     # a long context: 8 rows of 4,096 tokens (67.1 MB of int8 K and V)
-    lp, long_lens = 4096 // lay.page_size, [4096] * B
-    lng = attn_inputs(rng, B, lp, lay.page_size, KV, G, Dh, long_lens, True)
+    lp, long_lens = 4096 // ps, [4096] * B
+    lng = attn_inputs(rng, B, lp, ps, KV, H // KV, Dh, long_lens, True)
     lng_err = check_attn(lng)
-    lng32 = attn_inputs(rng, B, lp, lay.page_size, KV, G, Dh, long_lens, False)
+    lng32 = attn_inputs(rng, B, lp, ps, KV, H // KV, Dh, long_lens, False)
     lng_err = max(lng_err, check_attn(lng32))
     del lng32
     gc.collect()
     torch.cuda.empty_cache()
-
-    def attn_call(inp, backend):
-        args = (inp["q"], inp["k_pages"], inp["v_pages"], inp["fmt"], inp["ptab"],
-                inp["lens"])
-        return lambda: paged_attn.paged_decode_attn(*args, scale=inp["scale"],
-                                                    backend=backend)
-
-    att_ms = time_graph_ms(attn_call(att, "kernel"), repeats=100)
-    att_plain_ms = time_ms(attn_call(att, "plain"), repeats=5, warmup=1)
-    lng_ms = time_graph_ms(attn_call(lng, "kernel"), repeats=100)
-    lng_plain_ms = time_ms(attn_call(lng, "plain"), repeats=3, warmup=1)
-    att_bytes, att_ops = attn_bytes_ops(B, H, KV, Dh, lay.page_size, P, lens)
-    lng_bytes, lng_ops = attn_bytes_ops(B, H, KV, Dh, lay.page_size, lp, long_lens)
+    lng_ms = time_graph_ms(_attn_call(lng, "kernel"), repeats=100)
+    lng_plain_ms = time_ms(_attn_call(lng, "plain"), repeats=3, warmup=1)
+    lng_bytes, lng_ops = attn_bytes_ops(B, H, KV, Dh, ps, lp, long_lens)
     del lng
     gc.collect()
     torch.cuda.empty_cache()
-
-    enc_bound, enc_by = bound(enc_bytes, enc_ops)
-    att_bound, att_by = bound(att_bytes, att_ops)
     lng_bound, lng_by = bound(lng_bytes, lng_ops)
-    rows = [
-        {"name": "dps_group_wire_encode", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/dps_quant.cu",
-         "replaces": "src/repro/kernels/dps_quant.py:482",
-         "shape": f"T={T} tiles x quantum={E} fp32, nearest, masked, no stats",
-         "max_abs_err": enc_err, "stats_max_rel_err": enc_rel,
-         "ms": enc_ms, "plain_ms": enc_plain_ms, "bound_ms": enc_bound,
-         "bound_by": enc_by, "bytes": enc_bytes, "library_ms": None},
-        {"name": "paged_decode_attn", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
-         "replaces": "src/repro/kernels/paged_attn.py:157",
-         "shape": f"B={B} H={H} KV={KV} Dh={Dh} page={lay.page_size} P={P} "
-                  f"int8, lens={lens}",
-         "max_abs_err": att_err, "ms": att_ms, "plain_ms": att_plain_ms,
-         "bound_ms": att_bound, "bound_by": att_by, "bytes": att_bytes,
-         "library_ms": None,
-         "split_tokens": paged_attn.SPLIT_TOKENS,
-         "timing": "CUDA graph replay, L2 flushed"},
+    rows.append(
         {"name": "paged_decode_attn_long_context", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
          "replaces": "src/repro/kernels/paged_attn.py:157",
-         "shape": f"B={B} H={H} KV={KV} Dh={Dh} page={lay.page_size} P={lp} "
+         "shape": f"B={B} H={H} KV={KV} Dh={Dh} page={ps} P={lp} "
                   f"int8, lens={long_lens[0]} x {B} (the serving path's kernel "
                   "at a long context, which no path of this script runs)",
          "on_path": False,
@@ -521,8 +611,12 @@ def kernel_checks(cfg, lay):
          "bound_ms": lng_bound, "bound_by": lng_by, "bytes": lng_bytes,
          "library_ms": None,
          "split_tokens": paged_attn.SPLIT_TOKENS,
-         "timing": "CUDA graph replay, L2 flushed"},
-    ]
+         "timing": "CUDA graph replay, L2 flushed"})
+    # the other dense configs' serving shapes (the same layout and lengths)
+    for model, layers in OTHER_SERVE:
+        rows += serve_shape_rows(rng, depth_cut(model, layers), lay, model)
+    gc.collect()
+    torch.cuda.empty_cache()
     say("checks", small_shapes=small, attn_max_abs_err_small=attn_err_small,
         attn_split_tokens=paged_attn.SPLIT_TOKENS,
         attn_two_launches_bit_equal=True, attn_empty_rows_exactly_0=True,
@@ -765,13 +859,55 @@ def quant_checks(cfg):
     return rows
 
 
+def train_shape_rows():
+    """K1b on one leaf of each config of ``OTHER_TRAIN`` at the depth it
+    trains at (one launch per leaf on its path), drawn like
+    ``init_params``' normal init: q bit-equal to the plain version and to K1
+    fed the same Philox words, timed like the w_in row.  Their launches are
+    the training run's (``train_<model>``)."""
+    rows = []
+    for model, layers, _, leaf in OTHER_TRAIN:
+        cfg = depth_cut(model, layers)
+        node = registry(cfg.family).model_defs(cfg)
+        for k in leaf:
+            node = node[k]
+        shape = node.shape
+        n = math.prod(shape)
+        g = torch.Generator(device=DEV).manual_seed(8)
+        x = torch.randn(n, generator=g, device=DEV) * shape[-2] ** -0.5
+        x[::11] = 0.0
+        il, fl = 2, 14
+        err, rel = check_quant(x, il, fl, dps_quant.Philox(5))
+        check_prng_equals_bits(x, il, fl, seed=5)
+        row = quant_row(
+            f"dps_quantize_onchip_prng_{model}",
+            f"{cfg.name} {'/'.join(leaf)} leaf {'x'.join(map(str, shape))} = "
+            f"{n} fp32 ({layers} of {get_config(model).n_layers} layers), "
+            "Philox bits in the kernel, statistics on",
+            x, il, fl, dps_quant.Philox(5), err, rel, 8 * n + 8 + 28, 49 * n)
+        row.update(counter="dps_quantize_onchip_prng", run=f"train_{model}",
+                   model=cfg.name, layers=layers)
+        rows.append(row)
+        del x
+        gc.collect()
+        torch.cuda.empty_cache()
+    say("quantize_other_configs",
+        main_path=[{k: r[k] for k in ("name", "shape", "max_abs_err",
+                                      "stats_max_rel_err", "ms", "ms_no_stats",
+                                      "plain_ms", "bound_ms", "bound_by")}
+                   for r in rows])
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # the serving path
 # ---------------------------------------------------------------------------
 
 def compare_with_plain(cfg, params, lay, req):
     """Kernel engine vs plain engine on the card, one request: prompt pages
-    byte-equal, controller rows equal, first decode step's logits close."""
+    byte-equal, controller rows equal, first decode step's logits close.
+    ``params`` is the serving engine's (its fp32 unembedding table already
+    held, so neither engine casts another)."""
     out = {}
     for name in ("kernel", "plain"):
         eng = Engine(cfg, params, EngineConfig(
@@ -819,16 +955,63 @@ def compare_with_plain(cfg, params, lay, req):
     return err, float(pl.abs().max()), int(kl.argmax()) == int(pl.argmax())
 
 
-def serve(cfg, lay):
+def _decode_hidden(cfg):
+    """A decode step's final hidden states, (slots, 1, d) bf16."""
+    g = torch.Generator(device=DEV).manual_seed(3)
+    return torch.randn(SERVE["slots"], 1, cfg.d_model, device=DEV,
+                       generator=g).to(torch.bfloat16)
+
+
+def per_call_cast(cfg, embed):
+    """The decode step's unembedding with the fp32 table cast per call
+    (``embed``: the bf16 parameters alone): its logits, ms by CUDA events,
+    and the bytes the cast adds to the peak.  Run before the engine holds
+    its cast, so that the two fp32 tables are never on the card at once."""
+    x = _decode_hidden(cfg)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    logits = unembed(x, embed, cfg.vocab)
+    torch.cuda.synchronize()
+    adds = torch.cuda.max_memory_allocated() - base - logits.numel() * 4
+    ms = time_ms(lambda: unembed(x, embed, cfg.vocab), repeats=5, warmup=1)
+    return logits, {"per_call_cast_ms": ms, "per_call_cast_adds_bytes": adds}
+
+
+def held_cast(cfg, held, logits):
+    """The same against the table the engine holds: bit-equal logits, ms."""
+    x = _decode_hidden(cfg)
+    if not torch.equal(unembed(x, held, cfg.vocab), logits):
+        raise AssertionError("unembed against the held fp32 table differs "
+                             "from unembed with the per-call cast")
+    return {"held_ms": time_ms(lambda: unembed(x, held, cfg.vocab),
+                               repeats=20), "bit_equal": True}
+
+
+def serve(cfg, lay, model=None):
+    """``cfg`` at full width behind the continuous-batching engine, every
+    assertion of the serving phase; returns the counted run's launches.
+    ``model``: the config's module name for a config other than the first
+    (its line says so, and how far its depth was cut)."""
     mod = registry(cfg.family)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEV).manual_seed(SERVE["seed"])
     params = init_params(mod.model_defs(cfg), DEV, gen)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    # the fp32 draws' cached blocks go back, so that a table's fp32 cast
+    # (18.9 GB on nemotron-4) finds room in one piece
+    torch.cuda.empty_cache()
+    logits, cast = per_call_cast(cfg, params["embed"])
     eng = Engine(cfg, params, EngineConfig(layout=lay, kv_bits=8), device=DEV)
     if (eng._attn_backend, eng._enc_backend) != ("kernel", "kernel"):
         raise AssertionError("backends 'auto' did not resolve to the kernels")
+    held = {k: v for k, v in eng.params["embed"].items()
+            if k not in params["embed"]}
+    cast.update(held_cast(cfg, eng.params["embed"], logits))
+    del params, logits
     reqs = synthetic_trace(SERVE["requests"], cfg.vocab,
                            prompt_lens=SERVE["prompt_lens"],
                            new_tokens=SERVE["new_tokens"],
@@ -870,11 +1053,19 @@ def serve(cfg, lay):
     if rep2.tokens != rep.tokens:
         raise AssertionError("a second run of the same trace gave other tokens")
 
-    logit_err, logit_max, same_argmax = compare_with_plain(cfg, params, lay,
-                                                           reqs[0])
+    logit_err, logit_max, same_argmax = compare_with_plain(
+        cfg, eng.params, lay, reqs[0])
 
-    say("serve", model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+    full = get_config(model or "llama3_2_3b")
+    say("serve", model=cfg.name, layers=cfg.n_layers,
+        layers_of=full.n_layers, d_model=cfg.d_model, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+        tied_embedding=cfg.tie_embed,
         params=cfg.n_params(), weights_init_s=init_s,
+        init_peak_memory_bytes=init_peak,
+        fp32_unembed_held_bytes=sum(v.numel() * v.element_size()
+                                    for v in held.values()),
+        unembed=cast,
         requests=len(reqs), total_tokens=int(m["total_tokens"]),
         wall_s=m["wall_s"], tokens_per_s=m["tokens_per_s"], decode_steps=steps,
         mean_occupancy=m["mean_occupancy"],
@@ -957,30 +1148,45 @@ def lenet():
     return launches
 
 
-def train_lm(cfg, rounding_bits, steps):
-    """The LM trainer's CLI at full size, every quantization event on K1b
-    (``onchip``) or on K1 (``operand``)."""
+def quantizer_launches_per_step(cfg, rounding_bits):
+    """Quantizer launches a replicated training step makes, from
+    ``model_defs``: every leaf the policy quantizes x (weights, grads,
+    re-snap), plus one tap a layer forward and one backward for each of the
+    config's ``train_accum`` microbatches.  The recompute under
+    ``torch.utils.checkpoint`` stops once the block's saved tensors are
+    back, before the tap (which saves none).  With a bits operand each
+    stacked leaf is quantized one layer at a time."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.core.policy import QuantPolicy
+    pred = QuantPolicy().param_predicate()
+    L = cfg.n_layers
+    leaves = [path for path, _ in tree_lib.leaves_with_path(
+        registry(cfg.family).model_defs(cfg)) if pred(path, None)]
+    taps = 2 * L * cfg.train_accum
+    if rounding_bits == "onchip":
+        return 3 * len(leaves) + taps, len(leaves)
+    return (3 * sum(L if p[0] == "layers" else 1 for p in leaves) + taps,
+            len(leaves))
+
+
+def train_lm(cfg, rounding_bits, steps, batch=2, model="llama3_2_3b"):
+    """The LM trainer's CLI at full width (``cfg``: ``model``'s config,
+    perhaps cut in depth, handed to ``launch.train.main``), every
+    quantization event on K1b (``onchip``) or on K1 (``operand``)."""
     from repro_torch.launch import train as train_cli
-    argv = ["--arch", "llama3_2_3b", "--steps", str(steps), "--batch", "2",
+    argv = ["--arch", model, "--steps", str(steps), "--batch", str(batch),
             "--seq", "512", "--optimizer", "sgd", "--log-every", "1",
             "--rounding-bits", rounding_bits]
+    per_step, n_leaves = quantizer_launches_per_step(cfg, rounding_bits)
+    want = ("dps_quantize_onchip_prng" if rounding_bits == "onchip"
+            else "dps_quantize")
     _reset_quant_counts()                      # the counted run
-    out = train_cli.main(argv)
+    out = train_cli.main(argv, cfg=cfg)
     launches = _quant_counts()
     hist = out["history"]
     losses = [h["loss"] for h in hist]
     if len(hist) != steps or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"LM training: losses {losses}")
-    # 8 quantized leaves x (weights, grads, re-snap) + one tap a layer
-    # forward and one backward.  The recompute under torch.utils.checkpoint
-    # stops once the block's saved tensors are back, before the tap (which
-    # saves none).  With a bits operand each of the 7 stacked leaves is
-    # quantized one layer at a time (the embedding is one launch).
-    L = cfg.n_layers
-    if rounding_bits == "onchip":
-        per_step, want = 8 * 3 + 2 * L, "dps_quantize_onchip_prng"
-    else:
-        per_step, want = 3 * (1 + 7 * L) + 2 * L, "dps_quantize"
     wanted = {"dps_quantize": 0, "dps_quantize_onchip_prng": 0}
     wanted[want] = per_step * steps
     if out["quantizer_launches_per_step"] != [per_step] * steps or \
@@ -990,13 +1196,21 @@ def train_lm(cfg, rounding_bits, steps):
                              f"wanted {per_step} a step on {want}")
     traj = [{k: h[k] for k in ("il_w", "fl_w", "il_a", "fl_a", "il_g", "fl_g")}
             for h in hist]
+    full = get_config(model)
     say("train", command="python -m repro_torch.launch.train " + " ".join(argv),
+        model=cfg.name, layers=cfg.n_layers, layers_of=full.n_layers,
+        d_model=cfg.d_model, accumulation=cfg.train_accum,
         params=out["params"], losses=losses,
         first_step_s=out["first_step_s"],
         ms_per_step_after_first=out["ms_per_step_after_first"],
         tokens_per_s_after_first=out["tokens_per_s_after_first"],
         peak_memory_bytes=out["peak_memory_bytes"], formats=traj,
-        launches=launches, launches_per_step=per_step)
+        launches=launches, launches_per_step=per_step,
+        launches_per_step_formula=(
+            f"3 x {n_leaves} quantized leaves"
+            + ("" if rounding_bits == "onchip" else " (stacked ones a layer "
+               "at a time)")
+            + f" + 2 x {cfg.n_layers} layers x {cfg.train_accum} microbatches"))
     del out
     gc.collect()
     torch.cuda.empty_cache()
@@ -2550,15 +2764,26 @@ def main():
     lay = serve_layout()
     rows = kernel_checks(cfg, lay)
     rows += quant_checks(cfg)
+    rows += train_shape_rows()
     rows += wire_kernel_checks(cfg)
     # each path runs with the counts set to 0 just before it, read just after
     launches = serve(cfg, lay)
     gc.collect()
     torch.cuda.empty_cache()                   # the serving engine's memory
+    # the other dense configs' paths, each counted on its own; a row of
+    # theirs names its run
+    other = {}
+    for model, layers in OTHER_SERVE:
+        other[f"serve_{model}"] = serve(depth_cut(model, layers), lay, model)
+        gc.collect()
+        torch.cuda.empty_cache()
     lenet_k1 = lenet()["dps_quantize"]
     launches["dps_quantize_onchip_prng"] = train_lm(
         cfg, "onchip", 4)["dps_quantize_onchip_prng"]
     launches["dps_quantize"] = train_lm(cfg, "operand", 3)["dps_quantize"]
+    for model, layers, batch, _ in OTHER_TRAIN:
+        other[f"train_{model}"] = train_lm(depth_cut(model, layers), "onchip",
+                                           4, batch=batch, model=model)
     wire_collectives()
     # run A of the checkpoint phase is the counted wire run
     ckpt_root, free = ckpt_space(cfg)
@@ -2630,9 +2855,10 @@ def main():
     # a row measured at the overlap run's bucket shape takes that run's
     # launches; the rows of the same counters at other shapes do not
     at_bucket = {(r["run"], r["counter"]) for r in rows if "run" in r}
+    runs = {**zero_launches, **other}
     for r in rows:
         if "run" in r:
-            r["launches"] = zero_launches[r["run"]][r["counter"]]
+            r["launches"] = runs[r["run"]][r["counter"]]
         else:
             # a row off the path (K5 at a long context) has no launches
             r["launches"] = (launches[r["name"]] if r.get("on_path", True)

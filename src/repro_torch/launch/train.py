@@ -246,13 +246,15 @@ def _init_distributed(args):
     return device
 
 
-def setup(args):
+def setup(args, cfg=None):
     """(cfg, step_fn, state, data) for parsed CLI ``args``: the model's
     parameters drawn from ``--seed`` on the device, the optimizer, the
-    quantized train step and the synthetic token stream."""
+    quantized train step and the synthetic token stream.  ``cfg``, if
+    given, is the model's config in place of ``--arch``'s (a config cut
+    in depth, say), as the reference's ``build(cfg, ...)`` takes one."""
     device = resolve_device(args.device)
     device = _init_distributed(args) or device
-    cfg = get_config(args.arch)
+    cfg = cfg or get_config(args.arch)
     if args.smoke:
         cfg = smoke_cfg(cfg)
     guards = faults = None
@@ -365,19 +367,20 @@ def _health_log(m) -> str:
     return " !" + ",".join(health_flags(int(m["health"])))
 
 
-def main(argv=None, on_step=None):
+def main(argv=None, on_step=None, cfg=None):
     """Run the CLI; returns the summary it prints (plus the full history).
     A pre-empted run returns ``{"preempted_at": step, "history": ...}``;
     the crash path raises ``SystemExit(17)``.  ``on_step(step, state)``,
     if given, is called after every step (a caller that inspects the state
-    between steps, as the smoke run's skip check does)."""
+    between steps, as the smoke run's skip check does).  ``cfg`` goes to
+    :func:`setup` (no CLI flag sets it)."""
     args = make_parser().parse_args(argv)
     world = int(os.environ.get("WORLD_SIZE", "1"))
     main_thread = threading.current_thread() is threading.main_thread()
     if args.sigterm_at and not main_thread:
         raise ValueError("--sigterm-at needs the main thread, where the "
                          "SIGTERM handler runs")
-    cfg, step_fn, state, data = setup(args)
+    cfg, step_fn, state, data = setup(args, cfg)
     device = state.last_loss.device
     cuda = device.type == "cuda"
     rank0 = int(os.environ.get("RANK", "0")) == 0

@@ -171,9 +171,27 @@ def embed_lookup(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return emb[tokens.to(torch.int64)]
 
 
-# key under which a caller may park an fp32 copy of a low-precision tied
-# embedding table, so unembed does not cast the table on every call
+# keys under which a caller may park an fp32 copy of a low-precision tied
+# embedding table or untied unembedding table, so unembed does not cast the
+# table on every call
 TOK_F32 = "tok_f32"
+UNEMBED_F32 = "unembed_f32"
+
+
+def _table_keys(params: Dict[str, torch.Tensor]) -> Tuple[str, str]:
+    """(the unembedding table's key, its held fp32 cast's key)."""
+    return ("unembed", UNEMBED_F32) if "unembed" in params else ("tok", TOK_F32)
+
+
+def hold_fp32_table(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``params`` (an ``embed`` dict) with the fp32 cast of its
+    unembedding table held beside it — the tied ``tok`` or the untied
+    ``unembed`` — for a caller that unembeds often; ``params`` itself when
+    the table is fp32 or its cast is already held."""
+    src, key = _table_keys(params)
+    if key in params or params[src].dtype == torch.float32:
+        return params
+    return dict(params, **{key: params[src].to(torch.float32)})
 
 
 def unembed(x: torch.Tensor, params: Dict[str, torch.Tensor],
@@ -181,17 +199,15 @@ def unembed(x: torch.Tensor, params: Dict[str, torch.Tensor],
     """Project hidden states to logits (fp32); mask vocab-padding columns.
 
     The product runs in fp32 against the fp32 cast of the table.  A caller
-    that unembeds often (the serving engine) holds that cast once under
-    ``params[TOK_F32]``; without it the table is cast per call.
+    that unembeds often (the serving engine) holds that cast once
+    (:func:`hold_fp32_table`); without it the table is cast per call.
     """
     xf = x.to(torch.float32)
-    if "unembed" in params:
-        logits = xf @ params["unembed"].to(torch.float32)
-    else:
-        w = params.get(TOK_F32)
-        if w is None:
-            w = params["tok"].to(torch.float32)
-        logits = xf @ w.T
+    src, key = _table_keys(params)
+    w = params.get(key)
+    if w is None:
+        w = params[src].to(torch.float32)
+    logits = xf @ (w.T if src == "tok" else w)
     if logits.shape[-1] != vocab:
         logits[..., vocab:] = -1e30
     return logits

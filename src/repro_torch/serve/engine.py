@@ -24,7 +24,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
-from repro_torch.models.common import TOK_F32, unembed
+from repro_torch.models.common import hold_fp32_table, unembed
 from repro_torch.serve import cache as kvc
 from repro_torch.serve.page_table import PageAllocator, PagedLayout, page_rows
 from repro_torch.serve.scheduler import Request, Scheduler
@@ -93,12 +93,11 @@ class Engine:
         self._attn_backend = pick(ecfg.attn_backend)
         self._enc_backend = pick(ecfg.encode_backend)
 
-        # the logits are an fp32 product against the fp32 cast of the tied
-        # embedding table: hold that cast once instead of making it per step
-        embed = params["embed"]
-        if ("unembed" not in embed and TOK_F32 not in embed
-                and embed["tok"].dtype != torch.float32):
-            embed = dict(embed, **{TOK_F32: embed["tok"].to(torch.float32)})
+        # the logits are an fp32 product against the fp32 cast of the
+        # unembedding table (the tied embedding or the untied ``unembed``):
+        # hold that cast once instead of making it per step
+        embed = hold_fp32_table(params["embed"])
+        if embed is not params["embed"]:
             params = dict(params, embed=embed)
         self.params = params
 

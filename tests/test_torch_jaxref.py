@@ -124,9 +124,12 @@ def _stats_out(s):
     return {n: np.asarray(getattr(s, n), np.float32) for n in STAT_NAMES}
 
 
-def _smoke_cfg():
+def _smoke_cfg(arch="llama3_2_3b", overrides=None):
+    """``arch``'s smoke config, with ``overrides`` (a dict of fields) on
+    top: a head geometry or a ``train_accum`` that ``smoke`` flattens."""
+    import dataclasses
     from repro.configs.base import get_config, smoke
-    return smoke(get_config("llama3_2_3b"))
+    return dataclasses.replace(smoke(get_config(arch)), **(overrides or {}))
 
 
 def _layout(kw):
@@ -267,20 +270,20 @@ def job_write_pages(a, layout, bits, n_writes, reset_pages):
     return out
 
 
-def _smoke_params(seed):
+def _smoke_params(seed, arch="llama3_2_3b", overrides=None):
     import jax
     from repro.models import registry
     from repro.models.common import init_params
-    cfg = _smoke_cfg()
+    cfg = _smoke_cfg(arch, overrides)
     mod = registry(cfg.family)
     return cfg, mod, init_params(jax.random.key(seed), mod.model_defs(cfg))
 
 
-def job_model(a, seed, layout):
+def job_model(a, seed, layout, arch="llama3_2_3b", overrides=None):
     """Smoke params plus prefill logits, contiguous decode logits and one
     paged decode step on shared pools."""
     import jax.numpy as jnp
-    cfg, mod, params = _smoke_params(seed)
+    cfg, mod, params = _smoke_params(seed, arch, overrides)
     out = flatten(_np_params(params), "params/")
     toks = jnp.asarray(a["tokens"])
     max_seq = toks.shape[1] + 4
@@ -300,10 +303,10 @@ def job_model(a, seed, layout):
     return out
 
 
-def job_engine(a, seed, layout, traces):
+def job_engine(a, seed, layout, traces, arch="llama3_2_3b", overrides=None):
     """The reference Engine over synthetic traces, kv_bits 8 and None."""
     from repro.serve import Engine, EngineConfig, synthetic_trace
-    cfg, mod, params = _smoke_params(seed)
+    cfg, mod, params = _smoke_params(seed, arch, overrides)
     lay = _layout(layout)
     out = flatten(_np_params(params), "params/")
     for name, tr in traces.items():
@@ -319,6 +322,19 @@ def job_engine(a, seed, layout, traces):
             out[f"{name}/tokens/{r.rid}"] = np.asarray(rep.tokens[r.rid],
                                                        np.int32)
         out[f"{name}/spread"] = np.array(json.dumps(rep.format_spread))
+    return out
+
+
+def job_config(a, archs):
+    """Each of ``archs``' reference config: its fields as JSON and its
+    analytic ``n_params()`` at full size."""
+    import dataclasses
+    from repro.configs.base import get_config
+    out = {}
+    for arch in archs:
+        cfg = get_config(arch)
+        out[f"{arch}/fields"] = np.array(json.dumps(dataclasses.asdict(cfg)))
+        out[f"{arch}/n_params"] = np.float64(cfg.n_params())
     return out
 
 
@@ -458,9 +474,11 @@ def job_lenet_train(a, steps, n_train, qkw=None):
     return out
 
 
-def job_lm_train(a, steps, seq, batch, remat):
-    """Smoke llama3.2-3b from ``init_params(key(0))``: ``steps`` SGD steps
-    under nearest rounding on the synthetic token stream."""
+def job_lm_train(a, steps, seq, batch, remat, arch="llama3_2_3b",
+                 overrides=None):
+    """Smoke ``arch`` (llama3.2-3b by default) from ``init_params(key(0))``:
+    ``steps`` SGD steps under nearest rounding on the synthetic token
+    stream, over the config's ``train_accum`` microbatches."""
     import dataclasses
     import jax
     from repro.core import qtrain
@@ -468,13 +486,14 @@ def job_lm_train(a, steps, seq, batch, remat):
     from repro.models import registry
     from repro.models.common import init_params
     from repro.optim import SGDConfig, make_optimizer
-    cfg = dataclasses.replace(_smoke_cfg(), remat=remat)
+    cfg = dataclasses.replace(_smoke_cfg(arch, overrides), remat=remat)
     mod = registry(cfg.family)
     params = init_params(jax.random.key(0), mod.model_defs(cfg))
     out = flatten(_np_params(params), "params/")
     qcfg = qtrain.QuantConfig(rounding="nearest")
     opt = make_optimizer(SGDConfig())
-    step_fn = jax.jit(qtrain.make_train_step(mod.loss_fn(cfg), opt, qcfg))
+    step_fn = jax.jit(qtrain.make_train_step(mod.loss_fn(cfg), opt, qcfg,
+                                             accum_steps=cfg.train_accum))
     state = qtrain.TrainState.create(params, opt.init(params), qcfg,
                                      jax.random.key(1))
     data = TokenStream(TokenStreamConfig(vocab=cfg.vocab, seq_len=seq,
