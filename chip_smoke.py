@@ -5,7 +5,9 @@
 
 Drives ``repro_torch``'s paths — serving (``python -m
 repro_torch.launch.serve``), quantized training (``python -m
-repro_torch.launch.train``, and the paper's LeNet app), data-parallel
+repro_torch.launch.train``, and the paper's LeNet app; the dense, MoE and
+VLM transformers; at sequence 4,096 through the blockwise attention and
+under ``remat="dots"``), data-parallel
 training over the int8 wire (``launch.train --grad-allreduce-bits 8
 --data-ranks 4``, with ZeRO-1 and the overlapped bucketed wire:
 ``--zero-opt --wire-overlap on``), and that trainer's checkpoint, resume,
@@ -28,10 +30,11 @@ JSON line; any failure raises and the process exits non-zero:
              context (8 rows of 4,096 tokens), int8 and fp32 pools, to
              ``ATTN_TOL``, rows of length 0 exactly 0, two launches
              bit-equal.  The same at the head geometries and page quanta of
-             the other dense configs: K5 at G=12 with Dh=192 (int8 and fp32
-             pools) and Dh=128, and G=1 with Dh=256, each at its own split
-             edges; K3 at quanta of 24,576 and 65,536; then K3 and K5 at
-             each config's serving shape.  Then each kernel's median time over repeated
+             the other configs: K5 at G=12 with Dh=192 (int8 and fp32
+             pools) and Dh=128, G=1 with Dh=256, and G=8 with Dh=128 (int8
+             and fp32), each at its own split edges; K3 at quanta of 24,576
+             and 65,536; then K3 and K5 at each config's serving shape
+             (qwen3-moe's: G=8, page quantum 8,192).  Then each kernel's median time over repeated
              launches (CUDA events, after warm-up, the L2 cache flushed
              before every launch; K5 replayed from a CUDA graph, so that its
              tens of microseconds are not timed behind the Python wrapper)
@@ -46,9 +49,12 @@ JSON line; any failure raises and the process exits non-zero:
              ``w_in`` (3072x8192 fp32: with a bits operand the leaf is
              quantized layer by layer) and LeNet's ``fc1_w`` and first tap.
              K1's row is timed at the layer, K1b's at the leaf; K1b also on
-             gemma-7b's w_in leaf at 8 layers (8x3072x24576) and
-             mistral-large-123b's untied ``unembed`` (12288x32768), the
-             leaves of phase 7's other configs.  q bit-equal
+             gemma-7b's w_in leaf at 8 layers (8x3072x24576),
+             mistral-large-123b's untied ``unembed`` (12288x32768),
+             qwen3-moe-30b-a3b's stacked expert w_in at 4 layers
+             (4x128x2048x768 = 805,306,368, 64-bit indices) and
+             internvl2-26b's w_in at 3 layers (3x6144x16384), the leaves of
+             phase 7's other configs.  q bit-equal
              to the plain version; count,
              nonzero, overflow and max_abs exact; float sums to ``SUM_RTOL``;
              K1b bit-equal to K1 fed the plain Philox stream; two launches
@@ -65,7 +71,9 @@ JSON line; any failure raises and the process exits non-zero:
              the same for the other dense configs at full width (random
              weights from seed 0): gemma-7b whole (28 layers, G=1, Dh=256),
              mistral-large-123b at 8 of its 88 layers and nemotron-4-340b at
-             2 of its 96 (G=12, Dh=128 and 192; untied ``unembed``), the
+             2 of its 96 (G=12, Dh=128 and 192; untied ``unembed``), and
+             qwen3-moe-30b-a3b (MoE: 128 experts, top-8, the einsum dispatch
+             reading every expert each step; G=8) at 32 of its 48, the
              unembedding timed with its fp32 table cast per call and against
              the one the engine holds (logits bit-equal).
 6. lenet   — the paper's app: 20 steps of ``train_mnist`` under the paper's
@@ -81,10 +89,23 @@ JSON line; any failure raises and the process exits non-zero:
              launches a step.  Then 3 steps with ``--rounding-bits operand``,
              every event on K1: 647 launches a step.  Then gemma-7b (8 of 28
              layers, ``--batch 2``, accumulation 2) and mistral-large-123b (1
-             of 88 layers, ``--batch 4``, accumulation 4) at full width, 4
-             steps each on K1b, through ``launch.train.main(cfg=...)``; every
-             count a step derived from ``model_defs``: 3 x the quantized
-             leaves + 2 taps a layer for each microbatch.
+             of 88 layers, ``--batch 4``, accumulation 4), qwen3-moe-30b-a3b
+             (4 of 48 layers, ``--batch 2``; the load-balance loss finite and
+             reported) and internvl2-26b (3 of 48 layers, ``--batch 2``,
+             accumulation 2, 256 zero patch embeddings before the 512
+             tokens) at full width, 4 steps each on K1b, through
+             ``launch.train.main(cfg=...)``; every count a step derived from
+             ``model_defs``: 3 x the quantized leaves + 2 taps a layer for
+             each microbatch.  Then ``flash``: the blockwise attention
+             against the materialized one at llama's shape at sequence
+             4,096 (B=1, 4,095 positions, 24 heads, Dh=128), fp32 and bf16,
+             outputs and gradients within ``FLASH_TOL``, each path's time
+             and peak; ``train_long``: llama3.2-3b at full width and depth
+             with ``--seq 4096 --batch 1``, 3 steps, attention blockwise in
+             all 28 layers; ``train_dots``: the llama run of this phase with
+             ``remat="dots"`` (the matrix products' outputs kept), 4 steps,
+             its launches equal to full remat's and its ms a step and peak
+             printed beside full remat's (``dots_vs_full``).
 8. wire    — the int8 wire of data-parallel training.  The wire quantizer
              K2/K2b (sizes, bf16, unaligned pointers and Philox offsets,
              saturating formats, statistics on and off, a slot of a larger
@@ -199,7 +220,8 @@ Phases 10-14 run right after phase 8's counted wire run, before its
              rollbacks, a finite replayed loss after each, the run completes.
 
 The line before the last two carries the kernels (launches on their path —
-K1's from the LM run with a bits operand, LeNet's beside them; K2b's, K3b's
+K1's from the LM run with a bits operand, LeNet's beside them; K1b's row
+adds ``launches_train_long`` and ``launches_train_dots``; K2b's, K3b's
 and K4's from the wire run; K2's from the wire run with a bits operand; K5's
 from the serving run, on its serving-shape row (a row of another config's
 shape, ``<kernel>_<config>``, names the run it counts, ``serve_<config>`` or
@@ -263,10 +285,11 @@ SUM_RTOL = 2e-6      # float statistics; thousands of fp32 terms, other order
 # attention outputs differ by <= 1e-5 in fp32, but each layer casts them to
 # bf16 (8 bits of mantissa): a difference that small can still tip a
 # rounding by one bf16 step (2^-8 relative), and 28 layers carry it on to
-# logits of magnitude ~1.  Measured on an H100: 0.062.  The other dense
-# configs are held to the same tolerance, their logits of the same
-# magnitude (|max| 4-5): gemma-7b 0.059, mistral-large-123b (8 layers) 0.038,
-# nemotron-4-340b (2 layers) 0.021.
+# logits of magnitude ~1.  Measured on an H100: 0.062.  The other configs
+# are held to the same tolerance, their logits of the same magnitude
+# (|max| 4-5): gemma-7b 0.059, mistral-large-123b (8 layers) 0.038,
+# nemotron-4-340b (2 layers) 0.021, qwen3-moe-30b-a3b (32 layers) 0.131 (a
+# bf16 tip in a router's input can also reorder a token's top-8 experts).
 LOGIT_TOL = 0.25
 # LeNet under nearest rounding, kernel quantizer vs plain: the grid values are
 # bit-equal, so the two runs differ only where the statistics' float sums
@@ -281,19 +304,37 @@ SERVE = dict(page_size=16, slots=8, max_prompt=512, max_new=64,
              mean_gap=0.5, seed=0)
 
 
-# The other dense configs, at full width: (config module, layers served;
-# None = every layer).  gemma-7b serves whole (17.1 GB of bf16 weights);
+# The other configs, at full width: (config module, layers served; None =
+# every layer).  gemma-7b serves whole (17.1 GB of bf16 weights);
 # mistral-large-123b and nemotron-4-340b are cut in depth only, to what one
 # 80 GB card holds beside the fp32 unembedding the engine keeps (23.8 + 1.6
-# GB and 32.7 + 18.9 GB).
+# GB and 32.7 + 18.9 GB); qwen3-moe-30b-a3b (MoE, 128 experts top-8) to 32
+# of 48 layers, where drawing the weights peaks near 66 GB (each stacked
+# expert leaf is drawn in fp32, 25.8 GB, beside the bf16 leaves before it;
+# 40 GB of bf16 weights served).
 OTHER_SERVE = (("gemma_7b", None), ("mistral_large_123b", 8),
-               ("nemotron_4_340b", 2))
+               ("nemotron_4_340b", 2), ("qwen3_moe_30b_a3b", 32))
 # trained at full width, cut in depth, under each config's own gradient
 # accumulation: (config module, layers, --batch, the leaf K1b is timed on).
 # nemotron-4-340b does not train on one card even at one layer (12.9 B
-# parameters).
+# parameters).  qwen3-moe at 4 of 48 layers (2.80 B parameters; its stacked
+# expert leaves 805 M elements each); internvl2-26b (VLM) at 3 of 48 (2.31
+# B), its batches 512 tokens after the 256-patch vision prefix.
 OTHER_TRAIN = (("gemma_7b", 8, 2, ("layers", "mlp", "w_in")),
-               ("mistral_large_123b", 1, 4, ("embed", "unembed")))
+               ("mistral_large_123b", 1, 4, ("embed", "unembed")),
+               ("qwen3_moe_30b_a3b", 4, 2, ("layers", "moe", "w_in")),
+               ("internvl2_26b", 3, 2, ("layers", "mlp", "w_in")))
+# llama3.2-3b trained at train_4k's sequence (4,096; the batch cut to one
+# card), attention blockwise in every layer
+LONG_SEQ = 4096
+# _attn_flash against _attn_full on the card at llama's attention shape
+# (B=1, 4,095 positions, 24 heads, Dh=128), outputs and gradients, each
+# error over the largest magnitude of the materialized path's: fp32
+# inputs (the same fp32 math summed in another order), and bf16 inputs as
+# the path gives them (the blockwise path casts its unnormalized
+# probabilities to bf16 where the materialized one casts the normalized
+# ones: each a 2^-9 relative rounding, and the output another)
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
 def depth_cut(model, layers=None):
@@ -573,7 +614,10 @@ def kernel_checks(cfg, lay):
             _split_edge_case(2, 12, 192, False),
             _split_edge_case(2, 12, 128, True),
             _split_edge_case(2, 1, 256, True),
-            _split_edge_case(2, 1, 256, False)):
+            _split_edge_case(2, 1, 256, False),
+            # qwen3-moe-30b-a3b (G=8, Dh=128)
+            _split_edge_case(2, 8, 128, True),
+            _split_edge_case(2, 8, 128, False)):
         attn_err_small = max(attn_err_small, check_attn(
             attn_inputs(rng, B, P, ps, KV, G, Dh, lens, int8)))
         small.append(f"attn B={B} P={P} ps={ps} KV={KV} G={G} Dh={Dh} int8={int8} "
@@ -612,7 +656,7 @@ def kernel_checks(cfg, lay):
          "library_ms": None,
          "split_tokens": paged_attn.SPLIT_TOKENS,
          "timing": "CUDA graph replay, L2 flushed"})
-    # the other dense configs' serving shapes (the same layout and lengths)
+    # the other configs' serving shapes (the same layout and lengths)
     for model, layers in OTHER_SERVE:
         rows += serve_shape_rows(rng, depth_cut(model, layers), lay, model)
     gc.collect()
@@ -1057,8 +1101,11 @@ def serve(cfg, lay, model=None):
         cfg, eng.params, lay, reqs[0])
 
     full = get_config(model or "llama3_2_3b")
+    moe = ({"n_experts": cfg.n_experts, "top_k": cfg.top_k,
+            "active_params": cfg.n_active_params()} if cfg.n_experts else {})
     say("serve", model=cfg.name, layers=cfg.n_layers,
         layers_of=full.n_layers, d_model=cfg.d_model, n_heads=cfg.n_heads,
+        **moe,
         n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
         tied_embedding=cfg.tie_embed,
         params=cfg.n_params(), weights_init_s=init_s,
@@ -1154,8 +1201,11 @@ def quantizer_launches_per_step(cfg, rounding_bits):
     re-snap), plus one tap a layer forward and one backward for each of the
     config's ``train_accum`` microbatches.  The recompute under
     ``torch.utils.checkpoint`` stops once the block's saved tensors are
-    back, before the tap (which saves none).  With a bits operand each
-    stacked leaf is quantized one layer at a time."""
+    back, before the tap (which saves none): under ``remat="full"`` and
+    under ``remat="dots"`` alike, the selective policy only turning some of
+    the recomputed ops into saved ones (the MoE router, an fp32 island, is
+    not quantized).  With a bits operand each stacked leaf is quantized one
+    layer at a time."""
     from repro_torch.core import tree as tree_lib
     from repro_torch.core.policy import QuantPolicy
     pred = QuantPolicy().param_predicate()
@@ -1169,13 +1219,15 @@ def quantizer_launches_per_step(cfg, rounding_bits):
             len(leaves))
 
 
-def train_lm(cfg, rounding_bits, steps, batch=2, model="llama3_2_3b"):
+def train_lm(cfg, rounding_bits, steps, batch=2, model="llama3_2_3b",
+             seq=512, phase="train"):
     """The LM trainer's CLI at full width (``cfg``: ``model``'s config,
-    perhaps cut in depth, handed to ``launch.train.main``), every
-    quantization event on K1b (``onchip``) or on K1 (``operand``)."""
+    perhaps cut in depth or with another ``remat``, handed to
+    ``launch.train.main``), every quantization event on K1b (``onchip``) or
+    on K1 (``operand``).  Returns the launches, ms a step and peak."""
     from repro_torch.launch import train as train_cli
     argv = ["--arch", model, "--steps", str(steps), "--batch", str(batch),
-            "--seq", "512", "--optimizer", "sgd", "--log-every", "1",
+            "--seq", str(seq), "--optimizer", "sgd", "--log-every", "1",
             "--rounding-bits", rounding_bits]
     per_step, n_leaves = quantizer_launches_per_step(cfg, rounding_bits)
     want = ("dps_quantize_onchip_prng" if rounding_bits == "onchip"
@@ -1196,10 +1248,20 @@ def train_lm(cfg, rounding_bits, steps, batch=2, model="llama3_2_3b"):
                              f"wanted {per_step} a step on {want}")
     traj = [{k: h[k] for k in ("il_w", "fl_w", "il_a", "fl_a", "il_g", "fl_g")}
             for h in hist]
+    moe = {}
+    if cfg.n_experts:
+        aux = [h["aux_loss"] for h in hist]
+        if not all(math.isfinite(v) and v > 0 for v in aux):
+            raise AssertionError(f"MoE training: load-balance losses {aux}")
+        moe = dict(aux_losses=aux, router_aux_coef=cfg.router_aux_coef,
+                   active_params=cfg.n_active_params())
+    if cfg.family == "vlm":
+        moe = dict(vision_prefix=cfg.n_patches, positions=cfg.n_patches + seq)
     full = get_config(model)
-    say("train", command="python -m repro_torch.launch.train " + " ".join(argv),
+    say(phase, command="python -m repro_torch.launch.train " + " ".join(argv),
         model=cfg.name, layers=cfg.n_layers, layers_of=full.n_layers,
-        d_model=cfg.d_model, accumulation=cfg.train_accum,
+        d_model=cfg.d_model, accumulation=cfg.train_accum, remat=cfg.remat,
+        seq=seq, batch=batch, **moe,
         params=out["params"], losses=losses,
         first_step_s=out["first_step_s"],
         ms_per_step_after_first=out["ms_per_step_after_first"],
@@ -1211,10 +1273,65 @@ def train_lm(cfg, rounding_bits, steps, batch=2, model="llama3_2_3b"):
             + ("" if rounding_bits == "onchip" else " (stacked ones a layer "
                "at a time)")
             + f" + 2 x {cfg.n_layers} layers x {cfg.train_accum} microbatches"))
+    res = {"launches": launches, "ms": out["ms_per_step_after_first"],
+           "peak": out["peak_memory_bytes"]}
     del out
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return res
+
+
+def _attn_grads(fn, q, k, v, w, scale):
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = fn(q, k, v, causal=True, scale=scale)
+    grads = torch.autograd.grad((out.float() * w).sum(), (q, k, v))
+    return [out.detach().float()] + [g.float() for g in grads]
+
+
+def flash_check(cfg):
+    """``_attn_flash`` (blocks of 1,024, each checkpointed) against
+    ``_attn_full`` on the card at llama3.2-3b's attention shape at the long
+    training sequence: outputs and the gradients of ``sum(out * w)`` within
+    ``FLASH_TOL`` of the largest magnitude, in fp32 and in bf16; each
+    path's forward + backward timed (CUDA events) and its peak memory."""
+    from repro_torch.models import attention
+    B, S, H, Dh = 1, LONG_SEQ - 1, cfg.n_heads, cfg.head_dim
+    scale = 1.0 / math.sqrt(Dh)
+    g = torch.Generator(device=DEV).manual_seed(11)
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, w = (torch.randn(B, S, H, Dh, generator=g, device=DEV
+                                  ).to(dtype) for _ in range(4))
+        w = w.float()
+        name = str(dtype).split(".")[-1]
+        runs, stat = {}, {}
+        for path, fn in (("flash", attention._attn_flash),
+                         ("full", attention._attn_full)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            runs[path] = _attn_grads(fn, q, k, v, w, scale)
+            torch.cuda.synchronize()
+            stat[f"{path}_peak_above_inputs_bytes"] = (
+                torch.cuda.max_memory_allocated() - base)
+            stat[f"{path}_fwd_bwd_ms"] = time_ms(
+                lambda: _attn_grads(fn, q, k, v, w, scale), repeats=3,
+                warmup=1)
+        errs = {}
+        for i, part in enumerate(("out", "dq", "dk", "dv")):
+            a, b = runs["flash"][i], runs["full"][i]
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"flash {name} {part}: not finite")
+            errs[part] = float((a - b).abs().max() / b.abs().max())
+        if max(errs.values()) > FLASH_TOL[name]:
+            raise AssertionError(f"_attn_flash vs _attn_full ({name}): "
+                                 f"relative errors {errs} > {FLASH_TOL[name]}")
+        res[name] = dict(max_rel_err=errs, tolerance=FLASH_TOL[name], **stat)
+        del q, k, v, w, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+    say("flash", shape=f"B={B} S={S} H={H} Dh={Dh} causal, blocks of "
+        f"{attention.FLASH_BLOCK}", **res)
 
 
 # ---------------------------------------------------------------------------
@@ -2770,20 +2887,37 @@ def main():
     launches = serve(cfg, lay)
     gc.collect()
     torch.cuda.empty_cache()                   # the serving engine's memory
-    # the other dense configs' paths, each counted on its own; a row of
-    # theirs names its run
+    # the other configs' paths, each counted on its own; a row of theirs
+    # names its run
     other = {}
     for model, layers in OTHER_SERVE:
         other[f"serve_{model}"] = serve(depth_cut(model, layers), lay, model)
         gc.collect()
         torch.cuda.empty_cache()
     lenet_k1 = lenet()["dps_quantize"]
-    launches["dps_quantize_onchip_prng"] = train_lm(
-        cfg, "onchip", 4)["dps_quantize_onchip_prng"]
-    launches["dps_quantize"] = train_lm(cfg, "operand", 3)["dps_quantize"]
+    llama = train_lm(cfg, "onchip", 4)
+    launches["dps_quantize_onchip_prng"] = llama["launches"][
+        "dps_quantize_onchip_prng"]
+    launches["dps_quantize"] = train_lm(cfg, "operand", 3)["launches"][
+        "dps_quantize"]
     for model, layers, batch, _ in OTHER_TRAIN:
         other[f"train_{model}"] = train_lm(depth_cut(model, layers), "onchip",
-                                           4, batch=batch, model=model)
+                                           4, batch=batch, model=model
+                                           )["launches"]
+    # long-context training: the blockwise attention on the card, then
+    # llama3.2-3b at sequence 4,096 (every layer's attention blockwise),
+    # then remat="dots" beside the full remat of the run above
+    flash_check(cfg)
+    long_run = train_lm(cfg, "onchip", 3, batch=1, seq=LONG_SEQ,
+                        phase="train_long")
+    dots = train_lm(dataclasses.replace(cfg, remat="dots"), "onchip", 4,
+                    phase="train_dots")
+    say("dots_vs_full", dots_ms_per_step=dots["ms"], full_ms_per_step=llama["ms"],
+        dots_peak_memory_bytes=dots["peak"], full_peak_memory_bytes=llama["peak"],
+        launches_equal=dots["launches"] == llama["launches"])
+    if dots["launches"] != llama["launches"]:
+        raise AssertionError(f"remat='dots' launched {dots['launches']}, full "
+                             f"remat {llama['launches']}")
     wire_collectives()
     # run A of the checkpoint phase is the counted wire run
     ckpt_root, free = ckpt_space(cfg)
@@ -2867,6 +3001,9 @@ def main():
             raise AssertionError(f"{r['name']} was not launched on the main path")
         if r["name"] == "dps_quantize":
             r["launches_lenet"] = lenet_k1
+        if r["name"] == "dps_quantize_onchip_prng":
+            r["launches_train_long"] = long_run["launches"][r["name"]]
+            r["launches_train_dots"] = dots["launches"][r["name"]]
         for run, counts in zero_launches.items():
             if ("run" not in r and counts.get(r["name"])
                     and (run, r["name"]) not in at_bucket):

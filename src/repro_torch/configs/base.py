@@ -4,8 +4,8 @@ Counterpart of ``repro/configs/base.py``.  Every ported architecture is one
 ``ModelConfig`` in its own module under ``repro_torch.configs``;
 ``get_config(name)`` is the registry entry point and ``smoke()`` derives the
 reduced-size variant used by the CPU tests.  The schema keeps every field of
-the reference (so a config reads the same in both packages) although only
-the dense family is ported.
+the reference (so a config reads the same in both packages); the dense, MoE
+and VLM families are ported.
 """
 
 from __future__ import annotations
@@ -82,6 +82,15 @@ class ModelConfig:
         """Analytic parameter count."""
         from repro_torch.models import registry
         return registry(self.family).count_params(self)
+
+    def n_active_params(self) -> float:
+        """Parameters a token passes through (MoE: the routed top-k experts
+        only); the total for every other family."""
+        from repro_torch.models import registry
+        mod = registry(self.family)
+        if hasattr(mod, "count_active_params"):
+            return mod.count_active_params(self)
+        return self.n_params()
 
 
 def get_config(name: str) -> ModelConfig:

@@ -29,7 +29,8 @@ def _convert(defs, tree, path, device, dtype):
         if tuple(arr.shape) != tuple(defs.shape):
             raise ValueError(f"{path}: shape {arr.shape} does not match the "
                              f"port's {defs.shape}")
-        # norm scales stay fp32 whatever the working dtype, as declared
+        # norm scales and the router stay fp32 whatever the working dtype,
+        # as declared
         want = defs.dtype if (dtype is None
                               or defs.dtype == torch.float32) else dtype
         return torch.from_numpy(np.ascontiguousarray(arr)).to(
@@ -49,13 +50,16 @@ def params_from_jax(np_tree: Mapping[str, Any], cfg: ModelConfig,
                     training: bool = False):
     """The port's parameter dict from the reference's tree of numpy arrays.
 
-    ``np_tree`` has the reference's keys: ``embed/tok``,
-    ``layers/{norm1,norm2,attn/{wq,wk,wv,wo},mlp/{w_in,w_gate,w_out}}`` with
-    the stacked leading ``L``, ``final_norm``.  Shapes are checked against
-    the port's own declarations for ``cfg``.  ``dtype`` overrides the
-    working dtype of the weight matrices (default: what ``cfg`` declares —
-    the compute dtype, or with ``training`` the trainer's master dtype
-    ``cfg.param_dtype``).
+    ``np_tree`` has the reference's keys: ``embed/{tok[,unembed]}``,
+    ``layers/{norm1,norm2,attn/{wq,wk,wv,wo}`` and either
+    ``mlp/{w_in,w_gate,w_out}`` or (MoE) ``moe/{router,w_in,w_gate,w_out
+    [,shared/{w_in,w_gate,w_out}]}}`` with the stacked leading ``L`` (the
+    experts' leaves 4-D, ``(L, E, in, out)``), ``final_norm``.  Shapes are
+    checked against the port's own declarations for ``cfg``.  ``dtype``
+    overrides the working dtype of the weight matrices (default: what
+    ``cfg`` declares — the compute dtype, or with ``training`` the
+    trainer's master dtype ``cfg.param_dtype``); the leaves declared fp32
+    whatever the working dtype (norm scales, the MoE router) stay fp32.
     """
     defs = registry(cfg.family).model_defs(
         cfg, cfg.master_dtype() if training else None)

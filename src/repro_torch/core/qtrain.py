@@ -417,7 +417,9 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
 
     ``loss_fn(params, batch, qctx) -> (loss, aux)`` where ``aux`` is a dict
     that may hold ``"act_stats"`` (merged QuantStats of the taps),
-    ``"last_act_stats"`` and ``"dlogits_stats"`` (last-layer statistics).
+    ``"last_act_stats"`` and ``"dlogits_stats"`` (last-layer statistics),
+    and ``"aux_loss"`` (a MoE model's load-balance loss, already in
+    ``loss``; reported as the metric ``aux_loss``).
     Returns ``step(state, batch) -> (state, metrics)``; the state is
     advanced in place and returned, the metrics are device tensors (reading
     them is the caller's host sync).
@@ -578,7 +580,7 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
             raise ValueError(f"batch {n} does not split into {accum_steps} "
                              "microbatches")
         m = n // accum_steps
-        loss_acc, g_acc, stats = None, None, None
+        loss_acc, g_acc, stats, moe_aux = None, None, None, None
         for i in range(accum_steps):
             micro = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
             loss, aux, g = _grads(qparams, micro, fmts, seed_a, i)
@@ -589,9 +591,14 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
             s = aux.get("act_stats")
             if s is not None:
                 stats = s if stats is None else stats.merge(s)
+            a = aux.get("aux_loss")
+            if a is not None:
+                moe_aux = a if moe_aux is None else moe_aux + a
         grads = tree_lib.map_tree(lambda x, p: (x / accum_steps).to(p.dtype),
                                   g_acc, qparams)
         aux = {} if stats is None else {"act_stats": stats}
+        if moe_aux is not None:
+            aux["aux_loss"] = moe_aux / accum_steps
         return loss_acc / accum_steps, aux, grads
 
     def _raw_leaf_stats(g, path, grad, fmts, seed_g, rank):
@@ -1049,6 +1056,8 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
         # reported by its mean, and its formats' min and max) --
         short = {"weights": "w", "acts": "a", "grads": "g"}
         metrics = {"loss": loss}
+        if "aux_loss" in aux:          # MoE load-balance loss (in ``loss``)
+            metrics["aux_loss"] = aux["aux_loss"]
         for name, spec in plan.domains:
             fmt, tag = fmts[name], short.get(name, name)
             if spec.groups:

@@ -27,11 +27,13 @@ class TokenStreamConfig:
 
 class TokenStream:
     """``batch(step) -> {"tokens": (B, S+1) int32 tensor on device}`` —
-    stateless."""
+    stateless.  ``extras``: tensors every batch carries beside the tokens
+    (a VLM's ``vision_embeds``, say)."""
 
-    def __init__(self, cfg: TokenStreamConfig, device="cpu"):
+    def __init__(self, cfg: TokenStreamConfig, device="cpu", extras=None):
         self.cfg = cfg
         self.device = device
+        self.extras = dict(extras or {})
 
     def batch_np(self, step: int) -> np.ndarray:
         cfg = self.cfg
@@ -49,7 +51,8 @@ class TokenStream:
         return toks.astype(np.int32)
 
     def batch(self, step: int):
-        return {"tokens": torch.from_numpy(self.batch_np(step)).to(self.device)}
+        return {"tokens": torch.from_numpy(self.batch_np(step)).to(self.device),
+                **self.extras}
 
     # checkpointable cursor: the step number itself
     def state(self, step: int) -> dict:

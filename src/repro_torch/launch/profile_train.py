@@ -14,8 +14,9 @@ the kernels that took most device time.  ``--trace-out`` also writes the Chrome 
       --data-ranks 4 [--zero-opt [--wire-overlap on]]
 
 It takes the flags of ``repro_torch.launch.train`` plus ``--top`` and
-``--trace-out``.  Needs a CUDA device: a CPU profile says nothing about the
-card.
+``--trace-out``, and ``main(argv, cfg=...)`` a config of its own, as
+``launch.train.main`` does (``remat="dots"``, say).  Needs a CUDA device: a
+CPU profile says nothing about the card.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from repro_torch.launch import train
 from repro_torch.launch.profile_serve import device_us
 
 
-def main(argv=None):
+def main(argv=None, cfg=None):
     ap = train.make_parser()
     ap.add_argument("--top", type=int, default=15,
                     help="how many kernels to list")
@@ -40,7 +41,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.device != "cuda":
         raise SystemExit("profile_train measures the card: --device cuda only")
-    cfg, step_fn, state, data = train.setup(args)
+    cfg, step_fn, state, data = train.setup(args, cfg)
     state, m = step_fn(state, data.batch(0))              # warm-up
     float(m["loss"])
     train.reset_launch_counts()
@@ -72,6 +73,7 @@ def main(argv=None):
         capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({
         "card": smi, "model": cfg.name, "layers": cfg.n_layers,
+        "remat": cfg.remat,
         "batch": args.batch, "seq": args.seq, "steps": args.steps,
         "loss_last": float(m["loss"]),
         "wall_s_under_profiler": wall,

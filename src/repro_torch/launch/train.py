@@ -18,6 +18,12 @@ Smoke scale on the CPU (the kernels' plain versions):
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_2_3b \\
       --smoke --device cpu --steps 6 --batch 2 --seq 16 --log-every 2
 
+The MoE and VLM families train the same way (``--arch qwen3_moe_30b_a3b``;
+``--arch internvl2_26b``, whose batches carry zero patch embeddings for
+the stubbed vision frontend, prepended to the tokens); above
+S_q·S_k = 4096·2048 (``--seq 3000`` at smoke width) attention runs
+blockwise.
+
 Data parallelism over the int8 wire (``--grad-allreduce-bits 8``): each of
 ``--data-ranks N`` ranks runs its forward and backward on its slice of the
 batch, and the gradients are averaged by the int8 tree all-reduce (K2b per
@@ -292,9 +298,16 @@ def setup(args, cfg=None):
     step_fn = qtrain.make_train_step(mod.loss_fn(cfg), opt, qcfg,
                                      accum_steps=cfg.train_accum,
                                      transport=transport, faults=faults)
+    extras = {}
+    if cfg.family == "vlm":
+        # the stubbed vision frontend's patch embeddings, as the
+        # reference's CLI feeds them: zeros
+        extras["vision_embeds"] = torch.zeros(
+            (args.batch, cfg.n_patches, cfg.d_model), dtype=torch.float32,
+            device=device)
     data = TokenStream(TokenStreamConfig(vocab=cfg.vocab, seq_len=args.seq,
                                          global_batch=args.batch,
-                                         seed=args.seed), device)
+                                         seed=args.seed), device, extras)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(defs, device, gen)
     if step_fn.zero_opt_active:
@@ -495,8 +508,10 @@ def main(argv=None, on_step=None, cfg=None):
                 if "E_wire" in m:
                     wire = (f" E_wire {m['E_wire']:.2e} R_wire "
                             f"{m['R_wire']:.2e}")
+                moe = (f"aux {m['aux_loss']:.4f} " if "aux_loss" in m
+                       else "")
                 if rank0:
-                    print(f"step {step:5d} loss {m['loss']:8.4f} "
+                    print(f"step {step:5d} loss {m['loss']:8.4f} {moe}"
                           f"w<{m['il_w']:.0f},{m['fl_w']:.0f}> "
                           f"a<{m['il_a']:.0f},{m['fl_a']:.0f}> "
                           f"g<{m['il_g']:.0f},{m['fl_g']:.0f}> {_wire_log(m)}"
@@ -591,6 +606,7 @@ def main(argv=None, on_step=None, cfg=None):
            "wire_launches_per_step": [
                {k: h["kernel_launches"][k] for k in wire_kernels}
                for h in history],
+           "aux_loss": history[-1].get("aux_loss") if history else None,
            "E_wire": history[-1].get("E_wire") if history else None,
            "R_wire": history[-1].get("R_wire") if history else None,
            "resumed": resumed,

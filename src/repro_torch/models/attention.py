@@ -11,8 +11,11 @@ Counterpart of ``repro/models/attention.py``.  Call patterns:
 Caches are updated **in place**: the tensors handed in as ``cache`` are
 written and handed back (the reference, being functional, returns copies).
 
-Not ported yet: the blockwise (flash-style) path above
-:data:`FLASH_THRESHOLD`, cross-attention and MLA.
+Train and prefill attention run blockwise with an online softmax
+(:func:`_attn_flash`) once S_q·S_k passes :data:`FLASH_THRESHOLD`, so the
+scores held at a time are O(S_q · block) instead of O(S_q · S_k).
+
+Not ported yet: cross-attention and MLA.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import fixed_point as fxp
@@ -28,7 +32,8 @@ from repro_torch.kernels import paged_attn
 from repro_torch.models.common import ParamDef, apply_rope
 
 NEG_INF = -1e30
-FLASH_THRESHOLD = 4096 * 2048          # S_q · S_k above which the reference goes blockwise
+FLASH_THRESHOLD = 4096 * 2048          # S_q · S_k above which attention goes blockwise
+FLASH_BLOCK = 1024
 
 # int8 contiguous cache (cfg.kv_cache_bits == 8): values snap to the fixed
 # ⟨3,5⟩ grid (range ±4, step 1/32) and are stored as grid integers
@@ -85,11 +90,62 @@ def _attn_full(q, k, v, *, causal: bool, scale: float):
     return torch.einsum("bhqs,bshd->bqhd", p, v)
 
 
+def _flash_block(q, k_blk, v_blk, m, l, acc, *, j0: int, sk: int,
+                 causal: bool, scale: float):
+    """One K/V block of :func:`_attn_flash`: the running max ``m``, sum
+    ``l`` and unnormalized output ``acc`` (fp32) updated by ``block``
+    positions starting at ``j0``."""
+    block = k_blk.shape[1]
+    s = torch.einsum("bqhd,bjhd->bhqj", q.to(torch.float32),
+                     k_blk.to(torch.float32)) * scale
+    sq = q.shape[1]
+    kj = j0 + torch.arange(block, device=q.device)
+    valid = (kj < sk)[None, :]
+    if causal:
+        qi = torch.arange(sq, device=q.device) + (sk - sq)   # global positions
+        valid = valid & (kj[None, :] <= qi[:, None])
+    s = torch.where(valid, s, NEG_INF)
+    new_m = torch.maximum(m, s.amax(dim=-1))                   # (B,H,Sq)
+    p = torch.exp(s - new_m[..., None]) * valid                # masked exp
+    corr = torch.exp(m - new_m)
+    l = l * corr + p.sum(dim=-1)
+    pv = torch.einsum("bhqj,bjhd->bhqd", p.to(v_blk.dtype).to(torch.float32),
+                      v_blk.to(torch.float32))
+    return new_m, l, acc * corr[..., None] + pv
+
+
+def _attn_flash(q, k, v, *, causal: bool, scale: float,
+                block: int = FLASH_BLOCK):
+    """Blockwise online-softmax attention over K/V blocks of ``block``
+    positions (the last padded and masked).
+
+    Each block runs under ``torch.utils.checkpoint``: the backward
+    recomputes a block's (B, H, S_q, block) fp32 scores and probabilities
+    instead of holding every block's.  ``v`` may be narrower than q/k."""
+    B, Sq, H, _ = q.shape
+    Dv = v.shape[-1]
+    Sk = k.shape[1]
+    block = min(block, Sk)
+    nb = -(-Sk // block)
+    pad = nb * block - Sk
+    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    m = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, Sq, Dv), dtype=torch.float32, device=q.device)
+    for i in range(nb):
+        sl = slice(i * block, (i + 1) * block)
+        m, l, acc = checkpoint(_flash_block, q, kp[:, sl], vp[:, sl], m, l,
+                               acc, j0=i * block, sk=Sk, causal=causal,
+                               scale=scale, use_reentrant=False,
+                               preserve_rng_state=False)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)                     # (B,Sq,H,Dv)
+
+
 def sdpa(q, k, v, *, causal: bool, scale: float):
     if q.shape[1] * k.shape[1] > FLASH_THRESHOLD:
-        raise NotImplementedError(
-            f"attention over {q.shape[1]}x{k.shape[1]} positions needs the "
-            f"blockwise path, which is not ported yet")
+        return _attn_flash(q, k, v, causal=causal, scale=scale)
     return _attn_full(q, k, v, causal=causal, scale=scale)
 
 

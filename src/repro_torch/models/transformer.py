@@ -1,4 +1,6 @@
-"""Decoder-only transformer LM, dense variant (llama3.2 and kin).
+"""Decoder-only transformer LM: dense (llama3.2 and kin), MoE (qwen3-moe)
+and VLM-backbone (internvl2: patch embeddings from the stubbed vision
+frontend are prepended to the token sequence) variants.
 
 Counterpart of ``repro/models/transformer.py``.  Parameters are a nested
 dict of tensors with the reference's keys; per-layer weights are stacked on
@@ -10,32 +12,38 @@ Training (:func:`forward_train`, :func:`loss_fn`): the parameters are the
 trainer's master copy (``cfg.param_dtype``, fp32) and are cast to the
 compute dtype inside each block; the residual stream is tapped after every
 block (quantize + stats, :meth:`repro_torch.core.qtrain.QCtx.tap`); with
-``remat="full"`` each block runs under ``torch.utils.checkpoint``, its
-statistics returned from the block rather than recorded beside it.
+``remat="full"`` each block runs under ``torch.utils.checkpoint``, and with
+``remat="dots"`` under it with a selective policy that keeps the matrix
+products' outputs and recomputes the rest.  Either way the block's
+statistics and MoE auxiliary loss leave it as values rather than being
+recorded beside it.
 
-Not ported yet: MoE and MLA layers, vision embeddings.
+Not ported yet: MLA layers.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import functools
+from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tree as tree_lib
 from repro_torch.core.fixed_point import QuantStats
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (ParamDef, embed_defs, embed_lookup,
                                        fused_unembed_xent, layer_norm,
                                        map_defs, rms_norm, unembed)
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.n_experts or cfg.mla:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE and MLA layers are not ported yet (dense only)")
+def _check_mla(cfg: ModelConfig) -> None:
+    if cfg.mla:
+        raise NotImplementedError(f"{cfg.name}: MLA layers are not ported yet")
 
 
 def stack_defs(n: int, defs):
@@ -45,7 +53,7 @@ def stack_defs(n: int, defs):
 
 
 def layer_defs(cfg: ModelConfig, dt: torch.dtype) -> Dict[str, Any]:
-    _check_dense(cfg)
+    _check_mla(cfg)
     defs: Dict[str, Any] = {
         "norm1": ParamDef((cfg.d_model,), init="ones"),
         "norm2": ParamDef((cfg.d_model,), init="ones"),
@@ -54,14 +62,18 @@ def layer_defs(cfg: ModelConfig, dt: torch.dtype) -> Dict[str, Any]:
         defs["norm1_b"] = ParamDef((cfg.d_model,), init="zeros")
         defs["norm2_b"] = ParamDef((cfg.d_model,), init="zeros")
     defs["attn"] = attn_lib.gqa_defs(cfg, dt)
-    defs["mlp"] = mlp_lib.mlp_defs(cfg.d_model, cfg.d_ff, cfg.gated_mlp, dt)
+    if cfg.n_experts:
+        defs["moe"] = moe_lib.moe_defs(cfg, dt)
+    else:
+        defs["mlp"] = mlp_lib.mlp_defs(cfg.d_model, cfg.d_ff, cfg.gated_mlp, dt)
     return defs
 
 
 def model_defs(cfg: ModelConfig, dtype: torch.dtype = None) -> Dict[str, Any]:
     """Parameter declarations.  The weight matrices take ``dtype``: the
     compute dtype by default (serving), ``cfg.master_dtype()`` for a
-    trainer's master copy.  Norm scales are fp32 either way."""
+    trainer's master copy.  Norm scales and the MoE router are fp32 either
+    way."""
     dt = dtype or cfg.activation_dtype()
     return {
         "embed": embed_defs(cfg.vocab, cfg.d_model, tie=cfg.tie_embed, dtype=dt),
@@ -78,7 +90,8 @@ def _norm(cfg, x, scale, bias=None):
 
 def _block(cfg: ModelConfig, p, x, *, positions, mode, cache, cache_pos,
            paged_ptab=None, paged_backend="auto"):
-    """One transformer block.  Returns (x, new_cache)."""
+    """One transformer block.  Returns (x, new_cache, aux_loss): the MoE
+    layer's load-balance loss, ``None`` for a dense one."""
     h = _norm(cfg, x, p["norm1"], p.get("norm1_b"))
     a_out, new_cache = attn_lib.gqa_apply(
         cfg, p["attn"], h, positions=positions, mode=mode, cache=cache,
@@ -86,8 +99,12 @@ def _block(cfg: ModelConfig, p, x, *, positions, mode, cache, cache_pos,
         paged_backend=paged_backend)
     x = x + a_out
     h = _norm(cfg, x, p["norm2"], p.get("norm2_b"))
-    x = x + mlp_lib.mlp_apply(cfg, p["mlp"], h)
-    return x, new_cache
+    aux_loss = None
+    if cfg.n_experts:
+        m_out, aux_loss = moe_lib.moe_apply(cfg, p["moe"], h)
+    else:
+        m_out = mlp_lib.mlp_apply(cfg, p["mlp"], h)
+    return x + m_out, new_cache, aux_loss
 
 
 def _layer(tree, i: int):
@@ -107,7 +124,7 @@ def _run_stack(cfg: ModelConfig, layers, x, *, positions, mode, cache=None,
     place, so the stacked cache handed in is the one handed back."""
     per_layer = []
     for i in range(cfg.n_layers):
-        x, new_cache = _block(
+        x, new_cache, _ = _block(
             cfg, _layer(layers, i), x, positions=positions, mode=mode,
             cache=None if cache is None else _layer(cache, i),
             cache_pos=cache_pos, paged_ptab=paged_ptab,
@@ -118,17 +135,29 @@ def _run_stack(cfg: ModelConfig, layers, x, *, positions, mode, cache=None,
     return x, tuple(torch.stack(c) for c in zip(*per_layer))
 
 
+def _embed(cfg: ModelConfig, params, tokens, vision_embeds):
+    """Token embeddings in the compute dtype, the vision prefix (B, P, D)
+    prepended when given."""
+    x = embed_lookup(params["embed"]["tok"], tokens).to(cfg.activation_dtype())
+    if vision_embeds is not None:
+        x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
+            vision_embeds: Optional[torch.Tensor] = None,
             mode: str = "prefill", cache=None, cache_pos=None,
             hidden_only: bool = False, paged_ptab=None,
             paged_backend: str = "auto"):
     """Returns (logits | hidden, new_cache).
 
+    ``vision_embeds`` (B, n_patches, D) are prepended to the token
+    embeddings, and positions run over the whole sequence.
     ``mode="prefill"`` unembeds the LAST position only (the serving loop
     needs just the next-token logits).  ``hidden_only=True`` skips
     unembedding."""
-    _check_dense(cfg)
-    x = embed_lookup(params["embed"]["tok"], tokens).to(cfg.activation_dtype())
+    _check_mla(cfg)
+    x = _embed(cfg, params, tokens, vision_embeds)
     S = x.shape[1]
     if mode == "decode":
         positions = cache_pos[:, None]                      # (B, 1)
@@ -162,51 +191,98 @@ def unbind_layers(layers, n: int):
     return [tree_lib.map_tree(lambda parts: parts[i], split) for i in range(n)]
 
 
+@functools.lru_cache(maxsize=None)
+def _kept_f32(cfg: ModelConfig):
+    """Per-layer tree of bools: the leaves declared fp32 whatever the
+    working dtype (norm scales, the MoE router), which the compute cast
+    leaves alone."""
+    return map_defs(lambda d: d.dtype == torch.float32,
+                    layer_defs(cfg, torch.bfloat16))
+
+
 def _train_block(cfg: ModelConfig, p, x, positions, qctx, idx: int):
     """One block in train mode on the compute dtype, then the residual tap.
-    Returns (x, QuantStats) — the stats as values, so a checkpointed block
-    hands them out once however often it is recomputed."""
+    Returns (x, QuantStats, aux_loss) — the stats and the MoE loss as
+    values, so a checkpointed block hands them out once however often it
+    is recomputed."""
     dt = cfg.activation_dtype()
-    p = tree_lib.map_tree(lambda w: w.to(dt) if w.ndim >= 2 else w, p)
-    x, _ = _block(cfg, p, x, positions=positions, mode="train", cache=None,
-                  cache_pos=None)
+    p = tree_lib.map_tree(lambda w, keep: w if keep else w.to(dt), p,
+                          _kept_f32(cfg))
+    x, _, aux = _block(cfg, p, x, positions=positions, mode="train",
+                       cache=None, cache_pos=None)
     if qctx is None:
-        return x, None
-    return qctx.tap(x, idx)
+        return x, None, aux
+    x, stats = qctx.tap(x, idx)
+    return x, stats, aux
 
 
-def forward_train(cfg: ModelConfig, params, tokens: torch.Tensor, qctx=None):
-    """Training forward: ``(final-normed hidden (B, S, D), act_stats)``."""
-    from torch.utils.checkpoint import checkpoint
-    _check_dense(cfg)
-    if cfg.remat not in ("full", "none"):
-        raise NotImplementedError(f"remat={cfg.remat!r} is not ported "
-                                  "(full or none)")
-    x = embed_lookup(params["embed"]["tok"], tokens).to(cfg.activation_dtype())
+# the matrix products whose outputs remat="dots" keeps (what ``@``,
+# ``torch.einsum`` and ``torch.matmul`` reach at dispatch), as the
+# reference's ``checkpoint_dots`` keeps every dot's
+_DOT_OPS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default,
+                      torch.ops.aten.baddbmm.default))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def forward_train(cfg: ModelConfig, params, tokens: torch.Tensor, qctx=None,
+                  vision_embeds: Optional[torch.Tensor] = None):
+    """Training forward: ``(final-normed hidden (B, S, D), act_stats,
+    aux_loss)`` — ``aux_loss`` the layers' summed MoE load-balance loss
+    (fp32 0 for a dense model).  ``vision_embeds`` as in :func:`forward`."""
+    _check_mla(cfg)
+    if cfg.remat not in ("full", "dots", "none"):
+        raise ValueError(f"remat must be full, dots or none, got "
+                         f"{cfg.remat!r}")
+    x = _embed(cfg, params, tokens, vision_embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None, :]
     stats = None
+    aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(unbind_layers(params["layers"], cfg.n_layers)):
-        if cfg.remat == "full":
-            x, s = checkpoint(_train_block, cfg, p, x, positions, qctx, i,
-                              use_reentrant=False, preserve_rng_state=False)
+        if cfg.remat == "none":
+            x, s, aux = _train_block(cfg, p, x, positions, qctx, i)
         else:
-            x, s = _train_block(cfg, p, x, positions, qctx, i)
+            kw = ({"context_fn": functools.partial(
+                create_selective_checkpoint_contexts, _dots_policy)}
+                  if cfg.remat == "dots" else {})
+            x, s, aux = checkpoint(_train_block, cfg, p, x, positions, qctx,
+                                   i, use_reentrant=False,
+                                   preserve_rng_state=False, **kw)
         if s is not None:
             stats = s if stats is None else stats.merge(s)
+        if aux is not None:
+            aux_loss = aux_loss + aux
     x = _norm(cfg, x, params["final_norm"])
-    return x, stats or QuantStats.zero(device=x.device)
+    return x, stats or QuantStats.zero(device=x.device), aux_loss
 
 
 def loss_fn(cfg: ModelConfig):
-    """(params, batch, qctx) -> (loss, aux) for qtrain.make_train_step."""
+    """(params, batch, qctx) -> (loss, aux) for qtrain.make_train_step.
+
+    A batch's ``vision_embeds`` (VLM) are prepended to the tokens, and the
+    loss is taken over the token positions only.  The MoE load-balance
+    loss, times ``cfg.router_aux_coef``, is added to the loss and reported
+    as ``aux["aux_loss"]``."""
 
     def fn(params, batch, qctx=None):
         tokens = batch["tokens"]
-        hidden, stats = forward_train(cfg, params, tokens[:, :-1], qctx)
+        vision = batch.get("vision_embeds")
+        hidden, stats, aux_loss = forward_train(cfg, params, tokens[:, :-1],
+                                                qctx, vision)
+        if vision is not None:
+            hidden = hidden[:, vision.shape[1]:]
         loss = fused_unembed_xent(hidden, params["embed"], cfg.vocab,
                                   tokens[:, 1:], batch.get("loss_mask"))
-        return loss, {"act_stats": stats}
+        aux = {"act_stats": stats}
+        if cfg.n_experts:
+            loss = loss + cfg.router_aux_coef * aux_loss
+            aux["aux_loss"] = aux_loss.detach()
+        return loss, aux
 
     return fn
 
@@ -219,9 +295,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
             torch.zeros(shp, dtype=dt, device=device))
 
 
-def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int):
-    """Run the prompt, return (last_logits, cache padded to max_seq, pos)."""
-    logits, cache = forward(cfg, params, tokens, mode="prefill")
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int, *,
+            vision_embeds: Optional[torch.Tensor] = None):
+    """Run the prompt (after the vision prefix, if given), return
+    (last_logits, cache padded to max_seq, pos)."""
+    logits, cache = forward(cfg, params, tokens, mode="prefill",
+                            vision_embeds=vision_embeds)
     S = cache[0].shape[2]
     pad = (0, 0, 0, 0, 0, max_seq - S)      # (Dh, KV, seq) from the last dim
     cache = tuple(torch.nn.functional.pad(c, pad) for c in cache)
@@ -254,11 +333,22 @@ def decode_step_paged(cfg: ModelConfig, params, tokens: torch.Tensor, cache,
     return logits[:, -1], new_cache
 
 
-def count_params(cfg: ModelConfig) -> float:
-    _check_dense(cfg)
-    per_layer = 2 * cfg.d_model
-    per_layer += attn_lib.count_gqa_params(cfg)
-    per_layer += mlp_lib.count_mlp_params(cfg.d_model, cfg.d_ff, cfg.gated_mlp)
+def _count(cfg: ModelConfig, ffn: int) -> float:
+    _check_mla(cfg)
+    per_layer = 2 * cfg.d_model + attn_lib.count_gqa_params(cfg) + ffn
     total = cfg.n_layers * per_layer + cfg.d_model
     total += cfg.vocab * cfg.d_model * (1 if cfg.tie_embed else 2)
     return float(total)
+
+
+def count_params(cfg: ModelConfig) -> float:
+    if cfg.n_experts:
+        return _count(cfg, moe_lib.count_moe_params(cfg))
+    return _count(cfg, mlp_lib.count_mlp_params(cfg.d_model, cfg.d_ff,
+                                                cfg.gated_mlp))
+
+
+def count_active_params(cfg: ModelConfig) -> float:
+    if not cfg.n_experts:
+        return count_params(cfg)
+    return _count(cfg, moe_lib.count_moe_active_params(cfg))

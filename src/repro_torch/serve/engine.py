@@ -33,9 +33,10 @@ BACKENDS = ("auto", "kernel", "plain")
 
 
 def supports_paging(cfg: ModelConfig) -> bool:
-    """Paged serving needs the GQA decode path; of the families that have
-    one, only the dense decoder is ported."""
-    return cfg.family == "dense" and not cfg.mla
+    """Paged serving needs the GQA decode path (no MLA latent cache, no
+    SSM state, no encoder context, no vision prefix): the dense and MoE
+    decoders."""
+    return cfg.family in ("dense", "moe") and not cfg.mla
 
 
 @dataclasses.dataclass(frozen=True)

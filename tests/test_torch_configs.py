@@ -1,11 +1,14 @@
-"""The other dense configs — gemma-7b, mistral-large-123b, nemotron-4-340b —
-in the port against the JAX package's, from the same weights.
+"""The other configs — gemma-7b, mistral-large-123b, nemotron-4-340b
+(dense), qwen3-moe-30b-a3b (MoE) and internvl2-26b (VLM) — in the port
+against the JAX package's, from the same weights.
 
 Each config brings something llama3.2-3b does not: gemma's tanh-GELU
 gated MLP, Dh = 256 and multi-head attention (G = 1); mistral's untied
 unembedding and G = 12; nemotron's squared-ReLU, non-gated MLP, untied
-unembedding and G = 12 at Dh = 192; and gradient accumulation over 2, 4
-and 8 microbatches.  Held, for each config:
+unembedding and G = 12 at Dh = 192; qwen3-moe's MoE layers (128 experts,
+top-8; smoke: 8, top-2) and G = 8; internvl2's vision prefix (patch
+embeddings prepended to the tokens), untied unembedding and G = 6; and
+gradient accumulation over 2, 4 and 8 microbatches.  Held, for each config:
 
 * (a) every field of the config equals the reference's, and the analytic
   full-size parameter count equals the reference's, from declarations
@@ -14,12 +17,16 @@ and 8 microbatches.  Held, for each config:
   flattens it to Dh = 16, G <= 2; the overrides restore H, KV and Dh):
   prefill, contiguous-decode and paged-decode logits within 1e-4 of the
   reference from its converted parameters, and the int8 pools byte-equal
-  after a paged step, as ``tests/test_torch_model.py`` holds llama;
+  after a paged step, as ``tests/test_torch_model.py`` holds llama
+  (internvl2's prompt after a nonzero vision prefix from a numpy seed);
 * (d) 3 SGD steps under nearest rounding at smoke size, split into the full
   config's ``train_accum`` microbatches: ⟨IL, FL⟩ of every domain identical
-  at every step, the loss to 1e-4 relative (as ``tests/test_torch_train.py``);
+  at every step, the loss to 1e-4 relative (as ``tests/test_torch_train.py``;
+  internvl2 with a vision prefix on every batch; qwen3-moe, whose
+  ``train_accum`` is 1, in ``tests/test_torch_moe.py``);
 * (e) the serving engine's greedy tokens and page-format spread on a short
-  seeded trace identical to the reference engine's.
+  seeded trace identical to the reference engine's (internvl2 trains only:
+  neither engine serves it).
 
 Also: the serving and training CLIs smoke-run each config on the CPU, and
 the engine holds one fp32 cast of an untied ``unembed`` table, which changes
@@ -48,14 +55,23 @@ from repro_torch.optim import SGDConfig, make_optimizer
 from repro_torch.serve import Engine, EngineConfig, PagedLayout, synthetic_trace
 from test_torch_jaxref import run_reference, unflatten
 
-ARCHS = ("gemma_7b", "mistral_large_123b", "nemotron_4_340b")
+ARCHS = ("gemma_7b", "mistral_large_123b", "nemotron_4_340b",
+         "qwen3_moe_30b_a3b", "internvl2_26b")
+# the configs the serving engine takes (the VLM trains only)
+SERVE_ARCHS = tuple(a for a in ARCHS if a != "internvl2_26b")
+# the configs that accumulate gradients (qwen3-moe's train_accum is 1)
+ACCUM_ARCHS = tuple(a for a in ARCHS if a != "qwen3_moe_30b_a3b")
 # full-size parameter counts (the analytic count, vocab unpadded)
 FULL_PARAMS = {"gemma_7b": 8_537_680_896, "mistral_large_123b": 122_610_069_504,
-               "nemotron_4_340b": 341_025_638_400}
+               "nemotron_4_340b": 341_025_638_400,
+               "qwen3_moe_30b_a3b": 30_220_945_408,
+               "internvl2_26b": 19_861_260_288}
 # each config's real head geometry at smoke width: (H, KV, Dh) with its G
 HEADS = {"gemma_7b": dict(n_heads=2, n_kv_heads=2, head_dim=256),
          "mistral_large_123b": dict(n_heads=12, n_kv_heads=1, head_dim=128),
-         "nemotron_4_340b": dict(n_heads=12, n_kv_heads=1, head_dim=192)}
+         "nemotron_4_340b": dict(n_heads=12, n_kv_heads=1, head_dim=192),
+         "qwen3_moe_30b_a3b": dict(n_heads=8, n_kv_heads=1, head_dim=128),
+         "internvl2_26b": dict(n_heads=6, n_kv_heads=1, head_dim=128)}
 GEOMS = ("smoke", "heads")
 TOL = 1e-4
 LOSS_RTOL = 1e-4
@@ -85,11 +101,21 @@ def _accum(arch):
     return {"train_accum": get_config(arch).train_accum}
 
 
+def _vision(cfg, batch, seed):
+    """A VLM's vision prefix (batch, n_patches, d) from a numpy seed; no
+    entry for any other config."""
+    if cfg.family != "vlm":
+        return {}
+    rng = np.random.default_rng(seed)
+    return {"vision_embeds": rng.standard_normal(
+        (batch, cfg.n_patches, cfg.d_model)).astype(np.float32)}
+
+
 def _model_arrays(cfg, seed):
     rng = np.random.default_rng(seed)
     pool = (cfg.n_layers, N_TOT, PS, cfg.n_kv_heads, cfg.head_dim)
     il = rng.integers(2, 5, (2, cfg.n_layers, N_TOT)).astype(np.int32)
-    return {
+    return {**_vision(cfg, 2, seed + 100),
         "tokens": rng.integers(1, cfg.vocab, (2, 8)).astype(np.int32),
         "next": rng.integers(1, cfg.vocab, (2, 1)).astype(np.int32),
         "k_pages": rng.integers(-100, 100, pool).astype(np.int8),
@@ -108,6 +134,7 @@ def _model_arrays(cfg, seed):
 ARRAYS = {(arch, geom): _model_arrays(_cfg(arch, geom), 11 + i)
           for i, (arch, geom) in enumerate((a, g) for a in ARCHS
                                            for g in GEOMS)}
+LM_VISION = {arch: _vision(_cfg(arch), LM["batch"], 60) for arch in ARCHS}
 
 
 @pytest.fixture(scope="module")
@@ -124,11 +151,15 @@ def ref():
                 "overrides": _overrides(arch, geom)}})
             arrays.update({f"{tag}/{k}": v
                            for k, v in ARRAYS[(arch, geom)].items()})
-        jobs.append({"job": "engine", "tag": f"{arch}/engine", "kw": {
-            "seed": 0, "layout": ENGINE_LAYOUT, "traces": {"int8": TRACE},
-            "arch": arch}})
-        jobs.append({"job": "lm_train", "tag": f"{arch}/lm", "kw": dict(
-            LM, arch=arch, overrides=_accum(arch))})
+        if arch in SERVE_ARCHS:
+            jobs.append({"job": "engine", "tag": f"{arch}/engine", "kw": {
+                "seed": 0, "layout": ENGINE_LAYOUT,
+                "traces": {"int8": TRACE}, "arch": arch}})
+        if arch in ACCUM_ARCHS:
+            jobs.append({"job": "lm_train", "tag": f"{arch}/lm", "kw": dict(
+                LM, arch=arch, overrides=_accum(arch))})
+            arrays.update({f"{arch}/lm/{k}": v
+                           for k, v in LM_VISION[arch].items()})
     return run_reference(jobs, arrays)
 
 
@@ -175,7 +206,11 @@ def test_prefill_and_decode_logits_match_reference(ref, arch, geom):
     cfg, tag, a = _cfg(arch, geom), f"{arch}/{geom}", ARRAYS[(arch, geom)]
     mod = registry(cfg.family)
     params = _params(ref, arch, geom)
-    logits, cache, pos = mod.prefill(cfg, params, _t(a["tokens"]), 12)
+    vis = _t(a["vision_embeds"]) if "vision_embeds" in a else None
+    n_vis = 0 if vis is None else vis.shape[1]
+    logits, cache, pos = mod.prefill(cfg, params, _t(a["tokens"]), 12 + n_vis,
+                                     vision_embeds=vis)
+    assert int(pos[0]) == a["tokens"].shape[1] + n_vis
     assert np.max(np.abs(logits.numpy() - ref[f"{tag}/prefill_logits"])) <= TOL
     assert np.max(np.abs(cache[0].numpy() - ref[f"{tag}/prefill_ck"])) <= TOL
     assert np.max(np.abs(cache[1].numpy() - ref[f"{tag}/prefill_cv"])) <= TOL
@@ -208,7 +243,7 @@ def test_paged_decode_step_matches_reference(ref, arch, geom):
 # (d) training over the config's microbatches
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ACCUM_ARCHS)
 def test_lm_steps_with_accumulation_match_reference(ref, arch):
     cfg = _cfg(arch, remat=LM["remat"], **_accum(arch))
     assert cfg.train_accum == get_config(arch).train_accum > 1
@@ -221,9 +256,10 @@ def test_lm_steps_with_accumulation_match_reference(ref, arch):
     state = qtrain.TrainState.create(params, opt.init(params), qcfg, 1)
     data = TokenStream(TokenStreamConfig(vocab=cfg.vocab, seq_len=LM["seq"],
                                          global_batch=LM["batch"], seed=0))
+    extras = {k: _t(v) for k, v in LM_VISION[arch].items()}
     hist = {k: [] for k in FMTS + ("loss",)}
     for i in range(LM["steps"]):
-        state, m = step(state, data.batch(i))
+        state, m = step(state, dict(data.batch(i), **extras))
         for k in hist:
             hist[k].append(float(m[k]))
     for k in FMTS:
@@ -238,7 +274,7 @@ def test_lm_steps_with_accumulation_match_reference(ref, arch):
 # (e) the serving engine
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
 def test_engine_tokens_and_spread_match_reference(ref, arch):
     cfg = _cfg(arch)
     params = params_from_jax(unflatten(ref, f"{arch}/engine/params/"), cfg,
@@ -292,16 +328,22 @@ def test_engine_holds_one_fp32_cast_of_an_untied_table(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_serve_and_train_clis_smoke_on_the_cpu(arch, capsys):
-    rep = serve_cli.main(["--arch", arch, "--smoke", "--device", "cpu",
-                          "--requests", "4", "--slots", "2", "--page-size",
-                          "4", "--max-prompt", "8", "--max-new", "6"])
-    assert rep.metrics["total_tokens"] > 0
+    serve_argv = ["--arch", arch, "--smoke", "--device", "cpu", "--requests",
+                  "4", "--slots", "2", "--page-size", "4", "--max-prompt", "8",
+                  "--max-new", "6"]
+    if arch in SERVE_ARCHS:
+        rep = serve_cli.main(serve_argv)
+        assert rep.metrics["total_tokens"] > 0
+        assert "tok/s" in capsys.readouterr().out
+    else:                       # as the reference's CLI, it refuses the VLM
+        with pytest.raises(SystemExit, match="paged"):
+            serve_cli.main(serve_argv)
     out = train_cli.main(["--arch", arch, "--smoke", "--device", "cpu",
                           "--steps", "2", "--batch", "8", "--seq", "16",
                           "--log-every", "1"])
     assert len(out["history"]) == 2
     assert all(np.isfinite(h["loss"]) for h in out["history"])
-    assert "tok/s" in capsys.readouterr().out
+    assert ("aux_loss" in out["history"][0]) == (arch == "qwen3_moe_30b_a3b")
 
 
 def test_train_setup_takes_a_config_cut_in_depth():

@@ -251,10 +251,13 @@ def test_engine_refuses(params, what):
         with pytest.raises(ValueError):
             _engine(params, attn_backend="jnp")
     else:
-        moe = dataclasses.replace(CFG, family="moe")
-        assert not supports_paging(moe) and supports_paging(CFG)
+        # the VLM trains only (the reference's engine refuses it too); the
+        # dense and MoE decoders page
+        vlm = dataclasses.replace(CFG, family="vlm")
+        assert not supports_paging(vlm) and supports_paging(CFG)
+        assert supports_paging(dataclasses.replace(CFG, family="moe"))
         with pytest.raises(ValueError, match="paged"):
-            Engine(moe, params, ecfg, device="cpu")
+            Engine(vlm, params, ecfg, device="cpu")
 
 
 def test_engine_forces_the_model_cache_off_int8(params):

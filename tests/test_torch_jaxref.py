@@ -281,13 +281,17 @@ def _smoke_params(seed, arch="llama3_2_3b", overrides=None):
 
 def job_model(a, seed, layout, arch="llama3_2_3b", overrides=None):
     """Smoke params plus prefill logits, contiguous decode logits and one
-    paged decode step on shared pools."""
+    paged decode step on shared pools.  A ``vision_embeds`` array, if the
+    test hands one over, is the prompt's vision prefix."""
     import jax.numpy as jnp
     cfg, mod, params = _smoke_params(seed, arch, overrides)
     out = flatten(_np_params(params), "params/")
     toks = jnp.asarray(a["tokens"])
-    max_seq = toks.shape[1] + 4
-    logits, cache, pos = mod.prefill(cfg, params, toks, max_seq)
+    vis = a.get("vision_embeds")
+    vis = None if vis is None else jnp.asarray(vis)
+    max_seq = toks.shape[1] + (0 if vis is None else vis.shape[1]) + 4
+    logits, cache, pos = mod.prefill(cfg, params, toks, max_seq,
+                                     vision_embeds=vis)
     out.update(prefill_logits=np.asarray(logits),
                prefill_ck=np.asarray(cache[0]), prefill_cv=np.asarray(cache[1]))
     lg, cache = mod.decode_step(cfg, params, jnp.asarray(a["next"]), cache, pos)
@@ -475,12 +479,17 @@ def job_lenet_train(a, steps, n_train, qkw=None):
 
 
 def job_lm_train(a, steps, seq, batch, remat, arch="llama3_2_3b",
-                 overrides=None):
+                 overrides=None, flash_block=None):
     """Smoke ``arch`` (llama3.2-3b by default) from ``init_params(key(0))``:
     ``steps`` SGD steps under nearest rounding on the synthetic token
-    stream, over the config's ``train_accum`` microbatches."""
+    stream, over the config's ``train_accum`` microbatches.  A
+    ``vision_embeds`` array from the test rides on every batch (a VLM's
+    prefix).  ``flash_block``: attention goes blockwise at every length,
+    in blocks of that many positions."""
     import dataclasses
     import jax
+    if flash_block:
+        _flash_everywhere(flash_block)
     from repro.core import qtrain
     from repro.data import TokenStream, TokenStreamConfig
     from repro.models import registry
@@ -498,9 +507,89 @@ def job_lm_train(a, steps, seq, batch, remat, arch="llama3_2_3b",
                                      jax.random.key(1))
     data = TokenStream(TokenStreamConfig(vocab=cfg.vocab, seq_len=seq,
                                          global_batch=batch, seed=0))
+    extras = ({} if "vision_embeds" not in a
+              else {"vision_embeds": jax.numpy.asarray(a["vision_embeds"])})
     _, hist = _run_train(step_fn, state,
-                         [data.batch(i) for i in range(steps)])
+                         [dict(data.batch(i), **extras) for i in range(steps)])
     out.update({f"hist/{k}": v for k, v in hist.items()})
+    return out
+
+
+def _flash_everywhere(block):
+    """The reference's ``sdpa`` goes blockwise at every length, in blocks
+    of ``block`` positions."""
+    from functools import partial
+    from repro.models import attention
+    attention.FLASH_THRESHOLD = 0
+    attention._attn_flash = partial(attention._attn_flash, block=block)
+
+
+def job_moe(a, seed, arch, overrides=None):
+    """The reference's MoE layer at smoke size on ``x`` (B, S, D): the
+    router's top-k indices and weights, each choice's capacity slot and
+    keep flag (the lines of ``_moe_einsum`` that make them), and
+    ``moe_apply``'s output and auxiliary loss."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import moe
+    from repro.models.common import init_params
+    cfg = _smoke_cfg(arch, overrides)
+    p = init_params(jax.random.key(seed), moe.moe_defs(cfg, jnp.float32))
+    x = jnp.asarray(a["x"])
+    x2 = x.reshape(-1, x.shape[-1])
+    T = x2.shape[0]
+    top_w, top_i, probs = moe._router(cfg, p["router"], x2)
+    onehot = jax.nn.one_hot(top_i, cfg.n_experts, dtype=jnp.int32)
+    flat = onehot.reshape(T * cfg.top_k, cfg.n_experts)
+    pos = jnp.cumsum(flat, axis=0) - flat
+    pos = jnp.sum(pos * flat, axis=-1).reshape(T, cfg.top_k)
+    y, aux = moe.moe_apply(cfg, p, x)
+    out = flatten(_np_params(p), "params/")
+    out.update(top_i=np.asarray(top_i), top_w=np.asarray(top_w),
+               probs=np.asarray(probs), pos=np.asarray(pos),
+               keep=np.asarray(pos < moe._capacity(T, cfg)),
+               capacity=np.int64(moe._capacity(T, cfg)), y=np.asarray(y),
+               aux=np.asarray(aux))
+    return out
+
+
+def job_flash(a, block, causal):
+    """The reference's ``_attn_flash`` (blocks of ``block``) and
+    ``_attn_full`` on q, k, v, and the gradients of ``sum(out * w)`` with
+    respect to q, k and v through each."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import attention
+    q, k, v, w = (jnp.asarray(a[n]) for n in ("q", "k", "v", "w"))
+    scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    out = {}
+    for name, fn in (("flash", lambda *t: attention._attn_flash(
+                          *t, causal=causal, scale=scale, block=block)),
+                     ("full", lambda *t: attention._attn_full(
+                          *t, causal=causal, scale=scale))):
+        o = fn(q, k, v)
+        g = jax.grad(lambda q_, k_, v_: jnp.sum(fn(q_, k_, v_) * w),
+                     argnums=(0, 1, 2))(q, k, v)
+        out[f"{name}/out"] = np.asarray(o)
+        for n, t in zip("qkv", g):
+            out[f"{name}/d{n}"] = np.asarray(t)
+    return out
+
+
+def job_long(a, seed):
+    """Smoke llama3.2-3b on one long sequence, through the reference's
+    ``sdpa`` at its real threshold: prefill logits, and the loss and its
+    gradients (no quantization) on ``tokens`` with the last as labels."""
+    import jax
+    import jax.numpy as jnp
+    cfg, mod, params = _smoke_params(seed)
+    toks = jnp.asarray(a["tokens"])
+    logits, _, _ = mod.prefill(cfg, params, toks[:, :-1], toks.shape[1] - 1)
+    loss, g = jax.value_and_grad(
+        lambda p: mod.loss_fn(cfg)(p, {"tokens": toks})[0])(params)
+    out = flatten(_np_params(params), "params/")
+    out.update(flatten(_np_params(g), "grads/"))
+    out.update(prefill_logits=np.asarray(logits), loss=np.asarray(loss))
     return out
 
 

@@ -185,7 +185,7 @@ def test_layer_stack_is_split_by_one_unbind_per_leaf():
     cfg = dataclasses.replace(CFG, remat="none")
     params = tree_lib.map_tree(lambda p: p.requires_grad_(), _smoke_params(cfg))
     tokens = torch.zeros((2, 8), dtype=torch.int32)
-    hidden, _ = transformer.forward_train(cfg, params, tokens)
+    hidden, _, _ = transformer.forward_train(cfg, params, tokens)
     names = _graph_nodes(hidden.sum())
     n_stacked = len(tree_lib.leaves(params["layers"]))
     assert names.count("UnbindBackward0") == n_stacked
