@@ -5,9 +5,10 @@
 
 Drives ``repro_torch``'s paths — serving (``python -m
 repro_torch.launch.serve``), quantized training (``python -m
-repro_torch.launch.train``, and the paper's LeNet app; the dense, MoE and
-VLM transformers; at sequence 4,096 through the blockwise attention and
-under ``remat="dots"``), data-parallel
+repro_torch.launch.train``, and the paper's LeNet app with its Fig. 4
+arms; the dense, MoE and VLM transformers, and MLA (deepseek-v2-236b's
+prefill and absorbed decode); at sequence 4,096 through the blockwise
+attention and under ``remat="dots"``), data-parallel
 training over the int8 wire (``launch.train --grad-allreduce-bits 8
 --data-ranks 4``, with ZeRO-1 and the overlapped bucketed wire:
 ``--zero-opt --wire-overlap on``), and that trainer's checkpoint, resume,
@@ -81,7 +82,20 @@ JSON line; any failure raises and the process exits non-zero:
              every quantization event); then 3 steps under nearest and 3
              under stochastic rounding (the same operand bits on both sides)
              with the kernel and with the plain quantizer: <IL, FL> equal
-             step by step, loss to ``LENET_LOSS_RTOL``.
+             step by step, loss to ``LENET_LOSS_RTOL``.  Then
+             ``paper_fig4``, the paper's Fig. 4 as
+             ``benchmarks/bench_convergence.py`` runs it: ``train_mnist``
+             for 2,000 steps in each of three arms on ``MNISTLike(batch=64,
+             seed=0)`` — fp32, DPS (``paper_quant_config()``) and fixed
+             13-bit (``paper_quant_config(static_bits=13)``) — from each of
+             three initializations (seeds 0-2, drawn by the CPU generator),
+             every quantization event on K1b (33 a step, asserted), the
+             fp32 arm's first 3 losses within ``FIG4_LOSS_RTOL`` of a CPU
+             run's from the same parameters; each arm's test accuracy,
+             average widths, divergence, first non-finite loss, wall time
+             and launches, and the bench's three claims for each seed,
+             printed and not asserted (they are measurements: the paper's
+             recipe diverges from some initializations, fp32 included).
 7. train   — ``repro_torch.launch.train --arch llama3_2_3b --steps 4 --batch 2
              --seq 512 --optimizer sgd`` at full width and depth (fp32 master
              weights, bf16 compute, full remat), every quantization event on
@@ -105,7 +119,22 @@ JSON line; any failure raises and the process exits non-zero:
              all 28 layers; ``train_dots``: the llama run of this phase with
              ``remat="dots"`` (the matrix products' outputs kept), 4 steps,
              its launches equal to full remat's and its ms a step and peak
-             printed beside full remat's (``dots_vs_full``).
+             printed beside full remat's (``dots_vs_full``).  After
+             ``flash``: ``serve_deepseek``, deepseek-v2-236b at full width
+             (MLA, 160 experts top-6 and 2 shared; bf16 from seed 0) cut to
+             4 of its 60 layers, through the contiguous ``prefill`` (8
+             prompts of 512 tokens) and 32 absorbed ``decode_step``s with
+             the latent caches in bf16 and in int8: finite logits, the first
+             step's within ``LOGIT_TOL`` of the expanded-form decode's on
+             the same cache, no kernel launched; prefill s, p50/p95 ms a
+             step, tokens/s, peaks and the latent cache's bytes against a
+             GQA cache of 128 x 128; and ``mla_check``, one MLA layer at
+             deepseek-v2's full geometry: train mode forward + backward at
+             B=1, S=4,096, blockwise against materialized within
+             ``FLASH_TOL`` (output and input gradient, fp32 and bf16, each
+             path's ms and peak), and the absorbed decode at position S
+             against the expanded form's last row within
+             ``MLA_DECODE_TOL``.
 8. wire    — the int8 wire of data-parallel training.  The wire quantizer
              K2/K2b (sizes, bf16, unaligned pointers and Philox offsets,
              saturating formats, statistics on and off, a slot of a larger
@@ -221,7 +250,8 @@ Phases 10-14 run right after phase 8's counted wire run, before its
 
 The line before the last two carries the kernels (launches on their path —
 K1's from the LM run with a bits operand, LeNet's beside them; K1b's row
-adds ``launches_train_long`` and ``launches_train_dots``; K2b's, K3b's
+adds ``launches_train_long``, ``launches_train_dots`` and
+``launches_paper_fig4`` (the DPS and fixed 13-bit arms); K2b's, K3b's
 and K4's from the wire run; K2's from the wire run with a bits operand; K5's
 from the serving run, on its serving-shape row (a row of another config's
 shape, ``<kernel>_<config>``, names the run it counts, ``serve_<config>`` or
@@ -335,6 +365,37 @@ LONG_SEQ = 4096
 # probabilities to bf16 where the materialized one casts the normalized
 # ones: each a 2^-9 relative rounding, and the output another)
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# The paper's Fig. 4 (benchmarks/bench_convergence.py's arms and claims):
+# fp32, DPS and fixed 13-bit LeNet for the paper's 2,000 steps each
+FIG4_STEPS = 2000
+# from three initializations (the recipe diverges from some, fp32 included)
+FIG4_SEEDS = (0, 1, 2)
+# the fp32 arm's first losses on the card against a CPU run's from the same
+# parameters (convolutions summed in other orders; the early transient
+# amplifies a difference only after a few steps)
+FIG4_HELD_STEPS = 3
+FIG4_LOSS_RTOL = 1e-4
+# deepseek-v2-236b served at full width, cut to 4 of its 60 layers: a layer
+# is 3.97 B parameters (149 M of MLA, 3.82 B of experts), 7.94 GB of bf16;
+# each stacked expert leaf is drawn in fp32 (5.03 GB a layer) before its
+# cast, so drawing the third peaks near 54 GB (two bf16 expert leaves, 20.1
+# GB, the third's fp32 draw and its cast, 30.2, the MLA weights and the
+# untied tables, 3.3); 36 GB served with the fp32 unembedding held.  A 5th
+# layer would take the init peak to ~67 GB.  B prompts of `prompt` tokens,
+# then `steps` absorbed decode steps, at each latent-cache width.
+DEEPSEEK_LAYERS = 4
+DEEPSEEK_SERVE = dict(batch=8, prompt=512, steps=32, max_seq=576)
+# one MLA layer at deepseek-v2's full geometry (H=128, q_lora 1,536, kv_lora
+# 512, rope 64, v 128), train mode at B=1: the materialized path's fp32
+# scores are 128 x 4,096^2 x 4 B = 8.6 GB, and with the softmax's output
+# and the two score gradients of its backward ~35-45 GB, under 60 GB
+MLA_SEQ = 4096
+# the absorbed decode at position S against the expanded form's last row
+# over S + 1 positions, relative to the largest magnitude: fp32, the same
+# products summed in another order ((q·W_uk)·c against q·(W_uk·c)); bf16,
+# each form rounding its products to bf16 at other points (q_c and the
+# context in one, per-head K and V in the other: 2^-9 relative each)
+MLA_DECODE_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 
 
 def depth_cut(model, layers=None):
@@ -1195,6 +1256,59 @@ def lenet():
     return launches
 
 
+def paper_fig4():
+    """The paper's Fig. 4 on the card, as ``benchmarks/bench_convergence.py``
+    runs it, through ``repro_torch.launch.paper_eval``: LeNet on
+    ``MNISTLike(batch=64, seed=0)`` (default sizes) for ``FIG4_STEPS`` steps
+    in each of three arms — fp32, DPS (``paper_quant_config()``) and fixed
+    13-bit (``paper_quant_config(static_bits=13)``) — every quantization
+    event on K1b (the default on-chip Philox bits), from each of
+    ``FIG4_SEEDS``' initializations (``paper_eval`` draws them on the CPU,
+    so that a CPU run of the seed starts from the same parameters).
+    Asserted: each quantized arm's launches, all on K1b, 33 a step as in
+    ``lenet`` (the static controller quantizes the same events); the fp32
+    arm's first
+    ``FIG4_HELD_STEPS`` losses within ``FIG4_LOSS_RTOL`` of a CPU run's
+    from the same parameters.  Measured and printed, not asserted: each
+    arm's accuracy, widths, divergence and first non-finite loss (the
+    paper's recipe diverges from some initializations, fp32 included), and
+    the bench's three claims for each seed.  Returns the K1b launches."""
+    from repro_torch.data import MNISTLike
+    from repro_torch.launch import paper_eval
+    data = MNISTLike(batch=64, seed=0)
+    per_step = 8 * 3 + 4 * 2 + 1
+    seeds, k1b = {}, 0
+    for seed in FIG4_SEEDS:
+        arms = {}
+        for arm in paper_eval.ARMS:
+            _reset_quant_counts()              # each arm counted from 0
+            arms[arm] = r = paper_eval.run_arm(arm, FIG4_STEPS, seed, DEV,
+                                               data)
+            r["launches"] = _quant_counts()
+            want = {"dps_quantize": 0, "dps_quantize_onchip_prng":
+                    0 if arm == "fp32" else per_step * FIG4_STEPS}
+            if r["launches"] != want:
+                raise AssertionError(f"Fig. 4 {arm}, seed {seed}: quantizer "
+                                     f"launches {r['launches']}, wanted {want}")
+            k1b += r["launches"]["dps_quantize_onchip_prng"]
+        cpu = paper_eval.run_arm("fp32", FIG4_HELD_STEPS, seed, "cpu", data)
+        got = arms["fp32"]["first_losses"][:FIG4_HELD_STEPS]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, cpu["first_losses"]))
+        if not rel <= FIG4_LOSS_RTOL:
+            raise AssertionError(f"Fig. 4 fp32, seed {seed}: first losses "
+                                 f"{got} on the card, {cpu['first_losses']} "
+                                 f"on the CPU")
+        seeds[seed] = dict(arms=arms, claims=paper_eval.claims(arms),
+                           fp32_first_losses_vs_cpu_max_rel=rel)
+    say("paper_fig4", steps=FIG4_STEPS, batch=64, init="cpu generator",
+        seeds=seeds, launches_per_step=per_step,
+        held_steps=FIG4_HELD_STEPS, tolerance=FIG4_LOSS_RTOL,
+        converged={arm: [s for s, r in seeds.items()
+                         if not r["arms"][arm]["diverged"]]
+                   for arm in paper_eval.ARMS})
+    return k1b
+
+
 def quantizer_launches_per_step(cfg, rounding_bits):
     """Quantizer launches a replicated training step makes, from
     ``model_defs``: every leaf the policy quantizes x (weights, grads,
@@ -1331,6 +1445,295 @@ def flash_check(cfg):
         gc.collect()
         torch.cuda.empty_cache()
     say("flash", shape=f"B={B} S={S} H={H} Dh={Dh} causal, blocks of "
+        f"{attention.FLASH_BLOCK}", **res)
+
+
+def _mla_decode_expanded(mla_apply, cfg, p, x, *, positions, mode,
+                         cache=None, cache_pos=None):
+    """``mla_apply`` with its decode step in the expanded form — the plain
+    path the absorbed form is held against: the new token's latents written
+    as ``mla_apply`` writes them, then per-head K and V up-projected from
+    the whole latent cache and one materialized attention over [0,
+    cache_pos].  Other modes go to ``mla_apply`` itself."""
+    from repro_torch.models import attention as A
+    if mode != "decode":
+        return mla_apply(cfg, p, x, positions=positions, mode=mode,
+                         cache=cache, cache_pos=cache_pos)
+    B, H = x.shape[0], cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q_nope, q_rope, c_kv, k_rope = A._mla_qkr(cfg, p, x, positions)
+    cc, cr = cache
+    rows, at = torch.arange(B, device=x.device), cache_pos.to(torch.int64)
+    cc[rows, at] = A._cache_write(c_kv[:, 0], cc.dtype)
+    cr[rows, at] = A._cache_write(k_rope[:, 0], cr.dtype)
+    c = A._cache_read(cc, x.dtype)
+    S = c.shape[1]
+    k = torch.cat([torch.einsum("bsr,rhd->bshd", c, p["w_uk"]),
+                   A._cache_read(cr, x.dtype)[:, :, None, :].expand(
+                       B, S, H, dr)], dim=-1)
+    v = torch.einsum("bsr,rhd->bshd", c, p["w_uv"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    s = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) / math.sqrt(
+        dn + dr)
+    valid = torch.arange(S, device=x.device)[None, :] <= cache_pos[:, None]
+    s = s + torch.where(valid, 0.0, A.NEG_INF)[:, None, None, :]
+    out = torch.einsum("bhqs,bshd->bqhd", torch.softmax(s, -1).to(v.dtype), v)
+    return out.reshape(B, 1, H * dv) @ p["wo"], (cc, cr)
+
+
+def _first_step_routed(cfg, params, tok, cache, pos, expanded):
+    """One decode step on a copy of the cache — absorbed, or with
+    ``expanded`` the expanded-form decode — recording each MoE layer's
+    top-k experts.  Returns (logits over the vocabulary, [L] x (B, K)
+    sorted expert indices)."""
+    import functools
+    from repro_torch.models import attention, moe
+    absorbed, router, routes = attention.mla_apply, moe._router, []
+
+    def recorded(*args):
+        out = router(*args)
+        routes.append(torch.sort(out[1], dim=-1).values)
+        return out
+
+    moe._router = recorded
+    if expanded:
+        attention.mla_apply = functools.partial(_mla_decode_expanded, absorbed)
+    try:
+        lg, _ = registry(cfg.family).decode_step(
+            cfg, params, tok, tuple(c.clone() for c in cache), pos)
+    finally:
+        attention.mla_apply, moe._router = absorbed, router
+    return lg[:, :cfg.vocab].float(), routes
+
+
+def _absorbed_vs_expanded(cfg, params, tok, cache, pos):
+    """The first decode step's logits, absorbed against expanded form on
+    the same cache.  A row whose tokens took the same experts in every
+    layer under both is held to ``LOGIT_TOL``; in a row where a layer's
+    top-k differs, the two forms' rounding (bf16: ~5e-3 of an attention
+    output, ``mla_check``) has tipped a router, and its logits are printed,
+    not held."""
+    a, ra = _first_step_routed(cfg, params, tok, cache, pos, False)
+    b, rb = _first_step_routed(cfg, params, tok, cache, pos, True)
+    same = torch.stack([(x == y).all(-1) for x, y in zip(ra, rb)]).all(0)
+    err = (a - b).abs().amax(-1)
+    held = float(err[same].max()) if bool(same.any()) else None
+    if held is not None and held > LOGIT_TOL:
+        raise AssertionError(f"deepseek ({cfg.dtype}, kv{cfg.kv_cache_bits}"
+                             f"): first decode step's logits, absorbed vs "
+                             f"expanded, differ by {held} (> {LOGIT_TOL}) "
+                             f"in rows routed alike")
+    return dict(rows_routed_alike=int(same.sum()), rows=int(same.numel()),
+                max_abs_err_rows_routed_alike=held,
+                max_abs_err_all_rows=float(err.max()),
+                logits_max_abs=float(a.abs().max()), tolerance=LOGIT_TOL,
+                same_argmax_rows=int((a.argmax(-1) == b.argmax(-1)).sum()))
+
+
+def _mla_serve_run(cfg, params, prompts):
+    """Prefill ``prompts``, then the decode steps (greedy), timed; the
+    first step against the expanded-form decode's."""
+    mod = registry(cfg.family)
+    n, max_seq = DEEPSEEK_SERVE["steps"], DEEPSEEK_SERVE["max_seq"]
+    B = prompts.shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache, pos = mod.prefill(cfg, params, prompts, max_seq)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = logits[:, :cfg.vocab].argmax(-1, keepdim=True).to(torch.int32)
+    vs_expanded = _absorbed_vs_expanded(cfg, params, tok, cache, pos)
+    step_ms = []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = mod.decode_step(cfg, params, tok, cache, pos)
+        tok = lg[:, :cfg.vocab].argmax(-1, keepdim=True).to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        pos = pos + 1
+        if not bool(torch.isfinite(lg[:, :cfg.vocab]).all()):
+            raise AssertionError(f"deepseek decode step {i}: logits not finite")
+    peak = torch.cuda.max_memory_allocated()
+    cache_bytes = sum(c.numel() * c.element_size() for c in cache)
+    gqa_bytes = 2 * cfg.n_layers * B * max_seq * 128 * 128 * \
+        cache[0].element_size()
+    ms = np.asarray(step_ms)
+    return dict(prefill_s=prefill_s, decode_steps=n,
+                p50_ms_per_decode_step=float(np.percentile(ms, 50)),
+                p95_ms_per_decode_step=float(np.percentile(ms, 95)),
+                tokens_per_s=B * n / (ms.sum() / 1e3),
+                serve_peak_memory_bytes=peak,
+                latent_cache_bytes=cache_bytes,
+                gqa_cache_bytes_at_128x128=gqa_bytes,
+                gqa_over_latent=gqa_bytes / cache_bytes,
+                first_step_vs_expanded=vs_expanded)
+
+
+def _deepseek_params(cfg):
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    return init_params(registry(cfg.family).model_defs(cfg), DEV, gen)
+
+
+def serve_deepseek():
+    """deepseek-v2-236b at full width (MLA, 160 experts top-6 and 2 shared),
+    bf16 weights from seed 0, cut to ``DEEPSEEK_LAYERS`` layers, through
+    the contiguous path (MLA has no paged one): ``prefill`` of B prompts,
+    then absorbed ``decode_step``s, with the latent caches in bf16
+    (``kv_cache_bits`` 16) and int8.  Held: finite logits, and each first
+    step's logits against the expanded-form decode's on the same cache
+    (``_absorbed_vs_expanded``); then the same comparison in fp32 at one
+    layer, where the two forms differ by summation order alone, every row
+    held.  No kernel runs (MLA is plain torch, as in the reference)."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.models.common import hold_fp32_table
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = depth_cut("deepseek_v2_236b", DEEPSEEK_LAYERS)
+    mod = registry(cfg.family)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = _deepseek_params(cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    params["embed"] = hold_fp32_table(params["embed"])   # as the engine does
+    weights = sum(t.numel() * t.element_size()
+                  for t in tree_lib.leaves(params))
+    B, S = DEEPSEEK_SERVE["batch"], DEEPSEEK_SERVE["prompt"]
+    g = torch.Generator(device=DEV).manual_seed(1)
+    prompts = torch.randint(1, cfg.vocab, (B, S), generator=g, device=DEV,
+                            dtype=torch.int32)
+    mod.prefill(cfg, params, prompts[:2, :64], 80)       # warm-up
+    _reset_quant_counts()
+    dps_quant.launch_count = paged_attn.launch_count = 0
+    runs = {}
+    for bits in (16, 8):
+        runs[f"kv{bits}"] = _mla_serve_run(
+            dataclasses.replace(cfg, kv_cache_bits=bits), params, prompts)
+    launches = dict(_quant_counts(), dps_group_wire_encode=dps_quant.launch_count,
+                    paged_decode_attn=paged_attn.launch_count)
+    if any(launches.values()):
+        raise AssertionError(f"deepseek serving launched {launches}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # fp32 at one layer: every row held to LOGIT_TOL
+    cfg32 = dataclasses.replace(cfg, n_layers=1, dtype="float32")
+    params = _deepseek_params(cfg32)
+    fp32 = {}
+    for bits in (16, 8):
+        c = dataclasses.replace(cfg32, kv_cache_bits=bits)
+        logits, cache, pos = mod.prefill(c, params, prompts,
+                                         DEEPSEEK_SERVE["max_seq"])
+        tok = logits[:, :c.vocab].argmax(-1, keepdim=True).to(torch.int32)
+        fp32[f"kv{bits}"] = r = _absorbed_vs_expanded(c, params, tok, cache,
+                                                      pos)
+        if r["rows_routed_alike"] != r["rows"]:
+            raise AssertionError(f"deepseek fp32 kv{bits}: the two forms "
+                                 f"routed {r['rows'] - r['rows_routed_alike']}"
+                                 f" rows differently")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config("deepseek_v2_236b")
+    say("serve_deepseek", model=cfg.name, layers=cfg.n_layers,
+        layers_of=full.n_layers, d_model=cfg.d_model, n_heads=cfg.n_heads,
+        q_lora_rank=cfg.q_lora_rank, kv_lora_rank=cfg.kv_lora_rank,
+        qk_rope_dim=cfg.qk_rope_dim, n_experts=cfg.n_experts,
+        n_shared_experts=cfg.n_shared_experts, top_k=cfg.top_k,
+        params=cfg.n_params(), active_params=cfg.n_active_params(),
+        weights_bytes_with_held_fp32_table=weights, weights_init_s=init_s,
+        init_peak_memory_bytes=init_peak, batch=B, prompt=S,
+        max_seq=DEEPSEEK_SERVE["max_seq"], kernel_launches=launches, **runs,
+        fp32_one_layer_first_step_vs_expanded=fp32)
+
+
+def _mla_train(cfg, p, x, w, positions):
+    """``mla_apply`` in train mode: the output and the gradient of
+    ``sum(out * w)`` with respect to ``x``."""
+    from repro_torch.models import attention
+    x = x.detach().requires_grad_()
+    out, _ = attention.mla_apply(cfg, p, x, positions=positions, mode="train")
+    (dx,) = torch.autograd.grad((out.float() * w).sum(), (x,))
+    return out.detach().float(), dx.float()
+
+
+def mla_check():
+    """One MLA layer at deepseek-v2's full geometry on the card, fp32 and
+    bf16 weights from seed 0: (1) train mode forward + backward at B=1,
+    S=``MLA_SEQ``, blockwise (``_attn_flash``) against the materialized
+    path (``_attn_full``, the threshold lifted for the run): output and
+    input gradient within ``FLASH_TOL`` of the largest magnitude, each
+    path's ms (CUDA events) and peak; (2) the absorbed decode at position S
+    against the expanded form's last row over S + 1 positions, within
+    ``MLA_DECODE_TOL``."""
+    from repro_torch.models import attention
+    cfg = get_config("deepseek_v2_236b")
+    S, D = MLA_SEQ, cfg.d_model
+    positions = torch.arange(S + 1, dtype=torch.int32, device=DEV)[None]
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        g = torch.Generator(device=DEV).manual_seed(13)
+        p = init_params(attention.mla_defs(cfg, dtype), DEV, g)
+        x = torch.randn(1, S + 1, D, generator=g, device=DEV).to(dtype)
+        w = torch.randn(1, S, D, generator=g, device=DEV)
+        runs, stat = {}, {}
+        saved = attention.FLASH_THRESHOLD
+        for path, threshold in (("flash", saved), ("full", float("inf"))):
+            attention.FLASH_THRESHOLD = threshold
+            try:
+                fn = (lambda: _mla_train(cfg, p, x[:, :S], w,
+                                         positions[:, :S]))
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                runs[path] = fn()
+                torch.cuda.synchronize()
+                stat[f"{path}_peak_above_inputs_bytes"] = (
+                    torch.cuda.max_memory_allocated() - base)
+                stat[f"{path}_fwd_bwd_ms"] = time_ms(fn, repeats=3, warmup=1)
+            finally:
+                attention.FLASH_THRESHOLD = saved
+        errs = {}
+        for i, part in enumerate(("out", "dx")):
+            a, b = runs["flash"][i], runs["full"][i]
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"MLA flash {name} {part}: not finite")
+            errs[part] = float((a - b).abs().max() / b.abs().max())
+        if max(errs.values()) > FLASH_TOL[name]:
+            raise AssertionError(f"MLA blockwise vs materialized ({name}): "
+                                 f"relative errors {errs} > {FLASH_TOL[name]}")
+        del runs
+        with torch.no_grad():
+            full, _ = attention.mla_apply(cfg, p, x, positions=positions,
+                                          mode="prefill")
+            _, cache = attention.mla_apply(cfg, p, x[:, :S],
+                                           positions=positions[:, :S],
+                                           mode="prefill")
+            cache = tuple(torch.nn.functional.pad(c, (0, 0, 0, 1))
+                          for c in cache)
+            at = torch.full((1,), S, dtype=torch.int32, device=DEV)
+            out, _ = attention.mla_apply(cfg, p, x[:, S:], positions=at[:, None],
+                                         mode="decode", cache=cache,
+                                         cache_pos=at)
+        dec = float((out[:, 0].float() - full[:, -1].float()).abs().max()
+                    / full[:, -1].float().abs().max())
+        if not dec <= MLA_DECODE_TOL[name]:
+            raise AssertionError(f"MLA absorbed vs expanded decode ({name}): "
+                                 f"{dec} > {MLA_DECODE_TOL[name]}")
+        res[name] = dict(max_rel_err=errs, tolerance=FLASH_TOL[name],
+                         absorbed_decode_vs_expanded_max_rel_err=dec,
+                         decode_tolerance=MLA_DECODE_TOL[name], **stat)
+        del p, x, w, full, cache, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    say("mla_check", shape=f"B=1 S={S} H={cfg.n_heads} q_lora="
+        f"{cfg.q_lora_rank} kv_lora={cfg.kv_lora_rank} rope="
+        f"{cfg.qk_rope_dim} v={cfg.v_head_dim} causal, blocks of "
         f"{attention.FLASH_BLOCK}", **res)
 
 
@@ -2895,6 +3298,7 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
     lenet_k1 = lenet()["dps_quantize"]
+    fig4_k1b = paper_fig4()
     llama = train_lm(cfg, "onchip", 4)
     launches["dps_quantize_onchip_prng"] = llama["launches"][
         "dps_quantize_onchip_prng"]
@@ -2908,6 +3312,8 @@ def main():
     # llama3.2-3b at sequence 4,096 (every layer's attention blockwise),
     # then remat="dots" beside the full remat of the run above
     flash_check(cfg)
+    serve_deepseek()
+    mla_check()
     long_run = train_lm(cfg, "onchip", 3, batch=1, seq=LONG_SEQ,
                         phase="train_long")
     dots = train_lm(dataclasses.replace(cfg, remat="dots"), "onchip", 4,
@@ -3004,6 +3410,7 @@ def main():
         if r["name"] == "dps_quantize_onchip_prng":
             r["launches_train_long"] = long_run["launches"][r["name"]]
             r["launches_train_dots"] = dots["launches"][r["name"]]
+            r["launches_paper_fig4"] = fig4_k1b
         for run, counts in zero_launches.items():
             if ("run" not in r and counts.get(r["name"])
                     and (run, r["name"]) not in at_bucket):

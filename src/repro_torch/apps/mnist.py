@@ -29,10 +29,38 @@ from repro_torch.optim import SGDConfig, make_optimizer
 
 def paper_quant_config(controller: str = "paper",
                        rounding: str = "stochastic",
-                       il_init: int = 8, fl_init: int = 12
-                       ) -> qtrain.QuantConfig:
-    """Quantization config for the paper's evaluation."""
-    kw = dict(r_max=1e-4, e_max=1e-4, na_window=30)
+                       il_init: int = 8, fl_init: int = 12,
+                       static_bits: Optional[int] = None,
+                       static_scope: str = "all",
+                       na_window: int = 30) -> qtrain.QuantConfig:
+    """Quantization config for the paper's evaluation.
+
+    ``static_bits`` gives the fixed-width ablations (the paper's naive
+    13-bit run, Gupta's 16-bit runs) under the ``"static"`` controller:
+    weights ⟨2, n-2⟩ (resolution), activations ⟨8, n-8⟩ and gradients
+    ⟨6, n-6⟩ (range), every attribute at the static width.  With
+    ``static_scope="weights"`` only the weights are narrowed (Gupta-style:
+    stochastic rounding keeps sub-half-grid weight updates in
+    expectation), activations at ⟨8, 8⟩ and gradients at ⟨6, 18⟩.  The
+    formats are those of the reference's code; its docstring says
+    activations ⟨6, n-6⟩, which its code does not use.
+
+    Without ``static_bits``: the adaptive ``controller`` from
+    ⟨il_init, fl_init⟩ (gradients from FL 16), with ``na_window`` passed to
+    every domain's hyper-parameters."""
+    if static_bits is not None:
+        hw = DPSHyper(il_init=2, fl_init=static_bits - 2)
+        if static_scope == "weights":
+            ha = DPSHyper(il_init=8, fl_init=8)
+            hg = DPSHyper(il_init=6, fl_init=18)
+        else:
+            ha = DPSHyper(il_init=8, fl_init=static_bits - 8)
+            hg = DPSHyper(il_init=6, fl_init=static_bits - 6)
+        return qtrain.QuantConfig(
+            enabled=True, controller="static", rounding=rounding,
+            hyper_weights=hw, hyper_acts=ha, hyper_grads=hg,
+            stat_scope="last_layer")
+    kw = dict(r_max=1e-4, e_max=1e-4, na_window=na_window)
     h = DPSHyper(il_init=il_init, fl_init=fl_init, **kw)
     hg = DPSHyper(il_init=il_init, fl_init=16, **kw)
     return qtrain.QuantConfig(

@@ -30,11 +30,11 @@ def _convert(defs, tree, path, device, dtype):
             raise ValueError(f"{path}: shape {arr.shape} does not match the "
                              f"port's {defs.shape}")
         # norm scales and the router stay fp32 whatever the working dtype,
-        # as declared
+        # as declared; a copy, so that training in place on the CPU leaves
+        # the caller's arrays alone
         want = defs.dtype if (dtype is None
                               or defs.dtype == torch.float32) else dtype
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(
-            device=device, dtype=want)
+        return torch.from_numpy(np.array(arr)).to(device=device, dtype=want)
     if not isinstance(tree, Mapping):
         raise ValueError(f"{path}: expected a dict with keys {sorted(defs)}")
     if set(tree) != set(defs):
@@ -51,13 +51,14 @@ def params_from_jax(np_tree: Mapping[str, Any], cfg: ModelConfig,
     """The port's parameter dict from the reference's tree of numpy arrays.
 
     ``np_tree`` has the reference's keys: ``embed/{tok[,unembed]}``,
-    ``layers/{norm1,norm2,attn/{wq,wk,wv,wo}`` and either
-    ``mlp/{w_in,w_gate,w_out}`` or (MoE) ``moe/{router,w_in,w_gate,w_out
-    [,shared/{w_in,w_gate,w_out}]}}`` with the stacked leading ``L`` (the
-    experts' leaves 4-D, ``(L, E, in, out)``), ``final_norm``.  Shapes are
-    checked against the port's own declarations for ``cfg``.  ``dtype``
-    overrides the working dtype of the weight matrices (default: what
-    ``cfg`` declares — the compute dtype, or with ``training`` the
+    ``layers/{norm1,norm2,attn/{wq,wk,wv,wo}`` (MLA: ``attn/{wq_a,q_norm,
+    wq_b,wkv_a,kv_norm,w_uk,w_uv,wo}``, ``w_uk``/``w_uv`` (L, kvr, H, d))
+    and either ``mlp/{w_in,w_gate,w_out}`` or (MoE) ``moe/{router,w_in,
+    w_gate,w_out[,shared/{w_in,w_gate,w_out}]}}`` with the stacked leading
+    ``L`` (the experts' leaves 4-D, ``(L, E, in, out)``), ``final_norm``.
+    Shapes are checked against the port's own declarations for ``cfg``.
+    ``dtype`` overrides the working dtype of the weight matrices (default:
+    what ``cfg`` declares — the compute dtype, or with ``training`` the
     trainer's master dtype ``cfg.param_dtype``); the leaves declared fp32
     whatever the working dtype (norm scales, the MoE router) stay fp32.
     """

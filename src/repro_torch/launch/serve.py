@@ -92,7 +92,7 @@ def setup(args):
         cfg = smoke_cfg(cfg)
     if not supports_paging(cfg):
         raise SystemExit(f"{cfg.name}: family {cfg.family!r} has no paged "
-                         f"decode path (dense and MoE GQA models only)")
+                         f"decode path (GQA models only)")
     mod = registry(cfg.family)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(mod.model_defs(cfg), device, gen)

@@ -18,7 +18,8 @@ Smoke scale on the CPU (the kernels' plain versions):
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_2_3b \\
       --smoke --device cpu --steps 6 --batch 2 --seq 16 --log-every 2
 
-The MoE and VLM families train the same way (``--arch qwen3_moe_30b_a3b``;
+The MoE and VLM families train the same way (``--arch qwen3_moe_30b_a3b``,
+and ``--arch deepseek_v2_236b``, MoE with MLA and 4 microbatches a step;
 ``--arch internvl2_26b``, whose batches carry zero patch embeddings for
 the stubbed vision frontend, prepended to the tokens); above
 S_q·S_k = 4096·2048 (``--seq 3000`` at smoke width) attention runs

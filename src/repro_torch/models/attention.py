@@ -1,4 +1,4 @@
-"""Grouped-query attention (GQA/MQA/MHA) for the dense decoder.
+"""Attention: grouped-query (GQA/MQA/MHA) and multi-head latent (MLA).
 
 Counterpart of ``repro/models/attention.py``.  Call patterns:
   * ``mode="train"``    — causal self-attention, no cache.
@@ -15,7 +15,13 @@ Train and prefill attention run blockwise with an online softmax
 (:func:`_attn_flash`) once S_q·S_k passes :data:`FLASH_THRESHOLD`, so the
 scores held at a time are O(S_q · block) instead of O(S_q · S_k).
 
-Not ported yet: cross-attention and MLA.
+MLA (DeepSeek-V2) trains and prefills in the expanded form (per-head K and
+V up-projected from the latent, through :func:`sdpa`) and decodes in the
+*absorbed* form: scores are taken directly against the compressed latent
+cache, so a decode step reads O(kv_lora + rope) a token instead of
+O(heads × head_dim).  MLA has no paged path (nor has the reference's).
+
+Not ported yet: cross-attention.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import fixed_point as fxp
 from repro_torch.kernels import paged_attn
-from repro_torch.models.common import ParamDef, apply_rope
+from repro_torch.models.common import ParamDef, apply_rope, rms_norm
 
 NEG_INF = -1e30
 FLASH_THRESHOLD = 4096 * 2048          # S_q · S_k above which attention goes blockwise
@@ -274,9 +280,109 @@ def _decode_attn(q, ck, cv, valid, scale):
     return out.reshape(B, Sq, -1, out.shape[-1])
 
 
+# ---------------------------------------------------------------------------
+# MLA — DeepSeek-V2 multi-head latent attention.
+# ---------------------------------------------------------------------------
+
+def mla_defs(cfg: ModelConfig, dtype: torch.dtype) -> Dict[str, ParamDef]:
+    D, H = cfg.d_model, cfg.n_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "wq_a": ParamDef((D, qr), dtype=dtype),
+        "q_norm": ParamDef((qr,), init="ones"),
+        "wq_b": ParamDef((qr, H * (dn + dr)), dtype=dtype),
+        "wkv_a": ParamDef((D, kvr + dr), dtype=dtype),
+        "kv_norm": ParamDef((kvr,), init="ones"),
+        # decoupled up-projections, so that decode can absorb them
+        "w_uk": ParamDef((kvr, H, dn), dtype=dtype),
+        "w_uv": ParamDef((kvr, H, dv), dtype=dtype),
+        "wo": ParamDef((H * dv, D), dtype=dtype),
+    }
+
+
+def _mla_qkr(cfg: ModelConfig, p, x, positions):
+    """The query path and the latent / k_rope projection, shared by every
+    mode: (q_nope (B,S,H,dn), q_rope (B,S,H,dr), c_kv (B,S,kvr), k_rope
+    (B,S,dr)), the rope parts rotated at ``positions``."""
+    B, S, _ = x.shape
+    H, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    kvr = cfg.kv_lora_rank
+    q_lat = rms_norm(x @ p["wq_a"], p["q_norm"])
+    q = (q_lat @ p["wq_b"]).reshape(B, S, H, dn + dr)
+    q_nope = q[..., :dn]
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    kv = x @ p["wkv_a"]
+    c_kv = rms_norm(kv[..., :kvr], p["kv_norm"])
+    k_rope = apply_rope(kv[..., None, kvr:], positions, cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+              *, positions: torch.Tensor, mode: str = "prefill",
+              cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              cache_pos: Optional[torch.Tensor] = None):
+    """MLA attention.  ``cache`` = (c_kv (B, max_seq, kvr), k_rope (B,
+    max_seq, dr)); decode writes the new token's latents at ``cache_pos``
+    (in place) and attends over [0, cache_pos] in the absorbed form.
+    Returns ``(out, new_cache)``."""
+    B, Sq, _ = x.shape
+    H = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    scale = 1.0 / math.sqrt(dn + dr)
+
+    q_nope, q_rope, c_kv, k_rope = _mla_qkr(cfg, p, x, positions)
+
+    new_cache = None
+    if mode == "decode":
+        cc, cr = cache
+        rows = torch.arange(B, device=x.device)
+        at = cache_pos.to(torch.int64)
+        cc[rows, at] = _cache_write(c_kv[:, 0], cc.dtype)
+        cr[rows, at] = _cache_write(k_rope[:, 0], cr.dtype)
+        new_cache = (cc, cr)
+        # absorbed decode: the query projected into the latent space and
+        # scored against the latent cache; scores in fp32
+        q_c = torch.einsum("bthd,rhd->bthr", q_nope, p["w_uk"])   # (B,1,H,kvr)
+        s = (torch.einsum("bthr,bsr->bhts", q_c.to(torch.float32),
+                          _cache_read(cc, torch.float32))
+             + torch.einsum("bthe,bse->bhts", q_rope.to(torch.float32),
+                            _cache_read(cr, torch.float32))) * scale
+        valid = (torch.arange(cc.shape[1], device=x.device)[None, :]
+                 <= cache_pos[:, None])
+        s = s + torch.where(valid, 0.0, NEG_INF)[:, None, None, :]
+        probs = torch.softmax(s, dim=-1).to(x.dtype)
+        ctx = torch.einsum("bhts,bsr->bthr", probs, _cache_read(cc, x.dtype))
+        out = torch.einsum("bthr,rhd->bthd", ctx, p["w_uv"])       # (B,1,H,dv)
+    elif mode in ("prefill", "train"):
+        if mode == "prefill":
+            cdt = torch.int8 if cfg.kv_cache_bits == 8 else c_kv.dtype
+            new_cache = (_cache_write(c_kv, cdt), _cache_write(k_rope, cdt))
+        # expanded form: per-head K (nope) and V from the latent, the rope
+        # parts concatenated so that one attention call covers both terms
+        k_nope = torch.einsum("bsr,rhd->bshd", c_kv, p["w_uk"])
+        v = torch.einsum("bsr,rhd->bshd", c_kv, p["w_uv"])
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, Sq, H, dr)],
+                      dim=-1)
+        out = sdpa(q, k, v, causal=True, scale=scale)
+    else:
+        raise NotImplementedError(f"attention mode {mode!r} is not ported")
+
+    return out.reshape(B, Sq, H * dv) @ p["wo"], new_cache
+
+
 def count_gqa_params(cfg: ModelConfig) -> int:
     D, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     n = D * H * Dh * 2 + D * KV * Dh * 2
     if cfg.attn_bias:
         n += H * Dh + 2 * KV * Dh + D
     return n
+
+
+def count_mla_params(cfg: ModelConfig) -> int:
+    D, H = cfg.d_model, cfg.n_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return (D * qr + qr * H * (dn + dr) + D * (kvr + dr)
+            + kvr * H * dn + kvr * H * dv + H * dv * D)

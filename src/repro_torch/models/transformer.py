@@ -1,6 +1,7 @@
-"""Decoder-only transformer LM: dense (llama3.2 and kin), MoE (qwen3-moe)
-and VLM-backbone (internvl2: patch embeddings from the stubbed vision
-frontend are prepended to the token sequence) variants.
+"""Decoder-only transformer LM: dense (llama3.2 and kin), MoE (qwen3-moe,
+deepseek-v2 — the latter with MLA) and VLM-backbone (internvl2: patch
+embeddings from the stubbed vision frontend are prepended to the token
+sequence) variants.
 
 Counterpart of ``repro/models/transformer.py``.  Parameters are a nested
 dict of tensors with the reference's keys; per-layer weights are stacked on
@@ -18,7 +19,9 @@ products' outputs and recomputes the rest.  Either way the block's
 statistics and MoE auxiliary loss leave it as values rather than being
 recorded beside it.
 
-Not ported yet: MLA layers.
+An MLA model's decode cache is its two latent caches, (L, B, S,
+kv_lora_rank) and (L, B, S, qk_rope_dim), in place of the GQA model's K
+and V.
 """
 
 from __future__ import annotations
@@ -41,11 +44,6 @@ from repro_torch.models.common import (ParamDef, embed_defs, embed_lookup,
                                        map_defs, rms_norm, unembed)
 
 
-def _check_mla(cfg: ModelConfig) -> None:
-    if cfg.mla:
-        raise NotImplementedError(f"{cfg.name}: MLA layers are not ported yet")
-
-
 def stack_defs(n: int, defs):
     """Prepend a stacked ``layers`` dim to every ParamDef in a tree."""
     return map_defs(lambda d: ParamDef((n,) + d.shape, init=d.init,
@@ -53,7 +51,6 @@ def stack_defs(n: int, defs):
 
 
 def layer_defs(cfg: ModelConfig, dt: torch.dtype) -> Dict[str, Any]:
-    _check_mla(cfg)
     defs: Dict[str, Any] = {
         "norm1": ParamDef((cfg.d_model,), init="ones"),
         "norm2": ParamDef((cfg.d_model,), init="ones"),
@@ -61,7 +58,8 @@ def layer_defs(cfg: ModelConfig, dt: torch.dtype) -> Dict[str, Any]:
     if cfg.norm == "layer":
         defs["norm1_b"] = ParamDef((cfg.d_model,), init="zeros")
         defs["norm2_b"] = ParamDef((cfg.d_model,), init="zeros")
-    defs["attn"] = attn_lib.gqa_defs(cfg, dt)
+    defs["attn"] = (attn_lib.mla_defs(cfg, dt) if cfg.mla
+                    else attn_lib.gqa_defs(cfg, dt))
     if cfg.n_experts:
         defs["moe"] = moe_lib.moe_defs(cfg, dt)
     else:
@@ -93,10 +91,15 @@ def _block(cfg: ModelConfig, p, x, *, positions, mode, cache, cache_pos,
     """One transformer block.  Returns (x, new_cache, aux_loss): the MoE
     layer's load-balance loss, ``None`` for a dense one."""
     h = _norm(cfg, x, p["norm1"], p.get("norm1_b"))
-    a_out, new_cache = attn_lib.gqa_apply(
-        cfg, p["attn"], h, positions=positions, mode=mode, cache=cache,
-        cache_pos=cache_pos, paged_ptab=paged_ptab,
-        paged_backend=paged_backend)
+    if cfg.mla:
+        a_out, new_cache = attn_lib.mla_apply(
+            cfg, p["attn"], h, positions=positions, mode=mode, cache=cache,
+            cache_pos=cache_pos)
+    else:
+        a_out, new_cache = attn_lib.gqa_apply(
+            cfg, p["attn"], h, positions=positions, mode=mode, cache=cache,
+            cache_pos=cache_pos, paged_ptab=paged_ptab,
+            paged_backend=paged_backend)
     x = x + a_out
     h = _norm(cfg, x, p["norm2"], p.get("norm2_b"))
     aux_loss = None
@@ -156,7 +159,6 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     ``mode="prefill"`` unembeds the LAST position only (the serving loop
     needs just the next-token logits).  ``hidden_only=True`` skips
     unembedding."""
-    _check_mla(cfg)
     x = _embed(cfg, params, tokens, vision_embeds)
     S = x.shape[1]
     if mode == "decode":
@@ -234,7 +236,6 @@ def forward_train(cfg: ModelConfig, params, tokens: torch.Tensor, qctx=None,
     """Training forward: ``(final-normed hidden (B, S, D), act_stats,
     aux_loss)`` — ``aux_loss`` the layers' summed MoE load-balance loss
     (fp32 0 for a dense model).  ``vision_embeds`` as in :func:`forward`."""
-    _check_mla(cfg)
     if cfg.remat not in ("full", "dots", "none"):
         raise ValueError(f"remat must be full, dots or none, got "
                          f"{cfg.remat!r}")
@@ -288,11 +289,17 @@ def loss_fn(cfg: ModelConfig):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
-    """Zeroed contiguous decode cache, stacked over layers."""
+    """Zeroed contiguous decode cache, stacked over layers: K and V (L, B,
+    max_seq, KV, Dh), or an MLA model's latent and k_rope caches (L, B,
+    max_seq, kv_lora_rank) and (L, B, max_seq, qk_rope_dim)."""
     dt = torch.int8 if cfg.kv_cache_bits == 8 else cfg.activation_dtype()
-    shp = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    return (torch.zeros(shp, dtype=dt, device=device),
-            torch.zeros(shp, dtype=dt, device=device))
+    L = cfg.n_layers
+    if cfg.mla:
+        shapes = ((L, batch, max_seq, cfg.kv_lora_rank),
+                  (L, batch, max_seq, cfg.qk_rope_dim))
+    else:
+        shapes = ((L, batch, max_seq, cfg.n_kv_heads, cfg.head_dim),) * 2
+    return tuple(torch.zeros(s, dtype=dt, device=device) for s in shapes)
 
 
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int, *,
@@ -302,8 +309,9 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int, *,
     logits, cache = forward(cfg, params, tokens, mode="prefill",
                             vision_embeds=vision_embeds)
     S = cache[0].shape[2]
-    pad = (0, 0, 0, 0, 0, max_seq - S)      # (Dh, KV, seq) from the last dim
-    cache = tuple(torch.nn.functional.pad(c, pad) for c in cache)
+    # the sequence (dim 2) padded; the dims after it, from the last, not
+    cache = tuple(torch.nn.functional.pad(
+        c, (0, 0) * (c.ndim - 3) + (0, max_seq - S)) for c in cache)
     pos = torch.full((tokens.shape[0],), S, dtype=torch.int32,
                      device=tokens.device)
     return logits[:, -1], cache, pos
@@ -334,8 +342,9 @@ def decode_step_paged(cfg: ModelConfig, params, tokens: torch.Tensor, cache,
 
 
 def _count(cfg: ModelConfig, ffn: int) -> float:
-    _check_mla(cfg)
-    per_layer = 2 * cfg.d_model + attn_lib.count_gqa_params(cfg) + ffn
+    attn = (attn_lib.count_mla_params(cfg) if cfg.mla
+            else attn_lib.count_gqa_params(cfg))
+    per_layer = 2 * cfg.d_model + attn + ffn
     total = cfg.n_layers * per_layer + cfg.d_model
     total += cfg.vocab * cfg.d_model * (1 if cfg.tie_embed else 2)
     return float(total)

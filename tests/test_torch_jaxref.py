@@ -339,7 +339,19 @@ def job_config(a, archs):
         cfg = get_config(arch)
         out[f"{arch}/fields"] = np.array(json.dumps(dataclasses.asdict(cfg)))
         out[f"{arch}/n_params"] = np.float64(cfg.n_params())
+        out[f"{arch}/n_active_params"] = np.float64(cfg.n_active_params())
     return out
+
+
+def job_serve_refusal(a, arch):
+    """The message with which the reference's serving CLI refuses
+    ``arch`` at smoke size (``SystemExit``); empty if it serves it."""
+    from repro.launch import serve
+    try:
+        serve.main(["--arch", arch, "--smoke", "--requests", "1"])
+    except SystemExit as e:
+        return {"message": np.array(str(e))}
+    return {"message": np.array("")}
 
 
 def job_serve_cli(a):
@@ -475,6 +487,49 @@ def job_lenet_train(a, steps, n_train, qkw=None):
     _, hist = _run_train(step_fn, state,
                          [data.train_batch(i) for i in range(steps)])
     out.update({f"hist/{k}": v for k, v in hist.items()})
+    return out
+
+
+def job_paper_config(a, cases):
+    """``paper_quant_config(**kw)`` for each of ``cases`` (a dict of name
+    -> keyword arguments): the controller, rounding, statistics scope and
+    each domain's ``DPSHyper`` fields, as JSON."""
+    import dataclasses
+    from repro.apps.mnist import paper_quant_config
+    out = {}
+    for name, kw in cases.items():
+        q = paper_quant_config(**kw)
+        out[name] = np.array(json.dumps({
+            "enabled": q.enabled, "controller": q.controller,
+            "rounding": q.rounding, "stat_scope": q.stat_scope,
+            **{h: dataclasses.asdict(getattr(q, h)) for h in
+               ("hyper_weights", "hyper_acts", "hyper_grads")}}))
+    return out
+
+
+def job_mla_model(a, seed, max_seq):
+    """Smoke deepseek-v2 (MLA) from ``init_params(key(seed))``, once for
+    each latent-cache width (``kv_cache_bits`` 16 and 8): the prefill
+    logits and latent caches, then one absorbed decode step for each
+    column of ``steps`` (B, n), its logits and the caches after it."""
+    import jax.numpy as jnp
+    _, mod, params = _smoke_params(seed, "deepseek_v2_236b")
+    out = flatten(_np_params(params), "params/")
+    for bits in (16, 8):
+        cfg = _smoke_cfg("deepseek_v2_236b", {"kv_cache_bits": bits})
+        logits, cache, pos = mod.prefill(cfg, params, jnp.asarray(a["tokens"]),
+                                         max_seq)
+        out[f"{bits}/prefill_logits"] = np.asarray(logits)
+        out[f"{bits}/prefill_cc"] = np.asarray(cache[0])
+        out[f"{bits}/prefill_cr"] = np.asarray(cache[1])
+        for i in range(a["steps"].shape[1]):
+            lg, cache = mod.decode_step(cfg, params,
+                                        jnp.asarray(a["steps"][:, i:i + 1]),
+                                        cache, pos)
+            pos = pos + 1
+            out[f"{bits}/decode_logits/{i}"] = np.asarray(lg)
+        out[f"{bits}/decode_cc"] = np.asarray(cache[0])
+        out[f"{bits}/decode_cr"] = np.asarray(cache[1])
     return out
 
 

@@ -153,19 +153,24 @@ def test_full_size_config_is_declared_without_allocating():
 @pytest.mark.parametrize("what", ["moe", "mla", "family", "flash"])
 def test_unported_parts_say_so(what):
     """What is still not ported raises; what has been ported since (MoE
-    layers, the moe and vlm families, the blockwise attention above the
+    layers, MLA, the moe and vlm families, the blockwise attention above the
     threshold) runs."""
     import dataclasses
     from repro_torch.models import attention
+    mla = dict(mla=True, q_lora_rank=16, kv_lora_rank=16, qk_nope_dim=16,
+               qk_rope_dim=8, v_head_dim=16)
     if what == "moe":
-        # MoE layers are ported; MoE with MLA (deepseek-v2) is not
+        # MoE layers are ported, and so is MoE with MLA (deepseek-v2)
         assert "moe" in MOD.model_defs(dataclasses.replace(
             CFG, n_experts=4, top_k=2, moe_d_ff=32))["layers"]
-        with pytest.raises(NotImplementedError):
-            MOD.model_defs(dataclasses.replace(CFG, n_experts=4, mla=True))
+        layers = MOD.model_defs(dataclasses.replace(
+            CFG, n_experts=4, top_k=2, moe_d_ff=32, **mla))["layers"]
+        assert "moe" in layers and "w_uk" in layers["attn"]
     elif what == "mla":
-        with pytest.raises(NotImplementedError):
-            MOD.count_params(dataclasses.replace(CFG, mla=True))
+        # MLA layers count their own projections in place of GQA's
+        cfg = dataclasses.replace(CFG, **mla)
+        assert MOD.count_params(cfg) == MOD.count_params(CFG) + cfg.n_layers * (
+            attention.count_mla_params(cfg) - attention.count_gqa_params(CFG))
     elif what == "family":
         for fam in ("ssm", "hybrid", "encdec"):
             with pytest.raises(NotImplementedError):
