@@ -8,7 +8,9 @@ repro_torch.launch.serve``), quantized training (``python -m
 repro_torch.launch.train``, and the paper's LeNet app with its Fig. 4
 arms; the dense, MoE and VLM transformers, and MLA (deepseek-v2-236b's
 prefill and absorbed decode); at sequence 4,096 through the blockwise
-attention and under ``remat="dots"``), data-parallel
+attention and under ``remat="dots"``; the SSM, hybrid and
+encoder-decoder families, trained and served through their contiguous
+prefill and decode), data-parallel
 training over the int8 wire (``launch.train --grad-allreduce-bits 8
 --data-ranks 4``, with ZeRO-1 and the overlapped bucketed wire:
 ``--zero-opt --wire-overlap on``), and that trainer's checkpoint, resume,
@@ -153,7 +155,9 @@ JSON line; any failure raises and the process exits non-zero:
              full tree's layout (on the TMA body; ``torch.sum`` of the same
              int8 rows into fp32 timed beside it, the same bytes but not the
              same function), K3b and K3 with a bits operand on that
-             owner's chunk, each timed beside its plain version and bound.
+             owner's chunk, each timed beside its plain version and bound;
+             then K2b, K4 and K3b the same way at mamba2-1.3b's shapes
+             (``wire_kernels_mamba2``).
              Then ``dps_allreduce_mean_tree`` on a ragged tree over 4 ranks
              (scalar and per-leaf formats, nearest rounding, and stochastic
              with Philox and with a bits operand), kernels vs plain versions:
@@ -247,6 +251,41 @@ Phases 10-14 run right after phase 8's counted wire run, before its
 14. rollback — smoke size on the card, the reference test's drill
              (``--inject-nan-at 5 --rollback-ring 2``, no guards): 1-8
              rollbacks, a finite replayed loss after each, the run completes.
+15. families — the SSM, hybrid and encoder-decoder families at full width,
+             inside phases 7 and 8.  After phase 7's other configs:
+             ``train_mamba2`` (mamba2-1.3b, all 48 layers), ``train_zamba2``
+             (zamba2-7b, 15 of 81 blocks: two shared invocations and a
+             remainder of 3) and ``train_whisper`` (whisper-medium, 24 + 24
+             layers, 1,500 zero frames), ``--batch 2 --seq 512``, SGD, each
+             config's accumulation, 4 steps on K1b: finite losses, K1b a
+             step equal to 3 x the quantized leaves + 2 taps a block a
+             microbatch (each family's ``residual_taps``: the hybrid's
+             shared block once an invocation, the encoder's blocks too);
+             K1b timed on a leaf of each (mamba's ``layers/ssm/w_in``,
+             836,763,648 fp32).
+             After ``mla_check``: ``ssd_check`` (one Mamba2 layer at full
+             geometry in fp32, S = 512, chunk 256: ``ssd_scan`` against the
+             O(1) recurrence token by token within ``SSD_TOL``, its
+             gradient finite; the largest chunk span of the decays, which
+             past log(FLT_MAX) overflows the reference's unmasked
+             ``exp``), then ``serve_mamba2``, ``serve_zamba2`` (all 81
+             blocks) and ``serve_whisper`` (bf16 from seed 0; contiguous
+             ``prefill`` of 8 prompts of 512 tokens, whisper's after seeded
+             frames, then 32 greedy ``decode_step``s: finite logits, the
+             first step's within ``FAMILY_FIRST_STEP_RTOL`` of ``forward``
+             over the prompt and its token, in bf16 and with the same
+             weights in fp32, and the bf16 step's within it of the fp32
+             step's, at the served weights and at a second seed's; no
+             kernel launched; prefill s, p50/p95 ms a step, peaks, cache
+             bytes).  After phase 8's operand run:
+             ``train_wire_mamba2`` (``--grad-allreduce-bits 8 --data-ranks
+             4 --batch 8``, mamba2 at full depth, 2 microbatches a rank, 3
+             steps: K2b, K3b and K4 at mamba's leaves, every K4 on the TMA
+             body, the counts as the CPU rehearsal gives them); K2b on
+             mamba's ``layers/ssm/w_in`` gradient and K4 and K3b on owner
+             1's chunk of its tree under 4 ranks are held bit-equal to
+             their plain versions and timed beside phase 8's path-shape
+             checks (``wire_kernels_mamba2``).
 
 The line before the last two carries the kernels (launches on their path —
 K1's from the LM run with a bits operand, LeNet's beside them; K1b's row
@@ -255,7 +294,7 @@ adds ``launches_train_long``, ``launches_train_dots`` and
 and K4's from the wire run; K2's from the wire run with a bits operand; K5's
 from the serving run, on its serving-shape row (a row of another config's
 shape, ``<kernel>_<config>``, names the run it counts, ``serve_<config>`` or
-``train_<config>``), and 0 on the row that times
+``train_<config>`` or ``train_wire_mamba2``), and 0 on the row that times
 the same kernel at 8 x 4,096 tokens, a shape no path here runs (that row says
 ``"on_path": false``); a row launched by the zero phase adds
 ``launches_lenet_zero`` and ``launches_zero`` (and ``launches_zero_overlap``
@@ -354,6 +393,63 @@ OTHER_TRAIN = (("gemma_7b", 8, 2, ("layers", "mlp", "w_in")),
                ("mistral_large_123b", 1, 4, ("embed", "unembed")),
                ("qwen3_moe_30b_a3b", 4, 2, ("layers", "moe", "w_in")),
                ("internvl2_26b", 3, 2, ("layers", "mlp", "w_in")))
+# The SSM, hybrid and encoder-decoder families trained at full width under
+# their own accumulation (mamba2 and zamba2: 2; whisper: 1), ``--batch 2``:
+# (config module, layers (None: all), --batch, the leaf K1b is timed on,
+# phase).  mamba2-1.3b whole (48 layers; its stacked ``layers/ssm/w_in`` is
+# 836,763,648 fp32 values); zamba2-7b at 15 of its 81 blocks (two shared
+# invocations and a remainder of 3, the structure of 81 = 13 x 6 + 3; 1.49
+# B parameters); whisper-medium whole (24 + 24 layers, 1,500 zero frames).
+FAMILY_TRAIN = (
+    ("mamba2_1_3b", None, 2, ("layers", "ssm", "w_in"), "train_mamba2"),
+    ("zamba2_7b", 15, 2, ("mamba", "ssm", "w_in"), "train_zamba2"),
+    ("whisper_medium", None, 2, ("dec_layers", "mlp", "w_in"),
+     "train_whisper"))
+# ... and served whole through their contiguous prefill/decode_step (none
+# is paged in the reference), bf16 weights from seed 0: (config module,
+# phase); zamba2-7b's 81 blocks make 13 shared invocations
+FAMILY_SERVE = (("mamba2_1_3b", "serve_mamba2"),
+                ("zamba2_7b", "serve_zamba2"),
+                ("whisper_medium", "serve_whisper"))
+# B prompts of `prompt` tokens (whisper: after seeded frames), then `steps`
+# greedy decode steps
+FAMILY_SERVE_SHAPE = dict(batch=8, prompt=512, steps=32, max_seq=576)
+# The first decode step's logits, relative to the largest logit of what
+# they are held against, per config: "float32" and "bfloat16", against
+# ``forward`` over the prompt and its token; "bfloat16_vs_float32", the
+# bf16 step against the fp32 step of the same weights (cast up exactly) fed
+# the same token.  fp32 against the recomputation: the SSM's chunked scan
+# and its O(1) recurrence (and a fresh prefill's attention against the
+# cached one) sum the same terms in another order, ~5e-6 a layer
+# (``ssd_check``) carried through 48-94 blocks.  bf16 against it: the
+# chunked scan also rounds dt·x to bf16 where the recurrence keeps it in
+# fp32 (both as the reference computes them); the two share every other
+# rounding.  bf16 against fp32: every block's bf16 roundings, carried
+# through the depth (the port's drift from fp32 is held to the reference's
+# own at smoke size by ``test_bf16_drift_matches_reference``).  Measured on an H100 at seeds 0 / 1 (mamba2, zamba2, whisper):
+# fp32 1.1e-4 / 1.1e-4, 1.2e-4 / 1.3e-4, 1.0e-6 / 1.0e-6; bf16 0.036 /
+# 0.034, 0.116 / 0.107, 0.010 / 0.011; bf16 vs fp32 0.32 / 0.26, 0.42 /
+# 0.44, 0.012 / 0.012 (largest logits 4.2-4.6, 5.4-5.9, 2.9-3.0).  Each
+# bf16 limit is about twice the larger of the two seeds' readings.
+FAMILY_FIRST_STEP_RTOL = {
+    "mamba2_1_3b": {"float32": 1e-3, "bfloat16": 0.08,
+                    "bfloat16_vs_float32": 0.65},
+    "zamba2_7b": {"float32": 1e-3, "bfloat16": 0.25,
+                  "bfloat16_vs_float32": 0.9},
+    "whisper_medium": {"float32": 1e-3, "bfloat16": 0.025,
+                       "bfloat16_vs_float32": 0.025}}
+# the served weights' seed, then the seeds whose first step is held too
+FAMILY_CHECK_SEEDS = (0, 1)
+# one Mamba2 layer at mamba2-1.3b's full geometry in fp32: the chunked
+# ssd_scan (chunk 256) against the O(1) recurrence run token by token over
+# `SSD_SEQ` positions, relative to the largest magnitude (the same state sums
+# in another order; measured 5.4e-6 on an H100, 5.1e-6 at smoke width on the
+# CPU)
+SSD_SEQ = 512
+SSD_TOL = 1e-4
+# the wire run on mamba2-1.3b at full depth: 4 ranks, --batch 8 (2 rows a
+# rank, its 2 microbatches of 1 x 512)
+MAMBA_WIRE = dict(steps=3, n_ranks=4, batch=8)
 # llama3.2-3b trained at train_4k's sequence (4,096; the batch cut to one
 # card), attention blockwise in every layer
 LONG_SEQ = 4096
@@ -965,14 +1061,16 @@ def quant_checks(cfg):
 
 
 def train_shape_rows():
-    """K1b on one leaf of each config of ``OTHER_TRAIN`` at the depth it
-    trains at (one launch per leaf on its path), drawn like
+    """K1b on one leaf of each config of ``OTHER_TRAIN`` and
+    ``FAMILY_TRAIN`` at the depth it trains at (one launch per leaf on its
+    path), drawn like
     ``init_params``' normal init: q bit-equal to the plain version and to K1
     fed the same Philox words, timed like the w_in row.  Their launches are
     the training run's (``train_<model>``)."""
     rows = []
-    for model, layers, _, leaf in OTHER_TRAIN:
+    for model, layers, _, leaf, *_ in OTHER_TRAIN + FAMILY_TRAIN:
         cfg = depth_cut(model, layers)
+        layers = cfg.n_layers
         node = registry(cfg.family).model_defs(cfg)
         for k in leaf:
             node = node[k]
@@ -1309,28 +1407,32 @@ def paper_fig4():
     return k1b
 
 
+# the stacked per-layer trees of each family's parameters
+STACKED = ("layers", "mamba", "enc_layers", "dec_layers")
+
+
 def quantizer_launches_per_step(cfg, rounding_bits):
     """Quantizer launches a replicated training step makes, from
     ``model_defs``: every leaf the policy quantizes x (weights, grads,
-    re-snap), plus one tap a layer forward and one backward for each of the
-    config's ``train_accum`` microbatches.  The recompute under
-    ``torch.utils.checkpoint`` stops once the block's saved tensors are
-    back, before the tap (which saves none): under ``remat="full"`` and
-    under ``remat="dots"`` alike, the selective policy only turning some of
-    the recomputed ops into saved ones (the MoE router, an fp32 island, is
-    not quantized).  With a bits operand each stacked leaf is quantized one
-    layer at a time."""
+    re-snap), plus one tap a block (the family's ``residual_taps``)
+    forward and one backward for each of the config's ``train_accum``
+    microbatches.  The recompute under ``torch.utils.checkpoint`` stops
+    once the block's saved tensors are back, before the tap (which saves
+    none): under ``remat="full"`` and under ``remat="dots"`` alike, the
+    selective policy only turning some of the recomputed ops into saved
+    ones (the MoE router, an fp32 island, is not quantized).  With a bits
+    operand each stacked leaf is quantized one layer at a time."""
     from repro_torch.core import tree as tree_lib
     from repro_torch.core.policy import QuantPolicy
     pred = QuantPolicy().param_predicate()
-    L = cfg.n_layers
-    leaves = [path for path, _ in tree_lib.leaves_with_path(
-        registry(cfg.family).model_defs(cfg)) if pred(path, None)]
-    taps = 2 * L * cfg.train_accum
+    defs = registry(cfg.family).model_defs(cfg)
+    leaves = [(path, d) for path, d in tree_lib.leaves_with_path(defs)
+              if pred(path, None)]
+    taps = 2 * registry(cfg.family).residual_taps(cfg) * cfg.train_accum
     if rounding_bits == "onchip":
         return 3 * len(leaves) + taps, len(leaves)
-    return (3 * sum(L if p[0] == "layers" else 1 for p in leaves) + taps,
-            len(leaves))
+    return (3 * sum(d.shape[0] if p[0] in STACKED else 1 for p, d in leaves)
+            + taps, len(leaves))
 
 
 def train_lm(cfg, rounding_bits, steps, batch=2, model="llama3_2_3b",
@@ -1371,6 +1473,11 @@ def train_lm(cfg, rounding_bits, steps, batch=2, model="llama3_2_3b",
                    active_params=cfg.n_active_params())
     if cfg.family == "vlm":
         moe = dict(vision_prefix=cfg.n_patches, positions=cfg.n_patches + seq)
+    if cfg.family == "hybrid":
+        moe = dict(shared_invocations=cfg.n_layers // cfg.hybrid_period,
+                   remainder=cfg.n_layers % cfg.hybrid_period)
+    if cfg.family == "encdec":
+        moe = dict(enc_layers=cfg.n_enc_layers, frames=cfg.enc_seq)
     full = get_config(model)
     say(phase, command="python -m repro_torch.launch.train " + " ".join(argv),
         model=cfg.name, layers=cfg.n_layers, layers_of=full.n_layers,
@@ -1386,7 +1493,8 @@ def train_lm(cfg, rounding_bits, steps, batch=2, model="llama3_2_3b",
             f"3 x {n_leaves} quantized leaves"
             + ("" if rounding_bits == "onchip" else " (stacked ones a layer "
                "at a time)")
-            + f" + 2 x {cfg.n_layers} layers x {cfg.train_accum} microbatches"))
+            + f" + 2 x {registry(cfg.family).residual_taps(cfg)} blocks x "
+            f"{cfg.train_accum} microbatches"))
     res = {"launches": launches, "ms": out["ms_per_step_after_first"],
            "peak": out["peak_memory_bytes"]}
     del out
@@ -1738,6 +1846,248 @@ def mla_check():
 
 
 # ---------------------------------------------------------------------------
+# the SSM, hybrid and encoder-decoder families: contiguous serving, SSD
+# ---------------------------------------------------------------------------
+
+def _nbytes(tree):
+    """Bytes of a cache: tensors in tuples and dicts."""
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(_nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def _first_step_vs_recomputation(cfg, mod, params, prompts, kw, lg0, tok):
+    """The first decode step's logits ``lg0`` (after the prompts) against
+    ``forward`` over the prompts and the token ``tok`` it was fed: the
+    largest error relative to the largest logit, and that logit."""
+    with torch.no_grad():
+        full, _ = mod.forward(cfg, params, torch.cat([prompts, tok], 1),
+                              mode="prefill", **kw)
+    full = full[:, -1, :cfg.vocab].float()
+    big = float(full.abs().max())
+    return float((lg0 - full).abs().max()) / big, big
+
+
+def _draw_served(cfg, mod, seed):
+    """``cfg``'s weights from ``seed`` on the card, the unembedding's fp32
+    cast held as the engine holds it."""
+    from repro_torch.models.common import hold_fp32_table
+    params = init_params(mod.model_defs(cfg), DEV,
+                         torch.Generator(device=DEV).manual_seed(seed))
+    params["embed"] = hold_fp32_table(params["embed"])
+    return params
+
+
+def _first_step(cfg, mod, params, prompts, kw, max_seq, tok=None):
+    """Prefill, then one decode step fed ``tok`` (None: the prefill's
+    greedy token): that step's logits in fp32, and the token."""
+    with torch.no_grad():
+        logits, cache, pos = mod.prefill(cfg, params, prompts, max_seq, **kw)
+        if tok is None:
+            tok = logits[:, :cfg.vocab].argmax(-1, keepdim=True).to(torch.int32)
+        lg, _ = mod.decode_step(cfg, params, tok, cache, pos)
+    return lg[:, :cfg.vocab].float(), tok
+
+
+def _first_step_readings(cfg, mod, seed, prompts, kw, max_seq, served=None):
+    """The first decode step after ``prompts`` with the bf16 weights of
+    ``seed``, held three ways, each as (the largest error relative to the
+    largest logit of what it is held against, that logit): in bf16 and in
+    fp32 (the same weights, cast up exactly) against the recomputation from
+    the prompt, and the bf16 step against the fp32 step fed the same token
+    (a fault that only shows in bf16: a wrong cast, a cache in the wrong
+    dtype).  ``served``: the served run's (params, first-step logits,
+    token) at this seed; else drawn and stepped here."""
+    from repro_torch.core import tree as tree_lib
+    if served is None:
+        params = _draw_served(cfg, mod, seed)
+        lg16, tok = _first_step(cfg, mod, params, prompts, kw, max_seq)
+    else:
+        params, lg16, tok = served
+    out = {"bfloat16": _first_step_vs_recomputation(cfg, mod, params, prompts,
+                                                    kw, lg16, tok)}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = tree_lib.map_tree(lambda t: t.float(), params)
+    lg32, _ = _first_step(cfg32, mod, params, prompts, kw, max_seq, tok)
+    out["float32"] = _first_step_vs_recomputation(cfg32, mod, params, prompts,
+                                                  kw, lg32, tok)
+    big = float(lg32.abs().max())
+    out["bfloat16_vs_float32"] = (float((lg16 - lg32).abs().max()) / big, big)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_family(model, phase):
+    """``model`` whole, bf16 weights from seed 0 on the card, served
+    through its contiguous path: ``prefill`` of B prompts of ``prompt``
+    tokens (an encoder-decoder's after seeded frames (B, enc_seq, D)), then
+    greedy ``decode_step``s, each timed with a synchronize.  Held: finite
+    logits, and the first step's logits (``_first_step_readings``, at the
+    served weights and at those of each other seed of
+    ``FAMILY_CHECK_SEEDS``) against the recomputation from the prompt
+    (``forward`` over the prompt and the first token: the SSM's chunked
+    scan against its O(1) recurrence, the attention caches against a fresh
+    prefill) in bf16 and with the same weights in fp32, and the bf16 step
+    against the fp32 step, each within ``FAMILY_FIRST_STEP_RTOL``'s
+    limit for ``model``.  No
+    kernel runs (the reference serves these families with jnp alone)."""
+    from repro_torch.core import tree as tree_lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(model)
+    mod = registry(cfg.family)
+    shape = FAMILY_SERVE_SHAPE
+    B, S, n, max_seq = (shape[k] for k in ("batch", "prompt", "steps",
+                                            "max_seq"))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = _draw_served(cfg, mod, FAMILY_CHECK_SEEDS[0])
+    torch.cuda.synchronize()
+    init_s, init_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    weights = sum(t.numel() * t.element_size() for t in tree_lib.leaves(params))
+    g = torch.Generator(device=DEV).manual_seed(1)
+    prompts = torch.randint(1, cfg.vocab, (B, S), generator=g, device=DEV,
+                            dtype=torch.int32)
+    kw = {}
+    if cfg.family == "encdec":
+        kw["frames"] = torch.randn(B, cfg.enc_seq, cfg.d_model, generator=g,
+                                   device=DEV)
+    mod.prefill(cfg, params, prompts[:2, :64], 80,
+                **{k: v[:2] for k, v in kw.items()})       # warm-up
+    _reset_quant_counts()
+    dps_quant.launch_count = paged_attn.launch_count = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache, pos = mod.prefill(cfg, params, prompts, max_seq, **kw)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    cache_bytes = _nbytes(cache)
+    tok = logits[:, :cfg.vocab].argmax(-1, keepdim=True).to(torch.int32)
+    step_ms, first = [], None
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = mod.decode_step(cfg, params, tok, cache, pos)
+        nxt = lg[:, :cfg.vocab].argmax(-1, keepdim=True).to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        if not bool(torch.isfinite(lg[:, :cfg.vocab]).all()):
+            raise AssertionError(f"{phase} decode step {i}: logits not finite")
+        if i == 0:
+            first = (lg[:, :cfg.vocab].float(), tok)
+        tok, pos = nxt, pos + 1
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(_quant_counts(), dps_group_wire_encode=dps_quant.launch_count,
+                    paged_decode_attn=paged_attn.launch_count)
+    if any(launches.values()):
+        raise AssertionError(f"{phase} launched {launches}")
+    del cache
+    readings = {FAMILY_CHECK_SEEDS[0]: _first_step_readings(
+        cfg, mod, FAMILY_CHECK_SEEDS[0], prompts, kw, max_seq,
+        served=(params, *first))}
+    del params, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    for seed in FAMILY_CHECK_SEEDS[1:]:
+        readings[seed] = _first_step_readings(cfg, mod, seed, prompts, kw,
+                                              max_seq)
+    tol = FAMILY_FIRST_STEP_RTOL[model]
+    for seed, errs in readings.items():
+        for how, (rel, _) in errs.items():
+            if not rel <= tol[how]:
+                raise AssertionError(
+                    f"{phase}: first decode step, weights from seed {seed}, "
+                    f"{how}: {rel} > {tol[how]} of the largest logit")
+    ms = np.asarray(step_ms)
+    full_cfg = get_config(model)
+    extra = {}
+    if cfg.family == "hybrid":
+        extra = dict(shared_invocations=cfg.n_layers // cfg.hybrid_period)
+    if cfg.family == "encdec":
+        extra = dict(enc_layers=cfg.n_enc_layers, frames=cfg.enc_seq)
+    say(phase, model=cfg.name, layers=cfg.n_layers, layers_of=full_cfg.n_layers,
+        d_model=cfg.d_model, **extra, params=cfg.n_params(),
+        weights_bytes_with_held_fp32_table=weights, weights_init_s=init_s,
+        init_peak_memory_bytes=init_peak, batch=B, prompt=S, max_seq=max_seq,
+        prefill_s=prefill_s, decode_steps=n,
+        p50_ms_per_decode_step=float(np.percentile(ms, 50)),
+        p95_ms_per_decode_step=float(np.percentile(ms, 95)),
+        tokens_per_s=B * n / (ms.sum() / 1e3), serve_peak_memory_bytes=peak,
+        cache_bytes=cache_bytes,
+        first_step={
+            f"seed_{seed}": {
+                how: {"max_rel_err": rel, "max_abs_logit": big,
+                      "tolerance": tol[how]}
+                for how, (rel, big) in errs.items()}
+            for seed, errs in readings.items()},
+        kernel_launches=launches)
+
+
+def ssd_check():
+    """One Mamba2 layer at mamba2-1.3b's full geometry (d=2048, 64 heads of
+    64, state 128, chunk 256) in fp32, weights from seed 0 with the
+    configs' initialization (``a_log = dt_bias = 0``): ``ssm_apply`` in
+    train mode (the chunked ``ssd_scan``) over ``SSD_SEQ`` positions against
+    the O(1) decode recurrence run token by token, within ``SSD_TOL`` of the
+    largest magnitude, its input gradient finite.  Printed: the largest
+    chunk span of the decays (sum of dt over a chunk), which above
+    log(FLT_MAX) overflows the reference's unmasked ``exp(rel)``, and each
+    path's time."""
+    from repro_torch.models import ssm
+    cfg = get_config("mamba2_1_3b")
+    g = torch.Generator(device=DEV).manual_seed(0)
+    p = init_params(ssm.ssm_defs(cfg, torch.float32), DEV, g)
+    u = torch.randn(1, SSD_SEQ, cfg.d_model, generator=g, device=DEV)
+    x = u.clone().requires_grad_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, _ = ssm.ssm_apply(cfg, p, x, mode="train")
+    (dx,) = torch.autograd.grad(y.square().sum(), (x,))
+    torch.cuda.synchronize()
+    chunked_s = time.perf_counter() - t0
+    H, P, N = ssm.n_ssm_heads(cfg), cfg.ssm_head_dim, cfg.ssm_state
+    cache = (torch.zeros(1, H, P, N, device=DEV),
+             torch.zeros(1, cfg.ssm_conv - 1, ssm.conv_channels(cfg),
+                         device=DEV))
+    steps = []
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for t in range(SSD_SEQ):
+            out, cache = ssm.ssm_apply(cfg, p, u[:, t:t + 1], mode="decode",
+                                       cache=cache)
+            steps.append(out)
+        rec = torch.cat(steps, 1)
+        torch.cuda.synchronize()
+    recurrence_s = time.perf_counter() - t0
+    err = float((y.detach() - rec).abs().max() / rec.abs().max())
+    with torch.no_grad():
+        dt, _ = ssm._decays(cfg, ssm._split_proj(cfg, u @ p["w_in"])[2],
+                            p["a_log"], p["dt_bias"])
+        Q = cfg.ssm_chunk
+        span = float(dt[:, :SSD_SEQ // Q * Q].reshape(1, -1, Q, H).sum(2).max())
+    finite = bool(torch.isfinite(y).all()) and bool(torch.isfinite(dx).all())
+    if not (finite and err <= SSD_TOL):
+        raise AssertionError(f"ssd_check: finite {finite}, chunked vs "
+                             f"recurrence {err} > {SSD_TOL}")
+    f32_exp_max = math.log(np.finfo(np.float32).max)
+    say("ssd_check", shape=f"B=1 S={SSD_SEQ} d={cfg.d_model} H={H} P={P} "
+        f"N={N} chunk={Q} fp32", chunked_vs_recurrence_max_rel_err=err,
+        tolerance=SSD_TOL, output_and_grad_finite=finite,
+        largest_chunk_decay_span=span, log_flt_max=f32_exp_max,
+        reference_exp_would_overflow=span > f32_exp_max,
+        chunked_fwd_bwd_s=chunked_s, recurrence_s=recurrence_s)
+    del p, u, x, y, dx, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # the wire path: K2/K2b, K3b, K4, the collectives, data-parallel training
 # ---------------------------------------------------------------------------
 
@@ -1995,14 +2345,44 @@ def wire_kernel_checks(cfg):
                   "nonzero": float(sk[0, 1]), "overflow": float(sk[0, 2])}
     del xb, mb
 
-    # --- the wire path's shapes, llama3.2-3b at full width, 4 ranks ---
+    rows, errs, rels = wire_path_rows(cfg, rng, ("layers", "mlp", "w_in"),
+                                      operand=True)
+    say("wire_kernels", small_shapes=small, small_worst_sum_rel=worst,
+        nan_byte=nan_byte, k3_counts_past_2_24=big_counts,
+        main_path_sum_rel=rels, main_path_max_abs_err=errs,
+        tolerances=WIRE_TOLERANCES,
+        main_path=[{k: r[k] for k in ("name", "shape", "ms", "plain_ms",
+                                      "bound_ms", "bound_by")} for r in rows])
+    return rows
+
+
+WIRE_TOLERANCES = {"wire_bytes": "bit-equal", "reduce_mean": "bit-equal",
+                   "float_sums_rel": SUM_RTOL,
+                   "counts": "exact below 2^24, 1 ulp above (K1/K2); "
+                             "exact (K3)"}
+
+
+def wire_path_rows(cfg, rng, leaf, *, operand, run=None, model=None,
+                   n_ranks=4):
+    """K2b (and, with ``operand``, K2 with a bits operand and at nearest) on
+    the gradient of ``cfg``'s leaf ``leaf`` (its largest), then K4 on owner
+    1's [n_ranks, chunk] view of the full tree's per-layer int8 stack and
+    K3b (and, with ``operand``, K3 with a bits operand) on that owner's
+    mean chunk, as the wire step launches them: each bit-equal to its plain
+    version on the same inputs, timed, with its own bound.  ``run``: the
+    rows take that run's launches, each named for its counter and
+    ``model``, ``cfg``'s module; else the rows are the counters' own.
+    Returns (rows, errors, the statistics' relative errors)."""
     from repro_torch.core import tree as tree_lib
     from repro_torch.dist import group_layout
-    from repro_torch.models import transformer
-    defs = transformer.model_defs(cfg, cfg.master_dtype())
+    defs = registry(cfg.family).model_defs(cfg, cfg.master_dtype())
     sizes = tuple(math.prod(d.shape) for d in tree_lib.leaves(defs))
-    L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
-    w_in = L * D * F
+    node = defs
+    for key in leaf:
+        node = node[key]
+    w_in = math.prod(node.shape)
+    leaf_name = (f"{'/'.join(leaf)} gradient leaf "
+                 f"{'x'.join(map(str, node.shape))} = {w_in} fp32")
     # K2b on the w_in gradient leaf (grads of a random-init LM are ~1e-4;
     # the wire format of that domain starts at <6, 2> and settles at <1, 7>)
     g = torch.Generator(device=DEV).manual_seed(8)
@@ -2012,11 +2392,23 @@ def wire_kernel_checks(cfg):
     errs, rels = {}, {}
     errs["w_in_k2b"], rels["w_in_k2b"] = check_wire_quant(x, il, fl,
                                                           dps_quant.Philox(21))
-    wbits = torch.randint(-2**31, 2**31, (w_in,), dtype=torch.int32,
-                          device=DEV, generator=g)
-    errs["w_in_k2"], rels["w_in_k2"] = check_wire_quant(x, il, fl, wbits)
-    errs["w_in_k2_nearest"], rels["w_in_k2_nearest"] = check_wire_quant(x, il, fl)
+    if operand:
+        wbits = torch.randint(-2**31, 2**31, (w_in,), dtype=torch.int32,
+                              device=DEV, generator=g)
+        errs["w_in_k2"], rels["w_in_k2"] = check_wire_quant(x, il, fl, wbits)
+        errs["w_in_k2_nearest"], rels["w_in_k2_nearest"] = check_wire_quant(
+            x, il, fl)
     check_wire_quant(x, il, fl, dps_quant.Philox(21), stats=False)
+
+    def row(counter, replaces, shape, **kw):
+        out = {"name": counter, "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/dps_quant.cu",
+               "replaces": replaces, "shape": shape}
+        if run is not None:
+            out.update(name=f"{counter}_{model}", counter=counter, run=run,
+                       model=cfg.name)
+        out.update(kw)
+        return out
 
     def wire_row(name, bits, nbytes, nops, note):
         key = "w_in_k2b" if "prng" in name else "w_in_k2"
@@ -2034,29 +2426,28 @@ def wire_kernel_checks(cfg):
                 args[0], args[1], args[2], None, compute_stats=False,
                 backend="kernel"), repeats=10)
         b, by = bound(nbytes, nops)
-        return {"name": name, "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/dps_quant.cu",
-                "replaces": "src/repro/kernels/dps_quant.py:288",
-                "shape": f"w_in gradient leaf {L}x{D}x{F} = {w_in} fp32 -> "
-                         f"int8, {note}, statistics on (leg 1, one launch "
-                         "per leaf per rank)",
-                "max_abs_err": errs[key], "stats_max_rel_err": rels[key],
-                "ms": ms, "plain_ms": plain_ms, "ms_no_stats": ms_ns, **extra,
-                "bound_ms": b, "bound_by": by, "bytes": nbytes,
-                "library_ms": None}
+        return row(name, "src/repro/kernels/dps_quant.py:288",
+                   f"{cfg.name} {leaf_name} -> int8, {note}, statistics on "
+                   "(leg 1, one launch per leaf per rank)",
+                   max_abs_err=errs[key], stats_max_rel_err=rels[key], ms=ms,
+                   plain_ms=plain_ms, ms_no_stats=ms_ns, **extra, bound_ms=b,
+                   bound_by=by, bytes=nbytes, library_ms=None)
 
     # bytes: x in (4 B), wire out (1 B), <IL, FL> in, 7 stats out; K2 also
     # reads the bits (4 B)
-    k2b = wire_row("dps_quant_wire_onchip_prng", dps_quant.Philox(21),
-                   5 * w_in + 8 + 28, 49 * w_in, "Philox bits in the kernel")
-    k2 = wire_row("dps_quant_wire", wbits, 9 * w_in + 8 + 28, 24 * w_in,
-                  "a bits operand (--rounding-bits operand)")
-    del x, wbits
+    rows = [wire_row("dps_quant_wire_onchip_prng", dps_quant.Philox(21),
+                     5 * w_in + 8 + 28, 49 * w_in,
+                     "Philox bits in the kernel")]
+    if operand:
+        rows.insert(0, wire_row("dps_quant_wire", wbits, 9 * w_in + 8 + 28,
+                                24 * w_in,
+                                "a bits operand (--rounding-bits operand)"))
+        del wbits
+    del x
     gc.collect()
     torch.cuda.empty_cache()
 
-    # K4 on owner 1's [4, c] view of the full tree's per-layer layout
-    n_ranks = 4
+    # K4 on owner 1's [n, c] view of the full tree's per-layer layout
     lay = group_layout(sizes, n_chunks=n_ranks, quantum=4096)
     c, tpc = lay.chunk, lay.chunk // 4096
     tg = torch.from_numpy(lay.tile_groups()).to(DEV)
@@ -2081,15 +2472,14 @@ def wire_kernel_checks(cfg):
     gc.collect()
     torch.cuda.empty_cache()
     b, by = bound(red_bytes, red_ops)
-    k4 = {"name": "dps_wire_reduce", "route": "cuda",
-          "source": "src/repro_torch/kernels/csrc/dps_quant.cu",
-          "replaces": "src/repro/kernels/dps_quant.py:544",
-          "shape": f"[{n_ranks}, {c}] int8 (owner 1's strided view of the "
-                   f"[{n_ranks}, {lay.total}] stack, row stride {lay.total}) "
-                   f"-> fp32 [{c}], {len(sizes)} formats, quantum 4096",
-          "max_abs_err": errs["reduce"], "ms": red_ms, "plain_ms": red_plain,
-          "bound_ms": b, "bound_by": by, "bytes": red_bytes, "library_ms": None,
-          "body": "tma", "torch_sum_ms": red_sum, "torch_sum_note": TORCH_SUM_NOTE}
+    k4 = row("dps_wire_reduce", "src/repro/kernels/dps_quant.py:544",
+             f"{cfg.name}: [{n_ranks}, {c}] int8 (owner 1's strided view of "
+             f"the [{n_ranks}, {lay.total}] stack, row stride {lay.total}) "
+             f"-> fp32 [{c}], {len(sizes)} formats, quantum 4096",
+             max_abs_err=errs["reduce"], ms=red_ms, plain_ms=red_plain,
+             bound_ms=b, bound_by=by, bytes=red_bytes, library_ms=None,
+             body="tma", torch_sum_ms=red_sum,
+             torch_sum_note=TORCH_SUM_NOTE)
 
     # K3b on that owner's mean chunk, as leg 2 launches it (no statistics)
     src = dps_quant.GroupPhilox(31, goff, start=c)
@@ -2101,25 +2491,26 @@ def wire_kernel_checks(cfg):
                                            quantum=4096, emit_stats=False,
                                            backend="plain")
     if not torch.equal(wk, wp):
-        raise AssertionError("K3b at the path's shape differs from its plain "
-                             "version")
+        raise AssertionError(f"K3b at {cfg.name}'s wire shape differs from "
+                             "its plain version")
     errs["k3b"] = _byte_err(wk, wp)
     del wp
-    # K3 with a bits operand on that chunk, as leg 2 launches it under
-    # --rounding-bits operand
-    obits = torch.randint(-2**31, 2**31, (c,), dtype=torch.int32, device=DEV,
-                          generator=g)
-    wk, _ = dps_quant.dps_quant_group_wire(part, tab, tg1, obits, None,
-                                           quantum=4096, emit_stats=False,
-                                           out=out, backend="kernel")
-    wp, _ = dps_quant.dps_quant_group_wire(part, tab, tg1, obits, None,
-                                           quantum=4096, emit_stats=False,
-                                           backend="plain")
-    if not torch.equal(wk, wp):
-        raise AssertionError("K3 with a bits operand at the wire path's shape "
-                             "differs from its plain version")
-    errs["k3_operand"] = _byte_err(wk, wp)
-    del wp, obits
+    if operand:
+        # K3 with a bits operand on that chunk, as leg 2 launches it under
+        # --rounding-bits operand
+        obits = torch.randint(-2**31, 2**31, (c,), dtype=torch.int32,
+                              device=DEV, generator=g)
+        wk, _ = dps_quant.dps_quant_group_wire(part, tab, tg1, obits, None,
+                                               quantum=4096, emit_stats=False,
+                                               out=out, backend="kernel")
+        wp, _ = dps_quant.dps_quant_group_wire(part, tab, tg1, obits, None,
+                                               quantum=4096, emit_stats=False,
+                                               backend="plain")
+        if not torch.equal(wk, wp):
+            raise AssertionError("K3 with a bits operand at the wire path's "
+                                 "shape differs from its plain version")
+        errs["k3_operand"] = _byte_err(wk, wp)
+        del wp, obits
     g3_bytes = 4 * c + c + 4 * tpc + 8 * len(sizes) + 8 * len(sizes)
     g3_ms = time_ms(lambda: dps_quant.dps_quant_group_wire(
         part, tab, tg1, src, None, quantum=4096, emit_stats=False, out=out,
@@ -2128,26 +2519,30 @@ def wire_kernel_checks(cfg):
         part, tab, tg1, src, None, quantum=4096, emit_stats=False,
         backend="plain"), repeats=2, warmup=1)
     b, by = bound(g3_bytes, 37 * c)
-    k3b = {"name": "dps_group_wire_encode_onchip_prng", "route": "cuda",
-           "source": "src/repro_torch/kernels/csrc/dps_quant.cu",
-           "replaces": "src/repro/kernels/dps_quant.py:482",
-           "shape": f"one owner chunk of {c} fp32 -> int8, {len(sizes)} "
-                    "formats, quantum 4096, Philox per group, no statistics "
-                    "(leg 2)",
-           "max_abs_err": errs["k3b"], "ms": g3_ms, "plain_ms": g3_plain,
-           "bound_ms": b, "bound_by": by, "bytes": g3_bytes, "library_ms": None}
+    k3b = row("dps_group_wire_encode_onchip_prng",
+              "src/repro/kernels/dps_quant.py:482",
+              f"{cfg.name}: one owner chunk of {c} fp32 -> int8, {len(sizes)} "
+              "formats, quantum 4096, Philox per group, no statistics (leg 2)",
+              max_abs_err=errs["k3b"], ms=g3_ms, plain_ms=g3_plain,
+              bound_ms=b, bound_by=by, bytes=g3_bytes, library_ms=None)
     del part, out
     gc.collect()
     torch.cuda.empty_cache()
+    return rows + [k3b, k4], errs, rels
 
-    rows = [k2, k2b, k3b, k4]
-    say("wire_kernels", small_shapes=small, small_worst_sum_rel=worst,
-        nan_byte=nan_byte, k3_counts_past_2_24=big_counts,
-        main_path_sum_rel=rels, main_path_max_abs_err=errs,
-        tolerances={"wire_bytes": "bit-equal", "reduce_mean": "bit-equal",
-                    "float_sums_rel": SUM_RTOL,
-                    "counts": "exact below 2^24, 1 ulp above (K1/K2); "
-                              "exact (K3)"},
+
+def mamba_wire_rows():
+    """K2b, K4 and K3b at ``train_wire_mamba2``'s shapes: mamba2-1.3b's
+    ``layers/ssm/w_in`` gradient (836,763,648 fp32, the largest leaf a
+    kernel meets) and owner 1's chunk of its tree under
+    ``MAMBA_WIRE["n_ranks"]`` ranks, each bit-equal to its plain version;
+    the rows take that run's launches."""
+    rows, errs, rels = wire_path_rows(
+        get_config("mamba2_1_3b"), np.random.default_rng(3),
+        ("layers", "ssm", "w_in"), operand=False, run="train_wire_mamba2",
+        model="mamba2_1_3b", n_ranks=MAMBA_WIRE["n_ranks"])
+    say("wire_kernels_mamba2", main_path_sum_rel=rels,
+        main_path_max_abs_err=errs, tolerances=WIRE_TOLERANCES,
         main_path=[{k: r[k] for k in ("name", "shape", "ms", "plain_ms",
                                       "bound_ms", "bound_by")} for r in rows])
     return rows
@@ -2251,14 +2646,16 @@ def _wire_step_launches(cfg, n_ranks, rounding_bits, zero_buckets=0):
     stacked leaf one layer at a time, as ``quantize_tree`` bounds its bits),
     K2, K3.  ``zero_buckets`` > 0: the ZeRO step over that many buckets —
     K4 and the leg-2 encode once per owner per bucket, and no
-    optimizer-input snap (the norm scales keep the params leg in fp32)."""
+    optimizer-input snap (the norm scales keep the params leg in fp32).
+    Each rank taps every block forward and backward in each of its
+    ``train_accum`` microbatches."""
     from repro_torch.core import tree as tree_lib
     from repro_torch.core.policy import QuantPolicy
-    from repro_torch.models import transformer
-    defs = transformer.model_defs(cfg, cfg.master_dtype())
+    defs = registry(cfg.family).model_defs(cfg, cfg.master_dtype())
     pred = QuantPolicy().param_predicate()
     paths = tree_lib.leaves_with_path(defs)
-    G, L = len(paths), cfg.n_layers
+    G = len(paths)
+    taps = 2 * registry(cfg.family).residual_taps(cfg) * cfg.train_accum
     quantized = [d.shape for p, d in paths if pred(p, d)]
     if rounding_bits == "onchip":
         events = len(quantized)
@@ -2271,7 +2668,7 @@ def _wire_step_launches(cfg, n_ranks, rounding_bits, zero_buckets=0):
                           "dps_group_wire_encode",
                           "dps_group_wire_encode_onchip_prng")}
     snaps, owners = (2, n_ranks * zero_buckets) if zero_buckets else (3, n_ranks)
-    out.update({"dps_quantize" + sfx: snaps * events + n_ranks * (2 * L + events),
+    out.update({"dps_quantize" + sfx: snaps * events + n_ranks * (taps + events),
                 "dps_quant_wire" + sfx: n_ranks * G,
                 "dps_group_wire_encode" + sfx: owners,
                 "dps_wire_reduce": owners})
@@ -2286,24 +2683,30 @@ def _all_k4_on_tma(launches, what):
                              "TMA body")
 
 
-def wire_argv(steps=4, n_ranks=4, rounding_bits="onchip", *extra):
-    """``launch.train`` arguments of the full-width int8-wire run."""
-    return ["--arch", "llama3_2_3b", "--steps", str(steps), "--batch",
-            str(n_ranks), "--seq", "512", "--optimizer", "sgd",
+def wire_argv(steps=4, n_ranks=4, rounding_bits="onchip", *extra,
+              model="llama3_2_3b", batch=None):
+    """``launch.train`` arguments of the full-width int8-wire run (``batch``:
+    one row a rank unless given)."""
+    return ["--arch", model, "--steps", str(steps), "--batch",
+            str(batch or n_ranks), "--seq", "512", "--optimizer", "sgd",
             "--grad-allreduce-bits", "8", "--data-ranks", str(n_ranks),
             "--rounding-bits", rounding_bits, "--log-every", "1", *extra]
 
 
 def train_wire(cfg, steps=4, n_ranks=4, rounding_bits="onchip",
-               ckpt_dir=None):
+               ckpt_dir=None, model="llama3_2_3b", batch=None,
+               phase="wire_train"):
     """The int8-wire data-parallel trainer's CLI at full size: n_ranks ranks
-    on the card, batch 1 x 512 each, per-layer wire formats; K1b/K2b/K3b/K4,
-    or K1/K2/K3/K4 with ``rounding_bits="operand"``.  ``ckpt_dir``: the run
-    also writes its final checkpoint there (run A of ``ckpt_resume``).
-    Returns the launches, the losses and the CLI's summary."""
+    on the card, batch 1 x 512 each (``batch``: rows in all), per-layer wire
+    formats; K1b/K2b/K3b/K4, or K1/K2/K3/K4 with
+    ``rounding_bits="operand"``.  ``cfg`` is ``model``'s config.
+    ``ckpt_dir``: the run also writes its final checkpoint there (run A of
+    ``ckpt_resume``).  Returns the launches, the losses and the CLI's
+    summary."""
     from repro_torch.launch import train as train_cli
     argv = wire_argv(steps, n_ranks, rounding_bits,
-                     *(["--ckpt-dir", ckpt_dir] if ckpt_dir else []))
+                     *(["--ckpt-dir", ckpt_dir] if ckpt_dir else []),
+                     model=model, batch=batch)
     train_cli.reset_launch_counts()            # the counted run
     dps_quant.reduce_tma_launch_count = 0
     out = train_cli.main(argv)
@@ -2325,8 +2728,9 @@ def train_wire(cfg, steps=4, n_ranks=4, rounding_bits="onchip",
             "fl_wire_grads", "il_wire_grads_min", "il_wire_grads_max",
             "fl_wire_grads_min", "fl_wire_grads_max", "E_wire", "R_wire")
     traj = [{k: h[k] for k in keys} for h in hist]
-    say("wire_train", command="python -m repro_torch.launch.train " + " ".join(argv),
+    say(phase, command="python -m repro_torch.launch.train " + " ".join(argv),
         params=out["params"], data_ranks=n_ranks, rounding_bits=rounding_bits,
+        accumulation=cfg.train_accum,
         losses=losses,
         first_step_s=out["first_step_s"],
         ms_per_step_after_first=out["ms_per_step_after_first"],
@@ -3286,6 +3690,7 @@ def main():
     rows += quant_checks(cfg)
     rows += train_shape_rows()
     rows += wire_kernel_checks(cfg)
+    rows += mamba_wire_rows()
     # each path runs with the counts set to 0 just before it, read just after
     launches = serve(cfg, lay)
     gc.collect()
@@ -3308,12 +3713,20 @@ def main():
         other[f"train_{model}"] = train_lm(depth_cut(model, layers), "onchip",
                                            4, batch=batch, model=model
                                            )["launches"]
+    # the SSM, hybrid and encoder-decoder families
+    for model, layers, batch, _, phase in FAMILY_TRAIN:
+        other[f"train_{model}"] = train_lm(depth_cut(model, layers), "onchip",
+                                           4, batch=batch, model=model,
+                                           phase=phase)["launches"]
     # long-context training: the blockwise attention on the card, then
     # llama3.2-3b at sequence 4,096 (every layer's attention blockwise),
     # then remat="dots" beside the full remat of the run above
     flash_check(cfg)
     serve_deepseek()
     mla_check()
+    ssd_check()
+    for model, phase in FAMILY_SERVE:
+        serve_family(model, phase)
     long_run = train_lm(cfg, "onchip", 3, batch=1, seq=LONG_SEQ,
                         phase="train_long")
     dots = train_lm(dataclasses.replace(cfg, remat="dots"), "onchip", 4,
@@ -3345,6 +3758,11 @@ def main():
     del run_a
     launches["dps_quant_wire"] = train_wire(
         cfg, steps=2, rounding_bits="operand")[0]["dps_quant_wire"]
+    # the int8 wire at mamba2-1.3b's leaves, full depth
+    mamba_wire = train_wire(get_config("mamba2_1_3b"), MAMBA_WIRE["steps"],
+                            MAMBA_WIRE["n_ranks"], model="mamba2_1_3b",
+                            batch=MAMBA_WIRE["batch"],
+                            phase="train_wire_mamba2")[0]
     # ZeRO-1 and the overlapped wire: the halves on the card, LeNet's int8
     # params leg, then the trainer at full width without and with the
     # overlap; each run counted from 0
@@ -3395,7 +3813,7 @@ def main():
     # a row measured at the overlap run's bucket shape takes that run's
     # launches; the rows of the same counters at other shapes do not
     at_bucket = {(r["run"], r["counter"]) for r in rows if "run" in r}
-    runs = {**zero_launches, **other}
+    runs = {**zero_launches, **other, "train_wire_mamba2": mamba_wire}
     for r in rows:
         if "run" in r:
             r["launches"] = runs[r["run"]][r["counter"]]

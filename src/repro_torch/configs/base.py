@@ -4,8 +4,8 @@ Counterpart of ``repro/configs/base.py``.  Every ported architecture is one
 ``ModelConfig`` in its own module under ``repro_torch.configs``;
 ``get_config(name)`` is the registry entry point and ``smoke()`` derives the
 reduced-size variant used by the CPU tests.  The schema keeps every field of
-the reference (so a config reads the same in both packages); the dense, MoE
-and VLM families are ported.
+the reference (so a config reads the same in both packages); every family
+is ported.
 """
 
 from __future__ import annotations

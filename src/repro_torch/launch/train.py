@@ -21,9 +21,11 @@ Smoke scale on the CPU (the kernels' plain versions):
 The MoE and VLM families train the same way (``--arch qwen3_moe_30b_a3b``,
 and ``--arch deepseek_v2_236b``, MoE with MLA and 4 microbatches a step;
 ``--arch internvl2_26b``, whose batches carry zero patch embeddings for
-the stubbed vision frontend, prepended to the tokens); above
-S_q·S_k = 4096·2048 (``--seq 3000`` at smoke width) attention runs
-blockwise.
+the stubbed vision frontend, prepended to the tokens); so do the SSM,
+hybrid and encoder-decoder families (``--arch mamba2_1_3b``, ``--arch
+zamba2_7b``, ``--arch whisper_medium``, whose batches carry zero frame
+embeddings for the stubbed audio frontend).  Above S_q·S_k = 4096·2048
+(``--seq 3000`` at smoke width) attention runs blockwise.
 
 Data parallelism over the int8 wire (``--grad-allreduce-bits 8``): each of
 ``--data-ranks N`` ranks runs its forward and backward on its slice of the
@@ -300,6 +302,12 @@ def setup(args, cfg=None):
                                      accum_steps=cfg.train_accum,
                                      transport=transport, faults=faults)
     extras = {}
+    if cfg.family == "encdec":
+        # the stubbed audio frontend's frame embeddings, as the reference's
+        # CLI feeds them: zeros
+        extras["frames"] = torch.zeros(
+            (args.batch, cfg.enc_seq, cfg.d_model), dtype=torch.float32,
+            device=device)
     if cfg.family == "vlm":
         # the stubbed vision frontend's patch embeddings, as the
         # reference's CLI feeds them: zeros

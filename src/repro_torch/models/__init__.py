@@ -1,29 +1,33 @@
 """Model zoo registry: family name -> module with the uniform model API.
 
 Every family module exposes:
-  model_defs(cfg)                 -> nested dict of ParamDef
+  model_defs(cfg[, dtype])        -> nested dict of ParamDef
   forward(cfg, params, tokens, **kw) -> (logits | hidden, new_cache)
-  prefill(cfg, params, tokens, max_seq) -> (logits, cache, pos)
+  forward_train / loss_fn(cfg)    -> (params, batch, qctx) -> (loss, aux)
+  prefill(cfg, params, tokens, max_seq, **kw) -> (logits, cache, pos)
   decode_step(cfg, params, tokens, cache, pos) -> (logits, new_cache)
-  decode_step_paged(cfg, params, tokens, cache, ptab, pos)
-  init_cache / count_params(cfg) [+ count_active_params for MoE]
+  init_cache(cfg, batch, max_seq, device) / count_params(cfg)
+  residual_taps(cfg)              -> residual taps a training forward makes
+The transformer adds decode_step_paged and (MoE) count_active_params.
 
-The dense, MoE and VLM families share the decoder-only transformer, as in
-the reference; the SSM, hybrid and encoder-decoder families are not ported
-yet.
+As in the reference, the dense, MoE and VLM families share the
+decoder-only transformer; ``ssm`` is Mamba2, ``hybrid`` Mamba2 with one
+shared attention block, ``encdec`` the Whisper-style encoder-decoder.
 """
 
 from __future__ import annotations
 
-_UNPORTED = ("ssm", "hybrid", "encdec")
-
 
 def registry(family: str):
-    if family in ("dense", "moe", "vlm"):
-        from repro_torch.models import transformer
-        return transformer
-    if family in _UNPORTED:
-        raise NotImplementedError(
-            f"model family {family!r} is not ported yet (dense, moe and vlm "
-            "are)")
-    raise ValueError(f"unknown model family {family!r}")
+    from repro_torch.models import encdec, hybrid, mamba, transformer
+    mods = {
+        "dense": transformer,
+        "moe": transformer,
+        "vlm": transformer,
+        "ssm": mamba,
+        "hybrid": hybrid,
+        "encdec": encdec,
+    }
+    if family not in mods:
+        raise ValueError(f"unknown model family {family!r}")
+    return mods[family]

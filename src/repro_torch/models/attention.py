@@ -7,6 +7,10 @@ Counterpart of ``repro/models/attention.py``.  Call patterns:
   * ``mode="decode"``   — one new token against a contiguous cache of
     ``max_seq``, or, with ``paged_ptab``, against the paged KV pool of
     :mod:`repro_torch.serve`.
+  * ``mode="decode_static"`` — attend over a fixed (B, S, KV, Dh) cache
+    with no write and no mask (the encoder-decoder's cross cache).
+  * ``kv_x=...``        — cross-attention: K and V from ``kv_x``, no RoPE
+    (the caller passes ``causal=False``).
 
 Caches are updated **in place**: the tensors handed in as ``cache`` are
 written and handed back (the reference, being functional, returns copies).
@@ -20,8 +24,6 @@ V up-projected from the latent, through :func:`sdpa`) and decodes in the
 *absorbed* form: scores are taken directly against the compressed latent
 cache, so a decode step reads O(kv_lora + rope) a token instead of
 O(heads × head_dim).  MLA has no paged path (nor has the reference's).
-
-Not ported yet: cross-attention.
 """
 
 from __future__ import annotations
@@ -162,13 +164,17 @@ def sdpa(q, k, v, *, causal: bool, scale: float):
 def gqa_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
               *, positions: torch.Tensor, mode: str = "prefill",
               cache: Optional[Tuple[torch.Tensor, ...]] = None,
-              cache_pos: Optional[torch.Tensor] = None, causal: bool = True,
+              cache_pos: Optional[torch.Tensor] = None,
+              kv_x: Optional[torch.Tensor] = None, causal: bool = True,
               paged_ptab: Optional[torch.Tensor] = None,
               paged_backend: str = "auto"):
-    """Grouped-query self-attention.
+    """Grouped-query attention.  ``kv_x`` (B, Sk, D) switches to
+    cross-attention: K and V are its projections, unrotated (the caller
+    passes ``causal=False``).
 
     ``cache`` = (k, v) each (B, max_seq, KV, Dh); decode writes the new
-    token at ``cache_pos`` and attends over [0, cache_pos].
+    token at ``cache_pos`` and attends over [0, cache_pos];
+    ``decode_static`` attends over all of it and writes nothing.
 
     ``paged_ptab`` (serving, ``mode="decode"`` only) switches to the paged
     KV pool: ``cache`` is then this layer's ``(k_pages, v_pages, k_fmt,
@@ -179,25 +185,36 @@ def gqa_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KV
 
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
-    if cfg.attn_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, Sq, H, Dh)
-    k = k.reshape(B, Sq, KV, Dh)
-    v = v.reshape(B, Sq, KV, Dh)
+    src = x if kv_x is None else kv_x
+    Sk = src.shape[1]
+    static = mode == "decode_static"        # reads a cache; needs no new K/V
 
-    if cfg.rope_theta > 0:
+    q = x @ p["wq"]
+    if cfg.attn_bias:
+        q = q + p["bq"]
+    q = q.reshape(B, Sq, H, Dh)
+    if not static:
+        k = src @ p["wk"]
+        v = src @ p["wv"]
+        if cfg.attn_bias:
+            k, v = k + p["bk"], v + p["bv"]
+        k = k.reshape(B, Sk, KV, Dh)
+        v = v.reshape(B, Sk, KV, Dh)
+
+    if kv_x is None and cfg.rope_theta > 0:
         # in decode K is rotated at the cache position, Q at `positions`
-        kv_pos = positions if mode != "decode" else cache_pos[..., None]
         q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, kv_pos, cfg.rope_theta)
+        if not static:
+            kv_pos = positions if mode != "decode" else cache_pos[..., None]
+            k = apply_rope(k, kv_pos, cfg.rope_theta)
 
     scale = 1.0 / math.sqrt(Dh)
     new_cache = None
 
-    if mode == "decode" and paged_ptab is not None:
+    if static:
+        ck, cv = cache
+        out = _decode_attn(q.reshape(B, Sq, KV, G, Dh), ck, cv, None, scale)
+    elif mode == "decode" and paged_ptab is not None:
         out, new_cache = _paged_decode(cache, q, k, v, cache_pos, paged_ptab,
                                        paged_backend, scale)
     elif mode == "decode":
@@ -218,7 +235,7 @@ def gqa_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
         vr = torch.repeat_interleave(v, G, dim=2)
         out = sdpa(q, kr, vr, causal=causal, scale=scale)
     else:
-        raise NotImplementedError(f"attention mode {mode!r} is not ported")
+        raise ValueError(f"unknown attention mode {mode!r}")
 
     out = out.reshape(B, Sq, H * Dh) @ p["wo"]
     if cfg.attn_bias:

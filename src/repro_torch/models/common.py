@@ -71,6 +71,32 @@ def map_defs(fn, defs):
     return {k: map_defs(fn, v) for k, v in defs.items()}
 
 
+@functools.lru_cache(maxsize=None)
+def kept_f32(layer_defs, cfg):
+    """Tree of bools over one block's declarations ``layer_defs(cfg,
+    dtype)``: the leaves declared fp32 whatever the working dtype (norms,
+    the MoE router, the SSM's decay islands), which the compute cast leaves
+    alone."""
+    return map_defs(lambda d: d.dtype == torch.float32,
+                    layer_defs(cfg, torch.bfloat16))
+
+
+def compute_cast(cfg, p, layer_defs):
+    """One block's master parameters ``p`` in the compute dtype, but the
+    leaves :func:`kept_f32` keeps."""
+    from repro_torch.core import tree as tree_lib
+    dt = cfg.activation_dtype()
+    return tree_lib.map_tree(lambda w, keep: w if keep else w.to(dt), p,
+                             kept_f32(layer_defs, cfg))
+
+
+def merge_optional(a, b):
+    """``a.merge(b)`` (activation statistics), ``None`` the identity."""
+    if a is None or b is None:
+        return b if a is None else a
+    return a.merge(b)
+
+
 # ---------------------------------------------------------------------------
 # Normalization / activations (fp32 islands).
 # ---------------------------------------------------------------------------

@@ -1,0 +1,204 @@
+"""Mamba2 (SSD — state-space duality) block, chunked-scan formulation.
+
+Counterpart of ``repro/models/ssm.py``.  The SSD algorithm of Dao & Gu '24
+(arXiv:2405.21060): the sequence is split into chunks of ``ssm_chunk``;
+within a chunk the output is a masked, decay-weighted attention-like
+product, across chunks a small recurrence carries the (H, P, N) state.
+Train and prefill cost O(S·Q·(P+N)); decode is an O(1) state update.
+
+Numerics: the recurrent state, per-step decays, ``a_log`` and ``dt_bias``
+stay fp32 (the policy's carve-out: a fixed-point state underflows at 2^-FL
+over long recurrences).
+
+One difference from the reference, on purpose: :func:`ssd_scan` fills the
+upper triangle of the intra-chunk log-decays with ``-inf`` before the
+``exp``.  The reference takes ``exp(rel) * tril``, and above the diagonal
+``rel`` is a sum of positive terms: at the configs' chunk of 256 with their
+initialization (``a_log = dt_bias = 0``) it passes fp32's range, and
+``inf · 0`` is NaN.  Where the reference is finite the two agree bit for
+bit (``exp(x) · 1 = exp(x)``, ``exp(-inf) = 0``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import ParamDef, rms_norm
+
+
+def d_inner(cfg: ModelConfig) -> int:
+    return cfg.ssm_expand * cfg.d_model
+
+
+def n_ssm_heads(cfg: ModelConfig) -> int:
+    return d_inner(cfg) // cfg.ssm_head_dim
+
+
+def conv_channels(cfg: ModelConfig) -> int:
+    return d_inner(cfg) + 2 * cfg.ssm_state
+
+
+def ssm_defs(cfg: ModelConfig, dtype: torch.dtype) -> Dict[str, ParamDef]:
+    D, N = cfg.d_model, cfg.ssm_state
+    di, H = d_inner(cfg), n_ssm_heads(cfg)
+    cc = conv_channels(cfg)
+    return {
+        # in_proj emits [z, x, B, C, dt]
+        "w_in": ParamDef((D, 2 * di + 2 * N + H), dtype=dtype),
+        "conv_w": ParamDef((cfg.ssm_conv, cc), scale=1.0, dtype=dtype),
+        "conv_b": ParamDef((cc,), init="zeros", dtype=dtype),
+        "a_log": ParamDef((H,), init="zeros"),
+        "dt_bias": ParamDef((H,), init="zeros"),
+        "d_skip": ParamDef((H,), init="ones"),
+        "norm_scale": ParamDef((di,), init="ones"),
+        "w_out": ParamDef((di, D), dtype=dtype),
+    }
+
+
+def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
+    di, N = d_inner(cfg), cfg.ssm_state
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di:di + di + 2 * N]
+    dt = zxbcdt[..., di + di + 2 * N:]
+    return z, xbc, dt
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv over seq.  xbc (B,S,C), w (K,C).
+
+    With ``state`` (B, K-1, C) — decode path — prepends the cached tail.
+    Returns ``(silu(out), new tail (B, K-1, C))``."""
+    K, S = w.shape[0], xbc.shape[1]
+    if state is not None:
+        full = torch.cat([state.to(xbc.dtype), xbc], dim=1)
+    else:
+        full = F.pad(xbc, (0, 0, K - 1, 0))
+    windows = torch.stack([full[:, i:i + S] for i in range(K)], 0)
+    out = torch.einsum("kbsc,kc->bsc", windows, w) + b
+    new_state = full[:, full.shape[1] - (K - 1):] if K > 1 else None
+    return F.silu(out), new_state
+
+
+def _decays(cfg: ModelConfig, dt_raw: torch.Tensor, a_log: torch.Tensor,
+            dt_bias: torch.Tensor):
+    """Per-(step, head) dt and log-decay, fp32.  dt_raw (..., H)."""
+    dt = F.softplus(dt_raw.to(torch.float32) + dt_bias)
+    a = -torch.exp(a_log.to(torch.float32))
+    return dt, dt * a                       # log_decay <= 0
+
+
+def ssd_scan(cfg: ModelConfig, x: torch.Tensor, b_mat: torch.Tensor,
+             c_mat: torch.Tensor, dt: torch.Tensor, log_decay: torch.Tensor,
+             h0: Optional[torch.Tensor] = None):
+    """Chunked SSD.  x (B,S,H,P); b,c (B,S,N); dt/log_decay (B,S,H) fp32.
+
+    Returns (y (B,S,H,P), h_final (B,H,P,N) fp32)."""
+    B, S, H, Pd = x.shape
+    N = b_mat.shape[-1]
+    Q = min(cfg.ssm_chunk, S)
+    S_orig = S
+    if S % Q:
+        # pad to the chunk grid: zero x/B/C (no state contribution) and zero
+        # log_decay (decay factor 1 — final state unaffected)
+        pad = Q - S % Q
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        b_mat = F.pad(b_mat, (0, 0, 0, pad))
+        c_mat = F.pad(c_mat, (0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        log_decay = F.pad(log_decay, (0, 0, 0, pad))
+        S = S + pad
+    nc = S // Q
+    f32 = torch.float32
+
+    xr = (x * dt[..., None].to(x.dtype)).reshape(B, nc, Q, H, Pd).to(f32)
+    br = b_mat.reshape(B, nc, Q, N).to(f32)
+    cr = c_mat.reshape(B, nc, Q, N).to(f32)
+    cum = torch.cumsum(log_decay.reshape(B, nc, Q, H), dim=2)   # (B,nc,Q,H)
+    total = cum[:, :, -1]                                       # (B,nc,H)
+
+    # --- intra-chunk (quadratic in Q only; the module's memory hot spot) ---
+    cb = torch.einsum("bcqn,bckn->bcqk", cr, br)
+    rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]         # (B,nc,Q,Q,H) t-s
+    # the exponent is masked, not its result: above the diagonal rel > 0 can
+    # overflow, and where(tri, exp(rel), 0)'s backward would bring the
+    # inf · 0 back
+    above = torch.ones((Q, Q), dtype=torch.bool, device=x.device).triu(1)
+    decay_m = torch.exp(rel.masked_fill(above[None, None, :, :, None],
+                                        float("-inf")))
+    m = cb[..., None] * decay_m                                  # (B,nc,Q,Q,H)
+    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", m, xr)
+
+    # --- chunk states ---
+    w_state = torch.exp(total[:, :, None, :] - cum)              # (B,nc,Q,H)
+    s_chunk = torch.einsum("bckn,bckh,bckhp->bchpn", br, w_state, xr)
+
+    # --- inter-chunk recurrence: the state before each chunk ---
+    h = (torch.zeros((B, H, Pd, N), dtype=f32, device=x.device)
+         if h0 is None else h0)
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(h)
+        h = torch.exp(total[:, c])[..., None, None] * h + s_chunk[:, c]
+    h_prevs = torch.stack(h_prevs, dim=1)                        # (B,nc,H,P,N)
+
+    y_inter = torch.einsum("bcqn,bcqh,bchpn->bcqhp", cr, torch.exp(cum),
+                           h_prevs)
+    y = (y_intra + y_inter).reshape(B, S, H, Pd)[:, :S_orig]
+    return y.to(x.dtype), h
+
+
+def ssm_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+              *, mode: str = "train",
+              cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """Mamba2 mixer.  cache = (ssm_state (B,H,P,N) fp32, conv_tail
+    (B,K-1,C)): the decode step reads it; prefill may start from it.
+
+    Returns (out (B,S,D), new_cache): ``(state, tail)`` in prefill and
+    decode, ``None`` in train."""
+    B, S, _ = x.shape
+    di, N, H, Pd = d_inner(cfg), cfg.ssm_state, n_ssm_heads(cfg), cfg.ssm_head_dim
+
+    zxbcdt = x @ p["w_in"]
+    z, xbc, dt_raw = _split_proj(cfg, zxbcdt)
+
+    conv_state = cache[1] if cache is not None else None
+    xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
+    xi = xbc[..., :di].reshape(B, S, H, Pd)
+    b_mat = xbc[..., di:di + N]
+    c_mat = xbc[..., di + N:]
+
+    dt, log_decay = _decays(cfg, dt_raw, p["a_log"], p["dt_bias"])
+
+    if mode == "decode":
+        # O(1) recurrence: h = exp(dt·A)·h + dt·B⊗x  (S == 1)
+        h = cache[0]
+        a = torch.exp(log_decay[:, 0])                           # (B,H)
+        xu = xi[:, 0].to(torch.float32) * dt[:, 0][..., None]
+        h_new = (a[..., None, None] * h
+                 + torch.einsum("bhp,bn->bhpn", xu,
+                                b_mat[:, 0].to(torch.float32)))
+        y = torch.einsum("bn,bhpn->bhp", c_mat[:, 0].to(torch.float32), h_new)
+        y = y[:, None].to(x.dtype)                               # (B,1,H,P)
+        new_cache = (h_new, new_conv)
+    else:
+        h0 = cache[0] if cache is not None else None
+        y, h_final = ssd_scan(cfg, xi, b_mat, c_mat, dt, log_decay, h0)
+        new_cache = (h_final, new_conv) if mode == "prefill" else None
+
+    y = y + p["d_skip"].to(y.dtype)[None, None, :, None] * xi
+    y = y.reshape(B, S, di)
+    y = rms_norm(y * F.silu(z), p["norm_scale"])
+    return y @ p["w_out"], new_cache
+
+
+def count_ssm_params(cfg: ModelConfig) -> int:
+    D, N = cfg.d_model, cfg.ssm_state
+    di, H = d_inner(cfg), n_ssm_heads(cfg)
+    cc = conv_channels(cfg)
+    return (D * (2 * di + 2 * N + H) + cfg.ssm_conv * cc + cc
+            + 3 * H + di + di * D)

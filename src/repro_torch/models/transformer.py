@@ -39,9 +39,10 @@ from repro_torch.core.fixed_point import QuantStats
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.common import (ParamDef, embed_defs, embed_lookup,
-                                       fused_unembed_xent, layer_norm,
-                                       map_defs, rms_norm, unembed)
+from repro_torch.models.common import (ParamDef, compute_cast, embed_defs,
+                                       embed_lookup, fused_unembed_xent,
+                                       layer_norm, map_defs,
+                                       merge_optional, rms_norm, unembed)
 
 
 def stack_defs(n: int, defs):
@@ -193,23 +194,12 @@ def unbind_layers(layers, n: int):
     return [tree_lib.map_tree(lambda parts: parts[i], split) for i in range(n)]
 
 
-@functools.lru_cache(maxsize=None)
-def _kept_f32(cfg: ModelConfig):
-    """Per-layer tree of bools: the leaves declared fp32 whatever the
-    working dtype (norm scales, the MoE router), which the compute cast
-    leaves alone."""
-    return map_defs(lambda d: d.dtype == torch.float32,
-                    layer_defs(cfg, torch.bfloat16))
-
-
 def _train_block(cfg: ModelConfig, p, x, positions, qctx, idx: int):
     """One block in train mode on the compute dtype, then the residual tap.
     Returns (x, QuantStats, aux_loss) — the stats and the MoE loss as
     values, so a checkpointed block hands them out once however often it
     is recomputed."""
-    dt = cfg.activation_dtype()
-    p = tree_lib.map_tree(lambda w, keep: w if keep else w.to(dt), p,
-                          _kept_f32(cfg))
+    p = compute_cast(cfg, p, layer_defs)
     x, _, aux = _block(cfg, p, x, positions=positions, mode="train",
                        cache=None, cache_pos=None)
     if qctx is None:
@@ -231,31 +221,37 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+def remat_call(cfg: ModelConfig, fn, *args):
+    """``fn(*args)`` under ``cfg.remat``: as it is (``"none"``), under
+    ``torch.utils.checkpoint`` (``"full"``), or under it with the policy
+    that keeps the matrix products' outputs (``"dots"``).  Every family's
+    training forward runs each block through it."""
+    if cfg.remat == "none":
+        return fn(*args)
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"remat must be full, dots or none, got "
+                         f"{cfg.remat!r}")
+    kw = ({"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _dots_policy)}
+          if cfg.remat == "dots" else {})
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
+
+
 def forward_train(cfg: ModelConfig, params, tokens: torch.Tensor, qctx=None,
                   vision_embeds: Optional[torch.Tensor] = None):
     """Training forward: ``(final-normed hidden (B, S, D), act_stats,
     aux_loss)`` — ``aux_loss`` the layers' summed MoE load-balance loss
     (fp32 0 for a dense model).  ``vision_embeds`` as in :func:`forward`."""
-    if cfg.remat not in ("full", "dots", "none"):
-        raise ValueError(f"remat must be full, dots or none, got "
-                         f"{cfg.remat!r}")
     x = _embed(cfg, params, tokens, vision_embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None, :]
     stats = None
     aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(unbind_layers(params["layers"], cfg.n_layers)):
-        if cfg.remat == "none":
-            x, s, aux = _train_block(cfg, p, x, positions, qctx, i)
-        else:
-            kw = ({"context_fn": functools.partial(
-                create_selective_checkpoint_contexts, _dots_policy)}
-                  if cfg.remat == "dots" else {})
-            x, s, aux = checkpoint(_train_block, cfg, p, x, positions, qctx,
-                                   i, use_reentrant=False,
-                                   preserve_rng_state=False, **kw)
-        if s is not None:
-            stats = s if stats is None else stats.merge(s)
+        x, s, aux = remat_call(cfg, _train_block, cfg, p, x, positions, qctx,
+                               i)
+        stats = merge_optional(stats, s)
         if aux is not None:
             aux_loss = aux_loss + aux
     x = _norm(cfg, x, params["final_norm"])
@@ -361,3 +357,8 @@ def count_active_params(cfg: ModelConfig) -> float:
     if not cfg.n_experts:
         return count_params(cfg)
     return _count(cfg, moe_lib.count_moe_active_params(cfg))
+
+
+def residual_taps(cfg: ModelConfig) -> int:
+    """Residual taps a training forward makes: one a block."""
+    return cfg.n_layers

@@ -44,7 +44,9 @@ def test_the_guard_pattern_catches_what_it_should():
 
 def test_every_module_imports_without_a_gpu_and_pulls_in_no_jax():
     names = [m.name for m in pkgutil.walk_packages([PKG], "repro_torch.")]
-    assert "repro_torch.kernels.paged_attn" in names
+    assert {"repro_torch.kernels.paged_attn", "repro_torch.models.ssm",
+            "repro_torch.models.mamba", "repro_torch.models.hybrid",
+            "repro_torch.models.encdec"} <= set(names)
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
             "    importlib.import_module(n)\n"

@@ -533,14 +533,152 @@ def job_mla_model(a, seed, max_seq):
     return out
 
 
+def _cache_np(cache):
+    """A decode cache (tuples and dicts of arrays) as a flat dict of numpy
+    arrays, a tuple's entries keyed by their index."""
+    if isinstance(cache, (tuple, list)):
+        cache = {str(i): c for i, c in enumerate(cache)}
+    if isinstance(cache, dict):
+        return {f"{k}/{n}" if n else k: v for k, c in cache.items()
+                for n, v in _cache_np(c).items()}
+    return {"": np.asarray(cache, np.float32)}
+
+
+def job_decode_model(a, seed, arch, max_seq, overrides=None, bits=(16,)):
+    """Smoke ``arch`` (any family) from ``init_params(key(seed))``, once for
+    each ``kv_cache_bits`` in ``bits``: the prefill logits and cache (a
+    ``frames`` array, if handed over, is an encoder-decoder's input), then
+    one ``decode_step`` for each column of ``steps`` (B, n), its logits,
+    and the cache after them."""
+    import jax.numpy as jnp
+    _, mod, params = _smoke_params(seed, arch, overrides)
+    out = flatten(_np_params(params), "params/")
+    kw = {"frames": jnp.asarray(a["frames"])} if "frames" in a else {}
+    for b in bits:
+        cfg = _smoke_cfg(arch, dict(overrides or {}, kv_cache_bits=b))
+        logits, cache, pos = mod.prefill(cfg, params, jnp.asarray(a["tokens"]),
+                                         max_seq, **kw)
+        out[f"{b}/prefill_logits"] = np.asarray(logits)
+        out.update(flatten(_cache_np(cache), f"{b}/prefill_cache/"))
+        for i in range(a["steps"].shape[1]):
+            lg, cache = mod.decode_step(cfg, params,
+                                        jnp.asarray(a["steps"][:, i:i + 1]),
+                                        cache, pos)
+            pos = pos + 1
+            out[f"{b}/decode_logits/{i}"] = np.asarray(lg)
+        out.update(flatten(_cache_np(cache), f"{b}/decode_cache/"))
+    return out
+
+
+def job_bf16_drift(a, seed, arch, max_seq, overrides=None):
+    """Smoke ``arch`` from ``init_params(key(seed))`` at the bf16 working
+    dtype (its fp32 islands fp32), then the same weights cast up to fp32:
+    under each, the prefill logits of ``tokens`` and one ``decode_step`` on
+    ``step`` (a ``frames`` array, if handed over, is an encoder-decoder's
+    input)."""
+    import dataclasses
+    import jax
+    import jax.numpy as jnp
+    cfg, mod, params = _smoke_params(seed, arch,
+                                     dict(overrides or {}, dtype="bfloat16"))
+    out = flatten(_np_params(params), "params/")
+    kw = {"frames": jnp.asarray(a["frames"])} if "frames" in a else {}
+    up = jax.tree.map(lambda t: t.astype(jnp.float32), params)
+    for name, c, p in (("bfloat16", cfg, params),
+                       ("float32", dataclasses.replace(cfg, dtype="float32"),
+                        up)):
+        logits, cache, pos = mod.prefill(c, p, jnp.asarray(a["tokens"]),
+                                         max_seq, **kw)
+        lg, _ = mod.decode_step(c, p, jnp.asarray(a["step"]), cache, pos)
+        out[f"{name}/prefill_logits"] = np.asarray(logits, np.float32)
+        out[f"{name}/decode_logits"] = np.asarray(lg, np.float32)
+    return out
+
+
+def job_ssm(a, overrides, n_prompt):
+    """The reference's SSD pieces at smoke width (``overrides`` on the
+    mamba2 smoke config): ``ssd_scan`` on x, b, c, dt, log_decay without
+    and with ``h0``; ``_causal_conv`` without and with the ``tail``;
+    ``ssm_apply`` with the ``p/*`` parameters on ``u`` in train mode, in
+    prefill on the first ``n_prompt`` positions and in decode on the next;
+    and ``ssm_apply`` in train mode at the configs' own chunk and
+    initialization on ``u256`` (``init_params(key(0))``, which the port
+    gets back as ``init/*``)."""
+    import jax.numpy as jnp
+    from repro.models import ssm
+    from repro.models.common import init_params
+    import jax
+    cfg = _smoke_cfg("mamba2_1_3b", overrides)
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    out = {}
+    for name, h0 in (("scan", None), ("scan_h0", j["h0"])):
+        y, h = ssm.ssd_scan(cfg, j["x"], j["b"], j["c"], j["dt"], j["ld"], h0)
+        out[f"{name}/y"], out[f"{name}/h"] = np.asarray(y), np.asarray(h)
+    for name, tail in (("conv", None), ("conv_tail", j["tail"])):
+        y, st = ssm._causal_conv(j["xbc"], j["w"], j["cb"], tail)
+        out[f"{name}/y"], out[f"{name}/state"] = np.asarray(y), np.asarray(st)
+    p = unflatten(j, "p/")
+    u, n = j["u"], n_prompt
+    y, _ = ssm.ssm_apply(cfg, p, u, mode="train")
+    out["train/y"] = np.asarray(y)
+    y, cache = ssm.ssm_apply(cfg, p, u[:, :n], mode="prefill")
+    out["prefill/y"] = np.asarray(y)
+    out["prefill/h"], out["prefill/tail"] = map(np.asarray, cache)
+    y, cache = ssm.ssm_apply(cfg, p, u[:, n:n + 1], mode="decode", cache=cache)
+    out["decode/y"] = np.asarray(y)
+    out["decode/h"], out["decode/tail"] = map(np.asarray, cache)
+    cfg256 = _smoke_cfg("mamba2_1_3b", {"ssm_chunk": 256})
+    p0 = init_params(jax.random.key(0), ssm.ssm_defs(cfg256, jnp.float32))
+    y, _ = ssm.ssm_apply(cfg256, p0, j["u256"], mode="train")
+    out["chunk256/y"] = np.asarray(y)
+    out.update(flatten(_np_params(p0), "init/"))
+    return out
+
+
+def job_cross_attn(a):
+    """The reference's ``gqa_apply`` at whisper's smoke geometry with the
+    ``p/*`` parameters: cross-attention from ``x`` (B, Sq, D) over ``kv_x``
+    (B, Sk, D) in train and prefill mode (the prefill's cross K/V at
+    ``kv_cache_bits`` 16 and 8), and ``decode_static`` of ``x1`` (B, 1, D)
+    over the fp32 (``ck``, ``cv``) and int8 (``ck8``, ``cv8``) caches."""
+    import jax.numpy as jnp
+    from repro.models import attention
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    p = unflatten(j, "p/")
+    x, kv_x = j["x"], j["kv_x"]
+    positions = jnp.arange(x.shape[1], dtype=jnp.int32)[None, :]
+    out = {}
+    for bits in (16, 8):
+        cfg = _smoke_cfg("whisper_medium", {"kv_cache_bits": bits})
+        o, _ = attention.gqa_apply(cfg, p, x, positions=positions,
+                                   mode="train", kv_x=kv_x, causal=False)
+        out[f"{bits}/train"] = np.asarray(o)
+        o, (ck, cv) = attention.gqa_apply(cfg, p, x, positions=positions,
+                                          mode="prefill", kv_x=kv_x,
+                                          causal=False)
+        out[f"{bits}/prefill"] = np.asarray(o)
+        out[f"{bits}/ck"] = np.asarray(ck, np.float32)
+        out[f"{bits}/cv"] = np.asarray(cv, np.float32)
+    cfg = _smoke_cfg("whisper_medium")
+    at = jnp.full((x.shape[0], 1), 5, jnp.int32)
+    for name, cache in (("static", (j["ck"], j["cv"])),
+                        ("static8", (j["ck8"].astype(jnp.int8),
+                                     j["cv8"].astype(jnp.int8)))):
+        o, _ = attention.gqa_apply(cfg, p, j["x1"], positions=at,
+                                   mode="decode_static", cache=cache)
+        out[name] = np.asarray(o)
+    return out
+
+
 def job_lm_train(a, steps, seq, batch, remat, arch="llama3_2_3b",
                  overrides=None, flash_block=None):
     """Smoke ``arch`` (llama3.2-3b by default) from ``init_params(key(0))``:
     ``steps`` SGD steps under nearest rounding on the synthetic token
     stream, over the config's ``train_accum`` microbatches.  A
     ``vision_embeds`` array from the test rides on every batch (a VLM's
-    prefix).  ``flash_block``: attention goes blockwise at every length,
-    in blocks of that many positions."""
+    prefix), and so does a ``frames`` array (an encoder-decoder's frame
+    embeddings).  ``flash_block``: attention goes blockwise at every
+    length, in blocks of that many positions."""
     import dataclasses
     import jax
     if flash_block:
@@ -562,8 +700,8 @@ def job_lm_train(a, steps, seq, batch, remat, arch="llama3_2_3b",
                                      jax.random.key(1))
     data = TokenStream(TokenStreamConfig(vocab=cfg.vocab, seq_len=seq,
                                          global_batch=batch, seed=0))
-    extras = ({} if "vision_embeds" not in a
-              else {"vision_embeds": jax.numpy.asarray(a["vision_embeds"])})
+    extras = {k: jax.numpy.asarray(a[k]) for k in ("vision_embeds", "frames")
+              if k in a}
     _, hist = _run_train(step_fn, state,
                          [dict(data.batch(i), **extras) for i in range(steps)])
     out.update({f"hist/{k}": v for k, v in hist.items()})

@@ -152,9 +152,10 @@ def test_full_size_config_is_declared_without_allocating():
 
 @pytest.mark.parametrize("what", ["moe", "mla", "family", "flash"])
 def test_unported_parts_say_so(what):
-    """What is still not ported raises; what has been ported since (MoE
-    layers, MLA, the moe and vlm families, the blockwise attention above the
-    threshold) runs."""
+    """What has been ported since this test first held it as missing runs:
+    MoE layers, MLA, every family of the registry (an unknown one still
+    raises), the blockwise attention above the threshold and the static
+    decode over a fixed cache."""
     import dataclasses
     from repro_torch.models import attention
     mla = dict(mla=True, q_lora_rank=16, kv_lora_rank=16, qk_nope_dim=16,
@@ -172,22 +173,25 @@ def test_unported_parts_say_so(what):
         assert MOD.count_params(cfg) == MOD.count_params(CFG) + cfg.n_layers * (
             attention.count_mla_params(cfg) - attention.count_gqa_params(CFG))
     elif what == "family":
-        for fam in ("ssm", "hybrid", "encdec"):
-            with pytest.raises(NotImplementedError):
-                registry(fam)
+        from repro_torch.models import encdec, hybrid, mamba
+        assert (registry("ssm"), registry("hybrid"), registry("encdec")) == (
+            mamba, hybrid, encdec)
         assert registry("moe") is MOD and registry("vlm") is MOD
         with pytest.raises(ValueError):
             registry("nope")
     else:
-        # cross-attention is not ported; above the threshold attention
+        # the static decode attends over a fixed cache (the enc-dec's cross
+        # cache: zeros give a zero output); above the threshold attention
         # goes blockwise instead of raising
         from repro_torch.models.common import init_params
         p = init_params(attention.gqa_defs(CFG, torch.float32), "cpu",
                         torch.Generator().manual_seed(0))
         x = torch.zeros(1, 1, CFG.d_model)
-        with pytest.raises(NotImplementedError):
-            attention.gqa_apply(CFG, p, x, positions=torch.zeros(
-                1, 1, dtype=torch.int32), mode="decode_static")
+        kv = torch.zeros(1, 3, CFG.n_kv_heads, CFG.head_dim)
+        out, new = attention.gqa_apply(CFG, p, x, positions=torch.zeros(
+            1, 1, dtype=torch.int32), mode="decode_static", cache=(kv, kv))
+        assert out.shape == (1, 1, CFG.d_model) and not bool(out.any())
+        assert new is None
         q = torch.zeros(1, 4097, 1, 1).expand(1, 4097, 1, 8)
         k = torch.zeros(1, 2049, 1, 1).expand(1, 2049, 1, 8)
         out = attention.sdpa(q, k, k, causal=True, scale=1.0)

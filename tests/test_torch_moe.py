@@ -36,7 +36,7 @@ from repro_torch.core import qtrain
 from repro_torch.core import tree as tree_lib
 from repro_torch.data import TokenStream, TokenStreamConfig
 from repro_torch.models import moe, registry, transformer
-from repro_torch.models.common import init_params
+from repro_torch.models.common import init_params, kept_f32
 from repro_torch.optim import SGDConfig, make_optimizer
 from repro_torch.serve import Engine, EngineConfig, PagedLayout, synthetic_trace
 from test_torch_jaxref import one_thread, run_reference, unflatten  # noqa: F401
@@ -178,7 +178,8 @@ def test_router_stays_fp32():
     assert defs["layers"]["moe"]["w_in"].dtype == torch.bfloat16
     assert defs["layers"]["moe"]["w_in"].shape == (48, 128, 2048, 768)
     # the compute cast of a training block leaves it (and the norms) fp32
-    kept = transformer._kept_f32(dataclasses.replace(CFG, dtype="bfloat16"))
+    kept = kept_f32(transformer.layer_defs,
+                    dataclasses.replace(CFG, dtype="bfloat16"))
     assert kept["moe"]["router"] and kept["norm1"]
     assert not kept["moe"]["w_in"] and not kept["attn"]["wq"]
     # and so does the conversion at a bf16 working dtype, 4-D leaves whole
