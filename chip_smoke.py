@@ -10,7 +10,8 @@ arms; the dense, MoE and VLM transformers, and MLA (deepseek-v2-236b's
 prefill and absorbed decode); at sequence 4,096 through the blockwise
 attention and under ``remat="dots"``; the SSM, hybrid and
 encoder-decoder families, trained and served through their contiguous
-prefill and decode), data-parallel
+prefill and decode; the MoE layer's expert-parallel all-to-all over a
+stacked (data × model) mesh), data-parallel
 training over the int8 wire (``launch.train --grad-allreduce-bits 8
 --data-ranks 4``, with ZeRO-1 and the overlapped bucketed wire:
 ``--zero-opt --wire-overlap on``), and that trainer's checkpoint, resume,
@@ -287,10 +288,32 @@ Phases 10-14 run right after phase 8's counted wire run, before its
              their plain versions and timed beside phase 8's path-shape
              checks (``wire_kernels_mamba2``).
 
+16. moe_a2a — right after phase 7's other configs: ``moe_a2a_check`` (one
+             MoE layer at qwen3-moe's full geometry, D 2,048, 128 experts,
+             top-8, F 768, and deepseek-v2's, D 5,120, 160 experts, top-6,
+             F 1,536, 2 shared; x (2, 512, D); on stacked (1, 4) and (2, 4)
+             meshes in fp32 and bf16: the all-to-all dispatch against the
+             einsum dispatch at capacity factor 8 and against a plain loop
+             over the ranks with explicit concatenation
+             (``moe_a2a_plain``) at 1.25, out, aux, dx and the router and
+             expert gradients within ``A2A_TOL``; dropped choices under
+             each; the int8 payload, every buffer element within
+             ``A2A_SNAP`` of its 16-bit value unless saturated, its output
+             against the 16-bit one, its expert gradient 0 as the
+             reference's; forward + backward ms and peak of both
+             dispatches), then ``train_qwen_ep`` (``launch.train.main``
+             on qwen3-moe at 4 of 48 layers, ``--batch 2 --seq 512``, SGD,
+             4 steps on K1b, inside ``axis_rules`` of a stacked (1, 4)
+             mesh: every MoE call on the all-to-all dispatch, K1b a step
+             equal to the einsum run's, finite losses; one step at
+             capacity factor 8 against the einsum step from the same
+             seed within ``EP_LOSS_RTOL``; line ``ep_vs_einsum``).
+
 The line before the last two carries the kernels (launches on their path —
 K1's from the LM run with a bits operand, LeNet's beside them; K1b's row
-adds ``launches_train_long``, ``launches_train_dots`` and
-``launches_paper_fig4`` (the DPS and fixed 13-bit arms); K2b's, K3b's
+adds ``launches_train_long``, ``launches_train_dots``,
+``launches_paper_fig4`` (the DPS and fixed 13-bit arms) and
+``launches_train_qwen_ep``; K2b's, K3b's
 and K4's from the wire run; K2's from the wire run with a bits operand; K5's
 from the serving run, on its serving-shape row (a row of another config's
 shape, ``<kernel>_<config>``, names the run it counts, ``serve_<config>`` or
@@ -492,6 +515,34 @@ MLA_SEQ = 4096
 # each form rounding its products to bf16 at other points (q_c and the
 # context in one, per-head K and V in the other: 2^-9 relative each)
 MLA_DECODE_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# One MoE layer at full geometry on stacked (data, model) meshes: x (2, 512,
+# D), the loss sum(out * w) + aux.  qwen3-moe: D 2,048, 128 experts, top-8,
+# F 768; deepseek-v2: D 5,120, 160 experts, top-6, F 1,536, 2 shared
+# experts (7.5 GB of bf16 experts)
+A2A_GEOMETRIES = (("qwen3_moe_30b_a3b", (2, 512)),
+                  ("deepseek_v2_236b", (2, 512)))
+A2A_MESHES = ((1, 4), (2, 4))
+# Limits on the largest difference over the largest magnitude of each of
+# out, aux, dx and the router and expert gradients: the a2a against the
+# einsum dispatch at capacity factor 8 (no drops: the same function, its
+# products in other shapes), and the stacked a2a against the plain loop at
+# the configs' 1.25 (the same products at the same shapes; dx sums each
+# token's k gradient rows in another order).  Measured on an H100 over both
+# geometries and meshes: vs einsum 9.5e-7 to 2.0e-6 (fp32), 2.5e-3 to
+# 5.9e-3 (bf16); vs plain 7.5e-8 to 1.5e-7 (fp32), 9.9e-3 to 1.01e-2
+# (bf16, dx; 0 elsewhere).  Each limit is at most 10x the smallest reading
+# it bounds.
+A2A_TOL = {"vs_einsum": {"float32": 5e-6, "bfloat16": 2.5e-2},
+           "vs_plain": {"float32": 5e-7, "bfloat16": 5e-2}}
+# the int8 payload: each buffer element snapped to the <4, 4> grid moves by
+# at most half a grid step unless it saturates
+A2A_SNAP = 1.0 / 32
+# qwen3-moe trained over a stacked (1, 4) model axis, and one step at
+# capacity factor 8 against the einsum dispatch's from the same seed: the
+# first losses, relative (bf16 compute, the products in other shapes;
+# measured 1.7e-4 on an H100)
+EP_MESH = (1, 4)
+EP_LOSS_RTOL = 1e-3
 
 
 def depth_cut(model, layers=None):
@@ -1496,7 +1547,7 @@ def train_lm(cfg, rounding_bits, steps, batch=2, model="llama3_2_3b",
             + f" + 2 x {registry(cfg.family).residual_taps(cfg)} blocks x "
             f"{cfg.train_accum} microbatches"))
     res = {"launches": launches, "ms": out["ms_per_step_after_first"],
-           "peak": out["peak_memory_bytes"]}
+           "peak": out["peak_memory_bytes"], "losses": losses}
     del out
     gc.collect()
     torch.cuda.empty_cache()
@@ -1843,6 +1894,285 @@ def mla_check():
         f"{cfg.q_lora_rank} kv_lora={cfg.kv_lora_rank} rope="
         f"{cfg.qk_rope_dim} v={cfg.v_head_dim} causal, blocks of "
         f"{attention.FLASH_BLOCK}", **res)
+
+
+# ---------------------------------------------------------------------------
+# MoE expert parallelism: the all-to-all dispatch over a stacked mesh
+# ---------------------------------------------------------------------------
+
+def moe_a2a_plain(cfg, p, x, shape):
+    """A second, plain implementation of the all-to-all dispatch's
+    semantics on a (d, m) mesh: a Python loop over the ranks, each routing
+    its own (B/d, S/m) block with its own capacity into (E, C, D) buffers
+    (``index_put`` of the kept choices, no drop row), the moves to and from
+    the experts' owners by explicit ``torch.cat`` of buffer slices, the
+    load-balance ingredients averaged over every rank.  Returns (out, aux,
+    the dispatch and return buffers as moved)."""
+    from repro_torch.models import moe
+    from repro_torch.models.common import act_fn
+    d, m = shape
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    El, Bl, Sl = E // m, B // d, S // m
+    int8 = cfg.moe_a2a_bits == 8
+    snap = ((lambda t: moe._a2a_unpack(moe._a2a_pack(t), t.dtype)) if int8
+            else (lambda t: t))
+    ranks = [(i, j) for i in range(d) for j in range(m)]
+    fs, ps, per = [], [], {}
+    for i, j in ranks:
+        x2 = x[i * Bl:(i + 1) * Bl, j * Sl:(j + 1) * Sl].reshape(-1, D)
+        top_w, top_i, probs = moe._router(cfg, p["router"], x2)
+        f, pb = moe._aux_fp(cfg, probs, top_i)
+        fs.append(f)
+        ps.append(pb)
+        C = moe._capacity(x2.shape[0], cfg)
+        pos, keep = moe._slots(cfg, top_i, C)
+        t = torch.arange(x2.shape[0], device=x.device)[:, None].expand(-1, K)
+        buf = x2.new_zeros((E, C, D))
+        buf = buf.index_put((top_i[keep], pos[keep]), x2[t[keep]])
+        per[i, j] = (top_w, top_i, pos, keep, C, buf)
+    aux = E * torch.sum(torch.stack(fs).mean(0) * torch.stack(ps).mean(0)) * K
+    sent, owned = [], {}
+    for i, j in ranks:
+        inp = torch.cat([per[i, s][5][j * El:(j + 1) * El] for s in range(m)],
+                        dim=1)                                # (E_l, m·C, D)
+        inp = snap(inp)
+        sent.append(inp)
+        sl = slice(j * El, (j + 1) * El)
+        h = torch.einsum("ecd,edf->ecf", inp, p["w_in"][sl])
+        g = torch.einsum("ecd,edf->ecf", inp, p["w_gate"][sl])
+        owned[i, j] = torch.einsum("ecf,efd->ecd", act_fn(cfg.act, g) * h,
+                                   p["w_out"][sl])
+    rows, back = [], []
+    for i, s in ranks:
+        top_w, top_i, pos, keep, C, _ = per[i, s]
+        ret = torch.cat([owned[i, j][:, s * C:(s + 1) * C] for j in range(m)],
+                        dim=0)                                # (E, C, D)
+        back.append(ret)
+        got = snap(ret)[top_i, pos.clamp(max=C - 1)]          # (T, K, D)
+        w = (top_w * keep).to(x.dtype)
+        rows.append(torch.einsum("tk,tkd->td", w, got).reshape(Bl, Sl, D))
+    out = torch.cat([torch.cat(rows[i * m:(i + 1) * m], dim=1)
+                     for i in range(d)], dim=0)
+    if cfg.n_shared_experts:
+        from repro_torch.models.mlp import mlp_apply
+        out = out + mlp_apply(cfg, p["shared"], x)
+    return out, aux, sent, back
+
+
+def _moe_grads(fn, p, x, w):
+    """``fn(p, x)`` → (out, aux, ...); the gradients of ``sum(out * w) +
+    aux`` with respect to x and every parameter (an unreached one:
+    None)."""
+    x = x.detach().requires_grad_()
+    leaves = [(k, v.detach().requires_grad_()) for k, v in
+              (("router", p["router"]), ("w_in", p["w_in"]),
+               ("w_gate", p["w_gate"]), ("w_out", p["w_out"]))]
+    q = dict(p, **dict(leaves))
+    res = fn(q, x)
+    out, aux = res[0], res[1]
+    g = torch.autograd.grad((out.float() * w).sum() + aux,
+                            [x] + [v for _, v in leaves], allow_unused=True)
+    grads = {"dx": g[0], **{k: gk for (k, _), gk in zip(leaves, g[1:])}}
+    return out.detach(), aux.detach(), grads, res[2:]
+
+
+def _rel(a, b):
+    """Largest difference over the largest magnitude of ``b``."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def _dropped(cfg, p, x, shape=None):
+    """Choices dropped by the per-rank capacities on ``shape`` (None: the
+    einsum dispatch's one capacity over every token)."""
+    from repro_torch.models import moe
+    d, m = shape or (1, 1)
+    B, S, D = x.shape
+    n = 0
+    with torch.no_grad():
+        for i in range(d):
+            for j in range(m):
+                x2 = x[i * B // d:(i + 1) * B // d,
+                       j * S // m:(j + 1) * S // m].reshape(-1, D)
+                _, top_i, _ = moe._router(cfg, p["router"], x2)
+                _, keep = moe._slots(cfg, top_i,
+                                     moe._capacity(x2.shape[0], cfg))
+                n += int((~keep).sum())
+    return n
+
+
+def _time_fwd_bwd(fn, p, x, w):
+    """Forward + backward ms (CUDA events, median of 5 after 2 warm-ups)
+    and the peak bytes above what was allocated before."""
+    call = lambda: _moe_grads(fn, p, x, w)
+    call()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    return time_ms(call, repeats=5, warmup=2), peak
+
+
+def moe_a2a_check():
+    """One MoE layer at qwen3-moe's and deepseek-v2's full geometry on
+    stacked (1, 4) and (2, 4) (data, model) meshes, fp32 and bf16: the
+    all-to-all dispatch against the einsum dispatch at capacity factor 8
+    (no drops) and against the plain loop (:func:`moe_a2a_plain`) at the
+    configs' 1.25, each within ``A2A_TOL`` (out, aux, dx, the expert
+    gradients); dropped choices under each; the int8 payload (every
+    buffer element within ``A2A_SNAP`` of its 16-bit value unless
+    saturated; its output against the 16-bit one; its expert gradient 0, as
+    the reference's); forward + backward ms and peak of both dispatches."""
+    from repro_torch.dist.sharding import LogicalRules, axis_rules
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    res = {}
+    for model, (B, S) in A2A_GEOMETRIES:
+        full = get_config(model)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            g = torch.Generator(device=DEV).manual_seed(23)
+            p = init_params(moe.moe_defs(full, dtype), DEV, g)
+            x = torch.randn(B, S, full.d_model, generator=g,
+                            device=DEV).to(dtype)
+            w = torch.randn(B, S, full.d_model, generator=g, device=DEV)
+            for shape in A2A_MESHES:
+                mesh = make_mesh(shape, ("data", "model"), device=DEV)
+
+                def a2a(cfg):
+                    def fn(q, xx):
+                        with axis_rules(mesh, LogicalRules()):
+                            before = moe.DISPATCH_COUNTS["a2a"]
+                            out = moe.moe_apply(cfg, q, xx)
+                            assert moe.DISPATCH_COUNTS["a2a"] == before + 1
+                        return out
+                    return fn
+
+                einsum = lambda cfg: (lambda q, xx: moe.moe_apply(cfg, q, xx))
+                plain = lambda cfg: (lambda q, xx: moe_a2a_plain(cfg, q, xx,
+                                                                 shape))
+                row = {}
+                cfg8 = dataclasses.replace(full, capacity_factor=8.0)
+                cfg = full
+                for tag, (ca, fa), (cb, fb) in (
+                        ("vs_einsum", (cfg8, a2a), (cfg8, einsum)),
+                        ("vs_plain", (cfg, a2a), (cfg, plain))):
+                    oa, aa, ga, _ = _moe_grads(fa(ca), p, x, w)
+                    ob, ab, gb, _ = _moe_grads(fb(cb), p, x, w)
+                    errs = {"out": _rel(oa, ob), "aux": _rel(aa, ab),
+                            **{k: _rel(ga[k], gb[k]) for k in gb}}
+                    if not all(math.isfinite(v) for v in errs.values()) or \
+                            max(errs.values()) > A2A_TOL[tag][dname]:
+                        raise AssertionError(
+                            f"MoE a2a {tag} ({model}, {shape}, {dname}): "
+                            f"{errs} > {A2A_TOL[tag][dname]}")
+                    row[tag] = dict(max_rel_err=errs,
+                                    tolerance=A2A_TOL[tag][dname])
+                    del oa, ob, ga, gb
+                row["dropped"] = {
+                    "a2a": _dropped(cfg, p, x, shape),
+                    "einsum": _dropped(cfg, p, x), "choices": B * S * cfg.top_k}
+                # the int8 payload against the 16-bit one
+                cfg_i8 = dataclasses.replace(cfg, moe_a2a_bits=8)
+                o8, _, g8, _ = _moe_grads(a2a(cfg_i8), p, x, w)
+                o16, _, _, (sent, back) = _moe_grads(plain(cfg), p, x, w)
+                _, _, _, (sent8, back8) = _moe_grads(plain(cfg_i8), p, x, w)
+                snap_err, saturated, elems = 0.0, 0, 0
+                for buf in sent + back8:
+                    buf = buf.detach()
+                    y = buf.float() * 16
+                    sat = (y < -128.5) | (y >= 127.5)
+                    err = (moe._a2a_unpack(moe._a2a_pack(buf), torch.float32)
+                           - buf.float()).abs()
+                    snap_err = max(snap_err, float(err[~sat].max()))
+                    saturated += int(sat.sum())
+                    elems += buf.numel()
+                if snap_err > A2A_SNAP:
+                    raise AssertionError(f"MoE int8 payload ({model}, "
+                                         f"{dname}): {snap_err} > 1/32")
+                if any(g8[k] is not None and bool(g8[k].any())
+                       for k in ("w_in", "w_gate", "w_out")):
+                    raise AssertionError("int8 a2a: an expert gradient is "
+                                         "not 0 (the reference's is)")
+                if not bool(torch.isfinite(o8).all()):
+                    raise AssertionError("int8 a2a: output not finite")
+                row["int8"] = dict(
+                    max_snap_err=snap_err, limit=A2A_SNAP,
+                    saturated=saturated, payload_elements=elems,
+                    out_vs_16bit_max_abs=float((o8.float()
+                                                - o16.float()).abs().max()),
+                    out_16bit_max_abs=float(o16.float().abs().max()),
+                    expert_grad_max_abs=0.0)
+                del o8, g8, o16, sent, back, sent8, back8
+                # forward + backward time and peak, the configs' capacity
+                for name, fn in (("a2a", a2a(cfg)), ("einsum", einsum(cfg))):
+                    ms, peak = _time_fwd_bwd(fn, p, x, w)
+                    row[f"{name}_fwd_bwd_ms"] = ms
+                    row[f"{name}_peak_above_inputs_bytes"] = peak
+                res[f"{model}/{dname}/{shape[0]}x{shape[1]}"] = row
+                gc.collect()
+                torch.cuda.empty_cache()
+            del p, x, w
+            gc.collect()
+            torch.cuda.empty_cache()
+    say("moe_a2a_check", geometries={
+            m: dict(d_model=get_config(m).d_model,
+                    experts=get_config(m).n_experts,
+                    top_k=get_config(m).top_k, d_ff=get_config(m).moe_d_ff,
+                    shared=get_config(m).n_shared_experts, x=[B, S])
+            for m, (B, S) in A2A_GEOMETRIES},
+        loss="sum(out * w) + aux", **res)
+
+
+def train_qwen_ep(einsum_run):
+    """qwen3-moe-30b-a3b trained by ``launch.train.main`` (4 of 48 layers,
+    ``--batch 2 --seq 512``, SGD, K1b) inside ``axis_rules`` of a stacked
+    (1, 4) mesh: every MoE call on the all-to-all dispatch, K1b a step equal
+    to the einsum run's, finite losses; ms a step, peak and first loss
+    beside the einsum run of this call (``einsum_run``).  Then one step at
+    capacity factor 8 under the mesh against one without it from the same
+    seed, first losses within ``EP_LOSS_RTOL``."""
+    from repro_torch.dist.sharding import LogicalRules, axis_rules
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    model = "qwen3_moe_30b_a3b"
+    cfg = depth_cut(model, 4)
+    mesh = make_mesh(EP_MESH, ("data", "model"), device=DEV)
+    before = dict(moe.DISPATCH_COUNTS)
+    with axis_rules(mesh, LogicalRules()):
+        run = train_lm(cfg, "onchip", 4, batch=2, model=model,
+                       phase="train_qwen_ep")
+    calls = {k: moe.DISPATCH_COUNTS[k] - before[k] for k in before}
+    if calls["einsum"] or not calls["a2a"]:
+        raise AssertionError(f"train_qwen_ep: MoE dispatch calls {calls}")
+    if run["launches"] != einsum_run["launches"]:
+        raise AssertionError(f"train_qwen_ep: K1b launches {run['launches']}"
+                             f", the einsum run's {einsum_run['launches']}")
+    cfg8 = dataclasses.replace(cfg, capacity_factor=8.0)
+    with axis_rules(mesh, LogicalRules()):
+        ep8 = train_lm(cfg8, "onchip", 1, batch=2, model=model,
+                       phase="train_qwen_ep_cf8")
+    es8 = train_lm(cfg8, "onchip", 1, batch=2, model=model,
+                   phase="train_qwen_einsum_cf8")
+    rel = abs(ep8["losses"][0] - es8["losses"][0]) / abs(es8["losses"][0])
+    if not rel <= EP_LOSS_RTOL:
+        raise AssertionError(f"train_qwen_ep at capacity 8: first loss "
+                             f"{ep8['losses'][0]} vs einsum "
+                             f"{es8['losses'][0]} ({rel} > {EP_LOSS_RTOL})")
+    say("ep_vs_einsum", mesh=list(EP_MESH), moe_calls=calls,
+        ep_ms_per_step=run["ms"], einsum_ms_per_step=einsum_run["ms"],
+        ep_peak_memory_bytes=run["peak"],
+        einsum_peak_memory_bytes=einsum_run["peak"],
+        ep_first_loss=run["losses"][0],
+        einsum_first_loss=einsum_run["losses"][0],
+        launches_per_step_equal=True,
+        cf8_first_loss_ep=ep8["losses"][0],
+        cf8_first_loss_einsum=es8["losses"][0], cf8_rel=rel,
+        cf8_tolerance=EP_LOSS_RTOL)
+    return run["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -3709,10 +4039,16 @@ def main():
         "dps_quantize_onchip_prng"]
     launches["dps_quantize"] = train_lm(cfg, "operand", 3)["launches"][
         "dps_quantize"]
+    runs = {}
     for model, layers, batch, _ in OTHER_TRAIN:
-        other[f"train_{model}"] = train_lm(depth_cut(model, layers), "onchip",
-                                           4, batch=batch, model=model
-                                           )["launches"]
+        runs[model] = train_lm(depth_cut(model, layers), "onchip", 4,
+                               batch=batch, model=model)
+        other[f"train_{model}"] = runs[model]["launches"]
+    # MoE expert parallelism: the all-to-all dispatch at full geometry, then
+    # qwen3-moe trained over a stacked model axis
+    moe_a2a_check()
+    ep_k1b = train_qwen_ep(runs["qwen3_moe_30b_a3b"])
+    del runs
     # the SSM, hybrid and encoder-decoder families
     for model, layers, batch, _, phase in FAMILY_TRAIN:
         other[f"train_{model}"] = train_lm(depth_cut(model, layers), "onchip",
@@ -3829,6 +4165,7 @@ def main():
             r["launches_train_long"] = long_run["launches"][r["name"]]
             r["launches_train_dots"] = dots["launches"][r["name"]]
             r["launches_paper_fig4"] = fig4_k1b
+            r["launches_train_qwen_ep"] = ep_k1b[r["name"]]
         for run, counts in zero_launches.items():
             if ("run" not in r and counts.get(r["name"])
                     and (run, r["name"]) not in at_bucket):

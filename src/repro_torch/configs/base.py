@@ -1,4 +1,4 @@
-"""Config schema: model architecture + numerics.
+"""Config schema: model architecture + input shapes + numerics.
 
 Counterpart of ``repro/configs/base.py``.  Every ported architecture is one
 ``ModelConfig`` in its own module under ``repro_torch.configs``;
@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Dict, Tuple
 
 import torch
 
@@ -93,10 +94,41 @@ class ModelConfig:
         return self.n_params()
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str          # train | prefill | decode
+    seq: int
+    batch: int
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
+
+ARCH_NAMES = (
+    "llama3_2_3b", "mistral_large_123b", "nemotron_4_340b", "gemma_7b",
+    "zamba2_7b", "internvl2_26b", "whisper_medium", "qwen3_moe_30b_a3b",
+    "deepseek_v2_236b", "mamba2_1_3b",
+)
+
+
 def get_config(name: str) -> ModelConfig:
     name = name.replace("-", "_").replace(".", "_")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.CONFIG
+
+
+def applicable_shapes(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The shape cells of this architecture: train, prefill and decode,
+    and the 500k-token decode where a sub-quadratic path exists."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.supports_long:
+        out.append("long_500k")
+    return tuple(out)
 
 
 def smoke(cfg: ModelConfig) -> ModelConfig:

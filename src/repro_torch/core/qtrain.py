@@ -569,7 +569,9 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
                   for leaf in tree_lib.leaves(qparams)]
         loss, aux = loss_fn(tree_lib.from_leaves(qparams, leaves), batch,
                             _qctx(fmts, seed_a, microbatch_idx))
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss does not reach (the MoE experts behind an int8
+        # all-to-all payload) gets a zero gradient, as in the reference
+        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
         return loss.detach(), aux, tree_lib.from_leaves(qparams, list(grads))
 
     def _accum_grads(qparams, batch, fmts, seed_a):

@@ -1,10 +1,35 @@
-"""ZeRO-1 flat layouts: the optimizer state of a parameter tree, sharded.
+"""Logical-axis placement rules, the mesh context, and the ZeRO-1 flat
+layouts.
 
-Counterpart of the ZeRO half of ``repro/dist/sharding.py``
-(``ZeroPartitioner``, ``GroupAlignedPartitioner``); the GSPMD placement
-rules of its other half (``LogicalRules``, ``tree_specs``,
-``logical_constraint``) wait for a tensor-parallel slice.
+Counterpart of ``repro/dist/sharding.py``, both halves.
 
+**Placement.**  Model code never names mesh axes.  It names *logical* axes
+("batch", "tp", "fsdp", "expert", ...) and :class:`LogicalRules` resolves
+them against the mesh a run built, with the **divisibility fallback**: a
+logical axis binds a mesh axis only when the mesh-axis size divides the
+tensor dimension; otherwise the dimension stays replicated, and a mesh axis
+never shards two dimensions of one tensor.  A *spec* is a tuple with one
+entry per dimension (``None``, a mesh axis, or a tuple of mesh axes that
+shard the dimension jointly, first axis major): the counterpart of a
+``PartitionSpec``, and equal to the reference's entry for entry.
+
+:func:`axis_rules` binds a mesh and the rules for the code it wraps:
+
+    with axis_rules(make_mesh((1, 4), ("data", "model")), LogicalRules()):
+        ...
+
+Three kinds of mesh are read (:func:`_axis_sizes`): the reference's duck
+type (``axis_names``, ``devices.shape``), the port's :class:`StackedMesh`
+(every rank in this process on one device, each axis a
+:class:`~repro_torch.dist.transport.StackedTransport`) and a
+``torch.distributed`` ``DeviceMesh`` of processes.  Under GSPMD a sharding
+constraint changes where values live, not what they are, so
+:func:`logical_constraint` returns its tensor as it is.  The one place
+where a bound mesh changes numbers is the MoE layer's expert-parallel
+dispatch (``repro_torch.models.moe``), which cuts each rank's block with
+:func:`local_block` and stitches the results with :func:`stitch_blocks`.
+
+**ZeRO-1 flat layouts** (``ZeroPartitioner``, ``GroupAlignedPartitioner``).
 A partitioner lays a tree out as one fp32 vector of ``padded_size``
 elements and cuts it into ``n_shards`` shards of ``shard_size``: rank ``r``
 steps the optimizer on shard ``r`` only.  The layout is the contract
@@ -23,15 +48,254 @@ optimizer's in-place update of a shard is the parameters' update, and a
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.core import tree as tree_lib
 from repro_torch.dist.collectives import (GroupLayout, default_wire_quantum,
                                           group_layout)
+from repro_torch.dist.transport import ProcessGroupTransport, StackedTransport
+
+# One candidate assignment: a single mesh axis or a tuple of mesh axes that
+# shard a dimension jointly (e.g. batch over ("pod", "data")).
+Axis = Union[str, Tuple[str, ...]]
+
+# Logical axis -> mesh-axis candidates, tried in order.  The first candidate
+# whose axes (a) all exist in the mesh, (b) are not already taken by another
+# dimension of the same tensor, and (c) whose combined size divides the
+# tensor dimension, wins.  Logical names absent from this table ("embed",
+# "seq", "kv_seq", "head_dim", "layers", ...) always replicate.
+DEFAULT_RULES: Tuple[Tuple[str, Tuple[Axis, ...]], ...] = (
+    ("batch", (("pod", "data"), "data")),
+    ("batch2d", (("pod", "data", "model"), ("data", "model"))),
+    ("fsdp", (("pod", "data"), "data")),
+    ("tp", ("model",)),
+    ("tp_seq", ("model",)),
+    ("heads", ("model",)),
+    ("kv", ("model",)),
+    ("expert", ("model",)),
+    ("vocab_out", ("model",)),
+)
+
+
+class StackedMesh:
+    """A mesh whose every rank this process holds, on one device.
+
+    The counterpart of a ``jax.sharding.Mesh`` for one card: each rank's
+    work runs with the shapes and bytes it has on a real mesh, and each axis
+    is a :class:`~repro_torch.dist.transport.StackedTransport`, whose copy
+    between ranks is a view or a permute of the stacked rank blocks."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 device=None):
+        if len(shape) != len(axis_names):
+            raise ValueError(f"mesh shape {tuple(shape)} does not match axes "
+                             f"{tuple(axis_names)}")
+        self.shape = tuple(int(n) for n in shape)
+        self.axis_names = tuple(axis_names)
+        self.device = device
+        self._transports = {a: StackedTransport(n, device)
+                            for a, n in zip(self.axis_names, self.shape)}
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    def transport(self, axis: str) -> StackedTransport:
+        return self._transports[axis]
+
+    def __repr__(self):
+        return f"StackedMesh({dict(zip(self.axis_names, self.shape))})"
+
+
+def _is_device_mesh(mesh) -> bool:
+    return hasattr(mesh, "mesh_dim_names")
+
+
+def _axis_sizes(mesh) -> dict:
+    """Axis name -> size: a ``DeviceMesh`` (``mesh_dim_names``, ``size``),
+    a :class:`StackedMesh`, or the reference's duck type (``axis_names``,
+    ``devices.shape``; its sharding-rules tests build one with only
+    those)."""
+    if _is_device_mesh(mesh):
+        return {a: mesh.size(i) for i, a in enumerate(mesh.mesh_dim_names)}
+    if isinstance(mesh, StackedMesh):
+        return dict(zip(mesh.axis_names, mesh.shape))
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+def held_coords(mesh) -> List[Tuple[int, ...]]:
+    """The mesh coordinates of the ranks this process holds, row-major:
+    every one of a :class:`StackedMesh`, this process's own of a
+    ``DeviceMesh``."""
+    if _is_device_mesh(mesh):
+        return [tuple(mesh.get_coordinate())]
+    return list(itertools.product(*(range(n) for n in mesh.shape)))
+
+
+def axis_transport(mesh, axis: str):
+    """The transport of one mesh axis: the stacked mesh's own, or a
+    :class:`~repro_torch.dist.transport.ProcessGroupTransport` over the
+    ``DeviceMesh``'s process group of that axis."""
+    if _is_device_mesh(mesh):
+        return ProcessGroupTransport(mesh.get_group(axis))
+    return mesh.transport(axis)
+
+
+def mesh_mean(mesh, rows: torch.Tensor) -> torch.Tensor:
+    """The mean over every rank of the mesh of ``rows`` ``[held, ...]``
+    (one row per rank this process holds, in :func:`held_coords` order),
+    summed one axis at a time from the last, in rank order on each, by
+    every kind of mesh alike.  Autograd passes through."""
+    names = tuple(_axis_sizes(mesh))
+    sizes = _axis_sizes(mesh)
+    if _is_device_mesh(mesh):
+        t = rows[0]
+        for a in reversed(names):
+            if sizes[a] > 1:
+                t = axis_transport(mesh, a).gather_rows(t).sum(0)
+    else:
+        t = rows.reshape(*(sizes[a] for a in names), *rows.shape[1:])
+        for k in reversed(range(len(names))):
+            t = t.sum(k)
+    return t / math.prod(sizes.values())
+
+
+@dataclasses.dataclass(frozen=True)
+class LogicalRules:
+    """Logical-axis resolution table with the divisibility fallback."""
+
+    rules: Tuple[Tuple[str, Tuple[Axis, ...]], ...] = DEFAULT_RULES
+
+    def candidates(self, logical: str) -> Tuple[Axis, ...]:
+        for name, cands in self.rules:
+            if name == logical:
+                return cands
+        return ()
+
+    def _resolve(self, logical: Optional[str], dim: int, sizes: dict,
+                 taken: set) -> Optional[Axis]:
+        if logical is None:
+            return None
+        for cand in self.candidates(logical):
+            axes = (cand,) if isinstance(cand, str) else tuple(cand)
+            if any(a not in sizes or a in taken for a in axes):
+                continue
+            n = math.prod(sizes[a] for a in axes)
+            if n <= 1 or dim % n:
+                continue
+            taken.update(axes)
+            return cand
+        return None
+
+    def resolve_dim(self, logical: Optional[str], dim: int, mesh,
+                    taken: set) -> Optional[Axis]:
+        """Resolve one tensor dimension to a mesh axis (or ``None``).
+        ``taken`` is updated: axes consumed here are unavailable to the
+        remaining dimensions of the same tensor."""
+        return self._resolve(logical, dim, _axis_sizes(mesh), taken)
+
+    def spec(self, logical: Sequence[Optional[str]], shape: Sequence[int],
+             mesh) -> Tuple[Optional[Axis], ...]:
+        """The spec of a whole tensor (one ``taken`` set for its dims)."""
+        assert len(logical) == len(shape), (tuple(logical), tuple(shape))
+        sizes, taken = _axis_sizes(mesh), set()
+        return tuple(self._resolve(name, dim, sizes, taken)
+                     for name, dim in zip(logical, shape))
+
+
+def _is_axes_leaf(x) -> bool:
+    """A logical-axes annotation: None or a tuple of str/None entries."""
+    return x is None or (isinstance(x, tuple)
+                         and all(e is None or isinstance(e, str) for e in x))
+
+
+def tree_specs(logical, struct, mesh, rules: LogicalRules):
+    """Resolve a tree of logical-axes tuples against ``struct``'s shapes.
+
+    ``logical`` mirrors ``struct`` (dicts, tuples, lists) with each tensor
+    replaced by its logical-axes tuple (``models.common.logical_tree``,
+    a family's ``cache_logical``).  Returns the same tree of specs."""
+    if _is_axes_leaf(logical):
+        return rules.spec(logical, struct.shape, mesh)
+    if isinstance(logical, dict):
+        return {k: tree_specs(logical[k], struct[k], mesh, rules)
+                for k in logical}
+    return type(logical)(tree_specs(l, s, mesh, rules)
+                         for l, s in zip(logical, struct))
+
+
+def _block_index(spec, sizes: dict, at: dict, shape) -> Tuple[slice, ...]:
+    idx = []
+    for d, entry in enumerate(spec):
+        if entry is None:
+            idx.append(slice(None))
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        i = 0
+        for a in axes:
+            i = i * sizes[a] + at[a]
+        blk = shape[d] // math.prod(sizes[a] for a in axes)
+        idx.append(slice(i * blk, (i + 1) * blk))
+    return tuple(idx)
+
+
+def local_block(x: torch.Tensor, spec, mesh, coord: Sequence[int]
+                ) -> torch.Tensor:
+    """The block of ``x`` (a view) that the rank at mesh coordinate
+    ``coord`` (one index per mesh axis) holds under ``spec``."""
+    return local_blocks(x, spec, mesh, [coord])[0]
+
+
+def local_blocks(x: torch.Tensor, spec, mesh, coords
+                 ) -> List[torch.Tensor]:
+    """The blocks (views) that the ranks at ``coords`` hold, cut by one
+    ``chunk`` a sharded dimension: the backward writes the blocks'
+    gradients into one buffer, where a slice a block would write a
+    full-size zero gradient per block.  Ranks that hold the same
+    (replicated) block share one tensor."""
+    sizes = _axis_sizes(mesh)
+    pieces = {(): x}
+    for d, entry in enumerate(spec):
+        if entry is not None:
+            axes = (entry,) if isinstance(entry, str) else tuple(entry)
+            n = math.prod(sizes[a] for a in axes)
+            pieces = {k + (i,): p for k, t in pieces.items()
+                      for i, p in enumerate(t.chunk(n, dim=d))}
+    out = []
+    for coord in coords:
+        at, key = dict(zip(sizes, coord)), ()
+        for entry in spec:
+            if entry is not None:
+                i = 0
+                for a in ((entry,) if isinstance(entry, str) else entry):
+                    i = i * sizes[a] + at[a]
+                key += (i,)
+        out.append(pieces[key])
+    return out
+
+
+def stitch_blocks(blocks: Sequence[torch.Tensor], spec, mesh,
+                  coords: Sequence[Sequence[int]], shape) -> torch.Tensor:
+    """The whole tensor of ``shape`` from the ``blocks`` that the ranks at
+    ``coords`` hold under ``spec``: the inverse of :func:`local_block`
+    over every rank.  Where ranks hold the same (replicated) block, the
+    first one's is taken.  Autograd passes through."""
+    sizes = _axis_sizes(mesh)
+    out = blocks[0].new_empty(tuple(shape))
+    done = set()
+    for blk, coord in zip(blocks, coords):
+        idx = _block_index(spec, sizes, dict(zip(sizes, coord)), shape)
+        key = tuple((s.start, s.stop) for s in idx)
+        if key not in done:
+            done.add(key)
+            out[idx] = blk
+    return out
 
 
 def _shapes_dtypes(tree):
@@ -306,3 +570,51 @@ class GroupAlignedPartitioner(_FlatLayout):
         return [(self.bucket_offset(b) + index * lay.chunk,
                  self.shard_offset(b), lay.chunk)
                 for b, lay in enumerate(self.layouts)]
+
+
+# ---------------------------------------------------------------------------
+# The mesh + rules context.
+# ---------------------------------------------------------------------------
+
+# The bindings, process-wide: the reference's stack is per thread, but
+# torch's autograd runs a CUDA backward, and the recompute of a
+# checkpointed block in it, on a device thread of its own, which must see
+# the mesh the forward saw.
+_STACK: List[tuple] = []
+
+
+@contextlib.contextmanager
+def axis_rules(mesh, rules: LogicalRules):
+    """Bind ``(mesh, rules)`` for :func:`logical_constraint`,
+    :func:`model_axis_size` and the MoE layer's dispatch."""
+    _STACK.append((mesh, rules))
+    try:
+        yield mesh, rules
+    finally:
+        _STACK.pop()
+
+
+def current_mesh_rules():
+    """The innermost ``axis_rules`` binding, or ``(None, None)``."""
+    if _STACK:
+        return _STACK[-1]
+    return None, None
+
+
+def model_axis_size() -> int:
+    """Size of the bound mesh's "model" axis (1 outside any binding)."""
+    mesh, _ = current_mesh_rules()
+    if mesh is None:
+        return 1
+    return int(_axis_sizes(mesh).get("model", 1))
+
+
+def logical_constraint(x: torch.Tensor, *logical: Optional[str]
+                       ) -> torch.Tensor:
+    """The reference's ``with_sharding_constraint`` by logical names: a
+    layout, not a value, so ``x`` itself.  Under a binding the spec is
+    resolved all the same (a logical tuple of the wrong rank raises)."""
+    mesh, rules = current_mesh_rules()
+    if mesh is not None:
+        rules.spec(logical, x.shape, mesh)
+    return x

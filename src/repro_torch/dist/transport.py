@@ -1,6 +1,6 @@
-"""The data-parallel axis the collectives run over: counterpart of
-``shard_map`` over a ``data`` mesh axis and of the ``lax`` collectives the
-reference's collectives call inside it.
+"""A mesh axis the collectives run over: counterpart of ``shard_map`` over
+a mesh axis (the wire's ``data`` axis, the MoE dispatch's ``model`` axis)
+and of the ``lax`` collectives the reference calls inside it.
 
 A *transport* knows the axis size ``n``, the ranks this process holds, and
 moves the wire's payloads between ranks.  Every payload carries a leading
@@ -17,6 +17,14 @@ axis of the ranks this process holds (``len(transport.ranks)`` rows):
   ``torch.distributed`` (NCCL between cards, gloo on the CPU):
   ``all_to_all_single`` and ``all_gather_into_tensor`` on the int8 payloads,
   ``all_reduce`` for the statistics.
+
+:meth:`all_to_all_tiled` is ``lax.all_to_all(..., tiled=True)``, through
+which autograd passes (the MoE layer's expert-parallel dispatch): a
+permute of the stacked rank blocks, or ``all_to_all_single`` in an
+autograd function whose backward is the same all-to-all of the gradient.
+:meth:`ProcessGroupTransport.gather_rows` is the all-gather autograd
+passes through (its backward sums every rank's gradient of a row into the
+row's owner).
 """
 
 from __future__ import annotations
@@ -24,6 +32,45 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` of equal chunks along dim 0; its gradient
+    travels back the same way."""
+
+    @staticmethod
+    def forward(ctx, send, group):
+        import torch.distributed as dist
+        ctx.group = group
+        send = send.contiguous()
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=group)
+        return recv
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllToAll.apply(g.contiguous(), ctx.group), None
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's ``t`` stacked ``[n, ...]``; the gradient of row r, summed
+    over the ranks, goes back to rank r."""
+
+    @staticmethod
+    def forward(ctx, t, group, rank, n):
+        import torch.distributed as dist
+        ctx.group, ctx.rank = group, rank
+        out = torch.empty(n * t.numel(), dtype=t.dtype, device=t.device)
+        dist.all_gather_into_tensor(out, t.contiguous().reshape(-1),
+                                    group=group)
+        return out.view((n,) + tuple(t.shape))
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        g = g.contiguous().clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g[ctx.rank], None, None, None
 
 
 class StackedTransport:
@@ -57,6 +104,17 @@ class StackedTransport:
         """Tiled all-gather of the owners' chunks ``[n, chunk]`` →
         ``[n·chunk]``, the same buffer."""
         return parts.reshape(-1)
+
+    def all_to_all_tiled(self, x: torch.Tensor, split_axis: int,
+                         concat_axis: int) -> torch.Tensor:
+        """``x`` ``[n, ...]`` (row i: rank i's block) → ``[n, ...]`` where
+        row j is the concatenation along ``concat_axis``, in rank order, of
+        chunk j of every rank's block cut ``n`` ways along ``split_axis``
+        (the axes of a rank's block).  A permute of the stack."""
+        n = self.n
+        a, c = split_axis + 1, concat_axis + 1
+        y = x.unflatten(a, (n, x.shape[a] // n)).movedim(a, 0)  # [dst, src, ...]
+        return y.movedim(1, c).flatten(c, c + 1)
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
         """Sum over the axis of ``t`` ``[n, ...]`` (one row per rank)."""
@@ -100,6 +158,21 @@ class ProcessGroupTransport:
                                             async_op=async_op)
         out = out.view(1, self.n, chunk)
         return (out, work) if async_op else out
+
+    def all_to_all_tiled(self, x: torch.Tensor, split_axis: int,
+                         concat_axis: int) -> torch.Tensor:
+        """This rank's block ``[1, ...]`` → ``[1, ...]``: the concatenation
+        along ``concat_axis``, in rank order, of chunk ``rank`` of every
+        rank's block cut ``n`` ways along ``split_axis``."""
+        n, a = self.n, split_axis
+        send = x[0].unflatten(a, (n, x.shape[a + 1] // n)).movedim(a, 0)
+        recv = _AllToAll.apply(send, self.group)                 # [src, ...]
+        return recv.movedim(0, concat_axis).flatten(
+            concat_axis, concat_axis + 1)[None]
+
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` as ``[n, ...]``, in rank order."""
+        return _GatherRows.apply(t, self.group, self.rank, self.n)
 
     def all_gather(self, parts: torch.Tensor) -> torch.Tensor:
         """This owner's chunk ``[1, chunk]`` → every owner's ``[n·chunk]``."""

@@ -6,6 +6,8 @@ Every family module exposes:
   forward_train / loss_fn(cfg)    -> (params, batch, qctx) -> (loss, aux)
   prefill(cfg, params, tokens, max_seq, **kw) -> (logits, cache, pos)
   decode_step(cfg, params, tokens, cache, pos) -> (logits, new_cache)
+  cache_struct(cfg, batch, max_seq) / cache_logical(cfg)  (meta stand-ins
+  of the decode cache and their logical axes)
   init_cache(cfg, batch, max_seq, device) / count_params(cfg)
   residual_taps(cfg)              -> residual taps a training forward makes
 The transformer adds decode_step_paged and (MoE) count_active_params.

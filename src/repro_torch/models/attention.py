@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import fixed_point as fxp
+from repro_torch.dist.sharding import logical_constraint, model_axis_size
 from repro_torch.kernels import paged_attn
 from repro_torch.models.common import ParamDef, apply_rope, rms_norm
 
@@ -67,16 +68,16 @@ def _cache_write(x: torch.Tensor, cache_dtype: torch.dtype) -> torch.Tensor:
 def gqa_defs(cfg: ModelConfig, dtype: torch.dtype) -> Dict[str, ParamDef]:
     D, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     defs = {
-        "wq": ParamDef((D, H * Dh), dtype=dtype),
-        "wk": ParamDef((D, KV * Dh), dtype=dtype),
-        "wv": ParamDef((D, KV * Dh), dtype=dtype),
-        "wo": ParamDef((H * Dh, D), dtype=dtype),
+        "wq": ParamDef((D, H * Dh), ("fsdp", "tp"), dtype=dtype),
+        "wk": ParamDef((D, KV * Dh), ("fsdp", "tp"), dtype=dtype),
+        "wv": ParamDef((D, KV * Dh), ("fsdp", "tp"), dtype=dtype),
+        "wo": ParamDef((H * Dh, D), ("tp", "fsdp"), dtype=dtype),
     }
     if cfg.attn_bias:
-        defs["bq"] = ParamDef((H * Dh,), init="zeros", dtype=dtype)
-        defs["bk"] = ParamDef((KV * Dh,), init="zeros", dtype=dtype)
-        defs["bv"] = ParamDef((KV * Dh,), init="zeros", dtype=dtype)
-        defs["bo"] = ParamDef((D,), init="zeros", dtype=dtype)
+        defs["bq"] = ParamDef((H * Dh,), ("tp",), init="zeros", dtype=dtype)
+        defs["bk"] = ParamDef((KV * Dh,), ("tp",), init="zeros", dtype=dtype)
+        defs["bv"] = ParamDef((KV * Dh,), ("tp",), init="zeros", dtype=dtype)
+        defs["bo"] = ParamDef((D,), (None,), init="zeros", dtype=dtype)
     return defs
 
 
@@ -157,6 +158,31 @@ def sdpa(q, k, v, *, causal: bool, scale: float):
     return _attn_full(q, k, v, causal=causal, scale=scale)
 
 
+def _heads_on_model(n_heads: int) -> bool:
+    m = model_axis_size()
+    return m > 1 and n_heads % m == 0
+
+
+def _constrain_qkv(q, k, v, n_heads, batch2d: bool = False):
+    """The reference's layout decision for q, k, v (B, S, H, Dh): heads on
+    the model axis when it divides them; else, with ``batch2d``, the batch
+    over (data × model); else the query sequence on the model axis with
+    K/V replicated there.  A layout only: the values are unchanged."""
+    if _heads_on_model(n_heads):
+        q = logical_constraint(q, "batch", None, "heads", None)
+        k = logical_constraint(k, "batch", None, "heads", None)
+        v = logical_constraint(v, "batch", None, "heads", None)
+    elif batch2d:
+        q = logical_constraint(q, "batch2d", None, None, None)
+        k = logical_constraint(k, "batch2d", None, None, None)
+        v = logical_constraint(v, "batch2d", None, None, None)
+    else:
+        q = logical_constraint(q, "batch", "tp_seq", None, None)
+        k = logical_constraint(k, "batch", None, None, None)
+        v = logical_constraint(v, "batch", None, None, None)
+    return q, k, v
+
+
 # ---------------------------------------------------------------------------
 # GQA.
 # ---------------------------------------------------------------------------
@@ -233,6 +259,7 @@ def gqa_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
             new_cache = (_cache_write(k, cdt), _cache_write(v, cdt))
         kr = torch.repeat_interleave(k, G, dim=2)
         vr = torch.repeat_interleave(v, G, dim=2)
+        q, kr, vr = _constrain_qkv(q, kr, vr, H, cfg.attn_batch2d)
         out = sdpa(q, kr, vr, causal=causal, scale=scale)
     else:
         raise ValueError(f"unknown attention mode {mode!r}")
@@ -240,7 +267,7 @@ def gqa_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     out = out.reshape(B, Sq, H * Dh) @ p["wo"]
     if cfg.attn_bias:
         out = out + p["bo"]
-    return out, new_cache
+    return logical_constraint(out, "batch", "tp_seq", "embed"), new_cache
 
 
 def _paged_decode(cache, q, k, v, cache_pos, ptab, backend, scale):
@@ -306,15 +333,15 @@ def mla_defs(cfg: ModelConfig, dtype: torch.dtype) -> Dict[str, ParamDef]:
     qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     return {
-        "wq_a": ParamDef((D, qr), dtype=dtype),
-        "q_norm": ParamDef((qr,), init="ones"),
-        "wq_b": ParamDef((qr, H * (dn + dr)), dtype=dtype),
-        "wkv_a": ParamDef((D, kvr + dr), dtype=dtype),
-        "kv_norm": ParamDef((kvr,), init="ones"),
+        "wq_a": ParamDef((D, qr), ("fsdp", None), dtype=dtype),
+        "q_norm": ParamDef((qr,), (None,), init="ones"),
+        "wq_b": ParamDef((qr, H * (dn + dr)), (None, "tp"), dtype=dtype),
+        "wkv_a": ParamDef((D, kvr + dr), ("fsdp", None), dtype=dtype),
+        "kv_norm": ParamDef((kvr,), (None,), init="ones"),
         # decoupled up-projections, so that decode can absorb them
-        "w_uk": ParamDef((kvr, H, dn), dtype=dtype),
-        "w_uv": ParamDef((kvr, H, dv), dtype=dtype),
-        "wo": ParamDef((H * dv, D), dtype=dtype),
+        "w_uk": ParamDef((kvr, H, dn), (None, "tp", None), dtype=dtype),
+        "w_uv": ParamDef((kvr, H, dv), (None, "tp", None), dtype=dtype),
+        "wo": ParamDef((H * dv, D), ("tp", "fsdp"), dtype=dtype),
     }
 
 
@@ -332,6 +359,7 @@ def _mla_qkr(cfg: ModelConfig, p, x, positions):
     kv = x @ p["wkv_a"]
     c_kv = rms_norm(kv[..., :kvr], p["kv_norm"])
     k_rope = apply_rope(kv[..., None, kvr:], positions, cfg.rope_theta)[:, :, 0]
+    c_kv = logical_constraint(c_kv, "batch", None, None)
     return q_nope, q_rope, c_kv, k_rope
 
 
@@ -382,11 +410,13 @@ def mla_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
         q = torch.cat([q_nope, q_rope], dim=-1)
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, Sq, H, dr)],
                       dim=-1)
+        q, k, v = _constrain_qkv(q, k, v, H, cfg.attn_batch2d)
         out = sdpa(q, k, v, causal=True, scale=scale)
     else:
         raise NotImplementedError(f"attention mode {mode!r} is not ported")
 
-    return out.reshape(B, Sq, H * dv) @ p["wo"], new_cache
+    out = out.reshape(B, Sq, H * dv) @ p["wo"]
+    return logical_constraint(out, "batch", "tp_seq", "embed"), new_cache
 
 
 def count_gqa_params(cfg: ModelConfig) -> int:

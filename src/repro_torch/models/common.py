@@ -1,11 +1,14 @@
 """Shared model substrate: param defs, norms, RoPE, activations, embeddings.
 
 Counterpart of ``repro/models/common.py``.  Parameters are declared once as
-:class:`ParamDef` (shape + initializer + dtype) and materialized by
-:func:`init_params` into a nested dict of tensors with the reference's keys
-and layouts — weights are ``(in, out)`` and applied as ``x @ w`` — so a
-parameter tree of the reference converts leaf by leaf
-(:mod:`repro_torch.convert`).
+:class:`ParamDef` (shape + per-dimension logical axes + initializer + dtype)
+and materialized by :func:`init_params` into a nested dict of tensors with
+the reference's keys and layouts — weights are ``(in, out)`` and applied as
+``x @ w`` — so a parameter tree of the reference converts leaf by leaf
+(:mod:`repro_torch.convert`).  The same declarations give the placement
+specs (:func:`logical_tree`, resolved by
+:func:`repro_torch.dist.sharding.tree_specs`) and shape-only stand-ins on
+the ``meta`` device (:func:`abstract_params`).
 """
 
 from __future__ import annotations
@@ -18,15 +21,21 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import logical_constraint
+
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
-    """One parameter: shape and init spec."""
+    """One parameter: shape, per-dim logical axes, init spec."""
 
     shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...]
     init: str = "normal"        # normal | zeros | ones | embed
     scale: float = 1.0          # stddev multiplier (normal) / stddev (embed)
     dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.logical), (self.shape, self.logical)
 
 
 def is_def(x) -> bool:
@@ -69,6 +78,28 @@ def map_defs(fn, defs):
     if is_def(defs):
         return fn(defs)
     return {k: map_defs(fn, v) for k, v in defs.items()}
+
+
+def abstract_params(defs) -> Any:
+    """Shape-and-dtype stand-ins on the ``meta`` device: nothing is
+    allocated."""
+    return map_defs(lambda d: torch.empty(d.shape, dtype=d.dtype,
+                                          device="meta"), defs)
+
+
+def logical_tree(defs) -> Any:
+    """Tree of logical-axis tuples, the same structure as the params."""
+    return map_defs(lambda d: d.logical, defs)
+
+
+def zeros_from(struct, device) -> Any:
+    """Zero tensors on ``device`` shaped like a (dict / tuple) tree of
+    stand-ins, e.g. a family's ``cache_struct``."""
+    if isinstance(struct, dict):
+        return {k: zeros_from(v, device) for k, v in struct.items()}
+    if isinstance(struct, tuple):
+        return tuple(zeros_from(v, device) for v in struct)
+    return torch.zeros(struct.shape, dtype=struct.dtype, device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -186,15 +217,18 @@ def padded_vocab(vocab: int, multiple: int = 512) -> int:
 def embed_defs(vocab: int, d_model: int, tie: bool = True,
                dtype: torch.dtype = torch.float32) -> Dict[str, ParamDef]:
     vp = padded_vocab(vocab)
-    defs = {"tok": ParamDef((vp, d_model), init="embed", scale=0.02,
-                            dtype=dtype)}
+    defs = {"tok": ParamDef((vp, d_model), ("vocab_out", "embed"),
+                            init="embed", scale=0.02, dtype=dtype)}
     if not tie:
-        defs["unembed"] = ParamDef((d_model, vp), init="normal", dtype=dtype)
+        defs["unembed"] = ParamDef((d_model, vp), ("embed", "vocab_out"),
+                                   init="normal", dtype=dtype)
     return defs
 
 
-def embed_lookup(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return emb[tokens.to(torch.int64)]
+def embed_lookup(emb: torch.Tensor, tokens: torch.Tensor,
+                 seq_axis: Optional[str] = "tp_seq") -> torch.Tensor:
+    x = emb[tokens.to(torch.int64)]
+    return logical_constraint(x, "batch", seq_axis, "embed")
 
 
 # keys under which a caller may park an fp32 copy of a low-precision tied
@@ -236,7 +270,7 @@ def unembed(x: torch.Tensor, params: Dict[str, torch.Tensor],
     logits = xf @ (w.T if src == "tok" else w)
     if logits.shape[-1] != vocab:
         logits[..., vocab:] = -1e30
-    return logits
+    return logical_constraint(logits, "batch", "seq", "vocab_out")
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,

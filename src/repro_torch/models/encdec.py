@@ -22,11 +22,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fixed_point import QuantStats
+from repro_torch.dist.sharding import logical_constraint
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models.common import (ParamDef, compute_cast, embed_defs,
                                        embed_lookup, fused_unembed_xent,
-                                       layer_norm, merge_optional, unembed)
+                                       layer_norm, merge_optional, unembed,
+                                       zeros_from)
 from repro_torch.models.transformer import (_layer, remat_call, stack_defs,
                                             unbind_layers)
 
@@ -47,7 +49,8 @@ def sinusoid_at(pos: torch.Tensor, D: int) -> torch.Tensor:
 
 
 def _ln_defs(d):
-    return {"s": ParamDef((d,), init="ones"), "b": ParamDef((d,), init="zeros")}
+    return {"s": ParamDef((d,), (None,), init="ones"),
+            "b": ParamDef((d,), (None,), init="zeros")}
 
 
 def _enc_layer_defs(cfg: ModelConfig, dt: torch.dtype):
@@ -124,8 +127,9 @@ def _dec_block(cfg: ModelConfig, p, x, enc_out, positions, *, mode,
 
 def _embed_frames(cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     dt = cfg.activation_dtype()
-    return frames.to(dt) + sinusoid(frames.shape[1], cfg.d_model,
-                                    frames.device).to(dt)
+    x = frames.to(dt) + sinusoid(frames.shape[1], cfg.d_model,
+                                 frames.device).to(dt)
+    return logical_constraint(x, "batch", "seq", "embed")
 
 
 def _embed_tokens(cfg: ModelConfig, params, tokens, cache_pos=None):
@@ -147,19 +151,29 @@ def encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
     return _ln(x, params["enc_norm"])
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
-    """Zeroed decode cache: ``{"self": (k, v) (L, B, max_seq, KV, Dh),
-    "cross": (k, v) (L, B, enc_seq, KV, Dh)}`` (cross length 0 when
-    ``max_seq`` is), int8 under ``kv_cache_bits`` 8, else the compute
-    dtype."""
+def cache_struct(cfg: ModelConfig, batch: int, max_seq: int):
+    """Stand-ins (``meta`` device) of the decode cache: ``{"self": (k, v)
+    (L, B, max_seq, KV, Dh), "cross": (k, v) (L, B, enc_seq, KV, Dh)}``
+    (cross length 0 when ``max_seq`` is), int8 under ``kv_cache_bits`` 8,
+    else the compute dtype."""
     L = cfg.n_layers
     dt = torch.int8 if cfg.kv_cache_bits == 8 else cfg.activation_dtype()
     self_kv = (L, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     cross_kv = (L, batch, cfg.enc_seq if max_seq else 0, cfg.n_kv_heads,
                 cfg.head_dim)
-    return {name: tuple(torch.zeros(s, dtype=dt, device=device)
+    return {name: tuple(torch.empty(s, dtype=dt, device="meta")
                         for _ in range(2))
             for name, s in (("self", self_kv), ("cross", cross_kv))}
+
+
+def cache_logical(cfg: ModelConfig):
+    sp = ("layers", "batch", "kv_seq", "kv", "head_dim")
+    return {"self": (sp, sp), "cross": (sp, sp)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
+    """The zeroed decode cache of :func:`cache_struct`."""
+    return zeros_from(cache_struct(cfg, batch, max_seq), device)
 
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,

@@ -27,7 +27,7 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer
 from repro_torch.models.common import (ParamDef, embed_defs, embed_lookup,
                                        fused_unembed_xent, merge_optional,
-                                       rms_norm, unembed)
+                                       rms_norm, unembed, zeros_from)
 from repro_torch.models.mlp import count_mlp_params
 from repro_torch.models.transformer import (_layer, remat_call, stack_defs,
                                             unbind_layers)
@@ -53,20 +53,31 @@ def model_defs(cfg: ModelConfig, dtype: torch.dtype = None) -> Dict[str, Any]:
         "embed": embed_defs(cfg.vocab, cfg.d_model, tie=cfg.tie_embed, dtype=dt),
         "mamba": stack_defs(cfg.n_layers, mamba.layer_defs(cfg, dt)),
         "shared": transformer.layer_defs(cfg, dt),   # ONE shared block
-        "final_norm": ParamDef((cfg.d_model,), init="ones"),
+        "final_norm": ParamDef((cfg.d_model,), (None,), init="ones"),
     }
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
-    """Zeroed decode cache: ``{"ssm": (state (L, B, H, P, N), tail (L, B,
-    K-1, C)) fp32, "attn": (k, v) each (G, B, max_seq, KV, Dh)}`` — int8
-    under ``kv_cache_bits`` 8, else the compute dtype."""
+def cache_struct(cfg: ModelConfig, batch: int, max_seq: int):
+    """Stand-ins (``meta`` device) of the decode cache: ``{"ssm": (state
+    (L, B, H, P, N), tail (L, B, K-1, C)) fp32, "attn": (k, v) each (G, B,
+    max_seq, KV, Dh)}`` — int8 under ``kv_cache_bits`` 8, else the compute
+    dtype."""
     G = n_shared_invocations(cfg)
     dt = torch.int8 if cfg.kv_cache_bits == 8 else cfg.activation_dtype()
     kv = (G, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    return {"ssm": mamba.init_cache(cfg, batch, max_seq, device),
-            "attn": tuple(torch.zeros(kv, dtype=dt, device=device)
+    return {"ssm": mamba.cache_struct(cfg, batch, max_seq),
+            "attn": tuple(torch.empty(kv, dtype=dt, device="meta")
                           for _ in range(2))}
+
+
+def cache_logical(cfg: ModelConfig):
+    sp = ("layers", "batch", "kv_seq", "kv", "head_dim")
+    return {"ssm": mamba.cache_logical(cfg), "attn": (sp, sp)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
+    """The zeroed decode cache of :func:`cache_struct`."""
+    return zeros_from(cache_struct(cfg, batch, max_seq), device)
 
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,

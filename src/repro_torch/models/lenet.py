@@ -15,6 +15,7 @@ flattened conv features are taken in the reference's (h, w, c) order, so
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import torch
@@ -29,14 +30,14 @@ CONV_KEYS = ("conv1_w", "conv2_w")
 
 def model_defs() -> Dict[str, Any]:
     return {
-        "conv1_w": ParamDef((20, 1, 5, 5), scale=1.0),
-        "conv1_b": ParamDef((20,), init="zeros"),
-        "conv2_w": ParamDef((50, 20, 5, 5), scale=1.0),
-        "conv2_b": ParamDef((50,), init="zeros"),
-        "fc1_w": ParamDef((4 * 4 * 50, 500)),
-        "fc1_b": ParamDef((500,), init="zeros"),
-        "fc2_w": ParamDef((500, 10)),
-        "fc2_b": ParamDef((10,), init="zeros"),
+        "conv1_w": ParamDef((20, 1, 5, 5), (None,) * 4, scale=1.0),
+        "conv1_b": ParamDef((20,), (None,), init="zeros"),
+        "conv2_w": ParamDef((50, 20, 5, 5), (None,) * 4, scale=1.0),
+        "conv2_b": ParamDef((50,), (None,), init="zeros"),
+        "fc1_w": ParamDef((4 * 4 * 50, 500), ("fsdp", "tp")),
+        "fc1_b": ParamDef((500,), (None,), init="zeros"),
+        "fc2_w": ParamDef((500, 10), (None, None)),
+        "fc2_b": ParamDef((10,), (None,), init="zeros"),
     }
 
 
@@ -102,7 +103,7 @@ def init(seed: int, device="cpu"):
     defs = model_defs()
     for k in CONV_KEYS:
         o, i, h, w = defs[k].shape
-        defs[k] = ParamDef((h, w, i, o), scale=defs[k].scale)
+        defs[k] = dataclasses.replace(defs[k], shape=(h, w, i, o))
     gen = torch.Generator(device=device).manual_seed(seed)
     params = init_params(defs, device, gen)
     for k in CONV_KEYS:

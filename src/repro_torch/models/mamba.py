@@ -21,16 +21,18 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fixed_point import QuantStats
+from repro_torch.dist.sharding import logical_constraint
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (ParamDef, compute_cast, embed_defs,
                                        embed_lookup, fused_unembed_xent,
-                                       merge_optional, rms_norm, unembed)
+                                       merge_optional, rms_norm, unembed,
+                                       zeros_from)
 from repro_torch.models.transformer import (_layer, remat_call, stack_defs,
                                             unbind_layers)
 
 
 def layer_defs(cfg: ModelConfig, dt: torch.dtype) -> Dict[str, Any]:
-    return {"norm": ParamDef((cfg.d_model,), init="ones"),
+    return {"norm": ParamDef((cfg.d_model,), (None,), init="ones"),
             "ssm": ssm_lib.ssm_defs(cfg, dt)}
 
 
@@ -41,24 +43,36 @@ def model_defs(cfg: ModelConfig, dtype: torch.dtype = None) -> Dict[str, Any]:
     return {
         "embed": embed_defs(cfg.vocab, cfg.d_model, tie=cfg.tie_embed, dtype=dt),
         "layers": stack_defs(cfg.n_layers, layer_defs(cfg, dt)),
-        "final_norm": ParamDef((cfg.d_model,), init="ones"),
+        "final_norm": ParamDef((cfg.d_model,), (None,), init="ones"),
     }
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
-    """Zeroed decode cache, fp32: (state (L, B, H, P, N), conv tail (L, B,
-    K-1, C)).  ``max_seq`` is unused: the state does not grow."""
+def cache_struct(cfg: ModelConfig, batch: int, max_seq: int = 0):
+    """Stand-ins (``meta`` device) of the decode cache, fp32: (state (L, B,
+    H, P, N), conv tail (L, B, K-1, C)), O(1) in the sequence
+    (``max_seq`` is unused)."""
     L = cfg.n_layers
     H, P = ssm_lib.n_ssm_heads(cfg), cfg.ssm_head_dim
     cc = ssm_lib.conv_channels(cfg)
-    return (torch.zeros((L, batch, H, P, cfg.ssm_state), device=device),
-            torch.zeros((L, batch, cfg.ssm_conv - 1, cc), device=device))
+    return (torch.empty((L, batch, H, P, cfg.ssm_state), device="meta"),
+            torch.empty((L, batch, cfg.ssm_conv - 1, cc), device="meta"))
+
+
+def cache_logical(cfg: ModelConfig):
+    return (("layers", "batch", "heads", None, None),
+            ("layers", "batch", None, "tp"))
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
+    """The zeroed decode cache of :func:`cache_struct`."""
+    return zeros_from(cache_struct(cfg, batch, max_seq), device)
 
 
 def _block(cfg: ModelConfig, p, x, *, mode, cache=None):
     out, new_cache = ssm_lib.ssm_apply(cfg, p["ssm"], rms_norm(x, p["norm"]),
                                        mode=mode, cache=cache)
-    return x + out, new_cache
+    # the sequence-parallel residual carry
+    return logical_constraint(x + out, "batch", "tp_seq", "embed"), new_cache
 
 
 def run_layers(cfg: ModelConfig, layers, x, idxs, *, mode, cache=None):
@@ -91,7 +105,8 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     """Returns (logits | hidden, new_cache).  ``mode="prefill"`` unembeds
     the last position only; decode writes ``cache`` in place and hands it
     back.  ``cache_pos`` is unused (the state carries the position)."""
-    x = embed_lookup(params["embed"]["tok"], tokens).to(cfg.activation_dtype())
+    x = embed_lookup(params["embed"]["tok"], tokens,
+                     seq_axis=None).to(cfg.activation_dtype())
     x, new = run_layers(cfg, params["layers"], x, range(cfg.n_layers),
                         mode=mode, cache=cache)
     new_cache = cache if mode == "decode" else stack_caches(new)
@@ -118,7 +133,8 @@ def train_block(cfg: ModelConfig, p, x, qctx, idx: int):
 
 def forward_train(cfg: ModelConfig, params, tokens: torch.Tensor, qctx=None):
     """Training forward: ``(final-normed hidden (B, S, D), act_stats)``."""
-    x = embed_lookup(params["embed"]["tok"], tokens).to(cfg.activation_dtype())
+    x = embed_lookup(params["embed"]["tok"], tokens,
+                     seq_axis=None).to(cfg.activation_dtype())
     stats = None
     for i, p in enumerate(unbind_layers(params["layers"], cfg.n_layers)):
         x, s = remat_call(cfg, train_block, cfg, p, x, qctx, i)

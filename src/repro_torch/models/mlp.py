@@ -7,17 +7,19 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import logical_constraint
 from repro_torch.models.common import ParamDef, act_fn
 
 
 def mlp_defs(d_model: int, d_ff: int, gated: bool,
              dtype: torch.dtype) -> Dict[str, ParamDef]:
     defs = {
-        "w_in": ParamDef((d_model, d_ff), dtype=dtype),
-        "w_out": ParamDef((d_ff, d_model), dtype=dtype),
+        "w_in": ParamDef((d_model, d_ff), ("fsdp", "tp"), dtype=dtype),
+        "w_out": ParamDef((d_ff, d_model), ("tp", "fsdp"), dtype=dtype),
     }
     if gated:
-        defs["w_gate"] = ParamDef((d_model, d_ff), dtype=dtype)
+        defs["w_gate"] = ParamDef((d_model, d_ff), ("fsdp", "tp"),
+                                  dtype=dtype)
     return defs
 
 
@@ -29,7 +31,8 @@ def mlp_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
         h = act_fn(act, x @ p["w_gate"]) * h
     else:
         h = act_fn(act, h)
-    return h @ p["w_out"]
+    h = logical_constraint(h, "batch", "seq", "tp")
+    return logical_constraint(h @ p["w_out"], "batch", "tp_seq", "embed")
 
 
 def count_mlp_params(d_model: int, d_ff: int, gated: bool) -> int:

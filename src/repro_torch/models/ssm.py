@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import logical_constraint
 from repro_torch.models.common import ParamDef, rms_norm
 
 
@@ -48,14 +49,16 @@ def ssm_defs(cfg: ModelConfig, dtype: torch.dtype) -> Dict[str, ParamDef]:
     cc = conv_channels(cfg)
     return {
         # in_proj emits [z, x, B, C, dt]
-        "w_in": ParamDef((D, 2 * di + 2 * N + H), dtype=dtype),
-        "conv_w": ParamDef((cfg.ssm_conv, cc), scale=1.0, dtype=dtype),
-        "conv_b": ParamDef((cc,), init="zeros", dtype=dtype),
-        "a_log": ParamDef((H,), init="zeros"),
-        "dt_bias": ParamDef((H,), init="zeros"),
-        "d_skip": ParamDef((H,), init="ones"),
-        "norm_scale": ParamDef((di,), init="ones"),
-        "w_out": ParamDef((di, D), dtype=dtype),
+        "w_in": ParamDef((D, 2 * di + 2 * N + H), ("fsdp", "tp"),
+                         dtype=dtype),
+        "conv_w": ParamDef((cfg.ssm_conv, cc), (None, "tp"), scale=1.0,
+                           dtype=dtype),
+        "conv_b": ParamDef((cc,), ("tp",), init="zeros", dtype=dtype),
+        "a_log": ParamDef((H,), (None,), init="zeros"),
+        "dt_bias": ParamDef((H,), (None,), init="zeros"),
+        "d_skip": ParamDef((H,), (None,), init="ones"),
+        "norm_scale": ParamDef((di,), ("tp",), init="ones"),
+        "w_out": ParamDef((di, D), ("tp", "fsdp"), dtype=dtype),
     }
 
 
@@ -118,7 +121,11 @@ def ssd_scan(cfg: ModelConfig, x: torch.Tensor, b_mat: torch.Tensor,
     xr = (x * dt[..., None].to(x.dtype)).reshape(B, nc, Q, H, Pd).to(f32)
     br = b_mat.reshape(B, nc, Q, N).to(f32)
     cr = c_mat.reshape(B, nc, Q, N).to(f32)
-    cum = torch.cumsum(log_decay.reshape(B, nc, Q, H), dim=2)   # (B,nc,Q,H)
+    # heads on the model axis (B/C are head-shared and stay replicated)
+    xr = logical_constraint(xr, "batch", None, None, "heads", None)
+    ld = logical_constraint(log_decay.reshape(B, nc, Q, H),
+                            "batch", None, None, "heads")
+    cum = torch.cumsum(ld, dim=2)                               # (B,nc,Q,H)
     total = cum[:, :, -1]                                       # (B,nc,H)
 
     # --- intra-chunk (quadratic in Q only; the module's memory hot spot) ---
@@ -165,6 +172,7 @@ def ssm_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
 
     zxbcdt = x @ p["w_in"]
     z, xbc, dt_raw = _split_proj(cfg, zxbcdt)
+    zxbcdt = logical_constraint(zxbcdt, "batch", "seq", "tp")
 
     conv_state = cache[1] if cache is not None else None
     xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
@@ -193,7 +201,8 @@ def ssm_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     y = y + p["d_skip"].to(y.dtype)[None, None, :, None] * xi
     y = y.reshape(B, S, di)
     y = rms_norm(y * F.silu(z), p["norm_scale"])
-    return y @ p["w_out"], new_cache
+    return logical_constraint(y @ p["w_out"], "batch", "seq", "embed"), \
+        new_cache
 
 
 def count_ssm_params(cfg: ModelConfig) -> int:

@@ -36,29 +36,32 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tree as tree_lib
 from repro_torch.core.fixed_point import QuantStats
+from repro_torch.dist.sharding import logical_constraint
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (ParamDef, compute_cast, embed_defs,
                                        embed_lookup, fused_unembed_xent,
                                        layer_norm, map_defs,
-                                       merge_optional, rms_norm, unembed)
+                                       merge_optional, rms_norm, unembed,
+                                       zeros_from)
 
 
 def stack_defs(n: int, defs):
     """Prepend a stacked ``layers`` dim to every ParamDef in a tree."""
-    return map_defs(lambda d: ParamDef((n,) + d.shape, init=d.init,
-                                       scale=d.scale, dtype=d.dtype), defs)
+    return map_defs(lambda d: ParamDef((n,) + d.shape, ("layers",) + d.logical,
+                                       init=d.init, scale=d.scale,
+                                       dtype=d.dtype), defs)
 
 
 def layer_defs(cfg: ModelConfig, dt: torch.dtype) -> Dict[str, Any]:
     defs: Dict[str, Any] = {
-        "norm1": ParamDef((cfg.d_model,), init="ones"),
-        "norm2": ParamDef((cfg.d_model,), init="ones"),
+        "norm1": ParamDef((cfg.d_model,), (None,), init="ones"),
+        "norm2": ParamDef((cfg.d_model,), (None,), init="ones"),
     }
     if cfg.norm == "layer":
-        defs["norm1_b"] = ParamDef((cfg.d_model,), init="zeros")
-        defs["norm2_b"] = ParamDef((cfg.d_model,), init="zeros")
+        defs["norm1_b"] = ParamDef((cfg.d_model,), (None,), init="zeros")
+        defs["norm2_b"] = ParamDef((cfg.d_model,), (None,), init="zeros")
     defs["attn"] = (attn_lib.mla_defs(cfg, dt) if cfg.mla
                     else attn_lib.gqa_defs(cfg, dt))
     if cfg.n_experts:
@@ -77,7 +80,7 @@ def model_defs(cfg: ModelConfig, dtype: torch.dtype = None) -> Dict[str, Any]:
     return {
         "embed": embed_defs(cfg.vocab, cfg.d_model, tie=cfg.tie_embed, dtype=dt),
         "layers": stack_defs(cfg.n_layers, layer_defs(cfg, dt)),
-        "final_norm": ParamDef((cfg.d_model,), init="ones"),
+        "final_norm": ParamDef((cfg.d_model,), (None,), init="ones"),
     }
 
 
@@ -145,6 +148,7 @@ def _embed(cfg: ModelConfig, params, tokens, vision_embeds):
     x = embed_lookup(params["embed"]["tok"], tokens).to(cfg.activation_dtype())
     if vision_embeds is not None:
         x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
+        x = logical_constraint(x, "batch", "tp_seq", "embed")
     return x
 
 
@@ -284,10 +288,12 @@ def loss_fn(cfg: ModelConfig):
     return fn
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
-    """Zeroed contiguous decode cache, stacked over layers: K and V (L, B,
-    max_seq, KV, Dh), or an MLA model's latent and k_rope caches (L, B,
-    max_seq, kv_lora_rank) and (L, B, max_seq, qk_rope_dim)."""
+def cache_struct(cfg: ModelConfig, batch: int, max_seq: int):
+    """Stand-ins (``meta`` device) of the contiguous decode cache, stacked
+    over layers: K and V (L, B, max_seq, KV, Dh), or an MLA model's latent
+    and k_rope caches (L, B, max_seq, kv_lora_rank) and (L, B, max_seq,
+    qk_rope_dim); int8 under ``kv_cache_bits`` 8, else the compute
+    dtype."""
     dt = torch.int8 if cfg.kv_cache_bits == 8 else cfg.activation_dtype()
     L = cfg.n_layers
     if cfg.mla:
@@ -295,7 +301,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
                   (L, batch, max_seq, cfg.qk_rope_dim))
     else:
         shapes = ((L, batch, max_seq, cfg.n_kv_heads, cfg.head_dim),) * 2
-    return tuple(torch.zeros(s, dtype=dt, device=device) for s in shapes)
+    return tuple(torch.empty(s, dtype=dt, device="meta") for s in shapes)
+
+
+def cache_logical(cfg: ModelConfig):
+    if cfg.mla:
+        return (("layers", "batch", "kv_seq", None),
+                ("layers", "batch", "kv_seq", None))
+    sp = ("layers", "batch", "kv_seq", "kv", "head_dim")
+    return (sp, sp)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
+    """The zeroed contiguous decode cache of :func:`cache_struct`."""
+    return zeros_from(cache_struct(cfg, batch, max_seq), device)
 
 
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int, *,

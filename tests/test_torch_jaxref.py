@@ -1429,6 +1429,185 @@ def job_f32_mean(a, cases):
     return out
 
 
+class _Spec:
+    """A resolved spec standing in for the reference's ``NamedSharding``
+    (a duck-typed mesh makes none): its entries, JSON-able."""
+
+    def __init__(self, spec):
+        self.spec = [list(e) if isinstance(e, tuple) else e for e in spec]
+
+
+def _spec_flat(tree, prefix=""):
+    if isinstance(tree, _Spec):
+        return {prefix[:-1]: tree.spec}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out = {}
+    for k, v in items:
+        out.update(_spec_flat(v, f"{prefix}{k}/"))
+    return out
+
+
+def _fake_mesh(shape, axes):
+    """The duck-typed mesh of the reference's rules test
+    (``tests/test_substrates.py``): only ``axis_names`` and
+    ``devices.shape``."""
+    import math
+    return type("FakeMesh", (), {
+        "axis_names": tuple(axes),
+        "devices": type("devices", (), {"shape": tuple(shape),
+                                        "size": math.prod(shape)})})
+
+
+def job_rules(a, cases, mesh):
+    """``LogicalRules.resolve_dim`` on the duck-typed ``mesh`` for each
+    case ``(logical, dim, taken)``: the axis it binds and the taken set
+    after."""
+    from repro.dist.sharding import LogicalRules
+    m = _fake_mesh(*mesh)
+    res = []
+    for logical, dim, taken in cases:
+        t = set(taken)
+        axis = LogicalRules().resolve_dim(logical, dim, m, t)
+        res.append([list(axis) if isinstance(axis, tuple) else axis,
+                    sorted(t)])
+    return {"res": np.array(json.dumps(res))}
+
+
+def job_specs(a, archs, meshes):
+    """The reference's specs (``repro.launch.specs``) on duck-typed meshes
+    ``{name: (shape, axes)}``: for every arch, the train state under SGD
+    and AdamW with and without ``zero_opt_shards`` (the data axis's size)
+    — params and optimizer state — and, at each of its shapes, the
+    batch, decode or prefill inputs of that shape's kind.  The module's
+    ``NamedSharding`` is replaced by :class:`_Spec`, so the reference's own
+    functions run on a mesh that holds no devices.  One JSON object keyed
+    ``"<mesh>/<arch>/<part>/<leaf path>"``."""
+    from repro.configs.base import SHAPES, applicable_shapes, get_config
+    from repro.core import qtrain
+    from repro.dist import sharding as sh
+    from repro.launch import specs as S
+    from repro.optim import AdamWConfig, SGDConfig, make_optimizer
+    S.NamedSharding = sh.NamedSharding = lambda mesh, spec: _Spec(spec)
+    out = {}
+    for mname, (shape, axes) in meshes.items():
+        mesh, rules = _fake_mesh(shape, axes), sh.LogicalRules()
+        n_data = dict(zip(axes, shape)).get("data", 1)
+        for arch in archs:
+            cfg = get_config(arch)
+            parts = {}
+            for oname, opt in (("sgd", make_optimizer(SGDConfig())),
+                               ("adamw", make_optimizer(AdamWConfig()))):
+                for zname, zero in (("repl", None), ("zero", n_data)):
+                    q = qtrain.QuantConfig(zero_opt_shards=zero)
+                    st = S.train_state_shardings(cfg, mesh, rules, opt, q)
+                    parts[f"{oname}_{zname}/params"] = st.params
+                    parts[f"{oname}_{zname}/opt_state"] = st.opt_state
+            for sname in applicable_shapes(cfg):
+                shp = SHAPES[sname]
+                fn = {"train": S.train_batch_shardings,
+                      "decode": S.decode_shardings,
+                      "prefill": S.prefill_shardings}[shp.kind]
+                parts[sname] = fn(cfg, shp, mesh, rules)
+            for k, tree in parts.items():
+                out.update(_spec_flat(tree, f"{mname}/{arch}/{k}/"))
+    return {"specs": np.array(json.dumps(out))}
+
+
+def _ep_mesh(shape):
+    """A (data, model) mesh of forced host devices with Auto axes: under
+    the installed JAX's default Explicit axes the reference's
+    ``logical_constraint`` raises ("can only refer to Auto axes")."""
+    import jax
+    return jax.make_mesh(tuple(shape), ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+
+
+def job_moe_a2a(a, seed, arch, overrides, mesh):
+    """The reference's MoE layer at smoke size on ``x`` (B, S, D) under
+    ``axis_rules`` of a ``mesh`` (data, model) — the all-to-all dispatch
+    when the gate takes it — jitted: its output, aux loss and the
+    gradients of ``sum(out * w) + aux`` with respect to x and every
+    parameter, and the parameters from ``init_params(key(seed))``.
+    ``mesh`` None: no binding (the einsum dispatch)."""
+    import contextlib
+    import jax
+    import jax.numpy as jnp
+    from repro.dist.sharding import LogicalRules, axis_rules
+    from repro.models import moe
+    from repro.models.common import init_params
+    cfg = _smoke_cfg(arch, overrides)
+    p = init_params(jax.random.key(seed), moe.moe_defs(cfg, jnp.float32))
+    x, w = jnp.asarray(a["x"]), jnp.asarray(a["w"])
+
+    def loss(p, x):
+        y, aux = moe.moe_apply(cfg, p, x)
+        return jnp.sum(y * w) + aux, (y, aux)
+
+    m = _ep_mesh(mesh) if mesh else None
+    ctx = axis_rules(m, LogicalRules()) if m else contextlib.nullcontext()
+    with ctx:
+        (_, (y, aux)), (gp, gx) = jax.jit(jax.value_and_grad(
+            loss, argnums=(0, 1), has_aux=True))(p, x)
+    out = flatten(_np_params(p), "params/")
+    out.update(flatten(_np_params(gp), "grads/"))
+    out.update(y=np.asarray(y), aux=np.asarray(aux), gx=np.asarray(gx))
+    return out
+
+
+def job_a2a_pack(a):
+    """The reference's ``_a2a_pack`` and ``_a2a_unpack`` on ``x`` (fp32)
+    and on ``x`` cast to bf16."""
+    import jax.numpy as jnp
+    from repro.models import moe
+    x = jnp.asarray(a["x"])
+    out = {}
+    for name, v in (("f32", x), ("bf16", x.astype(jnp.bfloat16))):
+        q = moe._a2a_pack(v)
+        out[name + "/q"] = np.asarray(q)
+        out[name + "/back"] = np.asarray(moe._a2a_unpack(q, jnp.float32))
+    return out
+
+
+def job_ep_train(a, steps, seq, batch, arch, mesh, overrides=None):
+    """Smoke ``arch`` from ``init_params(key(0))``: ``steps`` SGD steps
+    under nearest rounding, the step jitted under ``axis_rules`` of a
+    ``mesh`` (data, model) as the reference's sharded-step test runs it
+    (replicated inputs; the MoE layers on the all-to-all dispatch).
+    ``mesh`` None: no binding (the einsum dispatch).  Returns the history
+    and the final parameters."""
+    import contextlib
+    import dataclasses
+    import jax
+    from repro.core import qtrain
+    from repro.data import TokenStream, TokenStreamConfig
+    from repro.dist.sharding import LogicalRules, axis_rules
+    from repro.launch import specs as specs_lib
+    from repro.models import registry
+    from repro.models.common import init_params
+    from repro.optim import SGDConfig, make_optimizer
+    cfg = dataclasses.replace(_smoke_cfg(arch, overrides), remat="full")
+    params = init_params(jax.random.key(0),
+                         registry(cfg.family).model_defs(cfg))
+    out = flatten(_np_params(params), "params/")
+    qcfg = qtrain.QuantConfig(rounding="nearest")
+    opt = make_optimizer(SGDConfig())
+    step = specs_lib.build_train_step(cfg, qcfg, opt, accum_steps=1)
+    state = qtrain.TrainState.create(params, opt.init(params), qcfg,
+                                     jax.random.key(1))
+    data = TokenStream(TokenStreamConfig(vocab=cfg.vocab, seq_len=seq,
+                                         global_batch=batch, seed=0))
+    ctx = (axis_rules(_ep_mesh(mesh), LogicalRules()) if mesh
+           else contextlib.nullcontext())
+    with ctx:
+        state, hist = _run_train(jax.jit(step), state,
+                                 [data.batch(i) for i in range(steps)],
+                                 ("loss", "il_w", "fl_w", "il_a", "fl_a",
+                                  "il_g", "fl_g"))
+    out.update({f"hist/{k}": v for k, v in hist.items()})
+    out.update(flatten(_np_params(state.params), "final/"))
+    return out
+
+
 def _child_main(fin, fout):
     import jax
     import jax.extend.core
