@@ -309,11 +309,39 @@ Phases 10-14 run right after phase 8's counted wire run, before its
              capacity factor 8 against the einsum step from the same
              seed within ``EP_LOSS_RTOL``; line ``ep_vs_einsum``).
 
+17. tp — after phase 14's dots run: ``k1b_block`` (K1b in block mode at
+             one rank's block of one layer of llama's w_in at (1, 4),
+             3,072 × 2,048 of 8,192 columns: bit-equal to its plain version
+             and to the unsharded launch on the same elements, timed beside
+             the contiguous launch on as many elements; row
+             ``dps_quantize_onchip_prng_block``), ``tp_check`` (one llama
+             layer at full geometry, x (2, 512, 3,072), fp32 and bf16, on
+             stacked (1, 4) and (2, 4) meshes against the unsharded layer:
+             output and every gradient within ``TP_TOL``; K1b's blocks of
+             ``w_in``, ``wk`` and ``tok`` bit-equal to the unsharded launch,
+             merged statistics exact or within ``SUM_RTOL``; ms and peak),
+             ``train_llama_tp`` (``launch.train.main`` on llama3.2-3b at
+             full width and depth, ``--batch 4 --seq 512``, SGD, 3 steps:
+             unsharded, then ``mesh=`` stacked (1, 4) and (2, 4) — the
+             placed step; formats equal every step, the first loss
+             within ``TP_LOSS_RTOL``, K1b a step as the placement counts it, bytes
+             a rank holds; the same three runs with fp32 compute: the
+             first loss within ``TP_LOSS_RTOL_F32``, the parameters after
+             one update apart on a share ≤ ``TP_FLIP_SHARE``, by at most
+             ``TP_FLIP_STEPS`` grid steps)
+             and ``train_tp_pg`` (a one-rank NCCL group: each
+             block collective of the process-group transport bit-equal to
+             the stacked one on CUDA tensors, then smoke llama's placed step
+             over its (1, 1) ``DeviceMesh``).
+
 The line before the last two carries the kernels (launches on their path —
 K1's from the LM run with a bits operand, LeNet's beside them; K1b's row
 adds ``launches_train_long``, ``launches_train_dots``,
 ``launches_paper_fig4`` (the DPS and fixed 13-bit arms) and
-``launches_train_qwen_ep``; K2b's, K3b's
+``launches_train_qwen_ep`` and ``launches_train_llama_tp_1x4``/``_2x4``
+(the placed runs; their block-mode launches are the
+``dps_quantize_onchip_prng_block`` row's, (1, 4) as its ``launches``);
+K2b's, K3b's
 and K4's from the wire run; K2's from the wire run with a bits operand; K5's
 from the serving run, on its serving-shape row (a row of another config's
 shape, ``<kernel>_<config>``, names the run it counts, ``serve_<config>`` or
@@ -543,6 +571,23 @@ A2A_SNAP = 1.0 / 32
 # measured 1.7e-4 on an H100)
 EP_MESH = (1, 4)
 EP_LOSS_RTOL = 1e-3
+
+# phase 17 (the sharded train step): llama3.2-3b placed over stacked
+# (data, model) meshes, its layer against the unsharded one (max |diff|
+# over max |value| of the output and every gradient), and its training
+# run's losses against the unsharded run's
+TP_MESHES = ((1, 4), (2, 4))
+TP_STEPS, TP_BATCH = 3, 4
+TP_TOL = {"float32": 2e-5, "bfloat16": 5e-2}
+# the first loss (before any update) against the unsharded run's, by mesh
+TP_LOSS_RTOL = {"1x4": 2e-4, "2x4": 2e-4}
+# the same training runs with fp32 compute (the bf16 gap's cause): the
+# first loss, and the share of parameters that differ after one update and
+# by how many weight-grid steps (measured 7.7e-8 / 6.9e-7, 0.89 % and 7
+# steps on an H100)
+TP_LOSS_RTOL_F32 = {"1x4": 5e-7, "2x4": 5e-6}
+TP_FLIP_SHARE = {"1x4": 0.02, "2x4": 0.02}
+TP_FLIP_STEPS = 16
 
 
 def depth_cut(model, layers=None):
@@ -3998,6 +4043,457 @@ def guards_zero_nan(unguarded_hist, overlap):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the sharded train step: llama3.2-3b placed over a (data × model) mesh
+# ---------------------------------------------------------------------------
+
+def _stacked(shape):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(shape, ("data", "model"), device=DEV)
+
+
+def _rel_max(a, b):
+    """max |a - b| over max |b| (fp32)."""
+    a, b = a.detach().to(torch.float32), b.detach().to(torch.float32)
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def _placed_leaf_check(x, spec, mesh, seed, what):
+    """K1b in block mode on every held block of the whole leaf ``x`` placed
+    by ``spec``: q bit-equal to the unsharded K1b launch on the same
+    elements; the merged statistics' integers and max_abs exact, the float
+    sums within ``SUM_RTOL``.  Returns the largest float-sum difference."""
+    from repro_torch.core import fixed_point as fxp
+    from repro_torch.dist.sharding import gather_placed, place_tensor
+    fmt = fxp.FixedPointFormat.create(2, 14, DEV)
+    qw, sw = fxp.quantize_tree_leaf(0, (what,), x, fmt, mode="stochastic",
+                                    seed=seed, onchip_prng=True)
+    qp, sp = fxp.quantize_placed(0, (what,), place_tensor(x, spec, mesh), fmt,
+                                 mode="stochastic", seed=seed,
+                                 onchip_prng=True)
+    if not torch.equal(gather_placed(qp), qw):
+        raise AssertionError(f"tp_check: K1b blocks of {what} differ from "
+                             "the unsharded launch")
+    vk = torch.stack([getattr(sp, f) for f in STAT_FIELDS])
+    vw = torch.stack([getattr(sw, f) for f in STAT_FIELDS])
+    return _stats_match(vk, vw, x.numel())
+
+
+STAT_FIELDS = ("count", "nonzero", "overflow", "abs_err_sum", "rel_err_sum",
+               "abs_sum", "max_abs")
+
+
+def k1b_block_row():
+    """K1b in block mode at one rank's block of one layer of llama's
+    ``w_in`` at (1, 4): 3,072 × 2,048 fp32, columns 2,048-4,095 of 8,192 —
+    kernel vs plain bit-equal, and equal to the unsharded launch's q on
+    those elements; timed beside the contiguous K1b launch on as many
+    elements and against its bytes bound.  Its launches are the placed
+    run's block launches (``train_llama_tp``)."""
+    D, F, m = 3072, 8192, 4
+    g = torch.Generator(device=DEV).manual_seed(12)
+    whole = torch.randn(D, F, generator=g, device=DEV) * D ** -0.5
+    whole[:, ::11] = 0.0
+    blk = whole[:, F // m:2 * F // m].contiguous()
+    geo = dps_quant.block_geometry((D, F), (0, F // m), (D, F // m))
+    bits = dps_quant.Philox(5, block=geo)
+    il, fl = 2, 14
+    err, rel = check_quant(blk, il, fl, bits)
+    qw, _ = dps_quant.dps_quant(whole, _i32(il), _i32(fl), dps_quant.Philox(5),
+                                backend="kernel")
+    qb, _ = dps_quant.dps_quant(blk, _i32(il), _i32(fl), bits,
+                                backend="kernel")
+    if not torch.equal(qb, qw[:, F // m:2 * F // m]):
+        raise AssertionError("K1b block mode differs from the unsharded "
+                             "launch on the same elements")
+    n = blk.numel()
+    row = quant_row("dps_quantize_onchip_prng_block",
+                    f"llama3.2-3b layers/mlp/w_in, one layer's block at "
+                    f"(1, 4): {D}x{F // m} of {D}x{F} = {n} fp32, Philox "
+                    "bits of the whole leaf in the kernel (block mode), "
+                    "statistics on", blk, il, fl, bits, err, rel,
+                    8 * n + 8 + 28, 49 * n)
+    flat, ilt, flt = blk.reshape(-1), _i32(il), _i32(fl)
+    row["contiguous_ms"] = time_ms(lambda: dps_quant.dps_quant(
+        flat, ilt, flt, dps_quant.Philox(5), backend="kernel"), repeats=10)
+    row.update(counter="dps_quantize_block", run="train_llama_tp")
+    say("k1b_block", **{k: row[k] for k in (
+        "shape", "max_abs_err", "stats_max_rel_err", "ms", "ms_no_stats",
+        "contiguous_ms", "plain_ms", "bound_ms", "bound_by")})
+    del whole, blk, qw, qb
+    return row
+
+
+def tp_check():
+    """One llama3.2-3b layer at full geometry (D 3,072, 24/8 heads, Dh
+    128, d_ff 8,192), x (2, 512, 3,072), fp32 and bf16, on stacked (1, 4)
+    and (2, 4) meshes against the unsharded layer: the output and every
+    gradient within ``TP_TOL`` (max |Δ| over max |value|); K1b in block
+    mode on every rank's block of ``w_in``, ``wk`` (28 layers) and ``tok``
+    bit-equal to the unsharded launch, the merged statistics exact or
+    within ``SUM_RTOL``; forward + backward ms and peak of both."""
+    from repro_torch.core import qtrain
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.dist import sharding
+    from repro_torch.dist.sharding import (LogicalRules, axis_rules,
+                                           gather_placed, place_tensor,
+                                           relayout)
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.common import map_defs
+    base = get_config("llama3_2_3b")
+    rules = LogicalRules()
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype, remat="none")
+        defs = tr.layer_defs(cfg, torch.float32)
+        p = init_params(defs, DEV, torch.Generator(device=DEV).manual_seed(3))
+        g = torch.Generator(device=DEV).manual_seed(4)
+        x = torch.randn(2, 512, cfg.d_model, generator=g, device=DEV)
+        w = torch.randn(2, 512, cfg.d_model, generator=g, device=DEV)
+        x, w = x.to(cfg.activation_dtype()), w.to(cfg.activation_dtype())
+        pos = torch.arange(512, dtype=torch.int32, device=DEV)[None, :]
+
+        def whole_pass():
+            pw = tree_lib.map_tree(lambda t: t.detach().requires_grad_(), p)
+            xw = x.detach().requires_grad_()
+            y, _, _ = tr._train_block(cfg, pw, xw, pos, None, 0)
+            gr = torch.autograd.grad((y.float() * w.float()).sum(),
+                                     [xw] + tree_lib.leaves(pw))
+            return y, gr
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        y_w, g_w = whole_pass()
+        torch.cuda.synchronize()
+        res = {"unsharded_ms": time_ms(whole_pass, repeats=3, warmup=1),
+               "unsharded_peak_bytes": torch.cuda.max_memory_allocated()
+               - base_mem}
+        for shape in ((1, 4), (2, 4)):
+            mesh = _stacked(shape)
+            with axis_rules(mesh, rules):
+                specs_ = map_defs(lambda d: rules.spec(d.logical, d.shape,
+                                                       mesh), defs)
+                pp = tree_lib.map_tree(lambda t, sp: place_tensor(t, sp, mesh),
+                                       p, specs_)
+                xspec = rules.spec(("batch", "tp_seq", "embed"), x.shape, mesh)
+                xp0 = place_tensor(x, xspec, mesh)
+                wp = place_tensor(w, xspec, mesh)
+
+                def placed_pass():
+                    # one autograd leaf a rank, as the placed step makes them
+                    pl = tree_lib.map_tree(qtrain._rank_leaves, pp)
+                    xp = xp0.map(lambda b: b.detach().requires_grad_())
+                    y, _, _ = tr._train_block(cfg, pl, xp, pos, None, 0)
+                    y = relayout(y, xspec)
+                    loss = [(a.float() * b.float()).sum()
+                            for a, b in zip(y.blocks, wp.blocks)]
+                    ins = xp.blocks + [b for v in tree_lib.leaves(pl)
+                                       for b in v.blocks]
+                    gr = torch.autograd.grad(loss, ins)
+                    return y, gr, xp, pl
+
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base_mem = torch.cuda.memory_allocated()
+                y_p, g_p, xp, pl = placed_pass()
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - base_mem
+                ms = time_ms(lambda: placed_pass(), repeats=3, warmup=1)
+                rels = {"out": _rel_max(gather_placed(y_p), y_w),
+                        "dx": _rel_max(gather_placed(sharding.Placed(
+                            list(g_p[:len(xp.blocks)]), xp.spec, mesh)),
+                            g_w[0])}
+                at = len(xp.blocks)
+                for (path, v), gw in zip(tree_lib.leaves_with_path(pl),
+                                         g_w[1:]):
+                    gb = list(g_p[at:at + len(v.blocks)])
+                    at += len(v.blocks)
+                    gb = sharding.psum(mesh, v.replicated_axes(), gb)
+                    rels["d" + "/".join(path)] = _rel_max(gather_placed(
+                        sharding.Placed(gb, v.spec, mesh)), gw)
+            worst = max(rels.values())
+            if not worst <= TP_TOL[dtype]:
+                raise AssertionError(f"tp_check {dtype} {shape}: relative "
+                                     f"differences {rels} (> {TP_TOL[dtype]})")
+            res[f"{shape[0]}x{shape[1]}"] = dict(
+                max_rel=rels, ms=ms, peak_bytes=peak)
+            del y_p, g_p, xp, pl, pp
+        out[dtype] = res
+        del p, x, w, y_w, g_w
+        gc.collect()
+        torch.cuda.empty_cache()
+    # K1b in block mode on the full-size leaves, every rank's block
+    L, D, V = base.n_layers, base.d_model, 128512
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    sums = {}
+    for what, shape, logical in (
+            ("w_in", (L, D, base.d_ff), (None, "fsdp", "tp")),
+            ("wk", (L, D, base.n_kv_heads * base.head_dim),
+             (None, "fsdp", "tp")),
+            ("tok", (V, D), ("vocab_out", "embed"))):
+        x = torch.randn(shape, generator=gen, device=DEV) * 0.03
+        x.view(-1)[::13] = 0.0
+        for mshape in ((1, 4), (2, 4)):
+            mesh = _stacked(mshape)
+            spec = rules.spec(logical, shape, mesh)
+            sums[f"{what} {mshape[0]}x{mshape[1]} {spec}"] = \
+                _placed_leaf_check(x, spec, mesh, 21, what)
+        del x
+        gc.collect()
+        torch.cuda.empty_cache()
+    say("tp_check", tolerance=TP_TOL, layer=out,
+        k1b_blocks_bit_equal=True, merged_stats_sum_max_rel=sums,
+        merged_stats_sum_tolerance=SUM_RTOL)
+    return out
+
+
+def _tp_launches_per_step(cfg, mesh):
+    """K1b launches a placed step makes on a stacked mesh: each quantized
+    leaf's distinct blocks (one launch each, the product of its split
+    axes' sizes) three times (weights, gradients, re-snap), plus each
+    rank's block of the residual tapped forward and backward a layer."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.dist.sharding import LogicalRules, _axis_sizes, spec_axes
+    from repro_torch.launch import specs
+    pred = QuantPolicy().param_predicate()
+    sizes = _axis_sizes(mesh)
+    p_specs = specs.param_shardings(cfg, mesh, LogicalRules())
+    blocks = [math.prod(sizes[a] for a in spec_axes(s))
+              for p, s in tree_lib.leaves_with_path(p_specs) if pred(p, None)]
+    block_mode = [n for n in blocks if n > 1]
+    per_event = sum(blocks)
+    taps = 2 * cfg.n_layers * math.prod(sizes.values()) * cfg.train_accum
+    return 3 * per_event + taps, 3 * sum(block_mode) + taps
+
+
+def train_llama_tp():
+    """llama3.2-3b at full width and depth (28 layers), ``launch.train.main``
+    with ``--batch 4 --seq 512``, SGD, K1b, 3 steps: unsharded, then on a
+    stacked (1, 4) mesh and a stacked (2, 4) mesh (``main(..., mesh=...)``:
+    the placed step, FSDP over data, tensor parallelism over model).
+    Formats of every domain equal to the unsharded run's at every step,
+    the first loss (before any update) within ``TP_LOSS_RTOL``, every
+    step's gap reported; K1b launches a step as ``_tp_launches_per_step``
+    counts them; ms a step, peak, bytes each rank holds.  Then the same
+    three runs with fp32 compute: formats equal, the first loss within
+    ``TP_LOSS_RTOL_F32``, and the parameters after the first update equal
+    to the unsharded run's but for a share ``TP_FLIP_SHARE`` at most, each
+    at most ``TP_FLIP_STEPS`` weight-grid steps away: a last-bit
+    difference of a sum tips a tap's rounding of an activation or a
+    cotangent onto the neighbouring grid point, and the tipped element
+    feeds the next layer, so the parts grow with depth — the later losses
+    part by them in fp32 as in bf16."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.dist.sharding import gather_to_host
+    from repro_torch.launch import train as train_cli
+    cfg = get_config("llama3_2_3b")
+    argv = ["--arch", "llama3_2_3b", "--steps", str(TP_STEPS), "--batch",
+            str(TP_BATCH), "--seq", "512", "--optimizer", "sgd",
+            "--log-every", "1"]
+    fmt_keys = ("il_w", "fl_w", "il_a", "fl_a", "il_g", "fl_g")
+
+    def run(cfg_, shape, on_step=None):
+        _reset_quant_counts()
+        dps_quant.quantize_block_launch_count = 0
+        t0 = time.perf_counter()
+        out = train_cli.main(argv, on_step=on_step, cfg=cfg_,
+                             mesh=None if shape is None else _stacked(shape))
+        hist = out["history"]
+        r = dict(
+            losses=[h["loss"] for h in hist],
+            formats=[{k: h[k] for k in fmt_keys} for h in hist],
+            E_a=[h["E_a"] for h in hist],
+            ms=out["ms_per_step_after_first"],
+            first_step_s=out["first_step_s"],
+            peak=out["peak_memory_bytes"],
+            held=out["held_bytes_per_rank"],
+            launches=_quant_counts(),
+            block_launches=dps_quant.quantize_block_launch_count,
+            per_step=out["quantizer_launches_per_step"],
+            seconds=time.perf_counter() - t0)
+        del out, hist
+        gc.collect()
+        torch.cuda.empty_cache()
+        return r
+
+    faults = []
+
+    def against(runs, limits, what):
+        """Each placed run's formats equal to the unsharded run's every
+        step and its first loss (before any update) within its mesh's
+        limit; every step's relative gap reported."""
+        ref = runs["unsharded"]
+        gaps = {}
+        for tag, r in runs.items():
+            if tag == "unsharded":
+                continue
+            if r["formats"] != ref["formats"]:
+                faults.append(f"{what} {tag}: formats {r['formats']} vs "
+                              f"unsharded {ref['formats']}")
+            gaps[tag] = [abs(a - b) / abs(b)
+                         for a, b in zip(r["losses"], ref["losses"])]
+            if not all(math.isfinite(v) for v in r["losses"]) or \
+                    not gaps[tag][0] <= limits[tag]:
+                faults.append(f"{what} {tag}: losses {r['losses']} vs "
+                              f"{ref['losses']}")
+        return gaps
+
+    tag_of = lambda shape: ("unsharded" if shape is None
+                            else f"{shape[0]}x{shape[1]}")
+    runs = {}
+    for shape in (None,) + TP_MESHES:
+        tag = tag_of(shape)
+        runs[tag] = r = run(cfg, shape)
+        if shape is not None:
+            want, want_block = _tp_launches_per_step(cfg, _stacked(shape))
+            if (r["per_step"] != [want] * TP_STEPS
+                    or r["block_launches"] != want_block * TP_STEPS):
+                raise AssertionError(
+                    f"train_llama_tp {tag}: K1b {r['per_step']} a step, "
+                    f"{r['block_launches']} in block mode; wanted {want} and "
+                    f"{want_block * TP_STEPS}")
+    gaps = against(runs, TP_LOSS_RTOL, "bf16")
+    # the same runs with fp32 compute, same seed: the first loss agrees to
+    # fp32 summation order (the bf16 gap is bf16 rounding where the placed
+    # program rounds: each rank's partial product of a row-parallel
+    # layer), and the parameters after the first update differ only where
+    # the taps' tipped roundings reached them
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    whole = {}
+
+    def keep(step, state):
+        if step == 0:
+            whole.update((k, t.detach().to("cpu", copy=True)) for k, t in
+                         tree_lib.leaves_with_path(state.params))
+
+    def compare(into):
+        def fn(step, state):
+            if step != 0:
+                return
+            n = differ = 0
+            worst = 0.0
+            for k, leaf in tree_lib.leaves_with_path(state.params):
+                d = (gather_to_host(leaf) - whole[k]).abs()
+                n += d.numel()
+                differ += int(torch.count_nonzero(d))
+                worst = max(worst, float(d.max()))
+            into.update(elements=n, differ=differ, max_abs=worst)
+        return fn
+
+    runs32, flips = {"unsharded": run(f32, None, keep)}, {}
+    for shape in TP_MESHES:
+        flips[tag_of(shape)] = {}
+        runs32[tag_of(shape)] = run(f32, shape, compare(flips[tag_of(shape)]))
+    whole.clear()
+    gaps32 = against(runs32, TP_LOSS_RTOL_F32, "fp32")
+    grid = 2.0 ** -runs32["unsharded"]["formats"][0]["fl_w"]
+    for tag, f in flips.items():
+        f["share"] = f["differ"] / f["elements"]
+        f["max_grid_steps"] = f["max_abs"] / grid
+        if not (f["share"] <= TP_FLIP_SHARE[tag]
+                and f["max_grid_steps"] <= TP_FLIP_STEPS):
+            faults.append(f"fp32 {tag}: parameters after one update: {f}")
+    say("train_llama_tp",
+        command="launch.train.main(" + repr(argv) + ", mesh=make_mesh(shape, "
+        "('data', 'model')))", model=cfg.name, layers=cfg.n_layers,
+        batch=TP_BATCH, seq=512, runs=runs, loss_rel=gaps,
+        first_loss_tolerance=TP_LOSS_RTOL, formats_equal=True,
+        params_fp32_bytes=4 * int(cfg.n_params()),
+        fp32=dict(runs=runs32, loss_rel=gaps32,
+                  first_loss_tolerance=TP_LOSS_RTOL_F32, formats_equal=True,
+                  params_after_first_update=flips,
+                  flip_share_tolerance=TP_FLIP_SHARE,
+                  flip_steps_tolerance=TP_FLIP_STEPS))
+    if faults:
+        raise AssertionError("train_llama_tp: " + "; ".join(faults))
+    return {tag: {"block": r["block_launches"],
+                  "k1b": r["launches"]["dps_quantize_onchip_prng"]}
+            for tag, r in runs.items()}
+
+
+def train_tp_pg():
+    """The process path on the card: a one-rank NCCL process group and its
+    (1, 1) ``DeviceMesh``.  Each block collective of the
+    ``ProcessGroupTransport`` (gather, reduce-scatter, psum, copy, pmax:
+    on NCCL the library's ``reduce_scatter_tensor`` and ``all_reduce``),
+    forward and backward on CUDA tensors, bit-equal to the stacked axis of
+    one rank; then smoke llama3.2-3b's placed step (``make_placed_train_
+    step``) over that mesh, 2 steps on K1b, finite losses."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.configs.base import smoke
+    from repro_torch.core import qtrain
+    from repro_torch.dist.sharding import LogicalRules
+    from repro_torch.dist.transport import (ProcessGroupTransport,
+                                            StackedTransport)
+    from repro_torch.data import TokenStream, TokenStreamConfig
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim import SGDConfig, make_optimizer
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        g = torch.Generator(device=DEV).manual_seed(5)
+        x = torch.randn(64, 96, generator=g, device=DEV)
+        cot = torch.randn(64, 96, generator=g, device=DEV)
+        checked = []
+        for name, op in (("gather", lambda t, a: t.gather_blocks(a, 1)),
+                         ("reduce_scatter",
+                          lambda t, a: t.reduce_scatter_blocks(a, 1)),
+                         ("psum", lambda t, a: t.psum_blocks(a)),
+                         ("psum_identity",
+                          lambda t, a: t.psum_blocks(a, grad="identity")),
+                         ("copy", lambda t, a: t.copy_blocks(a))):
+            res = []
+            for t in (ProcessGroupTransport(), StackedTransport(1, DEV)):
+                a = [x.clone().requires_grad_()]
+                y = op(t, a)
+                (g,) = torch.autograd.grad(y, a, [cot])
+                res.append((y[0].detach(), g))
+            if not (torch.equal(res[0][0], res[1][0])
+                    and torch.equal(res[0][1], res[1][1])):
+                raise AssertionError(f"train_tp_pg: {name} over NCCL differs")
+            checked.append(name)
+        if not torch.equal(ProcessGroupTransport().pmax_blocks([x])[0], x):
+            raise AssertionError("train_tp_pg: pmax over NCCL differs")
+        checked.append("pmax")
+        mesh = make_mesh((1, 1), ("data", "model"), device=DEV)
+        cfg = dataclasses.replace(smoke(get_config("llama3_2_3b")),
+                                  remat="full")
+        mod = registry(cfg.family)
+        params = init_params(mod.model_defs(cfg, cfg.master_dtype()), DEV,
+                             torch.Generator(device=DEV).manual_seed(0))
+        qcfg = qtrain.QuantConfig()
+        opt = make_optimizer(SGDConfig())
+        step = qtrain.make_placed_train_step(tr.placed_loss_fn(cfg), opt,
+                                             qcfg, mesh, LogicalRules())
+        state = qtrain.TrainState.create(params, opt.init(params), qcfg, 1)
+        specs.place_train_state(cfg, state, mesh)
+        data = TokenStream(TokenStreamConfig(vocab=cfg.vocab, seq_len=16,
+                                             global_batch=8, seed=0), DEV)
+        _reset_quant_counts()
+        losses = []
+        for i in range(2):
+            state, m = step(state, data.batch(i))
+            losses.append(float(m["loss"]))
+        launches = _quant_counts()
+        if not all(math.isfinite(v) for v in losses) or \
+                not launches["dps_quantize_onchip_prng"]:
+            raise AssertionError(f"train_tp_pg: losses {losses}, launches "
+                                 f"{launches}")
+        say("train_tp_pg", backend=dist.get_backend(), world=1,
+            collectives_bit_equal_to_stacked=checked,
+            mesh=type(mesh).__name__, losses=losses, launches=launches)
+    finally:
+        dist.destroy_process_group()
+
+
 def main():
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -4073,6 +4569,14 @@ def main():
     if dots["launches"] != llama["launches"]:
         raise AssertionError(f"remat='dots' launched {dots['launches']}, full "
                              f"remat {llama['launches']}")
+    # the sharded train step: K1b in block mode, one llama layer placed,
+    # llama3.2-3b trained placed on stacked (1, 4) and (2, 4) meshes, the
+    # process path over a one-rank NCCL group
+    rows.append(k1b_block_row())
+    tp_check()
+    tp_runs = train_llama_tp()
+    other["train_llama_tp"] = {"dps_quantize_block": tp_runs["1x4"]["block"]}
+    train_tp_pg()
     wire_collectives()
     # run A of the checkpoint phase is the counted wire run
     ckpt_root, free = ckpt_space(cfg)
@@ -4166,6 +4670,10 @@ def main():
             r["launches_train_dots"] = dots["launches"][r["name"]]
             r["launches_paper_fig4"] = fig4_k1b
             r["launches_train_qwen_ep"] = ep_k1b[r["name"]]
+            for tag in ("1x4", "2x4"):
+                r[f"launches_train_llama_tp_{tag}"] = tp_runs[tag]["k1b"]
+        if r["name"] == "dps_quantize_onchip_prng_block":
+            r["launches_train_llama_tp_2x4"] = tp_runs["2x4"]["block"]
         for run, counts in zero_launches.items():
             if ("run" not in r and counts.get(r["name"])
                     and (run, r["name"]) not in at_bucket):

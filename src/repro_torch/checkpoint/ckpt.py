@@ -69,7 +69,13 @@ from repro_torch.core.dps import DpsBundle
 
 def _to_np(x) -> np.ndarray:
     """A host copy of one leaf: tensors copied off the device (or cloned on
-    the CPU, whose tensors the next step would overwrite), bf16 widened."""
+    the CPU, whose tensors the next step would overwrite), bf16 widened; a
+    placed leaf's whole tensor, built on the host block by block (a
+    collective on a process mesh, so every process flattens), so a placed
+    state restores onto any mesh or none."""
+    from repro_torch.dist.sharding import Placed, gather_to_host
+    if isinstance(x, Placed):
+        x = gather_to_host(x)
     if isinstance(x, torch.Tensor):
         x = x.detach()
         if x.dtype == torch.bfloat16:

@@ -17,6 +17,7 @@ float32 iff ``IL - 1 + FL <= 24``; controllers clamp widths to honour this.
 from __future__ import annotations
 
 import dataclasses
+import math
 import zlib
 from typing import Optional
 
@@ -380,6 +381,73 @@ def quantize_tree_leaf(i: int, path, leaf, fmt: FixedPointFormat, *,
         return leaf, None
     return _quantize_leaf(ops, leaf, fmt, mode, fold_seed(seed, i),
                           onchip_prng, backend, leaf if inplace else None)
+
+
+def merge_split_stats(vecs, spec, mesh):
+    """Statistics vectors ``[7]`` (one per held rank, of its block of a
+    tensor laid out by ``spec``) merged over the axes the tensor is split
+    on: counts and float sums summed in rank order, ``max_abs`` maxed.
+    Every held rank gets the whole tensor's statistics; the axes it is
+    replicated on are not summed over (each rank's block there is the
+    same).  Outside autograd."""
+    from repro_torch.dist import sharding          # dist imports core
+    axes = [a for a in sharding.spec_axes(spec)
+            if sharding._axis_sizes(mesh)[a] > 1]
+    if not axes:
+        return list(vecs)
+    with torch.no_grad():
+        sums = sharding.psum(mesh, axes, [v[:6] for v in vecs])
+        maxes = sharding.pmax(mesh, axes, [v[6:] for v in vecs])
+    return [torch.cat([a, b]) for a, b in zip(sums, maxes)]
+
+
+def quantize_placed(i: int, path, leaf, fmt: FixedPointFormat, *,
+                    mode: str = ROUND_STOCHASTIC, seed: int = 0,
+                    predicate=None, onchip_prng: bool = False,
+                    backend: str = "auto", inplace: bool = False):
+    """:func:`quantize_tree_leaf` on a placed leaf
+    (:class:`~repro_torch.dist.sharding.Placed`): each distinct block held
+    rounds with the bits the whole leaf's event gives its elements (K1b in
+    block mode, or the slice of the whole operand; a layer-stacked leaf
+    that the replicated step draws layer by layer is drawn the same way),
+    and the statistics are merged over the leaf's split axes.  Returns
+    ``(placed q, QuantStats)`` or ``(leaf, None)``."""
+    from repro_torch.dist.sharding import Placed
+    from repro_torch.kernels import ops, ref as ref_lib
+    if predicate is not None and not predicate(path, leaf):
+        return leaf, None
+    seed = fold_seed(seed, i)
+    by_layer = (mode == ROUND_STOCHASTIC and not onchip_prng
+                and leaf.ndim >= 3 and leaf.shape[0] > 4
+                and math.prod(leaf.shape) > (1 << 22))
+    qs, vecs = {}, {}
+    for r, blk in leaf.distinct():
+        origin, shape = leaf.geometry(r)
+        out = blk if inplace else torch.empty_like(blk)
+        if by_layer:
+            parts = []
+            for layer in range(shape[0]):
+                bits = ops.block_event_bits(
+                    leaf.shape[1:], origin[1:], shape[1:], mode,
+                    fold_seed(seed, origin[0] + layer), False, blk.device)
+                parts.append(ops.dps_quantize(blk[layer], fmt, bits,
+                                              out=out[layer],
+                                              backend=backend)[1])
+            st = merge_stats(*parts)
+        else:
+            bits = ops.block_event_bits(leaf.shape, origin, shape, mode, seed,
+                                        onchip_prng, blk.device)
+            _, st = ops.dps_quantize(blk, fmt, bits, out=out,
+                                     backend=backend)
+        qs[id(blk)] = out
+        vecs[id(blk)] = torch.stack([st.count, st.nonzero, st.overflow,
+                                     st.abs_err_sum, st.rel_err_sum,
+                                     st.abs_sum, st.max_abs])
+    merged = merge_split_stats([vecs[id(b)] for b in leaf.blocks], leaf.spec,
+                               leaf.mesh)
+    q = Placed([qs[id(b)] for b in leaf.blocks], leaf.spec, leaf.mesh,
+               leaf.shape)
+    return q, ref_lib.stats_from_vector(merged[0])
 
 
 def merge_tree_stats(stats, fmt: FixedPointFormat) -> QuantStats:

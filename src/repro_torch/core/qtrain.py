@@ -47,6 +47,8 @@ from repro_torch.core import tree as tree_lib
 from repro_torch.core.dps import DpsBundle, DomainSpec, PrecisionPlan
 from repro_torch.core.fixed_point import FixedPointFormat, QuantStats, fold_seed
 from repro_torch.core.policy import QuantPolicy
+from repro_torch.dist import sharding
+from repro_torch.dist.sharding import is_placed
 from repro_torch.kernels import ops, ref as ref_lib
 
 # the wire path's stream salt ("WIRE"), as the reference folds its key
@@ -217,24 +219,70 @@ class QCtx:
     backend: str = "auto"
 
     def quantize(self, x: torch.Tensor, fmt: FixedPointFormat, seed: int,
-                 compute_stats: bool = True):
+                 compute_stats: bool = True, where=None):
         """One quantization event under this context's rounding and bit
-        source: ``(q, QuantStats | None)``."""
-        return ops.dps_quantize(
-            x, fmt, ops.event_bits(x, self.rounding, seed, self.onchip_prng),
-            compute_stats=compute_stats, backend=self.backend)
+        source: ``(q, QuantStats | None)``.  ``where``: ``(shape, origin)``
+        when ``x`` is the block at ``origin`` of a placed tensor of
+        ``shape`` (the block rounds with the whole tensor's bits)."""
+        bits = (ops.event_bits(x, self.rounding, seed, self.onchip_prng)
+                if where is None else
+                ops.block_event_bits(where[0], where[1], tuple(x.shape),
+                                     self.rounding, seed, self.onchip_prng,
+                                     x.device))
+        return ops.dps_quantize(x, fmt, bits, compute_stats=compute_stats,
+                                backend=self.backend)
 
-    def tap(self, x: torch.Tensor, salt):
+    def tap(self, x, salt):
         """Quantize activation ``x``; returns ``(q, QuantStats | None)``.
 
         ``salt`` (an int or a string) decorrelates rounding noise across
-        call sites; a layer stack passes the layer index.
+        call sites; a layer stack passes the layer index.  A placed ``x``
+        is tapped block by block (:meth:`_tap_placed`).
         """
         kf = fold_seed(self.seed, salt)
         kb = fold_seed(kf, 0x9E3779B9)
-        q, vec = _QTap.apply(x, self, kf, kb)
+        if is_placed(x):
+            return self._tap_placed(x, kf, kb)
+        q, vec = _QTap.apply(x, self, kf, kb, None)
         return q, (ref_lib.stats_from_vector(vec) if self.collect_stats
                    else None)
+
+    def _tap_placed(self, x, kf: int, kb: int):
+        """Each held rank's block through :class:`_QTap` with the whole
+        tensor's bits, the statistics merged over the split axes.  Over an
+        axis ``x`` is replicated on, a rank's gradient is its share of the
+        whole one: the cotangent is summed over the axis before it is
+        quantized (so the gradient grid sees what the unplaced tap sees)
+        and handed back in equal shares."""
+        rep = x.replicated_axes()
+        n_rep = math.prod(sharding._axis_sizes(x.mesh)[a] for a in rep)
+        qs, vecs = [], []
+        for i, b in enumerate(x.blocks):
+            if rep:
+                b = _GradScale.apply(b, 1.0 / n_rep)
+            origin, _ = x.geometry(i)
+            q, vec = _QTap.apply(b, self, kf, kb, (x.shape, origin))
+            qs.append(q)
+            vecs.append(vec)
+        qs = sharding.psum_backward(x.mesh, rep, qs)
+        out = sharding.Placed(qs, x.spec, x.mesh, x.shape)
+        if not self.collect_stats:
+            return out, None
+        merged = fxp.merge_split_stats(vecs, x.spec, x.mesh)
+        return out, ref_lib.stats_from_vector(merged[0])
+
+
+class _GradScale(torch.autograd.Function):
+    """Identity forward; the gradient times ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, scale: float):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
 
 
 class _QTap(torch.autograd.Function):
@@ -242,23 +290,24 @@ class _QTap(torch.autograd.Function):
     the cotangent onto the gradient grid, without.  The statistics come out
     as a non-differentiable ``[7]`` tensor, so a checkpointed block returns
     them instead of recording them on the side (a recompute would record
-    them twice)."""
+    them twice).  ``where``: see :meth:`QCtx.quantize`."""
 
     @staticmethod
-    def forward(ctx, x, qctx: QCtx, seed_f: int, seed_b: int):
-        q, s = qctx.quantize(x, qctx.acts_fmt, seed_f, compute_stats=True)
+    def forward(ctx, x, qctx: QCtx, seed_f: int, seed_b: int, where):
+        q, s = qctx.quantize(x, qctx.acts_fmt, seed_f, compute_stats=True,
+                             where=where)
         vec = torch.stack([s.count, s.nonzero, s.overflow, s.abs_err_sum,
                            s.rel_err_sum, s.abs_sum, s.max_abs])
-        ctx.qctx, ctx.seed_b = qctx, seed_b
+        ctx.qctx, ctx.seed_b, ctx.where = qctx, seed_b, where
         ctx.mark_non_differentiable(vec)
         return q, vec
 
     @staticmethod
     def backward(ctx, gq, _gvec):
         qctx = ctx.qctx
-        g, _ = qctx.quantize(gq, qctx.grads_fmt, ctx.seed_b,
-                             compute_stats=False)
-        return g, None, None, None
+        g, _ = qctx.quantize(gq.contiguous(), qctx.grads_fmt, ctx.seed_b,
+                             compute_stats=False, where=ctx.where)
+        return g, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -409,6 +458,34 @@ def zero_opt_state(optimizer, params, transport,
     device = tree_lib.leaves(params)[0].device
     return optimizer.init_shard((len(transport.ranks), part.shard_size),
                                 device)
+
+
+def _domain_metrics(plan: PrecisionPlan, fmts, streams, loss, aux) -> dict:
+    """The step's telemetry: the loss (and a MoE model's ``aux_loss``),
+    ⟨IL, FL⟩ and E/R per domain (a per-group domain by its mean, and its
+    formats' min and max)."""
+    short = {"weights": "w", "acts": "a", "grads": "g"}
+    metrics = {"loss": loss}
+    if "aux_loss" in aux:          # MoE load-balance loss (in ``loss``)
+        metrics["aux_loss"] = aux["aux_loss"]
+    for name, spec in plan.domains:
+        fmt, tag = fmts[name], short.get(name, name)
+        if spec.groups:
+            metrics[f"il_{tag}"] = fmt.il.to(torch.float32).mean()
+            metrics[f"fl_{tag}"] = fmt.fl.to(torch.float32).mean()
+            for f in ("il", "fl"):
+                v = getattr(fmt, f)
+                metrics[f"{f}_{tag}_min"] = v.min()
+                metrics[f"{f}_{tag}_max"] = v.max()
+        else:
+            metrics[f"il_{tag}"] = fmt.il
+            metrics[f"fl_{tag}"] = fmt.fl
+        st = streams.get(spec.stream(name))
+        if st is not None:
+            scalar = (lambda v: v.mean()) if spec.groups else (lambda v: v)
+            metrics[f"E_{tag}"] = scalar(st.quant_error())
+            metrics[f"R_{tag}"] = scalar(st.overflow_rate())
+    return metrics
 
 
 def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
@@ -1056,27 +1133,7 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
 
         # -- telemetry: ⟨IL, FL⟩ + E/R per domain (a per-group domain is
         # reported by its mean, and its formats' min and max) --
-        short = {"weights": "w", "acts": "a", "grads": "g"}
-        metrics = {"loss": loss}
-        if "aux_loss" in aux:          # MoE load-balance loss (in ``loss``)
-            metrics["aux_loss"] = aux["aux_loss"]
-        for name, spec in plan.domains:
-            fmt, tag = fmts[name], short.get(name, name)
-            if spec.groups:
-                metrics[f"il_{tag}"] = fmt.il.to(torch.float32).mean()
-                metrics[f"fl_{tag}"] = fmt.fl.to(torch.float32).mean()
-                for f in ("il", "fl"):
-                    v = getattr(fmt, f)
-                    metrics[f"{f}_{tag}_min"] = v.min()
-                    metrics[f"{f}_{tag}_max"] = v.max()
-            else:
-                metrics[f"il_{tag}"] = fmt.il
-                metrics[f"fl_{tag}"] = fmt.fl
-            st = streams.get(spec.stream(name))
-            if st is not None:
-                scalar = (lambda v: v.mean()) if spec.groups else (lambda v: v)
-                metrics[f"E_{tag}"] = scalar(st.quant_error())
-                metrics[f"R_{tag}"] = scalar(st.overflow_rate())
+        metrics = _domain_metrics(plan, fmts, streams, loss, aux)
         if wire_stats is not None:
             ws = wire_stats
             if ws.count.ndim:          # [G] per-layer stats -> global view
@@ -1103,4 +1160,207 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
     train_step.qcfg, train_step.transport = qcfg, transport
     train_step.wire_buckets = 0          # set by the first wire step
     train_step.n_data = n_data
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# The placed step: the replicated step's body on each rank's blocks.
+# ---------------------------------------------------------------------------
+
+def _quantize_placed_tree(tree, fmt, qcfg: QuantConfig, seed: int,
+                          inplace: bool = False):
+    """:func:`quantize_params`/:func:`quantize_grads` on a tree of placed
+    leaves: each leaf's blocks with the whole leaf's bits, its statistics
+    merged over its split axes, the leaves' merged in leaf order."""
+    out, stats = [], []
+    for i, (path, leaf) in enumerate(tree_lib.leaves_with_path(tree)):
+        q, st = fxp.quantize_placed(
+            i, path, leaf, fmt, mode=qcfg.rounding, seed=seed,
+            predicate=qcfg.policy.param_predicate(),
+            onchip_prng=qcfg.onchip_prng, backend=qcfg.backend,
+            inplace=inplace)
+        out.append(q)
+        if st is not None:
+            stats.append(st)
+    return tree_lib.from_leaves(tree, out), fxp.merge_tree_stats(stats, fmt)
+
+
+def _rank_leaves(leaf):
+    """A placed leaf with one fresh autograd leaf a held rank (replicated
+    ranks of a stacked mesh too: each rank's gradient is its own share,
+    summed over the axes by :func:`_reduce_replicated`)."""
+    return sharding.Placed([b.detach().requires_grad_() for b in leaf.blocks],
+                           leaf.spec, leaf.mesh, leaf.shape)
+
+
+def _reduce_replicated(leaf, grads):
+    """Each rank's gradient of ``leaf`` summed over the axes the leaf is
+    replicated on (an FSDP leaf's data-axis sum came with its all-gather's
+    transpose): every holder of a block gets the block's whole gradient,
+    the holders of one shared block (a stacked mesh's) one shared
+    tensor."""
+    with torch.no_grad():
+        grads = sharding.psum(leaf.mesh, leaf.replicated_axes(), grads)
+    first = {}
+    for i, b in enumerate(leaf.blocks):
+        first.setdefault(id(b), i)
+    return sharding.Placed([grads[first[id(b)]] for b in leaf.blocks],
+                           leaf.spec, leaf.mesh, leaf.shape)
+
+
+def place_batch(batch, mesh, rules):
+    """A global batch (whole tensors on every process) placed by the
+    rules' ``batch`` axis on its leading dim."""
+    return {k: sharding.place_tensor(
+        v, rules.spec(("batch",) + (None,) * (v.ndim - 1), v.shape, mesh),
+        mesh) for k, v in batch.items()}
+
+
+def make_placed_train_step(loss_fn, optimizer, qcfg: QuantConfig, mesh,
+                           rules, accum_steps: int = 1):
+    """The sharded train step: the replicated step's body (Alg. 1 and 2 as
+    :func:`make_train_step` runs them) on a state placed over ``mesh``
+    (:func:`repro_torch.launch.specs.place_train_state`), each rank on its
+    blocks, under ``axis_rules(mesh, rules)``.
+
+    ``loss_fn(params, batch, qctx) -> (loss, aux)`` is a family's placed
+    loss (``models.transformer.placed_loss_fn``): params and batch are
+    trees of :class:`~repro_torch.dist.sharding.Placed`, ``loss`` a placed
+    scalar (every rank the global mean), ``aux`` as the replicated step's.
+    The step:
+
+    * snaps each held block of every leaf onto the weight grid with the
+      bits the whole leaf's event gives it (K1b in block mode), the
+      statistics merged over the leaf's split axes;
+    * runs every held rank's forward and backward — the collectives the
+      placement implies inside — as one program whose objective is the
+      mean of the ranks' losses (each rank's gradient is its share);
+    * sums each leaf's gradient over the axes it is replicated on (an FSDP
+      leaf's sum over data is its all-gather's reduce-scatter);
+    * snaps the gradient blocks, steps the optimizer on each distinct block
+      (its state placed like the parameter), re-snaps, and feeds the
+      merged statistics to the controllers, which every rank runs alike.
+
+    ``accum_steps``: the global batch splits into microbatches of global
+    rows, each placed over the data axis, as the reference slices it.
+    The int8 wire and ZeRO-1 run on a pure data mesh only (the reference
+    drops ``fsdp`` there): a ``qcfg`` with either raises, as do the
+    guards (left to a later step)."""
+    if qcfg.grad_allreduce_bits is not None or qcfg.zero_opt_shards:
+        raise ValueError(
+            "the int8 gradient wire (grad_allreduce_bits) and ZeRO-1 "
+            "(zero_opt_shards) run on a pure data-parallel mesh, with the "
+            "parameters replicated; a mesh with a model axis above 1 (or "
+            "FSDP over data) places them and takes neither")
+    if qcfg.guards is not None:
+        raise NotImplementedError("the health guards do not run on the "
+                                  "placed step yet")
+    plan = qcfg.plan()
+    rounding = getattr(plan.controller("weights"), "rounding", qcfg.rounding)
+    n_ranks = math.prod(sharding._axis_sizes(mesh).values())
+
+    def _qctx(fmts, seed_a, mb):
+        if not (qcfg.enabled and qcfg.policy.quantizes("acts")):
+            return None
+        return QCtx(acts_fmt=fmts["acts"], grads_fmt=fmts["grads"],
+                    seed=fold_seed(seed_a, mb), rounding=rounding,
+                    collect_stats=True, onchip_prng=qcfg.onchip_prng,
+                    backend=qcfg.backend)
+
+    def _grads(qparams, batch, fmts, seed_a, mb):
+        leaves = [_rank_leaves(l) for l in tree_lib.leaves(qparams)]
+        loss, aux = loss_fn(tree_lib.from_leaves(qparams, leaves),
+                            place_batch(batch, mesh, rules),
+                            _qctx(fmts, seed_a, mb))
+        inputs = [b for l in leaves for b in l.blocks]
+        w = torch.full((), 1.0 / n_ranks, dtype=loss.dtype,
+                       device=loss.device)
+        flat = torch.autograd.grad(loss.blocks, inputs,
+                                   grad_outputs=[w] * len(loss.blocks),
+                                   materialize_grads=True)
+        grads, at = [], 0
+        for l in tree_lib.leaves(qparams):
+            n = len(l.blocks)
+            grads.append(_reduce_replicated(l, list(flat[at:at + n])))
+            at += n
+        return (loss.blocks[0].detach(), aux,
+                tree_lib.from_leaves(qparams, grads))
+
+    def _accum_grads(qparams, batch, fmts, seed_a):
+        if accum_steps == 1:
+            return _grads(qparams, batch, fmts, seed_a, 0)
+        n = next(iter(batch.values())).shape[0]
+        if n % accum_steps:
+            raise ValueError(f"batch {n} does not split into {accum_steps} "
+                             "microbatches")
+        m = n // accum_steps
+        loss_acc, g_acc, stats, moe_aux = None, None, None, None
+        for i in range(accum_steps):
+            micro = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
+            loss, aux, g = _grads(qparams, micro, fmts, seed_a, i)
+            g = tree_lib.map_tree(lambda x: x.map(
+                lambda b: b.to(torch.float32)), g)
+            g_acc = g if g_acc is None else tree_lib.map_tree(
+                lambda a, b: a.map(torch.add, b), g_acc, g)
+            loss_acc = loss if loss_acc is None else loss_acc + loss
+            s = aux.get("act_stats")
+            if s is not None:
+                stats = s if stats is None else stats.merge(s)
+            a = aux.get("aux_loss")
+            if a is not None:
+                moe_aux = a if moe_aux is None else moe_aux + a
+        grads = tree_lib.map_tree(
+            lambda x, p: x.map(lambda b: (b / accum_steps).to(p.dtype)),
+            g_acc, qparams)
+        aux = {} if stats is None else {"act_stats": stats}
+        if moe_aux is not None:
+            aux["aux_loss"] = moe_aux / accum_steps
+        return loss_acc / accum_steps, aux, grads
+
+    def train_step(state: TrainState, batch):
+        dev = state.last_loss.device
+        seed_w, seed_g, seed_a = (fold_seed(state.seed, state.step, k)
+                                  for k in range(3))
+        fmts = bundle_formats(qcfg, state.dps)
+        with sharding.axis_rules(mesh, rules):
+            if qcfg.enabled and qcfg.policy.quantizes("weights"):
+                qparams, w_stats = _quantize_placed_tree(
+                    state.params, fmts["weights"], qcfg, seed_w)
+            else:
+                qparams, w_stats = state.params, QuantStats.zero(device=dev)
+            loss, aux, grads = _accum_grads(qparams, batch, fmts, seed_a)
+            del qparams
+            if measure_grads:
+                grads, g_stats = _quantize_placed_tree(
+                    grads, fmts["grads"], qcfg, seed_g, inplace=True)
+            else:
+                g_stats = QuantStats.zero(device=dev)
+            optimizer.update_placed(grads, state.opt_state, state.params,
+                                    count=state.step)
+            del grads
+            a_stats = aux.get("act_stats", QuantStats.zero(device=dev))
+            if qcfg.enabled and qcfg.policy.quantizes("weights"):
+                _, w_stats2 = _quantize_placed_tree(
+                    state.params, fmts["weights"], qcfg,
+                    fold_seed(seed_w, 1), inplace=True)
+                w_stats = w_stats.merge(w_stats2)
+        streams = {"weights": w_stats, "acts": a_stats, "grads": g_stats}
+        state.dps = update_dps_bundle(qcfg, state.dps, streams,
+                                      {"loss": loss})
+        metrics = _domain_metrics(plan, fmts, streams, loss, aux)
+        state.step += 1
+        state.last_loss = loss.to(torch.float32)
+        return state, metrics
+
+    measure_grads = qcfg.enabled and qcfg.policy.quantizes("grads")
+    train_step.placed = True
+    train_step.mesh = mesh
+    train_step.wire_sync_active = False
+    train_step.zero_opt_active = False
+    train_step.wire_overlap_active = False
+    train_step.zero_groupaligned_active = False
+    train_step.guards_active = False
+    train_step.wire_buckets = 0
+    train_step.qcfg, train_step.transport = qcfg, None
+    train_step.n_data = sharding._axis_sizes(mesh).get("data", 1)
     return train_step

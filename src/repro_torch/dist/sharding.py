@@ -22,12 +22,22 @@ Three kinds of mesh are read (:func:`_axis_sizes`): the reference's duck
 type (``axis_names``, ``devices.shape``), the port's :class:`StackedMesh`
 (every rank in this process on one device, each axis a
 :class:`~repro_torch.dist.transport.StackedTransport`) and a
-``torch.distributed`` ``DeviceMesh`` of processes.  Under GSPMD a sharding
-constraint changes where values live, not what they are, so
-:func:`logical_constraint` returns its tensor as it is.  The one place
-where a bound mesh changes numbers is the MoE layer's expert-parallel
-dispatch (``repro_torch.models.moe``), which cuts each rank's block with
-:func:`local_block` and stitches the results with :func:`stitch_blocks`.
+``torch.distributed`` ``DeviceMesh`` of processes.
+
+**Placed tensors** (:class:`Placed`): where the reference's GSPMD decides
+where values live, the port's placed step says it: a ``Placed`` holds the
+blocks of the ranks this process holds, with the tensor's spec, and
+:func:`place` / :func:`gather_placed` cut a tree into blocks and stitch it
+back.  :func:`logical_constraint` on a ``Placed`` is a real re-layout
+(:func:`relayout`: pending sums reduce-scattered or summed, dimensions
+gathered and sliced over the named axes); on a whole tensor it is, as
+under GSPMD, the identity.  The collectives (:func:`all_gather`,
+:func:`reduce_scatter`, :func:`psum`, :func:`psum_backward`, :func:`pmax`)
+run over one axis's groups through its transport, each with its exact
+transpose, so one program serves a :class:`StackedMesh` and a
+``DeviceMesh`` alike.  The MoE layer's expert-parallel dispatch on whole
+activations cuts each rank's block with :func:`local_block` and stitches
+the results with :func:`stitch_blocks`.
 
 **ZeRO-1 flat layouts** (``ZeroPartitioner``, ``GroupAlignedPartitioner``).
 A partitioner lays a tree out as one fp32 vector of ``padded_size``
@@ -296,6 +306,366 @@ def stitch_blocks(blocks: Sequence[torch.Tensor], spec, mesh,
             done.add(key)
             out[idx] = blk
     return out
+
+
+# ---------------------------------------------------------------------------
+# Placed tensors: a tensor held rank by rank.
+# ---------------------------------------------------------------------------
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry, major first."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_axes(spec) -> Tuple[str, ...]:
+    """Every mesh axis a spec splits a dimension over."""
+    return tuple(a for e in spec for a in _entry_axes(e))
+
+
+def block_shape(shape, spec, mesh) -> Tuple[int, ...]:
+    """The shape of each rank's block of a tensor of ``shape`` under
+    ``spec`` (every dimension divides: the rules' fallback sees to it)."""
+    sizes = _axis_sizes(mesh)
+    out = []
+    for d, e in zip(shape, spec):
+        n = math.prod(sizes[a] for a in _entry_axes(e))
+        if d % n:
+            raise ValueError(f"dimension {d} does not split {n} ways "
+                             f"(spec {tuple(spec)})")
+        out.append(d // n)
+    return tuple(out)
+
+
+def block_origin(shape, spec, mesh, coord) -> Tuple[int, ...]:
+    """The index in the whole tensor of the first element of the block
+    the rank at mesh coordinate ``coord`` holds."""
+    sizes = _axis_sizes(mesh)
+    return tuple(s.start or 0 for s in _block_index(
+        spec, sizes, dict(zip(sizes, coord)), shape))
+
+
+def axis_index(mesh, coord, axes) -> int:
+    """The rank's index along the joint axes ``axes`` (first major)."""
+    sizes = _axis_sizes(mesh)
+    at = dict(zip(sizes, coord))
+    i = 0
+    for a in axes:
+        i = i * sizes[a] + at[a]
+    return i
+
+
+def axis_groups(mesh, axis: str) -> List[List[int]]:
+    """The held ranks (indices into :func:`held_coords`) grouped by their
+    coordinates on every axis but ``axis``, each group in ``axis`` order:
+    the groups a collective over ``axis`` runs in."""
+    if _is_device_mesh(mesh):
+        return [[0]]
+    at = list(_axis_sizes(mesh)).index(axis)
+    coords = held_coords(mesh)
+    groups = {}
+    for i, c in enumerate(coords):
+        groups.setdefault(c[:at] + c[at + 1:], []).append(i)
+    return [sorted(g, key=lambda i: coords[i][at]) for g in groups.values()]
+
+
+def _over_axis(mesh, axis: str, blocks, op):
+    """``op(transport, group blocks) -> group blocks`` in every group of
+    ``axis``; a stacked axis of one rank is the identity (a process
+    group's runs its collective, of one rank)."""
+    if _axis_sizes(mesh)[axis] == 1 and not _is_device_mesh(mesh):
+        return list(blocks)
+    t = axis_transport(mesh, axis)
+    out = [None] * len(blocks)
+    for g in axis_groups(mesh, axis):
+        for i, y in zip(g, op(t, [blocks[i] for i in g])):
+            out[i] = y
+    return out
+
+
+def all_gather(mesh, axis: str, blocks, dim: int):
+    """Blocks concatenated along ``dim`` over ``axis`` (backward:
+    reduce-scatter)."""
+    return _over_axis(mesh, axis, blocks,
+                      lambda t, xs: t.gather_blocks(xs, dim))
+
+
+def reduce_scatter(mesh, axis: str, blocks, dim: int):
+    """The sum over ``axis``, each rank its chunk along ``dim``
+    (backward: all-gather)."""
+    return _over_axis(mesh, axis, blocks,
+                      lambda t, xs: t.reduce_scatter_blocks(xs, dim))
+
+
+def psum(mesh, axes, blocks, grad: str = "psum"):
+    """The sum over each of ``axes`` in turn, in rank order (backward: the
+    sum again, or with ``grad="identity"`` each rank's own)."""
+    for a in axes:
+        blocks = _over_axis(mesh, a, blocks,
+                            lambda t, xs: t.psum_blocks(xs, grad))
+    return blocks
+
+
+def psum_backward(mesh, axes, blocks):
+    """The identity forward; backward, every rank's gradient summed over
+    each of ``axes`` (Megatron's ``f``)."""
+    for a in axes:
+        blocks = _over_axis(mesh, a, blocks, lambda t, xs: t.copy_blocks(xs))
+    return blocks
+
+
+def pmax(mesh, axes, blocks):
+    """The elementwise max over each of ``axes``, outside autograd."""
+    for a in axes:
+        blocks = _over_axis(mesh, a, blocks, lambda t, xs: t.pmax_blocks(xs))
+    return blocks
+
+
+class Placed:
+    """A tensor of ``shape`` held rank by rank under ``spec`` on ``mesh``:
+    ``blocks[i]`` is the block of the rank at ``held_coords(mesh)[i]``
+    (on a :class:`StackedMesh` every rank's, ranks that hold the same
+    block sharing one tensor; on a ``DeviceMesh`` this process's own).
+    ``partial``: mesh axes over which the blocks are addends still to be
+    summed (a row-parallel product's output) — :func:`relayout` sums them.
+
+    The counterpart of a ``jax.Array`` under a ``NamedSharding``, with the
+    placement explicit: model code under a placed step computes on
+    ``blocks`` rank by rank and moves data between ranks only through
+    :func:`relayout` (:func:`logical_constraint`) and the collectives
+    above."""
+
+    __slots__ = ("blocks", "spec", "mesh", "shape", "partial")
+
+    def __init__(self, blocks, spec, mesh, shape=None, partial=()):
+        self.blocks = list(blocks)
+        self.spec = tuple(spec)
+        self.mesh = mesh
+        self.partial = tuple(partial)
+        if shape is None:
+            sizes = _axis_sizes(mesh)
+            shape = tuple(d * math.prod(sizes[a] for a in _entry_axes(e))
+                          for d, e in zip(self.blocks[0].shape, self.spec))
+        self.shape = tuple(shape)
+        if len(self.spec) != len(self.shape):
+            raise ValueError(f"spec {self.spec} does not match shape "
+                             f"{self.shape}")
+
+    @property
+    def dtype(self):
+        return self.blocks[0].dtype
+
+    @property
+    def device(self):
+        return self.blocks[0].device
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def __repr__(self):
+        return (f"Placed(shape={self.shape}, spec={self.spec}, "
+                f"partial={self.partial}, {len(self.blocks)} blocks)")
+
+    def map(self, fn, *others, spec=None, partial=None) -> "Placed":
+        """``fn(block, *others' blocks)`` rank by rank (an ``other`` that
+        is not Placed is passed to every rank as it is); the result laid
+        out by ``spec`` (this one's by default), its global shape read
+        from the blocks.  Ranks whose inputs are the same tensors (a
+        stacked mesh's shared blocks) share one result."""
+        per = [o.blocks if isinstance(o, Placed) else None for o in others]
+        memo, out = {}, []
+        for i, b in enumerate(self.blocks):
+            args = [p[i] if p is not None else o for p, o in zip(per, others)]
+            key = (id(b),) + tuple(id(a) for a, p in zip(args, per)
+                                   if p is not None)
+            if key not in memo:
+                memo[key] = fn(b, *args)
+            out.append(memo[key])
+        return Placed(out, self.spec if spec is None else spec, self.mesh,
+                      partial=self.partial if partial is None else partial)
+
+    def to(self, *args, **kwargs) -> "Placed":
+        """Every block's ``Tensor.to``."""
+        return self.map(lambda b: b.to(*args, **kwargs))
+
+    def __add__(self, other) -> "Placed":
+        """The elementwise sum rank by rank, a placed ``other`` laid out
+        like this tensor first (so model code adds two placed tensors as
+        it adds two whole ones)."""
+        if self.partial:
+            raise ValueError("a partial sum takes no addend before it is "
+                             "summed")
+        if isinstance(other, Placed) and (other.spec != self.spec
+                                          or other.partial):
+            other = relayout(other, self.spec)
+        return self.map(torch.add, other)
+
+    def distinct(self):
+        """``(index, block)`` of each distinct block tensor, first holder
+        first (a stacked mesh's replicated ranks share one)."""
+        seen, out = set(), []
+        for i, b in enumerate(self.blocks):
+            if id(b) not in seen:
+                seen.add(id(b))
+                out.append((i, b))
+        return out
+
+    def geometry(self, i: int):
+        """``(origin, block shape)`` of held rank ``i``'s block in the
+        whole tensor."""
+        coord = held_coords(self.mesh)[i]
+        return (block_origin(self.shape, self.spec, self.mesh, coord),
+                tuple(self.blocks[i].shape))
+
+    def replicated_axes(self) -> Tuple[str, ...]:
+        """The mesh axes (size > 1) this tensor is NOT split over."""
+        used = set(spec_axes(self.spec))
+        return tuple(a for a, n in _axis_sizes(self.mesh).items()
+                     if n > 1 and a not in used)
+
+
+def is_placed(x) -> bool:
+    return isinstance(x, Placed)
+
+
+def place_tensor(x: torch.Tensor, spec, mesh) -> Placed:
+    """``x`` cut into the blocks the held ranks hold under ``spec``, each
+    a contiguous copy (one copy per distinct block)."""
+    coords = held_coords(mesh)
+    views = local_blocks(x, spec, mesh, coords)
+    memo, blocks = {}, []
+    for v in views:
+        if id(v) not in memo:
+            memo[id(v)] = v.detach().contiguous().clone()
+        blocks.append(memo[id(v)])
+    return Placed(blocks, spec, mesh, tuple(x.shape))
+
+
+def place(tree, specs, mesh):
+    """A tree of tensors placed leaf by leaf under the same tree of
+    ``specs`` (e.g. :func:`repro_torch.launch.specs.param_shardings`):
+    each leaf a :class:`Placed` of the blocks this process holds."""
+    if isinstance(tree, torch.Tensor):
+        return place_tensor(tree, specs, mesh)
+    if hasattr(tree, "items"):
+        return {k: place(v, specs[k], mesh) for k, v in tree.items()}
+    raise TypeError(f"cannot place a {type(tree).__name__}")
+
+
+def _gather_whole(p: Placed):
+    blocks = p.blocks
+    for d, e in enumerate(p.spec):
+        for a in reversed(_entry_axes(e)):
+            blocks = all_gather(p.mesh, a, blocks, d)
+    return blocks
+
+
+def gather_placed(tree):
+    """The whole tensors of a tree of :class:`Placed` leaves (every held
+    rank's gathered copy equal: the first is returned); other leaves as
+    they are.  A collective over the process mesh: every process calls
+    it.  Outside autograd."""
+    with torch.no_grad():
+        if isinstance(tree, Placed):
+            if tree.partial:
+                raise ValueError("a partial sum has no whole value yet")
+            return _gather_whole(tree)[0]
+        if hasattr(tree, "items") and not isinstance(tree, torch.Tensor):
+            return {k: gather_placed(v) for k, v in tree.items()}
+        return tree
+
+
+def gather_to_host(p: Placed) -> torch.Tensor:
+    """The whole tensor of a placed leaf on the host, built block by block:
+    each distinct block is copied off the device into its place, so no
+    device holds more than its own blocks and one block in flight.  On a
+    process mesh a collective (every process calls it, in the same leaf
+    order, and gets the whole tensor): each block is broadcast from the
+    lowest rank that holds it."""
+    if p.partial:
+        raise ValueError("a partial sum has no whole value yet")
+    out = torch.empty(p.shape, dtype=p.dtype)
+    at = lambda origin, shape: tuple(slice(o, o + n)
+                                     for o, n in zip(origin, shape))
+    with torch.no_grad():
+        if not _is_device_mesh(p.mesh):
+            for i, b in p.distinct():
+                out[at(*p.geometry(i))] = b.detach().cpu()
+            return out
+        import torch.distributed as dist
+        shape = block_shape(p.shape, p.spec, p.mesh)
+        ranks = p.mesh.mesh
+        owners = {}
+        for coord in itertools.product(*(range(n) for n in ranks.shape)):
+            owners.setdefault(block_origin(p.shape, p.spec, p.mesh, coord),
+                              int(ranks[coord]))
+        mine = p.blocks[0].detach().contiguous()
+        for origin, src in owners.items():
+            buf = (mine if src == dist.get_rank() else
+                   torch.empty(shape, dtype=p.dtype, device=mine.device))
+            dist.broadcast(buf, src=src)
+            out[at(origin, shape)] = buf.cpu()
+    return out
+
+
+def held_bytes(tree) -> List[int]:
+    """Bytes each held rank holds of a tree of :class:`Placed` leaves (its
+    blocks), in :func:`held_coords` order."""
+    total = None
+    for leaf in tree_lib.leaves(tree):
+        if not isinstance(leaf, Placed):
+            continue
+        sizes = [b.numel() * b.element_size() for b in leaf.blocks]
+        total = sizes if total is None else [t + n for t, n in
+                                             zip(total, sizes)]
+    return total or []
+
+
+def spec_bytes(struct, specs, mesh) -> int:
+    """Bytes of one rank's blocks of a tree of stand-ins (``shape``,
+    ``dtype``) under a tree of specs: what :func:`held_bytes` gives every
+    rank once the tree is placed."""
+    if hasattr(struct, "shape"):
+        n = math.prod(block_shape(struct.shape, specs, mesh))
+        return n * torch.empty((), dtype=struct.dtype).element_size()
+    return sum(spec_bytes(struct[k], specs[k], mesh) for k in struct)
+
+
+def relayout(x: Placed, spec) -> Placed:
+    """``x`` laid out by ``spec``: pending sums summed (a reduce-scatter
+    where ``spec`` splits a dimension over the summed axis that ``x``
+    holds whole, else a psum), then every dimension whose entry changes
+    gathered over its old axes and sliced over its new ones.  The values
+    are unchanged; autograd passes through with each move's transpose."""
+    spec = tuple(spec)
+    if len(spec) != x.ndim:
+        raise ValueError(f"spec {spec} for a tensor of rank {x.ndim}")
+    mesh, blocks, cur = x.mesh, x.blocks, list(x.spec)
+    for a in x.partial:
+        dims = [d for d, e in enumerate(spec)
+                if _entry_axes(e) == (a,) and cur[d] is None]
+        if dims:
+            blocks = reduce_scatter(mesh, a, blocks, dims[0])
+            cur[dims[0]] = a
+        else:
+            blocks = psum(mesh, (a,), blocks)
+    for d, e in enumerate(spec):
+        if cur[d] is not None and _entry_axes(cur[d]) != _entry_axes(e):
+            for a in reversed(_entry_axes(cur[d])):
+                blocks = all_gather(mesh, a, blocks, d)
+            cur[d] = None
+    coords = held_coords(mesh)
+    sizes = _axis_sizes(mesh)
+    for d, e in enumerate(spec):
+        if cur[d] is None and e is not None:
+            axes = _entry_axes(e)
+            n = math.prod(sizes[a] for a in axes)
+            blocks = [b.chunk(n, d)[axis_index(mesh, c, axes)]
+                      for b, c in zip(blocks, coords)]
+            cur[d] = e
+    return Placed(blocks, spec, mesh, x.shape)
 
 
 def _shapes_dtypes(tree):
@@ -609,12 +979,17 @@ def model_axis_size() -> int:
     return int(_axis_sizes(mesh).get("model", 1))
 
 
-def logical_constraint(x: torch.Tensor, *logical: Optional[str]
-                       ) -> torch.Tensor:
-    """The reference's ``with_sharding_constraint`` by logical names: a
-    layout, not a value, so ``x`` itself.  Under a binding the spec is
-    resolved all the same (a logical tuple of the wrong rank raises)."""
+def logical_constraint(x, *logical: Optional[str]):
+    """The reference's ``with_sharding_constraint`` by logical names.  On a
+    :class:`Placed` tensor a real re-layout (:func:`relayout` to the spec
+    the bound rules give on its mesh, the default rules without a
+    binding); on a whole tensor a layout, not a value, so ``x`` itself
+    (under a binding the spec is resolved all the same: a logical tuple of
+    the wrong rank raises)."""
     mesh, rules = current_mesh_rules()
+    if isinstance(x, Placed):
+        rules = rules or LogicalRules()
+        return relayout(x, rules.spec(logical, x.shape, x.mesh))
     if mesh is not None:
         rules.spec(logical, x.shape, mesh)
     return x

@@ -25,6 +25,30 @@ autograd function whose backward is the same all-to-all of the gradient.
 :meth:`ProcessGroupTransport.gather_rows` is the all-gather autograd
 passes through (its backward sums every rank's gradient of a row into the
 row's owner).
+
+**The placed step's collectives** (:mod:`repro_torch.dist.sharding`'s
+``Placed`` tensors): each takes the blocks of the ranks of ONE group of the
+axis that this process holds (every rank of the group on a stacked
+transport, its own on a process group) as a list, and returns a list the
+same way.  Each passes autograd with the exact transpose of what it
+computes, so every rank's backward is its share of the whole program's:
+
+* :meth:`gather_blocks` — all-gather along a dim; backward reduce-scatter;
+* :meth:`reduce_scatter_blocks` — reduce-scatter along a dim; backward
+  all-gather;
+* :meth:`psum_blocks` — the sum over the axis; backward the sum again
+  (``grad="psum"``) or the identity (``grad="identity"``, Megatron's
+  ``g``); :meth:`copy_blocks` is its conjugate (identity forward, the sum
+  backward: Megatron's ``f``); :meth:`pmax_blocks` the max, outside
+  autograd.
+
+On a stacked axis and on a gloo group every sum runs in rank order,
+``((x0 + x1) + x2) + ...`` (the gloo group all-gathers and adds in that
+order, receiving and holding ``n`` times the tensor), so the two give the
+same bits (bf16 blocks add in bf16).  On any other backend (NCCL) the
+reduce-scatter and the sums are the library's ``reduce_scatter_tensor``
+and ``all_reduce``, which hold no ``n``-fold buffer and sum in their own
+order.
 """
 
 from __future__ import annotations
@@ -71,6 +95,86 @@ class _GatherRows(torch.autograd.Function):
         g = g.contiguous().clone()
         dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
         return g[ctx.rank], None, None, None
+
+
+def _ordered_sum(parts):
+    """``((p0 + p1) + p2) + ...`` over the parts that are not None (a rank
+    whose output the loss did not reach), or None when all are."""
+    out = None
+    for t in parts:
+        if t is not None:
+            out = t if out is None else out + t
+    return out
+
+
+def _shared(y, n):
+    """``n`` outputs of one value: ``y`` itself, then views of it (a
+    Function's outputs must be distinct tensors)."""
+    return tuple(y if i == 0 else y.view_as(y) for i in range(n))
+
+
+class _StackedGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim, *xs):
+        ctx.dim, ctx.n = dim, len(xs)
+        return _shared(torch.cat(xs, dim), len(xs))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        tot = _ordered_sum(gs)
+        if tot is None:
+            return (None,) * (ctx.n + 1)
+        return (None,) + tuple(p.contiguous() for p in tot.chunk(ctx.n,
+                                                                 ctx.dim))
+
+
+class _StackedReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim, *xs):
+        ctx.dim, ctx.n = dim, len(xs)
+        return tuple(p.contiguous()
+                     for p in _ordered_sum(xs).chunk(len(xs), dim))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        like = next(g for g in gs if g is not None)
+        full = torch.cat([torch.zeros_like(like) if g is None else g
+                          for g in gs], ctx.dim)
+        return (None,) + _shared(full, ctx.n)
+
+
+class _StackedPsum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, identity, *xs):
+        ctx.identity, ctx.n = identity, len(xs)
+        return _shared(_ordered_sum(xs), len(xs))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        if ctx.identity:
+            return (None,) + gs
+        tot = _ordered_sum(gs)
+        return (None,) + (_shared(tot, ctx.n) if tot is not None
+                          else (None,) * ctx.n)
+
+
+class _StackedCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *xs):
+        ctx.n = len(xs)
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        tot = _ordered_sum(gs)
+        return (_shared(tot, ctx.n) if tot is not None
+                else (None,) * ctx.n)
+
+
+def _check_group(xs, n):
+    if len(xs) != n:
+        raise ValueError(f"a stacked axis of {n} ranks takes {n} blocks, "
+                         f"got {len(xs)}")
 
 
 class StackedTransport:
@@ -122,6 +226,125 @@ class StackedTransport:
 
     def pmax(self, t: torch.Tensor) -> torch.Tensor:
         return t.amax(0)
+
+    # -- the placed step's collectives: one group's blocks, as a list --
+
+    def gather_blocks(self, xs, dim: int):
+        """Every rank's ``xs[r]`` concatenated along ``dim``, one (shared)
+        copy a rank; backward: the rank-order sum of the copies' gradients,
+        each rank its chunk."""
+        _check_group(xs, self.n)
+        return list(_StackedGather.apply(dim, *xs))
+
+    def reduce_scatter_blocks(self, xs, dim: int):
+        """The rank-order sum of ``xs``, rank ``r`` its chunk ``r`` along
+        ``dim``; backward: every rank the gradients gathered along ``dim``."""
+        _check_group(xs, self.n)
+        return list(_StackedReduceScatter.apply(dim, *xs))
+
+    def psum_blocks(self, xs, grad: str = "psum"):
+        """The rank-order sum of ``xs`` on every rank; backward the sum
+        (``"psum"``) or each rank's own gradient (``"identity"``)."""
+        _check_group(xs, self.n)
+        return list(_StackedPsum.apply(grad == "identity", *xs))
+
+    def copy_blocks(self, xs):
+        """Identity forward; backward the rank-order sum of the ranks'
+        gradients on every rank."""
+        _check_group(xs, self.n)
+        return list(_StackedCopy.apply(*xs))
+
+    def pmax_blocks(self, xs):
+        """The elementwise max of ``xs`` on every rank, outside autograd."""
+        _check_group(xs, self.n)
+        with torch.no_grad():
+            return [self.pmax(torch.stack([x.detach() for x in xs]))] * self.n
+
+
+def _pg_stack(t: torch.Tensor, group, n: int) -> torch.Tensor:
+    """Every rank's ``t`` stacked ``[n, ...]`` in rank order."""
+    import torch.distributed as dist
+    out = torch.empty(n * t.numel(), dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(out, t.contiguous().reshape(-1), group=group)
+    return out.view((n,) + tuple(t.shape))
+
+
+def _rank_ordered(group) -> bool:
+    """Does this group sum in rank order (gloo: the CPU tests hold it to
+    the stacked axis bit for bit)?"""
+    import torch.distributed as dist
+    return dist.get_backend(group) == "gloo"
+
+
+def _pg_sum(t: torch.Tensor, group, n: int) -> torch.Tensor:
+    """The sum of every rank's ``t`` (rank order on gloo)."""
+    if _rank_ordered(group):
+        return _ordered_sum(_pg_stack(t, group, n).unbind(0))
+    import torch.distributed as dist
+    s = t.contiguous().clone()
+    dist.all_reduce(s, op=dist.ReduceOp.SUM, group=group)
+    return s
+
+
+def _pg_reduce_scatter(t: torch.Tensor, dim: int, group, rank: int,
+                       n: int) -> torch.Tensor:
+    """Chunk ``rank`` along ``dim`` of the sum of every rank's ``t``."""
+    if _rank_ordered(group):
+        return _pg_sum(t, group, n).chunk(n, dim)[rank].contiguous()
+    import torch.distributed as dist
+    x = t.movedim(dim, 0).contiguous()
+    out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+class _PGGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, rank, n):
+        ctx.dim, ctx.group, ctx.rank, ctx.n = dim, group, rank, n
+        return torch.cat(_pg_stack(x, group, n).unbind(0), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_pg_reduce_scatter(g, ctx.dim, ctx.group, ctx.rank, ctx.n),
+                None, None, None, None)
+
+
+class _PGReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, rank, n):
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        return _pg_reduce_scatter(x, dim, group, rank, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (torch.cat(_pg_stack(g, ctx.group, ctx.n).unbind(0), ctx.dim),
+                None, None, None, None)
+
+
+class _PGPsum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, identity, group, n):
+        ctx.identity, ctx.group, ctx.n = identity, group, n
+        return _pg_sum(x, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.identity:
+            return g, None, None, None
+        return _pg_sum(g, ctx.group, ctx.n), None, None, None
+
+
+class _PGCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _pg_sum(g, ctx.group, ctx.n), None, None
 
 
 class ProcessGroupTransport:
@@ -191,3 +414,31 @@ class ProcessGroupTransport:
         s = t.amax(0).contiguous()
         self._dist.all_reduce(s, op=self._dist.ReduceOp.MAX, group=self.group)
         return s
+
+    # -- the placed step's collectives (see StackedTransport's); ``xs`` is
+    # this rank's one block --
+
+    def _one(self, xs):
+        if len(xs) != 1:
+            raise ValueError("a process group rank holds one block, got "
+                             f"{len(xs)}")
+        return xs[0]
+
+    def gather_blocks(self, xs, dim: int):
+        return [_PGGather.apply(self._one(xs), dim, self.group, self.rank,
+                                self.n)]
+
+    def reduce_scatter_blocks(self, xs, dim: int):
+        return [_PGReduceScatter.apply(self._one(xs), dim, self.group,
+                                       self.rank, self.n)]
+
+    def psum_blocks(self, xs, grad: str = "psum"):
+        return [_PGPsum.apply(self._one(xs), grad == "identity", self.group,
+                              self.n)]
+
+    def copy_blocks(self, xs):
+        return [_PGCopy.apply(self._one(xs), self.group, self.n)]
+
+    def pmax_blocks(self, xs):
+        with torch.no_grad():
+            return [self.pmax(self._one(xs).detach()[None])]

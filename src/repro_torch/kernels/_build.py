@@ -119,6 +119,10 @@ def load(verbose: bool = False) -> ctypes.CDLL:
         lib.dps_quantize.argtypes = [
             vp, i32, i64, vp, vp, vp, i32, u64, u64, vp, i32, vp, vp, i32,
             i32, vp]
+        lib.dps_quantize_block.restype = i32
+        lib.dps_quantize_block.argtypes = [
+            vp, i32, i64, vp, vp, u64, i64, i64, i64, i64, i64, vp, i32, vp,
+            vp, i32, i32, vp]
         lib.dps_quant_groups_per_thread.restype = i32
         lib.dps_quant_groups_per_thread.argtypes = [i32]
         lib.dps_wire_reduce.restype = i32

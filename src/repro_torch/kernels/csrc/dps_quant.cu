@@ -346,11 +346,27 @@ constexpr int Q_UNROLL = 4;
 // iteration's elements are summed by a fixed pairwise tree (non-negative
 // addends: relative error at most 4 * 2^-24), then added to the double sums
 // with one conversion each.
+// A block of a larger tensor (K1b's block mode, SRC 3): the block is stored
+// contiguously as [n0, n1, n2] and its element (i0, i1, i2) is element
+// base + i0*s0 + i1*s1 + i2 of the whole tensor, whose Philox word it takes.
+// Any block of a placed leaf folds to three such dims (the wrapper folds it
+// and refuses what does not).
+struct Geo {
+    long long n1, n2, s0, s1, base;
+};
+
+__device__ __forceinline__ unsigned long long geo_index(const Geo& geo, long long e) {
+    const long long i2 = e % geo.n2, t = e / geo.n2;
+    const long long i1 = t % geo.n1, i0 = t / geo.n1;
+    return static_cast<unsigned long long>(geo.base + i0 * geo.s0 + i1 * geo.s1 + i2);
+}
+
 template <typename XT, typename QT, int SRC, bool WIRE, bool STATS, bool SMALL>
 __device__ __forceinline__ void quantize_groups(const XT* __restrict__ x, long long groups,
                                                 const uint32_t* __restrict__ bits,
                                                 unsigned long long seed,
-                                                unsigned long long c0, QT* __restrict__ q,
+                                                unsigned long long c0, const Geo& geo,
+                                                QT* __restrict__ q,
                                                 const Grid& g, Acc& acc, long long t0,
                                                 long long stride) {
     constexpr int U = STATS ? 1 : Q_UNROLL;
@@ -378,8 +394,12 @@ __device__ __forceinline__ void quantize_groups(const XT* __restrict__ x, long l
 #pragma unroll
         for (int u = 0; u < U; ++u) {
             const long long gi = gb + u * stride;
-            if (SRC == 2) {
-                const Philox4 r = philox4x32_10(c0 + static_cast<uint64_t>(gi), seed);
+            if (SRC == 2 || SRC == 3) {
+                // SRC 3: the group's four elements lie in one row of the
+                // block, at a global index that is a multiple of four
+                const uint64_t ctr = SRC == 2 ? c0 + static_cast<uint64_t>(gi)
+                                              : (geo_index(geo, 4 * gi) >> 2);
+                const Philox4 r = philox4x32_10(ctr, seed);
                 bv[u][0] = r.v[0]; bv[u][1] = r.v[1]; bv[u][2] = r.v[2]; bv[u][3] = r.v[3];
             }
             if (gi < groups) {
@@ -400,15 +420,17 @@ __device__ __forceinline__ void quantize_groups(const XT* __restrict__ x, long l
 
 // bits source: 0 = round to nearest, 1 = bits operand, 2 = Philox in
 // registers; element e takes word (ctr_base + e) % 4 of counter
-// (ctr_base + e) / 4.  QT is x's type (K1) or signed char (WIRE, K2).  Four
-// blocks of 256 threads fit an SM (at most 64 registers a thread), so the
-// grid of kernels/dps_quant.py runs in one wave.
+// (ctr_base + e) / 4; 3 = Philox in registers for a block of a larger
+// tensor, element e taking the word of its global index geo_index(geo, e).
+// QT is x's type (K1) or signed char (WIRE, K2).  Four blocks of 256
+// threads fit an SM (at most 64 registers a thread), so the grid of
+// kernels/dps_quant.py runs in one wave.
 template <typename XT, typename QT, int SRC, bool WIRE, bool STATS, bool VEC>
 __global__ void __launch_bounds__(THREADS, 4)
 quantize_kernel(const XT* __restrict__ x, long long n, const int* __restrict__ il,
                 const int* __restrict__ fl, const uint32_t* __restrict__ bits,
-                unsigned long long seed, unsigned long long ctr_base, QT* __restrict__ q,
-                double* __restrict__ partials) {
+                unsigned long long seed, unsigned long long ctr_base, Geo geo,
+                QT* __restrict__ q, double* __restrict__ partials) {
     const int ilv = *il, flv = *fl;
     const Grid g = make_grid(ilv, flv);
     Acc acc;
@@ -421,19 +443,20 @@ quantize_kernel(const XT* __restrict__ x, long long n, const int* __restrict__ i
         const unsigned long long c0 = ctr_base >> 2;
         // the span 2^(IL-1+FL) <= 2^22 (uniform across the grid)
         if (ilv - 1 + flv <= 22)
-            quantize_groups<XT, QT, SRC, WIRE, STATS, true>(x, groups, bits, seed, c0, q, g,
-                                                            acc, t0, stride);
+            quantize_groups<XT, QT, SRC, WIRE, STATS, true>(x, groups, bits, seed, c0, geo, q,
+                                                            g, acc, t0, stride);
         else
-            quantize_groups<XT, QT, SRC, WIRE, STATS, false>(x, groups, bits, seed, c0, q, g,
-                                                             acc, t0, stride);
+            quantize_groups<XT, QT, SRC, WIRE, STATS, false>(x, groups, bits, seed, c0, geo, q,
+                                                             g, acc, t0, stride);
     }
     // scalar path: everything when aligned access is not possible, else the
     // ragged tail of fewer than four elements
     for (long long e = (VEC ? 4 * groups : 0) + t0; e < n; e += stride) {
         uint32_t b = 0u;
         if (SRC == 1) b = bits[e];
-        if (SRC == 2) {
-            const unsigned long long c = ctr_base + static_cast<unsigned long long>(e);
+        if (SRC == 2 || SRC == 3) {
+            const unsigned long long c =
+                SRC == 2 ? ctr_base + static_cast<unsigned long long>(e) : geo_index(geo, e);
             b = philox4x32_10(c >> 2, seed).v[c & 3];
         }
         Sums t;
@@ -474,25 +497,27 @@ quantize_stats_kernel(const double* __restrict__ partials, int nblocks, long lon
 template <typename XT, typename QT, int SRC, bool WIRE, bool STATS>
 void launch_quantize(bool vec, int nblocks, cudaStream_t s, const XT* x, long long n,
                      const int* il, const int* fl, const uint32_t* bits,
-                     unsigned long long seed, unsigned long long ctr, QT* q, double* partials) {
+                     unsigned long long seed, unsigned long long ctr, const Geo& geo, QT* q,
+                     double* partials) {
     if (vec)
         quantize_kernel<XT, QT, SRC, WIRE, STATS, true><<<nblocks, THREADS, 0, s>>>(
-            x, n, il, fl, bits, seed, ctr, q, partials);
+            x, n, il, fl, bits, seed, ctr, geo, q, partials);
     else
         quantize_kernel<XT, QT, SRC, WIRE, STATS, false><<<nblocks, THREADS, 0, s>>>(
-            x, n, il, fl, bits, seed, ctr, q, partials);
+            x, n, il, fl, bits, seed, ctr, geo, q, partials);
 }
 
 template <typename XT, typename QT, bool WIRE>
 void dispatch_quantize(int src, bool stats, bool vec, int nblocks, cudaStream_t s,
                        const XT* x, long long n, const int* il, const int* fl,
                        const uint32_t* bits, unsigned long long seed, unsigned long long ctr,
-                       QT* q, double* partials) {
+                       const Geo& geo, QT* q, double* partials) {
 #define DPS_Q(SRC, ST) launch_quantize<XT, QT, SRC, WIRE, ST>(vec, nblocks, s, x, n, il, fl, \
-                                                             bits, seed, ctr, q, partials)
+                                                             bits, seed, ctr, geo, q, partials)
     if (src == 0) { if (stats) DPS_Q(0, true); else DPS_Q(0, false); }
     else if (src == 1) { if (stats) DPS_Q(1, true); else DPS_Q(1, false); }
-    else { if (stats) DPS_Q(2, true); else DPS_Q(2, false); }
+    else if (src == 2) { if (stats) DPS_Q(2, true); else DPS_Q(2, false); }
+    else { if (stats) DPS_Q(3, true); else DPS_Q(3, false); }
 #undef DPS_Q
 }
 
@@ -874,14 +899,13 @@ wire_reduce_tma_kernel(const signed char* __restrict__ wire, long long row_strid
 // without statistics, one with them.
 extern "C" int dps_quant_groups_per_thread(int stats) { return stats ? 1 : Q_UNROLL; }
 
-extern "C" int dps_quantize(const void* x, int x_is_bf16, long long n, const void* il,
-                            const void* fl, const void* bits, int src,
-                            unsigned long long seed, unsigned long long ctr_base, void* q,
-                            int wire, void* partials, void* stats, int nblocks, int vec,
-                            void* stream) {
+static int quantize_entry(const void* x, int x_is_bf16, long long n, const void* il,
+                          const void* fl, const void* bits, int src, unsigned long long seed,
+                          unsigned long long ctr_base, const Geo& geo, void* q, int wire,
+                          void* partials, void* stats, int nblocks, int vec, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const bool emit = partials != nullptr && stats != nullptr;
-    if (src < 0 || src > 2 || nblocks < 1 || (src == 1 && bits == nullptr))
+    if (src < 0 || src > 3 || nblocks < 1 || (src == 1 && bits == nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
     const int* ilp = static_cast<const int*>(il);
     const int* flp = static_cast<const int*>(fl);
@@ -892,21 +916,21 @@ extern "C" int dps_quantize(const void* x, int x_is_bf16, long long n, const voi
             const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
             if (wire)
                 dispatch_quantize<__nv_bfloat16, signed char, true>(
-                    src, emit, vec != 0, nblocks, s, xp, n, ilp, flp, bp, seed, ctr_base,
+                    src, emit, vec != 0, nblocks, s, xp, n, ilp, flp, bp, seed, ctr_base, geo,
                     static_cast<signed char*>(q), pp);
             else
                 dispatch_quantize<__nv_bfloat16, __nv_bfloat16, false>(
-                    src, emit, vec != 0, nblocks, s, xp, n, ilp, flp, bp, seed, ctr_base,
+                    src, emit, vec != 0, nblocks, s, xp, n, ilp, flp, bp, seed, ctr_base, geo,
                     static_cast<__nv_bfloat16*>(q), pp);
         } else {
             const float* xp = static_cast<const float*>(x);
             if (wire)
                 dispatch_quantize<float, signed char, true>(
-                    src, emit, vec != 0, nblocks, s, xp, n, ilp, flp, bp, seed, ctr_base,
+                    src, emit, vec != 0, nblocks, s, xp, n, ilp, flp, bp, seed, ctr_base, geo,
                     static_cast<signed char*>(q), pp);
             else
                 dispatch_quantize<float, float, false>(
-                    src, emit, vec != 0, nblocks, s, xp, n, ilp, flp, bp, seed, ctr_base,
+                    src, emit, vec != 0, nblocks, s, xp, n, ilp, flp, bp, seed, ctr_base, geo,
                     static_cast<float*>(q), pp);
         }
         const cudaError_t err = cudaGetLastError();
@@ -917,6 +941,34 @@ extern "C" int dps_quantize(const void* x, int x_is_bf16, long long n, const voi
                                                     static_cast<float*>(stats));
     }
     return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dps_quantize(const void* x, int x_is_bf16, long long n, const void* il,
+                            const void* fl, const void* bits, int src,
+                            unsigned long long seed, unsigned long long ctr_base, void* q,
+                            int wire, void* partials, void* stats, int nblocks, int vec,
+                            void* stream) {
+    if (src > 2) return static_cast<int>(cudaErrorInvalidValue);
+    const Geo none = {1, 1, 0, 0, 0};
+    return quantize_entry(x, x_is_bf16, n, il, fl, bits, src, seed, ctr_base, none, q, wire,
+                          partials, stats, nblocks, vec, stream);
+}
+
+// K1b / K2b in block mode: x is a block of a larger tensor, stored
+// contiguously as [n / (n1 * n2), n1, n2]; its element (i0, i1, i2) takes
+// the Philox word of element base + i0*s0 + i1*s1 + i2 of the whole tensor,
+// so a rank's rounding of its block of a placed leaf is the rounding the
+// whole leaf gets there.  `vec` also says n2, s0, s1 and base are multiples
+// of four.  Otherwise as dps_quantize with src 2.
+extern "C" int dps_quantize_block(const void* x, int x_is_bf16, long long n, const void* il,
+                                  const void* fl, unsigned long long seed, long long n1,
+                                  long long n2, long long s0, long long s1, long long base,
+                                  void* q, int wire, void* partials, void* stats, int nblocks,
+                                  int vec, void* stream) {
+    if (n1 < 1 || n2 < 1 || base < 0) return static_cast<int>(cudaErrorInvalidValue);
+    const Geo geo = {n1, n2, s0, s1, base};
+    return quantize_entry(x, x_is_bf16, n, il, fl, nullptr, 3, seed, 0, geo, q, wire,
+                          partials, stats, nblocks, vec, stream);
 }
 
 // K3 / K3b.  All pointers are device pointers.  `src`: 0 = round to

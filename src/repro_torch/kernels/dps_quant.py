@@ -60,6 +60,8 @@ launch_count = 0
 group_prng_launch_count = 0
 quantize_launch_count = 0
 quantize_prng_launch_count = 0
+# the K1b launches in block mode (each also counted as a K1b launch above)
+quantize_block_launch_count = 0
 wire_launch_count = 0
 wire_prng_launch_count = 0
 reduce_launch_count = 0
@@ -116,16 +118,103 @@ def philox4x32_10(ctr: torch.Tensor, key) -> torch.Tensor:
     return torch.stack([c0, c1, c2, c3], dim=1)
 
 
+def _to_int32(w: torch.Tensor) -> torch.Tensor:
+    """uint32 words held in int64 -> int32 with the same bits."""
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockGeometry:
+    """Where a block of a larger tensor lies in it, for the Philox stream:
+    the block is stored contiguously as ``[n // (n1·n2), n1, n2]`` and its
+    element ``(i0, i1, i2)`` is element ``base + i0·s0 + i1·s1 + i2`` of
+    the whole tensor (row-major).  :func:`block_geometry` folds any block
+    of a placed tensor into this form, or refuses it."""
+
+    n1: int
+    n2: int
+    s0: int
+    s1: int
+    base: int
+
+    def global_index(self, e: torch.Tensor) -> torch.Tensor:
+        """The whole tensor's flat index of the block's elements ``e``
+        (int64)."""
+        i2, t = e % self.n2, e // self.n2
+        return self.base + (t // self.n1) * self.s0 + (t % self.n1) * self.s1 + i2
+
+    @property
+    def aligned(self) -> bool:
+        """Four consecutive elements of the block are four consecutive
+        elements of the whole from a multiple of four (K1b's 16-byte path
+        draws one Philox counter for them)."""
+        return all(v % 4 == 0 for v in (self.n2, self.s0, self.s1, self.base))
+
+
+def block_geometry(shape, origin, block) -> BlockGeometry:
+    """The :class:`BlockGeometry` of the block ``block`` (its shape) at
+    ``origin`` in a tensor of ``shape``.  Dims the block holds whole fold
+    into the dim before them, and a dim the block holds one index of folds
+    into the dim after it; a block that leaves more than three dims after
+    that has no geometry here and raises."""
+    if not (len(shape) == len(origin) == len(block)):
+        raise ValueError(f"shape {tuple(shape)}, origin {tuple(origin)} and "
+                         f"block {tuple(block)} disagree in rank")
+    dims = []                                   # (global, origin, block)
+    for g, o, b in zip(shape, origin, block):
+        if not (0 <= o and b >= 1 and o + b <= g):
+            raise ValueError(f"block {tuple(block)} at {tuple(origin)} is "
+                             f"not inside {tuple(shape)}")
+        if g == 1:
+            continue
+        if dims and b == g:                      # whole: folds into the last
+            G, O, B = dims[-1]
+            dims[-1] = (G * g, O * g, B * g)
+        elif dims and dims[-1][2] == 1:          # the last holds one index
+            G, O, _ = dims[-1]
+            dims[-1] = (G * g, O * g + o, b)
+        else:
+            dims.append((g, o, b))
+    if len(dims) > 3:
+        raise ValueError(
+            f"block {tuple(block)} at {tuple(origin)} of {tuple(shape)} "
+            f"folds to {len(dims)} strided dims; the block Philox stream "
+            "takes at most three")
+    dims = [(1, 0, 1)] * (3 - len(dims)) + dims
+    (_, o0, _), (g1, o1, b1), (g2, o2, b2) = dims
+    return BlockGeometry(n1=b1, n2=b2, s0=g1 * g2, s1=g2,
+                         base=o0 * g1 * g2 + o1 * g2 + o2)
+
+
 def philox_bits(seed: int, n: int, device=None, chunk: int = 1 << 22,
-                offset: int = 0) -> torch.Tensor:
+                offset: int = 0, block: Optional[BlockGeometry] = None
+                ) -> torch.Tensor:
     """The ``n`` words the in-kernel generator draws for seed ``seed`` from
     element ``offset`` on, as int32 (the uint32 bits reinterpreted): element
     ``e`` takes word ``e % 4`` of counter ``e // 4``.  Computed ``chunk``
-    counters at a time to bound the int64 temporaries."""
+    counters at a time to bound the int64 temporaries.  ``block``: the
+    ``n`` elements are a block of a larger tensor, element ``e`` taking
+    the word of ``block.global_index(e)`` (K1b's block mode)."""
     if not 0 <= seed < 1 << 64:
         raise ValueError(f"seed must be a 64-bit unsigned integer, got {seed}")
     if offset < 0:
         raise ValueError(f"offset must be >= 0, got {offset}")
+    if block is not None:
+        if offset:
+            raise ValueError("a block stream takes no offset")
+        out = torch.empty(n, dtype=torch.int32, device=device)
+        key = (seed & _LO32, seed >> 32)
+        for c in range(0, n, chunk):
+            e = torch.arange(c, min(c + chunk, n), dtype=torch.int64,
+                             device=device)
+            g = block.global_index(e)
+            i = g >> 2
+            zero = torch.zeros_like(i)
+            w = philox4x32_10(torch.stack([i & _LO32, i >> 32, zero, zero],
+                                          dim=1), key)
+            out[c:c + e.numel()] = _to_int32(
+                torch.gather(w, 1, (g & 3)[:, None])[:, 0])
+        return out
     c_first, skip = divmod(offset, 4)
     n_ctr = -(-(skip + n) // 4)
     out = torch.empty(n_ctr * 4, dtype=torch.int32, device=device)
@@ -137,8 +226,7 @@ def philox_bits(seed: int, n: int, device=None, chunk: int = 1 << 22,
         ctr = torch.stack([i & _LO32, i >> 32, zero, zero], dim=1)
         w = philox4x32_10(ctr, (seed & _LO32, seed >> 32)).reshape(-1)
         # uint32 -> int32 with the same bits
-        out[4 * c:4 * (c + m)] = torch.where(w >= 1 << 31, w - (1 << 32),
-                                             w).to(torch.int32)
+        out[4 * c:4 * (c + m)] = _to_int32(w)
     return out[skip:skip + n]
 
 
@@ -146,10 +234,14 @@ def philox_bits(seed: int, n: int, device=None, chunk: int = 1 << 22,
 class Philox:
     """The in-kernel source of rounding bits of K1b/K2b: the stream
     :func:`philox_bits` gives for the 64-bit ``seed``, element ``e`` of the
-    tensor taking the stream's element ``offset + e``."""
+    tensor taking the stream's element ``offset + e`` — or, with
+    ``block``, the element of the whole tensor the block's element ``e``
+    is (K1b's block mode: a rank's block of a placed leaf rounds as the
+    whole leaf does there)."""
 
     seed: int
     offset: int = 0
+    block: Optional[BlockGeometry] = None
 
     def __post_init__(self):
         if not 0 <= self.seed < 1 << 64:
@@ -157,6 +249,8 @@ class Philox:
                              f"{self.seed}")
         if self.offset < 0:
             raise ValueError(f"offset must be >= 0, got {self.offset}")
+        if self.block is not None and self.offset:
+            raise ValueError("a block stream takes no offset")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -279,6 +373,7 @@ def dps_quant_wire_plain(x: torch.Tensor, il: torch.Tensor, fl: torch.Tensor,
 def _dps_quant_cuda(x, il, fl, bits, philox, compute_stats, out, wire):
     global quantize_launch_count, quantize_prng_launch_count
     global wire_launch_count, wire_prng_launch_count
+    global quantize_block_launch_count
     out_dtype = torch.int8 if wire else x.dtype
     _check_quant(x, il, fl, bits, out, out_dtype)
     n = x.numel()
@@ -295,20 +390,33 @@ def _dps_quant_cuda(x, il, fl, bits, philox, compute_stats, out, wire):
     src = 0 if bits is None and philox is None else (1 if philox is None else 2)
     # 16-byte loads of x and bits; 16-byte (fp32), 8-byte (bf16) or 4-byte
     # (int8) stores of q; Philox words four to a counter
+    geo = philox.block if philox is not None else None
     vec = (all(t.data_ptr() % 16 == 0 for t in (x, bits) if t is not None)
            and q.data_ptr() % (4 if wire else 16) == 0
-           and (philox is None or philox.offset % 4 == 0))
+           and (philox is None or philox.offset % 4 == 0)
+           and (geo is None or geo.aligned))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.dps_quantize(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), n, il.data_ptr(),
-            fl.data_ptr(), bits.data_ptr() if bits is not None else None, src,
-            philox.seed if philox else 0, philox.offset if philox else 0,
-            q.data_ptr(), int(wire),
-            partials.data_ptr() if compute_stats else None,
-            stats.data_ptr() if compute_stats else None, nblocks, int(vec),
-            stream)
-    _build.check(lib, code, "dps_quantize")
+        if geo is not None:
+            code = lib.dps_quantize_block(
+                x.data_ptr(), int(x.dtype == torch.bfloat16), n, il.data_ptr(),
+                fl.data_ptr(), philox.seed, geo.n1, geo.n2, geo.s0, geo.s1,
+                geo.base, q.data_ptr(), int(wire),
+                partials.data_ptr() if compute_stats else None,
+                stats.data_ptr() if compute_stats else None, nblocks,
+                int(vec), stream)
+            _build.check(lib, code, "dps_quantize_block")
+            quantize_block_launch_count += not wire
+        else:
+            code = lib.dps_quantize(
+                x.data_ptr(), int(x.dtype == torch.bfloat16), n, il.data_ptr(),
+                fl.data_ptr(), bits.data_ptr() if bits is not None else None,
+                src, philox.seed if philox else 0,
+                philox.offset if philox else 0, q.data_ptr(), int(wire),
+                partials.data_ptr() if compute_stats else None,
+                stats.data_ptr() if compute_stats else None, nblocks,
+                int(vec), stream)
+            _build.check(lib, code, "dps_quantize")
     if wire and src == 2:
         wire_prng_launch_count += 1
     elif wire:
@@ -329,7 +437,7 @@ def _quant_call(x, il, fl, bits, compute_stats, out, backend, wire):
     if backend == "plain" or (backend == "auto" and not x.is_cuda):
         if isinstance(bits, Philox):
             bits = philox_bits(bits.seed, x.numel(), x.device,
-                               offset=bits.offset)
+                               offset=bits.offset, block=bits.block)
         plain = dps_quant_wire_plain if wire else dps_quant_plain
         q, stats = plain(x, il, fl, bits, compute_stats=compute_stats)
         if out is not None:

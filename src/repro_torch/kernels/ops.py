@@ -4,6 +4,7 @@
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Union
 
 import torch
@@ -30,6 +31,29 @@ def event_bits(x: torch.Tensor, mode: str, seed: int, onchip_prng: bool):
     if onchip_prng:
         return Philox(seed)
     return operand_bits(seed, x.numel(), x.device)
+
+
+def block_event_bits(shape, origin, block, mode: str, seed: int,
+                     onchip_prng: bool, device):
+    """The rounding bits of one quantization event on a block (shape
+    ``block``, at ``origin``) of a tensor of ``shape``: the bits the whole
+    tensor's event under :func:`event_bits` gives those elements.  The
+    in-kernel stream takes the block's geometry (K1b's block mode; the
+    whole tensor is plain K1b); the operand is the whole tensor's
+    ``torch.randint`` draw, sliced."""
+    shape, origin, block = tuple(shape), tuple(origin), tuple(block)
+    if mode == ROUND_NEAREST:
+        return None
+    if mode != ROUND_STOCHASTIC:
+        raise ValueError(f"unknown rounding mode {mode!r}")
+    if block == shape:
+        return (Philox(seed) if onchip_prng
+                else operand_bits(seed, math.prod(shape), device))
+    if onchip_prng:
+        return Philox(seed, block=dq.block_geometry(shape, origin, block))
+    whole = operand_bits(seed, math.prod(shape), device).view(shape)
+    return whole[tuple(slice(o, o + b) for o, b in zip(origin, block))
+                 ].reshape(-1)
 
 
 def operand_bits(seed: int, n: int, device) -> torch.Tensor:

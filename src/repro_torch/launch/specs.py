@@ -21,7 +21,8 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import qtrain
 from repro_torch.core import tree as tree_lib
 from repro_torch.dist.sharding import (LogicalRules, _axis_sizes,
-                                       axis_transport, tree_specs)
+                                       axis_transport, place_tensor,
+                                       tree_specs)
 from repro_torch.models import registry
 from repro_torch.models.common import abstract_params, logical_tree
 
@@ -143,6 +144,48 @@ def train_state_shardings(cfg: ModelConfig, mesh, rules: LogicalRules,
         seed=REPLICATED, last_loss=REPLICATED, guard=guard)
 
 
+def _place_into(tree, specs, mesh) -> None:
+    """Each tensor of a dict tree replaced by its placed blocks, one leaf at
+    a time, so a whole leaf is freed as soon as it is placed (unless the
+    caller holds it)."""
+    for k in sorted(tree):
+        if isinstance(tree[k], torch.Tensor):
+            tree[k] = place_tensor(tree[k], specs[k], mesh)
+        else:
+            _place_into(tree[k], specs[k], mesh)
+
+
+def place_train_state(cfg: ModelConfig, state: qtrain.TrainState, mesh,
+                      rules: Optional[LogicalRules] = None
+                      ) -> qtrain.TrainState:
+    """Place a whole train state over ``mesh`` by
+    :func:`train_state_shardings`' specs, in place: every parameter leaf
+    and every optimizer-state leaf (placed like its parameter) becomes a
+    :class:`~repro_torch.dist.sharding.Placed` of the blocks this process
+    holds; the DPS registry, the step and the seeds stay replicated.
+    Returns ``state``."""
+    specs = param_shardings(cfg, mesh, rules or LogicalRules())
+    _place_into(state.params, specs, mesh)
+    for sub in state.opt_state.values():
+        _place_into(sub, specs, mesh)
+    return state
+
+
+def placement_engaged(qcfg: qtrain.QuantConfig, mesh) -> bool:
+    """Does ``build_train_step`` build the placed step on ``mesh``?  A
+    model axis above 1, or any other axis above 1 (FSDP binds the data
+    axis) without the int8 wire or ZeRO-1, which keep the replicated
+    parameters of a pure data mesh."""
+    if mesh is None:
+        return False
+    sizes = _axis_sizes(mesh)
+    if sizes.get("model", 1) > 1:
+        return True
+    wire_or_zero = (qcfg.grad_allreduce_bits is not None
+                    or qcfg.zero_opt_shards is not None)
+    return not wire_or_zero and any(n > 1 for n in sizes.values())
+
+
 def abstract_train_state(cfg: ModelConfig, optimizer,
                          qcfg: qtrain.QuantConfig, mesh=None):
     """A ``TrainState`` of stand-ins (the trainer's master dtype).
@@ -231,15 +274,42 @@ def wire_bucket_plan(cfg: ModelConfig, qcfg: qtrain.QuantConfig):
 
 def build_train_step(cfg: ModelConfig, qcfg: qtrain.QuantConfig, optimizer,
                      accum_steps: Optional[int] = None, mesh=None,
-                     faults=None):
-    """Train step for one arch.  ``mesh`` is needed only for the compressed
-    gradient all-reduce, which runs over its data axis's transport.  A
-    model axis is reached by calling the step under
-    :func:`~repro_torch.dist.sharding.axis_rules` (the MoE layer's
-    expert-parallel dispatch reads the bound mesh at trace time in the
-    reference, at call time here)."""
+                     faults=None, rules: Optional[LogicalRules] = None):
+    """Train step for one arch.
+
+    Without ``mesh`` (or on a mesh of one rank) the replicated step; a
+    model axis of the MoE layer's expert-parallel dispatch is then reached
+    by calling it under :func:`~repro_torch.dist.sharding.axis_rules`.
+    With the int8 wire or ZeRO-1 on a pure data mesh, the replicated
+    parameters' data-parallel step over the data axis's transport (the
+    reference drops ``fsdp`` there); a model axis above 1 with either
+    raises.  Otherwise (:func:`placement_engaged`) the placed step
+    (:func:`repro_torch.core.qtrain.make_placed_train_step`) on a state
+    placed by :func:`place_train_state` under ``rules``: FSDP over data,
+    tensor parallelism over model, as the reference's ``jax.jit`` with
+    ``in_shardings`` places it.  A family without placed layers raises
+    there, naming it."""
     mod = registry(cfg.family)
     accum = cfg.train_accum if accum_steps is None else accum_steps
+    if (mesh is not None and _axis_sizes(mesh).get("model", 1) > 1
+            and (qcfg.grad_allreduce_bits is not None
+                 or qcfg.zero_opt_shards is not None)):
+        raise ValueError(
+            "the int8 gradient wire and ZeRO-1 run on a pure data-parallel "
+            f"mesh; this one has a model axis of "
+            f"{_axis_sizes(mesh)['model']}")
+    if placement_engaged(qcfg, mesh):
+        if faults is not None:
+            raise NotImplementedError("fault injection does not run on the "
+                                      "placed step yet")
+        if not hasattr(mod, "placed_loss_fn"):
+            raise NotImplementedError(
+                f"the {cfg.family!r} family ({cfg.name}) has no placed "
+                "training step yet: its layers run whole, so it trains on a "
+                "pure data-parallel mesh or none")
+        return qtrain.make_placed_train_step(
+            mod.placed_loss_fn(cfg), optimizer, qcfg, mesh,
+            rules or LogicalRules(), accum_steps=accum)
     transport = (axis_transport(mesh, "data")
                  if mesh is not None and "data" in _axis_sizes(mesh) else None)
     return qtrain.make_train_step(mod.loss_fn(cfg), optimizer, qcfg,

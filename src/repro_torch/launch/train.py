@@ -255,13 +255,20 @@ def _init_distributed(args):
     return device
 
 
-def setup(args, cfg=None):
+def setup(args, cfg=None, mesh=None):
     """(cfg, step_fn, state, data) for parsed CLI ``args``: the model's
     parameters drawn from ``--seed`` on the device, the optimizer, the
     quantized train step and the synthetic token stream.  ``cfg``, if
     given, is the model's config in place of ``--arch``'s (a config cut
-    in depth, say), as the reference's ``build(cfg, ...)`` takes one."""
+    in depth, say), as the reference's ``build(cfg, ...)`` takes one.
+    ``mesh`` (a :class:`~repro_torch.dist.sharding.StackedMesh` or a
+    ``DeviceMesh``, from ``launch.mesh.make_mesh``) replaces
+    ``--data-ranks``: the step is ``launch.specs.build_train_step``'s on
+    it (``step_fn.placed`` when it places the state; the state is whole
+    here, :func:`main` places it)."""
     device = resolve_device(args.device)
+    if mesh is not None:
+        device = getattr(mesh, "device", None) or device
     device = _init_distributed(args) or device
     cfg = cfg or get_config(args.arch)
     if args.smoke:
@@ -289,7 +296,15 @@ def setup(args, cfg=None):
     defs = mod.model_defs(cfg, cfg.master_dtype())
     if args.wire_groups == "per-layer":
         qcfg = qcfg.with_per_layer_wire(defs)
-    transport = _transport(args, device)
+    if mesh is not None:
+        if args.data_ranks != 1:
+            raise ValueError("--data-ranks builds a data axis; a mesh has "
+                             "its own")
+        from repro_torch.dist.sharding import _axis_sizes, axis_transport
+        transport = (axis_transport(mesh, "data")
+                     if "data" in _axis_sizes(mesh) else StackedTransport(1))
+    else:
+        transport = _transport(args, device)
     if args.zero_opt and transport.axis_size > 1:
         qcfg = dataclasses.replace(qcfg, zero_opt_shards=transport.axis_size)
     if args.batch % transport.axis_size:
@@ -298,9 +313,14 @@ def setup(args, cfg=None):
     opt_cfg = (AdamWConfig(total_steps=args.steps) if args.optimizer == "adamw"
                else SGDConfig())
     opt = make_optimizer(opt_cfg)
-    step_fn = qtrain.make_train_step(mod.loss_fn(cfg), opt, qcfg,
-                                     accum_steps=cfg.train_accum,
-                                     transport=transport, faults=faults)
+    if mesh is not None:
+        from repro_torch.launch import specs
+        step_fn = specs.build_train_step(cfg, qcfg, opt, mesh=mesh,
+                                         faults=faults)
+    else:
+        step_fn = qtrain.make_train_step(mod.loss_fn(cfg), opt, qcfg,
+                                         accum_steps=cfg.train_accum,
+                                         transport=transport, faults=faults)
     extras = {}
     if cfg.family == "encdec":
         # the stubbed audio frontend's frame embeddings, as the reference's
@@ -389,23 +409,35 @@ def _health_log(m) -> str:
     return " !" + ",".join(health_flags(int(m["health"])))
 
 
-def main(argv=None, on_step=None, cfg=None):
+def main(argv=None, on_step=None, cfg=None, mesh=None):
     """Run the CLI; returns the summary it prints (plus the full history).
     A pre-empted run returns ``{"preempted_at": step, "history": ...}``;
     the crash path raises ``SystemExit(17)``.  ``on_step(step, state)``,
     if given, is called after every step (a caller that inspects the state
-    between steps, as the smoke run's skip check does).  ``cfg`` goes to
-    :func:`setup` (no CLI flag sets it)."""
+    between steps, as the smoke run's skip check does).  ``cfg`` and
+    ``mesh`` go to :func:`setup` (no CLI flag sets them: the reference's
+    CLI builds no model axis); on a mesh that places the state the
+    summary adds each held rank's bytes of parameters and optimizer state
+    (``held_bytes_per_rank``)."""
     args = make_parser().parse_args(argv)
     world = int(os.environ.get("WORLD_SIZE", "1"))
     main_thread = threading.current_thread() is threading.main_thread()
     if args.sigterm_at and not main_thread:
         raise ValueError("--sigterm-at needs the main thread, where the "
                          "SIGTERM handler runs")
-    cfg, step_fn, state, data = setup(args, cfg)
+    if mesh is not None and args.rollback_ring:
+        raise ValueError("--rollback-ring keeps host snapshots of a whole "
+                         "state; it does not run on a mesh")
+    cfg, step_fn, state, data = setup(args, cfg, mesh)
+    placed = getattr(step_fn, "placed", False)
     device = state.last_loss.device
     cuda = device.type == "cuda"
-    rank0 = int(os.environ.get("RANK", "0")) == 0
+    process_mesh = hasattr(mesh, "mesh_dim_names")
+    if process_mesh:
+        import torch.distributed as dist
+        rank0 = dist.get_rank() == 0
+    else:
+        rank0 = int(os.environ.get("RANK", "0")) == 0
     ckpt = AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir and rank0 else None
     start, resumed = 0, None
     if args.resume and args.ckpt_dir:
@@ -413,6 +445,13 @@ def main(argv=None, on_step=None, cfg=None):
         if "step" in resumed and rank0:
             print(f"resumed from step {start} (data cursor "
                   f"{resumed['cursor']})", flush=True)
+    if placed:
+        # a checkpoint restores whole, onto any mesh: placed after it
+        from repro_torch.dist.sharding import held_bytes
+        from repro_torch.launch import specs
+        specs.place_train_state(cfg, state, mesh)
+        held = [p + o for p, o in zip(held_bytes(state.params),
+                                      held_bytes(state.opt_state))]
     if cuda:
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
@@ -429,6 +468,9 @@ def main(argv=None, on_step=None, cfg=None):
         if gather:
             tree = dataclasses.replace(
                 state, opt_state=gather_rows(state.opt_state, transport))
+        if placed and process_mesh:
+            # the whole leaves are gathered on every process (a collective)
+            tree = flatten_tree(state)
         if ckpt:
             ckpt.save(at, tree, meta=data.state(at))
             if wait:
@@ -596,6 +638,12 @@ def main(argv=None, on_step=None, cfg=None):
                       else "cpu"),
            "params": cfg.n_params(),
            "data_ranks": step_fn.n_data,
+           "mesh": (None if mesh is None else
+                    dict(zip(*((mesh.mesh_dim_names,
+                                tuple(mesh.mesh.shape))
+                               if hasattr(mesh, "mesh_dim_names")
+                               else (mesh.axis_names, mesh.shape))))),
+           "held_bytes_per_rank": held if placed else None,
            "wire_sync": step_fn.wire_sync_active,
            "zero_opt": step_fn.zero_opt_active,
            "zero_groupaligned": step_fn.zero_groupaligned_active,

@@ -36,9 +36,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import fixed_point as fxp
-from repro_torch.dist.sharding import logical_constraint, model_axis_size
+from repro_torch.dist import sharding
+from repro_torch.dist.sharding import (Placed, is_placed, logical_constraint,
+                                       model_axis_size, relayout)
 from repro_torch.kernels import paged_attn
-from repro_torch.models.common import ParamDef, apply_rope, rms_norm
+from repro_torch.models.common import (ParamDef, apply_rope, placed_matmul,
+                                       rms_norm, whole_but_batch)
 
 NEG_INF = -1e30
 FLASH_THRESHOLD = 4096 * 2048          # S_q · S_k above which attention goes blockwise
@@ -85,14 +88,18 @@ def gqa_defs(cfg: ModelConfig, dtype: torch.dtype) -> Dict[str, ParamDef]:
 # Core attention math (q/k/v with fused head dim: (B, S, H, Dh)).
 # ---------------------------------------------------------------------------
 
-def _attn_full(q, k, v, *, causal: bool, scale: float):
+def _attn_full(q, k, v, *, causal: bool, scale: float,
+               q_start: Optional[int] = None):
     """Materialized-scores attention for small S_q·S_k (scores and softmax
-    in fp32, probabilities cast to v's dtype for the value product)."""
+    in fp32, probabilities cast to v's dtype for the value product).
+    ``q_start``: the position of q's first row among k's (the last S_q
+    positions by default)."""
     s = torch.einsum("bqhd,bshd->bhqs", q.to(torch.float32),
                      k.to(torch.float32)) * scale
     if causal:
         Sq, Sk = q.shape[1], k.shape[1]
-        qi = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+        q0 = Sk - Sq if q_start is None else q_start
+        qi = torch.arange(Sq, device=q.device)[:, None] + q0
         kj = torch.arange(Sk, device=q.device)[None, :]
         s = s + torch.where(kj <= qi, 0.0, NEG_INF)
     p = torch.softmax(s, dim=-1).to(v.dtype)
@@ -100,7 +107,7 @@ def _attn_full(q, k, v, *, causal: bool, scale: float):
 
 
 def _flash_block(q, k_blk, v_blk, m, l, acc, *, j0: int, sk: int,
-                 causal: bool, scale: float):
+                 causal: bool, scale: float, q0: int):
     """One K/V block of :func:`_attn_flash`: the running max ``m``, sum
     ``l`` and unnormalized output ``acc`` (fp32) updated by ``block``
     positions starting at ``j0``."""
@@ -111,7 +118,7 @@ def _flash_block(q, k_blk, v_blk, m, l, acc, *, j0: int, sk: int,
     kj = j0 + torch.arange(block, device=q.device)
     valid = (kj < sk)[None, :]
     if causal:
-        qi = torch.arange(sq, device=q.device) + (sk - sq)   # global positions
+        qi = torch.arange(sq, device=q.device) + q0          # global positions
         valid = valid & (kj[None, :] <= qi[:, None])
     s = torch.where(valid, s, NEG_INF)
     new_m = torch.maximum(m, s.amax(dim=-1))                   # (B,H,Sq)
@@ -124,9 +131,10 @@ def _flash_block(q, k_blk, v_blk, m, l, acc, *, j0: int, sk: int,
 
 
 def _attn_flash(q, k, v, *, causal: bool, scale: float,
-                block: int = FLASH_BLOCK):
+                block: int = FLASH_BLOCK, q_start: Optional[int] = None):
     """Blockwise online-softmax attention over K/V blocks of ``block``
-    positions (the last padded and masked).
+    positions (the last padded and masked); ``q_start`` as in
+    :func:`_attn_full`.
 
     Each block runs under ``torch.utils.checkpoint``: the backward
     recomputes a block's (B, H, S_q, block) fp32 scores and probabilities
@@ -146,16 +154,20 @@ def _attn_flash(q, k, v, *, causal: bool, scale: float,
         sl = slice(i * block, (i + 1) * block)
         m, l, acc = checkpoint(_flash_block, q, kp[:, sl], vp[:, sl], m, l,
                                acc, j0=i * block, sk=Sk, causal=causal,
-                               scale=scale, use_reentrant=False,
+                               scale=scale,
+                               q0=Sk - Sq if q_start is None else q_start,
+                               use_reentrant=False,
                                preserve_rng_state=False)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)                     # (B,Sq,H,Dv)
 
 
-def sdpa(q, k, v, *, causal: bool, scale: float):
+def sdpa(q, k, v, *, causal: bool, scale: float,
+         q_start: Optional[int] = None):
     if q.shape[1] * k.shape[1] > FLASH_THRESHOLD:
-        return _attn_flash(q, k, v, causal=causal, scale=scale)
-    return _attn_full(q, k, v, causal=causal, scale=scale)
+        return _attn_flash(q, k, v, causal=causal, scale=scale,
+                           q_start=q_start)
+    return _attn_full(q, k, v, causal=causal, scale=scale, q_start=q_start)
 
 
 def _heads_on_model(n_heads: int) -> bool:
@@ -207,6 +219,12 @@ def gqa_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     v_fmt)`` — (n_pages, page, KV, Dh) pools plus (n_pages, 2) per-page
     ⟨IL, FL⟩ rows — and ``paged_ptab`` the (B, P) page table.  Returns
     ``(out, new_cache)``."""
+    if is_placed(x):
+        if mode != "train" or kv_x is not None or cfg.attn_bias:
+            raise NotImplementedError(
+                "placed attention is the training self-attention without "
+                "biases; prefill, decode and cross-attention run whole")
+        return _gqa_train_placed(cfg, p, x, positions), None
     B, Sq, _ = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KV
@@ -268,6 +286,48 @@ def gqa_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     if cfg.attn_bias:
         out = out + p["bo"]
     return logical_constraint(out, "batch", "tp_seq", "embed"), new_cache
+
+
+def _split_heads(t: Placed, n: int, dh: int) -> Placed:
+    """(..., n·dh) → (..., n, dh) rank by rank: the model split of the
+    fused dim becomes a split of the heads when it divides them, else the
+    dim is gathered first (a rank's columns would cut a head)."""
+    e = t.spec[-1]
+    ways = math.prod(sharding._axis_sizes(t.mesh)[a]
+                     for a in sharding._entry_axes(e))
+    if ways > 1 and n % ways:
+        t, e = relayout(t, t.spec[:-1] + (None,)), None
+    return t.map(lambda b: b.reshape(*b.shape[:-1], -1, dh),
+                 spec=t.spec[:-1] + (e, None))
+
+
+def _gqa_train_placed(cfg: ModelConfig, p, x: Placed, positions):
+    """Training self-attention on placed activations: the sequence
+    gathered, q/k/v column-parallel (local heads when the model axis
+    divides them; K/V gathered over it when it cuts a KV head), RoPE as
+    it is, the reference's layout decision (:func:`_constrain_qkv`) as a
+    real re-layout, :func:`sdpa` on each rank's rows and heads, and ``wo``
+    row-parallel (or whole, on a sequence split)."""
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    xs = whole_but_batch(x)
+    q = _split_heads(placed_matmul(xs, p["wq"]), H, Dh)
+    k = _split_heads(placed_matmul(xs, p["wk"]), KV, Dh)
+    v = _split_heads(placed_matmul(xs, p["wv"]), KV, Dh)
+    if cfg.rope_theta > 0:
+        q = q.map(lambda t: apply_rope(t, positions, cfg.rope_theta))
+        k = k.map(lambda t: apply_rope(t, positions, cfg.rope_theta))
+    rep = lambda t: t.map(lambda b: torch.repeat_interleave(b, H // KV, dim=2))
+    q, kr, vr = _constrain_qkv(q, rep(k), rep(v), H, cfg.attn_batch2d)
+    scale = 1.0 / math.sqrt(Dh)
+    out = Placed([sdpa(qb, kb, vb, causal=True, scale=scale,
+                       q_start=q.geometry(i)[0][1])
+                  for i, (qb, kb, vb) in enumerate(zip(q.blocks, kr.blocks,
+                                                       vr.blocks))],
+                 q.spec, q.mesh)
+    out = out.map(lambda b: b.reshape(*b.shape[:2], -1),
+                  spec=out.spec[:3])
+    return logical_constraint(placed_matmul(out, p["wo"]), "batch", "tp_seq",
+                              "embed")
 
 
 def _paged_decode(cache, q, k, v, cache_pos, ptab, backend, scale):

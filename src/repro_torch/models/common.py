@@ -21,7 +21,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.dist.sharding import logical_constraint
+from repro_torch.dist import sharding
+from repro_torch.dist.sharding import Placed, logical_constraint, relayout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,6 +228,8 @@ def embed_defs(vocab: int, d_model: int, tie: bool = True,
 
 def embed_lookup(emb: torch.Tensor, tokens: torch.Tensor,
                  seq_axis: Optional[str] = "tp_seq") -> torch.Tensor:
+    if isinstance(emb, Placed):
+        return embed_lookup_placed(emb, tokens, seq_axis)
     x = emb[tokens.to(torch.int64)]
     return logical_constraint(x, "batch", seq_axis, "embed")
 
@@ -318,3 +321,121 @@ def fused_unembed_xent(x: torch.Tensor, params: Dict[str, torch.Tensor],
                           preserve_rng_state=False)
         nll = part if nll is None else nll + part
     return nll / torch.clamp(torch.sum(mask), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# The placed forms (a state placed over a mesh, each rank on its blocks).
+# ---------------------------------------------------------------------------
+
+def whole_but_batch(x: Placed) -> Placed:
+    """``x`` with every dim but the leading (batch) one gathered: the
+    input of a column-parallel product."""
+    return relayout(x, (x.spec[0],) + (None,) * (x.ndim - 1))
+
+
+def placed_matmul(x: Placed, w: Placed) -> Placed:
+    """``x @ w`` for ``x`` (..., K) and a 2-D ``w`` (K, N), rank by rank.
+    ``w``'s rows take ``x``'s split of K (gathered or sliced to it); its
+    columns keep their split unless ``x`` already splits another dim over
+    that axis (an FSDP split over data, where the batch is), in which case
+    they are gathered.  With K split the result is a sum still to be taken
+    over K's axes (``partial``): the row-parallel product."""
+    xk = x.spec[-1]
+    k_axes = sharding._entry_axes(xk)
+    used = set(sharding.spec_axes(x.spec[:-1])) | set(k_axes) | set(x.partial)
+    wn = w.spec[1]
+    if set(sharding._entry_axes(wn)) & used:
+        wn = None
+    w = relayout(w, (xk, wn))
+    return x.map(torch.matmul, w, spec=x.spec[:-1] + (wn,),
+                 partial=x.partial + k_axes)
+
+
+def _vocab_origin(table: Placed, i: int, dim: int) -> int:
+    return table.geometry(i)[0][dim]
+
+
+def embed_lookup_placed(emb: Placed, tokens: Placed,
+                        seq_axis: Optional[str] = "tp_seq") -> Placed:
+    """:func:`embed_lookup` on a placed table: vocab-parallel when the
+    table's rows are split (each rank looks up the tokens in its rows,
+    zeros elsewhere, and the ranks' rows are summed over the split by the
+    layout's reduce-scatter or psum)."""
+    emb = relayout(emb, (emb.spec[0], None))
+    axes = sharding._entry_axes(emb.spec[0])
+    out = []
+    for i, (e, t) in enumerate(zip(emb.blocks, tokens.blocks)):
+        t = t.to(torch.int64)
+        if not axes:
+            out.append(e[t])
+            continue
+        local = t - _vocab_origin(emb, i, 0)
+        inb = (local >= 0) & (local < e.shape[0])
+        out.append(e[local.clamp(0, e.shape[0] - 1)] * inb[..., None].to(e.dtype))
+    x = Placed(out, tokens.spec + (None,), tokens.mesh, partial=axes)
+    return logical_constraint(x, "batch", seq_axis, "embed")
+
+
+def _xent_chunk_placed(xc: Placed, lc: Placed, mc: Placed, table: Placed,
+                       transposed: bool, vocab: int) -> Placed:
+    """One chunk of :func:`fused_unembed_xent_placed`: each rank's logits
+    over its vocab columns; the logsumexp's max and sum, and the target
+    logit, taken over the vocab split.  Returns the summed masked NLL, a
+    placed scalar."""
+    axes = sharding._entry_axes(table.spec[0 if transposed else 1])
+    mesh = xc.mesh
+    logits, gold = [], []
+    for i, (x, w, lab) in enumerate(zip(xc.blocks, table.blocks, lc.blocks)):
+        w = w.to(torch.float32)
+        z = x.to(torch.float32) @ (w.T if transposed else w)
+        v0 = _vocab_origin(table, i, 0 if transposed else 1)
+        if v0 + z.shape[-1] > vocab:
+            z[..., max(vocab - v0, 0):] = -1e30
+        local = lab - v0
+        inb = (local >= 0) & (local < z.shape[-1])
+        g = torch.gather(z, -1, local.clamp(0, z.shape[-1] - 1)[..., None])
+        logits.append(z)
+        gold.append(g[..., 0] * inb.to(z.dtype))
+    m = sharding.pmax(mesh, axes, [z.detach().amax(-1) for z in logits])
+    se = sharding.psum(mesh, axes, [torch.exp(z - mi[..., None]).sum(-1)
+                                    for z, mi in zip(logits, m)])
+    gold = sharding.psum(mesh, axes, gold)
+    return Placed([torch.sum((mi + torch.log(s) - g) * mk)
+                   for mi, s, g, mk in zip(m, se, gold, mc.blocks)],
+                  (), mesh)
+
+
+def fused_unembed_xent_placed(x: Placed, params, vocab: int, labels: Placed,
+                              mask: Optional[Placed] = None,
+                              chunk: int = 512) -> Placed:
+    """:func:`fused_unembed_xent` on placed hidden states (B, S, D) and a
+    placed table: the sequence gathered, then chunk by chunk under
+    ``torch.utils.checkpoint`` the vocab-parallel cross-entropy of
+    :func:`_xent_chunk_placed`; the NLL and the mask summed over the batch
+    split.  Returns the global mean loss, a placed scalar (every rank
+    the same value)."""
+    from torch.utils.checkpoint import checkpoint
+    src, _ = _table_keys(params)
+    table = params[src]
+    transposed = src == "tok"
+    x = whole_but_batch(x)
+    labels = labels.map(lambda t: t.to(torch.int64))
+    if mask is None:
+        mask = labels.map(lambda t: torch.ones(t.shape, dtype=torch.float32,
+                                               device=t.device))
+    mask = mask.map(lambda t: t.to(torch.float32))
+    S = x.shape[1]
+    nll = None
+    for s0 in range(0, S, chunk):
+        cut = lambda p: p.map(lambda t: t[:, s0:s0 + chunk])
+        part = checkpoint(_xent_chunk_placed, cut(x), cut(labels), cut(mask),
+                          table, transposed, vocab, use_reentrant=False,
+                          preserve_rng_state=False)
+        nll = part if nll is None else nll.map(torch.add, part)
+    batch_axes = sharding._entry_axes(x.spec[0])
+    total = sharding.psum(x.mesh, batch_axes, nll.blocks)
+    with torch.no_grad():
+        count = sharding.psum(x.mesh, batch_axes,
+                              [torch.sum(m) for m in mask.blocks])
+    return Placed([t / torch.clamp(c, min=1.0) for t, c in zip(total, count)],
+                  (), x.mesh)

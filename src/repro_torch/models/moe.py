@@ -42,11 +42,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import (_axis_sizes, _is_device_mesh,
+from repro_torch.dist.sharding import (Placed, _axis_sizes, _is_device_mesh,
                                        axis_transport, current_mesh_rules,
-                                       held_coords, local_blocks,
+                                       held_coords, is_placed, local_blocks,
                                        logical_constraint, mesh_mean,
-                                       stitch_blocks)
+                                       relayout, stitch_blocks)
 from repro_torch.models.common import ParamDef, act_fn
 from repro_torch.models.mlp import mlp_apply, mlp_defs
 
@@ -186,9 +186,11 @@ def _moe_a2a_local(cfg: ModelConfig, mesh, coords, x_ls, router_w, w_in_ls,
     dt = x_ls[0].dtype
 
     routed, fs, ps = [], [], []
-    for x_l in x_ls:
+    routers = (router_w if isinstance(router_w, (list, tuple))
+               else [router_w] * len(x_ls))
+    for x_l, r_w in zip(x_ls, routers):
         x2 = x_l.reshape(-1, x_l.shape[-1])
-        top_w, top_i, probs = _router(cfg, router_w, x2)
+        top_w, top_i, probs = _router(cfg, r_w, x2)
         f, pbar = _aux_fp(cfg, probs, top_i)
         fs.append(f)
         ps.append(pbar)
@@ -248,23 +250,61 @@ def a2a_specs(mesh):
     return (batch_axes or None, "model", None), ("model", None, None)
 
 
-def _moe_a2a(cfg: ModelConfig, p, x: torch.Tensor, mesh):
-    """The all-to-all dispatch over a stacked mesh: every rank's block cut
-    from ``x`` and the expert weights by the reference's specs, the body
-    run, the outputs stitched back together."""
-    if _is_device_mesh(mesh):
-        raise NotImplementedError(
-            "the MoE all-to-all over a process DeviceMesh needs its "
-            "activations placed as DTensors; run _moe_a2a_local on each "
-            "rank's block, or bind a StackedMesh")
+def _moe_a2a(cfg: ModelConfig, p, x, mesh):
+    """The all-to-all dispatch.  On placed activations (a stacked or a
+    process mesh) each rank's token block — the residual's layout — and
+    its experts, gathered over data from their FSDP split, go through the
+    body; both results come back placed.  On whole activations over a
+    stacked mesh every rank's block is cut from ``x`` and the expert
+    weights by the reference's specs and the outputs stitched back."""
     x_spec, w_spec = a2a_specs(mesh)
     coords = held_coords(mesh)
+    if is_placed(x):
+        xb = relayout(x, x_spec)
+        w = {k: relayout(p[k], w_spec).blocks
+             for k in ("w_in", "w_gate", "w_out")}
+        outs, aux = _moe_a2a_local(cfg, mesh, coords, xb.blocks,
+                                   p["router"].blocks, w["w_in"],
+                                   w["w_gate"], w["w_out"])
+        return (Placed(outs, xb.spec, mesh),
+                Placed([aux] * len(outs), (), mesh))
+    if _is_device_mesh(mesh):
+        raise NotImplementedError(
+            "the MoE all-to-all over a process DeviceMesh runs on placed "
+            "activations (the placed step of launch.specs.build_train_step("
+            "..., mesh=...)); whole activations take a StackedMesh")
     cut = lambda t, spec: local_blocks(t, spec, mesh, coords)
     outs, aux = _moe_a2a_local(cfg, mesh, coords, cut(x, x_spec),
                                p["router"], cut(p["w_in"], w_spec),
                                cut(p["w_gate"], w_spec),
                                cut(p["w_out"], w_spec))
     return stitch_blocks(outs, x_spec, mesh, coords, x.shape), aux
+
+
+def _moe_placed(cfg: ModelConfig, p, x: Placed):
+    """:func:`moe_apply` on placed activations, on either kind of mesh:
+    under the all-to-all gate :func:`_moe_a2a`; otherwise every rank runs
+    the einsum dispatch on the whole batch (the reference's capacity is
+    the global token count's) and keeps its block."""
+    mesh = x.mesh
+    if a2a_gate(cfg, x.shape, mesh):
+        DISPATCH_COUNTS["a2a"] += 1
+        out, aux = _moe_a2a(cfg, p, x, mesh)
+    else:
+        DISPATCH_COUNTS["einsum"] += 1
+        whole = lambda t: relayout(t, (None,) * t.ndim)
+        xw = whole(x)
+        ws = {k: whole(p[k]) for k in ("router", "w_in", "w_gate", "w_out")}
+        res = [_moe_einsum(cfg, {k: w.blocks[i] for k, w in ws.items()},
+                           b.reshape(-1, b.shape[-1]))
+               for i, b in enumerate(xw.blocks)]
+        out = Placed([o.reshape(b.shape) for (o, _), b in zip(res, xw.blocks)],
+                     xw.spec, mesh)
+        aux = Placed([a for _, a in res], (), mesh)
+    if cfg.n_shared_experts:
+        out = relayout(out, x.spec).map(torch.add,
+                                        mlp_apply(cfg, p["shared"], x))
+    return logical_constraint(out, "batch", "tp_seq", "embed"), aux
 
 
 def a2a_gate(cfg: ModelConfig, x_shape, mesh) -> bool:
@@ -289,7 +329,10 @@ DISPATCH_COUNTS = {"a2a": 0, "einsum": 0}
 
 def moe_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (out (B, S, D), aux_loss fp32 scalar)."""
+    """Returns (out (B, S, D), aux_loss fp32 scalar); on placed
+    activations both placed (:func:`_moe_placed`)."""
+    if is_placed(x):
+        return _moe_placed(cfg, p, x)
     B, S, D = x.shape
     mesh, _ = current_mesh_rules()
     if a2a_gate(cfg, x.shape, mesh):

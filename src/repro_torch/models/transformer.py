@@ -36,15 +36,15 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tree as tree_lib
 from repro_torch.core.fixed_point import QuantStats
-from repro_torch.dist.sharding import logical_constraint
+from repro_torch.dist.sharding import Placed, is_placed, logical_constraint
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (ParamDef, compute_cast, embed_defs,
                                        embed_lookup, fused_unembed_xent,
-                                       layer_norm, map_defs,
-                                       merge_optional, rms_norm, unembed,
-                                       zeros_from)
+                                       fused_unembed_xent_placed, layer_norm,
+                                       map_defs, merge_optional, rms_norm,
+                                       unembed, zeros_from)
 
 
 def stack_defs(n: int, defs):
@@ -85,6 +85,9 @@ def model_defs(cfg: ModelConfig, dtype: torch.dtype = None) -> Dict[str, Any]:
 
 
 def _norm(cfg, x, scale, bias=None):
+    if is_placed(x):
+        return x.map(lambda t, s, *b: _norm(cfg, t, s, *b), scale,
+                     *(() if bias is None else (bias,)))
     if cfg.norm == "layer":
         return layer_norm(x, scale, bias)
     return rms_norm(x, scale)
@@ -93,7 +96,9 @@ def _norm(cfg, x, scale, bias=None):
 def _block(cfg: ModelConfig, p, x, *, positions, mode, cache, cache_pos,
            paged_ptab=None, paged_backend="auto"):
     """One transformer block.  Returns (x, new_cache, aux_loss): the MoE
-    layer's load-balance loss, ``None`` for a dense one."""
+    layer's load-balance loss, ``None`` for a dense one.  On placed
+    activations (the training mode of the placed step) each layer runs its
+    placed form and the results are placed."""
     h = _norm(cfg, x, p["norm1"], p.get("norm1_b"))
     if cfg.mla:
         a_out, new_cache = attn_lib.mla_apply(
@@ -193,9 +198,17 @@ def unbind_layers(layers, n: int):
     would give every layer its own select node, whose backward writes a
     full stacked-size zero gradient and adds it into the leaf's (28 × the
     leaf's bytes of memset-and-add per step at llama3.2-3b); an unbind's
-    backward stacks the ``n`` slice gradients once."""
-    split = tree_lib.map_tree(lambda t: torch.unbind(t, 0), layers)
-    return [tree_lib.map_tree(lambda parts: parts[i], split) for i in range(n)]
+    backward stacks the ``n`` slice gradients once.  A placed leaf splits
+    each distinct block once (the layers dim is never split)."""
+    def split(leaf):
+        if not is_placed(leaf):
+            return torch.unbind(leaf, 0)
+        parts = {id(b): torch.unbind(b, 0) for _, b in leaf.distinct()}
+        return [Placed([parts[id(b)][i] for b in leaf.blocks], leaf.spec[1:],
+                       leaf.mesh, leaf.shape[1:]) for i in range(n)]
+    split_tree = tree_lib.map_tree(split, layers)
+    return [tree_lib.map_tree(lambda parts: parts[i], split_tree)
+            for i in range(n)]
 
 
 def _train_block(cfg: ModelConfig, p, x, positions, qctx, idx: int):
@@ -246,19 +259,23 @@ def forward_train(cfg: ModelConfig, params, tokens: torch.Tensor, qctx=None,
                   vision_embeds: Optional[torch.Tensor] = None):
     """Training forward: ``(final-normed hidden (B, S, D), act_stats,
     aux_loss)`` — ``aux_loss`` the layers' summed MoE load-balance loss
-    (fp32 0 for a dense model).  ``vision_embeds`` as in :func:`forward`."""
+    (fp32 0 for a dense model).  ``vision_embeds`` as in :func:`forward`.
+    On a placed state and placed tokens (:func:`placed_loss_fn`) the
+    hidden states and a MoE model's loss come out placed (every rank its
+    own copy of the loss)."""
     x = _embed(cfg, params, tokens, vision_embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None, :]
-    stats = None
-    aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    stats, aux_loss = None, None
     for i, p in enumerate(unbind_layers(params["layers"], cfg.n_layers)):
         x, s, aux = remat_call(cfg, _train_block, cfg, p, x, positions, qctx,
                                i)
         stats = merge_optional(stats, s)
         if aux is not None:
-            aux_loss = aux_loss + aux
+            aux_loss = aux if aux_loss is None else aux_loss + aux
     x = _norm(cfg, x, params["final_norm"])
+    if aux_loss is None:
+        aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, stats or QuantStats.zero(device=x.device), aux_loss
 
 
@@ -283,6 +300,50 @@ def loss_fn(cfg: ModelConfig):
         if cfg.n_experts:
             loss = loss + cfg.router_aux_coef * aux_loss
             aux["aux_loss"] = aux_loss.detach()
+        return loss, aux
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# Training on a placed state (launch.specs.build_train_step with a mesh).
+# ---------------------------------------------------------------------------
+
+def check_placeable(cfg: ModelConfig) -> None:
+    """Raise, naming what is missing, unless every layer ``cfg`` uses has a
+    placed form: GQA self-attention without biases, the MLP (gated or
+    not), the MoE layer, RMS norm, tied or untied embeddings."""
+    missing = [what for what, used in (
+        ("MLA attention (mla)", cfg.mla),
+        ("the vision prefix (n_patches)", cfg.n_patches),
+        ("attention biases (attn_bias)", cfg.attn_bias)) if used]
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name} (family {cfg.family!r}) has no placed training "
+            f"step yet: {', '.join(missing)} run whole, so it trains on a "
+            "pure data-parallel mesh or none")
+
+
+def placed_loss_fn(cfg: ModelConfig):
+    """:func:`loss_fn` for a placed state: ``(params, batch, qctx) ->
+    (loss, aux)`` with the batch's tensors placed and the loss a placed
+    scalar (the global mean on every rank).  The forward is
+    :func:`forward_train`'s, block for block; raises for a config whose
+    layers have no placed form (:func:`check_placeable`)."""
+    check_placeable(cfg)
+
+    def fn(params, batch, qctx=None):
+        tokens = batch["tokens"]
+        hidden, stats, aux_loss = forward_train(
+            cfg, params, tokens.map(lambda t: t[:, :-1]), qctx)
+        loss = fused_unembed_xent_placed(
+            hidden, params["embed"], cfg.vocab,
+            tokens.map(lambda t: t[:, 1:]), batch.get("loss_mask"))
+        aux = {"act_stats": stats}
+        if cfg.n_experts:
+            loss = loss.map(lambda l, a: l + cfg.router_aux_coef * a,
+                            aux_loss)
+            aux["aux_loss"] = aux_loss.blocks[0].detach()
         return loss, aux
 
     return fn

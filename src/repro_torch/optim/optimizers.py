@@ -121,6 +121,35 @@ def _clip_by_norm_shard(g: torch.Tensor, max_norm: float,
     return (g * scale).to(g.dtype)
 
 
+def placed_sq_norm(grads) -> torch.Tensor:
+    """Σ g² over a tree of placed gradients: each leaf's held blocks'
+    sums, summed over its split axes in rank order, then over the leaves
+    in leaf order (every rank gets the whole norm²)."""
+    from repro_torch.dist import sharding          # dist imports optim's
+    total = None
+    for g in tree_lib.leaves(grads):
+        part = [torch.sum(torch.square(b.to(torch.float32)))
+                for b in g.blocks]
+        part = sharding.psum(g.mesh, sharding.spec_axes(g.spec), part)[0]
+        total = part if total is None else total + part
+    return total
+
+
+def _placed_triples(grads, params, *states):
+    """``(g, p, *state)`` blocks of every distinct parameter block of a
+    placed tree, with its leaf index."""
+    for i, (g, p, *st) in enumerate(_triples(grads, params, *states)):
+        for r, pb in p.distinct():
+            yield i, r, g.blocks[r], pb, [s.blocks[r] for s in st]
+
+
+def placed_zeros(params, dtype):
+    """Zero state blocks shaped and shared as the placed ``params``'."""
+    return tree_lib.map_tree(
+        lambda p: p.map(lambda b: torch.zeros(b.shape, dtype=dtype,
+                                              device=b.device)), params)
+
+
 # salt of the sharded steps' stochastic state casts
 _SHARD = 0x5348
 
@@ -229,6 +258,27 @@ class SGD:
                 self._leaf(lr, g, p, mu, fold_seed(17, count, i), keep)
         return params, state
 
+    # --- placed state (see repro_torch.dist.sharding.Placed) ---
+
+    def init_placed(self, params):
+        """The momentum placed like its parameter."""
+        return {"mu": placed_zeros(params, _state_dtype(self.cfg.state_dtype))}
+
+    def update_placed(self, grads, state, params, count: int):
+        """:meth:`update` on every distinct block of a placed tree, in
+        place; the clip's norm is :func:`placed_sq_norm`'s.  A bf16 state's
+        stochastic cast draws its noise per block."""
+        cfg = self.cfg
+        scale = (_clip_scale(torch.sqrt(placed_sq_norm(grads)), cfg.clip_norm)
+                 if cfg.clip_norm else None)
+        lr = self.sched(count)
+        with torch.no_grad():
+            for i, r, g, p, (mu,) in _placed_triples(grads, params,
+                                                     state["mu"]):
+                if scale is not None:
+                    g = (g * scale).to(g.dtype)
+                self._leaf(lr, g, p, mu, fold_seed(17, count, i, r))
+
     # --- ZeRO-1 shard-local interface (see repro_torch.dist.sharding) ---
 
     def init_shard(self, shape, device=None):
@@ -308,6 +358,31 @@ class AdamW:
                            (fold_seed(23, count, i, 1),
                             fold_seed(23, count, i, 2)), keep)
         return params, state
+
+    # --- placed state (see repro_torch.dist.sharding.Placed) ---
+
+    def init_placed(self, params):
+        """``m`` and ``v`` placed like their parameter."""
+        dt = _state_dtype(self.cfg.state_dtype)
+        return {"m": placed_zeros(params, dt), "v": placed_zeros(params, dt)}
+
+    def update_placed(self, grads, state, params, count: int):
+        """:meth:`update` on every distinct block of a placed tree, in
+        place; the global-norm clip sums every rank's blocks
+        (:func:`placed_sq_norm`)."""
+        cfg = self.cfg
+        scale = (_clip_scale(torch.sqrt(placed_sq_norm(grads)), cfg.clip_norm)
+                 if cfg.clip_norm else None)
+        lr = self.sched(count)
+        bc1, bc2 = self._bias_corrections(count)
+        with torch.no_grad():
+            for i, r, g, p, (m, v) in _placed_triples(grads, params,
+                                                      state["m"], state["v"]):
+                if scale is not None:
+                    g = (g * scale).to(g.dtype)
+                self._leaf(lr, bc1, bc2, g, p, m, v,
+                           (fold_seed(23, count, i, r, 1),
+                            fold_seed(23, count, i, r, 2)))
 
     # --- ZeRO-1 shard-local interface (see repro_torch.dist.sharding) ---
 

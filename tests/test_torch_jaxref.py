@@ -1608,6 +1608,88 @@ def job_ep_train(a, steps, seq, batch, arch, mesh, overrides=None):
     return out
 
 
+def job_sharded_step(a, steps, seq, batch, mesh, arch="llama3_2_3b",
+                     overrides=None):
+    """The reference's sharded-step check at smoke size
+    (``tests/test_dist.py::test_sharded_train_step_matches_single_device``),
+    over ``steps`` SGD steps under nearest rounding: the step jitted with
+    ``in_shardings``/``out_shardings`` of ``train_state_shardings`` on a
+    (data, model) ``mesh`` of forced host devices, under ``axis_rules``,
+    and the same step unsharded.  Returns both histories, the initial
+    parameters and both runs' final parameters."""
+    import dataclasses
+    import jax
+    from repro.core import qtrain
+    from repro.data import TokenStream, TokenStreamConfig
+    from repro.dist.sharding import LogicalRules, axis_rules
+    from repro.launch import specs as specs_lib
+    from repro.models import registry
+    from repro.models.common import init_params
+    from repro.optim import SGDConfig, make_optimizer
+    cfg = dataclasses.replace(_smoke_cfg(arch, overrides), remat="full")
+    mod = registry(cfg.family)
+    params = init_params(jax.random.key(0), mod.model_defs(cfg))
+    out = flatten(_np_params(params), "params/")
+    qcfg = qtrain.QuantConfig(rounding="nearest")
+    opt = make_optimizer(SGDConfig())
+    step = specs_lib.build_train_step(cfg, qcfg, opt, accum_steps=1)
+    data = TokenStream(TokenStreamConfig(vocab=cfg.vocab, seq_len=seq,
+                                         global_batch=batch, seed=0))
+    batches = [data.batch(i) for i in range(steps)]
+
+    def fresh():
+        return qtrain.TrainState.create(params, opt.init(params), qcfg,
+                                        jax.random.key(1))
+
+    state, hist = _run_train(jax.jit(step), fresh(), batches)
+    out.update({f"whole/hist/{k}": v for k, v in hist.items()})
+    out.update(flatten(_np_params(state.params), "whole/final/"))
+    m = _ep_mesh(mesh)
+    rules = LogicalRules()
+    sh = specs_lib.train_state_shardings(cfg, m, rules, opt, qcfg)
+    bs = specs_lib.train_batch_shardings(
+        cfg, type("S", (), {"batch": batch, "seq": seq})(), m, rules)
+    with m, axis_rules(m, rules):
+        state = jax.device_put(fresh(), sh)
+        jitted = jax.jit(step, in_shardings=(sh, bs),
+                         out_shardings=(sh, None))
+        state, hist = _run_train(
+            jitted, state, [jax.device_put(b, bs) for b in batches])
+    out.update({f"sharded/hist/{k}": v for k, v in hist.items()})
+    out.update(flatten(_np_params(state.params), "sharded/final/"))
+    return out
+
+
+def job_elastic_restore(a, root, step, meshes, arch="llama3_2_3b"):
+    """A checkpoint the port wrote from a placed state, restored by the
+    reference's ``ckpt.restore`` into its ``abstract_train_state`` and
+    placed by ``train_state_shardings`` on each (data, model) mesh of
+    ``meshes`` (``[]``: none), as its ``test_elastic_restore_across_meshes``
+    restores across meshes: the parameters and the momentum each time."""
+    import jax
+    from repro.checkpoint import restore
+    from repro.core import qtrain
+    from repro.dist.sharding import LogicalRules
+    from repro.launch import specs as specs_lib
+    from repro.optim import SGDConfig, make_optimizer
+    cfg = _smoke_cfg(arch)
+    qcfg = qtrain.QuantConfig(rounding="nearest")
+    opt = make_optimizer(SGDConfig())
+    template = specs_lib.abstract_train_state(cfg, opt, qcfg)
+    state, _ = restore(root, step, template)
+    out = flatten(_np_params(state.params), "none/params/")
+    out.update(flatten(_np_params(state.opt_state), "none/opt/"))
+    for shape in meshes:
+        m = _ep_mesh(shape)
+        sh = specs_lib.train_state_shardings(cfg, m, LogicalRules(), opt,
+                                             qcfg)
+        placed = jax.device_put(state, sh)
+        tag = "x".join(str(n) for n in shape)
+        out.update(flatten(_np_params(placed.params), f"{tag}/params/"))
+        out.update(flatten(_np_params(placed.opt_state), f"{tag}/opt/"))
+    return out
+
+
 def _child_main(fin, fout):
     import jax
     import jax.extend.core
