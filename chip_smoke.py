@@ -11,7 +11,8 @@ prefill and absorbed decode); at sequence 4,096 through the blockwise
 attention and under ``remat="dots"``; the SSM, hybrid and
 encoder-decoder families, trained and served through their contiguous
 prefill and decode; the MoE layer's expert-parallel all-to-all over a
-stacked (data × model) mesh), data-parallel
+stacked (data × model) mesh; every family's sharded train step, its
+state placed over a stacked (data × model) mesh), data-parallel
 training over the int8 wire (``launch.train --grad-allreduce-bits 8
 --data-ranks 4``, with ZeRO-1 and the overlapped bucketed wire:
 ``--zero-opt --wire-overlap on``), and that trainer's checkpoint, resume,
@@ -334,13 +335,36 @@ Phases 10-14 run right after phase 8's counted wire run, before its
              the stacked one on CUDA tensors, then smoke llama's placed step
              over its (1, 1) ``DeviceMesh``).
 
+18. tp_families — after phase 17: ``tp_families_check`` (each placed form
+             the other families train through, at its config's full
+             geometry, fp32 and bf16, on stacked (1, 4) and (2, 4) meshes
+             against the whole layer within ``TP_TOL``, or twice the whole
+             layer's own reordering noise where that is larger: deepseek-v2's
+             MLA layer, the Mamba2 blocks of mamba2-1.3b and zamba2-7b,
+             zamba2's shared block, whisper's encoder and decoder layers
+             with random biases, internvl2's embedding with its 256-patch
+             prefix; K1b's blocks of deepseek's stacked ``w_uk``, mamba2's
+             stacked ``conv_w``, zamba2's shared ``wq`` and ``w_in`` and
+             whisper's stacked ``bq`` bit-equal to the unsharded launch),
+             then ``train_internvl2_tp``, ``train_mamba2_tp``,
+             ``train_zamba2_tp`` and ``train_whisper_tp`` (each config at
+             the depth phases 8–9 train it, ``launch.train.main`` placed on
+             a stacked (1, 4) mesh against that unsharded run's first 3
+             steps: formats equal every step, the first loss within
+             ``TP_LOSS_RTOL`` or twice bf16's own size on the model, K1b a
+             step as the placement counts it; one fp32 step unsharded and
+             placed, their first losses within ``TP_FAMILY_LOSS_RTOL_F32``;
+             ms a step, peak, bytes a rank).  deepseek-v2-236b's placed
+             step needs several cards and runs on the CPU only.
+
 The line before the last two carries the kernels (launches on their path —
 K1's from the LM run with a bits operand, LeNet's beside them; K1b's row
 adds ``launches_train_long``, ``launches_train_dots``,
 ``launches_paper_fig4`` (the DPS and fixed 13-bit arms) and
-``launches_train_qwen_ep`` and ``launches_train_llama_tp_1x4``/``_2x4``
-(the placed runs; their block-mode launches are the
-``dps_quantize_onchip_prng_block`` row's, (1, 4) as its ``launches``);
+``launches_train_qwen_ep``, ``launches_train_llama_tp_1x4``/``_2x4``
+and ``launches_train_<config>_tp`` of phase 18 (the placed runs; their
+block-mode launches are the ``dps_quantize_onchip_prng_block`` row's,
+llama's (1, 4) as its ``launches``);
 K2b's, K3b's
 and K4's from the wire run; K2's from the wire run with a bits operand; K5's
 from the serving run, on its serving-shape row (a row of another config's
@@ -364,6 +388,7 @@ script exits non-zero.
 """
 
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -588,6 +613,30 @@ TP_LOSS_RTOL = {"1x4": 2e-4, "2x4": 2e-4}
 TP_LOSS_RTOL_F32 = {"1x4": 5e-7, "2x4": 5e-6}
 TP_FLIP_SHARE = {"1x4": 0.02, "2x4": 0.02}
 TP_FLIP_STEPS = 16
+# phase 18 (every family on the placed step): the other families trained
+# placed on a stacked (1, 4) mesh at full width, against their unsharded
+# runs of phases 8-9 (the same argv but TP_STEPS steps, the first TP_STEPS
+# compared): (config module, layers (None: all), phase), the depth those
+# runs train at.  At mamba2's 12 of 48 layers (and llama's 14 of 28 in
+# train_llama_tp) the placed bf16 run's activation error sends fl_a to 10
+# where the unsharded run's sends it to 12 at step 3 (ROADMAP Queue 3), so
+# the depths are not cut further.  deepseek-v2-236b does not train on one
+# card at any depth (one layer and its untied tables are ~5.0 B
+# parameters, ~80 GB of fp32 weights, momentum, gradient and snap): its
+# MLA layer is held at full width by ``tp_families_check`` and its placed
+# step on the CPU.
+TP_FAMILY_MESH = (1, 4)
+TP_FAMILY_TRAIN = (("internvl2_26b", 3, "train_internvl2_tp"),
+                   ("mamba2_1_3b", None, "train_mamba2_tp"),
+                   ("zamba2_7b", 15, "train_zamba2_tp"),
+                   ("whisper_medium", None, "train_whisper_tp"))
+# their first losses with fp32 compute, placed against unsharded, by
+# config: about twice the larger of seeds 0 and 1's readings on an H100
+# (internvl2 4.9e-7 / 1.6e-7, mamba2 2.0e-6 / 4.0e-6, zamba2 2.2e-6 /
+# 2.9e-6, whisper 8.6e-8 / 8.6e-8): the SSM carries a last-bit difference
+# through its blocks further than attention does
+TP_FAMILY_LOSS_RTOL_F32 = {"internvl2_26b": 1e-6, "mamba2_1_3b": 8e-6,
+                           "zamba2_7b": 6e-6, "whisper_medium": 2e-7}
 
 
 def depth_cut(model, layers=None):
@@ -596,8 +645,14 @@ def depth_cut(model, layers=None):
     return cfg if layers is None else dataclasses.replace(cfg, n_layers=layers)
 
 
+T0 = time.perf_counter()
+
+
 def say(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line, with the seconds since the script started
+    (``at_s``: what each phase adds to the call)."""
+    print(json.dumps({"phase": phase, "at_s": round(time.perf_counter() - T0,
+                                                    1), **kw}), flush=True)
 
 
 def serve_layout():
@@ -1592,7 +1647,8 @@ def train_lm(cfg, rounding_bits, steps, batch=2, model="llama3_2_3b",
             + f" + 2 x {registry(cfg.family).residual_taps(cfg)} blocks x "
             f"{cfg.train_accum} microbatches"))
     res = {"launches": launches, "ms": out["ms_per_step_after_first"],
-           "peak": out["peak_memory_bytes"], "losses": losses}
+           "peak": out["peak_memory_bytes"], "losses": losses,
+           "formats": traj, "argv": argv}
     del out
     gc.collect()
     torch.cuda.empty_cache()
@@ -4124,117 +4180,188 @@ def k1b_block_row():
     return row
 
 
-def tp_check():
-    """One llama3.2-3b layer at full geometry (D 3,072, 24/8 heads, Dh
-    128, d_ff 8,192), x (2, 512, 3,072), fp32 and bf16, on stacked (1, 4)
-    and (2, 4) meshes against the unsharded layer: the output and every
-    gradient within ``TP_TOL`` (max |Δ| over max |value|); K1b in block
-    mode on every rank's block of ``w_in``, ``wk`` (28 layers) and ``tok``
-    bit-equal to the unsharded launch, the merged statistics exact or
-    within ``SUM_RTOL``; forward + backward ms and peak of both."""
+def _layer_vs_whole(cfg, defs, fn, inputs, in_logical, out_shape, *,
+                    perturb=(), seed=3, noise_floor=False):
+    """``fn(params, *inputs)`` (an output of ``out_shape``) whole, then
+    placed on each of ``TP_MESHES`` (the parameters by their
+    declarations' specs, input ``i`` by ``in_logical[i]``, the output laid
+    out by ``("batch", "tp_seq", "embed")``, one rank an element): the
+    output and the gradients of ``sum(out * w)`` for every floating input
+    and every parameter, each as max |Δ| over max |value| of the whole
+    one, within ``TP_TOL`` of ``cfg``'s compute dtype; forward + backward
+    ms and peak of both.  The key bias's gradient is zero in exact
+    arithmetic (a shift of every key moves a query's scores alike, which
+    the softmax ignores): its largest magnitude in either run, over the
+    layer's largest gradient, is held to the same limit.
+    ``noise_floor``: each parameter's gradient is also computed whole a
+    batch row at a time and summed — the same sums in another order — and
+    the placed gradient is held within twice that difference where it
+    exceeds half of ``TP_TOL`` (a gradient that sums every position of a
+    head, as a Mamba2 block's ``a_log`` and ``dt_bias`` do, moves that
+    much under any reordering).  ``perturb``: parameter paths drawn at random in
+    place of their zero init (biases).  Returns the readings."""
     from repro_torch.core import qtrain
     from repro_torch.core import tree as tree_lib
     from repro_torch.dist import sharding
     from repro_torch.dist.sharding import (LogicalRules, axis_rules,
                                            gather_placed, place_tensor,
                                            relayout)
-    from repro_torch.models import transformer as tr
     from repro_torch.models.common import map_defs
+    dtype = cfg.dtype
+    rules = LogicalRules()
+    p = init_params(defs, DEV, torch.Generator(device=DEV).manual_seed(seed))
+    g = torch.Generator(device=DEV).manual_seed(seed + 1)
+    for path in perturb:
+        node = p
+        for k in path[:-1]:
+            node = node[k]
+        node[path[-1]] = 0.1 * torch.randn(node[path[-1]].shape, generator=g,
+                                           device=DEV)
+    w = torch.randn(out_shape, generator=g, device=DEV).to(
+        cfg.activation_dtype())
+    floating = [x.is_floating_point() for x in inputs]
+
+    def whole_pass(rows=slice(None)):
+        pw = tree_lib.map_tree(lambda t: t.detach().requires_grad_(), p)
+        xw = [x[rows].detach().requires_grad_() if f else x[rows]
+              for x, f in zip(inputs, floating)]
+        y = fn(pw, *xw)
+        gr = torch.autograd.grad(
+            (y.float() * w[rows].float()).sum(),
+            [x for x, f in zip(xw, floating) if f] + tree_lib.leaves(pw),
+            allow_unused=True, materialize_grads=True)
+        return y, gr
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    y_w, g_w = whole_pass()
+    torch.cuda.synchronize()
+    res = {"unsharded_ms": time_ms(whole_pass, repeats=3, warmup=1),
+           "unsharded_peak_bytes": torch.cuda.max_memory_allocated()
+           - base_mem}
+    names = ([f"d_input{i}" for i, f in enumerate(floating) if f]
+             + ["d" + "/".join(k) for k, _ in tree_lib.leaves_with_path(p)])
+    largest = max(float(t.abs().max()) for t in g_w)
+    limit = dict.fromkeys(names, TP_TOL[dtype])
+    if noise_floor:
+        n_in = sum(floating)
+        by_row = [whole_pass(slice(r, r + 1))[1][n_in:]
+                  for r in range(out_shape[0])]
+        floor = {n: _rel_max(sum(g[i] for g in by_row), gw)
+                 for i, (n, gw) in enumerate(zip(names[n_in:], g_w[n_in:]))}
+        del by_row
+        limit.update({n: max(TP_TOL[dtype], 2 * f) for n, f in floor.items()
+                      if not n.endswith("/bk")})
+        res["reordering_noise"] = floor
+    for shape in TP_MESHES:
+        mesh = _stacked(shape)
+        with axis_rules(mesh, rules):
+            specs_ = map_defs(lambda d: rules.spec(d.logical, d.shape, mesh),
+                              defs)
+            pp = tree_lib.map_tree(lambda t, sp: place_tensor(t, sp, mesh),
+                                   p, specs_)
+            xp0 = [place_tensor(x, rules.spec(lg, x.shape, mesh), mesh)
+                   for x, lg in zip(inputs, in_logical)]
+            ospec = rules.spec(("batch", "tp_seq", "embed"), out_shape, mesh)
+            wp = place_tensor(w, ospec, mesh)
+
+            def placed_pass():
+                # one autograd leaf a rank, as the placed step makes them
+                pl = tree_lib.map_tree(qtrain._rank_leaves, pp)
+                xp = [qtrain._rank_leaves(x) if f else x
+                      for x, f in zip(xp0, floating)]
+                y = relayout(fn(pl, *xp), ospec)
+                loss = [(a.float() * b.float()).sum()
+                        for a, b in zip(y.blocks, wp.blocks)]
+                ins = [x for x, f in zip(xp, floating) if f] + \
+                    tree_lib.leaves(pl)
+                gr = torch.autograd.grad(
+                    loss, [b for v in ins for b in v.blocks],
+                    allow_unused=True, materialize_grads=True)
+                return y, gr, ins
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_mem = torch.cuda.memory_allocated()
+            y_p, g_p, ins = placed_pass()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base_mem
+            ms = time_ms(lambda: placed_pass(), repeats=3, warmup=1)
+            rels = {"out": _rel_max(gather_placed(y_p), y_w)}
+            at = 0
+            for name, v, gw in zip(names, ins, g_w):
+                gb = list(g_p[at:at + len(v.blocks)])
+                at += len(v.blocks)
+                # a tensor replicated over an axis: each rank holds its share
+                gb = sharding.psum(mesh, v.replicated_axes(), gb)
+                gp = gather_placed(sharding.Placed(gb, v.spec, mesh,
+                                                   v.shape))
+                rels[name] = (
+                    max(float(gp.abs().max()), float(gw.abs().max()))
+                    / largest if name.endswith("/bk") else _rel_max(gp, gw))
+        over = {k: v for k, v in rels.items() if not v <= limit.get(
+            k, TP_TOL[dtype])}
+        if over:
+            raise AssertionError(f"{cfg.name} {dtype} {shape}: relative "
+                                 f"differences {over} over their limits "
+                                 f"{ {k: limit.get(k, TP_TOL[dtype]) for k in over} }")
+        res[f"{shape[0]}x{shape[1]}"] = dict(max_rel=rels, ms=ms,
+                                             peak_bytes=peak)
+        del y_p, g_p, ins, pp, xp0, wp
+    del p, y_w, g_w
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_check():
+    """One llama3.2-3b layer at full geometry (D 3,072, 24/8 heads, Dh
+    128, d_ff 8,192), x (2, 512, 3,072), fp32 and bf16, on stacked (1, 4)
+    and (2, 4) meshes against the unsharded layer (:func:`_layer_vs_whole`):
+    the output and every gradient within ``TP_TOL`` (max |Δ| over max
+    |value|); K1b in block mode on every rank's block of ``w_in``, ``wk``
+    (28 layers) and ``tok`` bit-equal to the unsharded launch, the merged
+    statistics exact or within ``SUM_RTOL``; forward + backward ms and
+    peak of both."""
+    from repro_torch.dist.sharding import LogicalRules
+    from repro_torch.models import transformer as tr
     base = get_config("llama3_2_3b")
     rules = LogicalRules()
     out = {}
+    pos = torch.arange(512, dtype=torch.int32, device=DEV)[None, :]
     for dtype in ("float32", "bfloat16"):
         cfg = dataclasses.replace(base, dtype=dtype, remat="none")
-        defs = tr.layer_defs(cfg, torch.float32)
-        p = init_params(defs, DEV, torch.Generator(device=DEV).manual_seed(3))
         g = torch.Generator(device=DEV).manual_seed(4)
         x = torch.randn(2, 512, cfg.d_model, generator=g, device=DEV)
-        w = torch.randn(2, 512, cfg.d_model, generator=g, device=DEV)
-        x, w = x.to(cfg.activation_dtype()), w.to(cfg.activation_dtype())
-        pos = torch.arange(512, dtype=torch.int32, device=DEV)[None, :]
-
-        def whole_pass():
-            pw = tree_lib.map_tree(lambda t: t.detach().requires_grad_(), p)
-            xw = x.detach().requires_grad_()
-            y, _, _ = tr._train_block(cfg, pw, xw, pos, None, 0)
-            gr = torch.autograd.grad((y.float() * w.float()).sum(),
-                                     [xw] + tree_lib.leaves(pw))
-            return y, gr
-
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base_mem = torch.cuda.memory_allocated()
-        y_w, g_w = whole_pass()
-        torch.cuda.synchronize()
-        res = {"unsharded_ms": time_ms(whole_pass, repeats=3, warmup=1),
-               "unsharded_peak_bytes": torch.cuda.max_memory_allocated()
-               - base_mem}
-        for shape in ((1, 4), (2, 4)):
-            mesh = _stacked(shape)
-            with axis_rules(mesh, rules):
-                specs_ = map_defs(lambda d: rules.spec(d.logical, d.shape,
-                                                       mesh), defs)
-                pp = tree_lib.map_tree(lambda t, sp: place_tensor(t, sp, mesh),
-                                       p, specs_)
-                xspec = rules.spec(("batch", "tp_seq", "embed"), x.shape, mesh)
-                xp0 = place_tensor(x, xspec, mesh)
-                wp = place_tensor(w, xspec, mesh)
-
-                def placed_pass():
-                    # one autograd leaf a rank, as the placed step makes them
-                    pl = tree_lib.map_tree(qtrain._rank_leaves, pp)
-                    xp = xp0.map(lambda b: b.detach().requires_grad_())
-                    y, _, _ = tr._train_block(cfg, pl, xp, pos, None, 0)
-                    y = relayout(y, xspec)
-                    loss = [(a.float() * b.float()).sum()
-                            for a, b in zip(y.blocks, wp.blocks)]
-                    ins = xp.blocks + [b for v in tree_lib.leaves(pl)
-                                       for b in v.blocks]
-                    gr = torch.autograd.grad(loss, ins)
-                    return y, gr, xp, pl
-
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                base_mem = torch.cuda.memory_allocated()
-                y_p, g_p, xp, pl = placed_pass()
-                torch.cuda.synchronize()
-                peak = torch.cuda.max_memory_allocated() - base_mem
-                ms = time_ms(lambda: placed_pass(), repeats=3, warmup=1)
-                rels = {"out": _rel_max(gather_placed(y_p), y_w),
-                        "dx": _rel_max(gather_placed(sharding.Placed(
-                            list(g_p[:len(xp.blocks)]), xp.spec, mesh)),
-                            g_w[0])}
-                at = len(xp.blocks)
-                for (path, v), gw in zip(tree_lib.leaves_with_path(pl),
-                                         g_w[1:]):
-                    gb = list(g_p[at:at + len(v.blocks)])
-                    at += len(v.blocks)
-                    gb = sharding.psum(mesh, v.replicated_axes(), gb)
-                    rels["d" + "/".join(path)] = _rel_max(gather_placed(
-                        sharding.Placed(gb, v.spec, mesh)), gw)
-            worst = max(rels.values())
-            if not worst <= TP_TOL[dtype]:
-                raise AssertionError(f"tp_check {dtype} {shape}: relative "
-                                     f"differences {rels} (> {TP_TOL[dtype]})")
-            res[f"{shape[0]}x{shape[1]}"] = dict(
-                max_rel=rels, ms=ms, peak_bytes=peak)
-            del y_p, g_p, xp, pl, pp
-        out[dtype] = res
-        del p, x, w, y_w, g_w
-        gc.collect()
-        torch.cuda.empty_cache()
+        out[dtype] = _layer_vs_whole(
+            cfg, tr.layer_defs(cfg, torch.float32),
+            lambda p, x: tr._train_block(cfg, p, x, pos, None, 0)[0],
+            [x.to(cfg.activation_dtype())], [("batch", "tp_seq", "embed")],
+            x.shape)
+        del x
     # K1b in block mode on the full-size leaves, every rank's block
     L, D, V = base.n_layers, base.d_model, 128512
-    gen = torch.Generator(device=DEV).manual_seed(9)
+    sums = _placed_leaves_check((
+        ("w_in", (L, D, base.d_ff), (None, "fsdp", "tp")),
+        ("wk", (L, D, base.n_kv_heads * base.head_dim), (None, "fsdp", "tp")),
+        ("tok", (V, D), ("vocab_out", "embed"))), rules)
+    say("tp_check", tolerance=TP_TOL, layer=out,
+        k1b_blocks_bit_equal=True, merged_stats_sum_max_rel=sums,
+        merged_stats_sum_tolerance=SUM_RTOL)
+    return out
+
+
+def _placed_leaves_check(leaves, rules, seed=9):
+    """:func:`_placed_leaf_check` on each ``(name, shape, logical)`` leaf
+    drawn at full size, on each of ``TP_MESHES``: the merged statistics'
+    largest float-sum difference by leaf and mesh."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
     sums = {}
-    for what, shape, logical in (
-            ("w_in", (L, D, base.d_ff), (None, "fsdp", "tp")),
-            ("wk", (L, D, base.n_kv_heads * base.head_dim),
-             (None, "fsdp", "tp")),
-            ("tok", (V, D), ("vocab_out", "embed"))):
+    for what, shape, logical in leaves:
         x = torch.randn(shape, generator=gen, device=DEV) * 0.03
         x.view(-1)[::13] = 0.0
-        for mshape in ((1, 4), (2, 4)):
+        for mshape in TP_MESHES:
             mesh = _stacked(mshape)
             spec = rules.spec(logical, shape, mesh)
             sums[f"{what} {mshape[0]}x{mshape[1]} {spec}"] = \
@@ -4242,17 +4369,125 @@ def tp_check():
         del x
         gc.collect()
         torch.cuda.empty_cache()
-    say("tp_check", tolerance=TP_TOL, layer=out,
+    return sums
+
+
+def tp_families_check():
+    """Each placed form the other families train through, at its
+    config's full geometry, fp32 and bf16, on stacked (1, 4) and (2, 4)
+    meshes against the whole layer (:func:`_layer_vs_whole`, ``TP_TOL``):
+    deepseek-v2's MLA layer (D 5,120, 128 heads, x (2, 512, 5,120)); the
+    Mamba2 block (norm, mixer, residual) of mamba2-1.3b and of zamba2-7b;
+    zamba2's shared transformer block; whisper's encoder layer (1,500
+    frames, biased MHA, not causal) and decoder layer (self- and
+    cross-attention over 1,500 encoder positions, biases drawn at random);
+    internvl2's embedding with its 256-patch prefix before 512 tokens.
+    Then K1b in block mode on the new leaves' blocks at full size
+    (deepseek's stacked ``w_uk``, split on its heads; mamba2's stacked
+    ``conv_w``, split on its channels; zamba2's ``shared`` ``wq`` and
+    ``w_in``; whisper's stacked ``bq``) bit-equal to the unsharded
+    launch."""
+    from repro_torch.dist.sharding import LogicalRules
+    from repro_torch.models import attention, encdec, hybrid, mamba
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.common import compute_cast
+    S = 512
+    pos = torch.arange(S, dtype=torch.int32, device=DEV)[None, :]
+    resid = ("batch", "tp_seq", "embed")
+    out = {}
+
+    def draw(shape, seed, dt):
+        g = torch.Generator(device=DEV).manual_seed(seed)
+        return torch.randn(shape, generator=g, device=DEV).to(dt)
+
+    biases = [(k,) for k in ("bq", "bk", "bv", "bo")]
+    check = functools.partial(_layer_vs_whole, noise_floor=True)
+    for dtype in ("float32", "bfloat16"):
+        res = {}
+
+        def at(model):
+            return dataclasses.replace(get_config(model), dtype=dtype,
+                                       remat="none")
+
+        cfg = at("deepseek_v2_236b")
+        x = draw((2, S, cfg.d_model), 4, cfg.activation_dtype())
+        res["mla_deepseek_v2_236b"] = check(
+            cfg, attention.mla_defs(cfg, torch.float32),
+            lambda p, x: attention.mla_apply(
+                cfg, compute_cast(cfg, p, attention.mla_defs), x,
+                positions=pos, mode="train")[0], [x], [resid], x.shape)
+        for model in ("mamba2_1_3b", "zamba2_7b"):
+            cfg = at(model)
+            x = draw((2, S, cfg.d_model), 5, cfg.activation_dtype())
+            res[f"mamba2_block_{model}"] = check(
+                cfg, mamba.layer_defs(cfg, torch.float32),
+                lambda p, x: mamba.train_block(cfg, p, x, None, 0)[0], [x],
+                [resid], x.shape, perturb=[("ssm", "a_log"),
+                                           ("ssm", "dt_bias")])
+        res["shared_block_zamba2_7b"] = check(
+            cfg, hybrid.model_defs(cfg, torch.float32)["shared"],
+            lambda p, x: tr._train_block(cfg, p, x, pos, None,
+                                         hybrid.SHARED_TAP_BASE)[0], [x],
+            [resid], x.shape)
+        cfg = at("whisper_medium")
+        frames = draw((2, cfg.enc_seq, cfg.d_model), 6,
+                      cfg.activation_dtype())
+        res["encoder_layer_whisper_medium"] = check(
+            cfg, encdec._enc_layer_defs(cfg, torch.float32),
+            lambda p, x: encdec._enc_train_block(
+                cfg, p, x, torch.arange(cfg.enc_seq, dtype=torch.int32,
+                                        device=DEV)[None, :], None, 0)[0],
+            [frames], [("batch", "seq", "embed")], frames.shape,
+            perturb=[("attn",) + b for b in biases])
+        x = draw((2, S, cfg.d_model), 7, cfg.activation_dtype())
+        res["decoder_layer_whisper_medium"] = check(
+            cfg, encdec._dec_layer_defs(cfg, torch.float32),
+            lambda p, x, enc: encdec._dec_train_block(cfg, p, x, enc, pos,
+                                                      None, 0)[0],
+            [x, frames], [resid, ("batch", "seq", "embed")], x.shape,
+            perturb=[(a,) + b for a in ("self_attn", "cross_attn")
+                     for b in biases])
+        cfg = at("internvl2_26b")
+        tokens = torch.randint(0, cfg.vocab, (2, S), device=DEV,
+                               generator=torch.Generator(
+                                   device=DEV).manual_seed(8))
+        vision = draw((2, cfg.n_patches, cfg.d_model), 9, torch.float32)
+        res["vision_embed_internvl2_26b"] = check(
+            cfg, {"embed": {"tok": tr.model_defs(
+                cfg, torch.float32)["embed"]["tok"]}},
+            lambda p, tok, vis: tr._embed(cfg, p, tok, vis), [tokens, vision],
+            [("batch", None), ("batch", None, None)],
+            (2, cfg.n_patches + S, cfg.d_model))
+        del x, frames, tokens, vision
+        out[dtype] = res
+    ds, mb, zb, wh = (get_config(m) for m in (
+        "deepseek_v2_236b", "mamba2_1_3b", "zamba2_7b", "whisper_medium"))
+    from repro_torch.models import ssm
+    sums = _placed_leaves_check((
+        ("w_uk", (ds.n_layers, ds.kv_lora_rank, ds.n_heads, ds.qk_nope_dim),
+         ("layers", None, "tp", None)),
+        ("conv_w", (mb.n_layers, mb.ssm_conv, ssm.conv_channels(mb)),
+         ("layers", None, "tp")),
+        ("shared_wq", (zb.d_model, zb.n_heads * zb.head_dim),
+         ("fsdp", "tp")),
+        ("shared_w_in", (zb.d_model, zb.d_ff), ("fsdp", "tp")),
+        ("bq", (wh.n_layers, wh.n_heads * wh.head_dim), ("layers", "tp"))),
+        LogicalRules(), seed=10)
+    say("tp_families_check", tolerance=TP_TOL, layers=out,
         k1b_blocks_bit_equal=True, merged_stats_sum_max_rel=sums,
         merged_stats_sum_tolerance=SUM_RTOL)
     return out
 
 
 def _tp_launches_per_step(cfg, mesh):
-    """K1b launches a placed step makes on a stacked mesh: each quantized
-    leaf's distinct blocks (one launch each, the product of its split
-    axes' sizes) three times (weights, gradients, re-snap), plus each
-    rank's block of the residual tapped forward and backward a layer."""
+    """K1b launches a placed step makes on a stacked mesh, and how many of
+    them are in block mode: each quantized leaf's distinct blocks (one
+    launch each, the product of its split axes' sizes) three times
+    (weights, gradients, re-snap), plus each rank's block of the residual
+    tapped forward and backward at each of the family's taps and
+    microbatches.  A block that is the whole tensor draws the plain
+    stream: a replicated leaf's, and an encoder residual's (whole on
+    every model rank) unless the data axis splits its rows."""
     from repro_torch.core import tree as tree_lib
     from repro_torch.core.policy import QuantPolicy
     from repro_torch.dist.sharding import LogicalRules, _axis_sizes, spec_axes
@@ -4264,8 +4499,12 @@ def _tp_launches_per_step(cfg, mesh):
               for p, s in tree_lib.leaves_with_path(p_specs) if pred(p, None)]
     block_mode = [n for n in blocks if n > 1]
     per_event = sum(blocks)
-    taps = 2 * cfg.n_layers * math.prod(sizes.values()) * cfg.train_accum
-    return 3 * per_event + taps, 3 * sum(block_mode) + taps
+    per_tap = 2 * math.prod(sizes.values()) * cfg.train_accum
+    taps = per_tap * registry(cfg.family).residual_taps(cfg)
+    whole_taps = (per_tap * cfg.n_enc_layers
+                  if cfg.family == "encdec" and sizes.get("data", 1) == 1
+                  else 0)
+    return 3 * per_event + taps, 3 * sum(block_mode) + taps - whole_taps
 
 
 def train_llama_tp():
@@ -4413,6 +4652,100 @@ def train_llama_tp():
             for tag, r in runs.items()}
 
 
+def train_family_tp(model, layers, unsharded, phase):
+    """``model`` at full width (cut to ``layers``) through
+    ``launch.train.main`` with the argv of its unsharded run
+    (``unsharded``, the ``train_<config>`` phase's: ``--batch 2 --seq
+    512``, SGD, K1b) but ``TP_STEPS`` steps, placed on a stacked
+    ``TP_FAMILY_MESH``: formats equal to the unsharded run's at every
+    step, the later gaps reported; K1b a step (and in block mode) as
+    :func:`_tp_launches_per_step` counts them; ms a step, peak, bytes a
+    rank holds.  Then one step with fp32 compute, unsharded and placed:
+    their first losses within ``TP_FAMILY_LOSS_RTOL_F32``.  The bf16 first
+    loss is held within ``TP_LOSS_RTOL``, or twice the unsharded run's own
+    bf16 first loss's distance from the fp32 one where that is larger: a
+    placed run as close to the fp32 loss as the unsharded bf16 run lies
+    within twice that of it, and bf16 rounding moves the SSM models' loss
+    by 2e-4 to 6e-4 (the row-parallel products' partial sums round where
+    the unsharded run's do not)."""
+    from repro_torch.launch import train as train_cli
+    cfg = depth_cut(model, layers)
+    argv = list(unsharded["argv"])
+    argv[argv.index("--steps") + 1] = str(TP_STEPS)
+    fmt_keys = ("il_w", "fl_w", "il_a", "fl_a", "il_g", "fl_g")
+    mesh = _stacked(TP_FAMILY_MESH)
+    tag = f"{TP_FAMILY_MESH[0]}x{TP_FAMILY_MESH[1]}"
+
+    def run(cfg_, mesh_, argv_):
+        _reset_quant_counts()
+        dps_quant.quantize_block_launch_count = 0
+        t0 = time.perf_counter()
+        out = train_cli.main(argv_, cfg=cfg_, mesh=mesh_)
+        hist = out["history"]
+        r = dict(losses=[h["loss"] for h in hist],
+                 formats=[{k: h[k] for k in fmt_keys} for h in hist],
+                 launches=_quant_counts(),
+                 block=dps_quant.quantize_block_launch_count,
+                 per_step=out["quantizer_launches_per_step"],
+                 seconds=time.perf_counter() - t0,
+                 **{k: out[k] for k in (
+                     "ms_per_step_after_first", "first_step_s",
+                     "peak_memory_bytes", "held_bytes_per_rank")})
+        del out, hist
+        gc.collect()
+        torch.cuda.empty_cache()
+        return r
+
+    placed = run(cfg, mesh, argv)
+    losses, formats = placed["losses"], placed["formats"]
+    per_step, block = placed["per_step"], placed["block"]
+    want, want_block = _tp_launches_per_step(cfg, mesh)
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, unsharded["losses"])]
+    # the first step again with fp32 compute, unsharded and placed: the
+    # forward agrees to fp32 summation order where bf16 rounds each rank's
+    # partial product of a row-parallel layer
+    argv1 = list(argv)
+    argv1[argv1.index("--steps") + 1] = "1"
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    first32 = [run(f32, m, argv1)["losses"][0] for m in (None, mesh)]
+    gap32 = abs(first32[1] - first32[0]) / abs(first32[0])
+    # bf16's own size on this model: the unsharded bf16 first loss against
+    # the unsharded fp32 one
+    bf16_own = abs(unsharded["losses"][0] - first32[0]) / abs(first32[0])
+    limit = max(TP_LOSS_RTOL[tag], 2 * bf16_own)
+    faults = []
+    same = formats == unsharded["formats"][:TP_STEPS]
+    if not same:
+        faults.append(f"formats {formats} vs unsharded "
+                      f"{unsharded['formats'][:TP_STEPS]}")
+    if not all(math.isfinite(v) for v in losses) or not gaps[0] <= limit:
+        faults.append(f"losses {losses} vs {unsharded['losses']}")
+    if not gap32 <= TP_FAMILY_LOSS_RTOL_F32[model]:
+        faults.append(f"fp32 first losses {first32}")
+    if per_step != [want] * TP_STEPS or block != want_block * TP_STEPS:
+        faults.append(f"K1b {per_step} a step, {block} in block mode; wanted "
+                      f"{want} and {want_block * TP_STEPS}")
+    say(phase, command="launch.train.main(" + repr(argv) + ", cfg=<"
+        f"{model} at {cfg.n_layers} layers>, mesh=make_mesh("
+        f"{TP_FAMILY_MESH}, ('data', 'model')))", model=cfg.name,
+        layers=cfg.n_layers, layers_of=get_config(model).n_layers, mesh=tag,
+        losses=losses, unsharded_losses=unsharded["losses"][:TP_STEPS],
+        loss_rel=gaps, first_loss_tolerance=limit,
+        bf16_vs_fp32_unsharded=bf16_own, formats_equal=same,
+        unsharded_ms_per_step_after_first=unsharded["ms"],
+        unsharded_peak_memory_bytes=unsharded["peak"],
+        **{k: placed[k] for k in ("ms_per_step_after_first", "first_step_s",
+                                  "peak_memory_bytes", "held_bytes_per_rank",
+                                  "launches", "seconds")},
+        k1b_per_step=per_step, k1b_block_mode=block,
+        fp32_first_losses=first32, fp32_first_loss_rel=gap32,
+        fp32_first_loss_tolerance=TP_FAMILY_LOSS_RTOL_F32[model])
+    if faults:
+        raise AssertionError(f"{phase}: " + "; ".join(faults))
+    return {"k1b": placed["launches"]["dps_quantize_onchip_prng"],
+            "block": block}
+
+
 def train_tp_pg():
     """The process path on the card: a one-rank NCCL process group and its
     (1, 1) ``DeviceMesh``.  Each block collective of the
@@ -4529,6 +4862,7 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
     lenet_k1 = lenet()["dps_quantize"]
+    family_runs = {}
     fig4_k1b = paper_fig4()
     llama = train_lm(cfg, "onchip", 4)
     launches["dps_quantize_onchip_prng"] = llama["launches"][
@@ -4540,6 +4874,7 @@ def main():
         runs[model] = train_lm(depth_cut(model, layers), "onchip", 4,
                                batch=batch, model=model)
         other[f"train_{model}"] = runs[model]["launches"]
+        family_runs[model] = runs[model]
     # MoE expert parallelism: the all-to-all dispatch at full geometry, then
     # qwen3-moe trained over a stacked model axis
     moe_a2a_check()
@@ -4547,9 +4882,9 @@ def main():
     del runs
     # the SSM, hybrid and encoder-decoder families
     for model, layers, batch, _, phase in FAMILY_TRAIN:
-        other[f"train_{model}"] = train_lm(depth_cut(model, layers), "onchip",
-                                           4, batch=batch, model=model,
-                                           phase=phase)["launches"]
+        family_runs[model] = train_lm(depth_cut(model, layers), "onchip", 4,
+                                      batch=batch, model=model, phase=phase)
+        other[f"train_{model}"] = family_runs[model]["launches"]
     # long-context training: the blockwise attention on the card, then
     # llama3.2-3b at sequence 4,096 (every layer's attention blockwise),
     # then remat="dots" beside the full remat of the run above
@@ -4577,6 +4912,13 @@ def main():
     tp_runs = train_llama_tp()
     other["train_llama_tp"] = {"dps_quantize_block": tp_runs["1x4"]["block"]}
     train_tp_pg()
+    # every other family on the placed step: each placed layer at full
+    # geometry, then each trained placed against its unsharded run above
+    tp_families_check()
+    tp_family = {phase: train_family_tp(model, layers, family_runs[model],
+                                        phase)
+                 for model, layers, phase in TP_FAMILY_TRAIN}
+    del family_runs
     wire_collectives()
     # run A of the checkpoint phase is the counted wire run
     ckpt_root, free = ckpt_space(cfg)
@@ -4672,8 +5014,12 @@ def main():
             r["launches_train_qwen_ep"] = ep_k1b[r["name"]]
             for tag in ("1x4", "2x4"):
                 r[f"launches_train_llama_tp_{tag}"] = tp_runs[tag]["k1b"]
+            for phase, counts in tp_family.items():
+                r[f"launches_{phase}"] = counts["k1b"]
         if r["name"] == "dps_quantize_onchip_prng_block":
             r["launches_train_llama_tp_2x4"] = tp_runs["2x4"]["block"]
+            for phase, counts in tp_family.items():
+                r[f"launches_{phase}"] = counts["block"]
         for run, counts in zero_launches.items():
             if ("run" not in r and counts.get(r["name"])
                     and (run, r["name"]) not in at_bucket):

@@ -287,8 +287,7 @@ def build_train_step(cfg: ModelConfig, qcfg: qtrain.QuantConfig, optimizer,
     (:func:`repro_torch.core.qtrain.make_placed_train_step`) on a state
     placed by :func:`place_train_state` under ``rules``: FSDP over data,
     tensor parallelism over model, as the reference's ``jax.jit`` with
-    ``in_shardings`` places it.  A family without placed layers raises
-    there, naming it."""
+    ``in_shardings`` places it: every family's ``placed_loss_fn``."""
     mod = registry(cfg.family)
     accum = cfg.train_accum if accum_steps is None else accum_steps
     if (mesh is not None and _axis_sizes(mesh).get("model", 1) > 1
@@ -302,11 +301,6 @@ def build_train_step(cfg: ModelConfig, qcfg: qtrain.QuantConfig, optimizer,
         if faults is not None:
             raise NotImplementedError("fault injection does not run on the "
                                       "placed step yet")
-        if not hasattr(mod, "placed_loss_fn"):
-            raise NotImplementedError(
-                f"the {cfg.family!r} family ({cfg.name}) has no placed "
-                "training step yet: its layers run whole, so it trains on a "
-                "pure data-parallel mesh or none")
         return qtrain.make_placed_train_step(
             mod.placed_loss_fn(cfg), optimizer, qcfg, mesh,
             rules or LogicalRules(), accum_steps=accum)

@@ -40,8 +40,9 @@ from repro_torch.dist import sharding
 from repro_torch.dist.sharding import (Placed, is_placed, logical_constraint,
                                        model_axis_size, relayout)
 from repro_torch.kernels import paged_attn
-from repro_torch.models.common import (ParamDef, apply_rope, placed_matmul,
-                                       rms_norm, whole_but_batch)
+from repro_torch.models.common import (ParamDef, add_bias, apply_rope,
+                                       placed_matmul, rms_norm,
+                                       whole_but_batch)
 
 NEG_INF = -1e30
 FLASH_THRESHOLD = 4096 * 2048          # S_q · S_k above which attention goes blockwise
@@ -220,11 +221,11 @@ def gqa_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     ⟨IL, FL⟩ rows — and ``paged_ptab`` the (B, P) page table.  Returns
     ``(out, new_cache)``."""
     if is_placed(x):
-        if mode != "train" or kv_x is not None or cfg.attn_bias:
+        if mode != "train":
             raise NotImplementedError(
-                "placed attention is the training self-attention without "
-                "biases; prefill, decode and cross-attention run whole")
-        return _gqa_train_placed(cfg, p, x, positions), None
+                "placed attention is the training form; prefill and decode "
+                "run whole")
+        return _gqa_train_placed(cfg, p, x, positions, kv_x, causal), None
     B, Sq, _ = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KV
@@ -301,33 +302,61 @@ def _split_heads(t: Placed, n: int, dh: int) -> Placed:
                  spec=t.spec[:-1] + (e, None))
 
 
-def _gqa_train_placed(cfg: ModelConfig, p, x: Placed, positions):
-    """Training self-attention on placed activations: the sequence
-    gathered, q/k/v column-parallel (local heads when the model axis
-    divides them; K/V gathered over it when it cuts a KV head), RoPE as
-    it is, the reference's layout decision (:func:`_constrain_qkv`) as a
-    real re-layout, :func:`sdpa` on each rank's rows and heads, and ``wo``
-    row-parallel (or whole, on a sequence split)."""
+def _project(xs: Placed, p, w: str, bias: str, n: int, dh: int) -> Placed:
+    """A column-parallel projection of ``xs`` split into ``n`` heads of
+    ``dh``, each rank adding its block of the bias (when the layer has
+    one) after its product."""
+    t = placed_matmul(xs, p[w])
+    if bias in p:
+        t = add_bias(t, p[bias])
+    return _split_heads(t, n, dh)
+
+
+def _attend_placed(q: Placed, k: Placed, v: Placed, *, causal: bool,
+                   scale: float) -> Placed:
+    """:func:`sdpa` on each rank's rows and heads (a rank's query rows
+    start at its block's origin), the heads fused back: (B, S, H·Dv)."""
+    out = Placed([sdpa(qb, kb, vb, causal=causal, scale=scale,
+                       q_start=q.geometry(i)[0][1])
+                  for i, (qb, kb, vb) in enumerate(zip(q.blocks, k.blocks,
+                                                       v.blocks))],
+                 q.spec, q.mesh)
+    return out.map(lambda b: b.reshape(*b.shape[:2], -1),
+                   spec=out.spec[:3])
+
+
+def _out_proj_placed(p, out: Placed) -> Placed:
+    """``wo`` row-parallel (or whole, on a sequence split), its partial
+    sums taken by the output's layout, then ``bo`` added once, after the
+    sum."""
+    out = logical_constraint(placed_matmul(out, p["wo"]), "batch", "tp_seq",
+                             "embed")
+    return add_bias(out, p["bo"]) if "bo" in p else out
+
+
+def _gqa_train_placed(cfg: ModelConfig, p, x: Placed, positions,
+                      kv_x: Optional[Placed] = None, causal: bool = True):
+    """Training attention on placed activations: the sequence gathered,
+    q/k/v column-parallel (local heads when the model axis divides them;
+    K/V gathered over it when it cuts a KV head), each rank's block of
+    ``bq``/``bk``/``bv`` added to its columns, RoPE as it is, the
+    reference's layout decision (:func:`_constrain_qkv`) as a real
+    re-layout, :func:`sdpa` on each rank's rows and heads, and ``wo``
+    row-parallel.  ``kv_x``: cross-attention, K and V from its (gathered)
+    sequence, unrotated."""
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     xs = whole_but_batch(x)
-    q = _split_heads(placed_matmul(xs, p["wq"]), H, Dh)
-    k = _split_heads(placed_matmul(xs, p["wk"]), KV, Dh)
-    v = _split_heads(placed_matmul(xs, p["wv"]), KV, Dh)
-    if cfg.rope_theta > 0:
+    src = xs if kv_x is None else whole_but_batch(kv_x)
+    q = _project(xs, p, "wq", "bq", H, Dh)
+    k = _project(src, p, "wk", "bk", KV, Dh)
+    v = _project(src, p, "wv", "bv", KV, Dh)
+    if kv_x is None and cfg.rope_theta > 0:
         q = q.map(lambda t: apply_rope(t, positions, cfg.rope_theta))
         k = k.map(lambda t: apply_rope(t, positions, cfg.rope_theta))
     rep = lambda t: t.map(lambda b: torch.repeat_interleave(b, H // KV, dim=2))
     q, kr, vr = _constrain_qkv(q, rep(k), rep(v), H, cfg.attn_batch2d)
-    scale = 1.0 / math.sqrt(Dh)
-    out = Placed([sdpa(qb, kb, vb, causal=True, scale=scale,
-                       q_start=q.geometry(i)[0][1])
-                  for i, (qb, kb, vb) in enumerate(zip(q.blocks, kr.blocks,
-                                                       vr.blocks))],
-                 q.spec, q.mesh)
-    out = out.map(lambda b: b.reshape(*b.shape[:2], -1),
-                  spec=out.spec[:3])
-    return logical_constraint(placed_matmul(out, p["wo"]), "batch", "tp_seq",
-                              "embed")
+    out = _attend_placed(q, kr, vr, causal=causal, scale=1.0 / math.sqrt(Dh))
+    return _out_proj_placed(p, out)
 
 
 def _paged_decode(cache, q, k, v, cache_pos, ptab, backend, scale):
@@ -431,6 +460,12 @@ def mla_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     max_seq, dr)); decode writes the new token's latents at ``cache_pos``
     (in place) and attends over [0, cache_pos] in the absorbed form.
     Returns ``(out, new_cache)``."""
+    if is_placed(x):
+        if mode != "train":
+            raise NotImplementedError(
+                "placed MLA is the training form; prefill and decode run "
+                "whole")
+        return _mla_train_placed(cfg, p, x, positions), None
     B, Sq, _ = x.shape
     H = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -477,6 +512,39 @@ def mla_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
 
     out = out.reshape(B, Sq, H * dv) @ p["wo"]
     return logical_constraint(out, "batch", "tp_seq", "embed"), new_cache
+
+
+def _mla_train_placed(cfg: ModelConfig, p, x: Placed, positions) -> Placed:
+    """MLA's expanded training form on placed activations: the sequence
+    gathered; the latents ``q_lat``, ``c_kv`` and the shared rope key
+    whole on every model rank (``wq_a``/``wkv_a`` gathered from their FSDP
+    rows); ``wq_b`` column-parallel over heads (its per-head blocks of
+    dn + dr columns stay whole at every split that divides H); each rank's
+    heads of ``w_uk``/``w_uv`` expanding the latent into its K and V; the
+    rope key broadcast to the rank's heads; :func:`sdpa` on each rank's
+    rows and heads; ``wo`` row-parallel."""
+    H, kvr = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    rope = lambda t: apply_rope(t, positions, cfg.rope_theta)
+    xs = whole_but_batch(x)
+    q_lat = rms_norm(placed_matmul(xs, p["wq_a"]), p["q_norm"])
+    q = _split_heads(placed_matmul(q_lat, p["wq_b"]), H, dn + dr).map(
+        lambda t: torch.cat([t[..., :dn], rope(t[..., dn:])], dim=-1))
+    kv = placed_matmul(xs, p["wkv_a"])
+    c_kv = logical_constraint(
+        kv.map(lambda t, s: rms_norm(t[..., :kvr], s), p["kv_norm"]),
+        "batch", None, None)
+    k_rope = kv.map(lambda t: rope(t[..., None, kvr:])[:, :, 0])
+    heads = q.spec[:2] + (q.spec[2], None)
+    up = lambda w: c_kv.map(lambda c, wb: torch.einsum("bsr,rhd->bshd", c, wb),
+                            relayout(p[w], (None, q.spec[2], None)),
+                            spec=heads)
+    k = up("w_uk").map(lambda kn, kr: torch.cat(
+        [kn, kr[:, :, None, :].expand(*kn.shape[:3], dr)], dim=-1),
+        relayout(k_rope, c_kv.spec))
+    q, k, v = _constrain_qkv(q, k, up("w_uv"), H, cfg.attn_batch2d)
+    out = _attend_placed(q, k, v, causal=True, scale=1.0 / math.sqrt(dn + dr))
+    return _out_proj_placed(p, out)
 
 
 def count_gqa_params(cfg: ModelConfig) -> int:

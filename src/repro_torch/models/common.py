@@ -135,6 +135,8 @@ def merge_optional(a, b):
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
              ) -> torch.Tensor:
+    if isinstance(x, Placed):
+        return _norm_placed(rms_norm, x, scale, eps=eps)
     xf = x.to(torch.float32)
     var = (xf * xf).mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * scale.to(torch.float32)
@@ -143,12 +145,49 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
+    if isinstance(x, Placed):
+        return _norm_placed(layer_norm, x, scale, bias, eps=eps)
     xf = x.to(torch.float32)
     mu = xf.mean(dim=-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
     out = (xf - mu) * torch.rsqrt(var + eps)
     out = out * scale.to(torch.float32) + bias.to(torch.float32)
     return out.to(x.dtype)
+
+
+def _norm_placed(norm, x: Placed, *params, eps: float) -> Placed:
+    """A norm over the last dim on placed activations, rank by rank: the
+    last dim gathered if it is split, the (replicated) parameters each
+    rank's copy."""
+    if x.spec[-1] is not None:
+        x = relayout(x, x.spec[:-1] + (None,))
+    return x.map(lambda t, *ps: norm(t, *ps, eps=eps), *params)
+
+
+def gated_rms_norm_placed(y: Placed, z: Placed, scale: Placed,
+                          eps: float = 1e-6) -> Placed:
+    """``rms_norm(y * silu(z), scale)`` on placed ``y`` and ``z`` whose
+    last dim may be split (a Mamba2 mixer's ``di`` over the model axis):
+    each rank's sum of squares over its block, summed over the split in
+    rank order, over the whole dim's size; ``z`` and ``scale`` laid out
+    like ``y``."""
+    g = y.map(lambda a, b: a * torch.nn.functional.silu(b),
+              relayout(z, y.spec))
+    scale = relayout(scale, (y.spec[-1],))
+    ss = sharding.psum(y.mesh, sharding._entry_axes(y.spec[-1]), [
+        (b.to(torch.float32) ** 2).sum(dim=-1, keepdim=True)
+        for b in g.blocks])
+    n = y.shape[-1]
+    out = [(b.to(torch.float32) * torch.rsqrt(s / n + eps)
+            * sc.to(torch.float32)).to(b.dtype)
+           for b, s, sc in zip(g.blocks, ss, scale.blocks)]
+    return Placed(out, y.spec, y.mesh, y.shape)
+
+
+def add_bias(t: Placed, b: Placed) -> Placed:
+    """``t + b`` for a 1-D ``b`` over ``t``'s last dim, each rank adding its
+    block of ``b`` (laid out like that dim) to its block of ``t``."""
+    return t.map(torch.add, relayout(b, (t.spec[-1],)))
 
 
 def act_fn(name: str, x: torch.Tensor) -> torch.Tensor:
@@ -374,6 +413,26 @@ def embed_lookup_placed(emb: Placed, tokens: Placed,
         out.append(e[local.clamp(0, e.shape[0] - 1)] * inb[..., None].to(e.dtype))
     x = Placed(out, tokens.spec + (None,), tokens.mesh, partial=axes)
     return logical_constraint(x, "batch", seq_axis, "embed")
+
+
+def placed_lm_loss(cfg, forward, *inputs: str):
+    """A family's ``placed_loss_fn``: ``(params, batch, qctx) -> (loss,
+    aux)`` on a placed state and batch, ``forward(cfg, params, tokens,
+    *batch[inputs], qctx) -> (final hidden, act_stats)`` the family's
+    training forward on the tokens but the last, the loss
+    :func:`fused_unembed_xent_placed` of the next tokens (a placed scalar,
+    the global mean on every rank)."""
+
+    def fn(params, batch, qctx=None):
+        tokens = batch["tokens"]
+        hidden, stats = forward(cfg, params, tokens.map(lambda t: t[:, :-1]),
+                                *(batch[k] for k in inputs), qctx)
+        loss = fused_unembed_xent_placed(hidden, params["embed"], cfg.vocab,
+                                         tokens.map(lambda t: t[:, 1:]),
+                                         batch.get("loss_mask"))
+        return loss, {"act_stats": stats}
+
+    return fn
 
 
 def _xent_chunk_placed(xc: Placed, lc: Placed, mc: Placed, table: Placed,

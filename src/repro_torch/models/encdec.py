@@ -22,13 +22,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fixed_point import QuantStats
-from repro_torch.dist.sharding import logical_constraint
+from repro_torch.dist.sharding import is_placed, logical_constraint
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models.common import (ParamDef, compute_cast, embed_defs,
                                        embed_lookup, fused_unembed_xent,
-                                       layer_norm, merge_optional, unembed,
-                                       zeros_from)
+                                       layer_norm, merge_optional,
+                                       placed_lm_loss, unembed,
+                                       whole_but_batch, zeros_from)
 from repro_torch.models.transformer import (_layer, remat_call, stack_defs,
                                             unbind_layers)
 
@@ -125,20 +126,31 @@ def _dec_block(cfg: ModelConfig, p, x, enc_out, positions, *, mode,
     return x, (new_self, new_cross)
 
 
+def _add_sinusoid(x, dt):
+    """``x`` in ``dt`` plus the sinusoids of its whole sequence (placed:
+    rank by rank, the sequence gathered)."""
+    sin = sinusoid(x.shape[1], x.shape[2], x.device).to(dt)
+    if is_placed(x):
+        return whole_but_batch(x).map(lambda t: t.to(dt) + sin)
+    return x.to(dt) + sin
+
+
 def _embed_frames(cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
-    dt = cfg.activation_dtype()
-    x = frames.to(dt) + sinusoid(frames.shape[1], cfg.d_model,
-                                 frames.device).to(dt)
+    x = _add_sinusoid(frames, cfg.activation_dtype())
     return logical_constraint(x, "batch", "seq", "embed")
 
 
 def _embed_tokens(cfg: ModelConfig, params, tokens, cache_pos=None):
     """Token embeddings plus sinusoids at their positions (``cache_pos``
-    (B,) in decode, 0..S-1 otherwise), in the compute dtype."""
-    x = embed_lookup(params["embed"]["tok"], tokens).to(cfg.activation_dtype())
+    (B,) in decode, 0..S-1 otherwise), in the compute dtype; the sequence
+    split (placed: after the sinusoids are added to the whole
+    sequence)."""
+    x = embed_lookup(params["embed"]["tok"], tokens,
+                     seq_axis=None).to(cfg.activation_dtype())
     if cache_pos is not None:
         return x + sinusoid_at(cache_pos, cfg.d_model)[:, None, :].to(x.dtype)
-    return x + sinusoid(x.shape[1], cfg.d_model, x.device)[None].to(x.dtype)
+    return logical_constraint(_add_sinusoid(x, x.dtype), "batch", "tp_seq",
+                              "embed")
 
 
 def encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
@@ -267,6 +279,15 @@ def loss_fn(cfg: ModelConfig):
         return loss, {"act_stats": stats}
 
     return fn
+
+
+def placed_loss_fn(cfg: ModelConfig):
+    """:func:`loss_fn` for a placed state, ``frames`` placed over the batch
+    beside the tokens: the encoder (its residual whole on every model rank,
+    as the reference constrains it) and the decoder (self- and
+    cross-attention, biases) in their placed forms, the taps at their
+    indices."""
+    return placed_lm_loss(cfg, forward_train, "frames")
 
 
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int, *,

@@ -27,7 +27,8 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer
 from repro_torch.models.common import (ParamDef, embed_defs, embed_lookup,
                                        fused_unembed_xent, merge_optional,
-                                       rms_norm, unembed, zeros_from)
+                                       placed_lm_loss, rms_norm, unembed,
+                                       zeros_from)
 from repro_torch.models.mlp import count_mlp_params
 from repro_torch.models.transformer import (_layer, remat_call, stack_defs,
                                             unbind_layers)
@@ -161,6 +162,13 @@ def loss_fn(cfg: ModelConfig):
         return loss, {"act_stats": stats}
 
     return fn
+
+
+def placed_loss_fn(cfg: ModelConfig):
+    """:func:`loss_fn` for a placed state: :func:`forward_train` block for
+    block, the one placed ``shared`` block in every invocation (its
+    gradient the sum over them)."""
+    return placed_lm_loss(cfg, forward_train)
 
 
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int):

@@ -25,8 +25,8 @@ from repro_torch.dist.sharding import logical_constraint
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (ParamDef, compute_cast, embed_defs,
                                        embed_lookup, fused_unembed_xent,
-                                       merge_optional, rms_norm, unembed,
-                                       zeros_from)
+                                       merge_optional, placed_lm_loss,
+                                       rms_norm, unembed, zeros_from)
 from repro_torch.models.transformer import (_layer, remat_call, stack_defs,
                                             unbind_layers)
 
@@ -154,6 +154,13 @@ def loss_fn(cfg: ModelConfig):
         return loss, {"act_stats": stats}
 
     return fn
+
+
+def placed_loss_fn(cfg: ModelConfig):
+    """:func:`loss_fn` for a placed state (``launch.specs.build_train_step``
+    with a mesh): :func:`forward_train` block for block, each mixer in its
+    placed form."""
+    return placed_lm_loss(cfg, forward_train)
 
 
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int):

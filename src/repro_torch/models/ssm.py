@@ -27,8 +27,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import logical_constraint
-from repro_torch.models.common import ParamDef, rms_norm
+from repro_torch.dist.sharding import (LogicalRules, Placed,
+                                       current_mesh_rules, is_placed,
+                                       logical_constraint, relayout)
+from repro_torch.models.common import (ParamDef, gated_rms_norm_placed,
+                                       placed_matmul, rms_norm,
+                                       whole_but_batch)
 
 
 def d_inner(cfg: ModelConfig) -> int:
@@ -167,6 +171,12 @@ def ssm_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
 
     Returns (out (B,S,D), new_cache): ``(state, tail)`` in prefill and
     decode, ``None`` in train."""
+    if is_placed(x):
+        if mode != "train":
+            raise NotImplementedError(
+                "the placed Mamba2 mixer is the training form; prefill and "
+                "decode run whole")
+        return _ssm_train_placed(cfg, p, x), None
     B, S, _ = x.shape
     di, N, H, Pd = d_inner(cfg), cfg.ssm_state, n_ssm_heads(cfg), cfg.ssm_head_dim
 
@@ -203,6 +213,57 @@ def ssm_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     y = rms_norm(y * F.silu(z), p["norm_scale"])
     return logical_constraint(y @ p["w_out"], "batch", "seq", "embed"), \
         new_cache
+
+
+def _ssm_train_placed(cfg: ModelConfig, p, x: Placed) -> Placed:
+    """:func:`ssm_apply`'s train path on placed activations, each rank on
+    its heads.  ``w_in``'s column blocks do not fall on the z | x | B | C |
+    dt boundaries (nor ``conv_w``'s on x | B | C), so the column-parallel
+    projection is gathered over its split and each piece re-cut by its own
+    layout: z, x and dt by heads (when the model axis divides them), B and
+    C whole on every rank (every head reads them).  The depthwise conv
+    runs on each rank's channels with its columns of ``conv_w``/``conv_b``
+    (no collective: channels are independent), the chunked scan on each
+    rank's heads, the gated norm sums its squares over the head split,
+    and ``w_out`` is row-parallel, its sums reduce-scattered onto the
+    block's sequence-parallel residual layout."""
+    di, N, H, Pd = d_inner(cfg), cfg.ssm_state, n_ssm_heads(cfg), cfg.ssm_head_dim
+    _, rules = current_mesh_rules()
+    hax = (rules or LogicalRules()).spec(("heads",), (H,), x.mesh)[0]
+    xs = whole_but_batch(x)
+    whole = (xs.spec[0], None, None)
+    zxbcdt = relayout(placed_matmul(xs, p["w_in"]), whole)
+
+    def piece(t: Placed, lo: int, hi: int, ax) -> Placed:
+        cut = t.map(lambda b: b[..., lo:hi], spec=t.spec[:-1] + (None,))
+        return relayout(cut, t.spec[:-1] + (ax,))
+
+    z = piece(zxbcdt, 0, di, hax)
+    conv_w = relayout(p["conv_w"], (None, None))
+    conv_b = relayout(p["conv_b"], (None,))
+
+    def conv(lo: int, hi: int, ax) -> Placed:
+        return piece(zxbcdt, di + lo, di + hi, ax).map(
+            lambda t, w, b: _causal_conv(t, w, b)[0],
+            piece(conv_w, lo, hi, ax), piece(conv_b, lo, hi, ax))
+
+    xi = conv(0, di, hax).map(lambda t: t.reshape(*t.shape[:2], -1, Pd),
+                              spec=whole[:2] + (hax, None))
+    bc = conv(di, di + 2 * N, None)
+    dt_raw = piece(zxbcdt, 2 * di + 2 * N, 2 * di + 2 * N + H, hax)
+    heads = lambda name: relayout(p[name], (hax,))
+
+    def scan(xb, bcb, dtb, a_log, dt_bias, d_skip):
+        dt, log_decay = _decays(cfg, dtb, a_log, dt_bias)
+        y, _ = ssd_scan(cfg, xb, bcb[..., :N], bcb[..., N:], dt, log_decay)
+        y = y + d_skip.to(y.dtype)[None, None, :, None] * xb
+        return y.reshape(*y.shape[:2], -1)
+
+    y = xi.map(scan, bc, dt_raw, heads("a_log"), heads("dt_bias"),
+               heads("d_skip"), spec=whole[:2] + (hax,))
+    y = gated_rms_norm_placed(y, z, p["norm_scale"])
+    return logical_constraint(placed_matmul(y, p["w_out"]), "batch", "tp_seq",
+                              "embed")
 
 
 def count_ssm_params(cfg: ModelConfig) -> int:

@@ -36,7 +36,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tree as tree_lib
 from repro_torch.core.fixed_point import QuantStats
-from repro_torch.dist.sharding import Placed, is_placed, logical_constraint
+from repro_torch.dist.sharding import (Placed, is_placed, logical_constraint,
+                                       relayout)
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import moe as moe_lib
@@ -44,7 +45,7 @@ from repro_torch.models.common import (ParamDef, compute_cast, embed_defs,
                                        embed_lookup, fused_unembed_xent,
                                        fused_unembed_xent_placed, layer_norm,
                                        map_defs, merge_optional, rms_norm,
-                                       unembed, zeros_from)
+                                       unembed, whole_but_batch, zeros_from)
 
 
 def stack_defs(n: int, defs):
@@ -85,9 +86,6 @@ def model_defs(cfg: ModelConfig, dtype: torch.dtype = None) -> Dict[str, Any]:
 
 
 def _norm(cfg, x, scale, bias=None):
-    if is_placed(x):
-        return x.map(lambda t, s, *b: _norm(cfg, t, s, *b), scale,
-                     *(() if bias is None else (bias,)))
     if cfg.norm == "layer":
         return layer_norm(x, scale, bias)
     return rms_norm(x, scale)
@@ -149,10 +147,17 @@ def _run_stack(cfg: ModelConfig, layers, x, *, positions, mode, cache=None,
 
 def _embed(cfg: ModelConfig, params, tokens, vision_embeds):
     """Token embeddings in the compute dtype, the vision prefix (B, P, D)
-    prepended when given."""
-    x = embed_lookup(params["embed"]["tok"], tokens).to(cfg.activation_dtype())
+    prepended when given.  With a prefix the tokens' embeddings keep their
+    whole sequence until the concatenation, and the (B, P + T, D) result
+    takes the sequence split: placed, each rank's block is the one the
+    reference's layout gives it."""
+    x = embed_lookup(params["embed"]["tok"], tokens,
+                     "tp_seq" if vision_embeds is None else None
+                     ).to(cfg.activation_dtype())
     if vision_embeds is not None:
-        x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
+        cat = lambda t, v: torch.cat([v.to(t.dtype), t], dim=1)
+        x = (x.map(cat, relayout(vision_embeds, x.spec)) if is_placed(x)
+             else cat(x, vision_embeds))
         x = logical_constraint(x, "batch", "tp_seq", "embed")
     return x
 
@@ -309,33 +314,21 @@ def loss_fn(cfg: ModelConfig):
 # Training on a placed state (launch.specs.build_train_step with a mesh).
 # ---------------------------------------------------------------------------
 
-def check_placeable(cfg: ModelConfig) -> None:
-    """Raise, naming what is missing, unless every layer ``cfg`` uses has a
-    placed form: GQA self-attention without biases, the MLP (gated or
-    not), the MoE layer, RMS norm, tied or untied embeddings."""
-    missing = [what for what, used in (
-        ("MLA attention (mla)", cfg.mla),
-        ("the vision prefix (n_patches)", cfg.n_patches),
-        ("attention biases (attn_bias)", cfg.attn_bias)) if used]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name} (family {cfg.family!r}) has no placed training "
-            f"step yet: {', '.join(missing)} run whole, so it trains on a "
-            "pure data-parallel mesh or none")
-
-
 def placed_loss_fn(cfg: ModelConfig):
     """:func:`loss_fn` for a placed state: ``(params, batch, qctx) ->
     (loss, aux)`` with the batch's tensors placed and the loss a placed
     scalar (the global mean on every rank).  The forward is
-    :func:`forward_train`'s, block for block; raises for a config whose
-    layers have no placed form (:func:`check_placeable`)."""
-    check_placeable(cfg)
+    :func:`forward_train`'s, block for block; a VLM's prefix positions are
+    cut from the gathered hidden states before the loss."""
 
     def fn(params, batch, qctx=None):
         tokens = batch["tokens"]
+        vision = batch.get("vision_embeds")
         hidden, stats, aux_loss = forward_train(
-            cfg, params, tokens.map(lambda t: t[:, :-1]), qctx)
+            cfg, params, tokens.map(lambda t: t[:, :-1]), qctx, vision)
+        if vision is not None:
+            hidden = whole_but_batch(hidden).map(
+                lambda t: t[:, vision.shape[1]:])
         loss = fused_unembed_xent_placed(
             hidden, params["embed"], cfg.vocab,
             tokens.map(lambda t: t[:, 1:]), batch.get("loss_mask"))

@@ -1616,7 +1616,10 @@ def job_sharded_step(a, steps, seq, batch, mesh, arch="llama3_2_3b",
     ``in_shardings``/``out_shardings`` of ``train_state_shardings`` on a
     (data, model) ``mesh`` of forced host devices, under ``axis_rules``,
     and the same step unsharded.  Returns both histories, the initial
-    parameters and both runs' final parameters."""
+    parameters and both runs' final parameters.  A ``vision_embeds``
+    array (a VLM's prefix) and a ``frames`` array (an encoder-decoder's
+    frame embeddings) from the test ride on every batch, placed over
+    ``batch`` as ``train_batch_shardings`` places them."""
     import dataclasses
     import jax
     from repro.core import qtrain
@@ -1635,7 +1638,9 @@ def job_sharded_step(a, steps, seq, batch, mesh, arch="llama3_2_3b",
     step = specs_lib.build_train_step(cfg, qcfg, opt, accum_steps=1)
     data = TokenStream(TokenStreamConfig(vocab=cfg.vocab, seq_len=seq,
                                          global_batch=batch, seed=0))
-    batches = [data.batch(i) for i in range(steps)]
+    extras = {k: jax.numpy.asarray(a[k]) for k in ("vision_embeds", "frames")
+              if k in a}
+    batches = [dict(data.batch(i), **extras) for i in range(steps)]
 
     def fresh():
         return qtrain.TrainState.create(params, opt.init(params), qcfg,

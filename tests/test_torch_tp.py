@@ -19,12 +19,15 @@ against the JAX package's own sharded step.
   reference's step on the all-to-all (job ``ep_train``), and over a gloo
   (1, 4) ``DeviceMesh`` equal to the stacked run bit for bit (its MoE
   layer on the all-to-all over the process group).
-* gemma, mistral and nemotron at smoke size through the same block body, against the port's unsharded step.
-* The refusals: the int8 wire or ZeRO-1 with a model axis, a family
-  without placed layers, a layer feature without a placed form.  ``train.main(..., mesh=...)`` prints the
-  bytes each rank holds.
+* gemma, mistral and nemotron at smoke size through the same block body,
+  against the port's unsharded step; whisper, deepseek-v2, mamba2 and
+  internvl2, and llama with attention biases or a vision prefix, the same
+  way.
+* The refusals: the int8 wire or ZeRO-1 with a model axis.
+  ``train.main(..., mesh=...)`` prints the bytes each rank holds.
 """
 
+import contextlib
 import dataclasses
 import os
 
@@ -75,11 +78,12 @@ def _cfg(arch="llama3_2_3b"):
 
 
 def _run(cfg, mesh, params=None, steps=STEPS, qcfg=None, opt_cfg=None,
-         seq=SEQ):
+         seq=SEQ, extras=None):
     """``steps`` steps (SGD at nearest rounding unless ``qcfg`` and
     ``opt_cfg`` say otherwise) from ``params`` (the port's seed-0 draw if
-    None), placed over ``mesh`` when given.  Returns the history and the
-    whole final parameters."""
+    None), placed over ``mesh`` when given; ``extras`` (a VLM's
+    ``vision_embeds``, an encoder-decoder's ``frames``) ride on every
+    batch.  Returns the history and the whole final parameters."""
     mod = registry(cfg.family)
     if params is None:
         params = init_params(mod.model_defs(cfg, cfg.master_dtype()), "cpu",
@@ -95,7 +99,7 @@ def _run(cfg, mesh, params=None, steps=STEPS, qcfg=None, opt_cfg=None,
                                          global_batch=BATCH, seed=0))
     hist = {k: [] for k in FMTS + ("loss",)}
     for i in range(steps):
-        state, m = step(state, data.batch(i))
+        state, m = step(state, dict(data.batch(i), **(extras or {})))
         for k in hist:
             hist[k].append(float(m[k]))
     final = gather_placed(state.params) if mesh is not None else state.params
@@ -384,29 +388,52 @@ def test_wire_and_zero_refuse_a_model_axis():
             qtrain.QuantConfig(grad_allreduce_bits=8), mesh, LogicalRules())
 
 
+def _batch_extras(cfg):
+    """A VLM's ``vision_embeds`` or an encoder-decoder's ``frames`` for
+    every batch, drawn from a seed."""
+    g = torch.Generator().manual_seed(7)
+    if cfg.n_patches:
+        return {"vision_embeds": torch.randn(BATCH, cfg.n_patches,
+                                             cfg.d_model, generator=g)}
+    if cfg.family == "encdec":
+        return {"frames": torch.randn(BATCH, cfg.enc_seq, cfg.d_model,
+                                      generator=g)}
+    return {}
+
+
+def _placed_matches_unsharded(cfg, shape):
+    """3 SGD steps at nearest placed over ``shape`` against the port's
+    unsharded step: its formats, its losses within ``LOSS_RTOL`` and its
+    parameters within ``PARAM_DIFF_STEPS`` weight-grid steps.  A MoE
+    model's unsharded step runs under the mesh's binding, so that both
+    take the all-to-all dispatch (each rank's capacity)."""
+    extras = _batch_extras(cfg)
+    mesh = StackedMesh(shape, ("data", "model"))
+    with (axis_rules(mesh, LogicalRules()) if cfg.n_experts
+          else contextlib.nullcontext()):
+        want, want_final = _run(cfg, None, extras=extras)
+    got, final = _run(cfg, mesh, extras=extras)
+    _check_against(got, want)
+    _close_params(final, want_final, got["fl_w"][-1])
+
+
 @pytest.mark.parametrize("arch", ["whisper_medium", "deepseek_v2_236b",
                                   "mamba2_1_3b", "internvl2_26b"])
-def test_unconverted_family_refuses_a_mesh(arch):
-    cfg = _cfg(arch)
-    opt = make_optimizer(SGDConfig())
-    with pytest.raises(NotImplementedError,
-                       match=f"{cfg.family}.*placed|placed.*{cfg.family}"):
-        specs.build_train_step(cfg, qtrain.QuantConfig(), opt,
-                               mesh=StackedMesh((1, 4), ("data", "model")))
+def test_family_runs_placed_like_the_unsharded_step(arch, one_thread):
+    """Each family that had no placed step before builds and runs it at
+    (1, 4) as the unsharded step runs (``tests/test_torch_tp_families.py``
+    holds them to the reference's sharded step)."""
+    _placed_matches_unsharded(_cfg(arch), (1, 4))
 
 
-@pytest.mark.parametrize("overrides,feature", [
-    ({"attn_bias": True}, "attention biases"),
-    ({"n_patches": 4}, "vision prefix"),
-])
-def test_a_layer_without_a_placed_form_refuses_a_mesh(overrides, feature):
-    """The refusal names the layer feature that has no placed form, not
-    the config: a llama-shaped config with it is refused for it."""
-    cfg = dataclasses.replace(_cfg(), **overrides)
-    opt = make_optimizer(SGDConfig())
-    with pytest.raises(NotImplementedError, match=feature):
-        specs.build_train_step(cfg, qtrain.QuantConfig(), opt,
-                               mesh=StackedMesh((2, 4), ("data", "model")))
+@pytest.mark.parametrize("overrides", [{"attn_bias": True},
+                                       {"n_patches": 4}])
+def test_a_layer_feature_runs_placed_like_the_unsharded_step(overrides,
+                                                             one_thread):
+    """A llama-shaped config with attention biases, or with a vision
+    prefix, at (2, 4) as its unsharded step runs it."""
+    _placed_matches_unsharded(dataclasses.replace(_cfg(), **overrides),
+                              (2, 4))
 
 
 # the dense layers' other features, each through the one block body:
