@@ -330,6 +330,12 @@ Phases 10-14 run right after phase 8's counted wire run, before its
              first loss within ``TP_LOSS_RTOL_F32``, the parameters after
              one update apart on a share ≤ ``TP_FLIP_SHARE``, by at most
              ``TP_FLIP_STEPS`` grid steps)
+             then ``guards_tp`` (the (1, 4) run again with ``--guards
+             --inject-nan-at 1``: step 0 bit-equal to the unarmed run's,
+             step 1 skipped with every held block's and the DPS state's
+             fingerprint unchanged, step 2 updating; K1b a step as the
+             placement counts it, the skipped step's too; ms a step armed
+             against the unarmed run's)
              and ``train_tp_pg`` (a one-rank NCCL group: each
              block collective of the process-group transport bit-equal to
              the stacked one on CUDA tensors, then smoke llama's placed step
@@ -361,7 +367,8 @@ The line before the last two carries the kernels (launches on their path —
 K1's from the LM run with a bits operand, LeNet's beside them; K1b's row
 adds ``launches_train_long``, ``launches_train_dots``,
 ``launches_paper_fig4`` (the DPS and fixed 13-bit arms) and
-``launches_train_qwen_ep``, ``launches_train_llama_tp_1x4``/``_2x4``
+``launches_train_qwen_ep``, ``launches_train_llama_tp_1x4``/``_2x4``,
+``launches_guards_tp``
 and ``launches_train_<config>_tp`` of phase 18 (the placed runs; their
 block-mode launches are the ``dps_quantize_onchip_prng_block`` row's,
 llama's (1, 4) as its ``launches``);
@@ -4648,8 +4655,124 @@ def train_llama_tp():
     if faults:
         raise AssertionError("train_llama_tp: " + "; ".join(faults))
     return {tag: {"block": r["block_launches"],
-                  "k1b": r["launches"]["dps_quantize_onchip_prng"]}
+                  "k1b": r["launches"]["dps_quantize_onchip_prng"], "run": r}
             for tag, r in runs.items()}
+
+
+def _placed_fingerprint(state):
+    """Exact fingerprints of a placed state, taken on the device: each
+    distinct block of every parameter and momentum leaf (by leaf key and
+    block index) and each DPS tensor, ``(int64 sum of its 32-bit
+    patterns, their max)``, as :func:`_fingerprint` takes a whole state's."""
+    from repro_torch.checkpoint.ckpt import _walk
+    from repro_torch.core import tree as tree_lib
+    rows = {}
+
+    def take(key, t):
+        if t.element_size() != 4:
+            raise AssertionError(f"fingerprint: {key} is {t.dtype}")
+        bits = t.detach().contiguous().view(torch.int32)
+        rows[key] = torch.stack([bits.sum(dtype=torch.int64),
+                                 bits.max().to(torch.int64)])
+    for name in ("params", "opt_state"):
+        for path, leaf in tree_lib.leaves_with_path(getattr(state, name)):
+            for r, b in leaf.distinct():
+                take(f".{name}/{'/'.join(path)}#{r}", b)
+    _walk(state.dps, ".dps", take)
+    keys = sorted(rows)
+    return dict(zip(keys, torch.stack([rows[k] for k in keys]).cpu()
+                    .tolist()))
+
+
+def guards_tp(tp_1x4):
+    """llama3.2-3b at full width and depth (28 layers) on a stacked (1, 4)
+    mesh, ``launch.train.main`` with ``train_llama_tp``'s argv (``--batch
+    4 --seq 512``, SGD, K1b, 3 steps) plus ``--guards --inject-nan-at 1``:
+    step 0's loss, formats and E_a bit-equal to ``train_llama_tp``'s (1, 4)
+    bf16 step 0 (``tp_1x4``: armed idle guards are bit-transparent on the
+    placed step); step 1 carries the nonfinite health bit and ``skipped``
+    with every held block's fingerprint and the DPS state unchanged across
+    it (read through ``on_step``); step 2 updates again.  K1b a step in
+    block mode as ``_tp_launches_per_step`` counts it, the skipped step's
+    too (it snaps as many blocks, its writes gated); ms a step against
+    ``tp_1x4``'s unarmed reading: the guards' idle cost on the placed
+    step (step 2 is a clean step; step 1 too, but for the selects it
+    discards)."""
+    from repro_torch.launch import train as train_cli
+    from repro_torch.resilience import (HEALTH_GRADS_NONFINITE,
+                                        HEALTH_SKIPPED, health_flags)
+    cfg = get_config("llama3_2_3b")
+    argv = ["--arch", "llama3_2_3b", "--steps", str(TP_STEPS), "--batch",
+            str(TP_BATCH), "--seq", "512", "--optimizer", "sgd",
+            "--log-every", "1", "--guards", "--inject-nan-at", "1"]
+    fmt_keys = ("il_w", "fl_w", "il_a", "fl_a", "il_g", "fl_g")
+    mesh = _stacked((1, 4))
+    prints = {}
+
+    def on_step(step, state):
+        prints[step] = _placed_fingerprint(state)
+
+    t0 = time.perf_counter()
+    _reset_quant_counts()
+    dps_quant.quantize_block_launch_count = 0
+    out = train_cli.main(argv, on_step=on_step, cfg=cfg, mesh=mesh)
+    hist = out["history"]
+    per_step = out["quantizer_launches_per_step"]
+    block = dps_quant.quantize_block_launch_count
+    want, want_block = _tp_launches_per_step(cfg, mesh)
+    faults = []
+    first = {"loss": hist[0]["loss"], "E_a": hist[0]["E_a"],
+             **{k: hist[0][k] for k in fmt_keys}}
+    unarmed = {"loss": tp_1x4["losses"][0], "E_a": tp_1x4["E_a"][0],
+               **tp_1x4["formats"][0]}
+    if first != unarmed:
+        faults.append(f"step 0 {first} against the unarmed {unarmed}")
+    nan_skip = HEALTH_GRADS_NONFINITE | HEALTH_SKIPPED
+    health = [int(h["health"]) for h in hist]
+    if health[0] or health[1] & nan_skip != nan_skip or health[2] & nan_skip:
+        faults.append(f"health {[health_flags(h) for h in health]}")
+    if [h["skipped"] for h in hist] != [0, 1, 1]:
+        faults.append(f"skipped {[h['skipped'] for h in hist]}")
+    moved = sorted(k for k in prints[0] if prints[0][k] != prints[1][k])
+    if moved:
+        faults.append(f"the skipped step moved {moved[:8]} ({len(moved)})")
+    moved2 = sum(prints[1][k] != prints[2][k] for k in prints[1]
+                 if not k.startswith(".dps"))
+    if not moved2:
+        faults.append("step 2 moved no block")
+    if per_step != [want] * TP_STEPS or block != want_block * TP_STEPS:
+        faults.append(f"K1b {per_step} a step, "
+                      f"{block} in block mode; wanted {want} and "
+                      f"{want_block * TP_STEPS}")
+    say("guards_tp", command="launch.train.main(" + repr(argv)
+        + ", mesh=make_mesh((1, 4), ('data', 'model')))", model=cfg.name,
+        layers=cfg.n_layers, losses=[h["loss"] for h in hist],
+        health=[list(health_flags(h)) for h in health],
+        skipped=[h["skipped"] for h in hist],
+        step0_bit_equal_to_unarmed=first == unarmed,
+        # step 1's forward reads the parameters step 0 updated (gated);
+        # reported, not held: the two runs' backward sums need not be
+        # bit-equal run to run
+        step1_loss_vs_unarmed=[hist[1]["loss"], tp_1x4["losses"][1]],
+        step1_formats_equal_to_unarmed=(
+            {k: hist[1][k] for k in fmt_keys} == tp_1x4["formats"][1]),
+        held_blocks_fingerprinted=sum(not k.startswith(".dps")
+                                      for k in prints[0]),
+        held_on_skip=not moved, blocks_moved_at_step_2=moved2,
+        k1b_per_step=per_step,
+        k1b_block_mode=block, k1b_per_step_predicted=want,
+        ms_per_step_after_first=out["ms_per_step_after_first"],
+        unarmed_ms_per_step_after_first=tp_1x4["ms"],
+        first_step_s=out["first_step_s"],
+        peak_memory_bytes=out["peak_memory_bytes"],
+        unarmed_peak_memory_bytes=tp_1x4["peak"],
+        seconds=time.perf_counter() - t0)
+    del out, hist, prints
+    gc.collect()
+    torch.cuda.empty_cache()
+    if faults:
+        raise AssertionError("guards_tp: " + "; ".join(faults))
+    return {"k1b": sum(per_step), "block": block}
 
 
 def train_family_tp(model, layers, unsharded, phase):
@@ -4911,6 +5034,9 @@ def main():
     tp_check()
     tp_runs = train_llama_tp()
     other["train_llama_tp"] = {"dps_quantize_block": tp_runs["1x4"]["block"]}
+    # the health guards and the NaN drill on the placed step, held to the
+    # unarmed (1, 4) run above
+    guards_placed = guards_tp(tp_runs["1x4"]["run"])
     train_tp_pg()
     # every other family on the placed step: each placed layer at full
     # geometry, then each trained placed against its unsharded run above
@@ -5014,10 +5140,12 @@ def main():
             r["launches_train_qwen_ep"] = ep_k1b[r["name"]]
             for tag in ("1x4", "2x4"):
                 r[f"launches_train_llama_tp_{tag}"] = tp_runs[tag]["k1b"]
+            r["launches_guards_tp"] = guards_placed["k1b"]
             for phase, counts in tp_family.items():
                 r[f"launches_{phase}"] = counts["k1b"]
         if r["name"] == "dps_quantize_onchip_prng_block":
             r["launches_train_llama_tp_2x4"] = tp_runs["2x4"]["block"]
+            r["launches_guards_tp"] = guards_placed["block"]
             for phase, counts in tp_family.items():
                 r[f"launches_{phase}"] = counts["block"]
         for run, counts in zero_launches.items():

@@ -404,14 +404,18 @@ def merge_split_stats(vecs, spec, mesh):
 def quantize_placed(i: int, path, leaf, fmt: FixedPointFormat, *,
                     mode: str = ROUND_STOCHASTIC, seed: int = 0,
                     predicate=None, onchip_prng: bool = False,
-                    backend: str = "auto", inplace: bool = False):
+                    backend: str = "auto", inplace: bool = False,
+                    keep=None):
     """:func:`quantize_tree_leaf` on a placed leaf
     (:class:`~repro_torch.dist.sharding.Placed`): each distinct block held
     rounds with the bits the whole leaf's event gives its elements (K1b in
     block mode, or the slice of the whole operand; a layer-stacked leaf
     that the replicated step draws layer by layer is drawn the same way),
-    and the statistics are merged over the leaf's split axes.  Returns
-    ``(placed q, QuantStats)`` or ``(leaf, None)``."""
+    and the statistics are merged over the leaf's split axes.  ``keep`` (a
+    bool device scalar, with ``inplace``): each block is snapped beside
+    itself, one block at a time, and selected into it where ``keep``
+    holds (the guards' skip gate).  Returns ``(placed q, QuantStats)`` or
+    ``(leaf, None)``."""
     from repro_torch.dist.sharding import Placed
     from repro_torch.kernels import ops, ref as ref_lib
     if predicate is not None and not predicate(path, leaf):
@@ -423,7 +427,7 @@ def quantize_placed(i: int, path, leaf, fmt: FixedPointFormat, *,
     qs, vecs = {}, {}
     for r, blk in leaf.distinct():
         origin, shape = leaf.geometry(r)
-        out = blk if inplace else torch.empty_like(blk)
+        out = blk if inplace and keep is None else torch.empty_like(blk)
         if by_layer:
             parts = []
             for layer in range(shape[0]):
@@ -439,6 +443,9 @@ def quantize_placed(i: int, path, leaf, fmt: FixedPointFormat, *,
                                         onchip_prng, blk.device)
             _, st = ops.dps_quantize(blk, fmt, bits, out=out,
                                      backend=backend)
+        if keep is not None:
+            torch.where(keep, out, blk, out=blk)
+            out = blk
         qs[id(blk)] = out
         vecs[id(blk)] = torch.stack([st.count, st.nonzero, st.overflow,
                                      st.abs_err_sum, st.rel_err_sum,

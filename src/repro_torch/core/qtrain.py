@@ -6,7 +6,8 @@ transport of more than one rank), its backward-overlapped bucketed form
 (``wire_overlap``) and ZeRO-1 (``zero_opt_shards``: the optimizer state
 sharded over the data axis), and the health guards with their fault
 injection (``guards``, ``make_train_step(faults=...)``: see
-:mod:`repro_torch.resilience.guards`) on every one of those steps.  Wires
+:mod:`repro_torch.resilience.guards`) on every one of those steps and on
+the placed step (:func:`make_placed_train_step`).  Wires
 the paper's Algorithm 1 into a PyTorch model:
 
   forward pass   — activations pass through :meth:`QCtx.tap` (quantize +
@@ -1168,21 +1169,59 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
 # ---------------------------------------------------------------------------
 
 def _quantize_placed_tree(tree, fmt, qcfg: QuantConfig, seed: int,
-                          inplace: bool = False):
+                          inplace: bool = False, keep=None):
     """:func:`quantize_params`/:func:`quantize_grads` on a tree of placed
     leaves: each leaf's blocks with the whole leaf's bits, its statistics
-    merged over its split axes, the leaves' merged in leaf order."""
+    merged over its split axes, the leaves' merged in leaf order.  ``keep``
+    (a bool device scalar, with ``inplace``): the guards' skip gate, as
+    :func:`quantize_params` takes it — each distinct block is snapped
+    beside itself and selected into it."""
     out, stats = [], []
     for i, (path, leaf) in enumerate(tree_lib.leaves_with_path(tree)):
         q, st = fxp.quantize_placed(
             i, path, leaf, fmt, mode=qcfg.rounding, seed=seed,
             predicate=qcfg.policy.param_predicate(),
             onchip_prng=qcfg.onchip_prng, backend=qcfg.backend,
-            inplace=inplace)
+            inplace=inplace, keep=keep)
         out.append(q)
         if st is not None:
             stats.append(st)
     return tree_lib.from_leaves(tree, out), fxp.merge_tree_stats(stats, fmt)
+
+
+def _placed_grad_faults(faults, grads, step: int) -> None:
+    """The scheduled gradient faults of ``step`` on a tree of placed
+    gradients, in place, once on each distinct block: the holders of one
+    shared block (:func:`_reduce_replicated`) hold one tensor, and the
+    storm's product applied once a holder would compound."""
+    from repro_torch import resilience as rsl     # resilience imports core
+    for leaf in tree_lib.leaves(grads):
+        for _, b in leaf.distinct():
+            rsl.apply_leaf_faults(faults, b, step)
+
+
+def _placed_nonfinite(grads, mesh):
+    """The guards' nonfinite signal of a tree of placed gradients, one
+    ``[1]`` tensor a held rank: 1.0 on every rank when any rank's block
+    holds a NaN or an Inf, else 0.0.
+    Each distinct block's extrema (one min/max reduction, as
+    :func:`~repro_torch.resilience.guards.nonfinite_any` takes a leaf's)
+    give each held rank its flag, and the flags are maxed over every mesh
+    axis: one scalar collective an axis, and a block that only one process
+    of a process mesh holds reaches every process."""
+    from repro_torch import resilience as rsl
+    flags, memo = None, {}
+    for leaf in tree_lib.leaves(grads):
+        ext = []
+        for b in leaf.blocks:
+            if id(b) not in memo:
+                memo[id(b)] = rsl.nonfinite_of_extrema(
+                    [rsl.leaf_extrema(b)], b.device).reshape(1)
+            ext.append(memo[id(b)])
+        flags = ext if flags is None else [torch.maximum(a, e)
+                                           for a, e in zip(flags, ext)]
+    axes = [a for a, n in sharding._axis_sizes(mesh).items() if n > 1]
+    return sharding.pmax(mesh, axes, flags)
 
 
 def _rank_leaves(leaf):
@@ -1217,7 +1256,7 @@ def place_batch(batch, mesh, rules):
 
 
 def make_placed_train_step(loss_fn, optimizer, qcfg: QuantConfig, mesh,
-                           rules, accum_steps: int = 1):
+                           rules, accum_steps: int = 1, faults=None):
     """The sharded train step: the replicated step's body (Alg. 1 and 2 as
     :func:`make_train_step` runs them) on a state placed over ``mesh``
     (:func:`repro_torch.launch.specs.place_train_state`), each rank on its
@@ -1243,21 +1282,69 @@ def make_placed_train_step(loss_fn, optimizer, qcfg: QuantConfig, mesh,
 
     ``accum_steps``: the global batch splits into microbatches of global
     rows, each placed over the data axis, as the reference slices it.
-    The int8 wire and ZeRO-1 run on a pure data mesh only (the reference
-    drops ``fsdp`` there): a ``qcfg`` with either raises, as do the
-    guards (left to a later step)."""
-    if qcfg.grad_allreduce_bits is not None or qcfg.zero_opt_shards:
+
+    The engagement policy is the reference's: the int8 wire and ZeRO-1 run
+    on a pure data-parallel mesh only, so with a data axis above 1 and
+    another axis above 1 either warns and falls back (the exact gradient
+    sums of the placed backward; the optimizer state placed like the
+    parameters), ``wire_sync_active`` and ``zero_opt_active`` False, the
+    plan's ``wire_grads`` / ``wire_params`` domains kept as the reference
+    keeps them.  On a pure data mesh either raises: the data-parallel
+    step (:func:`make_train_step` with the axis's transport) runs them.
+
+    ``qcfg.guards`` arms the health guards as on the replicated step, on
+    the placed trees: after the backward the scheduled ``faults`` of the
+    step hit each distinct gradient block once
+    (:func:`_placed_grad_faults`); the nonfinite signal
+    (:func:`_placed_nonfinite`) and the norm
+    (:func:`~repro_torch.optim.optimizers.placed_sq_norm`, each leaf's
+    blocks summed over its split axes) are taken from the raw gradients
+    before their snap; the skip gate ``ok`` is computed on the device
+    before any in-place write, and the optimizer and the weight re-snap
+    select block by block against it.  The guard state is replicated
+    scalars and ``[D]`` vectors, the same on every rank and process.
+    ``FaultPlan.wire_flip_at`` raises: no wire payload runs here."""
+    sizes = sharding._axis_sizes(mesh)
+    n_data = sizes.get("data", 1)
+    others = any(n > 1 for a, n in sizes.items() if a != "data")
+    wire_bits = qcfg.grad_allreduce_bits
+    if wire_bits is not None and not 2 <= wire_bits <= 8:
+        raise ValueError(f"grad_allreduce_bits={wire_bits}: the wire payload "
+                         "is int8, so only 2..8 grid bits are supported")
+    if ((wire_bits is not None or qcfg.zero_opt_shards is not None)
+            and n_data > 1 and not others):
         raise ValueError(
             "the int8 gradient wire (grad_allreduce_bits) and ZeRO-1 "
-            "(zero_opt_shards) run on a pure data-parallel mesh, with the "
-            "parameters replicated; a mesh with a model axis above 1 (or "
-            "FSDP over data) places them and takes neither")
-    if qcfg.guards is not None:
-        raise NotImplementedError("the health guards do not run on the "
-                                  "placed step yet")
+            "(zero_opt_shards) on a pure data-parallel mesh run the "
+            "data-parallel step (make_train_step with the data axis's "
+            "transport), the parameters replicated")
+    # engagement policy (the reference's): a config the mesh cannot honor
+    # warns and falls back
+    if wire_bits is not None and n_data > 1:
+        warnings.warn(
+            "grad_allreduce_bits needs a pure data-parallel mesh (all "
+            f"non-'data' axes of size 1); got {sizes}. Falling back to the "
+            "implicit fp32 gradient all-reduce.")
+    if qcfg.zero_opt_shards is not None and n_data > 1:
+        warnings.warn(
+            "zero_opt_shards needs a pure data-parallel mesh (all "
+            f"non-'data' axes of size 1); got {sizes}. Falling back to the "
+            "replicated optimizer state.")
+    guards_on = qcfg.guards is not None
+    if guards_on or faults is not None:
+        from repro_torch import resilience as rsl
+        from repro_torch.optim.optimizers import placed_sq_norm
+    if faults is not None and faults.wire_flip_at >= 0:
+        raise ValueError(
+            "FaultPlan.wire_flip_at targets the monolithic tree all-reduce "
+            "payload; it needs an engaged compressed sync without "
+            "wire_overlap or zero_opt_shards")
     plan = qcfg.plan()
     rounding = getattr(plan.controller("weights"), "rounding", qcfg.rounding)
-    n_ranks = math.prod(sharding._axis_sizes(mesh).values())
+    n_ranks = math.prod(sizes.values())
+    wire_names = rsl.wire_domains(plan) if guards_on else ()
+    gidx = (wire_names.index("wire_grads") if "wire_grads" in wire_names
+            else 0)
 
     def _qctx(fmts, seed_a, mb):
         if not (qcfg.enabled and qcfg.policy.quantizes("acts")):
@@ -1322,6 +1409,12 @@ def make_placed_train_step(loss_fn, optimizer, qcfg: QuantConfig, mesh,
         seed_w, seed_g, seed_a = (fold_seed(state.seed, state.step, k)
                                   for k in range(3))
         fmts = bundle_formats(qcfg, state.dps)
+        if guards_on and state.guard is None:
+            raise ValueError(
+                "qcfg.guards is armed but TrainState.guard is None; build "
+                "the state with TrainState.create(..., qcfg, ...) or "
+                "restore with qtrain.guard_restore_defaults")
+        bad = gnorm = ok = None
         with sharding.axis_rules(mesh, rules):
             if qcfg.enabled and qcfg.policy.quantizes("weights"):
                 qparams, w_stats = _quantize_placed_tree(
@@ -1330,24 +1423,48 @@ def make_placed_train_step(loss_fn, optimizer, qcfg: QuantConfig, mesh,
                 qparams, w_stats = state.params, QuantStats.zero(device=dev)
             loss, aux, grads = _accum_grads(qparams, batch, fmts, seed_a)
             del qparams
+            if faults is not None:
+                _placed_grad_faults(faults, grads, state.step)
+            if guards_on:
+                bad = _placed_nonfinite(grads, mesh)[0][0]
+                gnorm = torch.sqrt(placed_sq_norm(grads))
+                # the skip gate, on the device, before any in-place write
+                ok = rsl.step_ok(qcfg.guards, state.guard, loss=loss,
+                                 grads_bad=bad, gnorm=gnorm)
             if measure_grads:
                 grads, g_stats = _quantize_placed_tree(
                     grads, fmts["grads"], qcfg, seed_g, inplace=True)
             else:
                 g_stats = QuantStats.zero(device=dev)
             optimizer.update_placed(grads, state.opt_state, state.params,
-                                    count=state.step)
+                                    count=state.step, keep=ok)
             del grads
             a_stats = aux.get("act_stats", QuantStats.zero(device=dev))
             if qcfg.enabled and qcfg.policy.quantizes("weights"):
                 _, w_stats2 = _quantize_placed_tree(
                     state.params, fmts["weights"], qcfg,
-                    fold_seed(seed_w, 1), inplace=True)
+                    fold_seed(seed_w, 1), inplace=True, keep=ok)
                 w_stats = w_stats.merge(w_stats2)
         streams = {"weights": w_stats, "acts": a_stats, "grads": g_stats}
-        state.dps = update_dps_bundle(qcfg, state.dps, streams,
-                                      {"loss": loss})
+        new_dps = update_dps_bundle(qcfg, state.dps, streams, {"loss": loss})
+        if guards_on:
+            # no wire leg runs: every wire domain's overflow reads 0
+            new_guard, _, trip_any = rsl.update_guard(
+                qcfg.guards, plan, state.guard, loss=loss, grads_bad=bad,
+                gnorm=gnorm, wire_ov=rsl.domain_overflow(plan, {}, dev),
+                new_dps=new_dps, grads_domain_idx=gidx)
+            new_dps = rsl.guards.select_bundle(ok, new_dps, state.dps)
+            if qcfg.guards.widen_on_trip:
+                new_dps = rsl.widen_on_trip(plan, new_dps, trip_any)
+            state.guard = new_guard
+        state.dps = new_dps
         metrics = _domain_metrics(plan, fmts, streams, loss, aux)
+        if guards_on:
+            g = state.guard
+            metrics.update(health=g.health, skipped=g.skipped, trips=g.trips,
+                           degraded=(g.degraded.max() if wire_names else
+                                     torch.zeros((), dtype=torch.int32,
+                                                 device=dev)))
         state.step += 1
         state.last_loss = loss.to(torch.float32)
         return state, metrics
@@ -1359,8 +1476,8 @@ def make_placed_train_step(loss_fn, optimizer, qcfg: QuantConfig, mesh,
     train_step.zero_opt_active = False
     train_step.wire_overlap_active = False
     train_step.zero_groupaligned_active = False
-    train_step.guards_active = False
+    train_step.guards_active = guards_on
     train_step.wire_buckets = 0
     train_step.qcfg, train_step.transport = qcfg, None
-    train_step.n_data = sharding._axis_sizes(mesh).get("data", 1)
+    train_step.n_data = n_data
     return train_step

@@ -173,9 +173,10 @@ def place_train_state(cfg: ModelConfig, state: qtrain.TrainState, mesh,
 
 def placement_engaged(qcfg: qtrain.QuantConfig, mesh) -> bool:
     """Does ``build_train_step`` build the placed step on ``mesh``?  A
-    model axis above 1, or any other axis above 1 (FSDP binds the data
-    axis) without the int8 wire or ZeRO-1, which keep the replicated
-    parameters of a pure data mesh."""
+    model axis above 1 always (the int8 wire and ZeRO-1 fall back there),
+    or any other axis above 1 (FSDP binds the data axis) without the int8
+    wire or ZeRO-1, which keep the replicated parameters of a pure data
+    mesh."""
     if mesh is None:
         return False
     sizes = _axis_sizes(mesh)
@@ -282,28 +283,21 @@ def build_train_step(cfg: ModelConfig, qcfg: qtrain.QuantConfig, optimizer,
     by calling it under :func:`~repro_torch.dist.sharding.axis_rules`.
     With the int8 wire or ZeRO-1 on a pure data mesh, the replicated
     parameters' data-parallel step over the data axis's transport (the
-    reference drops ``fsdp`` there); a model axis above 1 with either
-    raises.  Otherwise (:func:`placement_engaged`) the placed step
-    (:func:`repro_torch.core.qtrain.make_placed_train_step`) on a state
-    placed by :func:`place_train_state` under ``rules``: FSDP over data,
-    tensor parallelism over model, as the reference's ``jax.jit`` with
-    ``in_shardings`` places it: every family's ``placed_loss_fn``."""
+    reference drops ``fsdp`` there).  Otherwise (:func:`placement_engaged`)
+    the placed step (:func:`repro_torch.core.qtrain.make_placed_train_step`)
+    on a state placed by :func:`place_train_state` under ``rules``: FSDP
+    over data, tensor parallelism over model, as the reference's
+    ``jax.jit`` with ``in_shardings`` places it: every family's
+    ``placed_loss_fn``.  There the int8 wire and ZeRO-1 warn and fall back
+    as the reference's step does (``wire_sync_active`` and
+    ``zero_opt_active`` False), and ``faults`` and ``qcfg.guards`` run as
+    on the replicated step."""
     mod = registry(cfg.family)
     accum = cfg.train_accum if accum_steps is None else accum_steps
-    if (mesh is not None and _axis_sizes(mesh).get("model", 1) > 1
-            and (qcfg.grad_allreduce_bits is not None
-                 or qcfg.zero_opt_shards is not None)):
-        raise ValueError(
-            "the int8 gradient wire and ZeRO-1 run on a pure data-parallel "
-            f"mesh; this one has a model axis of "
-            f"{_axis_sizes(mesh)['model']}")
     if placement_engaged(qcfg, mesh):
-        if faults is not None:
-            raise NotImplementedError("fault injection does not run on the "
-                                      "placed step yet")
         return qtrain.make_placed_train_step(
             mod.placed_loss_fn(cfg), optimizer, qcfg, mesh,
-            rules or LogicalRules(), accum_steps=accum)
+            rules or LogicalRules(), accum_steps=accum, faults=faults)
     transport = (axis_transport(mesh, "data")
                  if mesh is not None and "data" in _axis_sizes(mesh) else None)
     return qtrain.make_train_step(mod.loss_fn(cfg), optimizer, qcfg,

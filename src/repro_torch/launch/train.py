@@ -78,8 +78,11 @@ Preempt and resume on the CPU:
   (the same with ``--resume`` instead of ``--sigterm-at 3``)
 
 The guards and the fault plan run on every step: replicated, the monolithic
-and the overlapped wire, ZeRO-1 (each wire leg degrades on its own); the
-wire flip needs the monolithic wire, as in the reference.  Under
+and the overlapped wire, ZeRO-1 (each wire leg degrades on its own) and
+the placed step on a caller's mesh (``main(argv, mesh=...)``; there the
+int8 wire and ZeRO-1 fall back under a model axis and a rollback-ring
+entry is a host copy of each block this process holds); the wire flip
+needs the monolithic wire, as in the reference.  Under
 ``torchrun`` with ``--zero-opt`` each process holds one rank's optimizer
 shard: a save gathers the rows to rank 0, which writes the stacked run's
 arrays, and ``--resume`` gives each process its own row back:
@@ -402,6 +405,41 @@ def _force_degrade(state, cooldown: int):
         cooldown=torch.full_like(g.cooldown, cooldown))
 
 
+def _held_blocks(state):
+    """Each distinct block of every placed leaf of the parameters and the
+    optimizer state, in leaf order: what this process holds."""
+    from repro_torch.core import tree as tree_lib
+    return [b for tree in (state.params, state.opt_state)
+            for leaf in tree_lib.leaves(tree) for _, b in leaf.distinct()]
+
+
+def _snapshot(state, placed: bool):
+    """A rollback-ring entry: the whole state on the host, or on a placed
+    state a host copy of each block this process holds (no gather, no
+    collective) beside the replicated step, DPS and guard state."""
+    if not placed:
+        return flatten_tree(state)
+    return ([b.detach().to("cpu", copy=True) for b in _held_blocks(state)],
+            flatten_tree(dataclasses.replace(state, params=None,
+                                             opt_state=None)))
+
+
+def _roll_back(state, snap, placed: bool) -> None:
+    """``state`` set back to ring entry ``snap`` in place: on a placed
+    state each held block is copied back into itself, so every ``Placed``
+    and every block two ranks share survive, and the step runs on."""
+    if not placed:
+        load_flat(state, snap.get)
+        return
+    blocks, rest = snap
+    with torch.no_grad():
+        for b, host in zip(_held_blocks(state), blocks):
+            b.copy_(host)
+    scalars = dataclasses.replace(state, params=None, opt_state=None)
+    load_flat(scalars, rest.get)
+    state.step, state.seed = scalars.step, scalars.seed
+
+
 def _health_log(m) -> str:
     if not m.get("health"):
         return ""
@@ -425,9 +463,6 @@ def main(argv=None, on_step=None, cfg=None, mesh=None):
     if args.sigterm_at and not main_thread:
         raise ValueError("--sigterm-at needs the main thread, where the "
                          "SIGTERM handler runs")
-    if mesh is not None and args.rollback_ring:
-        raise ValueError("--rollback-ring keeps host snapshots of a whole "
-                         "state; it does not run on a mesh")
     cfg, step_fn, state, data = setup(args, cfg, mesh)
     placed = getattr(step_fn, "placed", False)
     device = state.last_loss.device
@@ -578,7 +613,7 @@ def main(argv=None, on_step=None, cfg=None, mesh=None):
                                      * med)
                     if spiked and ring and rollbacks < 8:
                         snap_step, snap = ring[-1]
-                        load_flat(state, snap.get)
+                        _roll_back(state, snap, placed)
                         _force_degrade(state, args.guard_cooldown)
                         rollbacks += 1
                         if rank0:
@@ -590,7 +625,7 @@ def main(argv=None, on_step=None, cfg=None, mesh=None):
                         continue
                     if not spiked:
                         loss_hist.extend(losses)
-                        ring.append((step + 1, flatten_tree(state)))
+                        ring.append((step + 1, _snapshot(state, placed)))
             if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
                 _save(step + 1)
             if args.fail_at and step + 1 >= args.fail_at:

@@ -128,8 +128,11 @@ def placed_sq_norm(grads) -> torch.Tensor:
     from repro_torch.dist import sharding          # dist imports optim's
     total = None
     for g in tree_lib.leaves(grads):
-        part = [torch.sum(torch.square(b.to(torch.float32)))
-                for b in g.blocks]
+        memo = {}
+        for b in g.blocks:
+            if id(b) not in memo:
+                memo[id(b)] = torch.sum(torch.square(b.to(torch.float32)))
+        part = [memo[id(b)] for b in g.blocks]
         part = sharding.psum(g.mesh, sharding.spec_axes(g.spec), part)[0]
         total = part if total is None else total + part
     return total
@@ -264,10 +267,11 @@ class SGD:
         """The momentum placed like its parameter."""
         return {"mu": placed_zeros(params, _state_dtype(self.cfg.state_dtype))}
 
-    def update_placed(self, grads, state, params, count: int):
+    def update_placed(self, grads, state, params, count: int, keep=None):
         """:meth:`update` on every distinct block of a placed tree, in
         place; the clip's norm is :func:`placed_sq_norm`'s.  A bf16 state's
-        stochastic cast draws its noise per block."""
+        stochastic cast draws its noise per block.  ``keep``: the skip
+        gate, block by block (see :func:`_write`)."""
         cfg = self.cfg
         scale = (_clip_scale(torch.sqrt(placed_sq_norm(grads)), cfg.clip_norm)
                  if cfg.clip_norm else None)
@@ -277,7 +281,7 @@ class SGD:
                                                      state["mu"]):
                 if scale is not None:
                     g = (g * scale).to(g.dtype)
-                self._leaf(lr, g, p, mu, fold_seed(17, count, i, r))
+                self._leaf(lr, g, p, mu, fold_seed(17, count, i, r), keep)
 
     # --- ZeRO-1 shard-local interface (see repro_torch.dist.sharding) ---
 
@@ -366,10 +370,11 @@ class AdamW:
         dt = _state_dtype(self.cfg.state_dtype)
         return {"m": placed_zeros(params, dt), "v": placed_zeros(params, dt)}
 
-    def update_placed(self, grads, state, params, count: int):
+    def update_placed(self, grads, state, params, count: int, keep=None):
         """:meth:`update` on every distinct block of a placed tree, in
         place; the global-norm clip sums every rank's blocks
-        (:func:`placed_sq_norm`)."""
+        (:func:`placed_sq_norm`).  ``keep``: the skip gate, block by block
+        (see :func:`_write`)."""
         cfg = self.cfg
         scale = (_clip_scale(torch.sqrt(placed_sq_norm(grads)), cfg.clip_norm)
                  if cfg.clip_norm else None)
@@ -382,7 +387,7 @@ class AdamW:
                     g = (g * scale).to(g.dtype)
                 self._leaf(lr, bc1, bc2, g, p, m, v,
                            (fold_seed(23, count, i, r, 1),
-                            fold_seed(23, count, i, r, 2)))
+                            fold_seed(23, count, i, r, 2)), keep)
 
     # --- ZeRO-1 shard-local interface (see repro_torch.dist.sharding) ---
 

@@ -1609,18 +1609,30 @@ def job_ep_train(a, steps, seq, batch, arch, mesh, overrides=None):
 
 
 def job_sharded_step(a, steps, seq, batch, mesh, arch="llama3_2_3b",
-                     overrides=None):
+                     overrides=None, guards=False, faults=None,
+                     grad_allreduce_bits=None, zero_opt_shards=None,
+                     whole=True):
     """The reference's sharded-step check at smoke size
     (``tests/test_dist.py::test_sharded_train_step_matches_single_device``),
     over ``steps`` SGD steps under nearest rounding: the step jitted with
     ``in_shardings``/``out_shardings`` of ``train_state_shardings`` on a
     (data, model) ``mesh`` of forced host devices, under ``axis_rules``,
-    and the same step unsharded.  Returns both histories, the initial
-    parameters and both runs' final parameters.  A ``vision_embeds``
+    and (``whole``) the same step unsharded.  Returns both histories, the
+    initial parameters and both runs' final parameters.  A ``vision_embeds``
     array (a VLM's prefix) and a ``frames`` array (an encoder-decoder's
     frame embeddings) from the test ride on every batch, placed over
-    ``batch`` as ``train_batch_shardings`` places them."""
+    ``batch`` as ``train_batch_shardings`` places them.
+
+    ``guards`` (``GuardConfig()``), ``faults`` (``FaultPlan`` fields),
+    ``grad_allreduce_bits`` and ``zero_opt_shards`` go into the step, which
+    is then built on the mesh (``build_train_step(..., mesh=)``, as the
+    reference's CLI builds it, so a wire or ZeRO-1 the mesh cannot honor
+    warns and falls back): the histories add ``health``, ``skipped``,
+    ``trips`` and ``degraded`` when guarded, and the sharded run returns
+    its warnings, its ``wire_sync_active``/``zero_opt_active`` and the
+    ``.dps`` keys, shapes and dtypes of its checkpoint."""
     import dataclasses
+    import warnings
     import jax
     from repro.core import qtrain
     from repro.data import TokenStream, TokenStreamConfig
@@ -1629,13 +1641,22 @@ def job_sharded_step(a, steps, seq, batch, mesh, arch="llama3_2_3b",
     from repro.models import registry
     from repro.models.common import init_params
     from repro.optim import SGDConfig, make_optimizer
+    from repro.resilience import FaultPlan, GuardConfig
     cfg = dataclasses.replace(_smoke_cfg(arch, overrides), remat="full")
     mod = registry(cfg.family)
     params = init_params(jax.random.key(0), mod.model_defs(cfg))
     out = flatten(_np_params(params), "params/")
-    qcfg = qtrain.QuantConfig(rounding="nearest")
+    qcfg = qtrain.QuantConfig(rounding="nearest",
+                              guards=GuardConfig() if guards else None,
+                              grad_allreduce_bits=grad_allreduce_bits,
+                              zero_opt_shards=zero_opt_shards)
     opt = make_optimizer(SGDConfig())
-    step = specs_lib.build_train_step(cfg, qcfg, opt, accum_steps=1)
+    plan = FaultPlan(**faults) if faults else None
+    flags = (guards or faults or grad_allreduce_bits is not None
+             or zero_opt_shards is not None)
+    names = ("loss", "il_w", "fl_w", "il_a", "fl_a", "il_g", "fl_g", "E_a",
+             "R_a", "E_g", "E_w") + (("health", "skipped", "trips",
+                                      "degraded") if guards else ())
     data = TokenStream(TokenStreamConfig(vocab=cfg.vocab, seq_len=seq,
                                          global_batch=batch, seed=0))
     extras = {k: jax.numpy.asarray(a[k]) for k in ("vision_embeds", "frames")
@@ -1646,11 +1667,19 @@ def job_sharded_step(a, steps, seq, batch, mesh, arch="llama3_2_3b",
         return qtrain.TrainState.create(params, opt.init(params), qcfg,
                                         jax.random.key(1))
 
-    state, hist = _run_train(jax.jit(step), fresh(), batches)
-    out.update({f"whole/hist/{k}": v for k, v in hist.items()})
-    out.update(flatten(_np_params(state.params), "whole/final/"))
+    if whole:
+        step = specs_lib.build_train_step(cfg, qcfg, opt, accum_steps=1,
+                                          faults=plan)
+        state, hist = _run_train(jax.jit(step), fresh(), batches, names)
+        out.update({f"whole/hist/{k}": v for k, v in hist.items()})
+        out.update(flatten(_np_params(state.params), "whole/final/"))
     m = _ep_mesh(mesh)
     rules = LogicalRules()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        step = specs_lib.build_train_step(cfg, qcfg, opt, accum_steps=1,
+                                          mesh=m if flags else None,
+                                          faults=plan)
     sh = specs_lib.train_state_shardings(cfg, m, rules, opt, qcfg)
     bs = specs_lib.train_batch_shardings(
         cfg, type("S", (), {"batch": batch, "seq": seq})(), m, rules)
@@ -1659,9 +1688,18 @@ def job_sharded_step(a, steps, seq, batch, mesh, arch="llama3_2_3b",
         jitted = jax.jit(step, in_shardings=(sh, bs),
                          out_shardings=(sh, None))
         state, hist = _run_train(
-            jitted, state, [jax.device_put(b, bs) for b in batches])
+            jitted, state, [jax.device_put(b, bs) for b in batches], names)
     out.update({f"sharded/hist/{k}": v for k, v in hist.items()})
     out.update(flatten(_np_params(state.params), "sharded/final/"))
+    if flags:
+        out["sharded/warnings"] = np.array(json.dumps(
+            [str(w.message) for w in caught]))
+        out["sharded/active"] = np.array([step.wire_sync_active,
+                                          step.zero_opt_active])
+        out["sharded/dps_keys"] = np.array(json.dumps({
+            k: [list(v.shape), str(v.dtype)]
+            for k, v in _ckpt_flat(state, "").items()
+            if k.startswith(".dps")}))
     return out
 
 

@@ -23,12 +23,14 @@ against the JAX package's own sharded step.
   against the port's unsharded step; whisper, deepseek-v2, mamba2 and
   internvl2, and llama with attention biases or a vision prefix, the same
   way.
-* The refusals: the int8 wire or ZeRO-1 with a model axis.
+* The int8 wire and ZeRO-1 with a model axis warn and fall back to the
+  placed step, as the reference's do (job ``sharded_step`` with the flags).
   ``train.main(..., mesh=...)`` prints the bytes each rank holds.
 """
 
 import contextlib
 import dataclasses
+import json
 import os
 
 import numpy as np
@@ -56,6 +58,7 @@ STEPS, SEQ, BATCH = 3, 16, 8
 EP = {"steps": 3, "seq": 16, "batch": 8}
 LOSS_RTOL = 2e-4                # the reference's own sharded-step bound
 FMTS = ("il_w", "fl_w", "il_a", "fl_a", "il_g", "fl_g")
+GUARD_KEYS = ("health", "skipped", "trips", "degraded")
 # nearest rounding on a grid of 2^-FL: a sum taken in another order can
 # land a value on the neighbouring grid point, and the step after moves it
 PARAM_DIFF_STEPS = 4
@@ -69,7 +72,11 @@ def ref():
           "kw": {"steps": STEPS, "seq": SEQ, "batch": BATCH,
                  "mesh": [2, 4]}},
          {"job": "ep_train", "tag": "qw",
-          "kw": {**EP, "arch": "qwen3_moe_30b_a3b", "mesh": [2, 4]}}],
+          "kw": {**EP, "arch": "qwen3_moe_30b_a3b", "mesh": [2, 4]}},
+         {"job": "sharded_step", "tag": "fb",
+          "kw": {"steps": STEPS, "seq": SEQ, "batch": BATCH, "mesh": [2, 4],
+                 "grad_allreduce_bits": 8, "zero_opt_shards": 2,
+                 "whole": False}}],
         host_devices=8)
 
 
@@ -78,26 +85,30 @@ def _cfg(arch="llama3_2_3b"):
 
 
 def _run(cfg, mesh, params=None, steps=STEPS, qcfg=None, opt_cfg=None,
-         seq=SEQ, extras=None):
+         seq=SEQ, extras=None, faults=None):
     """``steps`` steps (SGD at nearest rounding unless ``qcfg`` and
     ``opt_cfg`` say otherwise) from ``params`` (the port's seed-0 draw if
     None), placed over ``mesh`` when given; ``extras`` (a VLM's
     ``vision_embeds``, an encoder-decoder's ``frames``) ride on every
-    batch.  Returns the history and the whole final parameters."""
+    batch; ``faults`` (a ``FaultPlan``) goes into the step.  Returns the
+    history (with the guards' ``GUARD_KEYS`` when ``qcfg.guards``) and the
+    whole final parameters."""
     mod = registry(cfg.family)
     if params is None:
         params = init_params(mod.model_defs(cfg, cfg.master_dtype()), "cpu",
                              torch.Generator().manual_seed(0))
     qcfg = qcfg or qtrain.QuantConfig(rounding="nearest")
     opt = make_optimizer(opt_cfg or SGDConfig())
-    step = specs.build_train_step(cfg, qcfg, opt, accum_steps=1, mesh=mesh)
+    step = specs.build_train_step(cfg, qcfg, opt, accum_steps=1, mesh=mesh,
+                                  faults=faults)
     state = qtrain.TrainState.create(params, opt.init(params), qcfg, 1)
     if mesh is not None:
         assert step.placed
         specs.place_train_state(cfg, state, mesh)
     data = TokenStream(TokenStreamConfig(vocab=cfg.vocab, seq_len=seq,
                                          global_batch=BATCH, seed=0))
-    hist = {k: [] for k in FMTS + ("loss",)}
+    hist = {k: [] for k in FMTS + ("loss",)
+            + (GUARD_KEYS if qcfg.guards is not None else ())}
     for i in range(steps):
         state, m = step(state, dict(data.batch(i), **(extras or {})))
         for k in hist:
@@ -367,25 +378,53 @@ def test_attention_layouts_match_the_whole_layer(case):
 
 
 # ---------------------------------------------------------------------------
-# refusals and the CLI's summary
+# the wire and ZeRO-1 under a model axis, and the CLI's summary
 # ---------------------------------------------------------------------------
 
-def test_wire_and_zero_refuse_a_model_axis():
+def test_wire_and_zero_refuse_a_model_axis(ref):
+    """With a model axis above 1 the int8 wire and ZeRO-1 do not engage:
+    the step warns with the reference's words and falls back to the placed
+    step (``wire_sync_active`` and ``zero_opt_active`` False, as the
+    reference's), whose 3 steps give the reference's sharded step run with
+    the same flags (job ``sharded_step``): its formats, its losses within
+    ``LOSS_RTOL``, and the plan's ``wire_grads``/``wire_params`` domains
+    under the same ``.dps`` checkpoint keys."""
     cfg = _cfg()
     opt = make_optimizer(SGDConfig())
     mesh = StackedMesh((2, 4), ("data", "model"))
-    for q in (qtrain.QuantConfig(grad_allreduce_bits=8),
-              qtrain.QuantConfig(zero_opt_shards=2)):
-        with pytest.raises(ValueError, match="pure data-parallel mesh"):
-            specs.build_train_step(cfg, q, opt, mesh=mesh)
-    # on a pure data mesh they keep their data-parallel step
+    q = qtrain.QuantConfig(rounding="nearest", grad_allreduce_bits=8,
+                           zero_opt_shards=2)
+    with pytest.warns(UserWarning) as caught:
+        step = specs.build_train_step(cfg, q, opt, mesh=mesh)
+    assert [str(w.message) for w in caught] == json.loads(
+        str(ref["fb/sharded/warnings"]))
+    assert step.placed and not (step.wire_sync_active
+                                or step.zero_opt_active)
+    assert list(ref["fb/sharded/active"]) == [False, False]
+    with pytest.warns(UserWarning, match="pure data-parallel mesh"):
+        hist, _ = _run(cfg, mesh, _ref_params(ref, cfg, "fb/params/"),
+                       qcfg=q)
+    want = {k: list(ref[f"fb/sharded/hist/{k}"]) for k in hist}
+    _check_against(hist, want)
+    keys = {k: [list(v.shape), str(v.dtype)]
+            for k, v in qtrain.dps_restore_defaults(q).items()}
+    assert keys == json.loads(str(ref["fb/sharded/dps_keys"]))
+    assert ".dps/wire_params/.il" in keys
+    # the optimizer state stays per leaf, placed like the parameters, as
+    # the reference's train_state_shardings places it without ZeRO-1
+    assert specs.train_state_shardings(cfg, mesh, LogicalRules(), opt,
+                                       q).opt_state == {
+        "mu": specs.param_shardings(cfg, mesh, LogicalRules())}
+    # on a pure data mesh they keep their data-parallel step, which the
+    # placed step does not run
     step = specs.build_train_step(cfg, qtrain.QuantConfig(
         grad_allreduce_bits=8), opt, mesh=StackedMesh((2,), ("data",)))
     assert step.wire_sync_active and not getattr(step, "placed", False)
     with pytest.raises(ValueError, match="pure data-parallel mesh"):
         qtrain.make_placed_train_step(
             registry("dense").placed_loss_fn(cfg), opt,
-            qtrain.QuantConfig(grad_allreduce_bits=8), mesh, LogicalRules())
+            qtrain.QuantConfig(grad_allreduce_bits=8),
+            StackedMesh((2,), ("data",)), LogicalRules())
 
 
 def _batch_extras(cfg):

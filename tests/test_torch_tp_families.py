@@ -15,7 +15,8 @@ step.
   capacity), in both packages, so its sharded losses part from its
   unsharded ones and depend on the split: each mesh is held to the
   reference's step on the same mesh.
-* Every config at full size builds the placed step on a (2, 4) mesh.
+* Every config at full size builds the placed step on a (2, 4) mesh,
+  guarded and with a fault plan, and under ZeRO-1 (which falls back).
 * Each new placed form against its whole layer, forward and gradient, in
   fp32, on a mesh that splits its leaves over ``model``: MLA, the biased
   MHA (causal and not), cross-attention, the Mamba2 mixer (heads split,
@@ -41,6 +42,7 @@ from repro_torch.launch import specs
 from repro_torch.models import attention, hybrid, ssm, transformer
 from repro_torch.models.common import init_params, map_defs
 from repro_torch.optim import SGDConfig, make_optimizer
+from repro_torch.resilience import FaultPlan, GuardConfig
 from test_torch_jaxref import run_reference
 from test_torch_tp import (BATCH, FMTS, LOSS_RTOL, SEQ, STEPS, _cfg,
                            _close_params, _ref_params, _run)
@@ -121,19 +123,26 @@ def test_family_placed_step_matches_reference_sharded_step(ref, arch, shape):
 @pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_every_config_builds_the_placed_step(arch):
     """At full size on a (2, 4) mesh every config's step is the placed one
-    (nothing is drawn: the step is built, not run); faults, the int8 wire
-    and ZeRO-1 still refuse the mesh."""
+    (nothing is drawn: the step is built, not run), guarded and with a
+    fault plan too; ZeRO-1 warns and falls back to it, as the reference's
+    step does; the wire flip, which needs the int8 wire's payload, still
+    raises."""
     cfg = get_config(arch)
     opt = make_optimizer(SGDConfig())
     mesh = StackedMesh((2, 4), ("data", "model"))
     assert specs.build_train_step(cfg, qtrain.QuantConfig(), opt,
                                   mesh=mesh).placed
-    with pytest.raises(NotImplementedError, match="fault injection"):
+    step = specs.build_train_step(
+        cfg, qtrain.QuantConfig(guards=GuardConfig()), opt, mesh=mesh,
+        faults=FaultPlan(nan_grads_at=1))
+    assert step.placed and step.guards_active
+    with pytest.warns(UserWarning, match="pure data-parallel mesh"):
+        step = specs.build_train_step(
+            cfg, qtrain.QuantConfig(zero_opt_shards=2), opt, mesh=mesh)
+    assert step.placed and not step.zero_opt_active
+    with pytest.raises(ValueError, match="wire_flip_at"):
         specs.build_train_step(cfg, qtrain.QuantConfig(), opt, mesh=mesh,
-                               faults=object())
-    with pytest.raises(ValueError, match="pure data-parallel mesh"):
-        specs.build_train_step(cfg, qtrain.QuantConfig(zero_opt_shards=2),
-                               opt, mesh=mesh)
+                               faults=FaultPlan(wire_flip_at=1))
 
 
 # ---------------------------------------------------------------------------
