@@ -12,7 +12,8 @@ attention and under ``remat="dots"``; the SSM, hybrid and
 encoder-decoder families, trained and served through their contiguous
 prefill and decode; the MoE layer's expert-parallel all-to-all over a
 stacked (data × model) mesh; every family's sharded train step, its
-state placed over a stacked (data × model) mesh), data-parallel
+state placed over a stacked (data × model) mesh, and every family's
+placed prefill and decode), data-parallel
 training over the int8 wire (``launch.train --grad-allreduce-bits 8
 --data-ranks 4``, with ZeRO-1 and the overlapped bucketed wire:
 ``--zero-opt --wire-overlap on``), and that trainer's checkpoint, resume,
@@ -270,8 +271,9 @@ Phases 10-14 run right after phase 8's counted wire run, before its
              O(1) recurrence token by token within ``SSD_TOL``, its
              gradient finite; the largest chunk span of the decays, which
              past log(FLT_MAX) overflows the reference's unmasked
-             ``exp``), then ``serve_mamba2``, ``serve_zamba2`` (all 81
-             blocks) and ``serve_whisper`` (bf16 from seed 0; contiguous
+             ``exp``), then ``serve_mamba2``, ``serve_zamba2`` (27 of its
+             81 blocks, for the call's time) and ``serve_whisper`` (bf16
+             from seed 0; contiguous
              ``prefill`` of 8 prompts of 512 tokens, whisper's after seeded
              frames, then 32 greedy ``decode_step``s: finite logits, the
              first step's within ``FAMILY_FIRST_STEP_RTOL`` of ``forward``
@@ -362,6 +364,26 @@ Phases 10-14 run right after phase 8's counted wire run, before its
              placed, their first losses within ``TP_FAMILY_LOSS_RTOL_F32``;
              ms a step, peak, bytes a rank).  deepseek-v2-236b's placed
              step needs several cards and runs on the CPU only.
+19. serve_tp — after phase 18: ``serve_llama_tp`` (llama3.2-3b, 28
+             layers, served through ``launch.specs.build_prefill_step``/
+             ``build_decode_step`` with a mesh: unsharded, then placed on
+             stacked (1, 4) and (2, 4) meshes by ``place_serve_state``,
+             its cache bf16 and int8, bf16 weights and the same cast up to
+             fp32; batch 8 × 512, 16 decode steps teacher-forced from the
+             unsharded bf16 run's greedy tokens: the logits, the greedy
+             tokens past the top-2 margin, the gathered caches and ``pos``
+             against the unsharded run's — fp32 within
+             ``SERVE_TP_F32_RTOL`` (int8 caches one grid step at most and
+             at a rounding boundary), bf16 within ``SERVE_TP_BF16_GAPS``
+             times bf16's own gap from fp32 — the bytes each rank holds of
+             the cache equal to ``spec_bytes`` of ``decode_shardings``',
+             prefill s, p50/p95 ms a decode step, peak, no kernel
+             launched), then ``serve_families_tp`` (deepseek-v2 2 of 60,
+             qwen3-moe 4 of 48, internvl2 3 of 48 with its 256-patch
+             prefix, mamba2, zamba2 13 of 81, whisper with seeded frames,
+             each at full width on a stacked (1, 4) mesh, batch 8 × 256,
+             4 decode steps, held the same way; the MoE models' prefill on
+             the all-to-all, the unsharded run under the mesh's binding).
 
 The line before the last two carries the kernels (launches on their path —
 K1's from the LM run with a bits operand, LeNet's beside them; K1b's row
@@ -394,6 +416,7 @@ output is ``{"ok": true, "device": {"platform": "gpu", "kind": <name>,
 script exits non-zero.
 """
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -488,12 +511,16 @@ FAMILY_TRAIN = (
     ("zamba2_7b", 15, 2, ("mamba", "ssm", "w_in"), "train_zamba2"),
     ("whisper_medium", None, 2, ("dec_layers", "mlp", "w_in"),
      "train_whisper"))
-# ... and served whole through their contiguous prefill/decode_step (none
-# is paged in the reference), bf16 weights from seed 0: (config module,
-# phase); zamba2-7b's 81 blocks make 13 shared invocations
-FAMILY_SERVE = (("mamba2_1_3b", "serve_mamba2"),
-                ("zamba2_7b", "serve_zamba2"),
-                ("whisper_medium", "serve_whisper"))
+# ... and served through their contiguous prefill/decode_step (none is
+# paged in the reference), bf16 weights from seed 0: (config module,
+# layers (None: all), phase).  zamba2-7b at 27 of its 81 blocks (four
+# shared invocations and a remainder of 3, the structure of 81 = 13 x 6 +
+# 3): the call's time, which passed the card's limit on a slow host with
+# phase 19 added, and this path's checks hold at any depth (first-step
+# errors that grow with it, under limits read at 81 blocks)
+FAMILY_SERVE = (("mamba2_1_3b", None, "serve_mamba2"),
+                ("zamba2_7b", 27, "serve_zamba2"),
+                ("whisper_medium", None, "serve_whisper"))
 # B prompts of `prompt` tokens (whisper: after seeded frames), then `steps`
 # greedy decode steps
 FAMILY_SERVE_SHAPE = dict(batch=8, prompt=512, steps=32, max_seq=576)
@@ -644,6 +671,53 @@ TP_FAMILY_TRAIN = (("internvl2_26b", 3, "train_internvl2_tp"),
 # through its blocks further than attention does
 TP_FAMILY_LOSS_RTOL_F32 = {"internvl2_26b": 1e-6, "mamba2_1_3b": 8e-6,
                            "zamba2_7b": 6e-6, "whisper_medium": 2e-7}
+
+# phase 19 (placed prefill and decode): llama3.2-3b served whole (28
+# layers), unsharded and placed on stacked (1, 4) and (2, 4) meshes
+# (``launch.specs.build_prefill_step``/``build_decode_step`` with a mesh),
+# its cache in the compute dtype and int8, bf16 weights from seed 0 and
+# the same weights cast up to fp32: B prompts of `prompt` tokens, then
+# `steps` decode steps, every run fed the unsharded bf16 run's greedy
+# tokens (teacher-forced, so that a near-tie cannot fork the rest)
+SERVE_TP_SHAPE = dict(batch=8, prompt=512, steps=16, max_seq=576)
+# fp32 compute, placed against unsharded, by config: the logits and the
+# 16-bit caches relative to their largest magnitude, about twice the
+# larger reading of the two on an H100 at 700 W (the same sums in other
+# orders through the depth: llama 3.5e-6 / 4.9e-6, deepseek 2.8e-6 /
+# 2.4e-6, qwen3-moe 1.3e-6 / 2.8e-6, internvl2 7.2e-6 / 6.6e-6, whisper
+# 9.2e-7 / 1.9e-6; the SSM carries a last-bit difference through its
+# blocks further, as phase 18's losses and the chunked scan against the
+# recurrence (1.1e-4, serve_mamba2) show: mamba2 2.1e-4 / 1.6e-4 at 48
+# layers, zamba2 1.3e-5 / 1.8e-5 at 13 blocks).  An int8 entry at most one
+# grid step off the unsharded one, and at the prompt's positions (where
+# the fp32 16-bit run's cache holds the very values packed) only next to a
+# <3, 5> rounding boundary of that value: within 32 x the config's limit
+# x its largest magnitude, in grid steps (measured 4.9e-4 steps of a
+# 1.6e-3 limit).  With the int8 cache the logits take
+# SERVE_TP_F32_INT8_RTOL: a key or value that rounds to the neighbouring
+# grid point (1/32) moves every later layer's attention (measured
+# 1.8e-4).  bf16 compute: each quantity within SERVE_TP_BF16_GAPS times
+# bf16's own distance from fp32 at the same weights (the rule
+# train_family_tp holds losses to; measured 0.47-1.2x for the logits, 3
+# grid steps of an int8 cache against bf16's own 3)
+SERVE_TP_F32_RTOL = {"llama3_2_3b": 1e-5, "deepseek_v2_236b": 1e-5,
+                     "qwen3_moe_30b_a3b": 1e-5, "internvl2_26b": 2e-5,
+                     "mamba2_1_3b": 5e-4, "zamba2_7b": 4e-5,
+                     "whisper_medium": 1e-5}
+SERVE_TP_F32_INT8_RTOL = 4e-4
+SERVE_TP_BF16_GAPS = 2.0
+# phase 19's other families on a stacked (1, 4) mesh, at full width, cut in
+# depth to what one card holds in fp32 beside its placed copy and to the
+# phase's time: (config module, layers (None: all)).  deepseek-v2 at 2 of
+# 60 layers (8.2 B parameters: 33 GB of fp32 weights, its 10 GB stacked
+# expert leaf placed beside them), qwen3-moe at 4 of 48 and internvl2 at 3
+# of 48 (the depths phases 7 and 18 train them at), zamba2 at 13 of 81
+# blocks (two shared invocations and a remainder, the structure of 81 =
+# 13 x 6 + 3), mamba2 and whisper whole
+SERVE_TP_FAMILIES = (("deepseek_v2_236b", 2), ("qwen3_moe_30b_a3b", 4),
+                     ("internvl2_26b", 3), ("mamba2_1_3b", None),
+                     ("zamba2_7b", 13), ("whisper_medium", None))
+SERVE_TP_FAMILY_SHAPE = dict(batch=8, prompt=256, steps=4, max_seq=264)
 
 
 def depth_cut(model, layers=None):
@@ -2359,8 +2433,9 @@ def _first_step_readings(cfg, mod, seed, prompts, kw, max_seq, served=None):
     return out
 
 
-def serve_family(model, phase):
-    """``model`` whole, bf16 weights from seed 0 on the card, served
+def serve_family(model, layers, phase):
+    """``model`` at full width (``layers`` deep; None: all), bf16 weights
+    from seed 0 on the card, served
     through its contiguous path: ``prefill`` of B prompts of ``prompt``
     tokens (an encoder-decoder's after seeded frames (B, enc_seq, D)), then
     greedy ``decode_step``s, each timed with a synchronize.  Held: finite
@@ -2376,7 +2451,7 @@ def serve_family(model, phase):
     from repro_torch.core import tree as tree_lib
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config(model)
+    cfg = depth_cut(model, layers)
     mod = registry(cfg.family)
     shape = FAMILY_SERVE_SHAPE
     B, S, n, max_seq = (shape[k] for k in ("batch", "prompt", "steps",
@@ -4950,6 +5025,399 @@ def train_tp_pg():
         dist.destroy_process_group()
 
 
+# ---------------------------------------------------------------------------
+# phase 19: placed prefill and decode
+# ---------------------------------------------------------------------------
+
+def _whole(t):
+    from repro_torch.dist.sharding import gather_placed, is_placed
+    return gather_placed(t) if is_placed(t) else t
+
+
+def _cache_leaves(cache, prefix=""):
+    """``{key: leaf}`` of a decode cache (tuples and dicts)."""
+    if isinstance(cache, tuple):
+        cache = {str(i): c for i, c in enumerate(cache)}
+    if isinstance(cache, dict):
+        out = {}
+        for k, c in cache.items():
+            out.update(_cache_leaves(c, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: cache}
+
+
+def _serve_tp_run(cfg, params, inputs, shape, feed=None, mesh=None,
+                  bind=None):
+    """``cfg`` served through ``launch.specs.build_prefill_step`` and
+    ``build_decode_step(..., with_logits=True)``, whole or (``mesh``) on
+    ``params`` placed by ``place_serve_state`` (the caller's), each input
+    placed over ``batch`` here; ``bind``: the mesh a whole run's MoE
+    layers take their dispatch under.  Prefill, then one step a column of
+    ``feed`` (B, n) (None: the run's own greedy tokens, ``shape["steps"]``
+    of them), each timed with a synchronize.  Returns the logits (prefill
+    and each step, whole, fp32, over the real vocabulary), the greedy
+    tokens, the cache (placed when placed) and ``pos``, times, peak, the
+    bytes each rank holds of the cache beside ``spec_bytes`` of
+    ``decode_shardings``' cache, and the kernel launches."""
+    from repro_torch.dist.sharding import (LogicalRules, axis_rules,
+                                           held_bytes, spec_bytes)
+    from repro_torch.launch import specs
+    V, B = cfg.vocab, shape["batch"]
+    prefill = specs.build_prefill_step(cfg, shape["max_seq"], mesh=mesh)
+    step = specs.build_decode_step(cfg, mesh=mesh, with_logits=True)
+    ctx = (axis_rules(bind, LogicalRules()) if bind is not None
+           else contextlib.nullcontext())
+    if mesh is not None:
+        inputs = specs.place_serve_state(cfg, mesh, **inputs)
+    put = (lambda t: t) if mesh is None else (
+        lambda t: specs.place_serve_state(cfg, mesh, tokens=t)["tokens"])
+    n = shape["steps"] if feed is None else feed.shape[1]
+    _reset_quant_counts()
+    dps_quant.launch_count = paged_attn.launch_count = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad(), ctx:
+        t0 = time.perf_counter()
+        logits, cache, pos = prefill(params, **inputs)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        out = dict(logits=[_whole(logits)[:, :V].float()], next=[], fed=[])
+        tok = out["logits"][0].argmax(-1, keepdim=True).to(torch.int32)
+        ms = []
+        for i in range(n):
+            if feed is not None:
+                tok = feed[:, i:i + 1]
+            t = put(tok)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nxt, cache, pos, lg = step(params, t, cache, pos)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            out["fed"].append(tok)
+            tok = _whole(nxt)
+            out["logits"].append(_whole(lg)[:, :V].float())
+            out["next"].append(tok)
+    out.update(
+        cache=cache, pos=_whole(pos), prefill_s=prefill_s,
+        p50_ms=float(np.percentile(ms, 50)),
+        p95_ms=float(np.percentile(ms, 95)),
+        peak=torch.cuda.max_memory_allocated(),
+        launches=dict(_quant_counts(),
+                      dps_group_wire_encode=dps_quant.launch_count,
+                      paged_decode_attn=paged_attn.launch_count))
+    if any(out["launches"].values()):
+        raise AssertionError(f"{cfg.name} served {'placed' if mesh else ''}"
+                             f" launched {out['launches']}")
+    if not all(bool(torch.isfinite(l).all()) for l in out["logits"]):
+        raise AssertionError(f"{cfg.name}: logits not finite")
+    out["next"] = torch.cat(out["next"], 1)
+    out["fed"] = torch.cat(out["fed"], 1)
+    if mesh is not None:
+        sh = specs.decode_shardings(
+            cfg, type("S", (), {"batch": B, "seq": shape["max_seq"]})(), mesh,
+            LogicalRules())
+        out["held_bytes"] = held_bytes(cache)
+        out["spec_bytes"] = spec_bytes(registry(cfg.family).cache_struct(
+            cfg, B, shape["max_seq"]), sh["cache"], mesh)
+        if out["held_bytes"] != [out["spec_bytes"]] * mesh.size:
+            raise AssertionError(f"{cfg.name}: a rank holds "
+                                 f"{out['held_bytes']} B of the cache, "
+                                 f"decode_shardings {out['spec_bytes']}")
+    else:
+        out["cache_bytes"] = _nbytes(cache)
+    return out
+
+
+def _logit_err(a, b):
+    """max over the steps of max |a - b|, over the largest |b|."""
+    big = max(float(t.abs().max()) for t in b)
+    return max(float((x - y).abs().max()) for x, y in zip(a, b)) / big
+
+
+def _top2_margin(logits):
+    """(steps, B) the gap between the two largest logits of each row of
+    each decode step, over the largest |logit| of the run."""
+    big = max(float(t.abs().max()) for t in logits)
+    top = torch.stack([l.topk(2, dim=-1).values for l in logits[1:]])
+    return (top[..., 0] - top[..., 1]) / big
+
+
+def _compare(placed, whole, twin=None):
+    """A placed run against the unsharded run of the same config: the
+    logits' relative error, the greedy tokens' agreement by the unsharded
+    top-2 margin, each cache leaf's error (relative for a float cache; for
+    an int8 one the largest step in grid units, how many entries moved,
+    and, given ``twin`` — the fp32 16-bit cache of the same weights — how
+    close to a rounding boundary the moved entries of the prompt's
+    positions lie there), and ``pos`` equal."""
+    out = dict(logits=_logit_err(placed["logits"], whole["logits"]),
+               pos_equal=bool(torch.equal(placed["pos"], whole["pos"])))
+    margin = _top2_margin(whole["logits"])
+    agree = (placed["next"] == whole["next"]).T          # (steps, B)
+    out["tokens"] = dict(margin=margin, agree=agree)
+    caches = {}
+    wl = _cache_leaves(whole["cache"])
+    tl = _cache_leaves(twin) if twin is not None else {}
+    for k, leaf in _cache_leaves(placed["cache"]).items():
+        got, want = _whole(leaf), wl[k]
+        if got.dtype == torch.int8:
+            d = (got.int() - want.int()).abs()
+            c = dict(max_steps=int(d.max()), moved=int((d > 0).sum()),
+                     entries=d.numel())
+            if k in tl and c["moved"]:
+                S = SERVE_TP_SHAPE["prompt"]
+                off = d[:, :, :S] > 0
+                t = tl[k][:, :, :S].float()[off] * 32
+                c["prompt_moved"] = int(off.sum())
+                c["boundary_dist_steps"] = float(
+                    (t - t.floor() - 0.5).abs().max()) if off.any() else 0.0
+                c["twin_max_abs"] = float(tl[k].float().abs().max())
+            caches[k] = c
+        else:
+            caches[k] = dict(rel=_rel_max(got, want))
+    out["cache"] = caches
+    return out
+
+
+def _hold(name, model, cmp, dtype, gaps=None, faults=None, int8=False):
+    """``cmp`` (:func:`_compare`) held: fp32 to ``model``'s
+    ``SERVE_TP_F32_RTOL`` (int8
+    caches one grid step at most, and off only next to a rounding
+    boundary of the fp32 cache at the prompt's positions), bf16 to
+    ``SERVE_TP_BF16_GAPS`` x ``gaps`` (bf16's own distance from fp32 for
+    each quantity; the fp32 logits over an ``int8`` cache to
+    ``SERVE_TP_F32_INT8_RTOL``); the greedy tokens equal wherever the unsharded top-2
+    margin exceeds that limit; ``pos`` equal.  Returns the limits; a miss
+    is appended to ``faults``."""
+    def lim(key):
+        if dtype == "float32":
+            return SERVE_TP_F32_RTOL[model]
+        return SERVE_TP_BF16_GAPS * gaps[key]
+    limits = {"logits": SERVE_TP_F32_INT8_RTOL if int8 and dtype == "float32"
+              else lim("logits")}
+    if not cmp["logits"] <= limits["logits"]:
+        faults.append(f"{name}: logits {cmp['logits']} > {limits['logits']}")
+    clear = cmp["tokens"]["margin"] > limits["logits"]
+    bad = int((~cmp["tokens"]["agree"] & clear).sum())
+    cmp["tokens"] = dict(clear=int(clear.sum()), of=clear.numel(),
+                         agree_where_clear=int(clear.sum()) - bad,
+                         agree=int(cmp["tokens"]["agree"].sum()))
+    if bad:
+        faults.append(f"{name}: {bad} greedy tokens differ past the margin")
+    if not cmp["pos_equal"]:
+        faults.append(f"{name}: pos differs")
+    for k, c in cmp["cache"].items():
+        if "rel" in c:
+            limits[k] = lim(k)
+            if not c["rel"] <= limits[k]:
+                faults.append(f"{name}: cache {k} {c['rel']} > {limits[k]}")
+        elif dtype == "float32":
+            # in grid steps: 32 x the fp32 tolerance on the cache's values
+            limits[k] = 32 * lim(k) * c.get("twin_max_abs", 0.0)
+            if c["moved"] and not (c["max_steps"] <= 1 and c.get(
+                    "boundary_dist_steps", 0.0) <= limits[k]):
+                faults.append(f"{name}: int8 cache {k} {c} (boundary "
+                              f"limit {limits[k]} steps)")
+        else:
+            limits[k] = max(1.0, lim(k))
+            if not c["max_steps"] <= limits[k]:
+                faults.append(f"{name}: int8 cache {k} {c} > {limits[k]}")
+    return limits
+
+
+def _bf16_gaps(bf16, fp32):
+    """bf16's own distance from fp32 at the same weights, per quantity:
+    the logits' relative error, each float cache leaf's, and each int8
+    cache leaf's largest step in grid units."""
+    gaps = {"logits": _logit_err(bf16["logits"], fp32["logits"])}
+    f = _cache_leaves(fp32["cache"])
+    for k, leaf in _cache_leaves(bf16["cache"]).items():
+        if leaf.dtype == torch.int8:
+            gaps[k] = float((leaf.int() - f[k].int()).abs().max())
+        else:
+            gaps[k] = _rel_max(leaf, f[k])
+    return gaps
+
+
+def _summary(r):
+    keys = ("prefill_s", "p50_ms", "p95_ms", "peak", "held_bytes",
+            "spec_bytes", "cache_bytes", "launches")
+    return {k: r[k] for k in keys if k in r}
+
+
+def _place_copy(cfg, params, mesh):
+    """A copy of the whole ``params`` placed over ``mesh`` (the copy's
+    whole leaves freed as they are placed)."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.launch import specs
+    return specs.place_serve_state(
+        cfg, mesh, params=tree_lib.map_tree(torch.clone, params))["params"]
+
+
+def serve_llama_tp():
+    """llama3.2-3b at full width and depth (28 layers), bf16 weights from
+    seed 0, served through ``build_prefill_step``/``build_decode_step``:
+    unsharded, then on stacked (1, 4) and (2, 4) meshes (the state placed
+    by ``place_serve_state``: tensor parallelism over model, the batch
+    over data), with the cache in bf16 and in int8 (``kv_cache_bits``
+    8); then all of it again with the weights cast up to fp32.  Every run
+    fed the unsharded bf16 run's greedy tokens.  Held per run, against
+    the unsharded run of its config (``_hold``): logits, greedy tokens,
+    the gathered cache, ``pos``; the bytes each rank holds equal to
+    ``spec_bytes`` of ``decode_shardings``' cache; no kernel launched
+    (the contiguous path is jnp in the reference).  Prints prefill s,
+    p50/p95 ms a decode step and the peak of each run."""
+    from repro_torch.core import tree as tree_lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("llama3_2_3b")
+    shape = SERVE_TP_SHAPE
+    B, S = shape["batch"], shape["prompt"]
+    g = torch.Generator(device=DEV).manual_seed(1)
+    inputs = {"tokens": torch.randint(1, cfg.vocab, (B, S), generator=g,
+                                      device=DEV, dtype=torch.int32)}
+    params = init_params(registry(cfg.family).model_defs(cfg), DEV,
+                         torch.Generator(device=DEV).manual_seed(0))
+    warm = dict(shape, prompt=64, steps=1, max_seq=80)
+    _serve_tp_run(cfg, params, {"tokens": inputs["tokens"][:, :64]}, warm)
+    faults, runs, cmps, feed = [], {}, {}, None
+    bits_of = (("bf16_cache", 16), ("int8_cache", 8))
+    for dtype in ("bfloat16", "float32"):
+        if dtype == "float32":
+            params = tree_lib.map_tree(lambda t: t.float(), params)
+        for cache, bits in bits_of:
+            c = dataclasses.replace(cfg, dtype=dtype, kv_cache_bits=bits)
+            r = _serve_tp_run(c, params, inputs, shape, feed)
+            if feed is None:
+                feed = r["fed"]
+            runs[f"{dtype}/{cache}/unsharded"] = r
+        for m in TP_MESHES:
+            mesh = _stacked(m)
+            placed = _place_copy(cfg, params, mesh)
+            for cache, bits in bits_of:
+                c = dataclasses.replace(cfg, dtype=dtype, kv_cache_bits=bits)
+                tag = f"{dtype}/{cache}"
+                r = _serve_tp_run(c, placed, inputs, shape, feed, mesh)
+                twin = (runs["float32/bf16_cache/unsharded"]["cache"]
+                        if dtype == "float32" and bits == 8 else None)
+                cmps[f"{tag}/{m[0]}x{m[1]}"] = _compare(
+                    r, runs[f"{tag}/unsharded"], twin)
+                runs[f"{tag}/{m[0]}x{m[1]}"] = _summary(r)
+                del r
+            del placed
+            gc.collect()
+            torch.cuda.empty_cache()
+    del params
+    gaps = {cache: _bf16_gaps(runs[f"bfloat16/{cache}/unsharded"],
+                              runs[f"float32/{cache}/unsharded"])
+            for cache, _ in bits_of}
+    limits = {}
+    for tag, cmp in cmps.items():
+        dtype, cache, _ = tag.split("/")
+        limits[tag] = _hold(f"serve_llama_tp {tag}", "llama3_2_3b", cmp,
+                            dtype, gaps.get(cache), faults,
+                            cache == "int8_cache")
+    for k in [k for k in runs if k.endswith("unsharded")]:
+        runs[k] = _summary(runs[k])
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("serve_llama_tp", model=cfg.name, layers=cfg.n_layers,
+        entry="launch.specs.build_prefill_step/build_decode_step(cfg, "
+        "max_seq, mesh=make_mesh(shape, ('data', 'model')))", **shape,
+        teacher_forced="the unsharded bf16 run's greedy tokens",
+        runs=runs, vs_unsharded=cmps, limits=limits, bf16_vs_fp32=gaps)
+    if faults:
+        raise AssertionError("serve_llama_tp: " + "; ".join(faults))
+
+
+def serve_families_tp():
+    """Every other family served placed on a stacked (1, 4) mesh at full
+    width (``SERVE_TP_FAMILIES``' depths), bf16 weights from seed 0 and
+    the same weights cast up to fp32, each unsharded then placed, fed the
+    unsharded bf16 run's greedy tokens: deepseek-v2 (MLA's absorbed
+    decode, its latent cache whole on every model rank; MoE), qwen3-moe
+    (both MoE models' prefill on the all-to-all, each rank's capacity, the
+    unsharded run under the mesh's binding so that it takes it too;
+    decode on the einsum), internvl2 (the prompt behind its 256-patch
+    prefix, seeded), mamba2, zamba2 and whisper (seeded frames).  Held as
+    ``serve_llama_tp`` holds its runs."""
+    from repro_torch.core import tree as tree_lib
+    mesh = _stacked(TP_FAMILY_MESH)
+    out, faults = {}, []
+    for model, layers in SERVE_TP_FAMILIES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_start = time.perf_counter()
+        cfg = depth_cut(model, layers)
+        B, S = (SERVE_TP_FAMILY_SHAPE[k] for k in ("batch", "prompt"))
+        prefix = cfg.n_patches if cfg.family == "vlm" else 0
+        shape = dict(SERVE_TP_FAMILY_SHAPE,
+                     max_seq=SERVE_TP_FAMILY_SHAPE["max_seq"] + prefix)
+        g = torch.Generator(device=DEV).manual_seed(1)
+        inputs = {"tokens": torch.randint(1, cfg.vocab, (B, S), generator=g,
+                                          device=DEV, dtype=torch.int32)}
+        if prefix:
+            inputs["vision_embeds"] = torch.randn(
+                B, prefix, cfg.d_model, generator=g, device=DEV).to(
+                    cfg.activation_dtype())
+        if cfg.family == "encdec":
+            inputs["frames"] = torch.randn(B, cfg.enc_seq, cfg.d_model,
+                                           generator=g, device=DEV)
+        params = init_params(registry(cfg.family).model_defs(cfg), DEV,
+                             torch.Generator(device=DEV).manual_seed(0))
+        bind = mesh if cfg.n_experts else None
+        # warm-up: a short unsharded run, so the first timed one is not
+        # the first of its shapes' kernels
+        _serve_tp_run(cfg, params, {k: v[:, :64] if k == "tokens" else v
+                                    for k, v in inputs.items()},
+                      dict(shape, prompt=64, steps=1,
+                           max_seq=64 + prefix + 1), bind=bind)
+        runs, res, feed = {}, {}, None
+        for dtype in ("bfloat16", "float32"):
+            c = dataclasses.replace(cfg, dtype=dtype)
+            if dtype == "float32":
+                params = tree_lib.map_tree(lambda t: t.float(), params)
+                inputs = {k: v.float() if v.is_floating_point() else v
+                          for k, v in inputs.items()}
+            whole = _serve_tp_run(c, params, inputs, shape, feed, bind=bind)
+            if feed is None:
+                feed = whole["fed"]
+            if dtype == "float32":
+                # placed in place: the whole copy is freed as it goes
+                from repro_torch.launch import specs
+                placed = specs.place_serve_state(c, mesh,
+                                                 params=params)["params"]
+                params = None
+            else:
+                placed = _place_copy(c, params, mesh)
+            r = _serve_tp_run(c, placed, inputs, shape, feed, mesh)
+            del placed
+            res[dtype] = (whole, _compare(r, whole))
+            runs[dtype] = {"unsharded": _summary(whole),
+                           "1x4": _summary(r)}
+            del r
+            gc.collect()
+            torch.cuda.empty_cache()
+        gaps = _bf16_gaps(res["bfloat16"][0], res["float32"][0])
+        limits = {dtype: _hold(f"serve_families_tp {model} {dtype}", model,
+                               cmp, dtype, gaps, faults)
+                  for dtype, (_, cmp) in res.items()}
+        out[model] = dict(
+            layers=cfg.n_layers, layers_of=get_config(model).n_layers,
+            prefix=prefix, **({"frames": cfg.enc_seq}
+                              if cfg.family == "encdec" else {}),
+            runs=runs, vs_unsharded={d: c for d, (_, c) in res.items()},
+            limits=limits, bf16_vs_fp32=gaps,
+            seconds=time.perf_counter() - t_start)
+        del res, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("serve_families_tp", mesh=list(TP_FAMILY_MESH),
+        shape=SERVE_TP_FAMILY_SHAPE, configs=out)
+    if faults:
+        raise AssertionError("serve_families_tp: " + "; ".join(faults))
+
+
 def main():
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -5015,8 +5483,8 @@ def main():
     serve_deepseek()
     mla_check()
     ssd_check()
-    for model, phase in FAMILY_SERVE:
-        serve_family(model, phase)
+    for model, layers, phase in FAMILY_SERVE:
+        serve_family(model, layers, phase)
     long_run = train_lm(cfg, "onchip", 3, batch=1, seq=LONG_SEQ,
                         phase="train_long")
     dots = train_lm(dataclasses.replace(cfg, remat="dots"), "onchip", 4,
@@ -5045,6 +5513,10 @@ def main():
                                         phase)
                  for model, layers, phase in TP_FAMILY_TRAIN}
     del family_runs
+    # placed prefill and decode: llama3.2-3b whole on (1, 4) and (2, 4),
+    # then every other family on (1, 4)
+    serve_llama_tp()
+    serve_families_tp()
     wire_collectives()
     # run A of the checkpoint phase is the counted wire run
     ckpt_root, free = ckpt_space(cfg)

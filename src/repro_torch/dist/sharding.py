@@ -111,6 +111,7 @@ class StackedMesh:
         self.device = device
         self._transports = {a: StackedTransport(n, device)
                             for a, n in zip(self.axis_names, self.shape)}
+        self.coords = tuple(itertools.product(*(range(n) for n in self.shape)))
 
     @property
     def size(self) -> int:
@@ -139,13 +140,13 @@ def _axis_sizes(mesh) -> dict:
     return dict(zip(mesh.axis_names, mesh.devices.shape))
 
 
-def held_coords(mesh) -> List[Tuple[int, ...]]:
+def held_coords(mesh) -> Sequence[Tuple[int, ...]]:
     """The mesh coordinates of the ranks this process holds, row-major:
     every one of a :class:`StackedMesh`, this process's own of a
     ``DeviceMesh``."""
     if _is_device_mesh(mesh):
         return [tuple(mesh.get_coordinate())]
-    return list(itertools.product(*(range(n) for n in mesh.shape)))
+    return mesh.coords
 
 
 def axis_transport(mesh, axis: str):
@@ -468,12 +469,7 @@ class Placed:
         return (f"Placed(shape={self.shape}, spec={self.spec}, "
                 f"partial={self.partial}, {len(self.blocks)} blocks)")
 
-    def map(self, fn, *others, spec=None, partial=None) -> "Placed":
-        """``fn(block, *others' blocks)`` rank by rank (an ``other`` that
-        is not Placed is passed to every rank as it is); the result laid
-        out by ``spec`` (this one's by default), its global shape read
-        from the blocks.  Ranks whose inputs are the same tensors (a
-        stacked mesh's shared blocks) share one result."""
+    def _apply(self, fn, others):
         per = [o.blocks if isinstance(o, Placed) else None for o in others]
         memo, out = {}, []
         for i, b in enumerate(self.blocks):
@@ -483,8 +479,24 @@ class Placed:
             if key not in memo:
                 memo[key] = fn(b, *args)
             out.append(memo[key])
-        return Placed(out, self.spec if spec is None else spec, self.mesh,
+        return out
+
+    def map(self, fn, *others, spec=None, partial=None) -> "Placed":
+        """``fn(block, *others' blocks)`` rank by rank (an ``other`` that
+        is not Placed is passed to every rank as it is); the result laid
+        out by ``spec`` (this one's by default), its global shape read
+        from the blocks.  Ranks whose inputs are the same tensors (a
+        stacked mesh's shared blocks) share one result."""
+        return Placed(self._apply(fn, others),
+                      self.spec if spec is None else spec, self.mesh,
                       partial=self.partial if partial is None else partial)
+
+    def map_many(self, fn, *others, specs) -> Tuple["Placed", ...]:
+        """:meth:`map` for an ``fn`` that returns a tuple: one placed
+        result for each entry, laid out by ``specs``."""
+        out = self._apply(fn, others)
+        return tuple(Placed([r[j] for r in out], s, self.mesh)
+                     for j, s in enumerate(specs))
 
     def to(self, *args, **kwargs) -> "Placed":
         """Every block's ``Tensor.to``."""
@@ -544,14 +556,100 @@ def place_tensor(x: torch.Tensor, spec, mesh) -> Placed:
 
 
 def place(tree, specs, mesh):
-    """A tree of tensors placed leaf by leaf under the same tree of
-    ``specs`` (e.g. :func:`repro_torch.launch.specs.param_shardings`):
-    each leaf a :class:`Placed` of the blocks this process holds."""
+    """A tree (dicts, tuples) of tensors placed leaf by leaf under the
+    same tree of ``specs`` (e.g.
+    :func:`repro_torch.launch.specs.param_shardings`, a decode cache's
+    specs): each leaf a :class:`Placed` of the blocks this process
+    holds."""
     if isinstance(tree, torch.Tensor):
         return place_tensor(tree, specs, mesh)
     if hasattr(tree, "items"):
         return {k: place(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(place(v, s, mesh) for v, s in zip(tree, specs))
     raise TypeError(f"cannot place a {type(tree).__name__}")
+
+
+def place_zeros(struct, specs, mesh, device):
+    """Zero :class:`Placed` leaves on ``device`` for a tree (dicts,
+    tuples) of stand-ins (``shape``, ``dtype``; a family's
+    ``cache_struct``) under a tree of specs: each held rank's block, one
+    allocation for each distinct block (a stacked mesh's ranks that hold
+    the same block share it), nothing whole."""
+    if hasattr(struct, "items"):
+        return {k: place_zeros(v, specs[k], mesh, device)
+                for k, v in struct.items()}
+    if isinstance(struct, tuple):
+        return tuple(place_zeros(v, s, mesh, device)
+                     for v, s in zip(struct, specs))
+    shape = block_shape(struct.shape, specs, mesh)
+    memo, blocks = {}, []
+    for c in held_coords(mesh):
+        at = block_origin(struct.shape, specs, mesh, c)
+        if at not in memo:
+            memo[at] = torch.zeros(shape, dtype=struct.dtype, device=device)
+        blocks.append(memo[at])
+    return Placed(blocks, specs, mesh, tuple(struct.shape))
+
+
+def unbind_placed(p: Placed, dim: int = 0) -> List[Placed]:
+    """A placed tensor unbound along an unsplit ``dim`` (a stack's layers):
+    one placed view for each index, each distinct block unbound once."""
+    if p.spec[dim] is not None:
+        raise ValueError(f"dimension {dim} is split ({p.spec})")
+    parts = {id(b): torch.unbind(b, dim) for _, b in p.distinct()}
+    cut = lambda t: t[:dim] + t[dim + 1:]
+    return [Placed([parts[id(b)][i] for b in p.blocks], cut(p.spec), p.mesh,
+                   cut(p.shape)) for i in range(p.shape[dim])]
+
+
+def write_rows(dst: Placed, new: Placed, pos: Placed) -> None:
+    """In place: row ``b`` of ``new`` (B, ...) written into ``dst`` (B, S,
+    ...) at position ``pos[b]`` — a decode step's token into its cache.
+    ``new`` is laid out like ``dst`` without its S dim (moved there
+    first), ``pos`` (B,) like its batch; each distinct block of ``dst`` is
+    written once, by the first rank that holds it, from that rank's rows
+    (``new`` cast to ``dst``'s dtype).  ``dst``'s S dim is unsplit."""
+    if dst.spec[1] is not None:
+        raise ValueError(f"the written dimension is split ({dst.spec})")
+    new = relayout(new, dst.spec[:1] + dst.spec[2:])
+    pos = relayout(pos, dst.spec[:1])
+    with torch.no_grad():
+        for i, d in dst.distinct():
+            rows = torch.arange(d.shape[0], device=d.device)
+            d[rows, pos.blocks[i].to(torch.int64)] = new.blocks[i].to(d.dtype)
+
+
+def write_prefix(dst: Placed, new: Placed) -> None:
+    """In place: ``new`` (B, S, ...) written into the first S positions of
+    ``dst`` (B, S_max, ...) — a prompt's keys into a cache of ``S_max`` —
+    ``new`` laid out like ``dst`` first, each distinct block once."""
+    new = relayout(new, dst.spec)
+    with torch.no_grad():
+        for i, d in dst.distinct():
+            d[:, :new.shape[1]] = new.blocks[i].to(d.dtype)
+
+
+def placed_argmax(x: Placed) -> Placed:
+    """The index of the largest entry along ``x``'s last dim, which may be
+    split (logits over ``vocab_out`` blocks), ties to the lowest index as
+    ``jnp.argmax`` breaks them: each rank's first largest entry in its
+    block, then, over the split in block order, the first block whose
+    largest is the largest.  int64, laid out like ``x`` without its last
+    dim."""
+    axes, last = _entry_axes(x.spec[-1]), x.ndim - 1
+    vals, idx = [], []
+    for i, b in enumerate(x.blocks):
+        # torch.argmax gives the first largest entry's index
+        vals.append(b.amax(dim=-1, keepdim=True))
+        idx.append(b.argmax(dim=-1, keepdim=True) + x.geometry(i)[0][-1])
+    with torch.no_grad():
+        for a in reversed(axes):
+            vals = all_gather(x.mesh, a, vals, last)
+            idx = all_gather(x.mesh, a, idx, last)
+    out = [torch.gather(j, -1, v.argmax(dim=-1, keepdim=True))[..., 0]
+           for v, j in zip(vals, idx)]
+    return Placed(out, x.spec[:-1], x.mesh, x.shape[:-1])
 
 
 def _gather_whole(p: Placed):
@@ -610,13 +708,21 @@ def gather_to_host(p: Placed) -> torch.Tensor:
     return out
 
 
+def _placed_leaves(tree) -> List[Placed]:
+    if isinstance(tree, Placed):
+        return [tree]
+    if isinstance(tree, tuple):
+        return [p for t in tree for p in _placed_leaves(t)]
+    if hasattr(tree, "items") and not isinstance(tree, torch.Tensor):
+        return [p for t in tree.values() for p in _placed_leaves(t)]
+    return []
+
+
 def held_bytes(tree) -> List[int]:
-    """Bytes each held rank holds of a tree of :class:`Placed` leaves (its
-    blocks), in :func:`held_coords` order."""
+    """Bytes each held rank holds of a tree (dicts, tuples) of
+    :class:`Placed` leaves (its blocks), in :func:`held_coords` order."""
     total = None
-    for leaf in tree_lib.leaves(tree):
-        if not isinstance(leaf, Placed):
-            continue
+    for leaf in _placed_leaves(tree):
         sizes = [b.numel() * b.element_size() for b in leaf.blocks]
         total = sizes if total is None else [t + n for t, n in
                                              zip(total, sizes)]
@@ -624,12 +730,14 @@ def held_bytes(tree) -> List[int]:
 
 
 def spec_bytes(struct, specs, mesh) -> int:
-    """Bytes of one rank's blocks of a tree of stand-ins (``shape``,
-    ``dtype``) under a tree of specs: what :func:`held_bytes` gives every
+    """Bytes of one rank's blocks of a tree (dicts, tuples) of stand-ins
+    (``shape``, ``dtype``) under a tree of specs: what :func:`held_bytes` gives every
     rank once the tree is placed."""
     if hasattr(struct, "shape"):
         n = math.prod(block_shape(struct.shape, specs, mesh))
         return n * torch.empty((), dtype=struct.dtype).element_size()
+    if isinstance(struct, tuple):
+        return sum(spec_bytes(s, sp, mesh) for s, sp in zip(struct, specs))
     return sum(spec_bytes(struct[k], specs[k], mesh) for k in struct)
 
 

@@ -42,6 +42,13 @@ computes, so every rank's backward is its share of the whole program's:
   backward: Megatron's ``f``); :meth:`pmax_blocks` the max, outside
   autograd.
 
+Under :func:`shared_outputs` (the placed serving steps, outside autograd)
+a stacked axis hands every rank of a group the ONE tensor a gather or a
+sum makes, so that rank-by-rank work on the replicated result runs once
+(``Placed.map`` computes once for ranks whose inputs are the same
+tensors); the values are the same either way.  The placed train step
+keeps a tensor a rank.
+
 On a stacked axis and on a gloo group every sum runs in rank order,
 ``((x0 + x1) + x2) + ...`` (the gloo group all-gathers and adds in that
 order, receiving and holding ``n`` times the tensor), so the two give the
@@ -53,9 +60,28 @@ order.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
+
+_SHARED = [False]
+
+
+@contextlib.contextmanager
+def shared_outputs():
+    """Outside autograd, a stacked axis's :meth:`StackedTransport.
+    gather_blocks` and :meth:`StackedTransport.psum_blocks` hand every
+    rank of a group one tensor while this is open."""
+    saved, _SHARED[0] = _SHARED[0], True
+    try:
+        yield
+    finally:
+        _SHARED[0] = saved
+
+
+def _share() -> bool:
+    return _SHARED[0] and not torch.is_grad_enabled()
 
 
 class _AllToAll(torch.autograd.Function):
@@ -234,6 +260,8 @@ class StackedTransport:
         copy a rank; backward: the rank-order sum of the copies' gradients,
         each rank its chunk."""
         _check_group(xs, self.n)
+        if _share():
+            return [torch.cat(xs, dim)] * self.n
         return list(_StackedGather.apply(dim, *xs))
 
     def reduce_scatter_blocks(self, xs, dim: int):
@@ -246,6 +274,8 @@ class StackedTransport:
         """The rank-order sum of ``xs`` on every rank; backward the sum
         (``"psum"``) or each rank's own gradient (``"identity"``)."""
         _check_group(xs, self.n)
+        if _share():
+            return [_ordered_sum(xs)] * self.n
         return list(_StackedPsum.apply(grad == "identity", *xs))
 
     def copy_blocks(self, xs):

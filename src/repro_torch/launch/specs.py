@@ -21,8 +21,10 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import qtrain
 from repro_torch.core import tree as tree_lib
 from repro_torch.dist.sharding import (LogicalRules, _axis_sizes,
-                                       axis_transport, place_tensor,
+                                       axis_rules, axis_transport, is_placed,
+                                       place, place_tensor, placed_argmax,
                                        tree_specs)
+from repro_torch.dist.transport import shared_outputs
 from repro_torch.models import registry
 from repro_torch.models.common import abstract_params, logical_tree
 
@@ -305,24 +307,91 @@ def build_train_step(cfg: ModelConfig, qcfg: qtrain.QuantConfig, optimizer,
                                   faults=faults)
 
 
-def build_decode_step(cfg: ModelConfig):
+def _placed_serving(mesh) -> bool:
+    return mesh is not None and any(n > 1 for n in _axis_sizes(mesh).values())
+
+
+def place_serve_state(cfg: ModelConfig, mesh, params=None, cache=None,
+                      rules: Optional[LogicalRules] = None, **inputs):
+    """Place a whole serving state over ``mesh``: ``params`` in place by
+    :func:`param_shardings` (each leaf freed as it is placed, unless the
+    caller holds it), ``cache`` (a family's contiguous decode cache) by
+    :func:`decode_shardings`' cache specs at its batch and length, and
+    each of ``inputs`` (``tokens``, ``pos``, ``vision_embeds``,
+    ``frames``) over ``batch``, as :func:`prefill_shardings` and
+    :func:`decode_shardings` lay them out.  Returns ``{"params": ...,
+    "cache": ..., <input>: ...}`` for what was given."""
+    rules = rules or LogicalRules()
+    out = {}
+    if params is not None:
+        _place_into(params, param_shardings(cfg, mesh, rules), mesh)
+        out["params"] = params
+    if cache is not None:
+        out["cache"] = place(cache, tree_specs(
+            registry(cfg.family).cache_logical(cfg), cache, mesh, rules), mesh)
+    for k, v in inputs.items():
+        out[k] = place_tensor(v, _batch_spec(mesh, rules, v.shape), mesh)
+    return out
+
+
+def build_decode_step(cfg: ModelConfig, mesh=None,
+                      rules: Optional[LogicalRules] = None,
+                      with_logits: bool = False):
+    """The greedy serving step ``(params, tokens (B, 1), cache, pos (B,))
+    -> (next_tok (B, 1) int32, cache, pos + 1)``, and with ``with_logits``
+    the step's logits (B, V) after them; the cache is written in place.
+    With a ``mesh`` of more than one rank it runs under ``axis_rules(mesh,
+    rules)`` on a state placed by :func:`place_serve_state`: each rank its
+    rows of the batch, its heads and its block of the cache, ``next_tok``
+    the whole-vocabulary argmax over the logits' ``vocab_out`` blocks
+    (ties to the lowest index, as ``jnp.argmax`` breaks them), laid out
+    like the tokens."""
     mod = registry(cfg.family)
 
     def serve_step(params, tokens, cache, pos):
         logits, new_cache = mod.decode_step(cfg, params, tokens, cache, pos)
         # greedy next token and advanced positions: the serving loop's
         # fixpoint
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-        return next_tok, new_cache, pos + 1
+        if is_placed(logits):
+            out = (placed_argmax(logits).map(
+                lambda t: t.to(torch.int32)[:, None], spec=tokens.spec),
+                new_cache, pos.map(lambda t: t + 1))
+        else:
+            out = (torch.argmax(logits, dim=-1).to(torch.int32)[:, None],
+                   new_cache, pos + 1)
+        return out + (logits,) if with_logits else out
 
-    return serve_step
+    return _under_rules(serve_step, mesh, rules)
 
 
-def build_prefill_step(cfg: ModelConfig, max_seq: int):
+def build_prefill_step(cfg: ModelConfig, max_seq: int, mesh=None,
+                       rules: Optional[LogicalRules] = None):
+    """``(params, tokens, **inputs) -> (last logits (B, V), cache padded
+    to max_seq, pos)``.  With a ``mesh`` of more than one rank it runs
+    under ``axis_rules(mesh, rules)`` on parameters and inputs placed by
+    :func:`place_serve_state` (the inputs as :func:`prefill_shardings`
+    lays them out): the logits come out placed over their vocab split,
+    the cache placed by the family's ``cache_logical`` (what
+    :func:`decode_shardings` gives it), ``pos`` over ``batch``."""
     mod = registry(cfg.family)
 
     def prefill_step(params, **inputs):
         return mod.prefill(cfg, params, inputs.pop("tokens"), max_seq,
                            **inputs)
 
-    return prefill_step
+    return _under_rules(prefill_step, mesh, rules)
+
+
+def _under_rules(step, mesh, rules):
+    """``step`` under ``axis_rules(mesh, rules)``, outside autograd, a
+    stacked mesh's replicated results shared by their ranks
+    (:func:`~repro_torch.dist.transport.shared_outputs`)."""
+    if not _placed_serving(mesh):
+        return step
+    rules = rules or LogicalRules()
+
+    def placed_step(*args, **kwargs):
+        with axis_rules(mesh, rules), torch.no_grad(), shared_outputs():
+            return step(*args, **kwargs)
+
+    return placed_step

@@ -221,11 +221,11 @@ def gqa_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     ⟨IL, FL⟩ rows — and ``paged_ptab`` the (B, P) page table.  Returns
     ``(out, new_cache)``."""
     if is_placed(x):
-        if mode != "train":
-            raise NotImplementedError(
-                "placed attention is the training form; prefill and decode "
-                "run whole")
-        return _gqa_train_placed(cfg, p, x, positions, kv_x, causal), None
+        if mode in ("decode", "decode_static"):
+            return _gqa_decode_placed(cfg, p, x, positions, cache,
+                                      cache_pos if mode == "decode" else None)
+        return _gqa_train_placed(cfg, p, x, positions, kv_x, causal,
+                                 cache=mode == "prefill")
     B, Sq, _ = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KV
@@ -335,15 +335,18 @@ def _out_proj_placed(p, out: Placed) -> Placed:
 
 
 def _gqa_train_placed(cfg: ModelConfig, p, x: Placed, positions,
-                      kv_x: Optional[Placed] = None, causal: bool = True):
-    """Training attention on placed activations: the sequence gathered,
-    q/k/v column-parallel (local heads when the model axis divides them;
-    K/V gathered over it when it cuts a KV head), each rank's block of
-    ``bq``/``bk``/``bv`` added to its columns, RoPE as it is, the
-    reference's layout decision (:func:`_constrain_qkv`) as a real
+                      kv_x: Optional[Placed] = None, causal: bool = True,
+                      cache: bool = False):
+    """Training (and prefill) attention on placed activations: the
+    sequence gathered, q/k/v column-parallel (local heads when the model
+    axis divides them; K/V gathered over it when it cuts a KV head), each
+    rank's block of ``bq``/``bk``/``bv`` added to its columns, RoPE as it
+    is, the reference's layout decision (:func:`_constrain_qkv`) as a real
     re-layout, :func:`sdpa` on each rank's rows and heads, and ``wo``
     row-parallel.  ``kv_x``: cross-attention, K and V from its (gathered)
-    sequence, unrotated."""
+    sequence, unrotated.  Returns ``(out, None)``, or with ``cache``
+    (prefill) ``(out, (K, V))``: each rank's heads of the keys and values,
+    packed for an int8 cache under ``kv_cache_bits`` 8."""
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     xs = whole_but_batch(x)
     src = xs if kv_x is None else whole_but_batch(kv_x)
@@ -354,9 +357,81 @@ def _gqa_train_placed(cfg: ModelConfig, p, x: Placed, positions,
         q = q.map(lambda t: apply_rope(t, positions, cfg.rope_theta))
         k = k.map(lambda t: apply_rope(t, positions, cfg.rope_theta))
     rep = lambda t: t.map(lambda b: torch.repeat_interleave(b, H // KV, dim=2))
-    q, kr, vr = _constrain_qkv(q, rep(k), rep(v), H, cfg.attn_batch2d)
-    out = _attend_placed(q, kr, vr, causal=causal, scale=1.0 / math.sqrt(Dh))
-    return _out_proj_placed(p, out)
+    qc, kr, vr = _constrain_qkv(q, rep(k), rep(v), H, cfg.attn_batch2d)
+    out = _attend_placed(qc, kr, vr, causal=causal, scale=1.0 / math.sqrt(Dh))
+    out = _out_proj_placed(p, out)
+    if not cache:
+        return out, None
+    cdt = torch.int8 if cfg.kv_cache_bits == 8 else k.dtype
+    return out, (k.map(lambda t: _cache_write(t, cdt)),
+                 v.map(lambda t: _cache_write(t, cdt)))
+
+
+def _rope_placed(cfg: ModelConfig, t: Placed, positions: Placed) -> Placed:
+    """RoPE on each rank's rows at their own positions (B, S)."""
+    return t.map(lambda b, pb: apply_rope(b, pb, cfg.rope_theta),
+                 relayout(positions, t.spec[:1] + (None,)))
+
+
+def _valid(pos: torch.Tensor, S: int) -> torch.Tensor:
+    """(B, S): the cache positions at or before each row's ``pos``."""
+    return torch.arange(S, device=pos.device)[None, :] <= pos[:, None]
+
+
+def _decode_heads(q, ck, cv, valid, h0: int, k0: int, G: int, scale):
+    """One rank's decode attention: its query heads ``[h0, h0 + Hl)`` (B,
+    Sq, Hl, Dh) over its cache block's KV heads from ``k0`` (B, S, KVl,
+    Dh).  Whole groups of G query heads over the block's own KV heads
+    take the grouped form; otherwise each query head reads its KV head
+    (``h // G``) picked out of the block."""
+    B, Sq, Hl, Dh = q.shape
+    KVl = ck.shape[2]
+    if h0 == k0 * G and Hl == KVl * G:
+        return _decode_attn(q.reshape(B, Sq, KVl, G, Dh), ck, cv, valid,
+                            scale)
+    idx = torch.arange(h0, h0 + Hl, device=q.device) // G - k0
+    return _decode_attn(q.reshape(B, Sq, Hl, 1, Dh), ck.index_select(2, idx),
+                        cv.index_select(2, idx), valid, scale)
+
+
+def _gqa_decode_placed(cfg: ModelConfig, p, x: Placed, positions, cache,
+                       cache_pos):
+    """Decode on placed activations (B, 1, D), each rank on its rows of
+    the batch and its query heads: q (and, with ``cache_pos``, the new
+    token's K and V) column-parallel as in training, rotated at each row's
+    position; the new K and V written in place into each rank's block of
+    the cache ``(k, v)`` (B, S, KV, Dh) at ``cache_pos`` (each rank its
+    rows and its KV heads); attention over the block's positions up to
+    ``cache_pos`` (or, ``cache_pos`` None — the static cross cache — over
+    all of them); ``wo`` row-parallel.  Returns ``(out, cache)``."""
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    ck, cv = cache
+    # the rows of the batch as the cache holds them, the rest whole
+    xs = relayout(x, ck.spec[:1] + (None, None))
+    q = _project(xs, p, "wq", "bq", H, Dh)
+    rope = cache_pos is not None and cfg.rope_theta > 0
+    if rope:
+        q = _rope_placed(cfg, q, positions)
+    if cache_pos is not None:
+        k = _project(xs, p, "wk", "bk", KV, Dh)
+        v = _project(xs, p, "wv", "bv", KV, Dh)
+        if rope:
+            k = _rope_placed(cfg, k, positions)
+        row = lambda t: t.map(lambda b: _cache_write(b[:, 0], ck.dtype),
+                              spec=t.spec[:1] + t.spec[2:])
+        sharding.write_rows(ck, row(k), cache_pos)
+        sharding.write_rows(cv, row(v), cache_pos)
+        pos = relayout(cache_pos, ck.spec[:1])
+    scale = 1.0 / math.sqrt(Dh)
+    out = []
+    for i, (qb, kb, vb) in enumerate(zip(q.blocks, ck.blocks, cv.blocks)):
+        valid = None if cache_pos is None else _valid(pos.blocks[i],
+                                                      kb.shape[1])
+        o = _decode_heads(qb, kb, vb, valid, q.geometry(i)[0][2],
+                          ck.geometry(i)[0][2], H // KV, scale)
+        out.append(o.reshape(*o.shape[:2], -1))
+    out = Placed(out, q.spec[:2] + (q.spec[2],), x.mesh)
+    return _out_proj_placed(p, out), cache
 
 
 def _paged_decode(cache, q, k, v, cache_pos, ptab, backend, scale):
@@ -461,11 +536,10 @@ def mla_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     (in place) and attends over [0, cache_pos] in the absorbed form.
     Returns ``(out, new_cache)``."""
     if is_placed(x):
-        if mode != "train":
-            raise NotImplementedError(
-                "placed MLA is the training form; prefill and decode run "
-                "whole")
-        return _mla_train_placed(cfg, p, x, positions), None
+        if mode == "decode":
+            return _mla_decode_placed(cfg, p, x, positions, cache, cache_pos)
+        return _mla_train_placed(cfg, p, x, positions,
+                                 cache=mode == "prefill")
     B, Sq, _ = x.shape
     H = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -514,37 +588,99 @@ def mla_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     return logical_constraint(out, "batch", "tp_seq", "embed"), new_cache
 
 
-def _mla_train_placed(cfg: ModelConfig, p, x: Placed, positions) -> Placed:
-    """MLA's expanded training form on placed activations: the sequence
-    gathered; the latents ``q_lat``, ``c_kv`` and the shared rope key
-    whole on every model rank (``wq_a``/``wkv_a`` gathered from their FSDP
-    rows); ``wq_b`` column-parallel over heads (its per-head blocks of
-    dn + dr columns stay whole at every split that divides H); each rank's
-    heads of ``w_uk``/``w_uv`` expanding the latent into its K and V; the
-    rope key broadcast to the rank's heads; :func:`sdpa` on each rank's
-    rows and heads; ``wo`` row-parallel."""
+def _mla_latents_placed(cfg: ModelConfig, p, xs: Placed, positions):
+    """MLA's query heads and its latents on placed activations: ``q_lat``,
+    ``c_kv`` and the shared rope key whole on every model rank
+    (``wq_a``/``wkv_a`` gathered from their FSDP rows); ``wq_b``
+    column-parallel over heads (its per-head blocks of dn + dr columns
+    stay whole at every split that divides H), the rope parts rotated at
+    ``positions`` (whole (1, S), or placed (B, S): each rank its rows').
+    Returns (q (B, S, H, dn + dr), c_kv (B, S, kvr), k_rope (B, S, dr))."""
     H, kvr = cfg.n_heads, cfg.kv_lora_rank
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
-    rope = lambda t: apply_rope(t, positions, cfg.rope_theta)
-    xs = whole_but_batch(x)
+    pos = ((relayout(positions, (xs.spec[0], None)),) if is_placed(positions)
+           else ())
+    rope = lambda t, *pb: apply_rope(t, pb[0] if pb else positions,
+                                     cfg.rope_theta)
     q_lat = rms_norm(placed_matmul(xs, p["wq_a"]), p["q_norm"])
     q = _split_heads(placed_matmul(q_lat, p["wq_b"]), H, dn + dr).map(
-        lambda t: torch.cat([t[..., :dn], rope(t[..., dn:])], dim=-1))
+        lambda t, *pb: torch.cat([t[..., :dn], rope(t[..., dn:], *pb)],
+                                 dim=-1), *pos)
     kv = placed_matmul(xs, p["wkv_a"])
     c_kv = logical_constraint(
         kv.map(lambda t, s: rms_norm(t[..., :kvr], s), p["kv_norm"]),
         "batch", None, None)
-    k_rope = kv.map(lambda t: rope(t[..., None, kvr:])[:, :, 0])
+    k_rope = kv.map(lambda t, *pb: rope(t[..., None, kvr:], *pb)[:, :, 0],
+                    *pos)
+    return q, c_kv, relayout(k_rope, c_kv.spec)
+
+
+def _mla_train_placed(cfg: ModelConfig, p, x: Placed, positions,
+                      cache: bool = False):
+    """MLA's expanded training (and prefill) form on placed activations:
+    the sequence gathered; the query heads and latents of
+    :func:`_mla_latents_placed`; each rank's heads of ``w_uk``/``w_uv``
+    expanding the latent into its K and V; the rope key broadcast to the
+    rank's heads; :func:`sdpa` on each rank's rows and heads; ``wo``
+    row-parallel.  Returns ``(out, None)``, or with ``cache`` (prefill)
+    ``(out, (c_kv, k_rope))``, whole on every model rank as
+    ``cache_logical`` keeps them (packed under ``kv_cache_bits`` 8)."""
+    H, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    xs = whole_but_batch(x)
+    q, c_kv, k_rope = _mla_latents_placed(cfg, p, xs, positions)
     heads = q.spec[:2] + (q.spec[2], None)
     up = lambda w: c_kv.map(lambda c, wb: torch.einsum("bsr,rhd->bshd", c, wb),
                             relayout(p[w], (None, q.spec[2], None)),
                             spec=heads)
     k = up("w_uk").map(lambda kn, kr: torch.cat(
-        [kn, kr[:, :, None, :].expand(*kn.shape[:3], dr)], dim=-1),
-        relayout(k_rope, c_kv.spec))
-    q, k, v = _constrain_qkv(q, k, up("w_uv"), H, cfg.attn_batch2d)
-    out = _attend_placed(q, k, v, causal=True, scale=1.0 / math.sqrt(dn + dr))
-    return _out_proj_placed(p, out)
+        [kn, kr[:, :, None, :].expand(*kn.shape[:3], dr)], dim=-1), k_rope)
+    qc, k, v = _constrain_qkv(q, k, up("w_uv"), H, cfg.attn_batch2d)
+    out = _attend_placed(qc, k, v, causal=True,
+                         scale=1.0 / math.sqrt(dn + dr))
+    out = _out_proj_placed(p, out)
+    if not cache:
+        return out, None
+    cdt = torch.int8 if cfg.kv_cache_bits == 8 else c_kv.dtype
+    return out, (c_kv.map(lambda t: _cache_write(t, cdt)),
+                 k_rope.map(lambda t: _cache_write(t, cdt)))
+
+
+def _mla_decode_placed(cfg: ModelConfig, p, x: Placed, positions, cache,
+                       cache_pos):
+    """MLA's absorbed decode on placed activations (B, 1, D): the query
+    heads over the model axis, the new token's latents (whole on every
+    model rank) written in place into each rank's block of the latent
+    caches at ``cache_pos``; each rank scores its heads against its
+    block's whole latent cache, takes the context in the latent space and
+    up-projects it by its heads of ``w_uv``; ``wo`` row-parallel."""
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    cc, cr = cache
+    xs = relayout(x, cc.spec[:1] + (None, None))
+    q, c_kv, k_rope = _mla_latents_placed(cfg, p, xs, positions)
+    row = lambda t: t.map(lambda b: _cache_write(b[:, 0], cc.dtype),
+                          spec=t.spec[:1] + t.spec[2:])
+    sharding.write_rows(cc, row(c_kv), cache_pos)
+    sharding.write_rows(cr, row(k_rope), cache_pos)
+    pos = relayout(cache_pos, cc.spec[:1])
+    heads = (None, q.spec[2], None)
+    w_uk, w_uv = relayout(p["w_uk"], heads), relayout(p["w_uv"], heads)
+    scale = 1.0 / math.sqrt(dn + dr)
+    out = []
+    for i, qb in enumerate(q.blocks):
+        cb, rb = cc.blocks[i], cr.blocks[i]
+        q_c = torch.einsum("bthd,rhd->bthr", qb[..., :dn], w_uk.blocks[i])
+        s = (torch.einsum("bthr,bsr->bhts", q_c.to(torch.float32),
+                          _cache_read(cb, torch.float32))
+             + torch.einsum("bthe,bse->bhts", qb[..., dn:].to(torch.float32),
+                            _cache_read(rb, torch.float32))) * scale
+        s = s + torch.where(_valid(pos.blocks[i], cb.shape[1]), 0.0,
+                            NEG_INF)[:, None, None, :]
+        probs = torch.softmax(s, dim=-1).to(qb.dtype)
+        ctx = torch.einsum("bhts,bsr->bthr", probs, _cache_read(cb, qb.dtype))
+        o = torch.einsum("bthr,rhd->bthd", ctx, w_uv.blocks[i])
+        out.append(o.reshape(*o.shape[:2], -1))
+    out = Placed(out, q.spec[:3], x.mesh)
+    return _out_proj_placed(p, out), cache
 
 
 def count_gqa_params(cfg: ModelConfig) -> int:

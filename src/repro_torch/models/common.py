@@ -304,9 +304,12 @@ def unembed(x: torch.Tensor, params: Dict[str, torch.Tensor],
     that unembeds often (the serving engine) holds that cast once
     (:func:`hold_fp32_table`); without it the table is cast per call.
     """
-    xf = x.to(torch.float32)
     src, key = _table_keys(params)
     w = params.get(key)
+    if isinstance(x, Placed):
+        return _unembed_placed(x, params[src] if w is None else w,
+                               src == "tok", vocab)
+    xf = x.to(torch.float32)
     if w is None:
         w = params[src].to(torch.float32)
     logits = xf @ (w.T if src == "tok" else w)
@@ -392,6 +395,77 @@ def placed_matmul(x: Placed, w: Placed) -> Placed:
 
 def _vocab_origin(table: Placed, i: int, dim: int) -> int:
     return table.geometry(i)[0][dim]
+
+
+def _unembed_placed(x: Placed, table: Placed, transposed: bool,
+                    vocab: int) -> Placed:
+    """:func:`unembed` on placed hidden states (a serving step's few
+    positions), vocab-parallel: the positions whole on each rank, each
+    rank's fp32 logits over its block of the table's vocab columns, the
+    padding columns masked; laid out (batch, None, the table's vocab
+    split)."""
+    x = whole_but_batch(x)
+    table = relayout(table, (table.spec[0], None) if transposed
+                     else (None, table.spec[1]))
+    vax = table.spec[0 if transposed else 1]
+    out = []
+    for i, (xb, w) in enumerate(zip(x.blocks, table.blocks)):
+        w = w.to(torch.float32)
+        z = xb.to(torch.float32) @ (w.T if transposed else w)
+        v0 = _vocab_origin(table, i, 0 if transposed else 1)
+        if v0 + z.shape[-1] > vocab:
+            z[..., max(vocab - v0, 0):] = -1e30
+        out.append(z)
+    return Placed(out, x.spec[:-1] + (vax,), x.mesh)
+
+
+def placed_cache(struct, logical, like: Placed):
+    """A family's decode cache (``cache_struct``'s stand-ins, under its
+    ``cache_logical`` axes) as zero placed blocks on ``like``'s mesh and
+    device, laid out by the bound rules (the default rules without a
+    binding): what ``launch.specs.decode_shardings`` gives the cache."""
+    _, rules = sharding.current_mesh_rules()
+    specs = sharding.tree_specs(logical, struct, like.mesh,
+                                rules or sharding.LogicalRules())
+    return sharding.place_zeros(struct, specs, like.mesh, like.device)
+
+
+def placed_pos(tokens: Placed, S: int) -> Placed:
+    """A placed prompt's next write position, ``S`` for every row, laid
+    out over ``batch`` like the tokens' rows."""
+    return tokens.map(lambda t: torch.full((t.shape[0],), S, dtype=torch.int32,
+                                           device=t.device),
+                      spec=tokens.spec[:1])
+
+
+def row_positions(pos):
+    """(B,) write positions → the (B, 1) positions of a decode step's
+    token (placed: each rank its rows)."""
+    if isinstance(pos, Placed):
+        return pos.map(lambda t: t[:, None], spec=pos.spec + (None,))
+    return pos[:, None]
+
+
+def last_logits(logits):
+    """(B, 1, V) → (B, V) (placed: each rank its block)."""
+    if isinstance(logits, Placed):
+        return logits.map(lambda t: t[:, -1],
+                          spec=logits.spec[:1] + logits.spec[2:])
+    return logits[:, -1]
+
+
+def last_position(x: Placed) -> Placed:
+    """(B, S, ...) → (B, 1, ...): the last position, from the rank block
+    that holds it when the sequence is split (each rank's last row
+    gathered over the split, the last of them kept)."""
+    rows = x.map(lambda t: t[:, -1:], spec=(x.spec[0], None) + x.spec[2:])
+    axes = sharding._entry_axes(x.spec[1])
+    if not axes:
+        return rows
+    blocks = rows.blocks
+    for a in reversed(axes):
+        blocks = sharding.all_gather(x.mesh, a, blocks, 1)
+    return Placed([b[:, -1:] for b in blocks], rows.spec, x.mesh)
 
 
 def embed_lookup_placed(emb: Placed, tokens: Placed,

@@ -22,16 +22,18 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fixed_point import QuantStats
-from repro_torch.dist.sharding import is_placed, logical_constraint
+from repro_torch.dist.sharding import is_placed, logical_constraint, relayout
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models.common import (ParamDef, compute_cast, embed_defs,
                                        embed_lookup, fused_unembed_xent,
-                                       layer_norm, merge_optional,
-                                       placed_lm_loss, unembed,
+                                       last_logits, last_position, layer_norm,
+                                       merge_optional, placed_cache,
+                                       placed_lm_loss, placed_pos,
+                                       row_positions, unembed,
                                        whole_but_batch, zeros_from)
 from repro_torch.models.transformer import (_layer, remat_call, stack_defs,
-                                            unbind_layers)
+                                            unbind_layers, write_caches)
 
 # the encoder's tap index is this plus its layer
 ENC_TAP_BASE = 50_000
@@ -148,7 +150,11 @@ def _embed_tokens(cfg: ModelConfig, params, tokens, cache_pos=None):
     x = embed_lookup(params["embed"]["tok"], tokens,
                      seq_axis=None).to(cfg.activation_dtype())
     if cache_pos is not None:
-        return x + sinusoid_at(cache_pos, cfg.d_model)[:, None, :].to(x.dtype)
+        add = lambda t, pos: t + sinusoid_at(pos, cfg.d_model)[:, None, :].to(
+            t.dtype)
+        if is_placed(x):
+            return x.map(add, relayout(cache_pos, x.spec[:1]))
+        return add(x, cache_pos)
     return logical_constraint(_add_sinusoid(x, x.dtype), "batch", "tp_seq",
                               "embed")
 
@@ -158,9 +164,17 @@ def encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
     encoder's final-normed output (serving: no taps)."""
     x = _embed_frames(cfg, frames)
     positions = _positions(frames.shape[1], frames.device)
-    for i in range(cfg.n_enc_layers):
-        x = _enc_block(cfg, _layer(params["enc_layers"], i), x, positions)
+    for p in _layers(params["enc_layers"], cfg.n_enc_layers, x):
+        x = _enc_block(cfg, p, x, positions)
     return _ln(x, params["enc_norm"])
+
+
+def _layers(stacked, n: int, x):
+    """The ``n`` per-layer slices of a stacked tree: views, unbound once
+    per distinct block when ``x`` is placed."""
+    if is_placed(x):
+        return unbind_layers(stacked, n)
+    return [_layer(stacked, i) for i in range(n)]
 
 
 def cache_struct(cfg: ModelConfig, batch: int, max_seq: int):
@@ -197,18 +211,25 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     decode = mode == "decode"
     enc_out = None if decode else encode(cfg, params, frames)
     x = _embed_tokens(cfg, params, tokens, cache_pos if decode else None)
-    positions = (cache_pos[:, None] if decode
+    positions = (row_positions(cache_pos) if decode
                  else _positions(x.shape[1], x.device))
+    placed = is_placed(x)
+    L = cfg.n_layers
+    layers = _layers(params["dec_layers"], L, x)
+    selfs = crosses = [None] * L
+    if cache is not None:
+        selfs = _layers(cache["self"], L, x)
+        crosses = _layers(cache["cross"], L, x)
     per_layer = []
-    for i in range(cfg.n_layers):
+    for i in range(L):
         x, kv = _dec_block(
-            cfg, _layer(params["dec_layers"], i), x, enc_out, positions,
-            mode=mode,
-            self_cache=_layer(cache["self"], i) if decode else None,
-            cross_cache=_layer(cache["cross"], i) if decode else None,
-            cache_pos=cache_pos)
+            cfg, layers[i], x, enc_out, positions, mode=mode,
+            self_cache=selfs[i] if decode else None,
+            cross_cache=crosses[i] if decode else None, cache_pos=cache_pos)
+        if placed and mode == "prefill":
+            write_caches(selfs[i] + crosses[i], kv[0] + kv[1])
         per_layer.append(kv)
-    if decode:
+    if decode or placed:
         new_cache = cache
     else:
         selfs, crosses = zip(*per_layer)
@@ -218,7 +239,7 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     if hidden_only:
         return x, new_cache
     if mode == "prefill":
-        x = x[:, -1:]
+        x = last_position(x) if placed else x[:, -1:]
     return unembed(x, params["embed"], cfg.vocab), new_cache
 
 
@@ -293,7 +314,16 @@ def placed_loss_fn(cfg: ModelConfig):
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int, *,
             frames: torch.Tensor = None):
     """Encode ``frames``, run the prompt; return (last_logits, cache with
-    the self cache padded to ``max_seq``, pos)."""
+    the self cache padded to ``max_seq``, pos).  On a placed state, placed
+    tokens and frames the cache is placed by :func:`cache_logical` (the
+    self cache at ``max_seq``) and written layer by layer: the cross K/V
+    computed once here."""
+    if is_placed(tokens):
+        cache = placed_cache(cache_struct(cfg, tokens.shape[0], max_seq),
+                             cache_logical(cfg), tokens)
+        logits, _ = forward(cfg, params, tokens, frames=frames,
+                            mode="prefill", cache=cache)
+        return last_logits(logits), cache, placed_pos(tokens, tokens.shape[1])
     logits, cache = forward(cfg, params, tokens, frames=frames,
                             mode="prefill")
     S = tokens.shape[1]
@@ -307,9 +337,9 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int, *,
 def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache, pos):
     """One token per row.  Returns (logits (B, vocab), cache) — the self
     cache is written in place."""
-    logits, new_cache = forward(cfg, params, tokens, mode="decode",
-                                cache=cache, cache_pos=pos)
-    return logits[:, -1], new_cache
+    logits, _ = forward(cfg, params, tokens, mode="decode", cache=cache,
+                        cache_pos=pos)
+    return last_logits(logits), cache
 
 
 def count_params(cfg: ModelConfig) -> float:

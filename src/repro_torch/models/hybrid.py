@@ -25,13 +25,16 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer
+from repro_torch.dist.sharding import is_placed
 from repro_torch.models.common import (ParamDef, embed_defs, embed_lookup,
-                                       fused_unembed_xent, merge_optional,
-                                       placed_lm_loss, rms_norm, unembed,
-                                       zeros_from)
+                                       fused_unembed_xent, last_logits,
+                                       last_position, merge_optional,
+                                       placed_cache, placed_lm_loss,
+                                       placed_pos, rms_norm, row_positions,
+                                       unembed, zeros_from)
 from repro_torch.models.mlp import count_mlp_params
 from repro_torch.models.transformer import (_layer, remat_call, stack_defs,
-                                            unbind_layers)
+                                            unbind_layers, write_caches)
 
 # the shared block's tap index is this plus its invocation
 SHARED_TAP_BASE = 10_000
@@ -89,29 +92,38 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     x = embed_lookup(params["embed"]["tok"], tokens).to(cfg.activation_dtype())
     S = x.shape[1]
     G, K, _ = _split(cfg)
+    placed = is_placed(x)
     if mode == "decode":
-        positions = cache_pos[:, None]
+        positions = row_positions(cache_pos)
     else:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    layers = params["mamba"]
     ssm_cache = None if cache is None else cache["ssm"]
+    attn_cache = None if cache is None else cache["attn"]
+    if placed:
+        # the per-layer (and per-invocation) slices, once per distinct block
+        layers = unbind_layers(layers, cfg.n_layers)
+        ssm_cache = unbind_layers(ssm_cache, cfg.n_layers)
+        attn_cache = unbind_layers(attn_cache, G)
 
     ssm_new, attn_new = [], []
     for g in range(G):
-        x, new = mamba.run_layers(cfg, params["mamba"], x,
-                                  range(g * K, (g + 1) * K), mode=mode,
-                                  cache=ssm_cache)
+        x, new = mamba.run_layers(cfg, layers, x, range(g * K, (g + 1) * K),
+                                  mode=mode, cache=ssm_cache)
         ssm_new += new
+        c = (None if attn_cache is None else attn_cache[g] if placed
+             else _layer(attn_cache, g))
         x, kv, _ = transformer._block(
             cfg, params["shared"], x, positions=positions, mode=mode,
-            cache=None if cache is None else _layer(cache["attn"], g),
-            cache_pos=cache_pos)
+            cache=c, cache_pos=cache_pos)
+        if placed and mode == "prefill":
+            write_caches(c, kv)
         attn_new.append(kv)
-    x, new = mamba.run_layers(cfg, params["mamba"], x, range(G * K,
-                                                             cfg.n_layers),
+    x, new = mamba.run_layers(cfg, layers, x, range(G * K, cfg.n_layers),
                               mode=mode, cache=ssm_cache)
     ssm_new += new
 
-    if mode == "decode":
+    if mode == "decode" or placed:
         new_cache = cache
     else:
         new_cache = {"ssm": mamba.stack_caches(ssm_new),
@@ -120,7 +132,7 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     if hidden_only:
         return x, new_cache
     if mode == "prefill":
-        x = x[:, -1:]
+        x = last_position(x) if placed else x[:, -1:]
     return unembed(x, params["embed"], cfg.vocab), new_cache
 
 
@@ -173,7 +185,14 @@ def placed_loss_fn(cfg: ModelConfig):
 
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int):
     """Run the prompt; return (last_logits, cache with the attention caches
-    padded to ``max_seq``, pos)."""
+    padded to ``max_seq``, pos).  On a placed state and placed tokens the
+    cache is placed by :func:`cache_logical` at ``max_seq`` and written
+    layer by layer and invocation by invocation."""
+    if is_placed(tokens):
+        cache = placed_cache(cache_struct(cfg, tokens.shape[0], max_seq),
+                             cache_logical(cfg), tokens)
+        logits, _ = forward(cfg, params, tokens, mode="prefill", cache=cache)
+        return last_logits(logits), cache, placed_pos(tokens, tokens.shape[1])
     logits, cache = forward(cfg, params, tokens, mode="prefill")
     S = tokens.shape[1]
     cache["attn"] = tuple(torch.nn.functional.pad(
@@ -186,9 +205,9 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int):
 def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache, pos):
     """One token per row.  Returns (logits (B, vocab), cache) — the cache is
     written in place."""
-    logits, new_cache = forward(cfg, params, tokens, mode="decode",
-                                cache=cache, cache_pos=pos)
-    return logits[:, -1], new_cache
+    logits, _ = forward(cfg, params, tokens, mode="decode", cache=cache,
+                        cache_pos=pos)
+    return last_logits(logits), cache
 
 
 def count_params(cfg: ModelConfig) -> float:

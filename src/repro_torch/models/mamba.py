@@ -21,14 +21,16 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fixed_point import QuantStats
-from repro_torch.dist.sharding import logical_constraint
+from repro_torch.dist.sharding import is_placed, logical_constraint
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (ParamDef, compute_cast, embed_defs,
                                        embed_lookup, fused_unembed_xent,
-                                       merge_optional, placed_lm_loss,
-                                       rms_norm, unembed, zeros_from)
+                                       last_logits, last_position,
+                                       merge_optional, placed_cache,
+                                       placed_lm_loss, placed_pos, rms_norm,
+                                       unembed, zeros_from)
 from repro_torch.models.transformer import (_layer, remat_call, stack_defs,
-                                            unbind_layers)
+                                            unbind_layers, write_caches)
 
 
 def layer_defs(cfg: ModelConfig, dt: torch.dtype) -> Dict[str, Any]:
@@ -80,9 +82,17 @@ def run_layers(cfg: ModelConfig, layers, x, idxs, *, mode, cache=None):
     decode).  Decode reads layer ``i``'s ``(state, tail)`` from the stacked
     ``cache`` and writes its new ones there in place, returning ``[]``;
     prefill starts each layer from zeros and returns its ``(state, tail)``
-    list."""
+    list.  On placed activations ``layers`` and ``cache`` are the per-layer
+    lists of :func:`~repro_torch.models.transformer.unbind_layers` (the
+    cache placed, allocated by :func:`prefill`), and both modes write the
+    layer's slice in place."""
     new = []
     for i in idxs:
+        if is_placed(x):
+            x, nc = _block(cfg, layers[i], x, mode=mode, cache=cache[i])
+            if mode == "prefill":
+                write_caches(cache[i], nc)
+            continue
         c = None if mode != "decode" else (cache[0][i], cache[1][i])
         x, nc = _block(cfg, _layer(layers, i), x, mode=mode, cache=c)
         if mode == "decode":
@@ -107,14 +117,19 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     back.  ``cache_pos`` is unused (the state carries the position)."""
     x = embed_lookup(params["embed"]["tok"], tokens,
                      seq_axis=None).to(cfg.activation_dtype())
-    x, new = run_layers(cfg, params["layers"], x, range(cfg.n_layers),
-                        mode=mode, cache=cache)
-    new_cache = cache if mode == "decode" else stack_caches(new)
+    layers, caches = params["layers"], cache
+    if is_placed(x):
+        layers = unbind_layers(layers, cfg.n_layers)
+        caches = unbind_layers(cache, cfg.n_layers)
+    x, new = run_layers(cfg, layers, x, range(cfg.n_layers), mode=mode,
+                        cache=caches)
+    new_cache = (cache if mode == "decode" or is_placed(x)
+                 else stack_caches(new))
     x = rms_norm(x, params["final_norm"])
     if hidden_only:
         return x, new_cache
     if mode == "prefill":
-        x = x[:, -1:]
+        x = last_position(x) if is_placed(x) else x[:, -1:]
     return unembed(x, params["embed"], cfg.vocab), new_cache
 
 
@@ -165,7 +180,14 @@ def placed_loss_fn(cfg: ModelConfig):
 
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int):
     """Run the prompt; return (last_logits, cache, pos).  The cache does not
-    depend on ``max_seq``."""
+    depend on ``max_seq``.  On a placed state and placed tokens the cache
+    is placed by :func:`cache_logical` and written layer by layer (the
+    logits placed over their vocab split, ``pos`` over ``batch``)."""
+    if is_placed(tokens):
+        cache = placed_cache(cache_struct(cfg, tokens.shape[0]),
+                             cache_logical(cfg), tokens)
+        logits, _ = forward(cfg, params, tokens, mode="prefill", cache=cache)
+        return last_logits(logits), cache, placed_pos(tokens, tokens.shape[1])
     logits, cache = forward(cfg, params, tokens, mode="prefill")
     pos = torch.full((tokens.shape[0],), tokens.shape[1], dtype=torch.int32,
                      device=tokens.device)
@@ -175,9 +197,9 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int):
 def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache, pos):
     """One token per row.  Returns (logits (B, vocab), cache) — the cache is
     written in place."""
-    logits, new_cache = forward(cfg, params, tokens, mode="decode",
-                                cache=cache, cache_pos=pos)
-    return logits[:, -1], new_cache
+    logits, _ = forward(cfg, params, tokens, mode="decode", cache=cache,
+                        cache_pos=pos)
+    return last_logits(logits), cache
 
 
 def count_params(cfg: ModelConfig) -> float:

@@ -172,11 +172,9 @@ def ssm_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     Returns (out (B,S,D), new_cache): ``(state, tail)`` in prefill and
     decode, ``None`` in train."""
     if is_placed(x):
-        if mode != "train":
-            raise NotImplementedError(
-                "the placed Mamba2 mixer is the training form; prefill and "
-                "decode run whole")
-        return _ssm_train_placed(cfg, p, x), None
+        if mode == "decode":
+            return _ssm_decode_placed(cfg, p, x, cache)
+        return _ssm_train_placed(cfg, p, x, cache_out=mode == "prefill")
     B, S, _ = x.shape
     di, N, H, Pd = d_inner(cfg), cfg.ssm_state, n_ssm_heads(cfg), cfg.ssm_head_dim
 
@@ -215,7 +213,24 @@ def ssm_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
         new_cache
 
 
-def _ssm_train_placed(cfg: ModelConfig, p, x: Placed) -> Placed:
+def _piece(t: Placed, lo: int, hi: int, ax) -> Placed:
+    """Columns ``[lo, hi)`` of ``t`` (whole in its last dim), laid out over
+    ``ax``."""
+    cut = t.map(lambda b: b[..., lo:hi], spec=t.spec[:-1] + (None,))
+    return relayout(cut, t.spec[:-1] + (ax,))
+
+
+def _ssm_out_placed(cfg: ModelConfig, p, y: Placed, z: Placed) -> Placed:
+    """The gated norm (its squares summed over the head split) and
+    ``w_out`` row-parallel, its sums reduce-scattered onto the block's
+    sequence-parallel residual layout."""
+    y = gated_rms_norm_placed(y, z, p["norm_scale"])
+    return logical_constraint(placed_matmul(y, p["w_out"]), "batch", "tp_seq",
+                              "embed")
+
+
+def _ssm_train_placed(cfg: ModelConfig, p, x: Placed,
+                      cache_out: bool = False):
     """:func:`ssm_apply`'s train path on placed activations, each rank on
     its heads.  ``w_in``'s column blocks do not fall on the z | x | B | C |
     dt boundaries (nor ``conv_w``'s on x | B | C), so the column-parallel
@@ -226,44 +241,102 @@ def _ssm_train_placed(cfg: ModelConfig, p, x: Placed) -> Placed:
     (no collective: channels are independent), the chunked scan on each
     rank's heads, the gated norm sums its squares over the head split,
     and ``w_out`` is row-parallel, its sums reduce-scattered onto the
-    block's sequence-parallel residual layout."""
+    block's sequence-parallel residual layout.
+
+    Returns ``(out, None)``, or with ``cache_out`` (prefill) ``(out,
+    (state, tail))``: each rank's heads of the final state (B, H, P, N)
+    fp32, and the conv tail (B, K-1, C), the projection's last K-1
+    positions (whole on every model rank: the cache write cuts each
+    rank's channel block from it)."""
     di, N, H, Pd = d_inner(cfg), cfg.ssm_state, n_ssm_heads(cfg), cfg.ssm_head_dim
     _, rules = current_mesh_rules()
     hax = (rules or LogicalRules()).spec(("heads",), (H,), x.mesh)[0]
     xs = whole_but_batch(x)
     whole = (xs.spec[0], None, None)
     zxbcdt = relayout(placed_matmul(xs, p["w_in"]), whole)
-
-    def piece(t: Placed, lo: int, hi: int, ax) -> Placed:
-        cut = t.map(lambda b: b[..., lo:hi], spec=t.spec[:-1] + (None,))
-        return relayout(cut, t.spec[:-1] + (ax,))
-
-    z = piece(zxbcdt, 0, di, hax)
+    z = _piece(zxbcdt, 0, di, hax)
     conv_w = relayout(p["conv_w"], (None, None))
     conv_b = relayout(p["conv_b"], (None,))
 
     def conv(lo: int, hi: int, ax) -> Placed:
-        return piece(zxbcdt, di + lo, di + hi, ax).map(
+        return _piece(zxbcdt, di + lo, di + hi, ax).map(
             lambda t, w, b: _causal_conv(t, w, b)[0],
-            piece(conv_w, lo, hi, ax), piece(conv_b, lo, hi, ax))
+            _piece(conv_w, lo, hi, ax), _piece(conv_b, lo, hi, ax))
 
     xi = conv(0, di, hax).map(lambda t: t.reshape(*t.shape[:2], -1, Pd),
                               spec=whole[:2] + (hax, None))
     bc = conv(di, di + 2 * N, None)
-    dt_raw = piece(zxbcdt, 2 * di + 2 * N, 2 * di + 2 * N + H, hax)
+    dt_raw = _piece(zxbcdt, 2 * di + 2 * N, 2 * di + 2 * N + H, hax)
     heads = lambda name: relayout(p[name], (hax,))
 
     def scan(xb, bcb, dtb, a_log, dt_bias, d_skip):
         dt, log_decay = _decays(cfg, dtb, a_log, dt_bias)
-        y, _ = ssd_scan(cfg, xb, bcb[..., :N], bcb[..., N:], dt, log_decay)
+        y, h = ssd_scan(cfg, xb, bcb[..., :N], bcb[..., N:], dt, log_decay)
         y = y + d_skip.to(y.dtype)[None, None, :, None] * xb
-        return y.reshape(*y.shape[:2], -1)
+        return y.reshape(*y.shape[:2], -1), h
 
-    y = xi.map(scan, bc, dt_raw, heads("a_log"), heads("dt_bias"),
-               heads("d_skip"), spec=whole[:2] + (hax,))
-    y = gated_rms_norm_placed(y, z, p["norm_scale"])
-    return logical_constraint(placed_matmul(y, p["w_out"]), "batch", "tp_seq",
-                              "embed")
+    y, h = xi.map_many(scan, bc, dt_raw, heads("a_log"), heads("dt_bias"),
+                       heads("d_skip"),
+                       specs=(whole[:2] + (hax,), (whole[0], hax, None, None)))
+    out = _ssm_out_placed(cfg, p, y, z)
+    if not cache_out:
+        return out, None
+    K = cfg.ssm_conv
+    tail = _piece(zxbcdt, di, 2 * di + 2 * N, None).map(
+        lambda t: F.pad(t, (0, 0, K - 1, 0))[:, -(K - 1):])
+    return out, (h, tail)
+
+
+def _ssm_decode_placed(cfg: ModelConfig, p, x: Placed, cache):
+    """The O(1) decode step on placed activations (B, 1, D), written in
+    place into each rank's block of the cache ``(state (B, H, P, N) over
+    heads, tail (B, K-1, C) over tp)``: ``w_in`` column-parallel and
+    gathered; the depthwise conv on each rank's channel block of the tail
+    (its columns of ``conv_w``/``conv_b``), its output gathered over the
+    channels and re-cut as in training (x and dt by heads, B and C whole);
+    the recurrence on each rank's heads of the state; the gated norm and
+    ``w_out`` as in training."""
+    di, N, H, Pd = d_inner(cfg), cfg.ssm_state, n_ssm_heads(cfg), cfg.ssm_head_dim
+    state, tail = cache
+    hax = state.spec[1]
+    xs = relayout(x, state.spec[:1] + (None, None))
+    whole = (xs.spec[0], None, None)
+    zxbcdt = relayout(placed_matmul(xs, p["w_in"]), whole)
+    z = _piece(zxbcdt, 0, di, hax)
+    cax = tail.spec[2]
+    xbc = _piece(zxbcdt, di, 2 * di + 2 * N, cax)
+    conv_out, new_tail = xbc.map_many(
+        lambda t, w, b, st: _causal_conv(t, w, b, st), relayout(
+            p["conv_w"], (None, cax)), relayout(p["conv_b"], (cax,)), tail,
+        specs=(xbc.spec, tail.spec))
+    with torch.no_grad():
+        for i, blk in tail.distinct():
+            blk.copy_(new_tail.blocks[i])
+    conv_out = relayout(conv_out, whole)
+    xi = _piece(conv_out, 0, di, hax).map(
+        lambda t: t.reshape(t.shape[0], -1, Pd), spec=(whole[0], hax, None))
+    bc = _piece(conv_out, di, di + 2 * N, None)
+    dt_raw = _piece(zxbcdt, 2 * di + 2 * N, 2 * di + 2 * N + H, hax)
+    heads = lambda name: relayout(p[name], (hax,))
+
+    def step(xb, bcb, dtb, hb, a_log, dt_bias, d_skip):
+        dt, log_decay = _decays(cfg, dtb[:, 0], a_log, dt_bias)     # (B, H)
+        xu = xb.to(torch.float32) * dt[..., None]
+        h_new = (torch.exp(log_decay)[..., None, None] * hb
+                 + torch.einsum("bhp,bn->bhpn", xu,
+                                bcb[:, 0, :N].to(torch.float32)))
+        y = torch.einsum("bn,bhpn->bhp", bcb[:, 0, N:].to(torch.float32),
+                         h_new).to(x.dtype)
+        y = y + d_skip.to(y.dtype)[None, :, None] * xb
+        return y.reshape(y.shape[0], 1, -1), h_new
+
+    y, h_new = xi.map_many(step, bc, dt_raw, state, heads("a_log"),
+                           heads("dt_bias"), heads("d_skip"),
+                           specs=(whole[:2] + (hax,), state.spec))
+    with torch.no_grad():
+        for i, blk in state.distinct():
+            blk.copy_(h_new.blocks[i])
+    return _ssm_out_placed(cfg, p, y, z), cache
 
 
 def count_ssm_params(cfg: ModelConfig) -> int:

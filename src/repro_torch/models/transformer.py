@@ -34,17 +34,18 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import tree as tree_lib
 from repro_torch.core.fixed_point import QuantStats
-from repro_torch.dist.sharding import (Placed, is_placed, logical_constraint,
-                                       relayout)
+from repro_torch.dist.sharding import (is_placed, logical_constraint,
+                                       relayout, unbind_placed, write_prefix)
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (ParamDef, compute_cast, embed_defs,
                                        embed_lookup, fused_unembed_xent,
-                                       fused_unembed_xent_placed, layer_norm,
-                                       map_defs, merge_optional, rms_norm,
+                                       fused_unembed_xent_placed,
+                                       last_logits, last_position, layer_norm,
+                                       map_defs, merge_optional, placed_cache,
+                                       placed_pos, rms_norm, row_positions,
                                        unembed, whole_but_batch, zeros_from)
 
 
@@ -95,8 +96,8 @@ def _block(cfg: ModelConfig, p, x, *, positions, mode, cache, cache_pos,
            paged_ptab=None, paged_backend="auto"):
     """One transformer block.  Returns (x, new_cache, aux_loss): the MoE
     layer's load-balance loss, ``None`` for a dense one.  On placed
-    activations (the training mode of the placed step) each layer runs its
-    placed form and the results are placed."""
+    activations (the placed train step, placed prefill and decode) each
+    layer runs its placed form and the results are placed."""
     h = _norm(cfg, x, p["norm1"], p.get("norm1_b"))
     if cfg.mla:
         a_out, new_cache = attn_lib.mla_apply(
@@ -131,18 +132,39 @@ def _run_stack(cfg: ModelConfig, layers, x, *, positions, mode, cache=None,
     """The layer loop.  Returns (x, new_cache stacked over layers).
 
     In decode the per-layer cache slices are views that the block writes in
-    place, so the stacked cache handed in is the one handed back."""
+    place, so the stacked cache handed in is the one handed back.  On
+    placed activations the layers and the cache (placed, allocated at
+    ``max_seq`` by :func:`prefill`) are unbound once per distinct block;
+    prefill writes each layer's keys and values into its slice."""
+    placed = is_placed(x)
+    if placed:
+        layers = unbind_layers(layers, cfg.n_layers)
+        caches = unbind_layers(cache, cfg.n_layers)
     per_layer = []
     for i in range(cfg.n_layers):
+        if placed:
+            p, c = layers[i], caches[i]
+        else:
+            p, c = _layer(layers, i), None if cache is None else _layer(
+                cache, i)
         x, new_cache, _ = _block(
-            cfg, _layer(layers, i), x, positions=positions, mode=mode,
-            cache=None if cache is None else _layer(cache, i),
+            cfg, p, x, positions=positions, mode=mode, cache=c,
             cache_pos=cache_pos, paged_ptab=paged_ptab,
             paged_backend=paged_backend)
+        if placed and mode == "prefill":
+            write_caches(c, new_cache)
         per_layer.append(new_cache)
-    if mode == "decode":
+    if mode == "decode" or placed:
         return x, cache
     return x, tuple(torch.stack(c) for c in zip(*per_layer))
+
+
+def write_caches(dst, new) -> None:
+    """Prefill on placed activations: each placed cache of a layer's slice
+    ``dst`` (a tuple) written from the prompt's ``new`` (its first
+    positions), each rank its block."""
+    for d, n in zip(dst, new):
+        write_prefix(d, n)
 
 
 def _embed(cfg: ModelConfig, params, tokens, vision_embeds):
@@ -177,7 +199,7 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     x = _embed(cfg, params, tokens, vision_embeds)
     S = x.shape[1]
     if mode == "decode":
-        positions = cache_pos[:, None]                      # (B, 1)
+        positions = row_positions(cache_pos)                # (B, 1)
     else:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
 
@@ -189,7 +211,7 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     if hidden_only:
         return x, new_cache
     if mode == "prefill":
-        x = x[:, -1:]
+        x = last_position(x) if is_placed(x) else x[:, -1:]
     return unembed(x, params["embed"], cfg.vocab), new_cache
 
 
@@ -207,13 +229,20 @@ def unbind_layers(layers, n: int):
     each distinct block once (the layers dim is never split)."""
     def split(leaf):
         if not is_placed(leaf):
-            return torch.unbind(leaf, 0)
-        parts = {id(b): torch.unbind(b, 0) for _, b in leaf.distinct()}
-        return [Placed([parts[id(b)][i] for b in leaf.blocks], leaf.spec[1:],
-                       leaf.mesh, leaf.shape[1:]) for i in range(n)]
-    split_tree = tree_lib.map_tree(split, layers)
-    return [tree_lib.map_tree(lambda parts: parts[i], split_tree)
-            for i in range(n)]
+            return list(torch.unbind(leaf, 0))
+        return unbind_placed(leaf, 0)
+    split_tree = map_nodes(split, layers)
+    return [map_nodes(lambda parts: parts[i], split_tree) for i in range(n)]
+
+
+def map_nodes(fn, tree):
+    """``fn`` at every leaf of a tree of dicts and tuples (a parameter
+    tree, a decode cache)."""
+    if isinstance(tree, dict):
+        return {k: map_nodes(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(map_nodes(fn, v) for v in tree)
+    return fn(tree)
 
 
 def _train_block(cfg: ModelConfig, p, x, positions, qctx, idx: int):
@@ -374,7 +403,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int, *,
             vision_embeds: Optional[torch.Tensor] = None):
     """Run the prompt (after the vision prefix, if given), return
-    (last_logits, cache padded to max_seq, pos)."""
+    (last_logits, cache padded to max_seq, pos).  On a placed state and
+    placed tokens (``launch.specs.build_prefill_step`` with a mesh) the
+    cache is placed by ``cache_logical`` at ``max_seq`` and written layer
+    by layer, the logits placed over their vocab split, ``pos`` over
+    ``batch``."""
+    if is_placed(tokens):
+        S = tokens.shape[1] + (0 if vision_embeds is None
+                               else vision_embeds.shape[1])
+        cache = placed_cache(cache_struct(cfg, tokens.shape[0], max_seq),
+                             cache_logical(cfg), tokens)
+        logits, cache = forward(cfg, params, tokens, mode="prefill",
+                                vision_embeds=vision_embeds, cache=cache)
+        return last_logits(logits), cache, placed_pos(tokens, S)
     logits, cache = forward(cfg, params, tokens, mode="prefill",
                             vision_embeds=vision_embeds)
     S = cache[0].shape[2]
@@ -392,7 +433,7 @@ def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache, pos):
     Returns (logits (B, vocab), cache) — the cache is written in place."""
     logits, new_cache = forward(cfg, params, tokens, mode="decode",
                                 cache=cache, cache_pos=pos)
-    return logits[:, -1], new_cache
+    return last_logits(logits), new_cache
 
 
 def decode_step_paged(cfg: ModelConfig, params, tokens: torch.Tensor, cache,

@@ -1703,6 +1703,87 @@ def job_sharded_step(a, steps, seq, batch, mesh, arch="llama3_2_3b",
     return out
 
 
+def job_sharded_serve(a, arch, mesh, max_seq, overrides=None, whole=True):
+    """Smoke ``arch`` from ``init_params(key(0))`` served over a (data,
+    model) ``mesh`` of forced host devices (Auto axes), under
+    ``axis_rules``, as ``repro.launch.dryrun`` compiles its prefill and
+    decode cells: ``build_prefill_step`` jitted with ``in_shardings`` of
+    ``param_shardings`` and ``prefill_shardings``, then for each column of
+    ``steps`` (B, n), teacher-forced, ``build_decode_step`` jitted with
+    ``in_shardings``/``out_shardings`` of ``decode_shardings`` (its cache
+    ``cache_logical``'s) and, for the logits, ``decode_step`` under the
+    same shardings.  ``tokens`` (B, S) is the prompt; a ``vision_embeds``
+    or ``frames`` array rides on the prefill.  Returns the parameters,
+    the prefill's last logits, cache and ``pos``, each step's logits and
+    greedy token, and the cache and ``pos`` after the last step, under
+    ``sharded/``; with ``whole`` the same run jitted without shardings
+    under ``whole/``."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs.base import ShapeConfig
+    from repro.dist.sharding import LogicalRules, axis_rules
+    from repro.launch import specs as specs_lib
+    from repro.models import registry
+    from repro.models.common import init_params
+    cfg = _smoke_cfg(arch, overrides)
+    mod = registry(cfg.family)
+    params = init_params(jax.random.key(0), mod.model_defs(cfg))
+    out = flatten(_np_params(params), "params/")
+    inputs = dict(tokens=jnp.asarray(a["tokens"]),
+                  **{k: jnp.asarray(a[k]) for k in ("vision_embeds", "frames")
+                     if k in a})
+    steps = a["steps"]
+    B = steps.shape[0]
+
+    def serve(tag, prefill, decode_logits, decode_tok, put):
+        logits, cache, pos = prefill(put("params", params),
+                                     put("inputs", inputs))
+        out[f"{tag}/prefill_logits"] = np.asarray(logits)
+        out.update(flatten(_cache_np(cache), f"{tag}/prefill_cache/"))
+        out[f"{tag}/prefill_pos"] = np.asarray(pos)
+        lgs, toks = [], []
+        for i in range(steps.shape[1]):
+            args = (put("params", params),
+                    put("tokens", jnp.asarray(steps[:, i:i + 1])),
+                    put("cache", cache), put("pos", pos))
+            lgs.append(np.asarray(decode_logits(*args)[0]))
+            nxt, cache, pos = decode_tok(*args)
+            toks.append(np.asarray(nxt))
+        out[f"{tag}/decode_logits"] = np.stack(lgs, 1)
+        out[f"{tag}/next_tok"] = np.concatenate(toks, 1)
+        out.update(flatten(_cache_np(cache), f"{tag}/decode_cache/"))
+        out[f"{tag}/decode_pos"] = np.asarray(pos)
+
+    step = specs_lib.build_decode_step(cfg)
+    pre = specs_lib.build_prefill_step(cfg, max_seq=max_seq)
+    prefill = lambda p, inputs: pre(p, **inputs)
+    logit_fn = lambda p, t, c, s: mod.decode_step(cfg, p, t, c, s)
+    if whole:
+        serve("whole", jax.jit(prefill), jax.jit(logit_fn), jax.jit(step),
+              lambda _, v: v)
+    m = _ep_mesh(mesh)
+    rules = LogicalRules()
+    p_sh = specs_lib.param_shardings(cfg, m, rules)
+    prompt = inputs["tokens"].shape[1] + (cfg.n_patches if "vision_embeds"
+                                          in inputs else 0)
+    in_sh = specs_lib.prefill_shardings(
+        cfg, ShapeConfig("prefill", "prefill", prompt, B), m, rules)
+    d_sh = specs_lib.decode_shardings(
+        cfg, ShapeConfig("decode", "decode", max_seq, B), m, rules)
+    sh = {"params": p_sh, "inputs": in_sh, **d_sh}
+    d_in = (p_sh, d_sh["tokens"], d_sh["cache"], d_sh["pos"])
+    with m, axis_rules(m, rules):
+        serve("sharded",
+              jax.jit(prefill, in_shardings=(p_sh, in_sh)),
+              jax.jit(logit_fn, in_shardings=d_in,
+                      out_shardings=(None, d_sh["cache"])),
+              jax.jit(step, in_shardings=d_in,
+                      out_shardings=(d_sh["tokens"], d_sh["cache"],
+                                     d_sh["pos"])),
+              lambda k, v: jax.device_put(v, sh[k]))
+    return out
+
+
 def job_elastic_restore(a, root, step, meshes, arch="llama3_2_3b"):
     """A checkpoint the port wrote from a placed state, restored by the
     reference's ``ckpt.restore`` into its ``abstract_train_state`` and
