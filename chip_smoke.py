@@ -364,8 +364,8 @@ Phases 10-14 run right after phase 8's counted wire run, before its
              placed, their first losses within ``TP_FAMILY_LOSS_RTOL_F32``;
              ms a step, peak, bytes a rank).  deepseek-v2-236b's placed
              step needs several cards and runs on the CPU only.
-19. serve_tp — after phase 18: ``serve_llama_tp`` (llama3.2-3b, 28
-             layers, served through ``launch.specs.build_prefill_step``/
+19. serve_tp — after phase 18: ``serve_llama_tp`` (llama3.2-3b, 14 of
+             28 layers since PR 28, served through ``launch.specs.build_prefill_step``/
              ``build_decode_step`` with a mesh: unsharded, then placed on
              stacked (1, 4) and (2, 4) meshes by ``place_serve_state``,
              its cache bf16 and int8, bf16 weights and the same cast up to
@@ -384,6 +384,20 @@ Phases 10-14 run right after phase 8's counted wire run, before its
              each at full width on a stacked (1, 4) mesh, batch 8 × 256,
              4 decode steps, held the same way; the MoE models' prefill on
              the all-to-all, the unsharded run under the mesh's binding).
+20. analysis — after phase 19: the port's precision-flow verifier on the
+             card, through the kernels (``repro_torch.analysis.lint`` on a
+             stacked data mesh of 8 ranks): LeNet ``tree`` (K1b, K2b, K4)
+             and ``zero-overlap`` (K2b, K3b, K4), ``tree`` with the health
+             guards (the clean step, then the NaN drill's degraded step on
+             its own claims) and ``serve-decode`` at smoke size (K3, K5),
+             each step recorded by a ``Trace``: every flow, trace-audit and
+             geometry report clean, every recorded launch held to the loaded
+             library's signatures and the card's shared memory
+             (``torch.cuda.get_device_properties``), K2b, K3b, K4, K3 and K5
+             each launched under the trace; then one dry-run cell on meta
+             tensors (llama3.2-3b ``decode_32k`` on the (16, 16) mesh).  One
+             line ``analysis`` with each report's checked and fired rules,
+             the phase's seconds and its launches.
 
 The line before the last two carries the kernels (launches on their path —
 K1's from the LM run with a bits operand, LeNet's beside them; K1b's row
@@ -672,14 +686,23 @@ TP_FAMILY_TRAIN = (("internvl2_26b", 3, "train_internvl2_tp"),
 TP_FAMILY_LOSS_RTOL_F32 = {"internvl2_26b": 1e-6, "mamba2_1_3b": 8e-6,
                            "zamba2_7b": 6e-6, "whisper_medium": 2e-7}
 
-# phase 19 (placed prefill and decode): llama3.2-3b served whole (28
-# layers), unsharded and placed on stacked (1, 4) and (2, 4) meshes
+# phase 19 (placed prefill and decode): llama3.2-3b served at
+# SERVE_TP_LAYERS of its 28 layers, unsharded and placed on stacked (1, 4)
+# and (2, 4) meshes
 # (``launch.specs.build_prefill_step``/``build_decode_step`` with a mesh),
 # its cache in the compute dtype and int8, bf16 weights from seed 0 and
 # the same weights cast up to fp32: B prompts of `prompt` tokens, then
 # `steps` decode steps, every run fed the unsharded bf16 run's greedy
 # tokens (teacher-forced, so that a near-tie cannot fork the rest)
 SERVE_TP_SHAPE = dict(batch=8, prompt=512, steps=16, max_seq=576)
+# serve_llama_tp's depth: 14 of the 28 layers, for the call's time (the
+# phase launches no kernel).  Its readings at 14 layers on an H100 at 700 W
+# sit where the 28-layer ones did, so the limits below hold them at about
+# twice as before: fp32 logits 3.4e-6 / 3.5e-6 and 16-bit caches 4.1e-6 -
+# 4.6e-6 at (1, 4) / (2, 4) (28 layers: 3.5e-6 / 4.9e-6), fp32 int8-cache
+# logits 2.07e-4 / 2.04e-4 (28: 1.8e-4), bf16 logits and caches 0.91-1.24x
+# bf16's own gap and int8 caches 2 grid steps against its 3
+SERVE_TP_LAYERS = 14
 # fp32 compute, placed against unsharded, by config: the logits and the
 # 16-bit caches relative to their largest magnitude, about twice the
 # larger reading of the two on an H100 at 700 W (the same sums in other
@@ -5255,8 +5278,8 @@ def _place_copy(cfg, params, mesh):
 
 
 def serve_llama_tp():
-    """llama3.2-3b at full width and depth (28 layers), bf16 weights from
-    seed 0, served through ``build_prefill_step``/``build_decode_step``:
+    """llama3.2-3b at full width, ``SERVE_TP_LAYERS`` of its 28 layers, bf16
+    weights from seed 0, served through ``build_prefill_step``/``build_decode_step``:
     unsharded, then on stacked (1, 4) and (2, 4) meshes (the state placed
     by ``place_serve_state``: tensor parallelism over model, the batch
     over data), with the cache in bf16 and in int8 (``kv_cache_bits``
@@ -5270,7 +5293,7 @@ def serve_llama_tp():
     from repro_torch.core import tree as tree_lib
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config("llama3_2_3b")
+    cfg = depth_cut("llama3_2_3b", SERVE_TP_LAYERS)
     shape = SERVE_TP_SHAPE
     B, S = shape["batch"], shape["prompt"]
     g = torch.Generator(device=DEV).manual_seed(1)
@@ -5416,6 +5439,55 @@ def serve_families_tp():
         shape=SERVE_TP_FAMILY_SHAPE, configs=out)
     if faults:
         raise AssertionError("serve_families_tp: " + "; ".join(faults))
+
+
+# phase 20: (config, mode, guards) lint cells run on the card
+ANALYSIS_CELLS = (("lenet", "tree", False), ("lenet", "zero-overlap", False),
+                  ("lenet", "tree", True), ("lenet", "serve-decode", False))
+# the kernels the cells must launch under the trace: (name, module, counter)
+ANALYSIS_KERNELS = (
+    ("dps_quant_wire_onchip_prng", dps_quant, "wire_prng_launch_count"),
+    ("dps_group_wire_encode_onchip_prng", dps_quant,
+     "group_prng_launch_count"),
+    ("dps_wire_reduce", dps_quant, "reduce_launch_count"),
+    ("dps_group_wire_encode", dps_quant, "launch_count"),
+    ("paged_decode_attn", paged_attn, "launch_count"))
+
+
+def analysis_check():
+    """Phase 20: the lint cells of ``ANALYSIS_CELLS`` on the card, every
+    report clean, each kernel of ``ANALYSIS_KERNELS`` launched under the
+    trace and every recorded launch checked; one dry-run cell."""
+    from repro_torch.analysis import lint as lint_mod
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    for _, mod, counter in ANALYSIS_KERNELS:
+        setattr(mod, counter, 0)
+    reports = {}
+    for config, mode, guards in ANALYSIS_CELLS:
+        for r in lint_mod.lint_cell(config, mode, lint_mod.DEFAULT_RANKS,
+                                    DEV, guards=guards):
+            if not r.ok:
+                raise AssertionError(f"analysis: {r.summary()}")
+            reports[r.name + ("+guards" if guards else "")] = {
+                "checked": sorted(r.checked), "fired": list(r.rules_fired())}
+    launched = {name: getattr(mod, counter)
+                for name, mod, counter in ANALYSIS_KERNELS}
+    missing = [k for k, v in launched.items() if v < 1]
+    if missing:
+        raise AssertionError(f"analysis: {missing} not launched under the "
+                             "trace")
+    checked = [n for n in reports if "launches" in n]
+    if len(checked) < len(ANALYSIS_CELLS):
+        raise AssertionError(f"analysis: recorded launches checked in "
+                             f"{checked} only")
+    lint_s = time.perf_counter() - t0
+    cell = dryrun.run_cell("llama3_2_3b", "decode_32k", "single")
+    say("analysis", seconds=time.perf_counter() - t0, lint_seconds=lint_s,
+        launches=launched, reports=reports,
+        dryrun={k: cell[k] for k in ("arch", "shape", "mesh", "state_bytes",
+                                     "batch_bytes", "spec_bytes", "flops",
+                                     "collective_wire_bytes", "seconds")})
 
 
 def main():
@@ -5590,6 +5662,8 @@ def main():
     guards_zero_idle(zero_hist["zero_overlap"], zero_summary["zero_overlap"])
     guards_zero_nan(zero_hist["zero"], overlap=False)
     guards_zero_nan(zero_hist["zero_overlap"], overlap=True)
+    # the verifier on the card, after every counted path above
+    analysis_check()
     # a row measured at the overlap run's bucket shape takes that run's
     # launches; the rows of the same counters at other shapes do not
     at_bucket = {(r["run"], r["counter"]) for r in rows if "run" in r}

@@ -1,7 +1,7 @@
 """Time the port's hand-written kernels of several source trees side by side
 on one card.
 
-    python3 kernel_ab.py [--out FILE] [--only k5,quant,k4] TREE [TREE ...]
+    python3 kernel_ab.py [--out FILE] [--only k5,quant,k4,host] TREE [TREE ...]
 
 Each TREE is a checkout of this repository (a directory that holds
 ``src/repro_torch``), for example the parent commit unpacked with
@@ -33,7 +33,14 @@ built from its own sources into ``build/kernel_ab/<n>``.  A child measures:
   CUDA graph and held bit-equal to the tree's plain version; and, for a tree
   whose K4 has a TMA body (``reduce_plan``), its time launched through the
   library's C entry at the wrapper's setting and at other spans, stage
-  counts and grids.
+  counts and grids;
+* ``host`` (not in the default set): the quantizer's wrapper where a launch
+  is short enough for its host work to show — K1b in block mode on one
+  rank's block of one w_in layer at (1, 4) (3,072 x 2,048 of 8,192
+  columns) with statistics and without, K1b on as many contiguous
+  elements, and K1 on 4,096 — each timed between CUDA events as above and
+  by the host's wall clock a call (the median of 5 loops of 500 calls,
+  synchronized after each loop).
 
 Every time is the median over repeated launches with the 50 MB L2 cache
 overwritten before each, as in ``chip_smoke.py``.
@@ -150,7 +157,45 @@ def _child(tree, only):
         out["quant"] = _quant(dev, dps_quant)
     if "k4" in only:
         out["k4"] = _k4(dev, dps_quant, _build)
+    if "host" in only:
+        out["host"] = _host(dev, dps_quant)
     print("KERNEL_AB " + json.dumps(out), flush=True)
+
+
+def _host(dev, dps_quant):
+    """The quantizer wrapper's short launches: ms between CUDA events and
+    host microseconds a call."""
+    import time
+    gen = torch.Generator(device=dev).manual_seed(0)
+    i32 = lambda v: torch.tensor([v], dtype=torch.int32, device=dev)
+    il, fl = i32(2), i32(14)
+    D, F, m = 3072, 8192, 4
+    blk = torch.randn(D, F // m, generator=gen, device=dev)
+    bits = dps_quant.Philox(5, block=dps_quant.block_geometry(
+        (D, F), (0, F // m), (D, F // m)))
+    flat = blk.reshape(-1)
+    cases = {
+        "k1b_block": lambda: dps_quant.dps_quant(blk, il, fl, bits,
+                                                 backend="kernel"),
+        "k1b_block_ns": lambda: dps_quant.dps_quant(
+            blk, il, fl, bits, compute_stats=False, backend="kernel"),
+        "k1b_contiguous": lambda: dps_quant.dps_quant(
+            flat, il, fl, dps_quant.Philox(5), backend="kernel"),
+        "k1_4096": lambda: dps_quant.dps_quant(flat[:4096], il, fl,
+                                               backend="kernel"),
+    }
+    out = {}
+    for name, fn in cases.items():
+        out[f"{name}_ms"] = time_ms(fn, 50)
+        loops = []
+        for _ in range(5):
+            t = time.perf_counter()
+            for _ in range(500):
+                fn()
+            loops.append((time.perf_counter() - t) / 500 * 1e6)
+            torch.cuda.synchronize()
+        out[f"{name}_host_us"] = statistics.median(loops)
+    return out
 
 
 def _k5(dev, paged_attn, _build):
@@ -314,7 +359,8 @@ def main():
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--out", default=None)
     ap.add_argument("--only", default="k5,quant,k4",
-                    help="the kernels to time, comma-separated")
+                    help="the kernels to time, comma-separated (k5, quant, "
+                         "k4, host)")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.child:

@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core import tagging
 from repro_torch.core.fixed_point import FixedPointFormat, QuantStats
 
 # fp32-mantissa exactness bound for the emulation grid: IL - 1 + FL <= 24.
@@ -493,5 +494,9 @@ class PrecisionPlan:
                         f"{s.stream(n)!r} whose stats have shape "
                         f"{tuple(st.count.shape)}; a routed stream must be "
                         "scalar or match the domain's group count")
+            # the consumption site, for the precision-flow verifier: this
+            # stream is about to drive domain n's controller
+            tagging.tag_tree(st, "stats_sink", domain=n, wire=s.wire,
+                             stream=s.stream(n))
             out[n] = s.make().update(bundle[n], st, aux)
         return DpsBundle(out)

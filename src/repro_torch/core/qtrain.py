@@ -44,6 +44,7 @@ import torch
 
 from repro_torch.core import dps as dps_lib
 from repro_torch.core import fixed_point as fxp
+from repro_torch.core import tagging
 from repro_torch.core import tree as tree_lib
 from repro_torch.core.dps import DpsBundle, DomainSpec, PrecisionPlan
 from repro_torch.core.fixed_point import FixedPointFormat, QuantStats, fold_seed
@@ -718,9 +719,16 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
         raw = [None] * len(leaves)
         extrema = []
 
+        bucket_of = (sink.bucket_of if getattr(sink, "landmarks", False)
+                     else None)
+
         def hook_for(g):
             def hook(leaf):
                 grad, leaf.grad = leaf.grad, None
+                if bucket_of is not None:
+                    tagging.tag(grad, "wire_bucket", stage="grad",
+                                bucket=bucket_of[g], n=len(sink.runs),
+                                leaf=g, rank=rank)
                 if faults is not None:
                     rsl.apply_leaf_faults(faults, grad, step)
                 if want_bad:
@@ -1115,13 +1123,19 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
 
         # -- health guards: fold this step's signals, gate the DPS update --
         if guards_on:
-            # each wire leg feeds its own domain's overflow (a degraded leg,
-            # or ZeRO's fp32 params leg, reads 0)
+            # each wire leg feeds its own domain's overflow; a leg that did
+            # not run on the int8 wire this step (a degraded leg, ZeRO's
+            # fp32 params leg) is left out and reads 0, as its zero stats
+            # would (the verifier's guard landmarks mark int8 legs only)
             if zero_opt and wire_sync:
                 legs = {"wire_grads": g_wire, "wire_params": p_wire}
+                if deg_p or not full_quant:
+                    del legs["wire_params"]
             else:
                 legs = ({"wire_grads": wire_stats} if wire_stats is not None
                         else {})
+            if degraded:
+                legs.pop("wire_grads", None)
             new_guard, _, trip_any = rsl.update_guard(
                 qcfg.guards, plan, state.guard, loss=loss, grads_bad=bad,
                 gnorm=gnorm, wire_ov=rsl.domain_overflow(plan, legs, dev),

@@ -36,6 +36,11 @@ group:
   ``fold_seed(fold_seed(seed, LEG2), g)`` at the element's index in the leaf
   — the same on every rank, and independent of the rank chunks and the
   quantum, so the mean is the same whatever the layout.
+
+The precision-flow verifier's landmarks (:mod:`repro_torch.core.tagging`)
+sit where the reference's do: ``encode_in`` and ``sr_bits`` at every encode,
+``wire_payload`` on every int8 buffer just before its collective,
+``decode_out`` on every decode, ``wire_stats`` on the legs' statistics.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import tagging
 from repro_torch.core import tree as tree_lib
 from repro_torch.core.fixed_point import (FixedPointFormat, QuantStats,
                                           ROUND_NEAREST, ROUND_STOCHASTIC,
@@ -331,6 +337,17 @@ def _aligned_bits(seed: int, layout: GroupLayout, goff, start: int,
 # Encode and decode.
 # ---------------------------------------------------------------------------
 
+def _mark_encode(x, bits, mode: str, domain: Optional[str] = None) -> None:
+    """The landmarks of one encode: its input, and its rounding bits."""
+    if tagging.active() is None:
+        return
+    stochastic = mode == ROUND_STOCHASTIC
+    kw = {} if domain is None else {"domain": domain}
+    tagging.tag(x, "encode_in", stochastic=stochastic, **kw)
+    if stochastic and bits is not None:
+        tagging.tag(bits, "sr_bits", **kw)
+
+
 def _encode_aligned(x_al: torch.Tensor, fmt: FixedPointFormat, tile_group,
                     mask, *, bits=None, mode: str, backend: str, quantum: int,
                     compute_stats: bool = True, out=None):
@@ -338,6 +355,7 @@ def _encode_aligned(x_al: torch.Tensor, fmt: FixedPointFormat, tile_group,
     of K3 (K3b with a :class:`GroupPhilox` source), or its plain version —
     per-tile ``wire_quantize`` and a fold of the tiles into group rows.
     Returns ``(wire int8 [total], [G]-shaped stats | None)``."""
+    _mark_encode(x_al, bits, mode)
     return ops.dps_quantize_wire_grouped(
         x_al, fmt, tile_group, bits=bits, mask=mask,
         stochastic=mode == ROUND_STOCHASTIC, quantum=quantum,
@@ -350,6 +368,7 @@ def _encode_elementwise(x: torch.Tensor, fmt: FixedPointFormat, elem_group,
     layout-agnostic plain path.  Formats are gathered per element, stats
     segment-reduce into ``[G]`` rows; the bytes equal the aligned path's
     given the same bits per element."""
+    _mark_encode(x, bits, mode)
     gid = torch.as_tensor(elem_group, dtype=torch.int64, device=x.device)
     fmt_e = FixedPointFormat(fmt.il[gid], fmt.fl[gid])
     wire, s = wire_quantize(x.reshape(-1), fmt_e, mode=mode,
@@ -399,6 +418,7 @@ def wire_encode(x: torch.Tensor, fmt: FixedPointFormat, *,
         src = None
         if stochastic:
             src = bits.reshape(-1) if bits is not None else Philox(seed)
+        _mark_encode(x, src, mode)
         return ops.dps_quantize_wire(x, fmt, src, compute_stats=compute_stats,
                                      out=out, backend=be)
 
@@ -453,12 +473,14 @@ def wire_decode(wire: torch.Tensor, fmt: FixedPointFormat,
     scalar or ``[G]`` formats (and ``group_sizes`` split) as
     :func:`wire_encode`."""
     if fmt.il.ndim == 0:
-        return (wire.to(torch.float32) * exp2_int(-fmt.fl)).to(dtype)
+        return tagging.tag(
+            (wire.to(torch.float32) * exp2_int(-fmt.fl)).to(dtype),
+            "decode_out")
     sizes = (tuple(group_sizes) if group_sizes is not None
              else _equal_group_sizes(wire.numel(), fmt.il.shape[0]))
     inv = exp2_int(-fmt.fl)[_group_ids(sizes, wire.device)]
-    return (wire.reshape(-1).to(torch.float32) * inv).reshape(
-        wire.shape).to(dtype)
+    return tagging.tag((wire.reshape(-1).to(torch.float32) * inv).reshape(
+        wire.shape).to(dtype), "decode_out")
 
 
 def _wire_reduce(wire: torch.Tensor, fmt: FixedPointFormat, tile_group, *,
@@ -475,7 +497,7 @@ def _decode_aligned(wire_al: torch.Tensor, fmt: FixedPointFormat, tile_group,
     """Aligned ``[total]`` int8 → values, per-tile FL from the table."""
     inv = exp2_int(-fmt.fl)[tile_group.to(torch.int64)]
     dec = wire_al.reshape(-1, quantum).to(torch.float32) * inv[:, None]
-    return dec.reshape(-1).to(dtype)
+    return tagging.tag(dec.reshape(-1).to(dtype), "decode_out")
 
 
 # ---------------------------------------------------------------------------
@@ -540,6 +562,7 @@ def _aligned_rs_snap(fmt: FixedPointFormat, layout: GroupLayout, transport,
     """
     tg_all, goff = _layout_tables(layout, str(fmt.il.device))
     payload, stats = encode_leg1(tg_all, goff)
+    tagging.tag(payload, "wire_payload", leg="dispatch")
     received = transport.all_to_all(payload)
     del payload
     owned = list(transport.ranks)
@@ -584,6 +607,7 @@ def _aligned_allreduce_mean(x_als: Sequence[torch.Tensor],
     wire2, stats, _ = _aligned_rs_snap(fmt, layout, transport, encode_leg1,
                                        k2s, mode=mode, backend=backend,
                                        onchip_prng=onchip_prng)
+    tagging.tag(wire2, "wire_payload", leg="gather")
     full = transport.all_gather(wire2)
     tg_all, _ = _layout_tables(layout, str(fmt.il.device))
     return _decode_aligned(full, fmt, tg_all, layout.quantum), stats
@@ -640,7 +664,8 @@ def dps_allreduce_mean(xs: Sequence[torch.Tensor], formats, transport,
         [layout.align(x.reshape(-1).to(torch.float32)) for x in xs], fmt,
         layout, transport, seed, fold_seed(seed, LEG2), mode=mode, backend=be,
         onchip_prng=onchip_prng)
-    return layout.dealign(mean_al).reshape(x0.shape).to(x0.dtype), stats
+    return (layout.dealign(mean_al).reshape(x0.shape).to(x0.dtype),
+            tagging.tag_tree(stats, "wire_stats", domain=domain))
 
 
 def _zero_chunk(size: int, n: int) -> int:
@@ -731,6 +756,7 @@ def dps_reduce_scatter_mean(xs: Sequence[torch.Tensor], formats, transport,
                                    mode=mode)
         payload[row, :size] = w
         stats.append(s)
+    tagging.tag(payload, "wire_payload", leg="dispatch", domain=domain)
     received = transport.all_to_all(payload)
     del payload
     inv = torch.zeros(n * chunk, dtype=torch.float32, device=dev)
@@ -740,7 +766,7 @@ def dps_reduce_scatter_mean(xs: Sequence[torch.Tensor], formats, transport,
         (received[i].to(torch.float32)
          * inv[j * chunk:(j + 1) * chunk][None, :]).sum(0) / ntensor
         for i, j in enumerate(transport.ranks)])
-    return shards, stats
+    return shards, tagging.tag_tree(stats, "wire_stats", domain=domain)
 
 
 def dps_allgather_params(shards, formats, transport,
@@ -813,10 +839,12 @@ def dps_allgather_params(shards, formats, transport,
                                        bits=bits, mode=mode)
             wire[row] = w
         else:
+            _mark_encode(x, bits, mode, domain)
             _, s = ops.dps_quantize_wire(x.reshape(-1), fmt, bits,
                                          out=wire[row], backend=be)
         stats.append(s)
         del x
+    tagging.tag(wire, "wire_payload", leg="gather", domain=domain)
     full = transport.all_gather(wire)
     del wire
     if out is None:
@@ -830,7 +858,8 @@ def dps_allgather_params(shards, formats, transport,
         else:
             torch.where(keep, full[sl].to(torch.float32) * scale, out[sl],
                         out=out[sl])
-    return out, stats
+    tagging.tag(out, "decode_out", domain=domain)
+    return out, tagging.tag_tree(stats, "wire_stats", domain=domain)
 
 
 class TreeAllReduce:
@@ -894,6 +923,7 @@ class TreeAllReduce:
                 f"table has {fmt.il.shape[0]} rows, the tree {G} leaves")
         self.fmt, self.transport, self.seed, self.mode = (fmt, transport,
                                                           seed, mode)
+        self.domain = domain
         self.onchip_prng, self.group_base = onchip_prng, group_base
         # the tree's structure only: holding its tensors would keep them
         # alive until finish()
@@ -959,8 +989,10 @@ class TreeAllReduce:
                              f"holds {self.sizes[g]}")
         off, size = self.offsets[g], self.sizes[g]
         seed = fold_seed(fold_seed(self.seed, rank), self.group_base + g)
+        bits = self._leaf_bits(seed, g, 0, size)
+        _mark_encode(leaf, bits, self.mode, self.domain)
         _, s = ops.dps_quantize_wire(
-            leaf, self._leaf_fmt(g), self._leaf_bits(seed, g, 0, size),
+            leaf, self._leaf_fmt(g), bits,
             out=self.payload[row, off:off + size].view(leaf.shape),
             backend=self.backend)
         self.leaf_stats[row][g] = s
@@ -985,10 +1017,12 @@ class TreeAllReduce:
             raise RuntimeError("encode every leaf of every rank the "
                                "transport holds first")
         if self.grouped and not self.merge_scalar:
-            return QuantStats(*(torch.stack([getattr(s, f.name)
-                                             for s in per_leaf])
-                                for f in dataclasses.fields(QuantStats)))
-        return merge_stats(*per_leaf)
+            out = QuantStats(*(torch.stack([getattr(s, f.name)
+                                            for s in per_leaf])
+                               for f in dataclasses.fields(QuantStats)))
+        else:
+            out = merge_stats(*per_leaf)
+        return tagging.tag_tree(out, "wire_stats", domain=self.domain)
 
     @property
     def stats(self) -> List[QuantStats]:
@@ -1005,6 +1039,7 @@ class TreeAllReduce:
         payload, self.payload = self.payload, None
         if self.payload_fault is not None:
             self.payload_fault(payload)        # fault injection, in place
+        tagging.tag(payload, "wire_payload", leg="dispatch", domain=self.domain)
         self.received, self._work = self.transport.all_to_all(payload,
                                                               async_op=True)
 
@@ -1069,13 +1104,15 @@ class TreeAllReduce:
         stats = self.stats
         wire2 = self.scatter_snap()
         self.wire2 = None
+        tagging.tag(wire2, "wire_payload", leg="gather", domain=self.domain)
         full = self.transport.all_gather(wire2)
         del wire2
         out = []
         for g, (off, size) in enumerate(zip(self.offsets, self.sizes)):
             inv = exp2_int(-self._leaf_fmt(g).fl)
             dec = full[off:off + size].to(torch.float32).mul_(inv)
-            out.append(dec.view(self.shapes[g]).to(self.dtypes[g]))
+            out.append(tagging.tag(dec.view(self.shapes[g]).to(self.dtypes[g]),
+                                   "decode_out", domain=self.domain))
         if self.skeleton is None:
             return out, stats
         return tree_lib.from_leaves(self.skeleton, out), stats
@@ -1093,12 +1130,13 @@ class TreeAllReduce:
                 a, b = max(off, j * c), min(off + size, (j + 1) * c)
                 if a >= b:
                     continue
+                piece = part[a - j * c:b - j * c]
+                bits = self._leaf_bits(fold_seed(k2s, self.group_base + g), g,
+                                       a - off, b - off)
+                _mark_encode(piece, bits, self.mode, self.domain)
                 ops.dps_quantize_wire(
-                    part[a - j * c:b - j * c], self.fmt,
-                    self._leaf_bits(fold_seed(k2s, self.group_base + g), g,
-                                    a - off, b - off),
-                    compute_stats=False, out=wire2[i, a - j * c:b - j * c],
-                    backend=self.backend)
+                    piece, self.fmt, bits, compute_stats=False,
+                    out=wire2[i, a - j * c:b - j * c], backend=self.backend)
             del part
         return wire2
 

@@ -26,6 +26,12 @@ in the monolithic collective, and K4's sums are exact; so a bucketed or
 sharded result is bit-equal to the monolithic one under both rounding
 modes, whatever order the hooks fire in.  Statistics come back in global
 leaf order.
+
+The verifier's bucket landmarks (``wire_bucket``, :mod:`repro_torch.core.
+tagging`): ``stage="ready"`` on each rank's leaf as it is handed to its
+bucket's encode, ``stage="mean"`` on each bucket's decoded mean (or an
+owner's decoded chunk of it), with ``bucket``, ``n`` (the bucket count),
+``leaf`` and ``rank``; the train step's hooks add ``stage="grad"``.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core import tagging
 from repro_torch.core import tree as tree_lib
 from repro_torch.core.fixed_point import (FixedPointFormat, QuantStats,
                                           ROUND_STOCHASTIC, fold_seed,
@@ -182,6 +189,11 @@ class BucketedWire:
                 onchip_prng=onchip_prng, group_base=lo,
                 layout=None if layouts is None else layouts[b]))
         self.bucket_of = {g: b for b, run in enumerate(self.runs) for g in run}
+        self.domain = domain
+        # the verifier's bucket landmarks mark the overlapped schedule; a
+        # group-aligned layout run after the backward is the monolithic
+        # wire in bucket form, as the reference's step runs it untagged
+        self.landmarks = eager
         self.left = [len(run) * len(self.rows) for run in self.runs]
         self.next = len(self.runs) - 1          # next bucket in ready order
         self.n_leaves = len(leaves)
@@ -194,6 +206,10 @@ class BucketedWire:
         j = g - self.runs[b][0]
         if tw.leaf_stats[tw.rows.index(rank)][j] is not None:
             raise RuntimeError(f"leaf {g} of rank {rank} encoded twice")
+        if self.landmarks:
+            tagging.tag(leaf, "wire_bucket", stage="ready", bucket=b,
+                        n=len(self.runs), leaf=g, rank=rank,
+                        domain=self.domain)
         tw.encode_leaf(rank, j, leaf)
         self.left[b] -= 1
         # issue complete buckets in ready order, so every process issues
@@ -224,10 +240,12 @@ class BucketedWire:
             raise RuntimeError("encode every leaf of every rank the "
                                "transport holds first")
         if self.grouped:
-            return QuantStats(*(torch.stack([getattr(s, f.name)
-                                             for s in per_leaf])
-                                for f in dataclasses.fields(QuantStats)))
-        return merge_stats(*per_leaf)
+            out = QuantStats(*(torch.stack([getattr(s, f.name)
+                                            for s in per_leaf])
+                               for f in dataclasses.fields(QuantStats)))
+        else:
+            out = merge_stats(*per_leaf)
+        return tagging.tag_tree(out, "wire_stats", domain=self.domain)
 
     @property
     def stats(self) -> List[QuantStats]:
@@ -243,7 +261,12 @@ class BucketedWire:
         """Owner row ``i``'s fp32 chunk of every bucket, in flatten order:
         its shard of the mean, one segment per bucket."""
         self.finish_scatter()
-        return [tw.decode_owned(i) for tw in self.buckets]
+        segs = [tw.decode_owned(i) for tw in self.buckets]
+        if self.landmarks:
+            for b, seg in enumerate(segs):
+                tagging.tag(seg, "wire_bucket", stage="mean", bucket=b,
+                            n=len(self.runs), domain=self.domain)
+        return segs
 
     def finish(self):
         """The all-reduce: ``(mean tree, stats per rank held)``."""
@@ -253,6 +276,9 @@ class BucketedWire:
         for b in reversed(range(len(self.buckets))):
             means, _ = self.buckets[b].finish()
             for j, m in enumerate(means):
+                if self.landmarks:
+                    tagging.tag(m, "wire_bucket", stage="mean", bucket=b,
+                                n=len(self.runs), domain=self.domain)
                 out[self.runs[b][0] + j] = m
         return tree_lib.from_leaves(self.skeleton, out), stats
 
@@ -415,6 +441,7 @@ def zero_allgather_params(shards, formats, transport, seed: int, *,
                 "count", "nonzero", "overflow", "abs_err_sum", "rel_err_sum",
                 "abs_sum")), max_abs=st.max_abs.max())
         stats.append(st)
+    tagging.tag(wire, "wire_payload", leg="gather", domain=domain)
     gathered = transport.all_gather(wire).view(part.n_shards, S)
     del wire
     if out is None:
@@ -433,7 +460,7 @@ def zero_allgather_params(shards, formats, transport, seed: int, *,
                 dst.copy_(dec)
             else:
                 torch.where(keep, dec, dst, out=dst)
-    return out, stats
+    return out, tagging.tag_tree(stats, "wire_stats", domain=domain)
 
 
 def _rows(fmt: FixedPointFormat, lo: int, hi: int) -> FixedPointFormat:

@@ -150,12 +150,13 @@ def held_coords(mesh) -> Sequence[Tuple[int, ...]]:
 
 
 def axis_transport(mesh, axis: str):
-    """The transport of one mesh axis: the stacked mesh's own, or a
+    """The transport of one mesh axis: the mesh's own (a stacked mesh's,
+    or the one-rank view of ``repro_torch.launch.dryrun``), or a
     :class:`~repro_torch.dist.transport.ProcessGroupTransport` over the
     ``DeviceMesh``'s process group of that axis."""
-    if _is_device_mesh(mesh):
-        return ProcessGroupTransport(mesh.get_group(axis))
-    return mesh.transport(axis)
+    if hasattr(mesh, "transport"):
+        return mesh.transport(axis)
+    return ProcessGroupTransport(mesh.get_group(axis))
 
 
 def mesh_mean(mesh, rows: torch.Tensor) -> torch.Tensor:

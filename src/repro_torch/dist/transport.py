@@ -56,6 +56,11 @@ same bits (bf16 blocks add in bf16).  On any other backend (NCCL) the
 reduce-scatter and the sums are the library's ``reduce_scatter_tensor``
 and ``all_reduce``, which hold no ``n``-fold buffer and sum in their own
 order.
+
+With a :class:`~repro_torch.analysis.trace.Trace` open, every collective
+(backward ones included) is one node of it, with its payload's dtype and one
+rank's bytes; the ops a stacked axis runs to emulate the move are not
+recorded.
 """
 
 from __future__ import annotations
@@ -65,7 +70,23 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.core import tagging
+
 _SHARED = [False]
+
+
+def _rec(op: str, xs, fn, scale: int = 1, rows: int = 1):
+    """``fn()`` recorded as one collective ``op`` over ``xs`` (a tensor, or
+    a list whose None entries are skipped): one rank's payload is ``scale``
+    times the bytes of the first tensor over ``rows`` (a stacked payload's
+    ranks)."""
+    if tagging.active() is None:
+        return fn()
+    xs = [xs] if isinstance(xs, torch.Tensor) else [t for t in xs
+                                                    if t is not None]
+    x = xs[0]
+    return tagging.collective(op, xs, fn, dtype=x.dtype,
+                              nbytes=scale * x.numel() // rows * x.element_size())
 
 
 @contextlib.contextmanager
@@ -99,7 +120,8 @@ class _AllToAll(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _AllToAll.apply(g.contiguous(), ctx.group), None
+        return _rec("all-to-all", [g], lambda: _AllToAll.apply(
+            g.contiguous(), ctx.group)), None
 
 
 class _GatherRows(torch.autograd.Function):
@@ -119,7 +141,8 @@ class _GatherRows(torch.autograd.Function):
     def backward(ctx, g):
         import torch.distributed as dist
         g = g.contiguous().clone()
-        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        _rec("all-reduce", [g], lambda: dist.all_reduce(
+            g, op=dist.ReduceOp.SUM, group=ctx.group))
         return g[ctx.rank], None, None, None
 
 
@@ -147,11 +170,10 @@ class _StackedGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *gs):
-        tot = _ordered_sum(gs)
-        if tot is None:
+        if all(g is None for g in gs):
             return (None,) * (ctx.n + 1)
-        return (None,) + tuple(p.contiguous() for p in tot.chunk(ctx.n,
-                                                                 ctx.dim))
+        return (None,) + _rec("reduce-scatter", gs, lambda: tuple(
+            p.contiguous() for p in _ordered_sum(gs).chunk(ctx.n, ctx.dim)))
 
 
 class _StackedReduceScatter(torch.autograd.Function):
@@ -164,9 +186,11 @@ class _StackedReduceScatter(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *gs):
         like = next(g for g in gs if g is not None)
-        full = torch.cat([torch.zeros_like(like) if g is None else g
-                          for g in gs], ctx.dim)
-        return (None,) + _shared(full, ctx.n)
+
+        def gather():
+            return _shared(torch.cat([torch.zeros_like(like) if g is None
+                                      else g for g in gs], ctx.dim), ctx.n)
+        return (None,) + _rec("all-gather", gs, gather, scale=ctx.n)
 
 
 class _StackedPsum(torch.autograd.Function):
@@ -179,9 +203,10 @@ class _StackedPsum(torch.autograd.Function):
     def backward(ctx, *gs):
         if ctx.identity:
             return (None,) + gs
-        tot = _ordered_sum(gs)
-        return (None,) + (_shared(tot, ctx.n) if tot is not None
-                          else (None,) * ctx.n)
+        if all(g is None for g in gs):
+            return (None,) * (ctx.n + 1)
+        return (None,) + _rec("all-reduce", gs,
+                              lambda: _shared(_ordered_sum(gs), ctx.n))
 
 
 class _StackedCopy(torch.autograd.Function):
@@ -192,9 +217,10 @@ class _StackedCopy(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *gs):
-        tot = _ordered_sum(gs)
-        return (_shared(tot, ctx.n) if tot is not None
-                else (None,) * ctx.n)
+        if all(g is None for g in gs):
+            return (None,) * ctx.n
+        return _rec("all-reduce", gs,
+                    lambda: _shared(_ordered_sum(gs), ctx.n))
 
 
 def _check_group(xs, n):
@@ -227,13 +253,15 @@ class StackedTransport:
         returns ``(view, None)``, nothing to wait on."""
         rows, total = payload.shape
         chunk = total // self.n
-        out = payload.view(rows, self.n, chunk).transpose(0, 1)
+        out = _rec("all-to-all", payload, lambda: payload.view(
+            rows, self.n, chunk).transpose(0, 1), rows=rows)
         return (out, None) if async_op else out
 
     def all_gather(self, parts: torch.Tensor) -> torch.Tensor:
         """Tiled all-gather of the owners' chunks ``[n, chunk]`` →
         ``[n·chunk]``, the same buffer."""
-        return parts.reshape(-1)
+        return _rec("all-gather", parts, lambda: parts.reshape(-1),
+                    scale=self.n, rows=parts.shape[0])
 
     def all_to_all_tiled(self, x: torch.Tensor, split_axis: int,
                          concat_axis: int) -> torch.Tensor:
@@ -243,15 +271,18 @@ class StackedTransport:
         (the axes of a rank's block).  A permute of the stack."""
         n = self.n
         a, c = split_axis + 1, concat_axis + 1
-        y = x.unflatten(a, (n, x.shape[a] // n)).movedim(a, 0)  # [dst, src, ...]
-        return y.movedim(1, c).flatten(c, c + 1)
+
+        def permute():
+            y = x.unflatten(a, (n, x.shape[a] // n)).movedim(a, 0)
+            return y.movedim(1, c).flatten(c, c + 1)    # y: [dst, src, ...]
+        return _rec("all-to-all", x, permute, rows=x.shape[0])
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
         """Sum over the axis of ``t`` ``[n, ...]`` (one row per rank)."""
-        return t.sum(0)
+        return _rec("all-reduce", t, lambda: t.sum(0), rows=t.shape[0])
 
     def pmax(self, t: torch.Tensor) -> torch.Tensor:
-        return t.amax(0)
+        return _rec("all-reduce", t, lambda: t.amax(0), rows=t.shape[0])
 
     # -- the placed step's collectives: one group's blocks, as a list --
 
@@ -261,22 +292,26 @@ class StackedTransport:
         each rank its chunk."""
         _check_group(xs, self.n)
         if _share():
-            return [torch.cat(xs, dim)] * self.n
-        return list(_StackedGather.apply(dim, *xs))
+            return _rec("all-gather", xs,
+                        lambda: [torch.cat(xs, dim)] * self.n, scale=self.n)
+        return list(_rec("all-gather", xs,
+                         lambda: _StackedGather.apply(dim, *xs), scale=self.n))
 
     def reduce_scatter_blocks(self, xs, dim: int):
         """The rank-order sum of ``xs``, rank ``r`` its chunk ``r`` along
         ``dim``; backward: every rank the gradients gathered along ``dim``."""
         _check_group(xs, self.n)
-        return list(_StackedReduceScatter.apply(dim, *xs))
+        return list(_rec("reduce-scatter", xs,
+                         lambda: _StackedReduceScatter.apply(dim, *xs)))
 
     def psum_blocks(self, xs, grad: str = "psum"):
         """The rank-order sum of ``xs`` on every rank; backward the sum
         (``"psum"``) or each rank's own gradient (``"identity"``)."""
         _check_group(xs, self.n)
         if _share():
-            return [_ordered_sum(xs)] * self.n
-        return list(_StackedPsum.apply(grad == "identity", *xs))
+            return _rec("all-reduce", xs, lambda: [_ordered_sum(xs)] * self.n)
+        return list(_rec("all-reduce", xs, lambda: _StackedPsum.apply(
+            grad == "identity", *xs)))
 
     def copy_blocks(self, xs):
         """Identity forward; backward the rank-order sum of the ranks'
@@ -288,7 +323,8 @@ class StackedTransport:
         """The elementwise max of ``xs`` on every rank, outside autograd."""
         _check_group(xs, self.n)
         with torch.no_grad():
-            return [self.pmax(torch.stack([x.detach() for x in xs]))] * self.n
+            return _rec("all-reduce", xs, lambda: [torch.stack(
+                [x.detach() for x in xs]).amax(0)] * self.n)
 
 
 def _pg_stack(t: torch.Tensor, group, n: int) -> torch.Tensor:
@@ -333,23 +369,26 @@ class _PGGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group, rank, n):
         ctx.dim, ctx.group, ctx.rank, ctx.n = dim, group, rank, n
-        return torch.cat(_pg_stack(x, group, n).unbind(0), dim)
+        return _rec("all-gather", [x], lambda: torch.cat(
+            _pg_stack(x, group, n).unbind(0), dim), scale=n)
 
     @staticmethod
     def backward(ctx, g):
-        return (_pg_reduce_scatter(g, ctx.dim, ctx.group, ctx.rank, ctx.n),
-                None, None, None, None)
+        return (_rec("reduce-scatter", [g], lambda: _pg_reduce_scatter(
+            g, ctx.dim, ctx.group, ctx.rank, ctx.n)), None, None, None, None)
 
 
 class _PGReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group, rank, n):
         ctx.dim, ctx.group, ctx.n = dim, group, n
-        return _pg_reduce_scatter(x, dim, group, rank, n)
+        return _rec("reduce-scatter", [x], lambda: _pg_reduce_scatter(
+            x, dim, group, rank, n))
 
     @staticmethod
     def backward(ctx, g):
-        return (torch.cat(_pg_stack(g, ctx.group, ctx.n).unbind(0), ctx.dim),
+        return (_rec("all-gather", [g], lambda: torch.cat(
+            _pg_stack(g, ctx.group, ctx.n).unbind(0), ctx.dim), scale=ctx.n),
                 None, None, None, None)
 
 
@@ -357,13 +396,14 @@ class _PGPsum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, identity, group, n):
         ctx.identity, ctx.group, ctx.n = identity, group, n
-        return _pg_sum(x, group, n)
+        return _rec("all-reduce", [x], lambda: _pg_sum(x, group, n))
 
     @staticmethod
     def backward(ctx, g):
         if ctx.identity:
             return g, None, None, None
-        return _pg_sum(g, ctx.group, ctx.n), None, None, None
+        return (_rec("all-reduce", [g], lambda: _pg_sum(g, ctx.group, ctx.n)),
+                None, None, None)
 
 
 class _PGCopy(torch.autograd.Function):
@@ -374,7 +414,8 @@ class _PGCopy(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _pg_sum(g, ctx.group, ctx.n), None, None
+        return (_rec("all-reduce", [g], lambda: _pg_sum(g, ctx.group, ctx.n)),
+                None, None)
 
 
 class ProcessGroupTransport:
@@ -406,9 +447,10 @@ class ProcessGroupTransport:
         ``out``."""
         chunk = payload.shape[1] // self.n
         out = torch.empty_like(payload[0])
-        work = self._dist.all_to_all_single(out, payload[0].contiguous(),
-                                            group=self.group,
-                                            async_op=async_op)
+        work = _rec("all-to-all", payload,
+                    lambda: self._dist.all_to_all_single(
+                        out, payload[0].contiguous(), group=self.group,
+                        async_op=async_op))
         out = out.view(1, self.n, chunk)
         return (out, work) if async_op else out
 
@@ -419,30 +461,35 @@ class ProcessGroupTransport:
         rank's block cut ``n`` ways along ``split_axis``."""
         n, a = self.n, split_axis
         send = x[0].unflatten(a, (n, x.shape[a + 1] // n)).movedim(a, 0)
-        recv = _AllToAll.apply(send, self.group)                 # [src, ...]
+        recv = _rec("all-to-all", [send],                        # [src, ...]
+                    lambda: _AllToAll.apply(send, self.group))
         return recv.movedim(0, concat_axis).flatten(
             concat_axis, concat_axis + 1)[None]
 
     def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's ``t`` as ``[n, ...]``, in rank order."""
-        return _GatherRows.apply(t, self.group, self.rank, self.n)
+        return _rec("all-gather", [t], lambda: _GatherRows.apply(
+            t, self.group, self.rank, self.n), scale=self.n)
 
     def all_gather(self, parts: torch.Tensor) -> torch.Tensor:
         """This owner's chunk ``[1, chunk]`` → every owner's ``[n·chunk]``."""
         out = torch.empty(self.n * parts.shape[1], dtype=parts.dtype,
                           device=parts.device)
-        self._dist.all_gather_into_tensor(out, parts[0].contiguous(),
-                                          group=self.group)
+        _rec("all-gather", parts, lambda: self._dist.
+             all_gather_into_tensor(out, parts[0].contiguous(),
+                                    group=self.group), scale=self.n)
         return out
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
         s = t.sum(0).contiguous()
-        self._dist.all_reduce(s, op=self._dist.ReduceOp.SUM, group=self.group)
+        _rec("all-reduce", [s], lambda: self._dist.all_reduce(
+            s, op=self._dist.ReduceOp.SUM, group=self.group))
         return s
 
     def pmax(self, t: torch.Tensor) -> torch.Tensor:
         s = t.amax(0).contiguous()
-        self._dist.all_reduce(s, op=self._dist.ReduceOp.MAX, group=self.group)
+        _rec("all-reduce", [s], lambda: self._dist.all_reduce(
+            s, op=self._dist.ReduceOp.MAX, group=self.group))
         return s
 
     # -- the placed step's collectives (see StackedTransport's); ``xs`` is

@@ -7,11 +7,16 @@ link.  PyTorch's headers are not involved, so the build takes seconds.  It
 lands in ``build/`` at the repository root (or ``$REPRO_TORCH_BUILD_DIR``),
 under a name keyed by the sources' content, so an edited source never meets a
 stale library.
+
+:data:`KERNEL_SIGNATURES` is the library's C interface, the one table of it:
+:func:`load` binds each entry's ``argtypes`` from it, and
+``repro_torch.analysis.kernel_checks`` holds every recorded call to it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -23,6 +28,52 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelSignature:
+    """One kernel entry of the library: its C parameters in order, their
+    ``ctypes`` kinds (``p`` pointer, ``i`` int, ``l`` long long, ``u``
+    unsigned long long, ``f`` float; :data:`CTYPES`), and whether the
+    kernel reads a ``[G, 2]`` format table through a tile -> group map.
+    Every entry returns a CUDA error code (int)."""
+
+    args: tuple
+    kinds: str
+    grouped: bool
+
+    def __post_init__(self):
+        if len(self.args) != len(self.kinds):
+            raise ValueError(f"{len(self.args)} parameters, "
+                             f"{len(self.kinds)} kinds")
+
+
+CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
+          "u": ctypes.c_ulonglong, "f": ctypes.c_float}
+
+KERNEL_SIGNATURES = {
+    "dps_quantize": KernelSignature(
+        ("x", "x_is_bf16", "n", "il", "fl", "bits", "src", "seed",
+         "ctr_base", "q", "wire", "partials", "stats", "nblocks", "vec",
+         "stream"), "pilpppiuupippiip", grouped=False),
+    "dps_quantize_block": KernelSignature(
+        ("x", "x_is_bf16", "n", "il", "fl", "seed", "n1", "n2", "s0", "s1",
+         "base", "q", "wire", "partials", "stats", "nblocks", "vec",
+         "stream"), "pilppulllllpippiip", grouped=False),
+    "dps_group_wire_encode": KernelSignature(
+        ("x", "x_is_bf16", "fmt_tab", "tile_group", "bits", "mask", "src",
+         "seed", "goff", "start", "group_base", "wire", "partials", "stats",
+         "tiles", "quantum", "groups", "vec", "stream"),
+        "pippppiupllppplliip", grouped=True),
+    "dps_wire_reduce": KernelSignature(
+        ("wire", "row_stride", "n_ranks", "chunk", "fmt_tab", "tile_group",
+         "quantum", "out", "nblocks", "body", "span", "stages", "stream"),
+        "plilpplpiiiip", grouped=True),
+    "paged_decode_attn": KernelSignature(
+        ("q", "k_pages", "v_pages", "pool_is_int8", "fmt", "ptab", "lens",
+         "out", "ws", "B", "H", "KV", "Dh", "ps", "P", "split_pages",
+         "scale", "stream"), "pppipppppiiiiiiifp", grouped=True),
+}
 
 _lib = None
 build_seconds = 0.0     # wall time of the last real build in this process
@@ -104,36 +155,19 @@ def build(verbose: bool = False) -> Path:
 
 
 def load(verbose: bool = False) -> ctypes.CDLL:
-    """The loaded library (built on first call), argument types set."""
+    """The loaded library (built on first call), argument types set from
+    :data:`KERNEL_SIGNATURES`."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build(verbose)))
-        vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                             ctypes.c_float)
-        lib.dps_group_wire_encode.restype = i32
-        u64 = ctypes.c_ulonglong
-        lib.dps_group_wire_encode.argtypes = [
-            vp, i32, vp, vp, vp, vp, i32, u64, vp, i64, i64, vp, vp, vp, i64,
-            i64, i32, i32, vp]
-        lib.dps_quantize.restype = i32
-        lib.dps_quantize.argtypes = [
-            vp, i32, i64, vp, vp, vp, i32, u64, u64, vp, i32, vp, vp, i32,
-            i32, vp]
-        lib.dps_quantize_block.restype = i32
-        lib.dps_quantize_block.argtypes = [
-            vp, i32, i64, vp, vp, u64, i64, i64, i64, i64, i64, vp, i32, vp,
-            vp, i32, i32, vp]
-        lib.dps_quant_groups_per_thread.restype = i32
-        lib.dps_quant_groups_per_thread.argtypes = [i32]
-        lib.dps_wire_reduce.restype = i32
-        lib.dps_wire_reduce.argtypes = [
-            vp, i64, i32, i64, vp, vp, i64, vp, i32, i32, i32, i32, vp]
-        lib.paged_decode_attn.restype = i32
-        lib.paged_decode_attn.argtypes = [
-            vp, vp, vp, i32, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
-            i32, f32, vp]
+        for name, sig in KERNEL_SIGNATURES.items():
+            entry = getattr(lib, name)
+            entry.restype = ctypes.c_int
+            entry.argtypes = [CTYPES[k] for k in sig.kinds]
+        lib.dps_quant_groups_per_thread.restype = ctypes.c_int
+        lib.dps_quant_groups_per_thread.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
-        lib.cuda_error_string.argtypes = [i32]
+        lib.cuda_error_string.argtypes = [ctypes.c_int]
         _lib = lib
     return _lib
 

@@ -35,16 +35,21 @@ in ``csrc/dps_quant.cu``:
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain version
 (``*_plain``) for CPU tensors, and never the one in place of the other.  Each
-kernel has its own launch counter.
+kernel has its own launch counter.  While a
+:class:`~repro_torch.analysis.trace.Trace` is open, each launch is also one
+node of it, with its operands, results and geometry
+(:class:`KernelCallGeometry`, built by the same builders that
+:mod:`repro_torch.analysis.kernel_checks` holds a config's layouts to).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
+from repro_torch.core import tagging
 from repro_torch.core.fixed_point import (ROUND_NEAREST, ROUND_STOCHASTIC,
                                           FixedPointFormat, exp2_int,
                                           fold_seed, quantize, wire_quantize)
@@ -80,6 +85,115 @@ RED_STAGE_BYTES = 16 << 10
 RED_STAGES = 4
 RED_BLOCKS = 2 * 132
 RED_MAX_SMEM = 232448
+# threads of K4's TMA block: eight consumer warps and one producer warp
+RED_THREADS = 288
+
+# The grouped kernels' quantum must be a multiple of this many elements: K3
+# and K4 move 16 int8 (one 16-byte vector) at a time, and K4's bulk copies
+# take 16-byte multiples (repro_torch.dist.collectives.WIRE_CHUNK_ALIGN).
+MIN_GROUP_QUANTUM = 16
+
+# The grouped kernels' format table and tile -> group map are meant to stay
+# tiny: a [G, 2] int32 table with thousands of rows signals a mis-built
+# layout (the reference's budget; rule KG-SMEM-TABLE).
+SMEM_TABLE_BUDGET_BYTES = 64 * 1024
+
+
+# ---------------------------------------------------------------------------
+# Launch geometry — what a wrapper launches, from Python ints alone, by the
+# same plans (``quant_blocks``, ``reduce_plan``) the wrapper launches by.
+# While a trace is open each wrapper records its launch's geometry from
+# these builders beside the values it passed (whose grid argument
+# ``repro_torch.analysis.kernel_checks`` holds to the geometry's grid);
+# the checks hold the same builders' geometry for a config's layouts
+# (anywhere, no card needed).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelCallGeometry:
+    """One launch, described statically (or as a trace recorded it).
+
+    ``kernel``: the library entry (a ``_build.KERNEL_SIGNATURES`` key);
+    ``grid`` and ``threads``: blocks and threads a block; ``table_rows``: G
+    of the ``[G, 2]`` format table; ``tile_group_len``: entries of the tile
+    -> group map (the page table of K5); ``tiles``: quanta the launch
+    covers; ``smem_bytes``: the dynamic shared memory a block asks for;
+    ``args``: the values the call passed to the entry (a recorded launch
+    only)."""
+
+    kernel: str
+    grid: Tuple[int, ...]
+    threads: int
+    out_dtype: str
+    table_rows: Optional[int] = None
+    tile_group_len: Optional[int] = None
+    tiles: Optional[int] = None
+    quantum: Optional[int] = None
+    smem_bytes: int = 0
+    args: Optional[tuple] = None
+
+    @property
+    def table_bytes(self) -> int:
+        """int32 bytes of the format table and the tile -> group map."""
+        return 4 * (2 * (self.table_rows or 0) + (self.tile_group_len or 0))
+
+    @classmethod
+    def from_launch(cls, node) -> "KernelCallGeometry":
+        """The geometry a trace's launch node recorded."""
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(kernel=node.name, **{k: v for k, v in node.meta.items()
+                                        if k in fields})
+
+
+def quantize_call_geometry(size: int, *, wire: bool = False,
+                           dtype: str = "float32", groups: int = 1,
+                           block: bool = False) -> KernelCallGeometry:
+    """Geometry of a :func:`dps_quant` / :func:`dps_quant_wire` launch on a
+    ``size``-element tensor of ``dtype`` (K1/K2; K1b/K2b launch the same
+    grid; ``block``: K1b's block-mode entry), a thread taking ``groups``
+    groups of four elements (the library's
+    ``dps_quant_groups_per_thread``)."""
+    return KernelCallGeometry(
+        kernel="dps_quantize_block" if block else "dps_quantize",
+        grid=(quant_blocks(size, groups),), threads=Q_THREADS,
+        out_dtype="int8" if wire else dtype)
+
+
+def group_wire_call_geometry(total: int, n_groups: int, quantum: int,
+                             tile_group_len: Optional[int] = None
+                             ) -> KernelCallGeometry:
+    """Geometry of a :func:`dps_quant_group_wire` launch (K3/K3b) on a
+    group-aligned ``total``-element buffer under a ``[G, 2]`` table and a
+    tile map of ``tile_group_len`` entries (by default one a tile)."""
+    tiles = total // quantum
+    return KernelCallGeometry(
+        kernel="dps_group_wire_encode", grid=(tiles,), threads=Q_THREADS,
+        out_dtype="int8", table_rows=n_groups,
+        tile_group_len=tiles if tile_group_len is None else tile_group_len,
+        tiles=tiles, quantum=quantum)
+
+
+def wire_reduce_call_geometry(n_ranks: int, chunk: int, n_groups: int,
+                              quantum: Optional[int],
+                              plan: Optional["ReducePlan"] = None
+                              ) -> KernelCallGeometry:
+    """Geometry of a :func:`dps_wire_reduce` launch (K4) on an ``[n_ranks,
+    chunk]`` payload under ``plan`` (by default :func:`reduce_plan`'s for
+    rows ``n_ranks · chunk`` apart — a stacked all-to-all's received view —
+    on 16-byte aligned buffers).  ``quantum=None``: a global format (a
+    one-row table, no tile map; the wrapper's quantum is then the
+    chunk)."""
+    if plan is None:
+        plan = reduce_plan(n_ranks, chunk, quantum or chunk,
+                           n_ranks * chunk, True)
+    tiles = -(-chunk // quantum) if quantum else None
+    return KernelCallGeometry(
+        kernel="dps_wire_reduce", grid=(plan.blocks,),
+        threads=RED_THREADS if plan.body == "tma" else Q_THREADS,
+        out_dtype="float32", table_rows=n_groups, tile_group_len=tiles,
+        tiles=tiles, quantum=quantum,
+        smem_bytes=plan.stages * (n_ranks * plan.span + 20))
 
 
 # ---------------------------------------------------------------------------
@@ -103,6 +217,7 @@ def _mulhilo(a: int, b: torch.Tensor):
     return ah * bh + (mid >> 16), (a * b) & _LO32
 
 
+@tagging.prng_source
 def philox4x32_10(ctr: torch.Tensor, key) -> torch.Tensor:
     """Philox4x32-10 of the counters ``ctr`` (``[N, 4]`` int64 holding
     uint32 words, low word first) under the key ``(k0, k1)``: ``[N, 4]``
@@ -186,6 +301,7 @@ def block_geometry(shape, origin, block) -> BlockGeometry:
                          base=o0 * g1 * g2 + o1 * g2 + o2)
 
 
+@tagging.prng_source
 def philox_bits(seed: int, n: int, device=None, chunk: int = 1 << 22,
                 offset: int = 0, block: Optional[BlockGeometry] = None
                 ) -> torch.Tensor:
@@ -277,6 +393,7 @@ class GroupPhilox:
             raise TypeError("goff must be int64 [G]")
 
 
+@tagging.prng_source
 def group_philox_bits(src: GroupPhilox, tile_group: torch.Tensor,
                       quantum: int) -> torch.Tensor:
     """The words K3b draws for a buffer of ``len(tile_group)`` tiles, in
@@ -380,8 +497,8 @@ def _dps_quant_cuda(x, il, fl, bits, philox, compute_stats, out, wire):
     lib = _build.load()
     q = torch.empty(x.shape, dtype=out_dtype, device=x.device) \
         if out is None else out
-    nblocks = quant_blocks(
-        n, lib.dps_quant_groups_per_thread(int(compute_stats)))
+    groups = lib.dps_quant_groups_per_thread(int(compute_stats))
+    nblocks = quant_blocks(n, groups)
     partials = stats = None
     if compute_stats:
         partials = torch.empty(nblocks * Q_PART, dtype=torch.float64,
@@ -398,25 +515,32 @@ def _dps_quant_cuda(x, il, fl, bits, philox, compute_stats, out, wire):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if geo is not None:
-            code = lib.dps_quantize_block(
-                x.data_ptr(), int(x.dtype == torch.bfloat16), n, il.data_ptr(),
-                fl.data_ptr(), philox.seed, geo.n1, geo.n2, geo.s0, geo.s1,
-                geo.base, q.data_ptr(), int(wire),
-                partials.data_ptr() if compute_stats else None,
-                stats.data_ptr() if compute_stats else None, nblocks,
-                int(vec), stream)
-            _build.check(lib, code, "dps_quantize_block")
+            entry = "dps_quantize_block"
+            args = (x.data_ptr(), int(x.dtype == torch.bfloat16), n,
+                    il.data_ptr(), fl.data_ptr(), philox.seed, geo.n1, geo.n2,
+                    geo.s0, geo.s1, geo.base, q.data_ptr(), int(wire),
+                    partials.data_ptr() if compute_stats else None,
+                    stats.data_ptr() if compute_stats else None, nblocks,
+                    int(vec), stream)
+            code = lib.dps_quantize_block(*args)
+            _build.check(lib, code, entry)
             quantize_block_launch_count += not wire
         else:
-            code = lib.dps_quantize(
-                x.data_ptr(), int(x.dtype == torch.bfloat16), n, il.data_ptr(),
-                fl.data_ptr(), bits.data_ptr() if bits is not None else None,
-                src, philox.seed if philox else 0,
-                philox.offset if philox else 0, q.data_ptr(), int(wire),
-                partials.data_ptr() if compute_stats else None,
-                stats.data_ptr() if compute_stats else None, nblocks,
-                int(vec), stream)
-            _build.check(lib, code, "dps_quantize")
+            entry = "dps_quantize"
+            args = (x.data_ptr(), int(x.dtype == torch.bfloat16), n,
+                    il.data_ptr(), fl.data_ptr(),
+                    bits.data_ptr() if bits is not None else None, src,
+                    philox.seed if philox else 0,
+                    philox.offset if philox else 0, q.data_ptr(), int(wire),
+                    partials.data_ptr() if compute_stats else None,
+                    stats.data_ptr() if compute_stats else None, nblocks,
+                    int(vec), stream)
+            code = lib.dps_quantize(*args)
+            _build.check(lib, code, entry)
+    tagging.launch(lambda: quantize_call_geometry(
+        n, wire=wire, dtype=str(x.dtype)[6:], groups=groups,
+        block=geo is not None), (x, il, fl, bits), (q, stats), args=args,
+        philox=src == 2)
     if wire and src == 2:
         wire_prng_launch_count += 1
     elif wire:
@@ -594,19 +718,23 @@ def _dps_quant_group_wire_cuda(x, fmt_tab, tile_group, bits, mask, *,
     # to later work on the same stream, so the kernel's buffers outlive it
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.dps_group_wire_encode(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), fmt_tab.data_ptr(),
-            tile_group.data_ptr(),
-            operand.data_ptr() if operand is not None else None,
-            mask.data_ptr() if mask is not None else None, src,
-            philox.seed if philox else 0,
-            philox.goff.data_ptr() if philox else None,
-            philox.start if philox else 0,
-            philox.group_base if philox else 0, wire.data_ptr(),
-            partials.data_ptr() if emit_stats else None,
-            stats.data_ptr() if emit_stats else None,
-            tiles, quantum, groups, int(vec), stream)
+        args = (x.data_ptr(), int(x.dtype == torch.bfloat16),
+                fmt_tab.data_ptr(), tile_group.data_ptr(),
+                operand.data_ptr() if operand is not None else None,
+                mask.data_ptr() if mask is not None else None, src,
+                philox.seed if philox else 0,
+                philox.goff.data_ptr() if philox else None,
+                philox.start if philox else 0,
+                philox.group_base if philox else 0, wire.data_ptr(),
+                partials.data_ptr() if emit_stats else None,
+                stats.data_ptr() if emit_stats else None,
+                tiles, quantum, groups, int(vec), stream)
+        code = lib.dps_group_wire_encode(*args)
     _build.check(lib, code, "dps_group_wire_encode")
+    tagging.launch(lambda: group_wire_call_geometry(
+        x.numel(), groups, quantum, tile_group.numel()),
+        (x, fmt_tab, tile_group, operand, mask), (wire, stats), args=args,
+        philox=src == 2)
     if philox:
         group_prng_launch_count += 1
     else:
@@ -755,14 +883,19 @@ def _dps_wire_reduce_cuda(wire, fmt_tab, tile_group, quantum):
     stride = wire.stride(0) if n > 1 else chunk
     plan = reduce_plan(n, chunk, quantum, stride,
                        wire.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+
     with torch.cuda.device(wire.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.dps_wire_reduce(
-            wire.data_ptr(), stride, n, chunk, fmt_tab.data_ptr(),
-            tile_group.data_ptr() if tile_group is not None else None,
-            quantum, out.data_ptr(), plan.blocks, int(plan.body == "tma"),
-            plan.span, plan.stages, stream)
+        args = (wire.data_ptr(), stride, n, chunk, fmt_tab.data_ptr(),
+                tile_group.data_ptr() if tile_group is not None else None,
+                quantum, out.data_ptr(), plan.blocks, int(plan.body == "tma"),
+                plan.span, plan.stages, stream)
+        code = lib.dps_wire_reduce(*args)
     _build.check(lib, code, "dps_wire_reduce")
+    grouped = tile_group is not None       # else one format, no tile map
+    tagging.launch(lambda: wire_reduce_call_geometry(
+        n, chunk, fmt_tab.shape[0], quantum if grouped else None, plan),
+        (wire, fmt_tab, tile_group), (out,), args=args)
     reduce_launch_count += 1
     if plan.body == "tma":
         reduce_tma_launch_count += 1

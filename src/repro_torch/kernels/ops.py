@@ -5,17 +5,21 @@
 from __future__ import annotations
 
 import math
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
+from repro_torch.core import tagging
 from repro_torch.core.fixed_point import (ROUND_NEAREST, ROUND_STOCHASTIC,
                                           FixedPointFormat)
 from repro_torch.kernels import ref as ref_lib
 from repro_torch.kernels import dps_quant as dq
-from repro_torch.kernels.dps_quant import (GroupPhilox, Philox, dps_quant,
-                                           dps_quant_group_wire,
-                                           dps_quant_wire)
+from repro_torch.kernels.dps_quant import (  # noqa: F401 (re-exported)
+    GroupPhilox, KernelCallGeometry, Philox, dps_quant, dps_quant_group_wire,
+    dps_quant_wire, group_wire_call_geometry, quantize_call_geometry,
+    wire_reduce_call_geometry)
+from repro_torch.kernels.paged_attn import (  # noqa: F401 (re-exported)
+    paged_attn_call_geometry)
 
 
 def event_bits(x: torch.Tensor, mode: str, seed: int, onchip_prng: bool):
@@ -56,6 +60,7 @@ def block_event_bits(shape, origin, block, mode: str, seed: int,
                  ].reshape(-1)
 
 
+@tagging.prng_source
 def operand_bits(seed: int, n: int, device) -> torch.Tensor:
     """``n`` words of 32 random bits (int32) drawn by ``torch.randint`` from
     a generator seeded with ``seed`` on ``device``: the bits operand of K1,
@@ -179,3 +184,25 @@ def dps_wire_reduce(wire: torch.Tensor, fmt: FixedPointFormat,
         tile_group = tile_group.to(torch.int32)
     return dq.dps_wire_reduce(wire, format_table(fmt), tile_group,
                               quantum=quantum, backend=backend)
+
+
+# ---------------------------------------------------------------------------
+# Launch geometry: each wrapper's builder (dps_quant, paged_attn), and the
+# launches of one bucket of the overlapped wire.
+# ---------------------------------------------------------------------------
+
+
+def bucketed_wire_call_geometries(bucket_leaf_sizes, n_ranks: int,
+                                  quantum: int
+                                  ) -> Tuple[KernelCallGeometry, ...]:
+    """The K3 and K4 launches of ONE bucket of the overlapped wire
+    (``repro_torch.dist.overlap``): the grouped encode over the bucket's
+    group-aligned buffer and the decode-reduce of its ``(n_ranks, chunk)``
+    payload (G = the bucket's leaf count)."""
+    sizes = tuple(int(s) for s in bucket_leaf_sizes)
+    padded = sum(-(-s // quantum) * quantum for s in sizes)
+    chunk = (quantum * -(-padded // (n_ranks * quantum)) if padded
+             else quantum)
+    total = chunk * n_ranks
+    return (group_wire_call_geometry(total, len(sizes), quantum),
+            wire_reduce_call_geometry(n_ranks, chunk, len(sizes), quantum))

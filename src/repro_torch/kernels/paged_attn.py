@@ -27,8 +27,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import tagging
 from repro_torch.core.fixed_point import exp2_int
 from repro_torch.kernels import _build
+from repro_torch.kernels.dps_quant import KernelCallGeometry
 
 # finite, so masked-row softmax math stays NaN-free (exp(NEG_INF - m)
 # underflows to exactly 0.0)
@@ -37,6 +39,9 @@ NEG_INF = -1e30
 # calls of the CUDA kernel by the wrapper (a call is two launches: split
 # and merge)
 launch_count = 0
+
+# threads of a split block (csrc/paged_attn.cu)
+ATT_THREADS = 128
 
 # Tokens a split covers (rounded down to whole pages, at least one page).
 # Chosen on an H100 80GB HBM3 at 700 W by kernel_ab.py, K5's median time
@@ -94,6 +99,27 @@ def split_plan(P: int, ps: int, B: int, KV: int, G: int, Dh: int,
     sp = max(1, min(split_tokens, fit) // ps)
     s_max = -(-P // sp)
     return sp, s_max, (B, KV, s_max, G * (Dh + 2))
+
+
+def paged_attn_call_geometry(batch_slots: int, pages_per_seq: int,
+                             n_pages: int, page_size: int, kv_heads: int,
+                             head_dim: int, n_heads: int, esize: int = 1,
+                             plan=None) -> KernelCallGeometry:
+    """Geometry of a paged decode attention launch (K5) over a
+    ``(batch_slots, pages_per_seq)`` page table into a pool of ``n_pages``
+    pages of ``esize``-byte elements: one split block a (row, KV head,
+    split) under ``plan`` (by default :func:`split_plan`'s), the
+    ``(n_pages, 2)`` FL table, the page table as the tile map, one page a
+    quantum."""
+    if plan is None:
+        plan = split_plan(pages_per_seq, page_size, batch_slots, kv_heads,
+                          n_heads // kv_heads, head_dim, esize)
+    return KernelCallGeometry(
+        kernel="paged_decode_attn", grid=(batch_slots, kv_heads, plan[1]),
+        threads=ATT_THREADS, out_dtype="float32", table_rows=n_pages,
+        tile_group_len=batch_slots * pages_per_seq,
+        tiles=batch_slots * pages_per_seq,
+        quantum=page_size * kv_heads * head_dim)
 
 
 def paged_decode_attn_plain(q: torch.Tensor, k_pages: torch.Tensor,
@@ -200,8 +226,8 @@ def _paged_decode_attn_cuda(q, k_pages, v_pages, fmt, ptab, lens, *, scale):
         if t.data_ptr() % a:
             raise ValueError(f"{name} must be {a}-byte aligned")
     lib = _build.load()
-    sp, _, ws_shape = split_plan(P, ps, B, KV, H // KV, Dh,
-                                 k_pages.element_size())
+    plan = split_plan(P, ps, B, KV, H // KV, Dh, k_pages.element_size())
+    sp, _, ws_shape = plan
     out = torch.empty_like(q)
     ws = torch.empty(ws_shape, dtype=torch.float32, device=q.device)
     # the launches are asynchronous; PyTorch's allocator hands freed memory
@@ -209,12 +235,15 @@ def _paged_decode_attn_cuda(q, k_pages, v_pages, fmt, ptab, lens, *, scale):
     # them
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.paged_decode_attn(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            int(k_pages.dtype == torch.int8), fmt.data_ptr(), ptab.data_ptr(),
-            lens.data_ptr(), out.data_ptr(), ws.data_ptr(), B, H, KV, Dh, ps,
-            P, sp, float(scale), stream)
+        args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                int(k_pages.dtype == torch.int8), fmt.data_ptr(),
+                ptab.data_ptr(), lens.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                B, H, KV, Dh, ps, P, sp, float(scale), stream)
+        code = lib.paged_decode_attn(*args)
     _build.check(lib, code, "paged_decode_attn")
+    tagging.launch(lambda: paged_attn_call_geometry(
+        B, P, fmt.shape[0], ps, KV, Dh, H, plan=plan),
+        (q, k_pages, v_pages, fmt, ptab, lens), (out,), args=args)
     launch_count += 1
     return out
 

@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import fixed_point as fxp
+from repro_torch.core import tagging
 from repro_torch.dist import sharding
 from repro_torch.dist.sharding import (Placed, is_placed, logical_constraint,
                                        model_axis_size, relayout)
@@ -463,13 +464,17 @@ def _paged_decode(cache, q, k, v, cache_pos, ptab, backend, scale):
         fmt = fxp.FixedPointFormat(rows[:, 0], rows[:, 1])
         new, _ = fxp.wire_quantize(new, fmt, mode=fxp.ROUND_NEAREST,
                                    compute_stats=False)
-    new = new.reshape(2, B, KV, Dh)
+    bits = 8 if int8 else 0
+    new = tagging.tag(new.reshape(2, B, KV, Dh), "kv_page", domain="kv_cache",
+                      stage="write", bits=bits)
     # inactive rows all land on the trash page: which one wins there is
     # unspecified and never read
     k_pg[phys, off] = new[0].to(k_pg.dtype)
     v_pg[phys, off] = new[1].to(v_pg.dtype)
 
     flt = torch.stack([k_fmt[:, 1], v_fmt[:, 1]], dim=1).contiguous()  # FLs
+    tagging.tag(k_pg, "kv_page", domain="kv_cache", stage="read", bits=bits)
+    tagging.tag(v_pg, "kv_page", domain="kv_cache", stage="read", bits=bits)
     out = paged_attn.paged_decode_attn(
         q[:, 0].to(torch.float32).contiguous(), k_pg, v_pg, flt, ptab,
         (cache_pos + 1).to(torch.int32), scale=scale, backend=backend)

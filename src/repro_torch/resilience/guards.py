@@ -49,6 +49,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.core import dps as dps_lib
+from repro_torch.core import tagging
 from repro_torch.core import tree as tree_lib
 from repro_torch.core.dps import DpsBundle
 from repro_torch.core.fixed_point import QuantStats
@@ -150,8 +151,12 @@ def _collapse_stats(ws: QuantStats) -> torch.Tensor:
 
 def domain_overflow(plan, wire_legs: dict, device=None) -> torch.Tensor:
     """f32[D] instantaneous overflow rates, one per wire domain; a domain
-    whose leg is absent (or ran the fp32 fallback, zero stats) reads 0."""
-    rates = [_collapse_stats(wire_legs[n]) if n in wire_legs
+    whose leg is absent (or ran the fp32 fallback, zero stats) reads 0.  An
+    engaged leg's rate is tagged ``guard_sink`` for the precision-flow
+    verifier (PF-GUARD-TAINT: it must descend from wire-leg statistics); an
+    absent leg's plain zero is not."""
+    rates = [tagging.tag(_collapse_stats(wire_legs[n]), "guard_sink",
+                         domain=n) if n in wire_legs
              else torch.zeros((), dtype=torch.float32, device=device)
              for n in wire_domains(plan)]
     return (torch.stack(rates) if rates

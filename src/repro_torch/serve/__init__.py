@@ -11,13 +11,13 @@ from repro_torch.serve.cache import (DEFAULT_IL_INIT, KV_DOMAIN, PagedKV,
                                      fmt_tables, init_pool, kv_plan,
                                      write_prompt_pages)
 from repro_torch.serve.engine import (Engine, EngineConfig, ServeReport,
-                                      supports_paging)
+                                      analysis_decode, supports_paging)
 from repro_torch.serve.page_table import PageAllocator, PagedLayout, page_rows
 from repro_torch.serve.scheduler import Request, Scheduler, synthetic_trace
 
 __all__ = [
     "DEFAULT_IL_INIT", "KV_DOMAIN", "PagedKV", "fmt_tables", "init_pool",
     "kv_plan", "write_prompt_pages", "Engine", "EngineConfig",
-    "ServeReport", "supports_paging", "PageAllocator", "PagedLayout",
+    "ServeReport", "analysis_decode", "supports_paging", "PageAllocator", "PagedLayout",
     "page_rows", "Request", "Scheduler", "synthetic_trace",
 ]

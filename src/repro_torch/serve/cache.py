@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import fixed_point as fxp
+from repro_torch.core import tagging
 from repro_torch.core.dps import DomainSpec, PrecisionPlan, wire_hyper
 from repro_torch.core.fixed_point import FixedPointFormat, QuantStats
 from repro_torch.kernels import ops
@@ -192,7 +193,8 @@ def write_prompt_pages(cfg: ModelConfig, layout: PagedLayout, plan,
     mg = mg[None, None].expand(2, L, Pp, E).reshape(2 * L * Pp, E)
 
     if bits is None:
-        w = xg.reshape(2, L, Pp, ps, KV, Dh)
+        w = tagging.tag(xg.reshape(2, L, Pp, ps, KV, Dh), "kv_page",
+                        domain=KV_DOMAIN, stage="write", bits=0)
         pools.k_pages[:, phys] = w[0].to(pools.k_pages.dtype)
         pools.v_pages[:, phys] = w[1].to(pools.v_pages.dtype)
         return pools, state
@@ -211,6 +213,8 @@ def write_prompt_pages(cfg: ModelConfig, layout: PagedLayout, plan,
         overflow=z, abs_err_sum=z, rel_err_sum=z,
         abs_sum=zeros().index_add_(0, rows, st.abs_sum),
         max_abs=zeros().scatter_reduce_(0, rows, st.max_abs, "amax"))
+    tagging.tag_tree(stream, "stats_sink", domain=KV_DOMAIN, wire=True,
+                     stream=KV_DOMAIN)
 
     ctrl = plan.spec(KV_DOMAIN).make()
     placed = ctrl.update(ctrl.init((G_tot,), dev), stream)
@@ -221,7 +225,11 @@ def write_prompt_pages(cfg: ModelConfig, layout: PagedLayout, plan,
     state = _select(written, placed, state)
 
     fmt = FixedPointFormat(state.il[rows], state.fl[rows])
-    wire = encode_pages(xg, fmt, mg, backend=encode_backend, quantum=E)
+    tagging.tag(xg, "encode_in", domain=KV_DOMAIN)
+    wire = tagging.tag(encode_pages(xg, fmt, mg, backend=encode_backend,
+                                    quantum=E),
+                       "kv_page", domain=KV_DOMAIN, stage="write",
+                       bits=WIRE_BITS)
     w = wire.reshape(2, L, Pp, ps, KV, Dh)
     pools.k_pages[:, phys] = w[0]
     pools.v_pages[:, phys] = w[1]

@@ -322,3 +322,44 @@ class Engine:
                            pools, state,
                            torch.from_numpy(ptab.copy()).to(dev),
                            torch.from_numpy(pos.copy()).to(dev))
+
+
+def analysis_decode(cfg: ModelConfig, ecfg: EngineConfig, device="cuda",
+                    seed: int = 0):
+    """``(fn, args)`` for the verifier: ``fn(*args)`` is one batched paged
+    decode step over every row of ``ecfg.layout``.
+
+    Counterpart of the reference's ``analysis_decode``, which returns the
+    un-jitted decode step and shape-only arguments for its tracer.  An eager
+    step has nothing to trace without running, so this builds the engine at
+    ``cfg``'s size with weights drawn from ``seed`` on ``device`` and admits
+    one request a row (prompts of ``max_prompt`` tokens drawn from ``seed``):
+    prefill, page statistics, the ``kv_cache`` controller's placement and the
+    page encode (K3 on the card) run inside this call, so a trace opened
+    around it records the admission's half of the page contract as well.
+    """
+    from repro_torch.models.common import init_params
+    dev = resolve_device(device)
+    lay = ecfg.layout
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(registry(cfg.family).model_defs(cfg), dev, gen)
+    eng = Engine(cfg, params, ecfg, device=dev)
+    pools = kvc.init_pool(eng.cfg, lay, eng.bits, dev)
+    state = (eng.plan.init(dev)[kvc.KV_DOMAIN] if eng.bits == 8 else None)
+    B = lay.batch_slots
+    ptab = np.full((B, lay.max_pages_per_seq), lay.trash_page, np.int32)
+    pos = np.zeros(B, np.int32)
+    last = np.zeros(B, np.int32)
+    slots: List[Optional[dict]] = [None] * B
+    alloc = PageAllocator(lay.n_pages)
+    rng = np.random.default_rng(seed)
+    plen, max_new = lay.max_prompt, 2
+    for b in range(B):
+        req = Request(rid=b, prompt=rng.integers(
+            1, cfg.vocab, plen).astype(np.int32), max_new=max_new)
+        pages = alloc.alloc(lay.pages_needed(plen, max_new))
+        pools, state = eng._admit(b, req, pages, pools, state, ptab, pos,
+                                  last, slots, {b: []}, [], Counter())
+    args = (torch.from_numpy(last[:, None].copy()).to(dev), pools, state,
+            torch.from_numpy(ptab).to(dev), torch.from_numpy(pos).to(dev))
+    return eng.decode, args

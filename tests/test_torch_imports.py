@@ -46,7 +46,12 @@ def test_every_module_imports_without_a_gpu_and_pulls_in_no_jax():
     names = [m.name for m in pkgutil.walk_packages([PKG], "repro_torch.")]
     assert {"repro_torch.kernels.paged_attn", "repro_torch.models.ssm",
             "repro_torch.models.mamba", "repro_torch.models.hybrid",
-            "repro_torch.models.encdec"} <= set(names)
+            "repro_torch.models.encdec", "repro_torch.core.tagging",
+            "repro_torch.analysis.report", "repro_torch.analysis.trace",
+            "repro_torch.analysis.flow", "repro_torch.analysis.trace_audit",
+            "repro_torch.analysis.kernel_checks",
+            "repro_torch.analysis.lint", "repro_torch.launch.trace_stats",
+            "repro_torch.launch.dryrun"} <= set(names)
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
             "    importlib.import_module(n)\n"

@@ -4,8 +4,9 @@ The reference never runs inside the pytest worker.  :func:`run_reference`
 starts ONE child process per call (the port's test modules call it once, from
 a module-scoped fixture), hands it an ``.npz`` of inputs and a list of jobs,
 and reads back an ``.npz`` of outputs.  The child is this same file run as a
-script: it sets ``jax.core.Primitive = jax.extend.core.Primitive`` (the
-installed JAX no longer has the former, which ``repro.core.tagging`` uses),
+script: it sets ``jax.core.{Primitive, Jaxpr, ClosedJaxpr, Literal, Var}``
+to their ``jax.extend.core`` namesakes (the installed JAX no longer has the
+former, which ``repro.core.tagging`` and ``repro.analysis.flow`` use),
 then imports ``repro.*`` and runs the jobs below — Pallas kernels in
 interpret mode or through ``repro.kernels.ref``, as the JAX package's own
 tests run them on the CPU.
@@ -36,7 +37,8 @@ STAT_NAMES = ("count", "nonzero", "overflow", "abs_err_sum", "rel_err_sum",
 # parent side
 # ---------------------------------------------------------------------------
 
-def run_reference(jobs, arrays=None, timeout=900, host_devices=None):
+def run_reference(jobs, arrays=None, timeout=900, host_devices=None,
+                  fast_codegen=False):
     """Run ``jobs`` in one child process against the JAX package.
 
     ``jobs``: list of ``{"job": <name of a job_* function below>, "tag":
@@ -45,7 +47,10 @@ def run_reference(jobs, arrays=None, timeout=900, host_devices=None):
     with the prefix stripped.  Returns the outputs keyed the same way.
     ``host_devices``: the child forces that many CPU devices
     (``--xla_force_host_platform_device_count``), for jobs that run the
-    reference's collectives under ``shard_map``.
+    reference's collectives under ``shard_map``.  ``fast_codegen``: XLA's
+    CPU code generation at its lowest optimization level, for jobs that
+    read compiled HLO rather than run it at speed (the HLO passes are
+    unchanged).
     """
     arrays = dict(arrays or {})
     with tempfile.TemporaryDirectory() as tmp:
@@ -54,9 +59,15 @@ def run_reference(jobs, arrays=None, timeout=900, host_devices=None):
         env = dict(os.environ, JAX_PLATFORMS="cpu",
                    PYTHONPATH=os.path.join(REPO, "src"))
         env.pop("XLA_FLAGS", None)
+        flags = []
         if host_devices:
-            env["XLA_FLAGS"] = ("--xla_force_host_platform_device_count="
-                                f"{int(host_devices)}")
+            flags.append("--xla_force_host_platform_device_count="
+                         f"{int(host_devices)}")
+        if fast_codegen:
+            flags += ["--xla_backend_optimization_level=0",
+                      "--xla_llvm_disable_expensive_passes=true"]
+        if flags:
+            env["XLA_FLAGS"] = " ".join(flags)
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
                               fin, fout], capture_output=True, text=True,
                              env=env, cwd=REPO, timeout=timeout)
@@ -1814,10 +1825,312 @@ def job_elastic_restore(a, root, step, meshes, arch="llama3_2_3b"):
     return out
 
 
+def _report_json(r):
+    return {"checked": sorted(r.checked), "fired": list(r.rules_fired())}
+
+
+def job_lint(a, cells, seq=16):
+    """``repro.analysis.lint.lint_cell`` on each cell ``[config, mode,
+    wire_overlap, guards]`` over every forced host device: per cell, each
+    report's name, sorted ``checked`` and ``rules_fired()`` (JSON), and the
+    ring-model ``collective_wire_bytes`` of each HLO it audited."""
+    import json as _json
+    from repro.analysis import hlo_audit, lint
+    from repro.launch.hlo_stats import collective_wire_bytes
+    seen = {}
+    audit = hlo_audit.audit_hlo
+
+    def spy(hlo_text, claims, name="hlo"):
+        seen[name] = collective_wire_bytes(hlo_text)["by_op_dtype"]
+        return audit(hlo_text, claims, name=name)
+
+    hlo_audit.audit_hlo = spy
+    out = {}
+    try:
+        for config, mode, overlap, guards in cells:
+            seen.clear()
+            reps = lint.lint_cell(config, mode, seq=seq,
+                                  wire_overlap=overlap, guards=guards)
+            key = f"{config}/{mode}/{int(overlap)}{int(guards)}"
+            out[key + "/reports"] = np.array(_json.dumps(
+                {r.name: _report_json(r) for r in reps}))
+            out[key + "/bytes"] = np.array(_json.dumps(seen))
+            if mode.startswith("zero"):
+                out[key + "/padded"] = np.asarray(
+                    _zero_padded(config, mode, overlap), np.int64)
+    finally:
+        hlo_audit.audit_hlo = audit
+    return out
+
+
+def _zero_padded(config, mode, overlap, n=8):
+    """The element count of the flat ZeRO layout the lint cell's step
+    shards (its partitioner's ``padded_size``)."""
+    import jax
+    from repro.analysis import lint
+    from repro.core import qtrain
+    qcfg = lint._mode_qcfg(mode, n, "flexpoint", overlap)
+    if config == "lenet":
+        from repro.models import lenet
+        params = lenet.init(jax.random.key(0))
+        if "per-layer" in mode:
+            qcfg = qcfg.with_per_layer_wire(params)
+    else:
+        from repro.launch import specs as specs_lib
+        from repro.optim import SGDConfig, make_optimizer
+        cfg = _smoke_cfg(config)
+        if "per-layer" in mode:
+            qcfg = specs_lib.per_layer_wire_qcfg(cfg, qcfg)
+        params = specs_lib.abstract_train_state(
+            cfg, make_optimizer(SGDConfig()), qcfg).params
+    return qtrain.zero_partitioner(qcfg, params, n).padded_size
+
+
+def _hlo(*body):
+    return "ENTRY main {\n" + "\n".join(f"  {b}" for b in body) + "\n}\n"
+
+
+def job_analysis_cases(a):
+    """Every rule's broken input and its closest correct one, as the
+    reference's oracle suite (``tests/test_analysis.py``) builds them, and
+    the same for the rules that suite leaves out (the bucket, guard and KV
+    rules): per case, the report's ``rules_fired()`` and ``checked``."""
+    import dataclasses
+    import json as _json
+    import jax
+    import jax.numpy as jnp
+    from repro.analysis import flow, hlo_audit, kernel_checks
+    from repro.core import tagging
+    from repro.dist import collectives
+    from repro.kernels import ops
+    axis = [("data", 8)]
+    a2a = lambda v: jax.lax.all_to_all(v, "data", split_axis=0,
+                                       concat_axis=0, tiled=True)
+    cases = {}
+
+    def fn_case(name, fn, *args, axis_env=None):
+        cases[name] = flow.analyze_fn(fn, *args, axis_env=axis_env)
+
+    z = jnp.zeros
+    fn_case("PF-WIRE-F32/bad", lambda x: a2a(tagging.tag(
+        x, "wire_payload", leg="dispatch")), z((8, 32)), axis_env=axis)
+    fn_case("PF-WIRE-F32/bad-untagged", lambda x, y: (a2a(tagging.tag(
+        x.astype(jnp.int8), "wire_payload", leg="dispatch")), a2a(y)),
+        z((8, 32)), z((8, 32)), axis_env=axis)
+    fn_case("PF-WIRE-F32/good", lambda x, s: (a2a(tagging.tag(
+        x.astype(jnp.int8), "wire_payload", leg="dispatch")),
+        jax.lax.psum(s, "data")), z((8, 32)), z(()), axis_env=axis)
+    fn_case("PF-REQUANT/bad", lambda x: tagging.tag(
+        tagging.tag(x, "decode_out").reshape(-1)[:16], "encode_in",
+        domain="wire_grads"), z((4, 8)))
+    fn_case("PF-REQUANT/good", lambda x: tagging.tag(
+        tagging.tag(x, "decode_out") * 0.5, "encode_in",
+        domain="wire_grads"), z((4, 8)))
+    fn_case("PF-STATS-ROUTE/bad", lambda x: tagging.tag(
+        tagging.tag(x, "wire_stats") + 1.0, "stats_sink", domain="grads",
+        wire=False, stream="E"), z(()))
+    fn_case("PF-STATS-ROUTE/good", lambda x: tagging.tag(
+        tagging.tag(x, "wire_stats") + 1.0, "stats_sink",
+        domain="wire_grads", wire=True, stream="E"), z(()))
+    fn_case("PF-SR-SEED/bad", lambda x: x + tagging.tag(
+        jnp.zeros(x.shape, jnp.uint32), "sr_bits",
+        domain="wire_grads").astype(jnp.float32), z((16,)))
+    fn_case("PF-SR-SEED/good", lambda x, k: x + tagging.tag(
+        jax.random.bits(k, (16,), jnp.uint32), "sr_bits",
+        domain="wire_grads").astype(jnp.float32), z((16,)),
+        jax.random.key(0))
+
+    def bucket(encodes, after_decode):
+        def f(g):
+            r = tagging.tag(g, "wire_bucket", stage="ready", bucket=0,
+                            leaf=0, n=1)
+            for _ in range(encodes):
+                tagging.tag(r.reshape(-1), "encode_in")
+            dec = after_decode(tagging.tag(g * 0.5, "decode_out"))
+            return tagging.tag(dec, "wire_bucket", stage="mean", bucket=0,
+                               n=1)
+        return f
+    same = lambda d: d
+    fn_case("PF-BUCKET-ENCODE/bad", bucket(2, same), z((16,)))
+    fn_case("PF-BUCKET-ENCODE/bad-dropped", bucket(0, same), z((16,)))
+    fn_case("PF-BUCKET-ENCODE/good", bucket(1, same), z((16,)))
+    cases["PF-BUCKET-DECODE/good"] = cases["PF-BUCKET-ENCODE/good"]
+    fn_case("PF-BUCKET-DECODE/bad", bucket(1, lambda d: d + 1.0), z((16,)))
+
+    def guard(from_stats):
+        def f(x, s):
+            w = a2a(tagging.tag(x.astype(jnp.int8), "wire_payload",
+                                leg="dispatch"))
+            st = tagging.tag(s, "wire_stats") if from_stats else z(())
+            return w, tagging.tag(st * 2.0, "guard_sink",
+                                  domain="wire_grads")
+        return f
+    fn_case("PF-GUARD-TAINT/bad", guard(False), z((8, 32)), z(()),
+            axis_env=axis)
+    fn_case("PF-GUARD-TAINT/good", guard(True), z((8, 32)), z(()),
+            axis_env=axis)
+    fn_case("PF-KV-WIRE/bad", lambda x: tagging.tag(
+        x, "kv_page", domain="kv_cache", stage="write", bits=8),
+        z((4, 16)))
+    fn_case("PF-KV-WIRE/good", lambda x: tagging.tag(
+        x.astype(jnp.int8), "kv_page", domain="kv_cache", stage="write",
+        bits=8), z((4, 16)))
+
+    c2 = hlo_audit.AuditClaims(engaged=("wire_grads",), two_leg=True,
+                               n_wire_elems=4096)
+    a8 = "%a = s8[4096]{0} all-to-all(s8[4096]{0} %p)"
+    g8 = "%g = s8[4096]{0} all-gather(s8[512]{0} %q)"
+    audit = hlo_audit.audit_hlo
+    cases["HA-PAYLOAD-DTYPE/bad"] = audit(_hlo(
+        "%a = f32[4096]{0} all-to-all(f32[4096]{0} %p)", g8), c2)
+    cases["HA-PAYLOAD-DTYPE/bad-gather"] = audit(_hlo(a8), c2)
+    cases["HA-PAYLOAD-DTYPE/good"] = audit(_hlo(a8, g8), c2)
+    both = dataclasses.replace(c2, engaged=("wire_grads", "wire_params"))
+    cases["HA-DOMAIN-COVERAGE/bad"] = audit(
+        _hlo(a8), dataclasses.replace(both, two_leg=False))
+    cases["HA-DOMAIN-COVERAGE/good"] = audit(_hlo(a8, g8), both)
+    cases["HA-WIRE-RATIO/bad"] = audit(_hlo(
+        "%a = s8[65536]{0} all-to-all(s8[65536]{0} %p)",
+        "%g = s8[65536]{0} all-gather(s8[8192]{0} %q)"), c2)
+    cases["HA-WIRE-RATIO/bad-thin"] = audit(_hlo(
+        "%a = s8[512]{0} all-to-all(s8[512]{0} %p)",
+        "%g = s8[512]{0} all-gather(s8[64]{0} %q)"), c2)
+    cases["HA-WIRE-RATIO/good"] = cases["HA-PAYLOAD-DTYPE/good"]
+    cases["HA-F32-RESIDUAL/bad"] = audit(_hlo(
+        a8, g8, "%r = f32[4096]{0} all-reduce(f32[4096]{0} %x)"), c2)
+    cases["HA-F32-RESIDUAL/good"] = audit(_hlo(
+        a8, g8, "%r = f32[8]{0} all-reduce(f32[8]{0} %x)"), c2)
+    cg = dataclasses.replace(c2, grouped=True)
+    cases["HA-F32-CONCAT/bad"] = audit(_hlo(
+        "%c = f32[4096]{0} concatenate(f32[2048]{0} %a, f32[2048]{0} %b)",
+        a8, g8), cg)
+    cases["HA-F32-CONCAT/good"] = audit(_hlo(a8, g8), cg)
+    pool = 4 * 64 * 16
+    dec = hlo_audit.audit_decode_hlo
+    cases["HA-KV-DTYPE/bad"] = dec(_hlo(
+        "%k = s8[4,64]{1,0} parameter(0)"), pool_elems=pool, bits=8)
+    cases["HA-KV-DTYPE/good"] = dec(_hlo(
+        "%k = s8[4,64,16]{2,1,0} parameter(0)"), pool_elems=pool, bits=8)
+    cases["HA-KV-F32-CACHE/bad"] = dec(_hlo(
+        "%k = s8[4,64,16]{2,1,0} parameter(0)",
+        "%d = f32[4,64,16]{2,1,0} convert(s8[4,64,16]{2,1,0} %k)"),
+        pool_elems=pool, bits=8)
+    cases["HA-KV-F32-CACHE/good"] = cases["HA-KV-DTYPE/good"]
+
+    geom = ops.group_wire_call_geometry(8 * 4096, 4, 4096)
+    check = kernel_checks.check_call
+    cases["KG-SMEM-TABLE/bad"] = check(
+        dataclasses.replace(geom, table_rows=5), expected_groups=4)
+    cases["KG-SMEM-TABLE/bad-budget"] = check(dataclasses.replace(
+        geom, table_rows=20000,
+        scalar_shapes=((20000, 2),) + geom.scalar_shapes[1:]),
+        expected_groups=20000)
+    cases["KG-SMEM-TABLE/good"] = check(geom, expected_groups=4)
+    cases["KG-PREFETCH-ARITY/bad"] = check(
+        dataclasses.replace(geom, num_scalar_prefetch=1), expected_groups=4)
+    cases["KG-PREFETCH-ARITY/good"] = cases["KG-SMEM-TABLE/good"]
+    cases["KG-TILE-MIN/bad"] = check(
+        dataclasses.replace(geom, block=(8, 128)), expected_groups=4)
+    cases["KG-TILE-MIN/bad-quantum"] = check(
+        dataclasses.replace(geom, quantum=4096 + 128), expected_groups=4)
+    cases["KG-TILE-MIN/good"] = cases["KG-SMEM-TABLE/good"]
+    lay = collectives.group_layout((5000, 3000), n_chunks=8, quantum=4096)
+    lcheck = kernel_checks.check_layout
+    cases["KG-TILE-STRADDLE/good"] = lcheck(lay)
+    cases["KG-TILE-STRADDLE/bad"] = lcheck(
+        dataclasses.replace(lay, offsets=(0, 5000)))
+    cases["KG-TILE-STRADDLE/bad-padded"] = lcheck(
+        dataclasses.replace(lay, padded=(4096, 4096)))
+    cases["KG-TILE-STRADDLE/bad-chunk"] = lcheck(
+        dataclasses.replace(lay, chunk=lay.chunk + 1))
+    return {"cases": np.array(_json.dumps(
+        {k: _report_json(r) for k, r in cases.items()}))}
+
+
+def _dot_flops(hlo_text):
+    """FLOPs of the ``dot(`` instructions of an HLO module: ``2 ×`` the
+    result's elements ``×`` the lhs operand's contracted extent (operand
+    shapes are looked up by name: the module prints them only where they
+    are defined)."""
+    import math
+    import re
+    define = re.compile(r"^\s*(?:ROOT\s+)?%?([\w.\-]+)\s*=\s*\w+\[([\d,]*)\]")
+    dot = re.compile(r"=\s*\w+\[([\d,]*)\]\S*\s+dot\(%?([\w.\-]+)"
+                     r".*?lhs_contracting_dims=\{([\d,]*)\}")
+    dims = lambda t: [int(d) for d in t.split(",") if d]
+    shapes = {}
+    for line in hlo_text.splitlines():
+        m = define.match(line)
+        if m:
+            shapes[m.group(1)] = dims(m.group(2))
+    total = 0
+    for line in hlo_text.splitlines():
+        m = dot.search(line)
+        if m:
+            lhs = shapes[m.group(2)]
+            total += 2 * math.prod(dims(m.group(1))) * math.prod(
+                lhs[i] for i in dims(m.group(3)))
+    return float(total)
+
+
+def _entry_params(hlo_text):
+    """``[(op_name, bytes)]`` of the ENTRY computation's parameters."""
+    import math
+    import re
+    entry = hlo_text[hlo_text.index("ENTRY"):]
+    entry = entry[:entry.index("\n}")]
+    width = {"f32": 4, "s32": 4, "u32": 4, "bf16": 2, "s8": 1, "u8": 1,
+             "f64": 8, "s64": 8, "pred": 1}
+    pat = re.compile(r"=\s*(\w+)\[([\d,]*)\].*parameter\(\d+\).*"
+                     r'op_name="([^"]*)"')
+    out = []
+    for line in entry.splitlines():
+        m = pat.search(line)
+        if m:
+            n = math.prod(int(d) for d in m.group(2).split(",") if d)
+            out.append((m.group(3), n * width[m.group(1)]))
+    return out
+
+
+def job_dryrun_cell(a, arch, kinds, seq, batch, mesh):
+    """The reference dry run's compile functions (``_compile_train``,
+    ``_compile_prefill``, ``_compile_decode``) at ``arch``'s smoke size
+    with ``probe_unroll=True`` on a (data, model) ``mesh`` of forced host
+    devices: per kind, ``memory_analysis().argument_size_in_bytes``, the
+    ring-model ``collective_wire_bytes`` and the FLOPs of the compiled
+    HLO's ``dot(`` instructions (one device's)."""
+    import dataclasses
+    import json as _json
+    import jax
+    jax.devices()       # the backend keeps its device count from here on
+    from repro.configs.base import ShapeConfig
+    from repro.dist.sharding import LogicalRules
+    from repro.launch import dryrun
+    from repro.launch.hlo_stats import collective_wire_bytes
+    cfg = dataclasses.replace(_smoke_cfg(arch), probe_unroll=True)
+    m = _ep_mesh(mesh)
+    out = {}
+    for kind in kinds:
+        shape = ShapeConfig(f"smoke_{kind}", kind, seq, batch)
+        _, compiled = dryrun.KIND_COMPILERS[kind](cfg, shape, m,
+                                                  LogicalRules())
+        hlo = compiled.as_text()
+        out[f"{kind}/argument_bytes"] = np.asarray(
+            compiled.memory_analysis().argument_size_in_bytes, np.int64)
+        out[f"{kind}/dot_flops"] = np.asarray(_dot_flops(hlo), np.float64)
+        out[f"{kind}/params"] = np.array(_json.dumps(_entry_params(hlo)))
+        out[f"{kind}/wire"] = np.array(_json.dumps(
+            collective_wire_bytes(hlo)["by_op_dtype"]))
+    return out
+
+
 def _child_main(fin, fout):
     import jax
     import jax.extend.core
-    jax.core.Primitive = jax.extend.core.Primitive   # the one-line shim
+    # the shim: the installed JAX keeps these names under jax.extend.core
+    # only, and repro.core.tagging / repro.analysis.flow use them
+    for name in ("Primitive", "Jaxpr", "ClosedJaxpr", "Literal", "Var"):
+        setattr(jax.core, name, getattr(jax.extend.core, name))
     with np.load(fin) as z:
         arrays = {k: z[k] for k in z.files}
     jobs = json.loads(str(arrays.pop("__jobs__")))
