@@ -71,6 +71,10 @@ class QuantConfig:
     hyper_acts: dps_lib.DPSHyper = dps_lib.DPSHyper()
     hyper_grads: dps_lib.DPSHyper = dps_lib.DPSHyper(il_init=8, fl_init=16)
     stat_scope: str = "global"          # "global" | "last_layer"
+    # keep the parameters as they are after the update, off the weight
+    # grid (beyond the paper): every step body skips the re-snap of
+    # Alg. 1 line 19, and ZeRO-1's parameter all-gather stays fp32
+    master_weights: bool = False
     # Stochastic-rounding bits: drawn inside the quantizer kernel (K1b, the
     # reference's use_onchip_prng=True) or drawn with torch.randint and
     # handed to it as an operand (K1, the reference's default).  The int8
@@ -121,6 +125,9 @@ class QuantConfig:
     # overflow-storm and spike detection, the skip gate, and the int8 wire's
     # fp32 fallback (each leg of ZeRO-1's on its own).
     guards: Optional[Any] = None
+    # A full custom registry: replaces the plan built from the fields
+    # above (its domains, controllers, hypers and groups), whole.
+    precision_plan: Optional[PrecisionPlan] = None
 
     def __post_init__(self):
         if self.backend not in ("auto", "kernel", "plain"):
@@ -133,7 +140,10 @@ class QuantConfig:
         track the bulk two octaves under the max: slack −2), and
         ``wire_params`` when ZeRO-1 can put the parameter all-gather on the
         wire too (parameters are O(1): the radix covers the max, slack +1;
-        one format per leaf like ``wire_grads``)."""
+        one format per leaf like ``wire_grads``).  A custom
+        ``precision_plan`` replaces all of it."""
+        if self.precision_plan is not None:
+            return self.precision_plan
         domains = [
             ("weights", DomainSpec(self.controller, self.hyper_weights)),
             ("acts", DomainSpec(self.controller, self.hyper_acts)),
@@ -159,8 +169,9 @@ class QuantConfig:
     def with_per_layer_wire(self, params) -> "QuantConfig":
         """This config with one ``wire_grads`` format per leaf of
         ``params`` (a tree of tensors or of anything with the same leaves).
-        A no-op unless ``grad_allreduce_bits`` is set."""
-        if self.grad_allreduce_bits is None:
+        A no-op unless ``grad_allreduce_bits`` is set, and under a custom
+        ``precision_plan`` (its groups are its own)."""
+        if self.grad_allreduce_bits is None or self.precision_plan is not None:
             return self
         return dataclasses.replace(
             self, wire_grads_groups=len(tree_lib.leaves(params)))
@@ -410,10 +421,13 @@ def wire_params_engaged(qcfg: QuantConfig, params, transport) -> bool:
     """Does the ZeRO-1 parameter all-gather ride the int8 wire?  The flat
     legs cannot honor per-leaf carve-outs, so only when the quantization
     policy covers EVERY parameter leaf (``params``: a tree of tensors or of
-    anything with the same paths); otherwise the updated parameters are
-    gathered in fp32 and the flat optimizer-input snap is skipped."""
+    anything with the same paths) and no fp master copy is promised
+    (``master_weights``); otherwise the updated parameters are gathered in
+    fp32 and the flat optimizer-input snap is skipped."""
     if not (zero_opt_engaged(qcfg, transport)
             and wire_sync_engaged(qcfg, transport)):
+        return False
+    if qcfg.master_weights:
         return False
     pred = qcfg.policy.param_predicate()
     return all(pred(path, leaf)
@@ -460,6 +474,25 @@ def zero_opt_state(optimizer, params, transport,
     device = tree_lib.leaves(params)[0].device
     return optimizer.init_shard((len(transport.ranks), part.shard_size),
                                 device)
+
+
+def _optimizer_grad_domain(optimizer, plan: PrecisionPlan) -> str:
+    """The precision domain whose format snaps ``optimizer``'s input
+    gradients (Alg. 1 line 17): its ``grad_domain`` (``"grads"`` by
+    default), which the plan must declare."""
+    name = getattr(optimizer, "grad_domain", "grads")
+    if name not in plan:
+        raise ValueError(
+            f"{type(optimizer).__name__}.grad_domain = {name!r} names "
+            f"no precision domain in the plan ({plan.names}); the optimizer-"
+            "input gradient quantization needs its format from the registry")
+    return name
+
+
+def _resnaps(qcfg: QuantConfig) -> bool:
+    """Does the step re-snap the updated weights (Alg. 1 line 19)?"""
+    return (qcfg.enabled and qcfg.policy.quantizes("weights")
+            and not qcfg.master_weights)
 
 
 def _domain_metrics(plan: PrecisionPlan, fmts, streams, loss, aux) -> dict:
@@ -582,6 +615,13 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
     into the monolithic wire's payload.  Metrics add ``health``,
     ``skipped``, ``trips`` and ``degraded``.
 
+    The plan is ``qcfg.plan()`` (``qcfg.precision_plan`` when set).
+    ``optimizer.grad_domain`` names the plan's domain whose format snaps
+    the optimizer's input gradients, on every body above (a domain the
+    plan lacks raises ``ValueError``); ``qcfg.master_weights`` keeps the
+    updated weights off the grid: no body re-snaps them, and ZeRO-1's
+    params leg stays fp32.
+
     ``train_step.wire_sync_active``, ``.zero_opt_active``,
     ``.wire_overlap_active`` (the hooks ran),
     ``.zero_groupaligned_active`` and ``.guards_active`` say which ran;
@@ -589,6 +629,7 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
     """
     plan = qcfg.plan()
     rounding = getattr(plan.controller("weights"), "rounding", qcfg.rounding)
+    grad_domain = _optimizer_grad_domain(optimizer, plan)
     wire_bits = qcfg.grad_allreduce_bits
     if wire_bits is not None and not 2 <= wire_bits <= 8:
         raise ValueError(f"grad_allreduce_bits={wire_bits}: the wire payload "
@@ -685,7 +726,7 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
     def _raw_leaf_stats(g, path, grad, fmts, seed_g, rank):
         """Leaf ``g`` of :func:`_raw_grad_stats`, in place."""
         _, st = fxp.quantize_tree_leaf(
-            g, path, grad, fmts["grads"], mode=qcfg.rounding,
+            g, path, grad, fmts[grad_domain], mode=qcfg.rounding,
             seed=fold_seed(seed_g, rank),
             predicate=qcfg.policy.param_predicate(),
             onchip_prng=qcfg.onchip_prng, backend=qcfg.backend, inplace=True)
@@ -700,7 +741,7 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
         arithmetic, not by its bytes."""
         if not measure_grads:
             return QuantStats.zero(device=fmts["grads"].il.device)
-        _, st = quantize_grads(grads, fmts["grads"], qcfg,
+        _, st = quantize_grads(grads, fmts[grad_domain], qcfg,
                                fold_seed(seed_g, rank), inplace=True)
         return st
 
@@ -757,7 +798,7 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
             return loss.detach(), aux, QuantStats.zero(
                 device=fmts["grads"].il.device), bad
         return loss.detach(), aux, fxp.merge_tree_stats(
-            [s for s in raw if s is not None], fmts["grads"]), bad
+            [s for s in raw if s is not None], fmts[grad_domain]), bad
 
     def _rank_rows(qparams, batch) -> int:
         """Rows of the batch per rank, after checking that the batch splits
@@ -866,7 +907,7 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
                 else [sink.owner_mean(i)])
         if full_quant and measure_grads:
             for b, g in enumerate(segs):
-                ops.dps_quantize(g, fmts["grads"], ops.event_bits(
+                ops.dps_quantize(g, fmts[grad_domain], ops.event_bits(
                     g, qcfg.rounding, fold_seed(seed_g, 0x524157 + j, b),
                     qcfg.onchip_prng), compute_stats=False, out=g,
                     backend=qcfg.backend)
@@ -1014,9 +1055,10 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
             if wire_sync and not fq:
                 warnings.warn(
                     "zero_opt_shards + grad_allreduce_bits: the policy "
-                    "excludes some param leaves, and the flat ZeRO layout "
-                    "cannot skip them per-leaf — gathering updated params in "
-                    "fp32 and skipping the flat optimizer-input gradient "
+                    "excludes some param leaves (or master_weights is "
+                    "set), and the flat ZeRO layout cannot skip them "
+                    "per-leaf — gathering updated params in fp32 and "
+                    "skipping the flat optimizer-input gradient "
                     "quantization (the gradient wire stays int8).")
             layout["full_quant"] = fq
         part = layout["part"]
@@ -1071,8 +1113,8 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
                 gnorm = rsl.global_norm(grads)
             # the optimizer-input snap still applies (Alg. 1); the grads
             # controller reads the raw-gradient measurement instead
-            grads, _ = quantize_grads(grads, fmts["grads"], qcfg, seed_g,
-                                      inplace=True)
+            grads, _ = quantize_grads(grads, fmts[grad_domain], qcfg,
+                                      seed_g, inplace=True)
         else:
             loss, aux, grads = _accum_grads(qparams, batch, fmts, seed_a)
             del qparams
@@ -1081,7 +1123,7 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
             if guards_on:
                 bad = rsl.nonfinite_any(grads)
                 gnorm = rsl.global_norm(grads)
-            grads, g_stats = quantize_grads(grads, fmts["grads"], qcfg,
+            grads, g_stats = quantize_grads(grads, fmts[grad_domain], qcfg,
                                             seed_g, inplace=True)
         if guards_on and ok is None:
             # the skip gate, on the device, before any in-place write
@@ -1106,7 +1148,7 @@ def make_train_step(loss_fn, optimizer, qcfg: QuantConfig,
             a_stats = aux.get("act_stats", QuantStats.zero(device=dev))
 
         # -- re-snap weights to the grid (Alg. 1 line 19), in place --
-        if qcfg.enabled and qcfg.policy.quantizes("weights"):
+        if _resnaps(qcfg):
             _, w_stats2 = quantize_params(state.params, fmts["weights"], qcfg,
                                           fold_seed(seed_w, 1), inplace=True,
                                           keep=ok)
@@ -1317,7 +1359,9 @@ def make_placed_train_step(loss_fn, optimizer, qcfg: QuantConfig, mesh,
     before any in-place write, and the optimizer and the weight re-snap
     select block by block against it.  The guard state is replicated
     scalars and ``[D]`` vectors, the same on every rank and process.
-    ``FaultPlan.wire_flip_at`` raises: no wire payload runs here."""
+    ``FaultPlan.wire_flip_at`` raises: no wire payload runs here.
+    ``optimizer.grad_domain`` and ``qcfg.master_weights`` as in
+    :func:`make_train_step`."""
     sizes = sharding._axis_sizes(mesh)
     n_data = sizes.get("data", 1)
     others = any(n > 1 for a, n in sizes.items() if a != "data")
@@ -1355,6 +1399,7 @@ def make_placed_train_step(loss_fn, optimizer, qcfg: QuantConfig, mesh,
             "wire_overlap or zero_opt_shards")
     plan = qcfg.plan()
     rounding = getattr(plan.controller("weights"), "rounding", qcfg.rounding)
+    grad_domain = _optimizer_grad_domain(optimizer, plan)
     n_ranks = math.prod(sizes.values())
     wire_names = rsl.wire_domains(plan) if guards_on else ()
     gidx = (wire_names.index("wire_grads") if "wire_grads" in wire_names
@@ -1447,14 +1492,14 @@ def make_placed_train_step(loss_fn, optimizer, qcfg: QuantConfig, mesh,
                                  grads_bad=bad, gnorm=gnorm)
             if measure_grads:
                 grads, g_stats = _quantize_placed_tree(
-                    grads, fmts["grads"], qcfg, seed_g, inplace=True)
+                    grads, fmts[grad_domain], qcfg, seed_g, inplace=True)
             else:
                 g_stats = QuantStats.zero(device=dev)
             optimizer.update_placed(grads, state.opt_state, state.params,
                                     count=state.step, keep=ok)
             del grads
             a_stats = aux.get("act_stats", QuantStats.zero(device=dev))
-            if qcfg.enabled and qcfg.policy.quantizes("weights"):
+            if _resnaps(qcfg):
                 _, w_stats2 = _quantize_placed_tree(
                     state.params, fmts["weights"], qcfg,
                     fold_seed(seed_w, 1), inplace=True, keep=ok)

@@ -593,31 +593,54 @@ def mla_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     return logical_constraint(out, "batch", "tp_seq", "embed"), new_cache
 
 
-def _mla_latents_placed(cfg: ModelConfig, p, xs: Placed, positions):
+def _mla_down_placed(cfg: ModelConfig, p, x: Placed):
+    """``wq_a`` and ``wkv_a`` with their norms on placed activations,
+    split as the reference's compiled step splits them: on a
+    sequence-parallel ``x`` (training, prefill) each rank projects its
+    positions and the latents are gathered over the sequence's axes, not
+    ``x`` whole (1,536 + 512 + 64 columns against D = 5,120); on a
+    sequence ``x`` holds whole (decode) the contraction is cut over the
+    ``tp`` axis and the partial latents summed over it in rank order.
+    Returns (q_lat, c_kv, the unrotated rope key), the sequence whole."""
+    kvr = cfg.kv_lora_rank
+    rows = (x.spec[0], None, None)
+    if x.spec[1] is None:
+        _, rules = sharding.current_mesh_rules()
+        tax = (rules or sharding.LogicalRules()).spec(
+            ("tp",), (x.shape[-1],), x.mesh)[0]
+        x = relayout(x, x.spec[:2] + (tax,))
+    # a row-parallel product's sums taken; the sequence's split kept
+    lat = lambda w: relayout(placed_matmul(x, p[w]), x.spec[:2] + (None,))
+    q_lat = rms_norm(lat("wq_a"), p["q_norm"])
+    kv = lat("wkv_a")
+    c_kv = kv.map(lambda t, s: rms_norm(t[..., :kvr], s), p["kv_norm"])
+    k_raw = kv.map(lambda t: t[..., kvr:])
+    return (relayout(q_lat, rows), logical_constraint(c_kv, "batch", None,
+                                                      None),
+            relayout(k_raw, rows))
+
+
+def _mla_latents_placed(cfg: ModelConfig, p, x: Placed, positions):
     """MLA's query heads and its latents on placed activations: ``q_lat``,
-    ``c_kv`` and the shared rope key whole on every model rank
-    (``wq_a``/``wkv_a`` gathered from their FSDP rows); ``wq_b``
-    column-parallel over heads (its per-head blocks of dn + dr columns
-    stay whole at every split that divides H), the rope parts rotated at
-    ``positions`` (whole (1, S), or placed (B, S): each rank its rows').
-    Returns (q (B, S, H, dn + dr), c_kv (B, S, kvr), k_rope (B, S, dr))."""
-    H, kvr = cfg.n_heads, cfg.kv_lora_rank
+    ``c_kv`` and the shared rope key from :func:`_mla_down_placed`, whole
+    over the sequence on every model rank; ``wq_b`` column-parallel over
+    heads (its per-head blocks of dn + dr columns stay whole at every
+    split that divides H), the rope parts rotated at ``positions`` (whole
+    (1, S), or placed (B, S): each rank its rows').  Returns (q (B, S, H,
+    dn + dr), c_kv (B, S, kvr), k_rope (B, S, dr))."""
+    H = cfg.n_heads
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
-    pos = ((relayout(positions, (xs.spec[0], None)),) if is_placed(positions)
-           else ())
+    q_lat, c_kv, k_raw = _mla_down_placed(cfg, p, x)
+    pos = ((relayout(positions, (c_kv.spec[0], None)),)
+           if is_placed(positions) else ())
     rope = lambda t, *pb: apply_rope(t, pb[0] if pb else positions,
                                      cfg.rope_theta)
-    q_lat = rms_norm(placed_matmul(xs, p["wq_a"]), p["q_norm"])
     q = _split_heads(placed_matmul(q_lat, p["wq_b"]), H, dn + dr).map(
         lambda t, *pb: torch.cat([t[..., :dn], rope(t[..., dn:], *pb)],
                                  dim=-1), *pos)
-    kv = placed_matmul(xs, p["wkv_a"])
-    c_kv = logical_constraint(
-        kv.map(lambda t, s: rms_norm(t[..., :kvr], s), p["kv_norm"]),
-        "batch", None, None)
-    k_rope = kv.map(lambda t, *pb: rope(t[..., None, kvr:], *pb)[:, :, 0],
-                    *pos)
-    return q, c_kv, relayout(k_rope, c_kv.spec)
+    k_rope = relayout(k_raw, c_kv.spec).map(
+        lambda t, *pb: rope(t[..., None, :], *pb)[:, :, 0], *pos)
+    return q, c_kv, k_rope
 
 
 def _mla_train_placed(cfg: ModelConfig, p, x: Placed, positions,
@@ -631,8 +654,7 @@ def _mla_train_placed(cfg: ModelConfig, p, x: Placed, positions,
     ``(out, (c_kv, k_rope))``, whole on every model rank as
     ``cache_logical`` keeps them (packed under ``kv_cache_bits`` 8)."""
     H, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
-    xs = whole_but_batch(x)
-    q, c_kv, k_rope = _mla_latents_placed(cfg, p, xs, positions)
+    q, c_kv, k_rope = _mla_latents_placed(cfg, p, x, positions)
     heads = q.spec[:2] + (q.spec[2], None)
     up = lambda w: c_kv.map(lambda c, wb: torch.einsum("bsr,rhd->bshd", c, wb),
                             relayout(p[w], (None, q.spec[2], None)),

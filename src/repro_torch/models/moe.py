@@ -5,7 +5,10 @@ exactly the reference's gate, between:
 
 * **einsum dispatch** — GShard-style one-hot dispatch and combine einsums,
   O(T·E·C) memory: with no mesh bound, a mesh without a model axis larger
-  than 1, or shapes the model axis does not divide.
+  than 1, or shapes the model axis does not divide (decode's S = 1).  On
+  placed activations it is split as the reference's compiled step splits
+  it (:func:`_moe_einsum_placed`): each rank its rows and its experts, no
+  expert weight moved.
 * **all-to-all dispatch** (expert parallelism) — under a bound mesh
   (:func:`repro_torch.dist.sharding.axis_rules`) whose model axis ``m > 1``
   divides the sequence and the expert count and whose (pod ×) data axes
@@ -42,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import sharding
 from repro_torch.dist.sharding import (Placed, _axis_sizes, _is_device_mesh,
                                        axis_transport, current_mesh_rules,
                                        held_coords, is_placed, local_blocks,
@@ -281,26 +285,92 @@ def _moe_a2a(cfg: ModelConfig, p, x, mesh):
     return stitch_blocks(outs, x_spec, mesh, coords, x.shape), aux
 
 
+def _rank_experts(top_i: torch.Tensor, pos: torch.Tensor, keep, E: int,
+                  C: int, e0: int, n_e: int, dt):
+    """The dispatch tensor (T, K, n_e, C) of the experts [e0, e0 + n_e)."""
+    return (F.one_hot(top_i, E)[..., e0:e0 + n_e].to(dt)[..., :, None]
+            * F.one_hot(torch.clamp(pos, max=C - 1), C).to(dt)[..., None, :]
+            * keep[..., None, None].to(dt))
+
+
+def _moe_einsum_placed(cfg: ModelConfig, p, x: Placed):
+    """The einsum dispatch on placed activations, split the way the
+    reference's compiled step splits it (decode, where S = 1 fails the
+    all-to-all gate): each rank routes only its data rank's rows; the
+    capacity slots are the global token order's against the global
+    capacity (the top-k indices gathered over the rows' axes, B·K int32);
+    each rank dispatches into its block of the experts (the expert
+    weights' split, ``E/m`` over the model axis), the buffers summed over
+    the rows' axes onto the weights' FSDP split of D; the experts run on
+    that split of D, their hidden sums taken over it, and no expert
+    weight moves; the expert outputs are gathered over D and combined
+    into each rank's rows, summed over the expert split in rank order.
+    The load-balance ingredients are averaged over the mesh before their
+    product, as on the all-to-all path."""
+    mesh = x.mesh
+    E, K = cfg.n_experts, cfg.top_k
+    xs = relayout(x, (x.spec[0], None, None))
+    # the rows' axes; the expert weights' expert axis and FSDP axes of D
+    w_in = p["w_in"]
+    bax, (eax, dax) = sharding._entry_axes(xs.spec[0]), w_in.spec[:2]
+    rows = (xs.spec[0], None)
+    x2 = xs.map(lambda b: b.reshape(-1, b.shape[-1]), spec=rows)
+    top_w, top_i, probs = x2.map_many(
+        lambda b, r: _router(cfg, r, b), p["router"],
+        specs=(rows, rows, rows))
+    fs, ps = top_i.map_many(lambda i, pr: _aux_fp(cfg, pr, i), probs,
+                            specs=((None,), (None,)))
+    f = mesh_mean(mesh, torch.stack(fs.blocks))
+    pbar = mesh_mean(mesh, torch.stack(ps.blocks))
+    aux = E * torch.sum(f * pbar) * K
+    with torch.no_grad():
+        every = relayout(top_i.map(lambda i: i.to(torch.int32)), (None, None))
+        C = _capacity(every.shape[0], cfg)
+        pos, keep = every.map_many(lambda i: _slots(cfg, i.long(), C),
+                                   specs=((None, None), (None, None)))
+        pos, keep = relayout(pos, rows), relayout(keep, rows)
+    n_e = w_in.blocks[0].shape[0]
+    dt = xs.dtype
+
+    def dispatch(i, xb, tw, ti, pb, kb):
+        e0 = w_in.geometry(i)[0][0]
+        disp = _rank_experts(ti, pb, kb, E, C, e0, n_e, dt)   # (T,K,n_e,C)
+        comb = (disp * tw[..., None, None].to(dt)).sum(dim=1)
+        buf = torch.einsum("tec,td->ecd", disp.sum(dim=1), xb)
+        return buf, comb
+
+    bufs, combs = zip(*[dispatch(i, *a) for i, a in enumerate(zip(
+        x2.blocks, top_w.blocks, top_i.blocks, pos.blocks, keep.blocks))])
+    w_spec = (eax, None, None)
+    buf = relayout(Placed(bufs, w_spec, mesh, partial=bax), (eax, None, dax))
+    up = lambda w: buf.map(lambda b, wb: torch.einsum("ecd,edf->ecf", b, wb),
+                           w, spec=w_spec, partial=sharding._entry_axes(dax))
+    h = relayout(up(w_in), w_spec)
+    g = relayout(up(relayout(p["w_gate"], w_in.spec)), w_spec)
+    h = h.map(lambda hb, gb: act_fn(cfg.act, gb) * hb, g)
+    out_buf = h.map(lambda hb, wb: torch.einsum("ecf,efd->ecd", hb, wb),
+                    relayout(p["w_out"], (eax, None, dax)),
+                    spec=(eax, None, dax))
+    out_buf = relayout(out_buf, w_spec)
+    out = Placed([torch.einsum("tec,ecd->td", c, ob)
+                  for c, ob in zip(combs, out_buf.blocks)], rows, mesh,
+                 partial=sharding._entry_axes(eax))
+    out = relayout(out, rows).map(lambda b, xb: b.reshape(xb.shape), xs,
+                                  spec=xs.spec)
+    return out, Placed([aux] * len(out.blocks), (), mesh)
+
+
 def _moe_placed(cfg: ModelConfig, p, x: Placed):
     """:func:`moe_apply` on placed activations, on either kind of mesh:
-    under the all-to-all gate :func:`_moe_a2a`; otherwise every rank runs
-    the einsum dispatch on the whole batch (the reference's capacity is
-    the global token count's) and keeps its block."""
+    under the all-to-all gate :func:`_moe_a2a`; otherwise the einsum
+    dispatch split over the mesh (:func:`_moe_einsum_placed`)."""
     mesh = x.mesh
     if a2a_gate(cfg, x.shape, mesh):
         DISPATCH_COUNTS["a2a"] += 1
         out, aux = _moe_a2a(cfg, p, x, mesh)
     else:
         DISPATCH_COUNTS["einsum"] += 1
-        whole = lambda t: relayout(t, (None,) * t.ndim)
-        xw = whole(x)
-        ws = {k: whole(p[k]) for k in ("router", "w_in", "w_gate", "w_out")}
-        res = [_moe_einsum(cfg, {k: w.blocks[i] for k, w in ws.items()},
-                           b.reshape(-1, b.shape[-1]))
-               for i, b in enumerate(xw.blocks)]
-        out = Placed([o.reshape(b.shape) for (o, _), b in zip(res, xw.blocks)],
-                     xw.spec, mesh)
-        aux = Placed([a for _, a in res], (), mesh)
+        out, aux = _moe_einsum_placed(cfg, p, x)
     if cfg.n_shared_experts:
         out = relayout(out, x.spec).map(torch.add,
                                         mlp_apply(cfg, p["shared"], x))

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import sharding
 from repro_torch.dist.sharding import (LogicalRules, Placed,
                                        current_mesh_rules, is_placed,
                                        logical_constraint, relayout)
@@ -99,16 +100,33 @@ def _decays(cfg: ModelConfig, dt_raw: torch.Tensor, a_log: torch.Tensor,
     return dt, dt * a                       # log_decay <= 0
 
 
+def chunk_cb(cfg: ModelConfig, b_mat: torch.Tensor, c_mat: torch.Tensor
+             ) -> torch.Tensor:
+    """C·Bᵀ of each chunk, (B, nc, Q, Q) fp32, of b, c (B, S, n) padded
+    to the chunk grid: :func:`ssd_scan`'s intra-chunk scores, or (``n`` a
+    block of the state) their addends."""
+    B, S, n = b_mat.shape
+    Q = min(cfg.ssm_chunk, S)
+    pad = -S % Q
+    cut = lambda t: F.pad(t, (0, 0, 0, pad)).reshape(
+        B, -1, Q, n).to(torch.float32)
+    return torch.einsum("bcqn,bckn->bcqk", cut(c_mat), cut(b_mat))
+
+
 def ssd_scan(cfg: ModelConfig, x: torch.Tensor, b_mat: torch.Tensor,
              c_mat: torch.Tensor, dt: torch.Tensor, log_decay: torch.Tensor,
-             h0: Optional[torch.Tensor] = None):
-    """Chunked SSD.  x (B,S,H,P); b,c (B,S,N); dt/log_decay (B,S,H) fp32.
+             h0: Optional[torch.Tensor] = None,
+             cb: Optional[torch.Tensor] = None):
+    """Chunked SSD.  x (B,S,H,P); b,c (B,S,N); dt/log_decay (B,S,H) fp32;
+    ``cb``: the chunks' C·Bᵀ when the caller has it (:func:`chunk_cb`).
 
     Returns (y (B,S,H,P), h_final (B,H,P,N) fp32)."""
     B, S, H, Pd = x.shape
     N = b_mat.shape[-1]
     Q = min(cfg.ssm_chunk, S)
     S_orig = S
+    if cb is None:
+        cb = chunk_cb(cfg, b_mat, c_mat)
     if S % Q:
         # pad to the chunk grid: zero x/B/C (no state contribution) and zero
         # log_decay (decay factor 1 — final state unaffected)
@@ -133,7 +151,6 @@ def ssd_scan(cfg: ModelConfig, x: torch.Tensor, b_mat: torch.Tensor,
     total = cum[:, :, -1]                                       # (B,nc,H)
 
     # --- intra-chunk (quadratic in Q only; the module's memory hot spot) ---
-    cb = torch.einsum("bcqn,bckn->bcqk", cr, br)
     rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]         # (B,nc,Q,Q,H) t-s
     # the exponent is masked, not its result: above the diagonal rel > 0 can
     # overflow, and where(tri, exp(rel), 0)'s backward would bring the
@@ -236,10 +253,13 @@ def _ssm_train_placed(cfg: ModelConfig, p, x: Placed,
     dt boundaries (nor ``conv_w``'s on x | B | C), so the column-parallel
     projection is gathered over its split and each piece re-cut by its own
     layout: z, x and dt by heads (when the model axis divides them), B and
-    C whole on every rank (every head reads them).  The depthwise conv
-    runs on each rank's channels with its columns of ``conv_w``/``conv_b``
-    (no collective: channels are independent), the chunked scan on each
-    rank's heads, the gated norm sums its squares over the head split,
+    C by the state N (when it divides N), as the reference's compiled
+    step splits them.  The depthwise conv runs on each rank's channels
+    with its columns of ``conv_w``/``conv_b`` (no collective: channels are
+    independent); each rank's block of the state gives its addend of the
+    chunks' C·Bᵀ, summed over the split in rank order, and B and C are
+    gathered over it (every head reads them); the chunked scan runs on
+    each rank's heads, the gated norm sums its squares over the head split,
     and ``w_out`` is row-parallel, its sums reduce-scattered onto the
     block's sequence-parallel residual layout.
 
@@ -251,6 +271,7 @@ def _ssm_train_placed(cfg: ModelConfig, p, x: Placed,
     di, N, H, Pd = d_inner(cfg), cfg.ssm_state, n_ssm_heads(cfg), cfg.ssm_head_dim
     _, rules = current_mesh_rules()
     hax = (rules or LogicalRules()).spec(("heads",), (H,), x.mesh)[0]
+    nax = (rules or LogicalRules()).spec(("tp",), (N,), x.mesh)[0]
     xs = whole_but_batch(x)
     whole = (xs.spec[0], None, None)
     zxbcdt = relayout(placed_matmul(xs, p["w_in"]), whole)
@@ -265,17 +286,22 @@ def _ssm_train_placed(cfg: ModelConfig, p, x: Placed,
 
     xi = conv(0, di, hax).map(lambda t: t.reshape(*t.shape[:2], -1, Pd),
                               spec=whole[:2] + (hax, None))
-    bc = conv(di, di + 2 * N, None)
+    b_mat, c_mat = conv(di, di + N, nax), conv(di + N, di + 2 * N, nax)
+    cb = relayout(b_mat.map(lambda b, c: chunk_cb(cfg, b, c), c_mat,
+                            spec=(whole[0], None, None, None),
+                            partial=sharding._entry_axes(nax)),
+                  (whole[0], None, None, None))
     dt_raw = _piece(zxbcdt, 2 * di + 2 * N, 2 * di + 2 * N + H, hax)
     heads = lambda name: relayout(p[name], (hax,))
 
-    def scan(xb, bcb, dtb, a_log, dt_bias, d_skip):
+    def scan(xb, bb, cm, cbb, dtb, a_log, dt_bias, d_skip):
         dt, log_decay = _decays(cfg, dtb, a_log, dt_bias)
-        y, h = ssd_scan(cfg, xb, bcb[..., :N], bcb[..., N:], dt, log_decay)
+        y, h = ssd_scan(cfg, xb, bb, cm, dt, log_decay, cb=cbb)
         y = y + d_skip.to(y.dtype)[None, None, :, None] * xb
         return y.reshape(*y.shape[:2], -1), h
 
-    y, h = xi.map_many(scan, bc, dt_raw, heads("a_log"), heads("dt_bias"),
+    y, h = xi.map_many(scan, relayout(b_mat, whole), relayout(c_mat, whole),
+                       cb, dt_raw, heads("a_log"), heads("dt_bias"),
                        heads("d_skip"),
                        specs=(whole[:2] + (hax,), (whole[0], hax, None, None)))
     out = _ssm_out_placed(cfg, p, y, z)

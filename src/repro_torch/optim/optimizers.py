@@ -223,6 +223,11 @@ class AdamWConfig:
 
 
 class SGD:
+    # the precision domain whose ⟨IL, FL⟩ snaps this optimizer's input
+    # gradients (Alg. 1 line 17): the train step looks it up in its plan,
+    # so an optimizer with a domain of its own only has to name it here
+    grad_domain = "grads"
+
     def __init__(self, cfg: SGDConfig):
         self.cfg = cfg
         self.sched = (inv_decay(cfg.lr, cfg.gamma, cfg.power)
@@ -315,6 +320,8 @@ class SGD:
 
 
 class AdamW:
+    grad_domain = "grads"   # see SGD.grad_domain
+
     def __init__(self, cfg: AdamWConfig):
         self.cfg = cfg
         self.sched = cosine_schedule(cfg.lr, cfg.warmup, cfg.total_steps)

@@ -18,12 +18,17 @@ the mesh.
   all three kinds (every matmul of the port's step is one of the
   reference's dots, forward and backward).
 
-The same job runs qwen3-moe, deepseek-v2 and mamba2, whose FLOPs are not
-the reference's: each (config, kind) differs by a measured gap, written in
-``FLOP_GAPS`` and derived from the configs' sizes below.  Most of it is
-work that the port's placed steps repeat on every rank where XLA splits it
-over the mesh (ROADMAP.md Queue 3): the MoE layer at decode, the MLA
-down-projections, mamba2's B/C convolution and C·Bᵀ.
+The same job runs qwen3-moe, deepseek-v2 and mamba2.  Their placed steps
+split the work the way the reference's compiled steps split it (the MoE
+layer at decode, MLA's down-projections, mamba2's B/C convolution and
+C·Bᵀ), so their FLOPs are the reference's dots but for terms that are
+counts, not work, written in ``FLOP_GAPS`` and derived from the configs'
+sizes below: the top-k combine's backward outer product, and in mamba2's
+train step the depthwise convolution's input-gradient outer products
+(which XLA emits elementwise) less three backward dots of XLA's that the
+port's autograd computes elementwise.  At decode no expert weight moves:
+rank 0's collectives of the placed MoE layer are counted, payload by
+payload.
 """
 
 import concurrent.futures
@@ -32,8 +37,11 @@ import json
 import pytest
 import torch
 
+from repro_torch.analysis.trace import Trace
 from repro_torch.configs.base import ShapeConfig, get_config, smoke
+from repro_torch.dist.sharding import LogicalRules, axis_rules, place_tensor
 from repro_torch.launch import dryrun
+from repro_torch.models import moe
 
 from test_torch_jaxref import run_reference
 
@@ -54,75 +62,48 @@ def _outer_bwd(cfg, tokens):
     return cfg.n_layers * 2 * tokens * cfg.top_k * cfg.d_model
 
 
-def _mla_down(cfg, tokens):
-    """The MLA down-projections (``wq_a``: D -> q_lora; ``wkv_a``: D ->
-    kv_lora + rope) that every model rank runs over its data rank's
-    ``tokens`` whole, where XLA splits them over the model axis."""
-    width = cfg.q_lora_rank + cfg.kv_lora_rank + cfg.qk_rope_dim
-    return (cfg.n_layers * 2 * tokens * cfg.d_model * width
-            * (M_AXIS - 1) // M_AXIS)
-
-
-def _moe_decode(cfg):
-    """At decode (S = 1, which the model axis does not divide) the MoE
-    layer takes the einsum dispatch, which the placed step runs whole on
-    every rank: all B tokens, all E experts at capacity C, where XLA splits
-    the dispatch, the experts and the combine over all d·m devices and the
-    router over the data axis."""
-    B, D, E, F = BATCH, cfg.d_model, cfg.n_experts, cfg.moe_d_ff
-    C = 8       # ceil(B K / E x 1.25) = 3 slots, raised to 8 (8-aligned)
-    split = 2 * E * C * B * D + 3 * 2 * E * C * D * F + 2 * B * E * C * D
-    n = D_AXIS * M_AXIS
-    return cfg.n_layers * (split * (n - 1) // n
-                           + 2 * B * D * E * (D_AXIS - 1) // D_AXIS)
-
-
-def _ssm_bc(cfg, tokens):
-    """mamba2's B/C convolution and C·Bᵀ, which every model rank runs over
-    the whole state (B and C are one group), where XLA splits them over
-    the model axis: 2 T 2N K + 2 T Q N a layer."""
-    N = cfg.ssm_state
-    per = 2 * tokens * 2 * N * cfg.ssm_conv + 2 * tokens * cfg.ssm_chunk * N
-    return cfg.n_layers * per * (M_AXIS - 1) // M_AXIS
+def _conv_counts(cfg, tokens):
+    """mamba2's train step, a layer: the depthwise convolution's
+    input-gradient outer products over each rank's (d_inner + 2N) / m
+    channels (2 T K C / m, which FlopCounterMode counts as bmms and XLA
+    emits as multiplies), less the three backward dots of the three-operand
+    einsums that XLA emits and the port's autograd computes elementwise
+    (y_inter's decay and C gradients, the chunk states' decay gradient:
+    2 T (H / m) (2N + P))."""
+    N, P, K = cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_conv
+    di = cfg.ssm_expand * cfg.d_model
+    H = di // P
+    conv = 2 * tokens * K * (di + 2 * N) // M_AXIS
+    return cfg.n_layers * (conv - 2 * tokens * (H // M_AXIS) * (2 * N + P))
 
 
 def _derived_gaps():
     """FLOPs, the port's less the reference's dots, from the configs'
-    sizes: a data rank holds BATCH / d rows, and a train or prefill step's
-    MoE layer (the all-to-all dispatch) BATCH / d × SEQ / m tokens a rank."""
+    sizes: a data rank holds BATCH / d rows, and a train step's MoE layer
+    (the all-to-all dispatch) BATCH / d × SEQ / m tokens a rank."""
     rows = BATCH // D_AXIS
     q, s, m = (smoke(get_config(a)) for a in OTHERS)
     a2a_tokens = rows * SEQ // M_AXIS
-    return {
+    gaps = {(a, k): 0 for a in OTHERS for k in KINDS}
+    gaps.update({
         ("qwen3_moe_30b_a3b", "train"): _outer_bwd(q, a2a_tokens),
-        ("qwen3_moe_30b_a3b", "prefill"): 0,
-        ("qwen3_moe_30b_a3b", "decode"): _moe_decode(q),
-        # the train step runs each down-projection forward and twice back
-        ("deepseek_v2_236b", "train"): (3 * _mla_down(s, rows * SEQ)
-                                        + _outer_bwd(s, a2a_tokens)),
-        ("deepseek_v2_236b", "prefill"): _mla_down(s, rows * SEQ),
-        ("deepseek_v2_236b", "decode"): _mla_down(s, rows) + _moe_decode(s),
-        ("mamba2_1_3b", "prefill"): _ssm_bc(m, rows * SEQ),
-        ("mamba2_1_3b", "decode"): 0,
-    }
+        ("deepseek_v2_236b", "train"): _outer_bwd(s, a2a_tokens),
+        ("mamba2_1_3b", "train"): _conv_counts(m, rows * SEQ),
+    })
+    return gaps
 
 
 # the measured gaps (the port's FlopCounterMode count less the reference's
-# HLO dot FLOPs).  mamba2's train step: per layer, the B/C convolution's
-# forward and weight gradient and C·Bᵀ with its two gradients repeated
-# over the model axis (5 x 12,288), plus the depthwise convolution's two
-# input-gradient outer products the port counts (2 x 16,384), less three
-# backward dots of 4,096 the reference has that the port computes
-# elementwise: 81,920 a layer, not derived further
+# HLO dot FLOPs); every one is derived above
 FLOP_GAPS = {
     ("qwen3_moe_30b_a3b", "train"): 8192,
     ("qwen3_moe_30b_a3b", "prefill"): 0,
-    ("qwen3_moe_30b_a3b", "decode"): 1613824,
-    ("deepseek_v2_236b", "train"): 1482752,
-    ("deepseek_v2_236b", "prefill"): 491520,
-    ("deepseek_v2_236b", "decode"): 1644544,
-    ("mamba2_1_3b", "train"): 163840,
-    ("mamba2_1_3b", "prefill"): 49152,
+    ("qwen3_moe_30b_a3b", "decode"): 0,
+    ("deepseek_v2_236b", "train"): 8192,
+    ("deepseek_v2_236b", "prefill"): 0,
+    ("deepseek_v2_236b", "decode"): 0,
+    ("mamba2_1_3b", "train"): 16384,
+    ("mamba2_1_3b", "prefill"): 0,
     ("mamba2_1_3b", "decode"): 0,
 }
 
@@ -189,14 +170,12 @@ def test_flops_within_two_percent_of_the_reference_dots(cells, kind):
 def test_other_families_bytes_and_measured_flop_gaps(cells, arch, kind):
     """The same bytes as the reference's (the same accounting as llama's),
     and the FLOPs the reference's dots plus the measured gap, which the
-    configs' sizes derive (mamba2's train step aside)."""
+    configs' sizes derive: counts, not work."""
     port, ref = cells
     _check_bytes(port[arch][kind], ref[arch], kind)
     gap = port[arch][kind]["flops"] - float(ref[arch][f"{kind}/dot_flops"])
     assert gap == FLOP_GAPS[arch, kind]
-    derived = _derived_gaps()
-    if (arch, kind) in derived:
-        assert derived[arch, kind] == FLOP_GAPS[arch, kind]
+    assert _derived_gaps()[arch, kind] == FLOP_GAPS[arch, kind]
 
 
 def test_collectives_are_counted_from_one_rank():
@@ -212,6 +191,53 @@ def test_collectives_are_counted_from_one_rank():
     assert set(w) >= {"all-gather", "reduce-scatter", "all-reduce"}
     assert out["collective_summary"]["int8"] == 0.0
     assert all(v > 0 for d in w.values() for v in d.values())
+
+
+def _moe_decode_collectives(cfg):
+    """Rank 0's collectives of the placed MoE layer at decode (B, 1, D) on
+    the (2, 4) mesh, on meta tensors: ``(op, dtype, payload bytes, takes
+    an expert weight's block)`` each."""
+    mesh, rules = dryrun.OneRankMesh(*MESH), LogicalRules()
+    D = cfg.d_model
+    with torch.device("meta"), axis_rules(mesh, rules):
+        p = {k: place_tensor(torch.empty(d.shape, dtype=d.dtype),
+                             rules.spec(d.logical, d.shape, mesh), mesh)
+             for k, d in moe.moe_defs(cfg, torch.float32).items()}
+        x = place_tensor(torch.empty(BATCH, 1, D),
+                         rules.spec(("batch", None, None), (BATCH, 1, D),
+                                    mesh), mesh)
+        with Trace(ops=False) as tr, torch.no_grad():
+            moe.moe_apply(cfg, p, x)
+    experts = {id(b) for k in ("w_in", "w_gate", "w_out")
+               for b in p[k].blocks}
+    return [(n.name, n.meta["dtype"], n.meta["nbytes"],
+             bool(experts & set(n.inputs)))
+            for n in tr.of_kind("collective")]
+
+
+def test_placed_moe_decode_gathers_no_expert_weight():
+    """qwen3-moe's MoE layer at decode (S = 1 fails the all-to-all gate):
+    rank 0's collectives, counted payload by payload.  Split as the
+    reference's compiled step splits it, no collective takes an expert
+    weight: the load-balance ingredients' mean (over model, then data),
+    the top-k indices gathered over data (B·K int32), the dispatch
+    buffers reduce-scattered over data onto the weights' split of D, the
+    experts' hidden sums over it, their outputs gathered over it, the
+    combined rows summed over the model axis."""
+    cfg = smoke(get_config("qwen3_moe_30b_a3b"))
+    got = _moe_decode_collectives(cfg)
+    E, K, D, F = cfg.n_experts, cfg.top_k, cfg.d_model, cfg.moe_d_ff
+    rows, e_l, f32 = BATCH // D_AXIS, cfg.n_experts // M_AXIS, 4
+    C = moe._capacity(BATCH, cfg)       # the global token count's
+    mean = [("all-gather", "f32", M_AXIS * E * f32, False),
+            ("all-gather", "f32", D_AXIS * E * f32, False)]
+    assert got == mean + mean + [
+        ("all-gather", "s32", D_AXIS * rows * K * 4, False),
+        ("reduce-scatter", "f32", e_l * C * D * f32, False),
+        ("all-reduce", "f32", e_l * C * F * f32, False),
+        ("all-reduce", "f32", e_l * C * F * f32, False),
+        ("all-gather", "f32", D_AXIS * e_l * C * D // D_AXIS * f32, False),
+        ("all-reduce", "f32", rows * D * f32, False)]
 
 
 def test_one_rank_mesh_allocates_nothing_and_holds_rank_zero():

@@ -1105,11 +1105,15 @@ def job_zero_halves(a, cases, n):
     return out
 
 
-def job_zero_mlp_train(a, steps, n, wire_overlap=False, bucket_elems=None):
+def job_zero_mlp_train(a, steps, n, wire_overlap=False, bucket_elems=None,
+                       master_weights=False):
     """A fully quantized two-layer MLP (no leaf the policy excludes, so the
     params all-gather rides the int8 wire): ``steps`` ZeRO-1 SGD steps
     under nearest rounding, per-layer wire formats, on ``n`` forced CPU
-    devices; the parameters and the batch come from the inputs."""
+    devices; the parameters and the batch come from the inputs.  With
+    ``master_weights`` the params leg stays fp32: the warnings the step
+    gives come back too."""
+    import warnings
     import jax
     import jax.numpy as jnp
     from repro.core import qtrain
@@ -1123,11 +1127,12 @@ def job_zero_mlp_train(a, steps, n, wire_overlap=False, bucket_elems=None):
     batch = {k: jnp.asarray(a[k]) for k in ("x", "y")}
     qcfg = qtrain.QuantConfig(rounding="nearest", grad_allreduce_bits=8,
                               zero_opt_shards=n, wire_overlap=wire_overlap,
-                              wire_bucket_elems=bucket_elems)
+                              wire_bucket_elems=bucket_elems,
+                              master_weights=master_weights)
     qcfg = qcfg.with_per_layer_wire(params)
     opt = make_optimizer(SGDConfig(lr=0.05, schedule="const"))
     mesh = _data_mesh(n, auto=True)
-    assert qtrain.wire_params_engaged(qcfg, params, mesh)
+    assert qtrain.wire_params_engaged(qcfg, params, mesh) != master_weights
     step = qtrain.make_train_step(loss_fn, opt, qcfg, mesh=mesh)
     assert step.zero_opt_active and step.zero_groupaligned_active
     state = qtrain.TrainState.create(
@@ -1136,8 +1141,12 @@ def job_zero_mlp_train(a, steps, n, wire_overlap=False, bucket_elems=None):
     names = ("loss", "il_w", "fl_w", "il_g", "fl_g", "il_wire_grads",
              "fl_wire_grads", "il_wire_params", "fl_wire_params", "E_wire",
              "R_wire")
-    state, hist = _run_train(jax.jit(step), state, [batch] * steps, names)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        state, hist = _run_train(jax.jit(step), state, [batch] * steps,
+                                 names)
     out = {f"hist/{k}": v for k, v in hist.items()}
+    out["warnings"] = np.array(json.dumps([str(w.message) for w in caught]))
     out.update(flatten(_np_params(state.params), "final/"))
     # the flat state as the reference keeps it (rank-major shards), and
     # as the parameter tree it belongs to
@@ -1622,7 +1631,7 @@ def job_ep_train(a, steps, seq, batch, arch, mesh, overrides=None):
 def job_sharded_step(a, steps, seq, batch, mesh, arch="llama3_2_3b",
                      overrides=None, guards=False, faults=None,
                      grad_allreduce_bits=None, zero_opt_shards=None,
-                     whole=True):
+                     whole=True, master_weights=False):
     """The reference's sharded-step check at smoke size
     (``tests/test_dist.py::test_sharded_train_step_matches_single_device``),
     over ``steps`` SGD steps under nearest rounding: the step jitted with
@@ -1638,7 +1647,8 @@ def job_sharded_step(a, steps, seq, batch, mesh, arch="llama3_2_3b",
     ``grad_allreduce_bits`` and ``zero_opt_shards`` go into the step, which
     is then built on the mesh (``build_train_step(..., mesh=)``, as the
     reference's CLI builds it, so a wire or ZeRO-1 the mesh cannot honor
-    warns and falls back): the histories add ``health``, ``skipped``,
+    warns and falls back), and so does ``master_weights``: the histories
+    add ``health``, ``skipped``,
     ``trips`` and ``degraded`` when guarded, and the sharded run returns
     its warnings, its ``wire_sync_active``/``zero_opt_active`` and the
     ``.dps`` keys, shapes and dtypes of its checkpoint."""
@@ -1660,7 +1670,8 @@ def job_sharded_step(a, steps, seq, batch, mesh, arch="llama3_2_3b",
     qcfg = qtrain.QuantConfig(rounding="nearest",
                               guards=GuardConfig() if guards else None,
                               grad_allreduce_bits=grad_allreduce_bits,
-                              zero_opt_shards=zero_opt_shards)
+                              zero_opt_shards=zero_opt_shards,
+                              master_weights=master_weights)
     opt = make_optimizer(SGDConfig())
     plan = FaultPlan(**faults) if faults else None
     flags = (guards or faults or grad_allreduce_bits is not None
@@ -2045,6 +2056,64 @@ def job_analysis_cases(a):
         dataclasses.replace(lay, chunk=lay.chunk + 1))
     return {"cases": np.array(_json.dumps(
         {k: _report_json(r) for k, r in cases.items()}))}
+
+
+def job_precision_plan(a, steps, n_train, fl_init):
+    """LeNet from ``lenet.init(key(0))``: ``steps`` SGD steps under
+    ``paper_quant_config(rounding="nearest", fl_init=...)`` on
+    ``MNISTLike(n_train=...)``, in four cases: ``ext`` — the standard plan
+    with two wire domains and a static ``kv_cache`` domain added
+    (``tests/test_precision_plan.py::test_bits_none_step_bitexact_under_
+    extra_domains``); ``gd`` — the optimizer's ``grad_domain`` is
+    ``opt_in``, a paper controller from ⟨6, 10⟩ fed the grads stream;
+    ``master`` — ``master_weights``; ``missing`` — the ``ValueError`` of
+    a ``grad_domain`` the plan lacks.  Histories (with ``opt_in``'s
+    formats in ``gd``) and the final parameters of ``master``."""
+    import dataclasses
+    import jax
+    from repro.apps.mnist import paper_quant_config
+    from repro.core import qtrain
+    from repro.core.dps import DomainSpec, DPSHyper, PrecisionPlan, wire_hyper
+    from repro.data import MNISTLike
+    from repro.models import lenet
+    from repro.optim import SGDConfig, make_optimizer
+    params = lenet.init(jax.random.key(0))
+    base = paper_quant_config(rounding="nearest", fl_init=fl_init)
+    domains = base.plan().domains
+    data = MNISTLike(batch=64, seed=0, n_train=n_train, n_test=64)
+    batches = [data.train_batch(i) for i in range(steps)]
+    names = ("loss", "il_w", "fl_w", "il_a", "fl_a", "il_g", "fl_g")
+    cases = {
+        "ext": (PrecisionPlan(domains + (
+            ("wire_grads", DomainSpec("flexpoint", wire_hyper(8, 6, -2.0))),
+            ("wire_params", DomainSpec("flexpoint", wire_hyper(8, 2, 1.0))),
+            ("kv_cache", DomainSpec("static", DPSHyper(il_init=8,
+                                                       fl_init=8))))),
+                "grads", False),
+        "gd": (PrecisionPlan(domains + (("opt_in", DomainSpec(
+            "paper", DPSHyper(il_init=6, fl_init=10), stats="grads")),)),
+               "opt_in", False),
+        "master": (None, "grads", True),
+        "missing": (None, "nope", False)}
+    out = flatten(_np_params(params), "params/")
+    for case, (plan, grad_domain, master) in cases.items():
+        qcfg = dataclasses.replace(base, precision_plan=plan,
+                                   master_weights=master)
+        opt = make_optimizer(SGDConfig())
+        opt.grad_domain = grad_domain
+        try:
+            step = qtrain.make_train_step(lenet.loss_fn, opt, qcfg)
+        except ValueError as e:
+            out[f"{case}/error"] = np.array(str(e))
+            continue
+        state = qtrain.TrainState.create(params, opt.init(params), qcfg,
+                                         jax.random.key(1))
+        state, hist = _run_train(jax.jit(step), state, batches,
+                                 names + (("il_opt_in", "fl_opt_in")
+                                          if case == "gd" else ()))
+        out.update({f"{case}/hist/{k}": v for k, v in hist.items()})
+        out.update(flatten(_np_params(state.params), f"{case}/final/"))
+    return out
 
 
 def _dot_flops(hlo_text):
