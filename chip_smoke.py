@@ -60,11 +60,22 @@ JSON line; any failure raises and the process exits non-zero:
              qwen3-moe-30b-a3b's stacked expert w_in at 4 layers
              (4x128x2048x768 = 805,306,368, 64-bit indices) and
              internvl2-26b's w_in at 3 layers (3x6144x16384), the leaves of
-             phase 7's other configs.  q bit-equal
+             phase 7's other configs; K1b also on LeNet's fc1 (400,000
+             values: the small-leaf row, launches paper_fig4's) and the TMA
+             body's edges (``tma_edge_checks``: K1b just past
+             ``Q_TMA_MIN`` with a short last item, fp32 and bf16, K1b/K2b
+             blocks whose items are spans, ragged spans, whole rows, ragged
+             slabs and bf16 rows, a grid wider than 2^22; each on the body
+             ``quant_plan`` gives it).  q bit-equal
              to the plain version; count,
              nonzero, overflow and max_abs exact; float sums to ``SUM_RTOL``;
              K1b bit-equal to K1 fed the plain Philox stream; two launches
-             equal; the mean of K1b over 64 seeds unbiased to 4 sigma.
+             equal; the mean of K1b over 64 seeds unbiased to 4 sigma.  Each
+             row is timed between CUDA events (``ms``), replayed from a CUDA
+             graph (``ms_graph``) and replayed with the L2 flushed by a read
+             (``ms_graph_clean``), and its device kernels a call counted by
+             ``torch.profiler`` (held to 1: the statistics fold in the
+             launch).
 5. serve   — llama3.2-3b at full width and depth (28 layers, d=3072, 24 heads
              / 8 KV heads, Dh=128, d_ff=8192, vocab 128256; bf16 weights
              drawn from seed 0 on the card) behind the continuous-batching
@@ -316,12 +327,15 @@ Phases 10-14 run right after phase 8's counted wire run, before its
              capacity factor 8 against the einsum step from the same
              seed within ``EP_LOSS_RTOL``; line ``ep_vs_einsum``).
 
-17. tp — after phase 14's dots run: ``k1b_block`` (K1b in block mode at
-             one rank's block of one layer of llama's w_in at (1, 4),
-             3,072 × 2,048 of 8,192 columns: bit-equal to its plain version
-             and to the unsharded launch on the same elements, timed beside
-             the contiguous launch on as many elements; row
-             ``dps_quantize_onchip_prng_block``), ``tp_check`` (one llama
+17. tp — after phase 14's dots run (``k1b_block`` runs right after
+             phase 4: K1b in block mode at one rank's block of one layer of
+             llama's w_in as ``place_tensor`` cuts it, at (1, 4) 3,072 ×
+             2,048 of 8,192 columns and at (2, 4) 1,536 × 2,048: bit-equal
+             to its plain version and to the unsharded launch on the same
+             elements, timed three ways, one kernel a call, beside the
+             contiguous launch on as many elements; rows
+             ``dps_quantize_onchip_prng_block`` and ``..._block_2x4``, the
+             launches of ``train_llama_tp`` at each mesh): ``tp_check`` (one llama
              layer at full geometry, x (2, 512, 3,072), fp32 and bf16, on
              stacked (1, 4) and (2, 4) meshes against the unsharded layer:
              output and every gradient within ``TP_TOL``; K1b's blocks of
@@ -462,7 +476,7 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: torch.cuda.is_available() is False; this script "
              "runs the CUDA kernels and has no CPU path")
 
-from kernel_ab import time_graph_ms, time_ms                         # noqa: E402
+from kernel_ab import device_kernels, time_graph_ms, time_ms         # noqa: E402
 from repro_torch.configs.base import get_config                      # noqa: E402
 from repro_torch.kernels import _build, dps_quant, paged_attn        # noqa: E402
 from repro_torch.models import registry                              # noqa: E402
@@ -1197,21 +1211,113 @@ def check_unbiased(n=1 << 20, seeds=64, il=2, fl=6):
     return z
 
 
+# K1/K2's TMA body at its edges: (whole shape, block origin, block shape)
+# of K1b's block mode — rows of at least a span cut into spans, the last of
+# a row shorter; rows shorter than a span taken whole, a slab's last item
+# fewer rows, a row of fewer groups than a consumer warp group (the counter
+# wraps inside a thread's stride); bf16 rows
+TMA_BLOCKS = (((64, 16384), (0, 4096), (64, 8192)),
+              ((48, 12000), (0, 6000), (48, 6000)),
+              ((256, 1024), (64, 256), (128, 512)),
+              ((4, 500, 80), (1, 50, 40), (2, 250, 40)),
+              ((64, 8192), (0, 2048), (64, 2048)))
+
+
+def tma_edge_checks(rng):
+    """K1/K1b/K2/K2b on the TMA body's edge shapes: K1b on a contiguous
+    tensor just past ``Q_TMA_MIN`` whose last item is short, fp32 and
+    bf16, Philox offsets 0 and 4 (and K1, K2, K2b on it, which
+    ``quant_plan`` sends to the grid-stride body); K1b and K2b in block
+    mode at ``TMA_BLOCKS``; a grid wider than 2^22 — each launch on the
+    body ``quant_plan`` gives it (asserted), q and the wire bit-equal to
+    the plain versions, statistics per ``_stats_match``, two launches
+    equal, each block's q equal to the unsharded launch's on its
+    elements.  Returns the largest relative difference of a float sum."""
+    worst = 0.0
+
+    def body(x, want, **kw):
+        plan = dps_quant.quant_plan(x.numel(), x_bytes=x.element_size(), **kw)
+        if plan.body != want:
+            raise AssertionError(f"quant_plan: {tuple(x.shape)} {x.dtype} "
+                                 f"{kw} is on the {plan.body} body")
+
+    n = dps_quant.Q_TMA_MIN + 8
+    for dtype in (torch.float32, torch.bfloat16):
+        v = rng.standard_normal(n).astype(np.float32) * 4.0
+        v[::7] = 0.0
+        x = torch.from_numpy(v).to(DEV).to(dtype)
+        bits = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)
+                                .view(np.int32)).to(DEV)
+        body(x, "tma")
+        body(x, "stride", operand=True)
+        body(x, "stride", wire=True)
+        for stats in (True, False):
+            for src in (None, bits, dps_quant.Philox(7),
+                        dps_quant.Philox(7, offset=4)):
+                worst = max(worst, check_quant(x, 3, 9, src, stats=stats)[1])
+                worst = max(worst, check_wire_quant(x, 3, 5, src,
+                                                    stats=stats)[1])
+        check_prng_equals_bits(x, 3, 9, seed=5)
+        # a grid wider than 2^22 (no floor by two adds; the error terms
+        # scaled one by one)
+        worst = max(worst, check_quant(x, 8, 20, dps_quant.Philox(8))[1])
+        del x, bits
+    for whole, origin, shape in TMA_BLOCKS:
+        dtype = torch.bfloat16 if shape == (64, 2048) else torch.float32
+        g = torch.Generator(device=DEV).manual_seed(3)
+        w = (torch.randn(whole, generator=g, device=DEV) * 4.0).to(dtype)
+        sl = tuple(slice(o, o + b) for o, b in zip(origin, shape))
+        blk = w[sl].contiguous()
+        geo = dps_quant.block_geometry(whole, origin, shape)
+        body(blk, "tma", geo=geo)
+        src = dps_quant.Philox(21, block=geo)
+        for stats in (True, False):
+            worst = max(worst, check_quant(blk, 3, 9, src, stats=stats)[1])
+            worst = max(worst, check_wire_quant(blk, 3, 5, src,
+                                                stats=stats)[1])
+        worst = max(worst, check_quant(blk, 8, 20, src)[1])
+        qw, _ = dps_quant.dps_quant(w, _i32(3), _i32(9), dps_quant.Philox(21),
+                                    backend="kernel")
+        qb, _ = dps_quant.dps_quant(blk, _i32(3), _i32(9), src,
+                                    backend="kernel")
+        if not torch.equal(qb, qw[sl]):
+            raise AssertionError(f"K1b block mode at {shape} of {whole} "
+                                 "differs from the unsharded launch")
+    return worst
+
+
 def quant_row(name, shape, x, il, fl, bits, err, rel, nbytes, nops):
     """One ``kernels`` row: K1/K1b at ``x``'s shape, timed with and without
-    statistics beside the plain version."""
+    statistics beside the plain version — ``ms`` between CUDA events around
+    the wrapper with the L2 overwritten by a zero fill before each launch,
+    ``ms_graph`` replayed from a CUDA graph, ``ms_graph_clean`` replayed
+    with the L2 flushed by a read (clean lines) — with the body
+    ``quant_plan`` gives it and the device kernels a call (``torch.profiler``
+    over 10 calls outside a graph; held to 1)."""
     args = (x, _i32(il), _i32(fl), bits)
-    ms = time_ms(lambda: dps_quant.dps_quant(*args, backend="kernel"), repeats=10)
+    call = lambda: dps_quant.dps_quant(*args, backend="kernel")
+    ms = time_ms(call, repeats=10)
     ms_nostats = time_ms(lambda: dps_quant.dps_quant(
         *args, compute_stats=False, backend="kernel"), repeats=10)
+    ms_graph = time_graph_ms(call, repeats=10)
+    ms_clean = time_graph_ms(call, repeats=10, clean=True)
+    per_call, _ = device_kernels(call)
+    if per_call != 1:
+        raise AssertionError(f"{name}: {per_call} device kernels a call")
     plain_ms = time_ms(lambda: dps_quant.dps_quant(*args, backend="plain"),
                        repeats=3, warmup=1)
     bound_ms, by = bound(nbytes, nops)
+    geo = bits.block if isinstance(bits, dps_quant.Philox) else None
+    plan = dps_quant.quant_plan(
+        x.numel(), x_bytes=x.element_size(),
+        operand=isinstance(bits, torch.Tensor), geo=geo)
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/dps_quant.cu",
             "replaces": "src/repro/kernels/dps_quant.py:288",
             "shape": shape, "max_abs_err": err, "stats_max_rel_err": rel,
             "ms": ms, "plain_ms": plain_ms, "ms_no_stats": ms_nostats,
+            "ms_graph": ms_graph, "ms_graph_clean": ms_clean,
+            "kernels_a_call": per_call, "body": plan.body,
             "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes,
             "library_ms": None}
 
@@ -1245,6 +1351,9 @@ def quant_checks(cfg):
                                                        stats=stats)[1])
                 check_prng_equals_bits(x, 3, 9, seed=777 + n)
             small.append(f"n={n} {dtype}")
+    worst = max(worst, tma_edge_checks(rng))
+    small.append("TMA body edges: " + ", ".join(
+        f"{b} of {w}" for w, _, b in TMA_BLOCKS))
     z = check_unbiased()
 
     # --- the training paths' shapes ---
@@ -1257,6 +1366,19 @@ def quant_checks(cfg):
         x = draw(n, torch.float32, scale=0.05)
         errs[name], rels[name] = check_quant(x, 8, 12, npbits(n))
         check_quant(x, 8, 16, npbits(n), stats=False)
+        if name == "lenet_fc1_w":
+            # Fig. 4's arms quantize it with K1b: the small-leaf row
+            errs["lenet_fc1_k1b"], rels["lenet_fc1_k1b"] = check_quant(
+                x, 8, 12, dps_quant.Philox(6))
+            fc1 = quant_row(
+                "dps_quantize_onchip_prng_lenet_fc1",
+                f"LeNet fc1_w 800x500 = {n} fp32, Philox bits in the "
+                "kernel, statistics on (every K1b event of paper_fig4's "
+                "quantized arms is a LeNet leaf or tap of this size or "
+                "smaller)", x, 8, 12, dps_quant.Philox(6),
+                errs["lenet_fc1_k1b"], rels["lenet_fc1_k1b"],
+                8 * n + 8 + 28, 49 * n)
+            fc1.update(counter="dps_quantize_onchip_prng", run="paper_fig4")
     # the LM's tap: bf16 residual stream, <IL, FL> as the acts domain starts
     x = draw(tap, torch.bfloat16, scale=1.0)
     errs["tap_nearest"], rels["tap_nearest"] = check_quant(x, 8, 12)
@@ -1312,13 +1434,15 @@ def quant_checks(cfg):
     gc.collect()
     torch.cuda.empty_cache()
 
-    rows = [k1, k1b]
+    rows = [k1, k1b, fc1]
     say("quantize", small_shapes=small, small_worst_sum_rel=worst,
         unbiased_sigma=z, main_path_q_max_abs_err=errs,
         main_path_sum_rel=rels,
         tolerances={"q": "bit-equal", "float_sums_rel": SUM_RTOL,
                     "counts": "exact below 2^24, 1 ulp above"},
-        main_path=[{k: r[k] for k in ("name", "shape", "ms", "ms_no_stats",
+        main_path=[{k: r[k] for k in ("name", "shape", "body", "ms",
+                                      "ms_graph", "ms_graph_clean",
+                                      "kernels_a_call", "ms_no_stats",
                                       "plain_ms", "bound_ms", "bound_by")}
                    for r in rows],
 
@@ -4316,45 +4440,74 @@ STAT_FIELDS = ("count", "nonzero", "overflow", "abs_err_sum", "rel_err_sum",
                "abs_sum", "max_abs")
 
 
-def k1b_block_row():
+def k1b_block_rows():
     """K1b in block mode at one rank's block of one layer of llama's
-    ``w_in`` at (1, 4): 3,072 × 2,048 fp32, columns 2,048-4,095 of 8,192 —
-    kernel vs plain bit-equal, and equal to the unsharded launch's q on
-    those elements; timed beside the contiguous K1b launch on as many
-    elements and against its bytes bound.  Its launches are the placed
-    run's block launches (``train_llama_tp``)."""
-    D, F, m = 3072, 8192, 4
+    ``w_in`` as ``place_tensor`` cuts it under the configs' specs, at each
+    of ``TP_MESHES``: at (1, 4) rank 1's 3,072 × 2,048 (columns 2,048-4,095
+    of 8,192), at (2, 4) rank 5's 1,536 × 2,048 (rows 1,536-3,071 too) —
+    kernel vs plain bit-equal, two launches' statistics bit-identical
+    (``check_quant``), q equal to the unsharded launch's on those
+    elements; timed by ``quant_row`` beside the contiguous K1b launch on as
+    many elements.  Each row's launches are its placed run's block
+    launches (``train_llama_tp`` at that mesh)."""
+    from repro_torch.dist.sharding import LogicalRules, place_tensor
+    from repro_torch.launch.specs import param_shardings
+    cfg = get_config("llama3_2_3b")
+    D, F = cfg.d_model, cfg.d_ff
     g = torch.Generator(device=DEV).manual_seed(12)
     whole = torch.randn(D, F, generator=g, device=DEV) * D ** -0.5
     whole[:, ::11] = 0.0
-    blk = whole[:, F // m:2 * F // m].contiguous()
-    geo = dps_quant.block_geometry((D, F), (0, F // m), (D, F // m))
-    bits = dps_quant.Philox(5, block=geo)
     il, fl = 2, 14
-    err, rel = check_quant(blk, il, fl, bits)
     qw, _ = dps_quant.dps_quant(whole, _i32(il), _i32(fl), dps_quant.Philox(5),
                                 backend="kernel")
-    qb, _ = dps_quant.dps_quant(blk, _i32(il), _i32(fl), bits,
-                                backend="kernel")
-    if not torch.equal(qb, qw[:, F // m:2 * F // m]):
-        raise AssertionError("K1b block mode differs from the unsharded "
-                             "launch on the same elements")
-    n = blk.numel()
-    row = quant_row("dps_quantize_onchip_prng_block",
-                    f"llama3.2-3b layers/mlp/w_in, one layer's block at "
-                    f"(1, 4): {D}x{F // m} of {D}x{F} = {n} fp32, Philox "
-                    "bits of the whole leaf in the kernel (block mode), "
-                    "statistics on", blk, il, fl, bits, err, rel,
-                    8 * n + 8 + 28, 49 * n)
-    flat, ilt, flt = blk.reshape(-1), _i32(il), _i32(fl)
-    row["contiguous_ms"] = time_ms(lambda: dps_quant.dps_quant(
-        flat, ilt, flt, dps_quant.Philox(5), backend="kernel"), repeats=10)
-    row.update(counter="dps_quantize_block", run="train_llama_tp")
-    say("k1b_block", **{k: row[k] for k in (
-        "shape", "max_abs_err", "stats_max_rel_err", "ms", "ms_no_stats",
-        "contiguous_ms", "plain_ms", "bound_ms", "bound_by")})
-    del whole, blk, qw, qb
-    return row
+    rows = []
+    for shape in TP_MESHES:
+        mesh = _stacked(shape)
+        spec = param_shardings(cfg, mesh, LogicalRules())["layers"]["mlp"][
+            "w_in"][1:]                                  # one layer's dims
+        placed = place_tensor(whole, spec, mesh)
+        rank = (shape[0] - 1) * shape[1] + 1
+        origin, bshape = placed.geometry(rank)
+        blk = placed.blocks[rank]
+        geo = dps_quant.block_geometry((D, F), origin, bshape)
+        bits = dps_quant.Philox(5, block=geo)
+        err, rel = check_quant(blk, il, fl, bits)
+        qb, _ = dps_quant.dps_quant(blk, _i32(il), _i32(fl), bits,
+                                    backend="kernel")
+        sl = tuple(slice(o, o + b) for o, b in zip(origin, bshape))
+        if not torch.equal(qb, qw[sl]):
+            raise AssertionError(f"K1b block mode at {shape} differs from "
+                                 "the unsharded launch on the same elements")
+        n = blk.numel()
+        tag = "x".join(map(str, shape))
+        row = quant_row(
+            "dps_quantize_onchip_prng_block" + ("" if tag == "1x4"
+                                                else f"_{tag}"),
+            f"llama3.2-3b layers/mlp/w_in, one layer's block at {shape} "
+            f"(rank {rank}, spec {spec}, origin {origin}): "
+            f"{bshape[0]}x{bshape[1]} of {D}x{F} = {n} fp32, Philox bits "
+            "of the whole leaf in the kernel (block mode), statistics on",
+            blk, il, fl, bits, err, rel, 8 * n + 8 + 28, 49 * n)
+        flat, ilt, flt = blk.reshape(-1), _i32(il), _i32(fl)
+        contiguous = lambda: dps_quant.dps_quant(flat, ilt, flt,
+                                                 dps_quant.Philox(5),
+                                                 backend="kernel")
+        row["contiguous_ms"] = time_ms(contiguous, repeats=10)
+        row["contiguous_ms_graph_clean"] = time_graph_ms(contiguous,
+                                                         repeats=10,
+                                                         clean=True)
+        row.update(counter="dps_quantize_block",
+                   run="train_llama_tp" + ("" if tag == "1x4"
+                                           else f"_{tag}"))
+        say("k1b_block", **{k: row[k] for k in (
+            "name", "shape", "body", "max_abs_err", "stats_max_rel_err",
+            "ms", "ms_graph", "ms_graph_clean", "kernels_a_call",
+            "ms_no_stats", "contiguous_ms", "contiguous_ms_graph_clean",
+            "plain_ms", "bound_ms", "bound_by")})
+        rows.append(row)
+        del placed, blk, qb
+    del whole, qw
+    return rows
 
 
 def _layer_vs_whole(cfg, defs, fn, inputs, in_logical, out_shape, *,
@@ -5616,6 +5769,9 @@ def main():
     lay = serve_layout()
     rows = kernel_checks(cfg, lay)
     rows += quant_checks(cfg)
+    # K1b's block mode at the placed step's w_in blocks; its launches are
+    # read from the placed runs below (a row's "run")
+    rows += k1b_block_rows()
     rows += train_shape_rows()
     rows += wire_kernel_checks(cfg)
     rows += mamba_wire_rows()
@@ -5633,6 +5789,7 @@ def main():
     lenet_k1 = lenet()["dps_quantize"]
     family_runs = {}
     fig4_k1b = paper_fig4()
+    other["paper_fig4"] = {"dps_quantize_onchip_prng": fig4_k1b}
     llama = train_lm(cfg, "onchip", 4)
     launches["dps_quantize_onchip_prng"] = llama["launches"][
         "dps_quantize_onchip_prng"]
@@ -5676,10 +5833,11 @@ def main():
     # the sharded train step: K1b in block mode, one llama layer placed,
     # llama3.2-3b trained placed on stacked (1, 4) and (2, 4) meshes, the
     # process path over a one-rank NCCL group
-    rows.append(k1b_block_row())
     tp_check()
     tp_runs = train_llama_tp()
     other["train_llama_tp"] = {"dps_quantize_block": tp_runs["1x4"]["block"]}
+    other["train_llama_tp_2x4"] = {
+        "dps_quantize_block": tp_runs["2x4"]["block"]}
     # the health guards and the NaN drill on the placed step, held to the
     # unarmed (1, 4) run above
     guards_placed = guards_tp(tp_runs["1x4"]["run"])

@@ -1,7 +1,8 @@
 """Time the port's hand-written kernels of several source trees side by side
 on one card.
 
-    python3 kernel_ab.py [--out FILE] [--only k5,quant,k4,host] TREE [TREE ...]
+    python3 kernel_ab.py [--out FILE] [--only k5,quant,k4,host,split,bodies]
+                         [--clean-l2] TREE [TREE ...]
 
 Each TREE is a checkout of this repository (a directory that holds
 ``src/repro_torch``), for example the parent commit unpacked with
@@ -22,8 +23,10 @@ built from its own sources into ``build/kernel_ab/<n>``.  A child measures:
 * the quantizer: K1 (bits operand) and K1b (Philox bits) on leaves of
   400,000 values (LeNet's fc1), 9,437,184 (a 3072 x 3072 projection),
   25,165,824 (one layer of llama3.2-3b's w_in) and 704,643,072 (the whole
-  w_in leaf), K2 (bits operand) and K2b (Philox) onto the int8 wire, with
-  statistics and without, each replayed from a CUDA graph;
+  w_in leaf), K2 (bits operand) and K2b (Philox) onto the int8 wire, and
+  K1b in block mode on one rank's block of one w_in layer at (1, 4) and
+  (2, 4) and on the 28-layer leaf's block at (1, 4), with statistics and
+  without, each replayed from a CUDA graph;
 * the wire's decode-and-mean K4 at four shapes of 4 int8 rows: owner 1's
   strided view of the full llama3.2-3b tree's [4, 4c] stack (c =
   803,385,344, per-layer formats), owner 1's view at the overlap run's w_in
@@ -42,8 +45,21 @@ built from its own sources into ``build/kernel_ab/<n>``.  A child measures:
   by the host's wall clock a call (the median of 5 loops of 500 calls,
   synchronized after each loop).
 
+* ``split`` (not in the default set): K1b's block mode at those three
+  blocks, and the contiguous launch on as many elements, timed between CUDA
+  events around the wrapper, replayed from a graph, and replayed with the
+  L2 flushed by a read, with statistics and without, and the device
+  kernels a call with each one's device time (``torch.profiler``);
+* ``bodies`` (not in the default set; a tree whose quantizer has a
+  ``quant_plan``): K1b and K1 to nearest with statistics on the TMA body
+  and on the grid-stride body at ``BODY_SIZES`` (400,000 to 704,643,072
+  elements), and the body the plan takes.
+
 Every time is the median over repeated launches with the 50 MB L2 cache
-overwritten before each, as in ``chip_smoke.py``.
+overwritten before each, as in ``chip_smoke.py``: by a zero fill, which
+leaves dirty lines for the kernel's own traffic to write back, or with
+``--clean-l2`` (the quant set; ``split`` and ``bodies`` read both or the
+clean one) by a read of 256 MB.
 
 Measured (``--only k4``, PARENT CHANGE CHANGE PARENT, on an H100 80GB HBM3 at
 700.00 W), K4's grid-stride body against its TMA body, ms: 3.237 / 3.245
@@ -89,6 +105,14 @@ K4_VARIANTS = [(4096, 4, 2), (2048, 4, 2), (4096, 2, 2), (4096, 3, 2),
 QUANT_CASES = [("K1b", "lenet_fc1"), ("K1b", "proj"), ("K1b", "w_in"),
                ("K1", "lenet_fc1"), ("K1", "w_in_layer"),
                ("K2", "w_in"), ("K2b", "lenet_fc1"), ("K2b", "w_in")]
+# K1b in block mode: (whole shape, the block's origin, its shape) of one
+# rank's block of llama3.2-3b's w_in as place_tensor cuts it under the
+# configs' specs — one layer at (1, 4) (columns 2,048-4,095 of 8,192) and at
+# (2, 4) (rows 1,536-3,071 too), and the whole 28-layer leaf's block at
+# (1, 4), the placed step's own launch on w_in
+QUANT_BLOCKS = {"w_in_layer_1x4": ((3072, 8192), (0, 2048), (3072, 2048)),
+                "w_in_layer_2x4": ((3072, 8192), (1536, 2048), (1536, 2048)),
+                "w_in_1x4": ((28, 3072, 8192), (0, 0, 2048), (28, 3072, 2048))}
 
 
 # ---------------------------------------------------------------------------
@@ -98,18 +122,30 @@ QUANT_CASES = [("K1b", "lenet_fc1"), ("K1b", "proj"), ("K1b", "w_in"),
 _flush = None
 
 
-def time_ms(fn, repeats, warmup=3):
-    """Median milliseconds of ``fn()`` by CUDA events, one pair per launch,
-    the 50 MB L2 cache overwritten before each so the call finds it cold, as
-    it does between two layers of the serving path."""
+def _flush_l2(clean):
+    """Overwrite the 50 MB L2 cache with 256 MB of other data: by default a
+    zero fill, which leaves the cache full of dirty lines that the next
+    kernel's own traffic must write back; ``clean``: a read of the same
+    256 MB, which leaves clean lines."""
     global _flush
     if _flush is None:
         _flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    if clean:
+        _flush.view(torch.int32).max()
+    else:
+        _flush.zero_()
+
+
+def time_ms(fn, repeats, warmup=3, clean=False):
+    """Median milliseconds of ``fn()`` by CUDA events, one pair per launch,
+    the 50 MB L2 cache overwritten before each so the call finds it cold, as
+    it does between two layers of the serving path (``clean``: overwritten
+    by a read, see :func:`_flush_l2`)."""
     for _ in range(warmup):
         fn()
     pairs = []
     for _ in range(repeats):
-        _flush.zero_()
+        _flush_l2(clean)
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         a.record()
         fn()
@@ -119,7 +155,7 @@ def time_ms(fn, repeats, warmup=3):
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def time_graph_ms(fn, repeats, warmup=3):
+def time_graph_ms(fn, repeats, warmup=3, clean=False):
     """Median milliseconds of ``fn()`` replayed from a CUDA graph, timed like
     :func:`time_ms`.  A replay costs the host a few microseconds, so a
     kernel that runs for tens of microseconds is not timed behind its Python
@@ -134,16 +170,49 @@ def time_graph_ms(fn, repeats, warmup=3):
     with torch.cuda.graph(graph):
         fn()
     graph.replay()
-    ms = time_ms(graph.replay, repeats, warmup=0)
+    ms = time_ms(graph.replay, repeats, warmup=0, clean=clean)
     del graph
     return ms
+
+
+def _device_us(evt):
+    """Device time of a profiler entry that ran on the device (a kernel or
+    a copy), 0 for a host-side entry."""
+    if "cuda" not in str(getattr(evt, "device_type", "")).lower():
+        return 0.0
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, attr, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def device_kernels(fn, calls=10):
+    """``fn()`` called ``calls`` times, outside any graph, under
+    ``torch.profiler``: the device kernels (and copies) a call launches,
+    and each one's mean device microseconds, by name."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.key_averages():
+        us = _device_us(e)
+        if us > 0.0:
+            by_name[e.key] = (us, e.count)
+    per_call = sum(c for _, c in by_name.values()) / calls
+    return per_call, {k: us / c for k, (us, c) in by_name.items()}
 
 
 # ---------------------------------------------------------------------------
 # the child: one tree
 # ---------------------------------------------------------------------------
 
-def _child(tree, only):
+def _child(tree, only, clean):
     sys.path.insert(0, os.path.join(tree, "src"))
     from repro_torch.kernels import _build, dps_quant, paged_attn
 
@@ -154,7 +223,11 @@ def _child(tree, only):
     if "k5" in only:
         out["k5"] = _k5(dev, paged_attn, _build)
     if "quant" in only:
-        out["quant"] = _quant(dev, dps_quant)
+        out["quant"] = _quant(dev, dps_quant, clean)
+    if "split" in only:
+        out["split"] = _split(dev, dps_quant)
+    if "bodies" in only and hasattr(dps_quant, "quant_plan"):
+        out["bodies"] = _bodies(dev, dps_quant)
     if "k4" in only:
         out["k4"] = _k4(dev, dps_quant, _build)
     if "host" in only:
@@ -259,8 +332,21 @@ def _k5(dev, paged_attn, _build):
     return k5
 
 
-def _quant(dev, dps_quant):
-    """K1/K1b/K2/K2b at QUANT_CASES, with statistics and without."""
+def _block_case(dev, dps_quant, tag, seed=0):
+    """K1b's block-mode inputs at ``QUANT_BLOCKS[tag]``: the block (drawn
+    like init_params' normal init), its Philox source, <IL, FL> = <2, 14>."""
+    whole, origin, shape = QUANT_BLOCKS[tag]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    blk = torch.randn(shape, generator=gen, device=dev) * whole[-2] ** -0.5
+    src = dps_quant.Philox(5, block=dps_quant.block_geometry(whole, origin,
+                                                             shape))
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    return blk, i32(2), i32(14), src
+
+
+def _quant(dev, dps_quant, clean=False):
+    """K1/K1b/K2/K2b at QUANT_CASES and K1b at QUANT_BLOCKS, with
+    statistics and without (``clean``: the L2 flushed by a read)."""
     gen = torch.Generator(device=dev).manual_seed(0)
     i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
     quant = {}
@@ -285,10 +371,99 @@ def _quant(dev, dps_quant):
             for stats in (True, False):
                 quant[f"{kern}_{leaf}_{'stats' if stats else 'ns'}_ms"] = \
                     time_graph_ms(lambda: fn(x, il, fl, src, compute_stats=stats,
-                                             backend="kernel"), reps)
+                                             backend="kernel"), reps,
+                                  clean=clean)
         del x, bits
         torch.cuda.empty_cache()
+    for tag in QUANT_BLOCKS:
+        blk, il, fl, src = _block_case(dev, dps_quant, tag)
+        reps = 20 if blk.numel() > 10**8 else 50
+        for stats in (True, False):
+            quant[f"K1b_block_{tag}_{'stats' if stats else 'ns'}_ms"] = \
+                time_graph_ms(lambda: dps_quant.dps_quant(
+                    blk, il, fl, src, compute_stats=stats, backend="kernel"),
+                    reps, clean=clean)
+        del blk
+        torch.cuda.empty_cache()
     return quant
+
+
+# the quantizer's two bodies side by side: (kernel, elements)
+BODY_SIZES = (400_000, 3_145_728, 6_291_456, 25_165_824, 100_663_296,
+              704_643_072)
+BODY_KERNELS = ("K1b", "K1_nearest")
+
+
+def _bodies(dev, dps_quant):
+    """K1b and K1 to nearest (the launches the TMA body takes) with
+    statistics on each of the tree's two bodies at BODY_SIZES, replayed
+    from a CUDA graph with the L2 flushed by a read: the TMA body
+    (``quant_plan`` with its size floor lifted, on a contiguous tensor) and
+    the grid-stride body; ``plan`` names the one the wrapper takes."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    plan = dps_quant.quant_plan
+    tma = lambda n, **kw: plan(n, **{**kw, "geo": dps_quant.BlockGeometry(
+        1, n, 0, 0, 0)})
+    stride = lambda n, **kw: dps_quant.QuantPlan(
+        "stride", dps_quant.quant_blocks(n, kw.get("groups", 1)),
+        dps_quant.Q_THREADS, vec=kw.get("vec", True))
+    res = {}
+    try:
+        for n in BODY_SIZES:
+            x = torch.randn(n, generator=gen, device=dev) * 0.05
+            for kern in BODY_KERNELS:
+                il, fl = i32(4), i32(12)
+                src = dps_quant.Philox(1234) if kern == "K1b" else None
+                call = lambda: dps_quant.dps_quant(x, il, fl, src,
+                                                   backend="kernel")
+                reps = 20 if n > 10**8 else 50
+                row = {"plan": plan(n).body}
+                for body, p in (("tma", tma), ("stride", stride)):
+                    dps_quant.quant_plan = p
+                    row[f"{body}_ms"] = time_graph_ms(call, reps, clean=True)
+                dps_quant.quant_plan = plan
+                res[f"{kern}_{n}"] = row
+            del x
+            torch.cuda.empty_cache()
+    finally:
+        dps_quant.quant_plan = plan
+    return res
+
+
+def _split(dev, dps_quant):
+    """K1b's block mode at QUANT_BLOCKS timed three ways — between CUDA
+    events around the wrapper with the L2 flushed by a zero fill
+    (``events``, ``chip_smoke.py``'s row), replayed from a CUDA graph with
+    that flush (``graph``) and with the L2 flushed by a read (``clean``) —
+    with statistics and without; the contiguous K1b launch on as many
+    elements, the same three ways; and the device kernels a call launches
+    with each one's device time (``torch.profiler``, 10 calls)."""
+    res = {}
+    for tag in QUANT_BLOCKS:
+        blk, il, fl, src = _block_case(dev, dps_quant, tag)
+        flat = blk.reshape(-1)
+        reps = 20 if blk.numel() > 10**8 else 50
+        row = {"n": blk.numel()}
+        calls = {"block": lambda st: dps_quant.dps_quant(
+                     blk, il, fl, src, compute_stats=st, backend="kernel"),
+                 "contiguous": lambda st: dps_quant.dps_quant(
+                     flat, il, fl, dps_quant.Philox(5), compute_stats=st,
+                     backend="kernel")}
+        for name, call in calls.items():
+            for st in (True, False):
+                fn = lambda: call(st)
+                key = f"{name}_{'stats' if st else 'ns'}"
+                row[f"{key}_events_ms"] = time_ms(fn, reps)
+                row[f"{key}_graph_ms"] = time_graph_ms(fn, reps)
+                row[f"{key}_clean_ms"] = time_graph_ms(fn, reps, clean=True)
+                per_call, us = device_kernels(fn)
+                row[f"{key}_kernels_a_call"] = per_call
+                row[f"{key}_device_us"] = us
+        res[tag] = row
+        del blk, flat
+        torch.cuda.empty_cache()
+    return res
 
 
 def _k4(dev, dps_quant, _build):
@@ -360,11 +535,14 @@ def main():
     ap.add_argument("--out", default=None)
     ap.add_argument("--only", default="k5,quant,k4",
                     help="the kernels to time, comma-separated (k5, quant, "
-                         "k4, host)")
+                         "k4, host, split, bodies)")
+    ap.add_argument("--clean-l2", action="store_true",
+                    help="time the quant set with the L2 flushed by a read "
+                         "(clean lines) instead of a zero fill")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.child:
-        return _child(a.trees[0], a.only.split(","))
+        return _child(a.trees[0], a.only.split(","), a.clean_l2)
     if not torch.cuda.is_available():
         sys.exit("kernel_ab.py: no CUDA device; it times CUDA kernels")
     smi = subprocess.run(
@@ -379,7 +557,8 @@ def main():
             ROOT, "build", "kernel_ab", str(k)))
         env.pop("PYTHONPATH", None)
         p = subprocess.run([sys.executable, os.path.abspath(__file__), "--child",
-                            "--only", a.only, tree], env=env,
+                            "--only", a.only, *(["--clean-l2"] if a.clean_l2
+                                                else []), tree], env=env,
                            capture_output=True, text=True)
         res = [ln[len("KERNEL_AB "):] for ln in p.stdout.splitlines()
                if ln.startswith("KERNEL_AB ")]

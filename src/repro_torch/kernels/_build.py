@@ -54,12 +54,14 @@ CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
 KERNEL_SIGNATURES = {
     "dps_quantize": KernelSignature(
         ("x", "x_is_bf16", "n", "il", "fl", "bits", "src", "seed",
-         "ctr_base", "q", "wire", "partials", "stats", "nblocks", "vec",
-         "stream"), "pilpppiuupippiip", grouped=False),
+         "ctr_base", "q", "wire", "partials", "stats", "ticket", "nblocks",
+         "body", "vec", "span", "rows", "stages", "stream"),
+        "pilpppiuupipppiiiiiip", grouped=False),
     "dps_quantize_block": KernelSignature(
         ("x", "x_is_bf16", "n", "il", "fl", "seed", "n1", "n2", "s0", "s1",
-         "base", "q", "wire", "partials", "stats", "nblocks", "vec",
-         "stream"), "pilppulllllpippiip", grouped=False),
+         "base", "q", "wire", "partials", "stats", "ticket", "nblocks",
+         "body", "vec", "span", "rows", "stages", "stream"),
+        "pilppulllllpipppiiiiiip", grouped=False),
     "dps_group_wire_encode": KernelSignature(
         ("x", "x_is_bf16", "fmt_tab", "tile_group", "bits", "mask", "src",
          "seed", "goff", "start", "group_base", "wire", "partials", "stats",

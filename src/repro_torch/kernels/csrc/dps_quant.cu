@@ -1,6 +1,6 @@
 // The DPS quantizer kernels for Hopper (sm_90a): K1/K1b/K2/K2b, K3/K3b, K4.
 //
-// K1 / K1b / K2 / K2b (`quantize_kernel`) replace `_kernel` of
+// K1 / K1b / K2 / K2b (`quantize_kernel`, `quantize_tma_kernel`) replace `_kernel` of
 // src/repro/kernels/dps_quant.py (pallas_call at :288) in both of its
 // flavours: emit_wire=False (entry `dps_quant_pallas`, q in x's dtype) and
 // emit_wire=True (entry `dps_quant_wire_pallas`, the int8 wire payload), each
@@ -12,35 +12,81 @@
 // the error against the decoded sat*2^-FL.  The seven statistics of
 // fixed_point.quantize / wire_quantize come out beside it.
 //
-// Bound on this card: bytes without statistics, issue with them.  K1 reads x
-// (4 B fp32, 2 B bf16) and 4 B of bits and writes q; K2b moves 4 B in + 1 B
-// out per fp32 element, K2 with an operand 4 B more.  Philox4x32-10 (K1b,
-// K2b) costs about 40 integer operations per 4 elements, the statistics about
-// 25 instructions an element (clips, the error terms, an IEEE division, three
-// sums, two counts, the max): with them the kernel issues about 55
-// instructions an element, and at 704 M elements that, not the bytes, sets
-// the time.  The design: a 1-D grid-stride pass over the flat tensor in
-// groups of four elements (16-byte loads of fp32 x and bits and a 4- or
-// 16-byte store when the pointers allow, a scalar tail by predicate, so no
-// pad or mask copies), the grid four blocks an SM (at most 64 registers a
-// thread), one wave.  Without statistics a thread takes four groups an
-// iteration, all four loads issued before the first is used and the Philox
-// words drawn while they are out; with statistics one group (more spills
-// the 64 registers and is slower, measured).  The float terms of the sums
-// add in a fixed pairwise tree over the group and go to double once a group;
-// counts are integers; the grid's span <= 2^22 floors by two adds, NaN-
-// propagating clips are one instruction each, the int8 byte comes from an add
-// (no quarter-rate conversions).  <IL, FL> are read from device memory by
-// every block (the controller moves them on the device every step);
-// per-block statistics partials (integer counts, double sums) are reduced
-// lane -> warp -> block, and a second one-block launch folds the partials in
-// block order.  The output may be a slice of a larger buffer (the wire path
-// writes each leaf straight into its slot of a rank's int8 payload).  On an
-// H100 at 700 W (kernel_ab.py, both designs in one run) K2b on the
-// 704,643,072-value w_in gradient takes 1.89 ms with statistics (1.245
-// without; the bound is 1.05) against 2.337 (1.496) before this design; K1b
-// on w_in 2.08 against 2.25 ms; at LeNet's 400,000-value fc1 both designs
-// take 0.0105-0.0107 ms with statistics, and without 0.0076 against 0.0072.
+// One launch a call, with two bodies.  The statistics: each block reduces
+// its threads' rows (integer counts, double sums) lane -> warp -> block,
+// writes its row, and the block that takes the last ticket of an int
+// counter folds the rows in block order into the seven float32 statistics
+// and sets the ticket back (finish_stats).  The wrapper keeps one ticket a
+// device; the port launches every quantizer on one stream, and a second
+// stream would need a ticket of its own.
+//
+// Bound on this card: bytes without statistics (K1b moves 8 B an fp32
+// element, K2b 5, a bits operand 4 more), issue with them: ~200-230
+// instructions a group of four (Philox4x32-10 ~40, an IEEE division a
+// element ~10, the clips, counts, sums and the max), at an IPC near 0.6
+// with 16 consumer warps an SM (in-kernel clock 1.98 GHz), ~3 us for a
+// 4,096-element item a block.  At the placed step's blocks (10^5 to
+// ~3*10^7 elements) that, the first stage's arrival (~2.7 us) and the fold
+// (~1.9 us) set the time; at 704 M elements the bytes and the issue nearly
+// tie (K1b 2.00 ms with statistics, 1.94 without, bound 1.68).
+//
+// The grid-stride body (`quantize_kernel`, the earlier design): a 1-D pass over
+// the flat tensor in groups of four elements (16-byte loads of fp32 x and
+// bits and a 4- or 16-byte store when the pointers allow, a scalar tail by
+// predicate, so no pad or mask copies), four blocks of 256 threads an SM
+// (at most 64 registers a thread), one wave.  Without statistics a thread
+// takes four groups an iteration, all four loads issued before the first is
+// used and the Philox words drawn while they are out; with statistics one
+// group (more spills the 64 registers and is slower, measured).  The float
+// terms of the sums add in a fixed pairwise tree over the group and go to
+// double once a group; counts are integers; the grid's span <= 2^22 floors
+// by two adds, NaN-propagating clips are one instruction each, the int8
+// byte comes from an add (no quarter-rate conversions).  In block mode each
+// group's counter costs two 64-bit divisions (geo_index).
+//
+// The TMA body (`quantize_tma_kernel`, q in x's type from Philox bits or to
+// nearest): a persistent grid of two blocks an SM, each 256 consumer
+// threads and one producer warp, and a ring of three 16 KB stages of x in
+// dynamic shared memory, each filled by one bulk copy (cp.async.bulk,
+// completing on the stage's full mbarrier) of one item: a span of the storage inside one row of the
+// block's [n0, n1, n2], or whole rows of one slab (kernels/dps_quant.py's
+// quant_plan cuts them; block b takes items b, b + grid, ...).  The
+// producer works out an item's header (its start, length and first Philox
+// counter: two 64-bit divisions an item) beside the stage; the consumers
+// take groups tid, tid + 256, ... from shared memory, store q with one
+// store a group, and step their counters by a constant with one carry at a
+// row's end: no division a group.  Their statistics are in grid units,
+// scaled by 2^-FL once (exact), with the division on operands made nonzero
+// (a zero operand sends the whole warp down the division's slow path: an
+// input of zeros read 41 us for 29) and no branch round it, a thread's
+// groups of an item summed in float, the item to double once.  The producer
+// thread, which stores no q, takes the block's ticket.  <IL, FL> are
+// read from device memory by every block (the controller moves them on the
+// device every step).  The output may be a slice of a larger buffer (the
+// wire path writes each leaf straight into its slot of a rank's payload).
+//
+// Where the plan cuts: the TMA body takes every block (K1b's block mode,
+// where the grid-stride body divides twice a group) and a contiguous
+// launch of 2^24 elements or more without a bits operand onto q (K1b, or
+// to nearest); the rest goes to the grid-stride body, which measured as
+// fast or faster there, or within 2 % (kernel_ab.py --only bodies, H100
+// 80GB HBM3 at 700.00 W, TMA over grid-stride with statistics: K1b
+// 0.958-0.981 at 25-704 M elements but 1.08-1.17 at <= 6.3 M, where 528
+// blocks start on their first 16-byte loads while a 16 KB stage is still
+// in flight; and, while the TMA body also carried a bits operand beside x
+// and the int8 wire, K2b 1.09-1.17 at every size, where the grid-stride
+// body's 32 warps an SM issue more than 16, K1 1.00-1.15, K2 1.01-1.16 up
+// to 25 M and 0.98-0.99 above: so it carries neither).  More consumer warps made the TMA body slower (three
+// blocks at 72 registers; four at 56, or 1,024 threads at 64, spill), and
+// claiming items dynamically gained 4 % at 704 M elements and lost at
+// 6.3 M.  On that card (kernel_ab.py, parent, this design twice, parent in
+// one call; CUDA-graph replay, the L2 flushed by a read): one rank's block
+// of a w_in layer at (1, 4), 6,291,456 fp32, 0.0288 / 0.0285 ms against
+// 0.0307 / 0.0306 (bound 0.0150); at (2, 4) 0.0194 / 0.0196 against
+// 0.0197 / 0.0194; the 28-layer w_in block at (1, 4) 0.506 / 0.506 against
+// 0.573 / 0.574; K1b on the 704,643,072-value w_in leaf 2.015 / 2.000
+// against 2.102 / 2.107 (bound 1.683); K1, K2 and K2b within 0.3 % of the
+// parent; one device kernel a call where there were two.
 //
 // K3 / K3b (`group_wire_encode_kernel`) replace `_group_kernel` (entry
 // `dps_quant_group_wire_pallas`, pallas_call at :482): a group-aligned flat
@@ -302,9 +348,11 @@ __device__ __forceinline__ Row to_row(const Acc& a) {
     return r;
 }
 
-// Thread rows -> the block's row in thread 0: lanes, then warps in index order.
+// Thread rows -> the block's row in thread ROOT: lanes, then the block's
+// WARPS warps in index order.
+template <int WARPS = THREADS / 32, int ROOT = 0>
 __device__ __forceinline__ void block_reduce_row(Row& r) {
-    __shared__ Row part[THREADS / 32];
+    __shared__ Row part[WARPS];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
@@ -314,8 +362,9 @@ __device__ __forceinline__ void block_reduce_row(Row& r) {
     }
     if (lane == 0) part[warp] = r;
     __syncthreads();
-    if (threadIdx.x == 0) {
-        for (int w = 1; w < THREADS / 32; ++w) {
+    if (threadIdx.x == ROOT) {
+        r = part[0];
+        for (int w = 1; w < WARPS; ++w) {
 #pragma unroll
             for (int k = 0; k < PART - 1; ++k) r.v[k] += part[w].v[k];
             r.mx = max_nan(r.mx, part[w].mx);
@@ -327,6 +376,58 @@ __device__ __forceinline__ void write_row(double* dst, const Row& r) {
 #pragma unroll
     for (int k = 0; k < PART - 1; ++k) dst[k] = r.v[k];
     dst[PART - 1] = r.mx;
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers and bulk copies (the TMA bodies of K1/K2 and K4)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+                 "r"(bytes)
+                 : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete.  A barrier that never
+// completes is a fault of this file: after about 2^32 cycles (over two
+// seconds) the kernel traps, so the launch fails instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    long long t0 = 0;
+#pragma unroll 1
+    for (int spin = 0;; ++spin) {
+        uint32_t done;
+        asm volatile(
+            "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
+            "selp.u32 %0, 1, 0, p; }"
+            : "=r"(done)
+            : "r"(bar), "r"(parity)
+            : "memory");
+        if (done) return;
+        if (spin == 0)
+            t0 = clock64();
+        else if (clock64() - t0 > (1ll << 32))
+            __trap();
+    }
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+        ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+        : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -418,19 +519,63 @@ __device__ __forceinline__ void quantize_groups(const XT* __restrict__ x, long l
     }
 }
 
-// bits source: 0 = round to nearest, 1 = bits operand, 2 = Philox in
-// registers; element e takes word (ctr_base + e) % 4 of counter
-// (ctr_base + e) / 4; 3 = Philox in registers for a block of a larger
-// tensor, element e taking the word of its global index geo_index(geo, e).
-// QT is x's type (K1) or signed char (WIRE, K2).  Four blocks of 256
-// threads fit an SM (at most 64 registers a thread), so the grid of
-// kernels/dps_quant.py runs in one wave.
+// The statistics' last stage, at the end of every K1/K2 block (WARPS warps,
+// all of them calling it with their thread's row): the block's row goes to
+// partials[blockIdx.x]; the block that takes the last ticket (an int
+// counter, atomicAdd after a fence, no float atomic) folds every block's
+// row in block order and writes the seven float32 statistics (count
+// nonzero overflow abs_err_sum rel_err_sum abs_sum max_abs; the count is
+// n), then sets the ticket back to 0 for the next launch.  Thread ROOT
+// does the block's share: one with no stores of q outstanding makes the
+// fence cheap.  So a call is one launch, and the same input gives the same
+// bits on every run.  The launches of one ticket must not overlap: the
+// port launches every quantizer on one stream (a second stream would need
+// a ticket of its own).
+template <int WARPS, int ROOT>
+__device__ __forceinline__ void finish_stats(Row r, double* __restrict__ partials,
+                                             float* __restrict__ stats,
+                                             int* __restrict__ ticket, long long n) {
+    __shared__ bool last;
+    block_reduce_row<WARPS, ROOT>(r);
+    if (threadIdx.x == ROOT) {
+        write_row(partials + static_cast<long long>(blockIdx.x) * PART, r);
+        __threadfence();                           // the row before the ticket
+        last = atomicAdd(ticket, 1) == static_cast<int>(gridDim.x) - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+    __threadfence();                               // every row after it
+    Row f = {{0.0, 0.0, 0.0, 0.0, 0.0, 0.0}, 0.0f};
+    for (int b = threadIdx.x; b < static_cast<int>(gridDim.x); b += WARPS * 32) {
+        const double* p = partials + static_cast<long long>(b) * PART;
+#pragma unroll
+        for (int k = 0; k < PART - 1; ++k) f.v[k] += __ldcg(p + k);
+        f.mx = max_nan(f.mx, static_cast<float>(__ldcg(p + PART - 1)));
+    }
+    block_reduce_row<WARPS, ROOT>(f);
+    if (threadIdx.x == ROOT) {
+        stats[0] = static_cast<float>(n);
+#pragma unroll
+        for (int k = 1; k < PART - 1; ++k) stats[k] = static_cast<float>(f.v[k]);
+        stats[6] = f.mx;
+        *ticket = 0;
+    }
+}
+
+// The grid-stride body: bits source 0 = round to nearest, 1 =
+// bits operand, 2 = Philox in registers; element e takes word (ctr_base +
+// e) % 4 of counter (ctr_base + e) / 4; 3 = Philox in registers for a block
+// of a larger tensor, element e taking the word of its global index
+// geo_index(geo, e).  QT is x's type (K1) or signed char (WIRE, K2).  Four
+// blocks of 256 threads fit an SM (at most 64 registers a thread), so the
+// grid of kernels/dps_quant.py runs in one wave.
 template <typename XT, typename QT, int SRC, bool WIRE, bool STATS, bool VEC>
 __global__ void __launch_bounds__(THREADS, 4)
 quantize_kernel(const XT* __restrict__ x, long long n, const int* __restrict__ il,
                 const int* __restrict__ fl, const uint32_t* __restrict__ bits,
                 unsigned long long seed, unsigned long long ctr_base, Geo geo,
-                QT* __restrict__ q, double* __restrict__ partials) {
+                QT* __restrict__ q, double* __restrict__ partials, float* __restrict__ stats,
+                int* __restrict__ ticket) {
     const int ilv = *il, flv = *fl;
     const Grid g = make_grid(ilv, flv);
     Acc acc;
@@ -465,60 +610,292 @@ quantize_kernel(const XT* __restrict__ x, long long n, const int* __restrict__ i
         if (STATS) acc.add(t);
     }
 
+    if (STATS) finish_stats<THREADS / 32, 0>(to_row(acc), partials, stats, ticket, n);
+}
+
+// The TMA body, for q in x's type without a bits operand (K1b, or to
+// nearest: the launches the plan gives it).  A block is Q_CONSUMERS
+// consumer threads and one producer warp; a ring of `stages` stages in
+// dynamic shared memory, each `span` elements of x, then the stages' full
+// and empty mbarriers and each stage's item header.  The tensor is seen as the block's [n0, n1, n2] (a contiguous
+// tensor: [1, 1, n]); its items are contiguous spans of its storage, cut by
+// kernels/dps_quant.py's quant_plan:
+//   rows == 0: spans of `span` elements inside each row of n2 (the last of
+//              a row shorter), `per` items a row;
+//   rows > 0:  `rows` whole rows of one [n1, n2] slab (the last of a slab
+//              fewer), `per` items a slab.
+// Block b takes items b, b + gridDim.x, ... (a fixed assignment, so the
+// statistics' order is fixed too).
+constexpr int Q_CONSUMERS = 256;
+constexpr int Q_TMA_THREADS = Q_CONSUMERS + 32;
+constexpr int Q_MAX_DYN_SMEM = 200 << 10;           // the most a plan may ask for
+
+struct QItems {
+    long long items, per;       // items; items a row (rows == 0) or a slab
+    long long n1, n2;           // rows a slab, elements a row
+    long long s0, s1, base;     // Philox: element (i0, i1, i2) is base + i0*s0 + i1*s1 + i2
+    int span, rows, stages;     // elements a stage; rows an item (0: spans); stages
+};
+
+struct ItemHead {
+    long long start;            // the item's first element in x and q
+    unsigned long long ctr;     // the Philox counter of its first group of four
+    int len;                    // its elements, a multiple of four
+};
+
+// Item i's header: two 64-bit divisions an item (its row or slab, and the
+// row's place in the slab), worked out by the producer alone.
+__device__ __forceinline__ ItemHead item_head(const QItems& it, long long i) {
+    ItemHead h;
+    long long i0, i1, off;
+    if (it.rows == 0) {
+        const long long row = i / it.per, k = i - row * it.per;
+        i0 = row / it.n1;
+        i1 = row - i0 * it.n1;
+        off = k * it.span;
+        h.start = row * it.n2 + off;
+        h.len = static_cast<int>(min(static_cast<long long>(it.span), it.n2 - off));
+    } else {
+        i0 = i / it.per;
+        i1 = (i - i0 * it.per) * it.rows;
+        off = 0;
+        h.start = (i0 * it.n1 + i1) * it.n2;
+        h.len = static_cast<int>(min(static_cast<long long>(it.rows), it.n1 - i1) * it.n2);
+    }
+    h.ctr = static_cast<unsigned long long>(it.base + i0 * it.s0 + i1 * it.s1 + off) >> 2;
+    return h;
+}
+
+// One element on the TMA body, as quant_one with fewer instructions (the
+// consumers issue every one of them; at the placed step's sizes that, not
+// the bytes, sets the time): the error terms in grid units, err = |v - yc|
+// and ref = |yc| (a power of two scales them to quant_one's |q - x_ref| and
+// |x_ref| exactly, so with SMALL the float sums are scaled once by 2^-FL,
+// in double, at the block's end; a wider grid, whose sums in grid units
+// could overflow, scales each term); the IEEE division on operands made
+// nonzero, so no branch around it and no slow path for a zero (an element
+// of 0, or one already on the grid); no lower clip of k (yc >= qmin and the
+// bits' fraction >= 0 keep k >= qmin, and NaN passes either way).
+struct Counts {
+    unsigned int nz = 0u, over = 0u;
+    float mx = 0.0f;
+};
+
+template <int SRC, bool STATS, bool SMALL>
+__device__ __forceinline__ float quant_lean(float x, uint32_t bits, const Grid& g, Counts& c,
+                                            Sums& t) {
+    const float y = x * g.scale;
+    const float yc = clamp_nan(y, g.qmin, g.qmax);
+    const float r = yc + (SRC == 0 ? 0.5f
+                                   : static_cast<float>(bits >> 8) * (1.0f / 16777216.0f));
+    const float v = min_nan(SMALL ? floor_small(r) : floorf(r), g.qmax);
     if (STATS) {
-        Row r = to_row(acc);
-        block_reduce_row(r);
-        if (threadIdx.x == 0) write_row(partials + static_cast<long long>(blockIdx.x) * PART, r);
+        const float err = fabsf(v - yc), ref = fabsf(yc);
+        const bool nz = ref > 0.0f;
+        const bool over = (y > g.qmax) || (y < g.qmin);
+        c.nz += nz ? 1u : 0u;
+        c.over += over ? 1u : 0u;
+        // an operand of 0 would send the whole warp down the division's
+        // slow path; 0 / ref is +0, the select's value
+        const bool div = nz && err > 0.0f;
+        const float rel = __fdiv_rn(div ? err : 1.0f, div ? ref : 1.0f);
+        t.abs_err = SMALL ? err : err * g.inv_scale;
+        t.rel = div ? rel : 0.0f;
+        t.abs_ref = SMALL ? ref : ref * g.inv_scale;
+        c.mx = max_nan(c.mx, fabsf(x));
+    }
+    return v * g.inv_scale;
+}
+
+// The consumers.  Thread tid takes groups tid, tid + Q_CONSUMERS, ... of
+// each item from shared memory and stores q with one 16-byte (fp32) or
+// 8-byte (bf16) store a group, so a warp's store covers contiguous bytes.  Group j of an item lies in its row j / W at counter
+// word j % W (W = n2 / 4 with whole rows, span / 4 otherwise: no wrap), so
+// a thread's (row counter, word) steps by a constant with one carry: no
+// division a group.  A group's float terms add in a pairwise tree, a
+// thread's groups of an item in order, and the item's sums go to double
+// once.
+template <typename XT, int SRC, bool STATS, bool SMALL>
+__device__ __forceinline__ void consume_items(const QItems& it, const unsigned char* data,
+                                              long long stage_bytes, const uint64_t* full,
+                                              uint64_t* empty, const ItemHead* head,
+                                              unsigned long long seed, XT* __restrict__ q,
+                                              const Grid& g, Counts& c, Acc& acc) {
+    const int tid = threadIdx.x;
+    const int W = it.rows ? static_cast<int>(it.n2 >> 2) : (it.span >> 2);
+    const int r0 = tid / W, w0 = tid - r0 * W;
+    const int dq = Q_CONSUMERS / W, dr = Q_CONSUMERS - dq * W;
+    const unsigned long long s1 = static_cast<unsigned long long>(it.s1) >> 2;
+    const unsigned long long dstep = static_cast<unsigned long long>(dq) * s1;
+    int k = 0;
+    for (long long i = blockIdx.x; i < it.items; i += gridDim.x, ++k) {
+        const int s = k % it.stages;
+        mbar_wait(smem_u32(full + s), (k / it.stages) & 1);
+        const ItemHead h = head[s];
+        const XT* xs = reinterpret_cast<const XT*>(data + s * stage_bytes);
+        XT* qo = q + h.start;
+        const int groups = h.len >> 2;
+        unsigned long long rowc = h.ctr + static_cast<unsigned long long>(r0) * s1;
+        int w = w0;
+        Sums item;
+        for (int j = tid; j < groups; j += Q_CONSUMERS) {
+            float xv[4];
+            uint32_t bv[4] = {0u, 0u, 0u, 0u};
+            load4(xs + 4 * j, xv);
+            if (SRC == 3) {
+                const Philox4 r = philox4x32_10(rowc + static_cast<unsigned>(w), seed);
+                bv[0] = r.v[0]; bv[1] = r.v[1]; bv[2] = r.v[2]; bv[3] = r.v[3];
+            }
+            float qv[4];
+            Sums t[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                qv[e] = quant_lean<SRC, STATS, SMALL>(xv[e], bv[e], g, c, t[e]);
+            store4(qo + 4 * j, qv);
+            if (STATS) item = item + ((t[0] + t[1]) + (t[2] + t[3]));
+            w += dr;
+            rowc += dstep;
+            if (w >= W) {
+                w -= W;
+                rowc += s1;
+            }
+        }
+        if (STATS) acc.add(item);
+        __syncwarp();
+        if ((tid & 31) == 0) mbar_arrive(smem_u32(empty + s));
     }
 }
 
-// Second stage: one block folds the per-block partials in block order and
-// writes the seven float32 statistics (count nonzero overflow abs_err_sum
-// rel_err_sum abs_sum max_abs).  The count is n.
-__global__ void __launch_bounds__(THREADS)
-quantize_stats_kernel(const double* __restrict__ partials, int nblocks, long long n,
-                      float* __restrict__ stats) {
-    Row r = {{0.0, 0.0, 0.0, 0.0, 0.0, 0.0}, 0.0f};
-    for (int b = threadIdx.x; b < nblocks; b += THREADS) {
-        const double* p = partials + static_cast<long long>(b) * PART;
-#pragma unroll
-        for (int k = 0; k < PART - 1; ++k) r.v[k] += p[k];
-        r.mx = max_nan(r.mx, static_cast<float>(p[PART - 1]));
+// SRC: 0 = round to nearest, 3 = Philox of the element's global index (a
+// contiguous tensor's stream is the geometry [1, 1, n] at base ctr_base).
+template <typename XT, int SRC, bool STATS>
+__global__ void __launch_bounds__(Q_TMA_THREADS, 2)
+quantize_tma_kernel(const XT* __restrict__ x, long long n, const int* __restrict__ il,
+                    const int* __restrict__ fl, unsigned long long seed, QItems it,
+                    XT* __restrict__ q, double* __restrict__ partials,
+                    float* __restrict__ stats, int* __restrict__ ticket) {
+    extern __shared__ __align__(128) unsigned char q_smem[];
+    const long long stage_bytes = static_cast<long long>(it.span) * sizeof(XT);
+    unsigned char* data = q_smem;
+    uint64_t* full = reinterpret_cast<uint64_t*>(q_smem + it.stages * stage_bytes);
+    uint64_t* empty = full + it.stages;
+    ItemHead* head = reinterpret_cast<ItemHead*>(empty + it.stages);
+    const int tid = threadIdx.x;
+
+    if (tid == 0) {
+        for (int s = 0; s < it.stages; ++s) {
+            mbar_init(smem_u32(full + s), 1);
+            mbar_init(smem_u32(empty + s), Q_CONSUMERS / 32);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
-    block_reduce_row(r);
-    if (threadIdx.x == 0) {
-        stats[0] = static_cast<float>(n);
-#pragma unroll
-        for (int k = 1; k < PART - 1; ++k) stats[k] = static_cast<float>(r.v[k]);
-        stats[6] = r.mx;
+    __syncthreads();
+
+    Acc acc;
+    Counts c;
+    float unit = 1.0f;                   // the value of the sums' unit (2^-FL)
+    if (tid == Q_CONSUMERS) {
+        // the producer: one thread writes each item's header beside its
+        // stage and issues its bulk copy once the consumers have freed the
+        // stage
+        int k = 0;
+        for (long long i = blockIdx.x; i < it.items; i += gridDim.x, ++k) {
+            const ItemHead h = item_head(it, i);
+            const int s = k % it.stages;
+            if (k >= it.stages) mbar_wait(smem_u32(empty + s), ((k / it.stages) & 1) ^ 1);
+            head[s] = h;
+            const uint32_t bar = smem_u32(full + s);
+            const uint32_t xb = static_cast<uint32_t>(h.len) * sizeof(XT);
+            mbar_arrive_tx(bar, xb);
+            bulk_load(smem_u32(data + s * stage_bytes), x + h.start, xb, bar);
+        }
+    } else if (tid < Q_CONSUMERS) {
+        const int ilv = *il, flv = *fl;
+        const Grid g = make_grid(ilv, flv);
+        // the span 2^(IL-1+FL) <= 2^22 (uniform across the grid)
+        if (ilv - 1 + flv <= 22) {
+            unit = g.inv_scale;
+            consume_items<XT, SRC, STATS, true>(it, data, stage_bytes, full, empty, head,
+                                                seed, q, g, c, acc);
+        } else
+            consume_items<XT, SRC, STATS, false>(it, data, stage_bytes, full, empty, head,
+                                                 seed, q, g, c, acc);
+    }
+    if (STATS) {
+        Row r;
+        r.v[0] = 0.0; r.v[1] = c.nz; r.v[2] = c.over;
+        r.v[3] = acc.abs_err * unit; r.v[4] = acc.rel; r.v[5] = acc.abs_ref * unit;
+        r.mx = c.mx;
+        finish_stats<Q_TMA_THREADS / 32, Q_CONSUMERS>(r, partials, stats, ticket, n);
     }
 }
+
+// One call's operands, for the launchers below.
+template <typename XT, typename QT>
+struct QuantOps {
+    const XT* x;
+    long long n;
+    const int *il, *fl;
+    const uint32_t* bits;
+    unsigned long long seed, ctr_base;
+    QT* q;
+    double* partials;
+    float* stats;
+    int* ticket;
+};
 
 template <typename XT, typename QT, int SRC, bool WIRE, bool STATS>
-void launch_quantize(bool vec, int nblocks, cudaStream_t s, const XT* x, long long n,
-                     const int* il, const int* fl, const uint32_t* bits,
-                     unsigned long long seed, unsigned long long ctr, const Geo& geo, QT* q,
-                     double* partials) {
+cudaError_t launch_quantize(const QuantOps<XT, QT>& o, const Geo& geo, bool vec, int nblocks,
+                            cudaStream_t s) {
     if (vec)
         quantize_kernel<XT, QT, SRC, WIRE, STATS, true><<<nblocks, THREADS, 0, s>>>(
-            x, n, il, fl, bits, seed, ctr, geo, q, partials);
+            o.x, o.n, o.il, o.fl, o.bits, o.seed, o.ctr_base, geo, o.q, o.partials, o.stats,
+            o.ticket);
     else
         quantize_kernel<XT, QT, SRC, WIRE, STATS, false><<<nblocks, THREADS, 0, s>>>(
-            x, n, il, fl, bits, seed, ctr, geo, q, partials);
+            o.x, o.n, o.il, o.fl, o.bits, o.seed, o.ctr_base, geo, o.q, o.partials, o.stats,
+            o.ticket);
+    return cudaSuccess;
 }
 
+template <typename XT, int SRC, bool STATS>
+cudaError_t launch_quantize_tma(const QuantOps<XT, XT>& o, const QItems& it, int nblocks,
+                                size_t smem, cudaStream_t s) {
+    // set once to the most a plan may ask for, so that no later launch (one
+    // captured into a CUDA graph included) needs the call
+    static bool attr = false;
+    if (!attr) {
+        const cudaError_t err =
+            cudaFuncSetAttribute(quantize_tma_kernel<XT, SRC, STATS>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, Q_MAX_DYN_SMEM);
+        if (err != cudaSuccess) return err;
+        attr = true;
+    }
+    quantize_tma_kernel<XT, SRC, STATS><<<nblocks, Q_TMA_THREADS, smem, s>>>(
+        o.x, o.n, o.il, o.fl, o.seed, it, o.q, o.partials, o.stats, o.ticket);
+    return cudaSuccess;
+}
+
+// The grid-stride body, sources 0-3.
 template <typename XT, typename QT, bool WIRE>
-void dispatch_quantize(int src, bool stats, bool vec, int nblocks, cudaStream_t s,
-                       const XT* x, long long n, const int* il, const int* fl,
-                       const uint32_t* bits, unsigned long long seed, unsigned long long ctr,
-                       const Geo& geo, QT* q, double* partials) {
-#define DPS_Q(SRC, ST) launch_quantize<XT, QT, SRC, WIRE, ST>(vec, nblocks, s, x, n, il, fl, \
-                                                             bits, seed, ctr, geo, q, partials)
+cudaError_t dispatch_quantize(const QuantOps<XT, QT>& o, int src, bool stats, bool vec,
+                              const Geo& geo, int nblocks, cudaStream_t s) {
+#define DPS_Q(SRC, ST) return launch_quantize<XT, QT, SRC, WIRE, ST>(o, geo, vec, nblocks, s)
     if (src == 0) { if (stats) DPS_Q(0, true); else DPS_Q(0, false); }
-    else if (src == 1) { if (stats) DPS_Q(1, true); else DPS_Q(1, false); }
-    else if (src == 2) { if (stats) DPS_Q(2, true); else DPS_Q(2, false); }
-    else { if (stats) DPS_Q(3, true); else DPS_Q(3, false); }
+    if (src == 1) { if (stats) DPS_Q(1, true); else DPS_Q(1, false); }
+    if (src == 2) { if (stats) DPS_Q(2, true); else DPS_Q(2, false); }
+    if (stats) DPS_Q(3, true); else DPS_Q(3, false);
 #undef DPS_Q
+}
+
+// The TMA body: q in x's type, sources 0 and 3 (the caller maps 2 to 3).
+template <typename XT>
+cudaError_t dispatch_quantize_tma(const QuantOps<XT, XT>& o, int src, bool stats,
+                                  const QItems& it, int nblocks, size_t smem, cudaStream_t s) {
+#define DPS_T(SRC, ST) return launch_quantize_tma<XT, SRC, ST>(o, it, nblocks, smem, s)
+    if (src == 0) { if (stats) DPS_T(0, true); else DPS_T(0, false); }
+    if (stats) DPS_T(3, true); else DPS_T(3, false);
+#undef DPS_T
 }
 
 // ---------------------------------------------------------------------------
@@ -701,54 +1078,6 @@ constexpr int RED_UNROLL = 4;                       // words a consumer holds at
 constexpr int RED_MAX_SMEM = 232448;                // 227 KB, a block's most on sm_90
 constexpr int RED_PACK_ROWS = 256;                  // rows a 16-bit lane sum can take
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-                 "r"(bytes)
-                 : "memory");
-}
-
-// Wait for the phase of parity `parity` to complete.  A barrier that never
-// completes is a fault of this file: after about 2^32 cycles (over two
-// seconds) the kernel traps, so the launch fails instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-    long long t0 = 0;
-#pragma unroll 1
-    for (int spin = 0;; ++spin) {
-        uint32_t done;
-        asm volatile(
-            "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
-            "selp.u32 %0, 1, 0, p; }"
-            : "=r"(done)
-            : "r"(bar), "r"(parity)
-            : "memory");
-        if (done) return;
-        if (spin == 0)
-            t0 = clock64();
-        else if (clock64() - t0 > (1ll << 32))
-            __trap();
-    }
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-        ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-        : "memory");
-}
-
 // Item i: elements [start, start + len) of the chunk, len <= 0 for the
 // empty spans past a ragged last tile.
 __device__ __forceinline__ void red_item(long long i, long long ipt, long long quantum,
@@ -889,69 +1218,133 @@ wire_reduce_tma_kernel(const signed char* __restrict__ wire, long long row_strid
 // `bits` operand, 2 = stochastic with Philox bits keyed on `seed`, element e
 // taking word (ctr_base + e) % 4 of counter (ctr_base + e) / 4.  `wire` 0
 // writes q in x's type (K1), 1 writes the int8 wire payload (K2).
-// `partials` (double [nblocks, 7]) and `stats` (float [7]) null means no
-// statistics.  `vec` says the caller checked the alignment of x, q and bits
-// (and ctr_base % 4 == 0 under Philox).  The caller sizes the grid
-// (`nblocks`) as a function of n and of dps_quant_groups_per_thread(stats)
-// alone, so the statistics' summation order, too, depends on n alone.  Launches on `stream`, does not synchronise,
+// `partials` (double [nblocks, 7]), `stats` (float [7]) and `ticket` (one
+// int32, 0 between launches; see finish_stats) null means no statistics.
+// `body` 0 is the grid-stride body: `vec` says the caller checked the
+// alignment of x, q and bits (and ctr_base % 4 == 0 under Philox), and the
+// caller sizes the grid (`nblocks`) as a function of n and of
+// dps_quant_groups_per_thread(stats) alone.  `body` 1 is the TMA body (q in
+// x's type, src 0 or 2), its items cut by `span` and `rows`, `stages`
+// stages, `nblocks` blocks (the plan of kernels/dps_quant.py; the entry
+// refuses what the body or a bulk copy cannot take).  Either way the statistics' summation order depends on the plan
+// alone.  One launch a call; launches on `stream`, does not synchronise,
 // returns cudaGetLastError().
-// Groups of four elements a K1/K2 thread takes per iteration: Q_UNROLL
-// without statistics, one with them.
+// Groups of four elements a K1/K2 thread of the grid-stride body takes per
+// iteration: Q_UNROLL without statistics, one with them.
 extern "C" int dps_quant_groups_per_thread(int stats) { return stats ? 1 : Q_UNROLL; }
 
-static int quantize_entry(const void* x, int x_is_bf16, long long n, const void* il,
-                          const void* fl, const void* bits, int src, unsigned long long seed,
-                          unsigned long long ctr_base, const Geo& geo, void* q, int wire,
-                          void* partials, void* stats, int nblocks, int vec, void* stream) {
+namespace {
+
+// What the TMA body needs of a launch: q in x's type, no bits operand,
+// 16-byte bulk copies of every item of x (the pointer, the span and a row
+// 16-byte multiples), q aligned to its group's store, Philox counters four
+// elements apart, the items inside the ring's stages.
+bool tma_ok(const void* x, int xb, const void* q, int wire, long long n, const Geo& geo,
+            int src, int span, int rows, int stages, long long smem) {
+    const auto off = [](const void* p, int a) { return reinterpret_cast<uintptr_t>(p) % a; };
+    return !wire && src != 1 && n > 0 && span > 0 && stages > 0 && rows >= 0 &&
+           span % 4 == 0 && (static_cast<long long>(span) * xb) % 16 == 0 &&
+           (geo.n2 * xb) % 16 == 0 && n % (geo.n1 * geo.n2) == 0 &&
+           (rows == 0 || static_cast<long long>(rows) * geo.n2 <= span) && off(x, 16) == 0 &&
+           off(q, 4 * xb) == 0 &&
+           (src == 0 || (geo.base % 4 == 0 && geo.s0 % 4 == 0 && geo.s1 % 4 == 0)) &&
+           smem <= Q_MAX_DYN_SMEM;
+}
+
+template <typename XT, typename QT, bool WIRE>
+cudaError_t run_quantize(const QuantOps<XT, QT>& o, int src, bool stats, bool vec,
+                         const Geo& geo, const QItems* it, int nblocks, size_t smem,
+                         cudaStream_t s) {
+    if constexpr (!WIRE) {
+        if (it != nullptr) return dispatch_quantize_tma<XT>(o, src, stats, *it, nblocks, smem, s);
+    }
+    return dispatch_quantize<XT, QT, WIRE>(o, src, stats, vec, geo, nblocks, s);
+}
+
+int quantize_entry(const void* x, int x_is_bf16, long long n, const void* il, const void* fl,
+                   const void* bits, int src, unsigned long long seed,
+                   unsigned long long ctr_base, const Geo& geo, void* q, int wire,
+                   void* partials, void* stats, void* ticket, int nblocks, int body, int vec,
+                   int span, int rows, int stages, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const bool emit = partials != nullptr && stats != nullptr;
-    if (src < 0 || src > 3 || nblocks < 1 || (src == 1 && bits == nullptr))
+    const bool emit = partials != nullptr && stats != nullptr && ticket != nullptr;
+    if (src < 0 || src > 3 || nblocks < 1 || body < 0 || body > 1 ||
+        (src == 1 && bits == nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
+    if (n <= 0 && !emit) return static_cast<int>(cudaGetLastError());
+    const int xb = x_is_bf16 ? 2 : 4;
+    // the TMA body's view: the block's [n0, n1, n2], a contiguous tensor's
+    // [1, 1, n] with its stream from ctr_base
+    QItems it = {};
+    const long long smem = static_cast<long long>(stages) * (static_cast<long long>(span) * xb + 40);
+    if (body == 1) {
+        const Geo g = src == 3 ? geo : Geo{1, n, 0, 0, static_cast<long long>(ctr_base)};
+        if (!tma_ok(x, xb, q, wire, n, g, src, span, rows, stages, smem))
+            return static_cast<int>(cudaErrorInvalidValue);
+        it.n1 = g.n1;
+        it.n2 = g.n2;
+        it.s0 = g.s0;
+        it.s1 = g.s1;
+        it.base = g.base;
+        it.span = span;
+        it.rows = rows;
+        it.stages = stages;
+        it.per = rows == 0 ? (it.n2 + span - 1) / span : (it.n1 + rows - 1) / rows;
+        it.items = n / (rows == 0 ? it.n2 : it.n1 * it.n2) * it.per;
+        if (src == 2) src = 3;
+    }
+    const QItems* itp = body == 1 ? &it : nullptr;
     const int* ilp = static_cast<const int*>(il);
     const int* flp = static_cast<const int*>(fl);
     const uint32_t* bp = static_cast<const uint32_t*>(bits);
-    double* pp = static_cast<double*>(partials);
-    if (n > 0) {
-        if (x_is_bf16) {
-            const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
-            if (wire)
-                dispatch_quantize<__nv_bfloat16, signed char, true>(
-                    src, emit, vec != 0, nblocks, s, xp, n, ilp, flp, bp, seed, ctr_base, geo,
-                    static_cast<signed char*>(q), pp);
-            else
-                dispatch_quantize<__nv_bfloat16, __nv_bfloat16, false>(
-                    src, emit, vec != 0, nblocks, s, xp, n, ilp, flp, bp, seed, ctr_base, geo,
-                    static_cast<__nv_bfloat16*>(q), pp);
+    double* pp = emit ? static_cast<double*>(partials) : nullptr;
+    float* sp = emit ? static_cast<float*>(stats) : nullptr;
+    int* tp = emit ? static_cast<int*>(ticket) : nullptr;
+    const long long nn = n > 0 ? n : 0;
+    cudaError_t err;
+    if (x_is_bf16) {
+        const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
+        if (wire) {
+            const QuantOps<__nv_bfloat16, signed char> o = {
+                xp, nn, ilp, flp, bp, seed, ctr_base, static_cast<signed char*>(q), pp, sp, tp};
+            err = run_quantize<__nv_bfloat16, signed char, true>(o, src, emit, vec != 0, geo,
+                                                                 itp, nblocks, smem, s);
         } else {
-            const float* xp = static_cast<const float*>(x);
-            if (wire)
-                dispatch_quantize<float, signed char, true>(
-                    src, emit, vec != 0, nblocks, s, xp, n, ilp, flp, bp, seed, ctr_base, geo,
-                    static_cast<signed char*>(q), pp);
-            else
-                dispatch_quantize<float, float, false>(
-                    src, emit, vec != 0, nblocks, s, xp, n, ilp, flp, bp, seed, ctr_base, geo,
-                    static_cast<float*>(q), pp);
+            const QuantOps<__nv_bfloat16, __nv_bfloat16> o = {
+                xp, nn, ilp, flp, bp, seed, ctr_base, static_cast<__nv_bfloat16*>(q), pp, sp, tp};
+            err = run_quantize<__nv_bfloat16, __nv_bfloat16, false>(o, src, emit, vec != 0, geo,
+                                                                    itp, nblocks, smem, s);
         }
-        const cudaError_t err = cudaGetLastError();
-        if (err != cudaSuccess) return static_cast<int>(err);
+    } else {
+        const float* xp = static_cast<const float*>(x);
+        if (wire) {
+            const QuantOps<float, signed char> o = {
+                xp, nn, ilp, flp, bp, seed, ctr_base, static_cast<signed char*>(q), pp, sp, tp};
+            err = run_quantize<float, signed char, true>(o, src, emit, vec != 0, geo, itp,
+                                                         nblocks, smem, s);
+        } else {
+            const QuantOps<float, float> o = {
+                xp, nn, ilp, flp, bp, seed, ctr_base, static_cast<float*>(q), pp, sp, tp};
+            err = run_quantize<float, float, false>(o, src, emit, vec != 0, geo, itp, nblocks,
+                                                    smem, s);
+        }
     }
-    if (emit) {
-        quantize_stats_kernel<<<1, THREADS, 0, s>>>(pp, n > 0 ? nblocks : 0, n,
-                                                    static_cast<float*>(stats));
-    }
+    if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
 
 extern "C" int dps_quantize(const void* x, int x_is_bf16, long long n, const void* il,
                             const void* fl, const void* bits, int src,
                             unsigned long long seed, unsigned long long ctr_base, void* q,
-                            int wire, void* partials, void* stats, int nblocks, int vec,
-                            void* stream) {
+                            int wire, void* partials, void* stats, void* ticket, int nblocks,
+                            int body, int vec, int span, int rows, int stages, void* stream) {
     if (src > 2) return static_cast<int>(cudaErrorInvalidValue);
     const Geo none = {1, 1, 0, 0, 0};
     return quantize_entry(x, x_is_bf16, n, il, fl, bits, src, seed, ctr_base, none, q, wire,
-                          partials, stats, nblocks, vec, stream);
+                          partials, stats, ticket, nblocks, body, vec, span, rows, stages,
+                          stream);
 }
 
 // K1b / K2b in block mode: x is a block of a larger tensor, stored
@@ -963,12 +1356,14 @@ extern "C" int dps_quantize(const void* x, int x_is_bf16, long long n, const voi
 extern "C" int dps_quantize_block(const void* x, int x_is_bf16, long long n, const void* il,
                                   const void* fl, unsigned long long seed, long long n1,
                                   long long n2, long long s0, long long s1, long long base,
-                                  void* q, int wire, void* partials, void* stats, int nblocks,
-                                  int vec, void* stream) {
+                                  void* q, int wire, void* partials, void* stats, void* ticket,
+                                  int nblocks, int body, int vec, int span, int rows,
+                                  int stages, void* stream) {
     if (n1 < 1 || n2 < 1 || base < 0) return static_cast<int>(cudaErrorInvalidValue);
     const Geo geo = {n1, n2, s0, s1, base};
     return quantize_entry(x, x_is_bf16, n, il, fl, nullptr, 3, seed, 0, geo, q, wire,
-                          partials, stats, nblocks, vec, stream);
+                          partials, stats, ticket, nblocks, body, vec, span, rows, stages,
+                          stream);
 }
 
 // K3 / K3b.  All pointers are device pointers.  `src`: 0 = round to

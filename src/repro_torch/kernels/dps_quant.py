@@ -45,6 +45,7 @@ node of it, with its operands, results and geometry
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple, Union
 
 import torch
@@ -72,12 +73,25 @@ wire_prng_launch_count = 0
 reduce_launch_count = 0
 reduce_tma_launch_count = 0      # the K4 launches that took the TMA body
 
-# K1/K2 and K4 grids: 256 threads a block, at most four blocks per SM of an
-# H100; the grid is a function of the size (and, for K1/K2, of whether
-# statistics are taken) alone
+# K1/K2's grid-stride body and K4's: 256 threads a block, at most four
+# blocks per SM of an H100; the grid is a function of the size (and, for
+# K1/K2, of whether statistics are taken) alone
 Q_THREADS = 256
 Q_MAX_BLOCKS = 4 * 132
 Q_PART = 7               # doubles per block (or tile) in the statistics partials
+
+# K1b's TMA body: 256 consumer threads and one producer warp a block, a ring
+# of Q_STAGES stages of Q_STAGE_BYTES of x, at most two blocks an SM; a
+# stage also takes Q_STAGE_META bytes of mbarriers and item header, and a
+# plan at most Q_MAX_DYN_SMEM bytes
+Q_TMA_THREADS = 288
+Q_STAGE_BYTES = 16 << 10
+Q_STAGES = 3
+Q_TMA_BLOCKS = 2 * 132
+Q_STAGE_META = 40
+Q_MAX_DYN_SMEM = 200 << 10
+# the fewest elements of a contiguous launch on the TMA body (see quant_plan)
+Q_TMA_MIN = 1 << 24
 
 # K4's TMA body: a stage holds 16 KB of rows, four stages a block, two
 # blocks an SM (288 threads each), 227 KB of shared memory at most a block
@@ -101,7 +115,7 @@ SMEM_TABLE_BUDGET_BYTES = 64 * 1024
 
 # ---------------------------------------------------------------------------
 # Launch geometry — what a wrapper launches, from Python ints alone, by the
-# same plans (``quant_blocks``, ``reduce_plan``) the wrapper launches by.
+# same plans (``quant_plan``, ``reduce_plan``) the wrapper launches by.
 # While a trace is open each wrapper records its launch's geometry from
 # these builders beside the values it passed (whose grid argument
 # ``repro_torch.analysis.kernel_checks`` holds to the geometry's grid);
@@ -148,16 +162,22 @@ class KernelCallGeometry:
 
 def quantize_call_geometry(size: int, *, wire: bool = False,
                            dtype: str = "float32", groups: int = 1,
-                           block: bool = False) -> KernelCallGeometry:
+                           block: bool = False,
+                           plan: Optional["QuantPlan"] = None
+                           ) -> KernelCallGeometry:
     """Geometry of a :func:`dps_quant` / :func:`dps_quant_wire` launch on a
     ``size``-element tensor of ``dtype`` (K1/K2; K1b/K2b launch the same
-    grid; ``block``: K1b's block-mode entry), a thread taking ``groups``
-    groups of four elements (the library's
-    ``dps_quant_groups_per_thread``)."""
+    grid; ``block``: K1b's block-mode entry) under ``plan`` (by default
+    :func:`quant_plan`'s for a contiguous, 16-byte aligned tensor without a
+    bits operand, the grid-stride body's thread taking ``groups`` groups of
+    four elements: the library's ``dps_quant_groups_per_thread``)."""
+    if plan is None:
+        plan = quant_plan(size, x_bytes=2 if dtype == "bfloat16" else 4,
+                          wire=wire, groups=groups)
     return KernelCallGeometry(
         kernel="dps_quantize_block" if block else "dps_quantize",
-        grid=(quant_blocks(size, groups),), threads=Q_THREADS,
-        out_dtype="int8" if wire else dtype)
+        grid=(plan.blocks,), threads=plan.threads,
+        out_dtype="int8" if wire else dtype, smem_bytes=plan.smem_bytes)
 
 
 def group_wire_call_geometry(total: int, n_groups: int, quantum: int,
@@ -421,11 +441,107 @@ def group_philox_bits(src: GroupPhilox, tile_group: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def quant_blocks(n: int, groups: int = 1) -> int:
-    """The K1/K2 grid for ``n`` elements when a thread takes ``groups``
-    groups of four elements an iteration (the library's
-    ``dps_quant_groups_per_thread``); also the partials' row count."""
+    """The grid-stride body's grid for ``n`` elements when a thread takes
+    ``groups`` groups of four elements an iteration (the library's
+    ``dps_quant_groups_per_thread``)."""
     return max(1, min(-(-max(n // (4 * groups), 1) // Q_THREADS),
                       Q_MAX_BLOCKS))
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantPlan:
+    """How K1/K2 are launched: ``body`` "tma" (a ring of ``stages`` stages
+    of ``span`` elements filled by bulk copies; ``items`` items of ``rows``
+    whole rows each or, with ``rows`` 0, spans of ``span`` inside a row) or
+    "stride" (the grid-stride body, its 16-byte path where ``vec``), on
+    ``blocks`` blocks of ``threads`` threads asking for ``smem_bytes`` of
+    dynamic shared memory.  ``blocks`` is also the partials' row count."""
+
+    body: str
+    blocks: int
+    threads: int
+    span: int = 0
+    rows: int = 0
+    stages: int = 0
+    items: int = 0
+    vec: bool = True
+    smem_bytes: int = 0
+
+
+@functools.lru_cache(maxsize=4096)
+def quant_plan(n: int, *, x_bytes: int = 4, operand: bool = False,
+               wire: bool = False, groups: int = 1,
+               geo: Optional["BlockGeometry"] = None,
+               vec: bool = True) -> QuantPlan:
+    """K1/K2's body, grid and items for ``n`` elements of ``x_bytes`` bytes
+    (4 fp32, 2 bf16), rounding from a bits ``operand`` or not, onto the
+    ``wire`` or not.  ``groups``: the grid-stride body's groups of four a
+    thread (the library's ``dps_quant_groups_per_thread``); ``geo``: K1b's
+    block geometry (None: a contiguous tensor, one row of n); ``vec``: x, q
+    and the bits lie on 16-byte boundaries (q on its four elements' store)
+    and Philox counters fall four elements apart, as the wrapper checks.
+
+    The TMA body takes what it measured faster on (``kernel_ab.py --only
+    bodies``), rounded onto q without a bits operand (K1b, or to nearest):
+    a block (``geo``), whose counters it steps without the grid-stride
+    body's two 64-bit divisions a group, and a contiguous tensor of
+    Q_TMA_MIN elements or more; below that size, and K1, K2 and K2b at
+    every size, the grid-stride body measured as fast or within 2 %.  Only
+    where bulk copies can take it: ``vec``, n > 0 and a row of ``n2``
+    elements a 16-byte multiple (a contiguous tensor's row is all of it, so
+    an odd tail goes to the grid-stride body).  A stage holds ``span``
+    elements, Q_STAGE_BYTES of x.  Rows of ``span``
+    elements or more are cut into spans (``rows`` 0, the last of a row
+    shorter); shorter rows go whole, ``rows`` of one [n1, n2] slab an item.
+    So no item crosses a row it does not hold whole, and a group's Philox
+    counter steps by one a group inside a row.  The grid is one block an
+    item up to Q_TMA_BLOCKS.  The plan, and with it the statistics'
+    summation order, depends on the shape, the dtype and the geometry
+    alone (cached: the wrapper asks for it on every launch)."""
+    n1, n2 = (geo.n1, geo.n2) if geo is not None else (1, max(n, 1))
+    wanted = not (operand or wire) and (geo is not None or n >= Q_TMA_MIN)
+    if wanted and vec and n > 0 and (n2 * x_bytes) % 16 == 0:
+        span = Q_STAGE_BYTES // x_bytes
+        if n2 >= span:
+            rows, per, unit = 0, -(-n2 // span), n2
+        else:
+            rows = min(span // n2, n1)
+            per, unit = -(-n1 // rows), n1 * n2
+        items = n // unit * per
+        return QuantPlan("tma", min(items, Q_TMA_BLOCKS), Q_TMA_THREADS,
+                         span, rows, Q_STAGES, items, True,
+                         Q_STAGES * (span * x_bytes + Q_STAGE_META))
+    return QuantPlan("stride", quant_blocks(n, groups), Q_THREADS, vec=vec)
+
+
+# the statistics' ticket of each device (see _ticket)
+_tickets = {}
+
+
+@functools.lru_cache(maxsize=2)
+def _groups_per_thread(lib, stats: bool) -> int:
+    """The library's ``dps_quant_groups_per_thread`` (a constant of the
+    build), asked once."""
+    return lib.dps_quant_groups_per_thread(int(stats))
+
+
+def _ticket(device: torch.device) -> torch.Tensor:
+    """The int32 ticket K1/K2's last block takes to fold the statistics
+    (``finish_stats`` in ``csrc/dps_quant.cu``): one a device, 0 between
+    launches (each launch's last block sets it back).  The quantizer
+    launches on one stream; two launches at once on two streams would need
+    a ticket each.  Made on the first call with statistics, which must not
+    be one captured into a CUDA graph (the graph's pool would own it)."""
+    t = _tickets.get(device.index)
+    if t is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "the quantizer's ticket is made on its first call with "
+                "statistics on a device; make that call outside the CUDA "
+                "graph capture")
+        t = _tickets[device.index] = torch.zeros(1, dtype=torch.int32,
+                                                 device=device)
+    return t
 
 
 def _check_quant(x, il, fl, bits, out, out_dtype):
@@ -497,13 +613,7 @@ def _dps_quant_cuda(x, il, fl, bits, philox, compute_stats, out, wire):
     lib = _build.load()
     q = torch.empty(x.shape, dtype=out_dtype, device=x.device) \
         if out is None else out
-    groups = lib.dps_quant_groups_per_thread(int(compute_stats))
-    nblocks = quant_blocks(n, groups)
-    partials = stats = None
-    if compute_stats:
-        partials = torch.empty(nblocks * Q_PART, dtype=torch.float64,
-                               device=x.device)
-        stats = torch.empty(N_STATS, dtype=torch.float32, device=x.device)
+    groups = _groups_per_thread(lib, compute_stats)
     src = 0 if bits is None and philox is None else (1 if philox is None else 2)
     # 16-byte loads of x and bits; 16-byte (fp32), 8-byte (bf16) or 4-byte
     # (int8) stores of q; Philox words four to a counter
@@ -512,34 +622,39 @@ def _dps_quant_cuda(x, il, fl, bits, philox, compute_stats, out, wire):
            and q.data_ptr() % (4 if wire else 16) == 0
            and (philox is None or philox.offset % 4 == 0)
            and (geo is None or geo.aligned))
+    plan = quant_plan(n, x_bytes=x.element_size(), operand=bits is not None,
+                      wire=wire, groups=groups, geo=geo, vec=vec)
+    partials = stats = ticket = None
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        if compute_stats:
+            partials = torch.empty(plan.blocks * Q_PART, dtype=torch.float64,
+                                   device=x.device)
+            stats = torch.empty(N_STATS, dtype=torch.float32, device=x.device)
+            ticket = _ticket(x.device)
+        ptr = lambda t: t.data_ptr() if t is not None else None
+        tail = (ptr(partials), ptr(stats), ptr(ticket), plan.blocks,
+                int(plan.body == "tma"), int(plan.vec), plan.span, plan.rows,
+                plan.stages, torch.cuda.current_stream().cuda_stream)
         if geo is not None:
             entry = "dps_quantize_block"
             args = (x.data_ptr(), int(x.dtype == torch.bfloat16), n,
                     il.data_ptr(), fl.data_ptr(), philox.seed, geo.n1, geo.n2,
-                    geo.s0, geo.s1, geo.base, q.data_ptr(), int(wire),
-                    partials.data_ptr() if compute_stats else None,
-                    stats.data_ptr() if compute_stats else None, nblocks,
-                    int(vec), stream)
+                    geo.s0, geo.s1, geo.base, q.data_ptr(), int(wire), *tail)
             code = lib.dps_quantize_block(*args)
             _build.check(lib, code, entry)
             quantize_block_launch_count += not wire
         else:
             entry = "dps_quantize"
             args = (x.data_ptr(), int(x.dtype == torch.bfloat16), n,
-                    il.data_ptr(), fl.data_ptr(),
-                    bits.data_ptr() if bits is not None else None, src,
+                    il.data_ptr(), fl.data_ptr(), ptr(bits), src,
                     philox.seed if philox else 0,
                     philox.offset if philox else 0, q.data_ptr(), int(wire),
-                    partials.data_ptr() if compute_stats else None,
-                    stats.data_ptr() if compute_stats else None, nblocks,
-                    int(vec), stream)
+                    *tail)
             code = lib.dps_quantize(*args)
             _build.check(lib, code, entry)
     tagging.launch(lambda: quantize_call_geometry(
-        n, wire=wire, dtype=str(x.dtype)[6:], groups=groups,
-        block=geo is not None), (x, il, fl, bits), (q, stats), args=args,
+        n, wire=wire, dtype=str(x.dtype)[6:], block=geo is not None,
+        plan=plan), (x, il, fl, bits), (q, stats), args=args,
         philox=src == 2)
     if wire and src == 2:
         wire_prng_launch_count += 1

@@ -81,12 +81,22 @@ def test_chip_smoke_refuses_to_run_without_a_gpu():
     ("dps_quant.cu", "_wire_reduce_kernel")])
 def test_kernel_sources_carry_their_notes(src, replaces):
     """Which TPU kernel it replaces, what bounds it on this card; a plain C
-    interface with PyTorch's headers kept out; no float atomics."""
+    interface with PyTorch's headers kept out; no float atomics: the one
+    atomic a source makes is the int ticket of K1/K2's statistics fold,
+    ``atomicAdd(ticket, 1)``, and no inline PTX atomic or reduction works
+    on floats."""
     with open(os.path.join(PKG, "kernels", "csrc", src)) as f:
         text = f.read()
     assert replaces in text and "Bound on this card" in text
     assert 'extern "C"' in text
-    assert "torch/extension.h" not in text and "atomicAdd" not in text
+    assert "torch/extension.h" not in text
+    code = re.sub(r"//[^\n]*", "", text)            # the code, not the notes
+    calls = re.findall(r"\batomic\w*\s*\([^()]*\)", code)
+    assert all(c.replace(" ", "") == "atomicAdd(ticket,1)" for c in calls), \
+        calls
+    if calls:
+        assert "int* __restrict__ ticket" in code
+    assert not re.search(r"\b(atom|red)\.[\w.]*\.f(16|32|64)\b", code)
 
 
 def test_the_library_builds_for_sm_90a_from_the_package_sources():
