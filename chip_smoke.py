@@ -39,11 +39,21 @@ JSON line; any failure raises and the process exits non-zero:
              the other configs: K5 at G=12 with Dh=192 (int8 and fp32
              pools) and Dh=128, G=1 with Dh=256, and G=8 with Dh=128 (int8
              and fp32), each at its own split edges; K3 at quanta of 24,576
-             and 65,536; then K3 and K5 at each config's serving shape
-             (qwen3-moe's: G=8, page quantum 8,192).  Then each kernel's median time over repeated
+             and 65,536, and at the shapes of K3's persistent grid
+             (``group_plan``: one tile, fewer tiles than SMs, tiles cut
+             into pieces over many blocks, one group's run over every
+             block, a map that repeats groups and ends in row 0, bf16
+             pieces, buffers off 16 bytes; each with statistics on and
+             off); then K3 and K5 at each config's serving shape
+             (qwen3-moe's: G=8, page quantum 8,192), K3 as the admission
+             calls it (no mask: the prompt's padding is zero) and as the
+             reference does (masked).  Then each kernel's median time over repeated
              launches (CUDA events, after warm-up, the L2 cache flushed
              before every launch; K5 replayed from a CUDA graph, so that its
-             tens of microseconds are not timed behind the Python wrapper)
+             tens of microseconds are not timed behind the Python wrapper;
+             K3 also replayed from a graph with the L2 flushed by a read,
+             ``ms_graph_clean``, and its device kernels a call held to 1 by
+             ``torch.profiler``, as every K3/K3b row's are)
              beside its plain version's and the least time the card could
              take, K5 at both shapes.
 4. quantize — the training quantizer, K1 (bits operand) and K1b (Philox bits
@@ -809,21 +819,29 @@ def bound(nbytes, ops):
 # kernel checks
 # ---------------------------------------------------------------------------
 
-def encode_inputs(rng, tiles, quantum, groups, dtype=torch.float32):
+def encode_inputs(rng, tiles, quantum, groups, dtype=torch.float32, tg=None,
+                  offset=0):
+    """K3's operands: ``tiles`` tiles of ``quantum`` elements over a sorted
+    random map onto ``groups`` table rows (one a tile when they are as
+    many; ``tg`` a given map); ``offset`` > 0 gives x, bits and mask as
+    views off 16-byte boundaries (the element path)."""
     n = tiles * quantum
-    x = rng.standard_normal(n).astype(np.float32) * np.repeat(
-        2.0 ** rng.integers(-4, 4, tiles), quantum).astype(np.float32)
+    x = rng.standard_normal(n + offset).astype(np.float32) * np.concatenate(
+        [np.ones(offset), np.repeat(2.0 ** rng.integers(-4, 4, tiles),
+                                    quantum)]).astype(np.float32)
     x[::13] = 0.0
     il = rng.integers(1, 6, groups)
     tab = np.stack([il, 8 - il + rng.integers(0, 3, groups)], 1).astype(np.int32)
-    tg = np.sort(rng.integers(0, groups, tiles)).astype(np.int32)
-    if groups == tiles:
-        tg = np.arange(tiles, dtype=np.int32)
-    bits = rng.integers(0, 2**32, n, dtype=np.uint32).view(np.int32)
-    mask = (rng.random(n) > 0.15).astype(np.float32)
+    if tg is None:
+        tg = np.sort(rng.integers(0, groups, tiles)).astype(np.int32)
+        if groups == tiles:
+            tg = np.arange(tiles, dtype=np.int32)
+    tg = np.asarray(tg, np.int32)
+    bits = rng.integers(0, 2**32, n + offset, dtype=np.uint32).view(np.int32)
+    mask = (rng.random(n + offset) > 0.15).astype(np.float32)
     t = lambda a: torch.from_numpy(a).to(DEV)
-    return dict(x=t(x).to(dtype), fmt_tab=t(tab), tile_group=t(tg),
-                bits=t(bits), mask=t(mask), quantum=quantum)
+    return dict(x=t(x).to(dtype)[offset:], fmt_tab=t(tab), tile_group=t(tg),
+                bits=t(bits)[offset:], mask=t(mask)[offset:], quantum=quantum)
 
 
 def check_encode(inp, *, stochastic, masked, emit_stats):
@@ -947,20 +965,37 @@ def serve_shape_rows(rng, cfg, lay, model=None):
     E = lay.page_size * KV * Dh
     T = 2 * L * lay.prompt_pages
     enc = encode_inputs(rng, T, E, T)
-    # as write_prompt_pages calls it: nearest, masked, no statistics
-    enc_err, _ = check_encode(enc, stochastic=False, masked=True, emit_stats=False)
-    # and with everything on, at the same size
+    # as write_prompt_pages calls it: nearest, no mask (the buffer is zeroed
+    # past the prompt), no statistics; the reference's masked call; and
+    # everything on, at the same size
+    enc_err, _ = check_encode(enc, stochastic=False, masked=False, emit_stats=False)
+    enc_err = max(enc_err, check_encode(enc, stochastic=False, masked=True,
+                                        emit_stats=False)[0])
     _, enc_rel = check_encode(enc, stochastic=True, masked=True, emit_stats=True)
     n = T * E
-    enc_bytes = 4 * n + 4 * n + n + 4 * T + 8 * T     # x, mask, wire, map, table
     enc_ops = 12 * n                                   # scale, 3 clips, round, mask...
-    enc_args = (enc["x"], enc["fmt_tab"], enc["tile_group"], None, enc["mask"])
-    enc_kw = dict(quantum=E, emit_stats=False)
-    enc_ms = time_ms(lambda: dps_quant.dps_quant_group_wire(
-        *enc_args, backend="kernel", **enc_kw), repeats=20)
-    enc_plain_ms = time_ms(lambda: dps_quant.dps_quant_group_wire(
-        *enc_args, backend="plain", **enc_kw), repeats=5, warmup=1)
-    del enc, enc_args
+    timed = {}
+    for masked in (False, True):
+        # x, the mask (the reference's call), wire, map, table
+        nbytes = 4 * n + (4 * n if masked else 0) + n + 4 * T + 8 * T
+        args = (enc["x"], enc["fmt_tab"], enc["tile_group"], None,
+                enc["mask"] if masked else None)
+        call = lambda: dps_quant.dps_quant_group_wire(
+            *args, quantum=E, emit_stats=False, backend="kernel")
+        per_call, _ = device_kernels(call)
+        if per_call != 1:
+            raise AssertionError(f"K3 at {cfg.name}'s admission: {per_call} "
+                                 "device kernels a call")
+        timed[masked] = dict(
+            ms=time_ms(call, repeats=20),
+            ms_graph_clean=time_graph_ms(call, repeats=20, clean=True),
+            kernels_a_call=per_call, bytes=nbytes,
+            plain_ms=time_ms(lambda: dps_quant.dps_quant_group_wire(
+                *args, quantum=E, emit_stats=False, backend="plain"),
+                repeats=5, warmup=1))
+        timed[masked]["bound_ms"], timed[masked]["bound_by"] = bound(nbytes,
+                                                                     enc_ops)
+    del enc, args
 
     B, P = lay.batch_slots, lay.max_pages_per_seq
     G = H // KV
@@ -975,16 +1010,21 @@ def serve_shape_rows(rng, cfg, lay, model=None):
     att_ms = time_graph_ms(_attn_call(att, "kernel"), repeats=100)
     att_plain_ms = time_ms(_attn_call(att, "plain"), repeats=5, warmup=1)
     att_bytes, att_ops = attn_bytes_ops(B, H, KV, Dh, lay.page_size, P, lens)
-    enc_bound, enc_by = bound(enc_bytes, enc_ops)
     att_bound, att_by = bound(att_bytes, att_ops)
+    adm, ref = timed[False], timed[True]
     rows = [
         {"name": "dps_group_wire_encode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/dps_quant.cu",
          "replaces": "src/repro/kernels/dps_quant.py:482",
-         "shape": f"T={T} tiles x quantum={E} fp32, nearest, masked, no stats",
-         "max_abs_err": enc_err, "stats_max_rel_err": enc_rel,
-         "ms": enc_ms, "plain_ms": enc_plain_ms, "bound_ms": enc_bound,
-         "bound_by": enc_by, "bytes": enc_bytes, "library_ms": None},
+         "shape": f"T={T} tiles x quantum={E} fp32, nearest, no mask, no "
+                  "stats (the admission's call)",
+         "max_abs_err": enc_err, "stats_max_rel_err": enc_rel, **adm,
+         "masked": {k: ref[k] for k in ("ms", "ms_graph_clean", "bytes",
+                                        "bound_ms", "kernels_a_call")},
+         "masked_note": "the reference's call, with a float32 mask beside x",
+         "timing": "ms: CUDA events around the wrapper, L2 zero-filled; "
+                   "ms_graph_clean: CUDA-graph replay, L2 flushed by a read",
+         "library_ms": None},
         {"name": "paged_decode_attn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
          "replaces": "src/repro/kernels/paged_attn.py:157",
@@ -1025,6 +1065,32 @@ def kernel_checks(cfg, lay):
                     check_encode(inp, stochastic=stochastic, masked=masked,
                                  emit_stats=emit)
         small.append(f"encode T={tiles} q={quantum} G={groups} {dtype}")
+    # the persistent grid's plan (kernels/dps_quant.py's group_plan): one
+    # tile; fewer tiles than SMs; tiles cut into pieces over many blocks;
+    # one group's run across every block; a map that repeats groups further
+    # on and ends in row 0 (a wire layout's tail); bf16 pieces; buffers off
+    # 16 bytes (the element path)
+    repeat = [0, 0, 1, 1, 2, 2, 2, 0, 0, 1, 3, 3, 0]
+    for tiles, quantum, groups, dtype, tg, offset in (
+            (1, 4096, 1, torch.float32, None, 0),
+            (100, 4096, 7, torch.float32, None, 0),
+            (2, 100_000, 2, torch.float32, None, 0),
+            (600, 4096, 1, torch.float32, None, 0),
+            (13, 20_000, 4, torch.float32, repeat, 0),
+            (5, 50_000, 3, torch.bfloat16, None, 0),
+            (13, 20_000, 4, torch.float32, repeat, 1),
+            (6, 30_000, 2, torch.bfloat16, None, 1)):
+        inp = encode_inputs(rng, tiles, quantum, groups, dtype, tg, offset)
+        for stochastic in (False, True):
+            for masked in (False, True):
+                for emit in (False, True):
+                    check_encode(inp, stochastic=stochastic, masked=masked,
+                                 emit_stats=emit)
+        plan = dps_quant.group_plan(tiles, quantum, groups, inp["x"].element_size(),
+                                    0, True, offset == 0)
+        small.append(f"encode plan T={tiles} q={quantum} G={groups} {dtype} "
+                     f"{'repeating map' if tg else 'sorted map'} offset={offset}: "
+                     f"{plan.items} items on {plan.blocks} blocks, vec={plan.vec}")
     attn_err_small = 0.0
     for B, P, ps, KV, G, Dh, lens, int8 in (
             (4, 4, 4, 2, 2, 16, [1, 7, 16, 0], True),
@@ -3018,7 +3084,11 @@ def wire_kernel_checks(cfg):
     for sizes, n_ranks, quantum, dtype in (((700, 3000, 5), 3, 128, torch.float32),
                                            ((5000, 37, 9000, 1), 4, 4096, torch.float32),
                                            ((301, 77), 2, 6, torch.float32),
-                                           ((1000, 2000), 2, 64, torch.bfloat16)):
+                                           ((1000, 2000), 2, 64, torch.bfloat16),
+                                           # chunks over many blocks, runs
+                                           # of one group across them
+                                           ((300_000, 5000, 1_000_000), 2, 4096,
+                                            torch.float32)):
         lay, tg, goff, tab = _layout_bits(rng, sizes, n_ranks, quantum)
         x = draw(lay.total, dtype, scale=0.5)
         mask = torch.from_numpy((rng.random(lay.total) > 0.1)
@@ -3225,9 +3295,16 @@ def wire_path_rows(cfg, rng, leaf, *, operand, run=None, model=None,
         errs["k3_operand"] = _byte_err(wk, wp)
         del wp, obits
     g3_bytes = 4 * c + c + 4 * tpc + 8 * len(sizes) + 8 * len(sizes)
-    g3_ms = time_ms(lambda: dps_quant.dps_quant_group_wire(
-        part, tab, tg1, src, None, quantum=4096, emit_stats=False, out=out,
-        backend="kernel"), repeats=10)
+    g3 = lambda st: (lambda: dps_quant.dps_quant_group_wire(
+        part, tab, tg1, src, None, quantum=4096, emit_stats=st, out=out,
+        backend="kernel"))
+    g3_ms = time_ms(g3(False), repeats=10)
+    g3_clean = time_graph_ms(g3(False), repeats=10, clean=True)
+    g3_stats_clean = time_graph_ms(g3(True), repeats=10, clean=True)
+    per_call = {st: device_kernels(g3(st))[0] for st in (False, True)}
+    if set(per_call.values()) != {1}:
+        raise AssertionError(f"K3b at {cfg.name}'s chunk: {per_call} device "
+                             "kernels a call (without, with statistics)")
     g3_plain = time_ms(lambda: dps_quant.dps_quant_group_wire(
         part, tab, tg1, src, None, quantum=4096, emit_stats=False,
         backend="plain"), repeats=2, warmup=1)
@@ -3236,7 +3313,10 @@ def wire_path_rows(cfg, rng, leaf, *, operand, run=None, model=None,
               "src/repro/kernels/dps_quant.py:482",
               f"{cfg.name}: one owner chunk of {c} fp32 -> int8, {len(sizes)} "
               "formats, quantum 4096, Philox per group, no statistics (leg 2)",
-              max_abs_err=errs["k3b"], ms=g3_ms, plain_ms=g3_plain,
+              max_abs_err=errs["k3b"], ms=g3_ms, ms_graph_clean=g3_clean,
+              ms_graph_clean_stats=g3_stats_clean,
+              kernels_a_call=per_call[False],
+              kernels_a_call_stats=per_call[True], plain_ms=g3_plain,
               bound_ms=b, bound_by=by, bytes=g3_bytes, library_ms=None)
     del part, out
     gc.collect()
@@ -3591,25 +3671,13 @@ def zero_collectives():
         buckets={k: p.n_buckets for k, p in parts.items()})
 
 
-def zero_bucket_check(cfg, n=4):
-    """The overlap path's largest bucket at full width, kernels vs plain: the
-    w_in leaf's bucket of the partitioner ``launch.train --zero-opt
-    --wire-overlap on`` builds (a bucket of its own, global leaf 7, so its
-    bits are keyed by a nonzero group base).  Each of 4 ranks encodes its
-    gradient into the bucket (K2b), then ``TreeAllReduce(layout=...)
-    .scatter_snap`` runs K4 and the leg-2 snap (K3b) on every owner's
-    [4, chunk] and ``decode_owned`` decodes each owner's chunk, as the train
-    step does per bucket.  Leg-2 bytes, decoded shards and owner 1's K4
-    mean bit-equal; leg-1 statistics exact and to SUM_RTOL.  Returns the K4
-    and K3b rows at this shape (launches: every per-bucket launch of the
-    overlap run)."""
+def _w_in_bucket(cfg, n):
+    """The w_in leaf's bucket of the partitioner ``launch.train --zero-opt
+    --wire-overlap on`` builds over ``n`` ranks: (leaf paths, partitioner,
+    w_in's leaf, bucket, its leaf range, its layout, its leaves' formats)."""
     from repro_torch.core import qtrain
     from repro_torch.core import tree as tree_lib
-    from repro_torch.core.fixed_point import FixedPointFormat, fold_seed
-    from repro_torch.dist import StackedTransport, TreeAllReduce, psum_stats
-    from repro_torch.dist.collectives import (LEG2, _aligned_bits,
-                                              _encode_aligned, _layout_tables,
-                                              _wire_reduce)
+    from repro_torch.core.fixed_point import FixedPointFormat
     from repro_torch.models import transformer
     defs = transformer.model_defs(cfg, cfg.master_dtype())
     paths = [p for p, _ in tree_lib.leaves_with_path(defs)]
@@ -3621,13 +3689,88 @@ def zero_bucket_check(cfg, n=4):
     b = next(b for b in range(part.n_buckets)
              if part.leaf_range(b)[0] <= leaf < part.leaf_range(b)[1])
     lo, hi = part.leaf_range(b)
-    lay = part.layouts[b]
-    shapes = [tuple(d.shape) for d in tree_lib.leaves(defs)[lo:hi]]
     rng = np.random.default_rng(15)
     il = rng.integers(1, 3, len(paths))        # the wire settles at <1, 7>
     fmt = FixedPointFormat(torch.tensor(il[lo:hi], dtype=torch.int32, device=DEV),
                            torch.tensor(8 - il[lo:hi], dtype=torch.int32,
                                         device=DEV))
+    return defs, paths, part, leaf, b, (lo, hi), part.layouts[b], fmt
+
+
+def _zero_bucket_k3b(cfg, mean, n=4, j=1, seed=1234, backend="kernel",
+                     out=None):
+    """Owner ``j``'s leg-2 snap at the w_in bucket, as ``_owner_rs_snap``
+    launches it: K3b (Philox keyed by the bucket's global groups, no
+    statistics) on ``mean``, the owner's fp32 mean chunk, through the
+    kernel's wrapper with the bucket's format table built once (the path
+    stacks it from the format each call: a second, small kernel)."""
+    from repro_torch.core.fixed_point import fold_seed
+    from repro_torch.dist.collectives import (LEG2, _aligned_bits,
+                                              _layout_tables)
+    from repro_torch.kernels.ops import format_table
+    _, _, _, _, _, (lo, _), lay, fmt = _w_in_bucket(cfg, n)
+    c, q = lay.chunk, lay.quantum
+    tpc = c // q
+    tg_all, goff = _layout_tables(lay, str(DEV))
+    bits = _aligned_bits(fold_seed(seed, LEG2), lay, goff, j * c, c,
+                         onchip_prng=True, group_base=lo)
+    tab, tg = format_table(fmt), tg_all[j * tpc:(j + 1) * tpc]
+    return lambda: dps_quant.dps_quant_group_wire(
+        mean, tab, tg, bits, None, quantum=q, emit_stats=False, out=out,
+        backend=backend)
+
+
+def zero_bucket_k3b_kernels(cfg, n=4):
+    """The device kernels a call of the w_in bucket's leg-2 K3b
+    (``torch.profiler``), read on a random mean chunk at the plan the
+    overlap path's call takes.  Read here, early in the process: a profiler
+    session ~805 s into the call recorded no device event (PERF.md §7), and
+    the count depends on the launch's plan alone (``group_plan``: shape,
+    dtype, source, statistics, alignment), which ``zero_bucket_check``
+    holds its own call to.  Returns (kernels a call, the plan)."""
+    lay = _w_in_bucket(cfg, n)[6]
+    gen = torch.Generator(device=DEV).manual_seed(16)
+    mean = torch.randn(lay.chunk, generator=gen, device=DEV) * 0.02
+    out = torch.empty(lay.chunk, dtype=torch.int8, device=DEV)
+    calls = device_kernels(_zero_bucket_k3b(cfg, mean, n, out=out))[0]
+    plan = _zero_bucket_plan(cfg, n, mean, out)
+    del mean, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    if calls != 1:
+        raise AssertionError(f"K3b at the w_in bucket: {calls} device "
+                             "kernels a call")
+    say("zero_bucket_k3b_kernels", kernels_a_call=calls, plan=str(plan))
+    return calls, plan
+
+
+def _zero_bucket_plan(cfg, n, mean, out):
+    """The plan of the w_in bucket's leg-2 K3b on ``mean`` into ``out``."""
+    _, _, _, _, _, (lo, hi), lay, _ = _w_in_bucket(cfg, n)
+    aligned = mean.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    return dps_quant.group_plan(lay.chunk // lay.quantum, lay.quantum, hi - lo,
+                                4, 2, False, aligned)
+
+
+def zero_bucket_check(cfg, k3b_kernels, n=4):
+    """The overlap path's largest bucket at full width, kernels vs plain: the
+    w_in leaf's bucket of the partitioner ``launch.train --zero-opt
+    --wire-overlap on`` builds (a bucket of its own, global leaf 7, so its
+    bits are keyed by a nonzero group base).  Each of 4 ranks encodes its
+    gradient into the bucket (K2b), then ``TreeAllReduce(layout=...)
+    .scatter_snap`` runs K4 and the leg-2 snap (K3b) on every owner's
+    [4, chunk] and ``decode_owned`` decodes each owner's chunk, as the train
+    step does per bucket.  Leg-2 bytes, decoded shards and owner 1's K4
+    mean bit-equal; leg-1 statistics exact and to SUM_RTOL.  Returns the K4
+    and K3b rows at this shape (launches: every per-bucket launch of the
+    overlap run); the K3b row's device kernels a call are
+    ``k3b_kernels``, :func:`zero_bucket_k3b_kernels`'s reading, whose plan
+    this call must take."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.dist import StackedTransport, TreeAllReduce, psum_stats
+    from repro_torch.dist.collectives import _layout_tables, _wire_reduce
+    defs, paths, part, leaf, b, (lo, hi), lay, fmt = _w_in_bucket(cfg, n)
+    shapes = [tuple(d.shape) for d in tree_lib.leaves(defs)[lo:hi]]
     tr = StackedTransport(n, DEV)
     seed = 1234
 
@@ -3667,8 +3810,7 @@ def zero_bucket_check(cfg, n=4):
     # K4 and K3b on owner 1's [4, chunk] view, as _owner_rs_snap calls them
     c, q, j = lay.chunk, lay.quantum, 1
     tpc = c // q
-    tg_all, goff = _layout_tables(lay, str(DEV))
-    tg1 = tg_all[j * tpc:(j + 1) * tpc]
+    tg1 = _layout_tables(lay, str(DEV))[0][j * tpc:(j + 1) * tpc]
     view = received[j]
     if _reduce_body(view, q) != "tma":
         raise AssertionError("w_in bucket: K4 planned off the TMA body")
@@ -3685,15 +3827,16 @@ def zero_bucket_check(cfg, n=4):
     red_plain = time_ms(lambda: _wire_reduce(view, fmt, tg1, backend="plain",
                                              quantum=q), repeats=3, warmup=1)
     red_sum = torch_sum_ms(view)
-    bits = _aligned_bits(fold_seed(seed, LEG2), lay, goff, j * c, c,
-                         onchip_prng=True, group_base=lo)
     out = torch.empty(c, dtype=torch.int8, device=DEV)
-    enc = lambda be: _encode_aligned(mk, fmt, tg1, None, bits=bits,
-                                     mode="stochastic", backend=be, quantum=q,
-                                     compute_stats=False,
-                                     out=out if be == "kernel" else None)
-    g3_ms = time_ms(lambda: enc("kernel"), repeats=10)
-    g3_plain = time_ms(lambda: enc("plain"), repeats=2, warmup=1)
+    g3_calls, plan = k3b_kernels
+    if _zero_bucket_plan(cfg, n, mk, out) != plan:
+        raise AssertionError("w_in bucket: K3b planned off the plan whose "
+                             "device kernels were read")
+    g3 = _zero_bucket_k3b(cfg, mk, n, j, seed, out=out)
+    g3_ms = time_ms(g3, repeats=10)
+    g3_clean = time_graph_ms(g3, repeats=10, clean=True)
+    g3_plain = time_ms(_zero_bucket_k3b(cfg, mk, n, j, seed, backend="plain"),
+                       repeats=2, warmup=1)
     G = hi - lo
     red_bytes = n * c + 4 * c + 4 * tpc + 8 * G
     g3_bytes = 4 * c + c + 4 * tpc + 8 * G + 8 * G
@@ -3722,8 +3865,12 @@ def zero_bucket_check(cfg, n=4):
          "replaces": "src/repro/kernels/dps_quant.py:482",
          "shape": f"owner {j}'s mean chunk of {c} fp32 -> int8, Philox keyed "
                   f"by global group {lo}, no statistics (leg 2), {shape}",
-         "max_abs_err": k3b_err, "ms": g3_ms, "plain_ms": g3_plain,
-         "bound_ms": b3, "bound_by": by3, "bytes": g3_bytes, **common}]
+         "max_abs_err": k3b_err, "ms": g3_ms, "ms_graph_clean": g3_clean,
+         "kernels_a_call": g3_calls,
+         "kernels_a_call_note": "torch.profiler, at this call's plan on a "
+                                "random mean chunk, after the wire phase",
+         "plain_ms": g3_plain, "bound_ms": b3, "bound_by": by3,
+         "bytes": g3_bytes, **common}]
     say("zero_bucket", bucket=b, group_base=lo, leaf="/".join(paths[leaf]),
         owners=n, chunk=c, quantum=q, leg2_bit_equal=True,
         decoded_shards_bit_equal=True, k4_mean_bit_equal=True,
@@ -5775,6 +5922,9 @@ def main():
     rows += train_shape_rows()
     rows += wire_kernel_checks(cfg)
     rows += mamba_wire_rows()
+    # the w_in bucket's leg-2 K3b read by torch.profiler while its sessions
+    # record (its row comes with the ZeRO phases)
+    k3b_bucket = zero_bucket_k3b_kernels(cfg)
     # each path runs with the counts set to 0 just before it, read just after
     launches = serve(cfg, lay)
     gc.collect()
@@ -5876,7 +6026,7 @@ def main():
     # params leg, then the trainer at full width without and with the
     # overlap; each run counted from 0
     zero_collectives()
-    rows += zero_bucket_check(cfg)
+    rows += zero_bucket_check(cfg, k3b_bucket)
     bucket_rows, k4_step_ms = k4_buckets(cfg)
     for r in rows:
         if r["name"] == "dps_wire_reduce_zero_bucket":

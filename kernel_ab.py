@@ -1,7 +1,8 @@
 """Time the port's hand-written kernels of several source trees side by side
 on one card.
 
-    python3 kernel_ab.py [--out FILE] [--only k5,quant,k4,host,split,bodies]
+    python3 kernel_ab.py [--out FILE]
+                         [--only k5,quant,k4,host,split,bodies,k3]
                          [--clean-l2] TREE [TREE ...]
 
 Each TREE is a checkout of this repository (a directory that holds
@@ -53,7 +54,20 @@ built from its own sources into ``build/kernel_ab/<n>``.  A child measures:
 * ``bodies`` (not in the default set; a tree whose quantizer has a
   ``quant_plan``): K1b and K1 to nearest with statistics on the TMA body
   and on the grid-stride body at ``BODY_SIZES`` (400,000 to 704,643,072
-  elements), and the body the plan takes.
+  elements), and the body the plan takes;
+* ``k3`` (not in the default set): the grouped wire encoder, K3 at each
+  config's admission (``K3_ADMISSIONS``: one tile a page of one layer's K
+  or V, each tile its own group, as ``chip_smoke.py``'s
+  ``serve_shape_rows`` builds them), masked (the reference's call) and
+  unmasked, without statistics; and K3b (Philox keyed per group) at
+  owner 1's chunk of llama3.2-3b's and mamba2-1.3b's per-layer layouts
+  over 4 ranks and at the overlap run's w_in bucket (group base 7), with
+  statistics and without.  Each row is read three ways — between CUDA
+  events around the wrapper (the L2 zero-filled), replayed from a CUDA
+  graph (zero fill), replayed with the L2 flushed by a read — with the
+  device kernels a call and each one's device microseconds
+  (``torch.profiler``); each admission row's bytes and statistics are held
+  to the tree's plain version.
 
 Every time is the median over repeated launches with the 50 MB L2 cache
 overwritten before each, as in ``chip_smoke.py``: by a zero fill, which
@@ -101,6 +115,18 @@ K4_SHAPES = {"owner_803M": (803_385_344, 4096, True),
 # wrapper's own setting first
 K4_VARIANTS = [(4096, 4, 2), (2048, 4, 2), (4096, 2, 2), (4096, 3, 2),
                (4096, 6, 2), (4096, 8, 1), (4096, 4, 3)]
+# K3 at each config's admission: (tiles, quantum) = (2 * layers * 32 prompt
+# pages, 16 * KV heads * head dim), the layers each config serves in
+# chip_smoke.py
+K3_ADMISSIONS = {"llama3_2_3b": (1792, 16384), "gemma_7b": (1792, 65536),
+                 "mistral_large_123b": (512, 16384),
+                 "nemotron_4_340b": (128, 24576),
+                 "qwen3_moe_30b_a3b": (2048, 8192)}
+# K3b on owner 1 of 4: (config whose per-layer layout is cut, chunk); the
+# w_in bucket is the one leaf of 28 * 3072 * 8192 values, global group 7
+K3B_CHUNKS = {"llama_owner": ("llama3_2_3b", 803_385_344),
+              "w_in_bucket": (None, 176_160_768),
+              "mamba2_owner": ("mamba2_1_3b", 336_146_432)}
 # (kernel, leaf) pairs timed; each with statistics and without
 QUANT_CASES = [("K1b", "lenet_fc1"), ("K1b", "proj"), ("K1b", "w_in"),
                ("K1", "lenet_fc1"), ("K1", "w_in_layer"),
@@ -187,13 +213,11 @@ def _device_us(evt):
     return 0.0
 
 
-def device_kernels(fn, calls=10):
-    """``fn()`` called ``calls`` times, outside any graph, under
-    ``torch.profiler``: the device kernels (and copies) a call launches,
-    and each one's mean device microseconds, by name."""
+def _session(fn, calls):
+    """One ``torch.profiler`` session of ``calls`` calls of ``fn``: the
+    device events by name, (device microseconds, count)."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
@@ -204,7 +228,46 @@ def device_kernels(fn, calls=10):
         us = _device_us(e)
         if us > 0.0:
             by_name[e.key] = (us, e.count)
-    per_call = sum(c for _, c in by_name.values()) / calls
+    return by_name
+
+
+def device_kernels(fn, calls=20, tries=3, slack=2):
+    """``fn()`` called outside any graph under ``torch.profiler``: the
+    device kernels (and copies) a call launches, and each one's mean device
+    microseconds, by name.  A name recorded ``k * calls`` times, give or
+    take ``slack`` records, is launched ``k`` times a call: in
+    ``chip_smoke.py``'s process on an H100 a session lost a record of the
+    session's last calls or took one of the calls before it (9 or 11
+    kernels for 10 one-kernel calls, in no fixed pattern from one session
+    to the next), and after the plain paged attention at gemma-7b's
+    geometry a session recorded nothing until the caching allocator's free
+    blocks were released (they are, before each session).  A session where
+    a name is further off is taken again, ``tries`` times at most; then the
+    count a call is returned as recorded, not a whole number, and fails the
+    callers' checks.  A session of fewer than ``calls - slack`` device
+    events is taken again too (every caller's ``fn`` launches a kernel); if
+    each one was, the reading raises: it would say nothing."""
+    fn()
+    torch.cuda.synchronize()
+    read = None
+    for _ in range(tries):
+        by_name = _session(fn, calls)
+        recorded = sum(c for _, c in by_name.values())
+        if recorded < calls - slack:
+            continue
+        per_name = {k: round(c / calls) for k, (_, c) in by_name.items()}
+        whole = all(abs(c - per_name[k] * calls) <= slack
+                    for k, (_, c) in by_name.items())
+        read = (sum(per_name.values()) if whole else recorded / calls,
+                by_name)
+        if whole:
+            break
+    if read is None:
+        raise RuntimeError(f"torch.profiler recorded fewer than "
+                           f"{calls - slack} device events in each of "
+                           f"{tries} sessions of {calls} calls: its reading "
+                           "would say nothing")
+    per_call, by_name = read
     return per_call, {k: us / c for k, (us, c) in by_name.items()}
 
 
@@ -230,6 +293,8 @@ def _child(tree, only, clean):
         out["bodies"] = _bodies(dev, dps_quant)
     if "k4" in only:
         out["k4"] = _k4(dev, dps_quant, _build)
+    if "k3" in only:
+        out["k3"] = _k3(dev, dps_quant)
     if "host" in only:
         out["host"] = _host(dev, dps_quant)
     print("KERNEL_AB " + json.dumps(out), flush=True)
@@ -466,6 +531,89 @@ def _split(dev, dps_quant):
     return res
 
 
+def _three_ways(fn, reps):
+    """``fn`` between CUDA events (L2 zero-filled), replayed from a graph
+    (zero fill), replayed with the L2 flushed by a read; its device
+    kernels a call and each one's device microseconds."""
+    per_call, us = device_kernels(fn)
+    return {"events_ms": time_ms(fn, reps),
+            "graph_ms": time_graph_ms(fn, reps),
+            "clean_ms": time_graph_ms(fn, reps, clean=True),
+            "kernels_a_call": per_call, "device_us": us}
+
+
+def _k3(dev, dps_quant):
+    """K3 at K3_ADMISSIONS, masked and unmasked, and K3b at K3B_CHUNKS,
+    with statistics and without, each read by :func:`_three_ways`."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.configs.base import get_config
+    from repro_torch.dist import group_layout
+    from repro_torch.models import registry
+    gen = torch.Generator(device=dev).manual_seed(0)
+    enc = dps_quant.dps_quant_group_wire
+    res = {}
+    for model, (T, q) in K3_ADMISSIONS.items():
+        n = T * q
+        scale = torch.pow(2.0, torch.randint(-4, 4, (T, 1), generator=gen,
+                                             device=dev).float())
+        x = (torch.randn(T, q, generator=gen, device=dev) * scale).reshape(-1)
+        x[::13] = 0.0
+        mask = (torch.rand(n, generator=gen, device=dev) > 0.15).float()
+        il = torch.randint(1, 6, (T,), generator=gen, device=dev)
+        fl = 8 - il + torch.randint(0, 3, (T,), generator=gen, device=dev)
+        tab = torch.stack([il, fl], 1).to(torch.int32).contiguous()
+        tg = torch.arange(T, dtype=torch.int32, device=dev)
+        for masked in (True, False):
+            m = mask if masked else None
+            wk, sk = enc(x, tab, tg, None, m, quantum=q, backend="kernel")
+            wp, sp = enc(x, tab, tg, None, m, quantum=q, backend="plain")
+            row = {"tiles": T, "quantum": q,
+                   "bit_equal": bool(torch.equal(wk, wp)),
+                   "stats_counts_equal": bool(torch.equal(
+                       sk[:, [0, 1, 2, 6]], sp[:, [0, 1, 2, 6]])),
+                   "stats_sum_rel": float(((sk[:, 3:6] - sp[:, 3:6]).abs()
+                                           / sp[:, 3:6].abs().clamp(
+                                               min=1e-30)).max())}
+            del wk, sk, wp, sp
+            row.update(_three_ways(lambda: enc(
+                x, tab, tg, None, m, quantum=q, emit_stats=False,
+                backend="kernel"), 50))
+            res[f"K3_{model}_{'masked' if masked else 'unmasked'}"] = row
+        del x, mask
+        torch.cuda.empty_cache()
+    for tag, (model, c) in K3B_CHUNKS.items():
+        if model is None:
+            lay = group_layout((4 * c,), n_chunks=4, quantum=4096)
+            base = 7
+        else:
+            cfg = get_config(model)
+            defs = registry(cfg.family).model_defs(cfg, cfg.master_dtype())
+            lay = group_layout([math.prod(d.shape) for d in
+                                tree_lib.leaves(defs)], n_chunks=4,
+                               quantum=4096)
+            base = 0
+        assert lay.chunk == c, (tag, lay.chunk)
+        tpc = c // 4096
+        tg = torch.from_numpy(lay.tile_groups()[tpc:2 * tpc]).to(dev)
+        goff = torch.tensor(lay.offsets, dtype=torch.int64, device=dev)
+        G = len(lay.offsets)
+        il = torch.randint(1, 3, (G,), generator=gen, device=dev)
+        tab = torch.stack([il, 8 - il], 1).to(torch.int32).contiguous()
+        x = torch.randn(c, generator=gen, device=dev) * 0.02
+        x[::11] = 0.0
+        src = dps_quant.GroupPhilox(31, goff, start=c, group_base=base)
+        out = torch.empty(c, dtype=torch.int8, device=dev)
+        for stats in (True, False):
+            row = {"chunk": c, "groups": G}
+            row.update(_three_ways(lambda: enc(
+                x, tab, tg, src, None, quantum=4096, emit_stats=stats,
+                out=out, backend="kernel"), 20))
+            res[f"K3b_{tag}_{'stats' if stats else 'ns'}"] = row
+        del x, out
+        torch.cuda.empty_cache()
+    return res
+
+
 def _k4(dev, dps_quant, _build):
     """K4 at K4_SHAPES, and the TMA body's variants where the tree has one."""
     from repro_torch.configs.base import get_config
@@ -535,7 +683,7 @@ def main():
     ap.add_argument("--out", default=None)
     ap.add_argument("--only", default="k5,quant,k4",
                     help="the kernels to time, comma-separated (k5, quant, "
-                         "k4, host, split, bodies)")
+                         "k4, host, split, bodies, k3)")
     ap.add_argument("--clean-l2", action="store_true",
                     help="time the quant set with the L2 flushed by a read "
                          "(clean lines) instead of a zero fill")

@@ -65,8 +65,9 @@ KERNEL_SIGNATURES = {
     "dps_group_wire_encode": KernelSignature(
         ("x", "x_is_bf16", "fmt_tab", "tile_group", "bits", "mask", "src",
          "seed", "goff", "start", "group_base", "wire", "partials", "stats",
-         "tiles", "quantum", "groups", "vec", "stream"),
-        "pippppiupllppplliip", grouped=True),
+         "ticket", "tiles", "quantum", "groups", "nblocks", "piece", "per",
+         "run", "vec", "stream"),
+        "pippppiupllpppplliiliiip", grouped=True),
     "dps_wire_reduce": KernelSignature(
         ("wire", "row_stride", "n_ranks", "chunk", "fmt_tab", "tile_group",
          "quantum", "out", "nblocks", "body", "span", "stages", "stream"),

@@ -102,13 +102,38 @@
 //
 // Bound on this card: bytes.  Per element K3 reads 4 B of x (2 B in bf16), 4 B
 // of mask when masked and 4 B of bits with an operand, and writes 1 B; K3b on
-// a wire chunk moves 5 B per element.  One block per tile, 16-byte loads where
-// the quantum divides by four (a scalar loop otherwise, so any quantum >= 1 is
-// taken), the table row read by the block itself.  The TPU body carries its
-// statistics in one accumulator across a sequential grid; here each block
-// reduces its tile to one partial row (integer counts, double sums), and a
-// second kernel folds the tiles of each group in a fixed order, so counts stay
-// exact past 2^24 elements and the same input gives the same bits every run.
+// a wire chunk moves 5 B per element.  K3b is near the issue limit as well
+// (Philox4x32-10, ~40 instructions a group of four), and with statistics
+// beyond it.  A persistent grid (kernels/dps_quant.py's group_plan): four
+// blocks of 256 threads an SM over items of about 16 KB of x — pieces of a
+// larger tile, runs of whole smaller ones, smaller items where a launch has
+// fewer than four a block — block b taking items b, b + grid, ...  So a
+// launch of few tiles (an admission of 128 pages) spreads over every SM, one
+// of many (a wire chunk: 196,139 tiles of 4,096) pays a block's set-up once,
+// and the card sweeps the buffer front to back.  A thread issues four
+// 16-byte loads of x (and of the mask and the bits) before it uses one, with
+// no guard between them where the whole batch lies in the piece; the tile's
+// format row is read and the Philox words drawn while they are out, so a
+// piece's first loads wait for nothing, its tile's group read one piece
+// ahead and waited for only where the statistics or the Philox key change
+// with it.  K3b's counter steps by one a group of four from the piece's
+// group-relative position, no division; a piece's tile and place step with
+// one carry, no division a piece.  The statistics: a block keeps one running
+// row (integer counts, a batch's float terms added in float, to double once)
+// while its pieces share a group, and writes it to its next slot when the
+// group changes; the block that takes the last ticket folds the rows into
+// [G, 7] (group_fold).  One launch a call: the counts stay exact past 2^24
+// elements and the same input gives the same bits every run.  The relative
+// error's IEEE division takes nonzero operands (a zero sends the warp down
+// the slow path, as measured on K1b's TMA body).  Measured, and left out
+// (kernel_ab.py --only k3, H100 80GB HBM3 at 700.00 W, on trees of this
+// body's earlier forms, against the parent in the same call): each block
+// taking one contiguous span of the buffer (items b * span ...) read the
+// same to 3 % slower at every shape; six or eight blocks an SM (40 or 32
+// registers, with fewer loads a thread) 2-39 % slower, spilling; evict-first
+// loads and stores (ld.global.cs) 3-8 % faster at the llama, qwen3-moe and
+// mistral admissions but 4-8 % slower at gemma's and on every K3b chunk;
+// with statistics, two loads a thread in flight 4-15 % slower than four.
 //
 // K4 (`wire_reduce_tma_kernel`, `wire_reduce_stride_kernel`) replaces
 // `_wire_reduce_kernel` (entry `dps_wire_reduce_pallas`, pallas_call at
@@ -285,19 +310,17 @@ struct Acc {
     }
 };
 
-// One element onto the <IL, FL> grid.  SRC: 0 = round to nearest, else
-// stochastic with `bits`.  WIRE saturates the grid integer to int8 and counts
-// the saturation as overflow.  MASKED weighs the statistics by the mask `m`
-// (1 keeps the element, 0 drops it).  The counts and the max go into `acc`,
-// the element's terms of the three float sums into `t`.  Returns the value to
+// One element onto the <IL, FL> grid (K1/K2; K3's is wire_one).  SRC: 0 =
+// round to nearest, else stochastic with `bits`.  WIRE saturates the grid
+// integer to int8 and counts the saturation as overflow.  The counts and the
+// max go into `acc` (not the element count: K1/K2 know it is n), the
+// element's terms of the three float sums into `t`.  Returns the value to
 // store: q in grid units times 2^-FL (K1), or the saturated grid integer
-// (wire).
-// SMALL says the grid's span 2^(IL-1+FL) is at most 2^22, so floor_small
-// gives floorf's bits.  COUNT keeps the kept-element count (K3; K1/K2 know
-// it is n).
-template <int SRC, bool WIRE, bool STATS, bool MASKED, bool SMALL = false, bool COUNT = true>
-__device__ __forceinline__ float quant_one(float x, uint32_t bits, float m, const Grid& g,
-                                           Acc& acc, Sums& t) {
+// (wire).  SMALL says the grid's span 2^(IL-1+FL) is at most 2^22, so
+// floor_small gives floorf's bits.
+template <int SRC, bool WIRE, bool STATS, bool SMALL = false>
+__device__ __forceinline__ float quant_one(float x, uint32_t bits, const Grid& g, Acc& acc,
+                                           Sums& t) {
     const float y = x * g.scale;
     const float yc = clamp_nan(y, g.qmin, g.qmax);
     // top 24 bits, logical shift -> uniform in [0, 1) on the 2^-24 grid
@@ -307,32 +330,19 @@ __device__ __forceinline__ float quant_one(float x, uint32_t bits, float m, cons
     k = clamp_nan(k, g.qmin, g.qmax);
     const float v = WIRE ? clamp_nan(k, -128.0f, 127.0f) : k;
     if (STATS) {
-        const bool keep = !MASKED || m != 0.0f;
         const float x_ref = yc * g.inv_scale;              // range-clipped value
-        const float abs_err = MASKED ? fabsf(v * g.inv_scale - x_ref) * m
-                                     : fabsf(v * g.inv_scale - x_ref);
-        const float abs_ref = MASKED ? fabsf(x_ref) * m : fabsf(x_ref);
+        const float abs_err = fabsf(v * g.inv_scale - x_ref);
+        const float abs_ref = fabsf(x_ref);
         const bool nz = abs_ref > 0.0f;
         const bool over = (y > g.qmax) || (y < g.qmin) || (WIRE && k != v);
-        if (COUNT) acc.cnt += keep ? 1u : 0u;
         acc.nz += nz ? 1u : 0u;
-        acc.over += (over && keep) ? 1u : 0u;
+        acc.over += over ? 1u : 0u;
         t.abs_err = abs_err;
         t.rel = nz ? abs_err / abs_ref : 0.0f;             // IEEE division
         t.abs_ref = abs_ref;
-        acc.mx = max_nan(acc.mx, MASKED ? fabsf(x) * m : fabsf(x));
+        acc.mx = max_nan(acc.mx, fabsf(x));
     }
-    return WIRE ? (MASKED ? v * m : v) : v * g.inv_scale;
-}
-
-// quant_one with the element's float terms added to the double sums at once
-template <int SRC, bool WIRE, bool STATS, bool MASKED>
-__device__ __forceinline__ float quant_add(float x, uint32_t bits, float m, const Grid& g,
-                                           Acc& acc) {
-    Sums t;
-    const float v = quant_one<SRC, WIRE, STATS, MASKED>(x, bits, m, g, acc, t);
-    if (STATS) acc.add(t);
-    return v;
+    return WIRE ? v : v * g.inv_scale;
 }
 
 struct Row {
@@ -508,8 +518,8 @@ __device__ __forceinline__ void quantize_groups(const XT* __restrict__ x, long l
                 Sums t[4];
 #pragma unroll
                 for (int j = 0; j < 4; ++j)
-                    qv[j] = quant_one<SRC, WIRE, STATS, false, SMALL, false>(
-                        xv[u][j], bv[u][j], 1.0f, g, acc, t[j]);
+                    qv[j] = quant_one<SRC, WIRE, STATS, SMALL>(xv[u][j], bv[u][j], g, acc,
+                                                               t[j]);
                 store4(q + 4 * gi, qv);
                 const Sums grp = (t[0] + t[1]) + (t[2] + t[3]);
                 half[u / 2] = (u % 2) ? half[u / 2] + grp : grp;
@@ -605,8 +615,7 @@ quantize_kernel(const XT* __restrict__ x, long long n, const int* __restrict__ i
             b = philox4x32_10(c >> 2, seed).v[c & 3];
         }
         Sums t;
-        store1(q + e, quant_one<SRC, WIRE, STATS, false, false, false>(to_f32(x[e]), b, 1.0f,
-                                                                       g, acc, t));
+        store1(q + e, quant_one<SRC, WIRE, STATS>(to_f32(x[e]), b, g, acc, t));
         if (STATS) acc.add(t);
     }
 
@@ -902,143 +911,461 @@ cudaError_t dispatch_quantize_tma(const QuantOps<XT, XT>& o, int src, bool stats
 // K3 / K3b
 // ---------------------------------------------------------------------------
 
-// Element e (from 0) of tile t lies at position start + t*quantum + e of the
-// aligned layout.  SRC 2 (K3b): group g's stream is keyed on
-// fold_seed(seed, group_base + g) and counts from goff[g], the group's
-// aligned offset.  MASKED: `mask` is not null.
-template <typename XT, int SRC, bool STATS, bool MASKED, bool VEC>
-__global__ void __launch_bounds__(THREADS)
-group_wire_encode_kernel(const XT* __restrict__ x, const int* __restrict__ fmt_tab,
-                         const int* __restrict__ tile_group,
-                         const uint32_t* __restrict__ bits,
-                         const float* __restrict__ mask, unsigned long long seed,
-                         const long long* __restrict__ goff, long long start,
-                         long long group_base, signed char* __restrict__ wire,
-                         double* __restrict__ partials, long long quantum) {
-    const long long t = blockIdx.x;
-    const int grp = tile_group[t];
-    const Grid g = make_grid(fmt_tab[2 * grp], fmt_tab[2 * grp + 1]);
-    const long long base = t * quantum;
-    unsigned long long gseed = 0ull;
-    long long gpos = 0;                  // index of the tile's first element in its group
-    if (SRC == 2) {
-        gseed = fold_seed(seed, static_cast<unsigned long long>(group_base + grp));
-        gpos = start + base - goff[grp];
-    }
-    Acc acc;
+constexpr int G_MAX_GRID = 4 * THREADS;   // blocks a launch may have (the fold's prefix)
+// blocks an SM (the launch bound, at most 64 registers a thread;
+// kernels/dps_quant.py's group_plan sizes the grid by it) and groups of four
+// a thread loads at once
+constexpr int G_BPS = 4, G_U = 4;
 
-    // four elements a step when the quantum divides by four and, for Philox,
-    // the tile starts on a counter boundary (uniform across the block)
-    const bool vec = VEC && (SRC != 2 || (gpos & 3) == 0);
-    const long long nvec = vec ? quantum / 4 : 0;
-    for (long long i = threadIdx.x; i < nvec; i += THREADS) {
-        const long long e = base + 4 * i;
-        float xv[4], wv[4];
-        load4(x + e, xv);
-        uint32_t bv[4] = {0u, 0u, 0u, 0u};
-        if (SRC == 1) {
-            const uint4 b = *reinterpret_cast<const uint4*>(bits + e);
-            bv[0] = b.x; bv[1] = b.y; bv[2] = b.z; bv[3] = b.w;
-        } else if (SRC == 2) {
-            const Philox4 r = philox4x32_10(static_cast<uint64_t>((gpos >> 2) + i), gseed);
-            bv[0] = r.v[0]; bv[1] = r.v[1]; bv[2] = r.v[2]; bv[3] = r.v[3];
-        }
-        float mv[4] = {1.0f, 1.0f, 1.0f, 1.0f};
-        if (MASKED) load4(mask + e, mv);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-            wv[j] = quant_add<SRC, true, STATS, MASKED>(xv[j], bv[j], mv[j], g, acc);
-        store4(wire + e, wv);
+constexpr int G_PART = PART + 1;    // a run's partial row: the seven columns, its group
+
+// One element onto the wire as quant_one computes it (WIRE, any span, floorf),
+// with the kept-element count, MASKED weighing the statistics and the byte by
+// the mask `m` (1 keeps the element, 0 drops it), and the IEEE division of
+// the relative error on operands made nonzero and no branch round it: an
+// operand of 0 would send the whole warp down the division's slow path;
+// 0 / ref is +0, the select's value, and an element whose abs_ref is not > 0
+// (zero, or NaN) takes 0 either way.
+template <int SRC, bool STATS, bool MASKED>
+__device__ __forceinline__ float wire_one(float x, uint32_t bits, float m, const Grid& g,
+                                          Acc& acc, Sums& t) {
+    const float y = x * g.scale;
+    const float yc = clamp_nan(y, g.qmin, g.qmax);
+    const float r = yc + (SRC == 0 ? 0.5f
+                                   : static_cast<float>(bits >> 8) * (1.0f / 16777216.0f));
+    const float k = clamp_nan(floorf(r), g.qmin, g.qmax);
+    const float v = clamp_nan(k, -128.0f, 127.0f);
+    if (STATS) {
+        const bool keep = !MASKED || m != 0.0f;
+        const float x_ref = yc * g.inv_scale;
+        const float abs_err = MASKED ? fabsf(v * g.inv_scale - x_ref) * m
+                                     : fabsf(v * g.inv_scale - x_ref);
+        const float abs_ref = MASKED ? fabsf(x_ref) * m : fabsf(x_ref);
+        const bool nz = abs_ref > 0.0f;
+        const bool over = (y > g.qmax) || (y < g.qmin) || k != v;
+        acc.cnt += keep ? 1u : 0u;
+        acc.nz += nz ? 1u : 0u;
+        acc.over += (over && keep) ? 1u : 0u;
+        const bool div = nz && abs_err > 0.0f;
+        const float rel = __fdiv_rn(div ? abs_err : 1.0f, div ? abs_ref : 1.0f);
+        t.abs_err = abs_err;
+        t.rel = div ? rel : 0.0f;
+        t.abs_ref = abs_ref;
+        acc.mx = max_nan(acc.mx, MASKED ? fabsf(x) * m : fabsf(x));
     }
-    // scalar tail: everything when the vector path is off
-    for (long long i = 4 * nvec + threadIdx.x; i < quantum; i += THREADS) {
-        const long long e = base + i;
+    return MASKED ? v * m : v;
+}
+
+// One batch of U groups of four of encode_groups, from group j0 of the
+// piece on; FULL: all U lie inside it (no guard between the loads, so they
+// issue back to back, and the U Philox blocks interleave).
+template <typename XT, int SRC, bool STATS, bool MASKED, int U, bool FULL>
+__device__ __forceinline__ void encode_batch(const XT* __restrict__ x,
+                                             const uint32_t* __restrict__ bits,
+                                             const float* __restrict__ mask,
+                                             signed char* __restrict__ wire, long long e0,
+                                             int j0, int ng, unsigned long long c0,
+                                             unsigned long long gseed,
+                                             const int* __restrict__ fmt_tab, int grp, Acc& acc) {
+    float xv[U][4], mv[U][4];
+    uint32_t bv[U][4];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+        const int j = j0 + u * THREADS;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            xv[u][k] = 0.0f;
+            mv[u][k] = 1.0f;
+            bv[u][k] = 0u;
+        }
+        if (FULL || j < ng) {
+            const long long e = e0 + 4ll * j;
+            load4(x + e, xv[u]);
+            if (SRC == 1) {
+                const uint4 b = __ldcs(reinterpret_cast<const uint4*>(bits + e));
+                bv[u][0] = b.x; bv[u][1] = b.y; bv[u][2] = b.z; bv[u][3] = b.w;
+            }
+            if (MASKED) load4(mask + e, mv[u]);
+        }
+    }
+    // the format row and the Philox words while the loads are out (a
+    // piece's first loads wait for neither, nor for its tile's group)
+    const Grid g = make_grid(__ldg(fmt_tab + 2 * grp), __ldg(fmt_tab + 2 * grp + 1));
+    if (SRC == 2) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            const int j = j0 + u * THREADS;
+            if (FULL || j < ng) {
+                const Philox4 r = philox4x32_10(c0 + static_cast<unsigned>(j), gseed);
+                bv[u][0] = r.v[0]; bv[u][1] = r.v[1]; bv[u][2] = r.v[2]; bv[u][3] = r.v[3];
+            }
+        }
+    }
+    Sums sum;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+        const int j = j0 + u * THREADS;
+        if (FULL || j < ng) {
+            float wv[4];
+            Sums t[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+                wv[k] = wire_one<SRC, STATS, MASKED>(xv[u][k], bv[u][k], mv[u][k], g, acc, t[k]);
+            store4(wire + e0 + 4ll * j, wv);
+            if (STATS) sum = sum + ((t[0] + t[1]) + (t[2] + t[3]));
+        }
+    }
+    if (STATS) acc.add(sum);
+}
+
+// Groups of four elements [e0, e0 + 4 ng) of one piece, whose first group
+// takes Philox counter c0 (SRC 2): thread tid takes groups tid, tid + 256,
+// ..., U at a time with every load issued before the first is used, the
+// counter of group j c0 + j (no division).  A batch's float terms add in
+// float and go to double once.
+template <typename XT, int SRC, bool STATS, bool MASKED>
+__device__ __forceinline__ void encode_groups(const XT* __restrict__ x,
+                                              const uint32_t* __restrict__ bits,
+                                              const float* __restrict__ mask,
+                                              signed char* __restrict__ wire, long long e0,
+                                              int ng, unsigned long long c0,
+                                              unsigned long long gseed,
+                                              const int* __restrict__ fmt_tab, int grp, Acc& acc) {
+    constexpr int U = G_U;
+    int j0 = threadIdx.x;
+    for (; j0 + (U - 1) * THREADS < ng; j0 += U * THREADS)
+        encode_batch<XT, SRC, STATS, MASKED, U, true>(x, bits, mask, wire, e0, j0, ng, c0,
+                                                      gseed, fmt_tab, grp, acc);
+    if (j0 < ng)
+        encode_batch<XT, SRC, STATS, MASKED, U, false>(x, bits, mask, wire, e0, j0, ng, c0,
+                                                       gseed, fmt_tab, grp, acc);
+}
+
+// Elements [e0, e0 + len) of one tile one at a time (no 16-byte access, or a
+// Philox stream off a counter boundary); element i takes word (c + i) % 4 of
+// counter (c + i) / 4.
+template <typename XT, int SRC, bool STATS, bool MASKED>
+__device__ __forceinline__ void encode_elements(const XT* __restrict__ x,
+                                                const uint32_t* __restrict__ bits,
+                                                const float* __restrict__ mask,
+                                                signed char* __restrict__ wire, long long e0,
+                                                int len, unsigned long long c,
+                                                unsigned long long gseed,
+                                                const int* __restrict__ fmt_tab, int grp, Acc& acc) {
+    const Grid g = make_grid(__ldg(fmt_tab + 2 * grp), __ldg(fmt_tab + 2 * grp + 1));
+    for (int i = threadIdx.x; i < len; i += THREADS) {
+        const long long e = e0 + i;
         uint32_t b = 0u;
         if (SRC == 1) b = bits[e];
         if (SRC == 2) {
-            const unsigned long long c = static_cast<unsigned long long>(gpos + i);
-            b = philox4x32_10(c >> 2, gseed).v[c & 3];
+            const unsigned long long ci = c + static_cast<unsigned long long>(i);
+            b = philox4x32_10(ci >> 2, gseed).v[ci & 3];
         }
-        const float m = MASKED ? mask[e] : 1.0f;
-        store1(wire + e, quant_add<SRC, true, STATS, MASKED>(to_f32(x[e]), b, m, g, acc));
-    }
-
-    if (STATS) {
-        Row r = to_row(acc);
-        block_reduce_row(r);
-        if (threadIdx.x == 0) write_row(partials + t * PART, r);
+        Sums t;
+        store1(wire + e, wire_one<SRC, STATS, MASKED>(to_f32(x[e]), b,
+                                                      MASKED ? mask[e] : 1.0f, g, acc, t));
+        if (STATS) acc.add(t);
     }
 }
 
-// Second stage: block g folds partials[t] of every tile with
-// tile_group[t] == g into stats[g] (sums add, the max column maxes; a group
-// without tiles gets zeros), in double, in a fixed order.
-__global__ void __launch_bounds__(THREADS)
-group_stats_reduce_kernel(const double* __restrict__ partials,
-                          const int* __restrict__ tile_group,
-                          float* __restrict__ stats, long long tiles) {
-    const int grp = blockIdx.x;
-    Row r = {{0.0, 0.0, 0.0, 0.0, 0.0, 0.0}, 0.0f};
-    for (long long t = threadIdx.x; t < tiles; t += THREADS) {
-        if (tile_group[t] != grp) continue;
-        const double* p = partials + t * PART;
-#pragma unroll
-        for (int k = 0; k < PART - 1; ++k) r.v[k] += p[k];
-        r.mx = max_nan(r.mx, static_cast<float>(p[PART - 1]));
+// The statistics' scratch of one launch (the wrapper sizes it by
+// kernels/dps_quant.py's group_plan): a run's partial row a slot, one slot a
+// piece a block may take (group_slots); then int32 runs a block, and the
+// fold's order of slots and their groups.
+struct GroupScratch {
+    double* rows;
+    int *runs, *ord, *ogid;
+};
+
+__device__ __forceinline__ GroupScratch group_scratch(double* base, long long slots, int grid) {
+    GroupScratch s;
+    s.rows = base;
+    s.runs = reinterpret_cast<int*>(base + slots * G_PART);
+    s.ord = s.runs + grid;
+    s.ogid = s.ord + slots;
+    return s;
+}
+
+// A launch's items (kernels/dps_quant.py's group_plan): with per > 1, item i
+// is piece i % per of tile i / per (`piece` elements, the last of a tile
+// shorter); with per == 1, item i is tiles [i * run, (i + 1) * run) whole
+// (the last item fewer).  Block b takes items b, b + grid, ... (as K4's and
+// K1's TMA bodies do), so the card sweeps the buffer front to back, and a
+// block's pieces come in a fixed order.
+struct GItems {
+    long long tiles, quantum, items, piece;
+    int per, run;
+};
+
+struct Piece {
+    long long i, t, off;        // its item; its tile and first element there
+    int k, r, len;              // piece of the tile (per > 1), tile of the item
+                                // (per == 1); elements, 0 past the end
+};
+
+__device__ __forceinline__ void piece_len(const GItems& it, Piece& p) {
+    p.len = 0;
+    if (p.i >= it.items) return;
+    p.off = it.per > 1 ? p.k * it.piece : 0;
+    p.len = static_cast<int>(it.per > 1 ? min(it.piece, it.quantum - p.off) : it.quantum);
+}
+
+// The block's first piece: its item blockIdx.x (one division a block).
+__device__ __forceinline__ Piece first_piece(const GItems& it) {
+    Piece p;
+    p.i = blockIdx.x;
+    p.r = 0;
+    p.t = it.per > 1 ? p.i / it.per : p.i * it.run;
+    p.k = static_cast<int>(it.per > 1 ? p.i - p.t * it.per : 0);
+    piece_len(it, p);
+    return p;
+}
+
+// The piece after p in the block's order: the item's next tile, or item i +
+// grid, whose piece and tile step by grid % per and grid / per with one
+// carry (dk, dt: no division a piece).
+__device__ __forceinline__ Piece next_piece(const GItems& it, Piece p, int dk, long long dt) {
+    if (it.per == 1 && p.r + 1 < it.run && p.t + 1 < it.tiles) {
+        ++p.r;
+        ++p.t;
+    } else {
+        p.i += gridDim.x;
+        p.r = 0;
+        if (it.per > 1) {
+            p.k += dk;
+            p.t += dt;
+            if (p.k >= it.per) {
+                p.k -= it.per;
+                ++p.t;
+            }
+        } else {
+            p.t = p.i * it.run;
+        }
     }
+    piece_len(it, p);
+    return p;
+}
+
+// Block b's first slot: a slot a piece of the items before its own (items
+// b' < b take b' items of every grid, and one more below items % grid).
+__device__ __forceinline__ long long group_slots(const GItems& it, int b) {
+    const long long grid = gridDim.x;
+    const long long before = b * (it.items / grid) + min(static_cast<long long>(b), it.items % grid);
+    return before * (it.per > 1 ? 1 : it.run);
+}
+
+// The block's running row of its current run of one group -> its slot;
+// every thread calls it (the group changes at the same tile for all).
+__device__ __forceinline__ void flush_run(Acc& acc, int grp, double* dst) {
+    Row r = to_row(acc);
     block_reduce_row(r);
     if (threadIdx.x == 0) {
+        write_row(dst, r);
+        dst[PART] = grp;
+    }
+    acc = Acc();
+    __syncthreads();                     // block_reduce_row's shared rows are reused
+}
+
+// An exclusive prefix of v[0, n) (n <= G_MAX_GRID = 4 * THREADS) into
+// pre[0, n]; every thread of the block calls it.
+__device__ __forceinline__ void block_prefix(const int* __restrict__ v, int n, int* pre) {
+    __shared__ int warp_sum[THREADS / 32];
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    int mine[4], sum = 0;
 #pragma unroll
-        for (int k = 0; k < PART - 1; ++k) stats[grp * PART + k] = static_cast<float>(r.v[k]);
-        stats[grp * PART + PART - 1] = r.mx;
+    for (int k = 0; k < 4; ++k) {
+        const int i = 4 * tid + k;
+        mine[k] = i < n ? __ldcg(v + i) : 0;
+        sum += mine[k];
+    }
+    int incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += y;
+    }
+    if (lane == 31) warp_sum[warp] = incl;
+    __syncthreads();
+    int before = 0;
+    for (int w = 0; w < warp; ++w) before += warp_sum[w];
+    int ex = before + incl - sum;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        const int i = 4 * tid + k;
+        if (i < n) pre[i] = ex;
+        ex += mine[k];
+    }
+    if (tid == THREADS - 1) pre[n] = ex;          // the total
+    __syncthreads();
+}
+
+// The statistics' last stage, at the end of every block of a launch with
+// them: the block writes its run count; the block that takes the last ticket
+// (an int counter, atomicAdd after a fence; no other atomic) folds every
+// run's row into stats[G, 7] in a fixed order (the blocks' runs in block
+// order): counts and sums in double, the max by max_nan, a group with no
+// run 0; then sets the ticket back to 0.  A group's runs are consecutive
+// but where the tile map repeats it further on (a wire layout's tail reads
+// row 0), so the thread of a group's first run adds every later run of the
+// group as well: O(runs) a group, and the runs are a few a block.
+__device__ void group_fold(const GroupScratch& s, int runs, const GItems& it, int groups,
+                           float* __restrict__ stats, int* __restrict__ ticket) {
+    __shared__ bool last;
+    __shared__ int pre[G_MAX_GRID + 1];
+    const int tid = threadIdx.x, grid = static_cast<int>(gridDim.x);
+    if (tid == 0) {
+        s.runs[blockIdx.x] = runs;
+        __threadfence();                           // the rows and the count before the ticket
+        last = atomicAdd(ticket, 1) == grid - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+    __threadfence();                               // every block's rows after it
+    for (long long k = tid; k < static_cast<long long>(groups) * PART; k += THREADS)
+        stats[k] = 0.0f;
+    block_prefix(s.runs, grid, pre);
+    const int S = pre[grid];
+    // run i in item order: block b = the last with pre[b] <= i, its run i - pre[b]
+    for (int i = tid; i < S; i += THREADS) {
+        int lo = 0, hi = grid - 1;
+        while (lo < hi) {
+            const int mid = (lo + hi + 1) >> 1;
+            if (pre[mid] <= i) lo = mid; else hi = mid - 1;
+        }
+        const long long slot = group_slots(it, lo) + (i - pre[lo]);
+        s.ord[i] = static_cast<int>(slot);
+        s.ogid[i] = static_cast<int>(__ldcg(s.rows + slot * G_PART + PART));
+    }
+    __syncthreads();
+    for (int i = tid; i < S; i += THREADS) {
+        const int grp = s.ogid[i];
+        bool first = true;                         // no earlier run of the group
+        for (int j = i - 1; j >= 0 && first; --j) first = s.ogid[j] != grp;
+        if (!first) continue;
+        Row f = {{0.0, 0.0, 0.0, 0.0, 0.0, 0.0}, 0.0f};
+        for (int j = i; j < S; ++j) {
+            if (s.ogid[j] != grp) continue;
+            const double* p = s.rows + static_cast<long long>(s.ord[j]) * G_PART;
+#pragma unroll
+            for (int k = 0; k < PART - 1; ++k) f.v[k] += __ldcg(p + k);
+            f.mx = max_nan(f.mx, static_cast<float>(__ldcg(p + PART - 1)));
+        }
+        float* o = stats + static_cast<long long>(grp) * PART;
+#pragma unroll
+        for (int k = 0; k < PART - 1; ++k) o[k] = static_cast<float>(f.v[k]);
+        o[PART - 1] = f.mx;
+    }
+    if (tid == 0) *ticket = 0;
+}
+
+// Element o of tile t lies at position t * quantum + o of the buffer and at
+// aligned position start + t * quantum + o.  Block b takes items b, b + grid,
+// ... (GItems), each piece with one format, one group and (SRC 2) one
+// counter run.  SRC 2 (K3b): group g's stream is keyed on
+// fold_seed(seed, group_base + g) and counts from goff[g], the group's
+// aligned offset.  MASKED: `mask` is not null.  VEC: the quantum and the
+// pieces are multiples of four and the buffers 16-byte aligned (the wrapper
+// checked); a Philox piece takes the 16-byte path where its counters fall
+// on a boundary of four (uniform in the tile).
+template <typename XT, int SRC, bool STATS, bool MASKED, bool VEC>
+__global__ void __launch_bounds__(THREADS, G_BPS)
+group_wire_encode_kernel(const XT* __restrict__ x, const int* __restrict__ fmt_tab,
+                         const int* __restrict__ tile_group, const uint32_t* __restrict__ bits,
+                         const float* __restrict__ mask, unsigned long long seed,
+                         const long long* __restrict__ goff, long long start,
+                         long long group_base, signed char* __restrict__ wire, GItems it,
+                         int groups, double* __restrict__ scratch, float* __restrict__ stats,
+                         int* __restrict__ ticket) {
+    const long long quantum = it.quantum;
+    GroupScratch gs = {};
+    if (STATS)
+        gs = group_scratch(scratch, it.items * (it.per > 1 ? 1 : it.run),
+                           static_cast<int>(gridDim.x));
+    const long long slot0 = STATS ? group_slots(it, blockIdx.x) : 0;
+    Acc acc;
+    unsigned long long gseed = 0ull;
+    long long gofs = 0;
+    int cur = -1, runs = 0;
+    // the tile map read one piece ahead; the format row is read after a
+    // batch's loads are out, and a piece's group is waited for only where
+    // the statistics or the Philox key need it
+    const int dk = static_cast<int>(gridDim.x % it.per);
+    const long long dt = gridDim.x / it.per;
+    Piece p0 = first_piece(it);
+    int g0 = p0.len ? __ldg(tile_group + p0.t) : 0;
+    while (p0.len) {
+        const Piece p1 = next_piece(it, p0, dk, dt);
+        const int g1 = p1.len ? __ldg(tile_group + p1.t) : 0;
+        if ((STATS || SRC == 2) && g0 != cur) {
+            if (STATS && cur >= 0) flush_run(acc, cur, gs.rows + (slot0 + runs++) * G_PART);
+            cur = g0;
+            if (SRC == 2) {
+                gseed = fold_seed(seed, static_cast<unsigned long long>(group_base + g0));
+                gofs = __ldg(goff + g0);
+            }
+        }
+        const long long e = p0.t * quantum + p0.off;
+        // the Philox position of the piece's first element in its group
+        const unsigned long long c =
+            SRC == 2 ? static_cast<unsigned long long>(start + e - gofs) : 0ull;
+        if (VEC && (SRC != 2 || (c & 3) == 0))
+            encode_groups<XT, SRC, STATS, MASKED>(x, bits, mask, wire, e, p0.len >> 2, c >> 2,
+                                                  gseed, fmt_tab, g0, acc);
+        else
+            encode_elements<XT, SRC, STATS, MASKED>(x, bits, mask, wire, e, p0.len, c, gseed,
+                                                    fmt_tab, g0, acc);
+        p0 = p1;
+        g0 = g1;
+    }
+    if (STATS) {
+        if (cur >= 0) flush_run(acc, cur, gs.rows + (slot0 + runs++) * G_PART);
+        group_fold(gs, runs, it, groups, stats, ticket);
     }
 }
 
-template <typename XT, int SRC, bool STATS, bool MASKED>
-void launch_encode(bool vec, unsigned tiles, cudaStream_t s, const XT* x,
-                   const int* fmt_tab, const int* tile_group, const uint32_t* bits,
-                   const float* mask, unsigned long long seed, const long long* goff,
-                   long long start, long long group_base, signed char* wire,
-                   double* partials, long long quantum) {
-    if (vec)
-        group_wire_encode_kernel<XT, SRC, STATS, MASKED, true><<<tiles, THREADS, 0, s>>>(
-            x, fmt_tab, tile_group, bits, mask, seed, goff, start, group_base, wire,
-            partials, quantum);
-    else
-        group_wire_encode_kernel<XT, SRC, STATS, MASKED, false><<<tiles, THREADS, 0, s>>>(
-            x, fmt_tab, tile_group, bits, mask, seed, goff, start, group_base, wire,
-            partials, quantum);
-}
+// One launch's operands.
+template <typename XT>
+struct EncodeOps {
+    const XT* x;
+    const int *fmt_tab, *tile_group;
+    const uint32_t* bits;
+    const float* mask;
+    unsigned long long seed;
+    const long long* goff;
+    long long start, group_base;
+    signed char* wire;
+    GItems it;
+    int groups;
+    double* scratch;
+    float* stats;
+    int* ticket;
+};
 
-template <typename XT, int SRC>
-void dispatch_encode_src(bool stats, bool masked, bool vec, unsigned tiles, cudaStream_t s,
-                         const XT* x, const int* fmt_tab, const int* tile_group,
-                         const uint32_t* bits, const float* mask, unsigned long long seed,
-                         const long long* goff, long long start, long long group_base,
-                         signed char* wire, double* partials, long long quantum) {
-#define DPS_E(ST, MK) launch_encode<XT, SRC, ST, MK>(vec, tiles, s, x, fmt_tab, tile_group, \
-                                                   bits, mask, seed, goff, start, group_base, \
-                                                   wire, partials, quantum)
-    if (stats) { if (masked) DPS_E(true, true); else DPS_E(true, false); }
-    else { if (masked) DPS_E(false, true); else DPS_E(false, false); }
-#undef DPS_E
+template <typename XT, int SRC, bool STATS, bool MASKED>
+void launch_encode(const EncodeOps<XT>& o, bool vec, int nblocks, cudaStream_t s) {
+    if (vec)
+        group_wire_encode_kernel<XT, SRC, STATS, MASKED, true><<<nblocks, THREADS, 0, s>>>(
+            o.x, o.fmt_tab, o.tile_group, o.bits, o.mask, o.seed, o.goff, o.start,
+            o.group_base, o.wire, o.it, o.groups, o.scratch, o.stats, o.ticket);
+    else
+        group_wire_encode_kernel<XT, SRC, STATS, MASKED, false><<<nblocks, THREADS, 0, s>>>(
+            o.x, o.fmt_tab, o.tile_group, o.bits, o.mask, o.seed, o.goff, o.start,
+            o.group_base, o.wire, o.it, o.groups, o.scratch, o.stats, o.ticket);
 }
 
 template <typename XT>
-void dispatch_encode(int src, bool stats, bool masked, bool vec, unsigned tiles,
-                     cudaStream_t s, const XT* x, const int* fmt_tab, const int* tile_group,
-                     const uint32_t* bits, const float* mask, unsigned long long seed,
-                     const long long* goff, long long start, long long group_base,
-                     signed char* wire, double* partials, long long quantum) {
-    if (src == 0)
-        dispatch_encode_src<XT, 0>(stats, masked, vec, tiles, s, x, fmt_tab, tile_group, bits,
-                                   mask, seed, goff, start, group_base, wire, partials, quantum);
-    else if (src == 1)
-        dispatch_encode_src<XT, 1>(stats, masked, vec, tiles, s, x, fmt_tab, tile_group, bits,
-                                   mask, seed, goff, start, group_base, wire, partials, quantum);
-    else
-        dispatch_encode_src<XT, 2>(stats, masked, vec, tiles, s, x, fmt_tab, tile_group, bits,
-                                   mask, seed, goff, start, group_base, wire, partials, quantum);
+void dispatch_encode(const EncodeOps<XT>& o, int src, bool stats, bool masked, bool vec,
+                     int nblocks, cudaStream_t s) {
+#define DPS_E(SRC, ST, MK) launch_encode<XT, SRC, ST, MK>(o, vec, nblocks, s)
+#define DPS_E_SRC(SRC)                                          \
+    if (stats) { if (masked) DPS_E(SRC, true, true); else DPS_E(SRC, true, false); } \
+    else { if (masked) DPS_E(SRC, false, true); else DPS_E(SRC, false, false); }
+    if (src == 0) { DPS_E_SRC(0) }
+    else if (src == 1) { DPS_E_SRC(1) }
+    else { DPS_E_SRC(2) }
+#undef DPS_E_SRC
+#undef DPS_E
 }
 
 // ---------------------------------------------------------------------------
@@ -1369,45 +1696,53 @@ extern "C" int dps_quantize_block(const void* x, int x_is_bf16, long long n, con
 // K3 / K3b.  All pointers are device pointers.  `src`: 0 = round to
 // nearest, 1 = the `bits` operand, 2 = Philox keyed per group (`seed`,
 // `goff` int64 [G], `start`, `group_base`; see group_wire_encode_kernel).
-// `mask` null means every element counts; `partials` (double [tiles, 7]) and
-// `stats` (float [G, 7]) null means no statistics.  `vec` says the caller
-// checked that the quantum divides by four and the buffers are 16-byte
-// aligned.  Launches on `stream`, does not synchronise, returns
-// cudaGetLastError().
+// `mask` null means every element counts.  `partials` (the scratch
+// group_plan sizes), `stats` (float [G, 7]) and `ticket` (one int32, 0
+// between launches; see group_fold) null means no statistics.  The items
+// (GItems: `per` pieces of `piece` elements a tile, or `run` whole tiles an
+// item) on `nblocks` blocks, as kernels/dps_quant.py's group_plan gives
+// them; `vec` says the caller checked that the quantum and the pieces
+// divide by four and the buffers are 16-byte aligned.  One launch a call;
+// launches on `stream`, does not synchronise, returns cudaGetLastError().
 extern "C" int dps_group_wire_encode(const void* x, int x_is_bf16, const void* fmt_tab,
                                      const void* tile_group, const void* bits,
                                      const void* mask, int src, unsigned long long seed,
                                      const void* goff, long long start, long long group_base,
-                                     void* wire, void* partials, void* stats, long long tiles,
-                                     long long quantum, int groups, int vec, void* stream) {
+                                     void* wire, void* partials, void* stats, void* ticket,
+                                     long long tiles, long long quantum, int groups,
+                                     int nblocks, long long piece, int per, int run, int vec,
+                                     void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const bool emit = partials != nullptr && stats != nullptr;
-    if (src < 0 || src > 2 || (src == 1 && bits == nullptr) || (src == 2 && goff == nullptr))
+    const bool emit = partials != nullptr && stats != nullptr && ticket != nullptr;
+    if (src < 0 || src > 2 || (src == 1 && bits == nullptr) || (src == 2 && goff == nullptr) ||
+        tiles < 0 || quantum < 1 || groups < 0 || per < 1 || run < 1 || piece < 1 ||
+        (per > 1 && (run != 1 || piece * (per - 1) >= quantum || piece * per < quantum)) ||
+        (per == 1 && piece != quantum) || (vec && (piece % 4 || quantum % 4)))
         return static_cast<int>(cudaErrorInvalidValue);
-    const int* tab = static_cast<const int*>(fmt_tab);
-    const int* tg = static_cast<const int*>(tile_group);
-    const uint32_t* bp = static_cast<const uint32_t*>(bits);
-    const float* mp = static_cast<const float*>(mask);
-    const long long* gp = static_cast<const long long*>(goff);
-    signed char* wp = static_cast<signed char*>(wire);
-    double* pp = static_cast<double*>(partials);
-    if (tiles > 0 && quantum > 0) {
-        const unsigned nt = static_cast<unsigned>(tiles);
-        const bool masked = mp != nullptr;
-        if (x_is_bf16)
-            dispatch_encode<__nv_bfloat16>(src, emit, masked, vec != 0, nt, s,
-                                           static_cast<const __nv_bfloat16*>(x), tab, tg, bp,
-                                           mp, seed, gp, start, group_base, wp, pp, quantum);
-        else
-            dispatch_encode<float>(src, emit, masked, vec != 0, nt, s,
-                                   static_cast<const float*>(x), tab, tg, bp, mp, seed, gp,
-                                   start, group_base, wp, pp, quantum);
-        const cudaError_t err = cudaGetLastError();
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    if (emit && groups > 0) {
-        group_stats_reduce_kernel<<<static_cast<unsigned>(groups), THREADS, 0, s>>>(
-            pp, tg, static_cast<float*>(stats), tiles > 0 ? tiles : 0);
+    const GItems it = {tiles, quantum, per > 1 ? tiles * per : (tiles + run - 1) / run, piece,
+                       per, run};
+    if (nblocks < 1 || nblocks > G_MAX_GRID ||
+        (it.items > 0 ? nblocks > it.items : nblocks != 1))
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (it.items == 0 && !emit) return static_cast<int>(cudaGetLastError());
+    if (x_is_bf16) {
+        const EncodeOps<__nv_bfloat16> o = {
+            static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(fmt_tab),
+            static_cast<const int*>(tile_group), static_cast<const uint32_t*>(bits),
+            static_cast<const float*>(mask), seed, static_cast<const long long*>(goff), start,
+            group_base, static_cast<signed char*>(wire), it, groups,
+            emit ? static_cast<double*>(partials) : nullptr,
+            emit ? static_cast<float*>(stats) : nullptr, emit ? static_cast<int*>(ticket) : nullptr};
+        dispatch_encode<__nv_bfloat16>(o, src, emit, mask != nullptr, vec != 0, nblocks, s);
+    } else {
+        const EncodeOps<float> o = {
+            static_cast<const float*>(x), static_cast<const int*>(fmt_tab),
+            static_cast<const int*>(tile_group), static_cast<const uint32_t*>(bits),
+            static_cast<const float*>(mask), seed, static_cast<const long long*>(goff), start,
+            group_base, static_cast<signed char*>(wire), it, groups,
+            emit ? static_cast<double*>(partials) : nullptr,
+            emit ? static_cast<float*>(stats) : nullptr, emit ? static_cast<int*>(ticket) : nullptr};
+        dispatch_encode<float>(o, src, emit, mask != nullptr, vec != 0, nblocks, s);
     }
     return static_cast<int>(cudaGetLastError());
 }

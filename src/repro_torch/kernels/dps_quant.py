@@ -78,7 +78,7 @@ reduce_tma_launch_count = 0      # the K4 launches that took the TMA body
 # K1/K2, of whether statistics are taken) alone
 Q_THREADS = 256
 Q_MAX_BLOCKS = 4 * 132
-Q_PART = 7               # doubles per block (or tile) in the statistics partials
+Q_PART = 7               # doubles per block in K1/K2's statistics partials
 
 # K1b's TMA body: 256 consumer threads and one producer warp a block, a ring
 # of Q_STAGES stages of Q_STAGE_BYTES of x, at most two blocks an SM; a
@@ -101,6 +101,16 @@ RED_BLOCKS = 2 * 132
 RED_MAX_SMEM = 232448
 # threads of K4's TMA block: eight consumer warps and one producer warp
 RED_THREADS = 288
+
+# K3/K3b: a persistent grid of at most G_BLOCKS blocks of Q_THREADS threads
+# (four an SM, the kernel's launch bound; the library takes at most 1,024)
+# over items of about G_ITEM_BYTES of x, at least
+# G_MIN_ITEMS_A_BLOCK a block where the launch allows; with statistics, a
+# run's partial row is G_PART doubles
+G_BLOCKS = 4 * 132
+G_ITEM_BYTES = 16 << 10
+G_MIN_ITEMS_A_BLOCK = 4
+G_PART = 8
 
 # The grouped kernels' quantum must be a multiple of this many elements: K3
 # and K4 move 16 int8 (one 16-byte vector) at a time, and K4's bulk copies
@@ -181,15 +191,20 @@ def quantize_call_geometry(size: int, *, wire: bool = False,
 
 
 def group_wire_call_geometry(total: int, n_groups: int, quantum: int,
-                             tile_group_len: Optional[int] = None
+                             tile_group_len: Optional[int] = None, *,
+                             x_bytes: int = 4, src: int = 0,
+                             stats: bool = False, aligned: bool = True
                              ) -> KernelCallGeometry:
     """Geometry of a :func:`dps_quant_group_wire` launch (K3/K3b) on a
     group-aligned ``total``-element buffer under a ``[G, 2]`` table and a
-    tile map of ``tile_group_len`` entries (by default one a tile)."""
+    tile map of ``tile_group_len`` entries (by default one a tile), on the
+    grid :func:`group_plan` gives it (by default for fp32 x to nearest,
+    without statistics, on 16-byte aligned buffers)."""
     tiles = total // quantum
+    plan = group_plan(tiles, quantum, n_groups, x_bytes, src, stats, aligned)
     return KernelCallGeometry(
-        kernel="dps_group_wire_encode", grid=(tiles,), threads=Q_THREADS,
-        out_dtype="int8", table_rows=n_groups,
+        kernel="dps_group_wire_encode", grid=(plan.blocks,),
+        threads=plan.threads, out_dtype="int8", table_rows=n_groups,
         tile_group_len=tiles if tile_group_len is None else tile_group_len,
         tiles=tiles, quantum=quantum)
 
@@ -732,6 +747,83 @@ def dps_quant_wire(x: torch.Tensor, il: torch.Tensor, fl: torch.Tensor,
 # K3 / K3b: the grouped wire encoder.
 # ---------------------------------------------------------------------------
 
+@dataclasses.dataclass(frozen=True)
+class GroupPlan:
+    """How K3/K3b are launched: ``blocks`` blocks of ``threads`` threads
+    over ``items`` items, block ``b`` taking items ``b, b + blocks, ...``.
+    With ``per`` > 1 item ``i`` is piece ``i % per`` of tile ``i // per``
+    (``piece`` elements, the last of a tile shorter); with ``per`` 1 it is
+    tiles ``[i·run, (i + 1)·run)`` whole (the last item fewer).  ``vec``:
+    the 16-byte path (the quantum and the pieces multiples of four, the
+    buffers aligned).  ``scratch_bytes``:
+    the statistics' scratch (0 without them): a partial row of ``G_PART``
+    doubles a slot, ``slots`` slots (one a piece a block may take), then
+    int32 run counts a block and two int32 a slot (``GroupScratch`` in
+    ``csrc/dps_quant.cu``)."""
+
+    blocks: int
+    threads: int
+    items: int
+    piece: int
+    per: int
+    run: int
+    vec: bool
+    slots: int = 0
+    scratch_bytes: int = 0
+
+
+def _group_items(tiles, quantum, size, vec):
+    """(per, piece, run, items) with items of about ``size`` elements."""
+    if quantum > size:
+        per = -(-quantum // size)
+        piece = -(-quantum // per)
+        if vec:
+            piece = -(-piece // 4) * 4
+        per = -(-quantum // piece)
+        return per, piece, 1, tiles * per
+    run = max(1, size // quantum)
+    return 1, quantum, run, -(-tiles // run)
+
+
+@functools.lru_cache(maxsize=4096)
+def group_plan(tiles: int, quantum: int, groups: int, x_bytes: int = 4,
+               src: int = 0, stats: bool = False,
+               aligned: bool = True) -> GroupPlan:
+    """K3/K3b's items and grid for ``tiles`` tiles of ``quantum`` elements
+    of ``x_bytes`` bytes (4 fp32, 2 bf16) under a ``groups``-row table,
+    bits from ``src`` (0 nearest, 1 an operand, 2 Philox), with statistics
+    or not, on buffers that lie on 16-byte boundaries (``aligned``) or not.
+
+    A persistent grid: items of about G_ITEM_BYTES of x — pieces of a
+    larger tile, runs of whole smaller ones — so no item crosses a tile it
+    does not hold whole, and a thread's loads of an item are a few 16-byte
+    vectors; fewer bytes an item (down to a quarter, in steps of one
+    vector a thread) where there would be fewer than G_MIN_ITEMS_A_BLOCK
+    items a block, so that a launch of few tiles (an admission of 128
+    pages) spreads evenly over every SM.  Blocks: one an item, at most
+    G_BLOCKS.  Every source takes the same items; the statistics add the
+    scratch.  The plan, and with it the statistics' summation order,
+    depends on the shape, the dtype and the alignment alone (cached: the
+    wrapper asks for it on every launch)."""
+    if tiles < 0 or quantum < 1 or groups < 0 or src not in (0, 1, 2):
+        raise ValueError(f"no plan for {tiles} tiles of {quantum}, "
+                         f"{groups} groups, src {src}")
+    vec = aligned and quantum % 4 == 0
+    size = G_ITEM_BYTES // x_bytes
+    per, piece, run, items = _group_items(tiles, quantum, size, vec)
+    while (size > G_ITEM_BYTES // x_bytes // 4
+           and items < G_MIN_ITEMS_A_BLOCK * G_BLOCKS):
+        size -= 4 * Q_THREADS                  # one vector a thread
+        per, piece, run, items = _group_items(tiles, quantum, size, vec)
+    blocks = max(1, min(G_BLOCKS, items))
+    slots = scratch = 0
+    if stats:
+        slots = items * (1 if per > 1 else run)
+        scratch = 8 * G_PART * slots + 4 * (blocks + 2 * slots)
+    return GroupPlan(blocks, Q_THREADS, items, piece, per, run, vec, slots,
+                     scratch)
+
+
 def _check(x, fmt_tab, tile_group, bits, mask, quantum, out):
     if quantum < 1:
         raise ValueError(f"quantum must be >= 1, got {quantum}")
@@ -778,9 +870,9 @@ def dps_quant_group_wire_plain(x: torch.Tensor, fmt_tab: torch.Tensor,
                                quantum: int, emit_stats: bool = True):
     """The kernel's function in plain PyTorch: ``wire_quantize`` with one
     format per tile (each tile takes its group's table row), then the
-    per-tile statistics folded into their group rows as the kernel's second
-    stage folds them: counts as integers, sums in float64, each cast to
-    float32 once at the end."""
+    per-tile statistics folded into their group rows as the kernel's last
+    block folds its runs: counts as integers, sums in float64, each cast
+    to float32 once at the end."""
     tiles = _check(x, fmt_tab, tile_group, bits, mask, quantum, None)
     if isinstance(bits, GroupPhilox):
         bits = group_philox_bits(bits, tile_group, quantum)
@@ -818,38 +910,41 @@ def _dps_quant_group_wire_cuda(x, fmt_tab, tile_group, bits, mask, *,
     lib = _build.load()
     wire = (torch.empty(x.numel(), dtype=torch.int8, device=x.device)
             if out is None else out)
-    partials = stats = None
-    if emit_stats:
-        partials = torch.empty(tiles, Q_PART, dtype=torch.float64,
-                               device=x.device)
-        stats = torch.empty(groups, N_STATS, dtype=torch.float32,
-                            device=x.device)
     philox = bits if isinstance(bits, GroupPhilox) else None
     operand = bits if isinstance(bits, torch.Tensor) else None
     src = 2 if philox else (1 if operand is not None else 0)
     ptrs = [t.data_ptr() for t in (x, operand, mask, wire) if t is not None]
-    vec = quantum % 4 == 0 and all(p % 16 == 0 for p in ptrs)
+    aligned = all(p % 16 == 0 for p in ptrs)
+    plan = group_plan(tiles, quantum, groups, x.element_size(), src,
+                      emit_stats, aligned)
+    scratch = stats = ticket = None
     # the launch is asynchronous; PyTorch's allocator hands freed memory only
     # to later work on the same stream, so the kernel's buffers outlive it
     with torch.cuda.device(x.device):
+        if emit_stats:
+            scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                                  device=x.device)
+            stats = torch.empty(groups, N_STATS, dtype=torch.float32,
+                                device=x.device)
+            ticket = _ticket(x.device)
+        ptr = lambda t: t.data_ptr() if t is not None else None
         stream = torch.cuda.current_stream().cuda_stream
         args = (x.data_ptr(), int(x.dtype == torch.bfloat16),
-                fmt_tab.data_ptr(), tile_group.data_ptr(),
-                operand.data_ptr() if operand is not None else None,
-                mask.data_ptr() if mask is not None else None, src,
-                philox.seed if philox else 0,
-                philox.goff.data_ptr() if philox else None,
+                fmt_tab.data_ptr(), tile_group.data_ptr(), ptr(operand),
+                ptr(mask), src, philox.seed if philox else 0,
+                ptr(philox.goff) if philox else None,
                 philox.start if philox else 0,
                 philox.group_base if philox else 0, wire.data_ptr(),
-                partials.data_ptr() if emit_stats else None,
-                stats.data_ptr() if emit_stats else None,
-                tiles, quantum, groups, int(vec), stream)
+                ptr(scratch), ptr(stats), ptr(ticket), tiles, quantum,
+                groups, plan.blocks, plan.piece, plan.per, plan.run,
+                int(plan.vec), stream)
         code = lib.dps_group_wire_encode(*args)
     _build.check(lib, code, "dps_group_wire_encode")
     tagging.launch(lambda: group_wire_call_geometry(
-        x.numel(), groups, quantum, tile_group.numel()),
-        (x, fmt_tab, tile_group, operand, mask), (wire, stats), args=args,
-        philox=src == 2)
+        x.numel(), groups, quantum, tile_group.numel(),
+        x_bytes=x.element_size(), src=src, stats=emit_stats,
+        aligned=aligned), (x, fmt_tab, tile_group, operand, mask),
+        (wire, stats), args=args, philox=src == 2)
     if philox:
         group_prng_launch_count += 1
     else:

@@ -25,7 +25,7 @@ The pools are updated **in place**.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -98,14 +98,16 @@ def zero_fmt_tables(cfg: ModelConfig, layout: PagedLayout,
     return z, z
 
 
-def encode_pages(xg: torch.Tensor, fmt: FixedPointFormat, mask: torch.Tensor,
-                 *, backend: str, quantum: int) -> torch.Tensor:
+def encode_pages(xg: torch.Tensor, fmt: FixedPointFormat,
+                 mask: Optional[torch.Tensor], *, backend: str,
+                 quantum: int) -> torch.Tensor:
     """The page codec: (G_w, page_elems) fp32 → int8 grid integers.
 
     ``backend="kernel"`` launches the grouped wire kernel (one tile per
     page); ``"plain"`` is its bit-equal twin (``wire_quantize`` with a
     [G]-leading format); ``"auto"`` takes the kernel for a CUDA tensor and
-    the twin for a CPU tensor.  ``mask`` zeroes padding out of the wire.
+    the twin for a CPU tensor.  ``mask`` zeroes padding out of the wire, or
+    ``None`` where the padding is zero already.
     """
     if backend not in ("auto", "kernel", "plain"):
         raise ValueError(f"unknown page-encode backend {backend!r}")
@@ -114,8 +116,8 @@ def encode_pages(xg: torch.Tensor, fmt: FixedPointFormat, mask: torch.Tensor,
     if backend == "kernel":
         tg = torch.arange(xg.shape[0], dtype=torch.int32, device=xg.device)
         wire, _ = ops.dps_quantize_wire_grouped(
-            xg.reshape(-1), fmt, tg, mask=mask.reshape(-1),
-            stochastic=False, quantum=quantum, compute_stats=False,
+            xg.reshape(-1), fmt, tg,
+            mask=None if mask is None else mask.reshape(-1), stochastic=False, quantum=quantum, compute_stats=False,
             backend="kernel")
         return wire.reshape(xg.shape)
     wire, _ = fxp.wire_quantize(xg, fmt, mode=fxp.ROUND_NEAREST,
@@ -172,7 +174,11 @@ def write_prompt_pages(cfg: ModelConfig, layout: PagedLayout, plan,
     pages) contribute zero stats and keep their existing rows.
 
     The encoder input is the whole ``(2·L·prompt_pages, page_elems)`` fp32
-    buffer plus an equally large fp32 mask, as in the reference.
+    buffer, already zeroed past ``plen``.  The reference passes an equally
+    large fp32 mask beside it; rounding to nearest without statistics, a
+    zeroed element (``+0.0`` or ``-0.0``) encodes to the byte 0 with the
+    mask or without it, so the port leaves it out (4 of the 9 bytes an
+    element the encoder would read).
 
     Returns ``(pools, state')``: the pools are written in place; ``state``
     passes through at ``bits=None``.
@@ -226,7 +232,7 @@ def write_prompt_pages(cfg: ModelConfig, layout: PagedLayout, plan,
 
     fmt = FixedPointFormat(state.il[rows], state.fl[rows])
     tagging.tag(xg, "encode_in", domain=KV_DOMAIN)
-    wire = tagging.tag(encode_pages(xg, fmt, mg, backend=encode_backend,
+    wire = tagging.tag(encode_pages(xg, fmt, None, backend=encode_backend,
                                     quantum=E),
                        "kv_page", domain=KV_DOMAIN, stage="write",
                        bits=WIRE_BITS)
